@@ -1,0 +1,87 @@
+"""The port's hand-written CUDA kernels against their plain versions, on
+the card. They skip on a host without a GPU; on the card run them with
+
+    python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py
+
+(`--noconftest` because the suite's conftest imports JAX, which the card's
+machine does not have; this file imports only torch and the port).
+
+Tolerance: two bf16 ULPs at the output's largest magnitude. The kernel and
+the plain version round at the same points; exp2 and rsqrt differ in their
+last fp32 bits, which can move one bf16 rounding by one ULP.
+"""
+import pytest
+import torch
+
+from video_styler_tpu_torch.ops import flash_attention as fa
+from video_styler_tpu_torch.ops import fused_norm_rope as fnr
+from video_styler_tpu_torch.ops.attention import attention
+from video_styler_tpu_torch.ops.rope import assemble_freqs_grid
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def gen():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the kernels have no CPU mode")
+    return torch.Generator("cuda").manual_seed(0)
+
+
+def _randn(gen, *shape, scale=1.0):
+    return (torch.randn(shape, generator=gen, device="cuda") * scale).to(torch.bfloat16)
+
+
+def _assert_close(got, want):
+    err = (got.float() - want.float()).abs().max().item()
+    tol = 2.0 ** -7 * want.float().abs().max().item()
+    assert err <= tol, (err, tol)
+
+
+@pytest.mark.parametrize("b,sq,sk,n,mag", [(1, 64, 64, 1, 1.0), (2, 200, 333, 3, 1.0),
+                                           (1, 1000, 512, 4, 1.0), (1, 300, 257, 2, 24.0)])
+def test_k1_matches_plain(gen, b, sq, sk, n, mag):
+    q = _randn(gen, b, sq, n, 128, scale=mag)
+    k, v = _randn(gen, b, sk, n, 128), _randn(gen, b, sk, n, 128)
+    before = fa.KERNEL.launches
+    out = fa.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert fa.KERNEL.launches == before + 1
+    _assert_close(out, fa.flash_attention_plain(q, k, v))
+
+
+def test_k1_reads_strided_views(gen):
+    """(B, S, N*D) projections viewed as (B, S, N, D), and the kv_valid
+    slice: no copy, the kernel reads through the strides."""
+    x = _randn(gen, 1, 130, 3 * 2 * 128)
+    q, k, v = x.view(1, 130, 6, 128).split(2, dim=2)
+    out = attention(q, k, v, kv_valid=97)
+    _assert_close(out, fa.flash_attention_plain(q, k[:, :97], v[:, :97]))
+
+
+def test_k1_rejects_what_it_does_not_take(gen):
+    q = _randn(gen, 1, 16, 2, 128)
+    with pytest.raises(TypeError):
+        fa.flash_attention(q.float(), q.float(), q.float())
+    with pytest.raises(ValueError):
+        small = _randn(gen, 1, 16, 2, 64)
+        fa.flash_attention(small, small, small)
+
+
+@pytest.mark.parametrize("s,n", [(231, 2), (1560, 40)])
+def test_k4_k5_match_plain(gen, s, n):
+    f, h, w = {231: (3, 7, 11), 1560: (1, 30, 52)}[s]
+    xq, xk = _randn(gen, 2, s, n * 128), _randn(gen, 2, s, n * 128, scale=0.7)
+    wq = (1 + 0.1 * torch.randn(n * 128, generator=gen, device="cuda")).to(torch.bfloat16)
+    wk = (1 + 0.1 * torch.randn(n * 128, generator=gen, device="cuda")).to(torch.bfloat16)
+    cos, sin = assemble_freqs_grid(128, f, h, w, device="cuda")
+    before = (fnr.ROPE_KERNEL.launches, fnr.RMS_KERNEL.launches)
+    oq, ok = fnr.fused_rmsnorm_rope(xq, xk, wq, wk, cos, sin)
+    o5 = fnr.fused_rmsnorm(xq, wq)
+    torch.cuda.synchronize()
+    assert (fnr.ROPE_KERNEL.launches, fnr.RMS_KERNEL.launches) == (before[0] + 1,
+                                                                  before[1] + 1)
+    pq, pk = fnr.fused_rmsnorm_rope_plain(xq, xk, wq, wk, cos, sin)
+    _assert_close(oq, pq)
+    _assert_close(ok, pk)
+    _assert_close(o5, fnr.fused_rmsnorm_plain(xq, wq))

@@ -1,0 +1,78 @@
+"""Turn the JAX package's parameter trees into the port's modules.
+
+`from_jax_params(kind, tree, cfg)` takes a JAX parameter pytree whose
+leaves were converted to numpy (`jax.tree_util.tree_map(np.asarray, p)`)
+and returns the port's module for `kind`:
+
+  "dit"  -> models.wan_dit.WanDiT       (cfg: WanDiTConfig)
+  "vace" -> models.wan_vace.WanVace     (cfg: VaceConfig)
+  "t5"   -> models.t5.T5Encoder         (cfg: T5Config)
+  "vae"  -> models.wan_vae.WanVAE       (cfg: WanVAEConfig)
+
+The layouts that differ: JAX linears store `w` as (in, out) and
+`nn.Linear` stores `weight` as (out, in); the stacked `blocks` (and VACE
+`after_proj`) trees carry a leading layer axis that becomes the index of an
+`nn.ModuleList`. VAE conv weights are already OIDHW and keep their names.
+bfloat16 leaves (ml_dtypes) keep their bits.
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
+import torch
+
+from .models.t5 import T5Encoder
+from .models.wan_dit import WanDiT
+from .models.wan_vace import WanVace
+from .models.wan_vae import WanVAE
+
+_MODULES = {"dit": WanDiT, "vace": WanVace, "t5": T5Encoder, "vae": WanVAE}
+_STACKED = ("blocks", "after_proj")
+
+
+def _to_tensor(a) -> torch.Tensor:
+    a = np.array(a)  # a writable, contiguous copy
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
+
+
+def _flatten(node, prefix: str, out: Dict[str, np.ndarray]):
+    if isinstance(node, dict):
+        for k, v in node.items():
+            _flatten(v, f"{prefix}{k}.", out)
+    else:
+        out[prefix[:-1]] = np.asarray(node)
+
+
+def jax_tree_to_state_dict(tree, stacked: bool) -> Dict[str, torch.Tensor]:
+    """Dotted torch names -> tensors. stacked: the `blocks`/`after_proj`
+    subtrees carry a leading layer axis (DiT, VACE)."""
+    flat: Dict[str, np.ndarray] = {}
+    _flatten(tree, "", flat)
+    sd = {}
+    for name, arr in flat.items():
+        parts = name.split(".")
+        items = [(parts, arr)]
+        if stacked and parts[0] in _STACKED:
+            items = [([parts[0], str(i)] + parts[1:], arr[i])
+                     for i in range(arr.shape[0])]
+        for p, a in items:
+            if p[-1] == "w":
+                p, a = p[:-1] + ["weight"], a.T
+            elif p[-1] == "b":
+                p = p[:-1] + ["bias"]
+            sd[".".join(p)] = _to_tensor(a)
+    return sd
+
+
+def from_jax_params(kind: str, tree, cfg, device="cpu") -> torch.nn.Module:
+    """The port's `kind` module holding the JAX tree's values (strict)."""
+    if kind not in _MODULES:
+        raise ValueError(f"unknown model kind {kind!r}; one of {sorted(_MODULES)}")
+    sd = jax_tree_to_state_dict(tree, stacked=kind in ("dit", "vace"))
+    with torch.device("meta"):
+        module = _MODULES[kind](cfg)
+    module.load_state_dict(sd, strict=True, assign=True)
+    return module.to(device).eval()

@@ -1,0 +1,2 @@
+"""Tensor ops and the hand-written kernels (K1 flash attention, K4 fused
+RMSNorm+RoPE, K5 RMSNorm); kernel sources are in ../csrc."""

@@ -1,0 +1,38 @@
+"""Attention entry points.
+
+`attention` is what every DiT and VACE attention call goes through, self
+and cross: it launches K1 (`ops.flash_attention`) on a CUDA tensor and runs
+K1's plain version on a CPU tensor. A kernel failure raises; there is no
+quiet fallback to another attention.
+
+`sdpa` is the exact-softmax attention the JAX package takes off the TPU,
+kept as the yardstick the tests hold the capped softmax against.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+from .flash_attention import flash_attention
+
+
+def sdpa(q, k, v, scale: Optional[float] = None) -> torch.Tensor:
+    """q: (B, Sq, N, D), k/v: (B, Sk, N, D) -> (B, Sq, N, D); fp32 softmax."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    logits = torch.einsum("bqnd,bknd->bnqk", q.float(), k.float()) * scale
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bnqk,bknd->bqnd", probs.to(v.dtype).float(), v.float())
+    return out.to(v.dtype)
+
+
+def attention(q, k, v, scale: Optional[float] = None,
+              kv_valid: Optional[int] = None) -> torch.Tensor:
+    """K1 on (B, S, N, D) tensors. kv_valid: count of real keys when the
+    key sequence carries zero padding; keys past it are excluded exactly."""
+    if kv_valid is not None and kv_valid < k.shape[1]:
+        k = k[:, :kv_valid]
+        v = v[:, :kv_valid]
+    return flash_attention(q, k, v, scale=scale)
