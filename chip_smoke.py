@@ -3,12 +3,16 @@
 
     python3 chip_smoke.py                          # all phases, one card
     python3 chip_smoke.py --frames 73 --steps 1    # the full Ditto clip size
+    python3 chip_smoke.py --train-frames 73 --train-remat-vace
+                                                   # a LoRA step at 29,640 tokens
 
 Phases, each printing one JSON line (any failure raises and exits non-zero):
   device     nvidia-smi name and power limit, torch/CUDA versions, the
              kernel build time (every csrc/*.cu, one nvcc each, in parallel)
   kernel     K1 (flash attention, self and cross), K4 (RMSNorm+RoPE) and K5
-             (RMSNorm) held against their plain PyTorch versions on the card
+             (RMSNorm), then K1 with its stats output and K3 (the flash
+             backward, dq and dkv kernels) held against their plain
+             PyTorch versions on the card
              at the Ditto shapes of a 73-frame 480x832 edit (29,640 tokens)
              and of this run's request (--frames, default 9: 4,680 tokens):
              max abs/rel error against the stated tolerance, median kernel
@@ -17,11 +21,20 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
              data-sheet rates
   reference  the smoke-size pipeline on the card against the same weights
              on the CPU (plain versions), latents and decoded frames
+  train_reference  2 LoRA steps of the smoke-size model on the card and on
+             the CPU from the same weights, LoRA, inputs, tid and noise:
+             losses, gradients and updated LoRA
   e2e        one VACE edit at Wan2.1-VACE-14B width (40 DiT + 8 VACE blocks,
              umT5-XXL, Wan2.1 VAE; random bf16 weights from a seed) of a
              480x832 clip: stage times, peak memory, output shape, and each
              kernel's launch count in this run; then the same request again
              under torch.profiler for device time by kernel category
+  train      2 steps of the Ditto LoRA recipe (rank 128 on the VACE q, k, v,
+             o, ffn.0, ffn.2; AdamW) on the same 14B-width pipeline, on the
+             --train-frames request (default 9: 4,680 tokens): losses, step
+             times, peak memory, LoRA size, each kernel's launches against
+             the count derived from the configuration; then one more step
+             under torch.profiler
 Then the `kernels` summary line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Imports nothing of JAX or of the JAX package.
 """
@@ -30,6 +43,7 @@ from __future__ import annotations
 import argparse
 import copy
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -81,6 +95,32 @@ def time_ms(torch, fn, reps: int, warmup: int = 2):
     return statistics.median(times)
 
 
+# two bf16 ULPs at the output's largest magnitude: the kernels and their
+# plain versions round at the same points; exp2/rsqrt and the order of fp32
+# sums differ in the last bits, which can move one bf16 rounding by one ULP
+TOL_ULPS = 2.0 ** -7
+
+
+def frames_480x832(f: int):
+    """A smooth synthetic uint8 clip (f, 480, 832, 3)."""
+    import numpy as np
+    h, w = 480, 832
+    tt = np.linspace(0.0, 1.0, f, dtype=np.float32)[:, None, None, None]
+    yy = np.linspace(0.0, 1.0, h, dtype=np.float32)[None, :, None, None]
+    xx = np.linspace(0.0, 1.0, w, dtype=np.float32)[None, None, :, None]
+    cc = np.array([0.2, 0.5, 0.8], np.float32)[None, None, None, :]
+    return (255 * (0.5 + 0.5 * np.sin(6.28 * (xx + yy * cc + tt * 0.3)))
+            ).astype(np.uint8)
+
+
+def gpu_clocks() -> str:
+    """SM clock, its maximum, power draw and temperature, as nvidia-smi
+    reads them now (the card slows down under a power or heat limit)."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,power.draw,temperature.gpu",
+         "--format=csv,noheader"], capture_output=True, text=True, timeout=60).stdout.strip()
+
+
 def max_err(torch, got, want):
     diff = (got.float() - want.float()).abs().max().item()
     scale = want.float().abs().max().item()
@@ -104,10 +144,7 @@ def check_kernels(torch, grid, tag):
                            dtype=torch.float32).to(torch.bfloat16)
 
     rows = []
-    # tolerance: two bf16 ULPs at the output's largest magnitude (the kernel
-    # and the plain version round at the same points; exp2/rsqrt differ in
-    # the last fp32 bits, which can move a bf16 rounding by one ULP)
-    tol_ulps = 2.0 ** -7
+    tol_ulps = TOL_ULPS
 
     # K1: self (Sk = S) and cross (Sk = 512 text tokens)
     q = randn(1, s, n, d)
@@ -138,7 +175,7 @@ def check_kernels(torch, grid, tag):
             max_abs_err=err, max_rel_err=err / scale, tol=tol,
             checked_rows=int(sub.numel()),
             ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-            library_ms=lib_ms, tflops=flops / ms / 1e9))
+            library_ms=lib_ms, tflops=flops / ms / 1e9, clocks=gpu_clocks()))
         del k, v, out, want
 
     # K4: RMSNorm + RoPE on q and k in one launch
@@ -237,12 +274,7 @@ def run_e2e(torch, kernels, steps: int, frames: int):
     init_s = time.perf_counter() - t0
 
     f, h, w = frames, 480, 832
-    tt = np.linspace(0.0, 1.0, f, dtype=np.float32)[:, None, None, None]
-    yy = np.linspace(0.0, 1.0, h, dtype=np.float32)[None, :, None, None]
-    xx = np.linspace(0.0, 1.0, w, dtype=np.float32)[None, None, :, None]
-    cc = np.array([0.2, 0.5, 0.8], np.float32)[None, None, None, :]
-    frames_in = (255 * (0.5 + 0.5 * np.sin(6.28 * (xx + yy * cc + tt * 0.3)))
-                 ).astype(np.uint8)
+    frames_in = frames_480x832(f)
 
     request = dict(prompt="turn the scene into a watercolor painting",
                    negative_prompt="", vace_video=frames_in, num_frames=f,
@@ -276,16 +308,286 @@ def run_e2e(torch, kernels, steps: int, frames: int):
     if frames.shape != (f, h, w, 3):
         raise AssertionError(f"output shape {frames.shape}")
     for name, count in launches.items():
-        if count == 0 or count != expected[name]:
+        if count != expected.get(name, 0) or (name in expected and count == 0):
             raise AssertionError(f"{name}: {count} launches in the run, "
-                                 f"expected {expected[name]}")
+                                 f"expected {expected.get(name, 0)}")
     emit({"phase": "e2e_profile", **profile_request(torch, lambda: pipe(**request),
                                                      total_s)})
+    return pipe, launches
+
+
+def time_sdpa_bwd(torch, q, k, v, g, reps: int = 5):
+    """Median time of PyTorch's SDPA backward alone: torch.autograd.grad after
+    an untimed forward, L2 flushed before each (the K3 yardstick)."""
+    import torch.nn.functional as F
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
+    gt = g.transpose(1, 2)
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    times = []
+    for i in range(reps + 1):
+        out = F.scaled_dot_product_attention(qt, kt, vt)
+        flush.zero_()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        torch.autograd.grad(out, (qt, kt, vt), gt)
+        end.record()
+        torch.cuda.synchronize()
+        if i:  # the first is warm-up
+            times.append(start.elapsed_time(end))
+        del out
+    return statistics.median(times)
+
+
+def check_attention_training(torch, s, sk, tag, kind, mag=1.0, check_heads=None):
+    """K1 with its stats output and K3 (dq and dkv kernels) at 40 heads of
+    128: q (1, s, 40, 128) scaled by `mag`, k/v (1, sk, 40, 128). The plain
+    check covers every row of the first `check_heads` heads (a head-sliced
+    view: for dK/dV every query row contributes), all heads when None."""
+    import torch.nn.functional as F
+    from video_styler_tpu_torch.ops import flash_attention as fa
+
+    n, d = 40, 128
+    scale = d ** -0.5
+    gen = torch.Generator("cuda").manual_seed(1)
+
+    def randn(*shape, m=1.0):
+        return (torch.randn(shape, generator=gen, device="cuda") * m).to(torch.bfloat16)
+
+    q, k, v = randn(1, s, n, d, m=mag), randn(1, sk, n, d), randn(1, sk, n, d)
+    g = randn(1, s, n, d)
+    hs = slice(0, check_heads or n)
+    heads = check_heads or n
+    label = f"{kind} S={s} Sk={sk} N={n} D={d} [{tag}]"
+    rows = []
+
+    o, l2 = fa._flash_cuda(q, k, v, scale, with_stats=True)
+    po, pl2 = fa.flash_attention_plain(q[:, :, hs], k[:, :, hs], v[:, :, hs],
+                                       scale, return_stats=True)
+    err_o, scale_o = max_err(torch, o[:, :, hs], po)
+    err_l2 = (l2[:, hs] - pl2).abs().max().item()
+    # L2 is fp32 on both sides: m2 from the same rounded q, l summed in
+    # another order
+    tol_l2 = 1e-4 * max(1.0, pl2.abs().max().item())
+    del po, pl2
+    flops = 4.0 * n * s * sk * d
+    b_ms, b_by = bound(flops, 2.0 * n * d * (2 * s + 2 * sk) + 4.0 * n * s)
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    rows.append(dict(
+        name=f"K1 flash_attention with stats {label}", kernel="K1s", route="cuda",
+        source="video_styler_tpu_torch/csrc/flash_attention.cu",
+        replaces="video_styler_tpu/ops/flash_attention.py:213",
+        max_abs_err=err_o, max_rel_err=err_o / scale_o, tol=TOL_ULPS * scale_o,
+        l2_max_abs_err=err_l2, l2_tol=tol_l2, checked_heads=heads,
+        ms=time_ms(torch, lambda: fa._flash_cuda(q, k, v, scale, with_stats=True), 10),
+        ms_without_stats=time_ms(torch, lambda: fa._flash_cuda(q, k, v, scale), 10),
+        plain_ms=time_ms(torch, lambda: fa.flash_attention_plain(
+            q, k, v, scale, return_stats=True), reps=3, warmup=1),
+        bound_ms=b_ms, bound_by=b_by,
+        library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(qt, kt, vt), 10),
+        clocks=gpu_clocks()))
+
+    dq, dk, dv = fa.flash_attention_bwd(q, k, v, o, l2, g, scale)
+    want = fa.flash_attention_bwd_plain(q[:, :, hs], k[:, :, hs], v[:, :, hs],
+                                        o[:, :, hs], l2[:, hs].contiguous(),
+                                        g[:, :, hs], scale)
+    errs = {}
+    for name, got, w in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
+        err, sc = max_err(torch, got[:, :, hs], w)
+        errs[name] = (err, TOL_ULPS * sc, sc)
+    del dq, dk, dv, want
+    launch = fa._BwdLaunch(q, k, v, o, l2, g, scale, need_kv=True)
+    plain_ms = time_ms(torch, lambda: fa.flash_attention_bwd_plain(
+        q, k, v, o, l2, g, scale), reps=2, warmup=1)
+    lib_ms = time_sdpa_bwd(torch, q, k, v, g)
+    fused_ms, _ = bound(10.0 * n * s * sk * d, 0.0)
+    stats_bytes = 4.0 * n * s * 2                    # L2 and delta
+    for part, fn, flop_k, nbytes, outs in (
+            ("dq", launch.dq_kernel, 6, 2.0 * n * d * (4 * s + 2 * sk), ("dq",)),
+            ("dkv", launch.dkv_kernel, 8, 2.0 * n * d * (2 * s + 4 * sk), ("dk", "dv"))):
+        b_ms, b_by = bound(flop_k * n * s * sk * d, nbytes + stats_bytes)
+        worst = max(outs, key=lambda o_: errs[o_][0] / errs[o_][1])
+        rows.append(dict(
+            name=f"K3 flash_attention_bwd {part} {label}", kernel=f"K3{part}",
+            route="cuda", source="video_styler_tpu_torch/csrc/flash_attention_bwd.cu",
+            replaces=("video_styler_tpu/ops/flash_attention.py:624" if part == "dq"
+                      else "video_styler_tpu/ops/flash_attention.py:582"),
+            max_abs_err=errs[worst][0], tol=errs[worst][1],
+            errors={o_: dict(max_abs_err=errs[o_][0], tol=errs[o_][1],
+                             max_rel_err=errs[o_][0] / errs[o_][2]) for o_ in outs},
+            checked_heads=heads, ms=time_ms(torch, fn, reps=5),
+            # the plain version and SDPA's backward compute dq, dk and dv
+            # together: the same number in both rows
+            plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+            fused_one_kernel_bound_ms=fused_ms, library_ms=lib_ms))
+        rows[-1]["tflops"] = flop_k * n * s * sk * d / rows[-1]["ms"] / 1e9
+        rows[-1]["clocks"] = gpu_clocks()
+    for r in rows:
+        emit({"phase": "kernel", **r})
+    failed = [o_ for o_, (e, t, _) in errs.items() if not e <= t]
+    if not (rows[0]["max_abs_err"] <= rows[0]["tol"] and err_l2 <= tol_l2):
+        failed.append("o/L2")
+    if failed:
+        raise AssertionError(f"{label}: {failed} beyond tolerance")
+    return rows
+
+
+def check_train_reference(torch):
+    """Two LoRA steps of the smoke-size model on the card (kernels) and on
+    the CPU (plain versions), from the same weights, LoRA, inputs, tid and
+    noise (all made on the CPU)."""
+    from torch import nn
+    from video_styler_tpu_torch.infer_ditto import build_smoke_pipeline, smoke_frames
+    from video_styler_tpu_torch.trainers.lora_train import (
+        apply_lora, init_lora, lora_parameters, lora_targets)
+    from video_styler_tpu_torch.trainers.training import (
+        adamw, make_train_step, training_scheduler)
+
+    cpu = build_smoke_pipeline(device="cpu", seed=0)
+    f, h, w = 9, 64, 64
+    with torch.no_grad():
+        context = cpu.encode_prompt("a watercolor city at dusk")
+        vctx = cpu.build_vace_context(smoke_frames(f, h, w), None, None, h, w, f,
+                                      tiled=False)
+    latents = torch.randn((1, 4, 3, 8, 8), generator=torch.Generator().manual_seed(1)
+                          ).to(torch.bfloat16)
+    for m in (cpu.dit, cpu.vace):
+        m.requires_grad_(False)
+    dit_g, vace_g = copy.deepcopy(cpu.dit).to("cuda"), copy.deepcopy(cpu.vace).to("cuda")
+    lora_c = init_lora(cpu.vace, rank=32,
+                       targets=lora_targets("q,k,v,o,ffn.0,ffn.2", "vace"),
+                       generator=torch.Generator().manual_seed(0))
+    lora_g = {k: {n: nn.Parameter(p.detach().to("cuda")) for n, p in ab.items()}
+              for k, ab in lora_c.items()}
+    steps = []
+    for dit, vace, lora in ((cpu.dit, cpu.vace, lora_c), (dit_g, vace_g, lora_g)):
+        apply_lora(vace, lora)
+        params = lora_parameters(lora)
+        steps.append((make_train_step(dit, adamw(params, 1e-4), training_scheduler(),
+                                      vace=vace), params))
+    draws = torch.Generator().manual_seed(2)
+    res = dict(phase="train_reference", frames=f, height=h, width=w, lora_rank=32,
+               loss_cpu=[], loss_gpu=[], grads_rel_l2=[], lora_rel_l2=[],
+               loss_rel_tol=5e-2, grads_tol=5e-2, lora_tol=1e-3)
+
+    def cat(ts):
+        return torch.cat([t.detach().float().reshape(-1).cpu() for t in ts])
+
+    for _ in range(2):
+        tid = int(torch.randint(0, 1000, (), generator=draws))
+        noise = torch.randn(latents.shape, generator=draws)
+        out = []
+        for (step, params), dev in zip(steps, ("cpu", "cuda")):
+            loss = step(latents.to(dev), context.to(dev), vctx.to(dev), tid=tid,
+                        noise=noise)
+            out.append((float(loss), cat(p.grad for p in params), cat(params)))
+        (lc, gc, pc), (lg, gg, pg) = out
+        res["loss_cpu"].append(lc)
+        res["loss_gpu"].append(lg)
+        res["grads_rel_l2"].append(((gg - gc).norm() / gc.norm()).item())
+        res["lora_rel_l2"].append(((pg - pc).norm() / pc.norm()).item())
+    emit(res)
+    # tolerance: the bf16 model rounds at other points on the two devices
+    # (cuBLAS vs CPU GEMMs, kernels vs plain); AdamW's step moves each entry
+    # by about lr, so the updated LoRA stays within ~lr of the CPU's
+    ok = all(abs(g - c) <= 5e-2 * abs(c) for g, c in zip(res["loss_gpu"], res["loss_cpu"]))
+    ok = ok and max(res["grads_rel_l2"]) <= 5e-2 and max(res["lora_rel_l2"]) <= 1e-3
+    if not ok or not all(map(math.isfinite, res["loss_gpu"])):
+        raise AssertionError(f"LoRA steps on the card and the CPU disagree: {res}")
+
+
+def expected_train_launches(dit_cfg, vace_cfg, targets, steps: int,
+                            remat_vace: bool):
+    """Kernel launches of `steps` LoRA steps on the VACE branch, from the
+    configuration. Trunk blocks up to the first VACE layer see no input that
+    needs a gradient: they run forward only, unrecorded. The others are
+    rematerialised (one more forward each) and differentiated, as is every
+    VACE block. Self-attention backward needs dq and dK/dV; the trunk's
+    cross-attention keys come from the frozen text path, so only dq, while
+    the VACE cross-attention's k/v carry the LoRA when it targets them."""
+    n_trunk, n_vace = dit_cfg.num_layers, len(vace_cfg.vace_layers)
+    trunk_bwd = n_trunk - 1 - vace_cfg.vace_layers[0]
+    fwd = n_trunk + n_vace
+    recompute = trunk_bwd + (n_vace if remat_vace else 0)
+    cross_kv = bool({"blocks.cross_attn.k", "blocks.cross_attn.v"} & set(targets))
+    per_step = {"K1": 2 * (fwd + recompute), "K4": fwd + recompute,
+                "K5": fwd + recompute, "K3dq": 2 * (trunk_bwd + n_vace),
+                "K3dkv": trunk_bwd + n_vace + (n_vace if cross_kv else 0)}
+    return {k: v * steps for k, v in per_step.items()}
+
+
+def run_train(torch, pipe, kernels, frames: int, remat_vace: bool, steps: int = 2):
+    """The Ditto LoRA recipe at 14B width on the e2e phase's pipeline."""
+    from video_styler_tpu_torch.pipelines.wan_video import _preprocess_images
+    from video_styler_tpu_torch.trainers.lora_train import (
+        apply_lora, init_lora, lora_parameters, lora_targets)
+    from video_styler_tpu_torch.trainers.training import (
+        adamw, make_train_step, training_scheduler)
+
+    f, h, w = frames, 480, 832
+    clip = frames_480x832(f)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        context = pipe.encode_prompt("turn the scene into a watercolor painting")
+        latents = pipe.encode_video(_preprocess_images(clip), tiled=True)
+        vace_context = pipe.build_vace_context(clip, None, None, h, w, f, tiled=True)
+    # the umT5-XXL weights (~10.6 GiB) are not needed past the prompt: give
+    # their memory to the step's activations
+    pipe.prompter.text_encoder.to("cpu")
+    for m in (pipe.dit, pipe.vace, pipe.vae, pipe.prompter.text_encoder):
+        m.requires_grad_(False)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    prep_s = time.perf_counter() - t0
+
+    targets = lora_targets("q,k,v,o,ffn.0,ffn.2", "vace")
+    gen = torch.Generator().manual_seed(0)
+    lora = init_lora(pipe.vace, rank=128, targets=targets, generator=gen)
+    apply_lora(pipe.vace, lora)
+    params = lora_parameters(lora)
+    step = make_train_step(pipe.dit, adamw(params, 1e-4), training_scheduler(),
+                           vace=pipe.vace, remat=True, remat_vace=remat_vace)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for kern in kernels.values():
+        kern.launches = 0
+    losses, step_s = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        loss = step(latents, context, vace_context, generator=gen)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        losses.append(float(loss))
+    launches = {name: kern.launches for name, kern in kernels.items()}
+    expected = expected_train_launches(pipe.dit.cfg, pipe.vace.cfg, targets,
+                                       steps, remat_vace)
+    res = dict(phase="train", dit_layers=pipe.dit.cfg.num_layers,
+               vace_layers=list(pipe.vace.cfg.vace_layers), frames=f,
+               tokens=int(math.prod(token_grid(f))), latents=list(latents.shape),
+               lora_rank=128, lora_targets=list(targets),
+               lora_params=sum(p.numel() for p in params), remat="trunk" + (
+                   " and VACE" if remat_vace else ""),
+               text_encoder="moved to the CPU after the prompt encode",
+               preprocess_s=prep_s, losses=losses, step_s=step_s,
+               max_memory_allocated_gib=torch.cuda.max_memory_allocated() / 2**30,
+               launches=launches, expected_launches=expected)
+    emit(res)
+    if not all(map(math.isfinite, losses)):
+        raise AssertionError(f"non-finite loss: {losses}")
+    for name, count in launches.items():
+        if count == 0 or count != expected[name]:
+            raise AssertionError(f"{name}: {count} launches in the train run, "
+                                 f"expected {expected[name]}")
+    emit({"phase": "train_profile", **profile_request(
+        torch, lambda: step(latents, context, vace_context, generator=gen),
+        step_s[-1])})
     return launches
 
 
 KERNEL_CATEGORIES = (  # (category, substrings of the device kernel's name)
     ("K1", ("flash_fwd_capped_kernel",)),
+    ("K3dq", ("fa_bwd_dq_kernel",)),
+    ("K3dkv", ("fa_bwd_dkv_kernel",)),
     ("K4", ("rmsnorm_rope_kernel",)),
     ("K5", ("rmsnorm_kernel",)),
     ("conv", ("fprop", "dgrad", "wgrad", "cudnn", "convolve", "conv2d", "conv3d")),
@@ -323,6 +625,10 @@ def main(argv=None):
     ap.add_argument("--steps", type=int, default=2)
     ap.add_argument("--frames", type=int, default=RUN_FRAMES,
                     help="frames (4k+1) of the 480x832 end-to-end request")
+    ap.add_argument("--train-frames", type=int, default=RUN_FRAMES,
+                    help="frames (4k+1) of the 480x832 clip of the LoRA steps")
+    ap.add_argument("--train-remat-vace", action="store_true",
+                    help="also rematerialise the VACE blocks in the LoRA steps")
     args = ap.parse_args(argv)
 
     import torch
@@ -351,19 +657,44 @@ def main(argv=None):
               cuda=torch.version.cuda, device=torch.cuda.get_device_name(0),
               count=torch.cuda.device_count(), build_s=build_s, ptxas=ptxas))
 
-    kernels = {"K1": fa.KERNEL, "K4": fnr.ROPE_KERNEL, "K5": fnr.RMS_KERNEL}
-    rows = check_kernels(torch, token_grid(DITTO_FRAMES), f"ditto-{DITTO_FRAMES}f")
+    kernels = {"K1": fa.KERNEL, "K4": fnr.ROPE_KERNEL, "K5": fnr.RMS_KERNEL,
+               "K3dq": fa.BWD_DQ_KERNEL, "K3dkv": fa.BWD_DKV_KERNEL}
+    ditto, run = token_grid(DITTO_FRAMES), token_grid(args.frames)
+    rows = check_kernels(torch, ditto, f"ditto-{DITTO_FRAMES}f")
     if args.frames != DITTO_FRAMES:
-        rows += check_kernels(torch, token_grid(args.frames), f"run-{args.frames}f")
+        rows += check_kernels(torch, run, f"run-{args.frames}f")
+    torch.cuda.empty_cache()
+    s_ditto = math.prod(ditto)
+    s_train = math.prod(token_grid(args.train_frames))
+    train_rows = check_attention_training(torch, s_ditto, s_ditto,
+                                          f"ditto-{DITTO_FRAMES}f", "self",
+                                          check_heads=2)
+    train_rows += check_attention_training(torch, s_ditto, TEXT_LEN,
+                                           f"ditto-{DITTO_FRAMES}f", "cross")
+    if args.train_frames != DITTO_FRAMES:
+        train_rows += check_attention_training(torch, s_train, s_train,
+                                               f"train-{args.train_frames}f", "self")
+    # q x8: logits of std ~11 (RMS-normed q/k give ~1.4). The capped
+    # softmax holds up to a largest logit of ~96 + 127 bits; q x24 over
+    # 4,680^2 logits per head passes that (both the kernel and its plain
+    # version overflow there, as the Pallas kernel would)
+    train_rows += check_attention_training(torch, s_train, s_train,
+                                           f"train-{args.train_frames}f",
+                                           "self q x8 (magnitude stress)", mag=8.0)
     torch.cuda.empty_cache()
 
     check_reference(torch)
-    launches = run_e2e(torch, kernels, args.steps, args.frames)
+    check_train_reference(torch)
+    pipe, launches = run_e2e(torch, kernels, args.steps, args.frames)
+    train_launches = run_train(torch, pipe, kernels, args.train_frames,
+                               args.train_remat_vace)
 
     keys = ("name", "route", "source", "replaces", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     emit({"kernels": [{**{k: r[k] for k in keys}, "launches": launches[r["kernel"]]}
-                      for r in rows]})
+                      for r in rows]
+          + [{**{k: r[k] for k in keys}, "launches": train_launches[
+              "K1" if r["kernel"] == "K1s" else r["kernel"]]} for r in train_rows]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

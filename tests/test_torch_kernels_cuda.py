@@ -1,5 +1,5 @@
-"""The port's hand-written CUDA kernels against their plain versions, on
-the card. They skip on a host without a GPU; on the card run them with
+"""The port's hand-written CUDA kernels (K1 with and without stats, K3, K4,
+K5) against their plain versions, on the card. They skip on a host without a GPU; on the card run them with
 
     python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py
 
@@ -85,3 +85,89 @@ def test_k4_k5_match_plain(gen, s, n):
     _assert_close(oq, pq)
     _assert_close(ok, pk)
     _assert_close(o5, fnr.fused_rmsnorm_plain(xq, wq))
+
+
+def _k3_check(q, k, v, g, need_kv=True):
+    """K1-with-stats then K3 against the plain forward's stats and the plain
+    backward on the same o and L2."""
+    o, l2 = fa._flash_cuda(q, k, v, 1 / 128 ** 0.5, with_stats=True)
+    po, pl2 = fa.flash_attention_plain(q, k, v, return_stats=True)
+    _assert_close(o, po)
+    # L2 is fp32 on both sides: m2 from the same rounded q, l summed in
+    # another order
+    assert (l2 - pl2).abs().max().item() <= 1e-4 * max(1.0, pl2.abs().max().item())
+    before = (fa.BWD_DQ_KERNEL.launches, fa.BWD_DKV_KERNEL.launches)
+    got = fa.flash_attention_bwd(q, k, v, o, l2, g, need_kv=need_kv)
+    torch.cuda.synchronize()
+    assert (fa.BWD_DQ_KERNEL.launches, fa.BWD_DKV_KERNEL.launches) == (
+        before[0] + 1, before[1] + int(need_kv))
+    want = fa.flash_attention_bwd_plain(q, k, v, o, l2, g)
+    for t, w in zip(got, want):
+        if t is not None:
+            assert t.shape == w.shape and t.dtype == w.dtype
+            _assert_close(t, w)
+    return got
+
+
+@pytest.mark.parametrize("b,sq,sk,n,mag", [(1, 64, 64, 1, 1.0), (2, 200, 333, 3, 1.0),
+                                           (1, 300, 40, 2, 1.0), (1, 1000, 512, 4, 1.0),
+                                           (1, 300, 257, 2, 24.0)])
+def test_k1_stats_and_k3_match_plain(gen, b, sq, sk, n, mag):
+    q = _randn(gen, b, sq, n, 128, scale=mag)
+    k, v = _randn(gen, b, sk, n, 128), _randn(gen, b, sk, n, 128)
+    _k3_check(q, k, v, _randn(gen, b, sq, n, 128))
+
+
+def test_k3_reads_strided_views_and_skips_unwanted_dkv(gen):
+    """q/k/v as head slices of one projection (strided rows), dO from a
+    (B, S, N*D) view; without dK/dV wanted only the dq kernel runs."""
+    x = _randn(gen, 1, 130, 3 * 2 * 128)
+    q, k, v = x.view(1, 130, 6, 128).split(2, dim=2)
+    g = _randn(gen, 1, 130, 256).view(1, 130, 2, 128)
+    _k3_check(q, k, v, g)
+    dq, dk, dv = _k3_check(q, k, v, g, need_kv=False)
+    assert dk is None and dv is None
+
+
+def test_autograd_through_kernels_matches_plain(gen):
+    """`attention` under autograd on the card (K1 stats + K3) against the same
+    Function run on the plain versions; K4/K5 gradients likewise."""
+    q, k, v = (_randn(gen, 1, 200, 2, 128) for _ in range(3))
+    g = _randn(gen, 1, 200, 2, 128)
+    ins = [t.clone().requires_grad_() for t in (q, k, v)]
+    got = torch.autograd.grad(attention(*ins), ins, g)
+    o, l2 = fa.flash_attention_plain(q, k, v, return_stats=True)
+    want = fa.flash_attention_bwd_plain(q, k, v, o, l2, g)
+    for t, w in zip(got, want):
+        _assert_close(t, w)
+    f, h, w_ = 1, 6, 10
+    xq, xk = _randn(gen, 1, 60, 256), _randn(gen, 1, 60, 256)
+    wq, wk = (1 + 0.1 * torch.randn(256, generator=gen, device="cuda")).to(torch.bfloat16), \
+        (1 + 0.1 * torch.randn(256, generator=gen, device="cuda")).to(torch.bfloat16)
+    cos, sin = assemble_freqs_grid(128, f, h, w_, device="cuda")
+    gq, gk = _randn(gen, 1, 60, 2, 128), _randn(gen, 1, 60, 2, 128)
+    a = [t.clone().requires_grad_() for t in (xq, xk)]
+    got = torch.autograd.grad(fnr.fused_rmsnorm_rope(*a, wq, wk, cos, sin), a, (gq, gk))
+    b = [t.clone().requires_grad_() for t in (xq, xk)]
+    want = torch.autograd.grad(fnr.fused_rmsnorm_rope_plain(*b, wq, wk, cos, sin), b,
+                               (gq, gk))
+    for t, w in zip(got, want):
+        _assert_close(t, w)
+    a = xq.clone().requires_grad_()
+    b = xq.clone().requires_grad_()
+    _assert_close(torch.autograd.grad(fnr.fused_rmsnorm(a, wq), a, gq.view(1, 60, 256))[0],
+                  torch.autograd.grad(fnr.fused_rmsnorm_plain(b, wq), b, gq.view(1, 60, 256))[0])
+
+
+def test_k3_rejects_what_it_does_not_take(gen):
+    q = _randn(gen, 1, 16, 2, 128)
+    o, l2 = fa._flash_cuda(q, q, q, 1 / 128 ** 0.5, with_stats=True)
+    with pytest.raises(TypeError):
+        fa.flash_attention_bwd(q.float(), q.float(), q.float(), o, l2, q)
+    with pytest.raises(ValueError):
+        fa.flash_attention_bwd(q, q, q, o, l2[:, :, :8], q)
+    with pytest.raises(ValueError):
+        fa.flash_attention_bwd(q, q, q, o[:, :8], l2, q)
+    with pytest.raises(ValueError):
+        small = _randn(gen, 1, 16, 2, 64)
+        fa.flash_attention_bwd(small, small, small, small, l2, small)

@@ -216,3 +216,133 @@ def test_k4_k5_plain_match_pallas_interpret(monkeypatch, which, rope_indices):
     _close(oq_t, oq_j, which)
     _close(ok_t, ok_j, which)
     _close(tfnr.fused_rmsnorm(tq, twq, 1e-6), jfnr._rms_fwd(jq, jwq, 1e-6), which)
+
+
+# --------------------------------------------------------------------------
+# K1 stats and K3: the flash backward
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("which", ["fp32", "bf16"])
+@pytest.mark.parametrize("case", ["self", "ragged", "large_magnitude"])
+def test_k1_plain_stats_match_pallas_interpret(monkeypatch, case, which):
+    """L2 = m2 + log2 l, the backward's residual, against the Pallas kernel's
+    stats output."""
+    _interp(monkeypatch, jfa)
+    sq, sk, mag = K1_CASES[case]
+    jq, tq = _both(_rand(30, (1, sq, 2, 128), mag), which)
+    jk, tk = _both(_rand(31, (1, sk, 2, 128)), which)
+    jv, tv = _both(_rand(32, (1, sk, 2, 128)), which)
+    scale = 1.0 / np.sqrt(128)
+    want_o, want_l2 = jfa._flash_fwd_4d(jq, jk, jv, scale, block_q=128,
+                                        block_k=128, capped=True, return_stats=True)
+    got_o, got_l2 = tfa.flash_attention_plain(tq, tk, tv, scale, return_stats=True)
+    assert got_l2.dtype == torch.float32 and got_l2.shape == (1, 2, sq)
+    _close(got_o, want_o, which, **({"rtol": 1e-4, "atol": 1e-5} if which == "fp32" else {}))
+    # L2 is fp32 on both sides (m2 from the same rounded q; l summed in
+    # another order): a few fp32 ULPs of |L2| <= 96
+    np.testing.assert_allclose(got_l2.numpy(), np.asarray(want_l2), rtol=1e-5, atol=1e-4)
+
+
+K3_CASES = {"ragged": (300, 520, 1.0), "cross": (300, 40, 1.0),
+            "large_magnitude": (200, 257, 8.0)}
+
+
+def _k3_inputs(case, which, seed=40):
+    sq, sk, mag = K3_CASES[case]
+    arrays = [_rand(seed, (1, sq, 2, 128), mag), _rand(seed + 1, (1, sk, 2, 128)),
+              _rand(seed + 2, (1, sk, 2, 128)), _rand(seed + 3, (1, sq, 2, 128))]
+    js, ts = zip(*(_both(a, which) for a in arrays))
+    return js, ts
+
+
+@pytest.mark.parametrize("which", ["fp32", "bf16"])
+@pytest.mark.parametrize("case", list(K3_CASES))
+def test_k3_plain_matches_pallas_interpret(monkeypatch, case, which):
+    """dq, dk, dv from the same o and L2 against `_fa_bwd_pallas` run in
+    interpret mode (the dkv and dq Pallas kernels)."""
+    _interp(monkeypatch, jfa)
+    (jq, jk, jv, jg), (tq, tk, tv, tg) = _k3_inputs(case, which)
+    scale = 1.0 / np.sqrt(128)
+    to, tl2 = tfa.flash_attention_plain(tq, tk, tv, scale, return_stats=True)
+    jo, jl2 = _both(_np(to), which)[0], jnp.asarray(tl2.numpy())
+    want = jfa._fa_bwd_pallas(jq, jk, jv, jo, jl2, jg, scale, block_q=128, block_k=128)
+    got = tfa.flash_attention_bwd_plain(tq, tk, tv, to, tl2, tg, scale)
+    for name, t, j in zip("qkv", got, want):
+        assert t.dtype == tq.dtype and t.shape == j.shape, name
+        # fp32: other summation orders over up to 520 terms; bf16: one
+        # dS rounding can flip, moving a sum by about one bf16 ULP of a term
+        _close(t, j, which, **({"rtol": 1e-4, "atol": 1e-5} if which == "fp32"
+                               else {"rtol": 2e-2, "atol": 2e-2}))
+
+
+@pytest.mark.parametrize("case", list(K3_CASES))
+def test_k3_plain_matches_exact_softmax_autograd(case):
+    """In fp32 the capped forward is the exact softmax, so K3's plain
+    version equals autograd through `sdpa`; its row chunks change nothing."""
+    _, (tq, tk, tv, tg) = _k3_inputs(case, "fp32", seed=50)
+    o, l2 = tfa.flash_attention_plain(tq, tk, tv, return_stats=True)
+    got = tfa.flash_attention_bwd_plain(tq, tk, tv, o, l2, tg)
+    chunked = tfa.flash_attention_bwd_plain(tq, tk, tv, o, l2, tg,
+                                            max_elements=2 * tk.shape[1] * 7)
+    ins = [t.clone().requires_grad_() for t in (tq, tk, tv)]
+    want = torch.autograd.grad(tatt.sdpa(*ins), ins, tg)
+    for t, c, w in zip(got, chunked, want):
+        # P = exp2(s2 - L2) with |L2| up to ~53 here: the subtraction keeps
+        # about 2^-24 * |L2| of the exponent, so the error scales with the
+        # gradient's largest magnitude, not elementwise
+        err = (t - w).abs().max().item()
+        assert err <= 2e-5 * w.abs().max().item(), err
+        # chunks reorder the fp32 sums of dK and dV, and the CPU GEMM blocks
+        # each chunk shape differently (last-bit differences in s2)
+        assert (c - t).abs().max().item() <= 4e-6 * t.abs().max().item()
+
+
+@pytest.mark.parametrize("which", ["fp32", "bf16"])
+def test_autograd_functions_match_plain_compositions(which):
+    """The K1/K4/K5 autograd Functions (kernel forward, K3 or recompute
+    backward; plain versions on CPU) against autograd through the plain
+    compositions, and the dispatch: no Function without grad."""
+    td = DTYPES[which][2]
+    tol = TOL[which]
+    # K1 + K3: the dispatch through `attention`, cross-shaped with kv_valid
+    q, k, v, g = (torch.from_numpy(_rand(60 + i, s)).to(td) for i, s in enumerate(
+        [(1, 70, 2, 128), (1, 50, 2, 128), (1, 50, 2, 128), (1, 70, 2, 128)]))
+    ins = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = tatt.attention(*ins, kv_valid=45)
+    assert out.grad_fn is not None and "FlashAttention" in type(out.grad_fn).__name__
+    got = torch.autograd.grad(out, ins, g)
+    ref_ins = [t.clone().requires_grad_() for t in (q, k, v)]
+    ref = tfa.flash_attention_plain(ref_ins[0], ref_ins[1][:, :45], ref_ins[2][:, :45])
+    want = torch.autograd.grad(ref, ref_ins, g)
+    for t, w in zip(got, want):
+        assert t.dtype == td
+        # bf16: the plain composition's autograd rounds P and dS at other points
+        _close(t, w, which, **({"rtol": 1e-4, "atol": 1e-5} if which == "fp32"
+                               else {"rtol": 5e-2, "atol": 5e-2}))
+    assert torch.all(got[1][:, 45:] == 0) and torch.all(got[2][:, 45:] == 0)
+    with torch.no_grad():
+        assert tatt.attention(*ins).grad_fn is None
+
+    # K4 and K5
+    f, h, w, n, d = 2, 3, 5, 2, 128
+    s = f * h * w
+    xq, xk = (torch.from_numpy(_rand(70 + i, (1, s, n * d))).to(td) for i in range(2))
+    wq, wk = (torch.from_numpy(1.0 + _rand(72 + i, (n * d,), 0.1)).to(td) for i in range(2))
+    gq, gk = (torch.from_numpy(_rand(74 + i, (1, s, n, d))).to(td) for i in range(2))
+    cos, sin = trope.assemble_freqs_grid(d, f, h, w)
+    for fn, plain, args, cot in (
+            (tfnr.fused_rmsnorm_rope, tfnr.fused_rmsnorm_rope_plain,
+             (xq, xk, wq, wk), (gq, gk)),
+            (tfnr.fused_rmsnorm, tfnr.fused_rmsnorm_plain, (xq, wq),
+             (gq.reshape(1, s, n * d),))):
+        a = [t.clone().requires_grad_() for t in args]
+        consts = (cos, sin) if len(args) == 4 else ()
+        outs = fn(*a, *consts)
+        outs = outs if isinstance(outs, tuple) else (outs,)
+        assert "Function" in type(outs[0].grad_fn).__name__
+        got = torch.autograd.grad(outs, a, cot)
+        b = [t.clone().requires_grad_() for t in args]
+        refs = plain(*b, *consts)
+        want = torch.autograd.grad(refs if isinstance(refs, tuple) else (refs,), b, cot)
+        for t, w_ in zip(got, want):
+            _close(t, w_, which, **tol)

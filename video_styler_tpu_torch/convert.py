@@ -9,6 +9,10 @@ and returns the port's module for `kind`:
   "t5"   -> models.t5.T5Encoder         (cfg: T5Config)
   "vae"  -> models.wan_vae.WanVAE       (cfg: WanVAEConfig)
 
+`from_jax_lora(lora)` turns a JAX LoRA pytree (`trainers.lora_train
+.init_lora`: {path: {"A": (L, in, r), "B": (L, r, out)}}, stacked over
+blocks) into the port's per-block factors in torch layout.
+
 The layouts that differ: JAX linears store `w` as (in, out) and
 `nn.Linear` stores `weight` as (out, in); the stacked `blocks` (and VACE
 `after_proj`) trees carry a leading layer axis that becomes the index of an
@@ -76,3 +80,22 @@ def from_jax_params(kind: str, tree, cfg, device="cpu") -> torch.nn.Module:
         module = _MODULES[kind](cfg)
     module.load_state_dict(sd, strict=True, assign=True)
     return module.to(device).eval()
+
+
+def from_jax_lora(lora):
+    """JAX LoRA pytree (numpy or jax leaves) -> the port's LoRA dict
+    {'blocks.{i}.self_attn.q': {"A": (r, in), "B": (out, r)}} of fp32
+    `nn.Parameter`s, ready for `trainers.lora_train.apply_lora`."""
+    out = {}
+    for path, ab in lora.items():
+        a = np.asarray(ab["A"], np.float32)
+        b = np.asarray(ab["B"], np.float32)
+        if a.ndim == 3:
+            head, tail = path.split("blocks.", 1)
+            items = [(f"{head}blocks.{i}.{tail}", a[i], b[i]) for i in range(a.shape[0])]
+        else:
+            items = [(path, a, b)]
+        for name, ai, bi in items:
+            out[name] = {k: torch.nn.Parameter(torch.from_numpy(
+                np.ascontiguousarray(x.T))) for k, x in (("A", ai), ("B", bi))}
+    return out

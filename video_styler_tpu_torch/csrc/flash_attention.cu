@@ -10,6 +10,8 @@
 //   m2  = min(||q'|| * kmax[b, h] * 1.0001, 96)        (a per-row bound on q'.k)
 //   p_j = exp2(q'.k_j - m2)  for real keys, 0 for keys past Sk
 //   o   = (sum_j bf16(p_j) v_j) / max(sum_j p_j, 1e-37)
+//   L2  = m2 + log2(max(sum_j p_j, 1e-37))   (f32, (B, H, Sq); only when a
+//         stats pointer is given, i.e. when the backward (K3) will need it)
 // kmax[b, h] = max_j ||k_j|| comes in from the caller (a plain reduction).
 // There is no running max and no accumulator rescale: the bound makes
 // p <= 1 by construction, so one pass over the keys suffices.
@@ -29,77 +31,17 @@
 // swizzle of their 16-byte chunks so ldmatrix reads are free of bank
 // conflicts.  wgmma and TMA are left for a later version.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <stdint.h>
+#include "sm90_mma.cuh"
 
 namespace {
 
-constexpr int kD = 128;              // head dim
+using namespace sm90;
+
 constexpr int kBQ = 64;              // query rows per block
 constexpr int kBK = 64;              // keys per tile
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
-constexpr int kChunks = kD / 8;      // 16-byte chunks per row
 constexpr int kSmemBytes = (kBQ + 4 * kBK) * kChunks * 16;  // q + 2x(k, v)
-
-__device__ __forceinline__ int swz(int r, int c) {
-  return r * kChunks + (c ^ (r & 7));
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                           int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(src_bytes));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-// c += a (16x16, row) * b (16x8, col); bf16 in, fp32 accumulate
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ float fast_exp2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
 
 struct Args {
   const __nv_bfloat16* q;
@@ -107,6 +49,7 @@ struct Args {
   const __nv_bfloat16* v;
   const float* kmax;  // (B, H)
   __nv_bfloat16* o;
+  float* l2;          // (B, H, Sq) base-2 logsumexp, or nullptr (not wanted)
   long long q_sb, q_ss, q_sh;
   long long k_sb, k_ss, k_sh;
   long long v_sb, v_ss, v_sh;
@@ -283,6 +226,15 @@ flash_fwd_capped_kernel(const Args a) {
     lsum[hh] += __shfl_xor_sync(0xffffffffu, lsum[hh], 2);
     lsum[hh] = fmaxf(lsum[hh], 1e-37f);  // a flushed row gives 0, not NaN
   }
+  if (a.l2 != nullptr && tig == 0) {
+    // the backward's residual: L2 = m2 + log2(l), one per query row
+    float* l2b = a.l2 + ((long long)b * a.heads + h) * a.sq;
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int row = q0 + warp * 16 + g + hh * 8;
+      if (row < a.sq) l2b[row] = m2[hh] + log2f(lsum[hh]);
+    }
+  }
   __nv_bfloat16* ob = a.o + b * a.o_sb + h * a.o_sh;
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) {
@@ -302,10 +254,11 @@ flash_fwd_capped_kernel(const Args a) {
 
 extern "C" {
 
-// Returns cudaGetLastError() after the launch (0 on success).
+// Returns cudaGetLastError() after the launch (0 on success). l2 may be
+// nullptr (inference: no stats wanted).
 int flash_attention_capped_fwd(
     const void* q, const void* k, const void* v, const void* kmax, void* o,
-    long long q_sb, long long q_ss, long long q_sh,
+    void* l2, long long q_sb, long long q_ss, long long q_sh,
     long long k_sb, long long k_ss, long long k_sh,
     long long v_sb, long long v_ss, long long v_sh,
     long long o_sb, long long o_ss, long long o_sh,
@@ -316,6 +269,7 @@ int flash_attention_capped_fwd(
   a.v = static_cast<const __nv_bfloat16*>(v);
   a.kmax = static_cast<const float*>(kmax);
   a.o = static_cast<__nv_bfloat16*>(o);
+  a.l2 = static_cast<float*>(l2);
   a.q_sb = q_sb; a.q_ss = q_ss; a.q_sh = q_sh;
   a.k_sb = k_sb; a.k_ss = k_ss; a.k_sh = k_sh;
   a.v_sb = v_sb; a.v_ss = v_ss; a.v_sh = v_sh;

@@ -7,8 +7,9 @@
 Same flags as inference/infer_ditto.py, without --mesh, --quantize and
 --streaming, plus --device (default cuda). --smoke runs the same pipeline
 code on tiny random models (head dim 128, so the CUDA kernels run too).
-Checkpoint loading and the LoRA merge are not ported yet: --dit_path
-raises.
+--lora_path merges a LoRA (e.g. one that `python -m
+video_styler_tpu_torch.train` saved) into the VACE branch before the loop.
+Checkpoint loading is not ported yet: --dit_path raises.
 """
 from __future__ import annotations
 
@@ -96,8 +97,10 @@ def main(argv=None):
         p.error("--dit_path is required (or use --smoke)")
     else:
         raise NotImplementedError("checkpoint loading (--dit_path, --vae_path, "
-                                  "--t5_path) and the LoRA merge are not yet "
-                                  "ported; use --smoke")
+                                  "--t5_path) is not yet ported; use --smoke")
+    if args.lora_path:
+        pipe.load_lora(target="vace" if pipe.vace is not None else "dit",
+                       path=args.lora_path, alpha=args.lora_alpha)
 
     vace_video = None
     if args.input_video:

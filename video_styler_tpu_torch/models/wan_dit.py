@@ -11,6 +11,10 @@ mapped layers, and the modulated head.
 The single-GPU port has no mesh: the sharding constraints and the
 mesh-divisibility padding of the JAX package are gone, so every token is
 real and no key is masked.
+
+`remat=True` (training) rematerialises each trunk block in the backward,
+as `jax.checkpoint` does in the JAX package: the forward keeps only the
+block's input, the backward runs the block again.
 """
 from __future__ import annotations
 
@@ -20,6 +24,7 @@ from typing import List, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention import attention
 from ..ops.basic import (gelu_tanh, layer_norm, linear, modulate, rms_norm,
@@ -216,18 +221,30 @@ def dit_block(p: DiTBlock, x, context, t_mod, cos, sin, cfg: WanDiTConfig):
     return x + gate_mlp * p.ffn(h)
 
 
+def block_fn(remat: bool):
+    """`dit_block`, or with remat a version whose activations are recomputed
+    in the backward (torch.utils.checkpoint, non-reentrant); same values."""
+    if not remat:
+        return dit_block
+
+    def run(*args):
+        return checkpoint(dit_block, *args, use_reentrant=False)
+    return run
+
+
 def run_blocks(blocks: Sequence[DiTBlock], x, context, t_mod, cos, sin,
                cfg: WanDiTConfig, vace_hints=None,
                vace_layers: Optional[Sequence[int]] = None,
-               vace_scale: float = 1.0):
+               vace_scale: float = 1.0, remat: bool = False):
     """The block stack; VACE hint j is added after layer vace_layers[j],
     cast to the trunk dtype (the scale too, so an fp32 scale never promotes
     a bf16 trunk)."""
     inject = {}
     if vace_hints is not None and vace_layers is not None:
         inject = {layer: j for j, layer in enumerate(vace_layers)}
+    body = block_fn(remat)
     for i, blk in enumerate(blocks):
-        x = dit_block(blk, x, context, t_mod, cos, sin, cfg)
+        x = body(blk, x, context, t_mod, cos, sin, cfg)
         if i in inject:
             x = x + vace_hints[inject[i]].to(x.dtype) * \
                 torch.tensor(vace_scale, dtype=x.dtype, device=x.device)
@@ -283,7 +300,8 @@ def head(model: WanDiT, x, t):
 
 def wan_dit_forward_with_residual(model: WanDiT, x, timestep, context,
                                   rope_indices=None, vace=None,
-                                  vace_context=None, vace_scale: float = 1.0):
+                                  vace_context=None, vace_scale: float = 1.0,
+                                  remat: bool = False, remat_vace: bool = False):
     """`wan_dit_forward`, also returning the block stack's residual
     (tokens out - tokens in, (B, S, dim)) that TeaCache replays."""
     cfg = model.cfg
@@ -296,22 +314,27 @@ def wan_dit_forward_with_residual(model: WanDiT, x, timestep, context,
     if vace is not None and vace_context is not None:
         from .wan_vace import vace_forward
         hints = vace_forward(vace, tokens_in, vace_context, context, t_mod,
-                             cos, sin)
+                             cos, sin, remat=remat_vace)
     tokens = run_blocks(model.blocks, tokens_in, context, t_mod, cos, sin, cfg,
                         vace_hints=hints,
                         vace_layers=None if hints is None else vace.cfg.vace_layers,
-                        vace_scale=vace_scale)
+                        vace_scale=vace_scale, remat=remat)
     out = unpatchify(head(model, tokens, t), (f, h, w), cfg.patch_size,
                      cfg.out_dim)
     return out, tokens - tokens_in
 
 
 def wan_dit_forward(model: WanDiT, x, timestep, context, rope_indices=None,
-                    vace=None, vace_context=None, vace_scale: float = 1.0):
+                    vace=None, vace_context=None, vace_scale: float = 1.0,
+                    remat: bool = False, remat_vace: bool = False):
     """Full DiT forward, optionally with the VACE branch.
 
     x: (B, C, F, H, W) latents; timestep: (B,); context: (B, L, text_dim);
-    vace: a `WanVace`, vace_context: (B, vace_in_dim, F, H, W)."""
+    vace: a `WanVace`, vace_context: (B, vace_in_dim, F, H, W).
+    remat: recompute each trunk block in the backward (the JAX package's
+    `remat`); remat_vace: the VACE blocks too, which the JAX package does not
+    do (`models/wan_vace.py:85-92`); it changes no value and trades a
+    second VACE forward for the memory of its activations (PERF.md)."""
     return wan_dit_forward_with_residual(model, x, timestep, context,
                                          rope_indices, vace, vace_context,
-                                         vace_scale)[0]
+                                         vace_scale, remat, remat_vace)[0]

@@ -13,7 +13,7 @@ from typing import List, Tuple
 import torch.nn.functional as F
 from torch import nn
 
-from .wan_dit import DiTBlock, Linear, WanDiTConfig, dit_block, patchify
+from .wan_dit import DiTBlock, Linear, WanDiTConfig, block_fn, patchify
 
 
 @dataclass(frozen=True)
@@ -56,12 +56,13 @@ class WanVace(nn.Module):
 
 
 def vace_forward(model: WanVace, x_tokens, vace_context, context, t_mod,
-                 cos, sin) -> List:
+                 cos, sin, remat: bool = False) -> List:
     """Per-mapped-layer hints, each (B, S, D).
 
     x_tokens: trunk tokens after patchify (B, S, D); vace_context:
     (B, vace_in_dim, F, H, W). The context tokens are zero-padded to the
-    trunk length when shorter."""
+    trunk length when shorter. remat: recompute each block in the backward
+    (`models.wan_dit.block_fn`)."""
     bcfg = model.cfg.block_cfg()
     c, _ = patchify(model.patch_embedding, vace_context, model.cfg.patch_size)
     s_x, s_c = x_tokens.shape[1], c.shape[1]
@@ -69,7 +70,8 @@ def vace_forward(model: WanVace, x_tokens, vace_context, context, t_mod,
         c = F.pad(c, (0, 0, 0, s_x - s_c))
     c = model.before_proj(c) + x_tokens
     hints = []
+    body = block_fn(remat)
     for blk, after in zip(model.blocks, model.after_proj):
-        c = dit_block(blk, c, context, t_mod, cos, sin, bcfg)
+        c = body(blk, c, context, t_mod, cos, sin, bcfg)
         hints.append(after(c))
     return hints

@@ -1,2 +1,3 @@
-"""Tensor ops and the hand-written kernels (K1 flash attention, K4 fused
-RMSNorm+RoPE, K5 RMSNorm); kernel sources are in ../csrc."""
+"""Tensor ops and the hand-written kernels (K1 flash attention, K3 its
+backward, K4 fused RMSNorm+RoPE, K5 RMSNorm); kernel sources are in
+../csrc."""

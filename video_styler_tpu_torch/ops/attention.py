@@ -2,8 +2,9 @@
 
 `attention` is what every DiT and VACE attention call goes through, self
 and cross: it launches K1 (`ops.flash_attention`) on a CUDA tensor and runs
-K1's plain version on a CPU tensor. A kernel failure raises; there is no
-quiet fallback to another attention.
+K1's plain version on a CPU tensor; under autograd its backward is K3 (or
+K3's plain version). A kernel failure raises; there is no quiet fallback to
+another attention.
 
 `sdpa` is the exact-softmax attention the JAX package takes off the TPU,
 kept as the yardstick the tests hold the capped softmax against.

@@ -8,8 +8,15 @@ header note says what bounds them on the H100 (bytes: one read and one
 write of each row) and how the warp-per-row design meets that.
 
 On a CPU tensor each wrapper runs its plain version, the composition of
-`ops.basic.rms_norm` and `ops.rope.rope_apply` (differentiable). On a CUDA
-tensor it launches its kernel or raises; nothing falls back.
+`ops.basic.rms_norm` and `ops.rope.rope_apply`. On a CUDA tensor it launches
+its kernel or raises; nothing falls back.
+
+Gradients: when grad is enabled and an input requires grad, each wrapper
+goes through a `torch.autograd.Function` whose forward is the kernel (or
+the plain version on CPU) and whose backward recomputes the plain
+composition and differentiates it, as the JAX package's custom_vjps do
+(`_fused_vjp_bwd` :143-148, `_rms_vjp_bwd` :198-201). The TPU package has
+no backward kernel for either, so neither has one here.
 """
 from __future__ import annotations
 
@@ -63,9 +70,7 @@ def _weight(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return w.to(x.dtype).contiguous()
 
 
-def fused_rmsnorm_rope(q_proj, k_proj, wq, wk, cos, sin,
-                       eps: float = 1e-6) -> Tuple[torch.Tensor, torch.Tensor]:
-    """RMSNorm + RoPE for the Q/K pair: (B, S, N*D) -> (B, S, N, D) each."""
+def _rope_forward(q_proj, k_proj, wq, wk, cos, sin, eps: float):
     if q_proj.device.type == "cpu":
         return fused_rmsnorm_rope_plain(q_proj, k_proj, wq, wk, cos, sin, eps)
     if q_proj.device.type != "cuda":
@@ -94,8 +99,7 @@ def fused_rmsnorm_rope(q_proj, k_proj, wq, wk, cos, sin,
     return oq, ok
 
 
-def fused_rmsnorm(x, w, eps: float = 1e-6) -> torch.Tensor:
-    """Single-pass RMSNorm of (B, S, Dm) rows; `ops.basic.rms_norm` semantics."""
+def _rms_forward(x, w, eps: float):
     if x.device.type == "cpu":
         return fused_rmsnorm_plain(x, w, eps)
     if x.device.type != "cuda":
@@ -109,3 +113,70 @@ def fused_rmsnorm(x, w, eps: float = 1e-6) -> torch.Tensor:
     RMS_KERNEL(x.data_ptr(), w.data_ptr(), out.data_ptr(), b * s, dm, eps,
                torch.cuda.current_stream(x.device).cuda_stream)
     return out
+
+
+def _recompute_grads(ctx, plain, inputs, consts, grads):
+    """Gradients of `plain(*inputs, *consts)` at cotangents `grads`, for the
+    inputs autograd asked for (None for the others)."""
+    with torch.enable_grad():
+        ins = [t.detach().requires_grad_(need)
+               for t, need in zip(inputs, ctx.needs_input_grad)]
+        outs = plain(*ins, *consts)
+        outs = outs if isinstance(outs, tuple) else (outs,)
+        wanted = [t for t in ins if t.requires_grad]
+        got = iter(torch.autograd.grad(outs, wanted, grads))
+    return [next(got) if t.requires_grad else None for t in ins]
+
+
+class FusedRmsNormRopeFunction(torch.autograd.Function):
+    """K4 forward; backward by autograd through the plain composition."""
+
+    @staticmethod
+    def forward(ctx, q_proj, k_proj, wq, wk, cos, sin, eps: float):
+        ctx.save_for_backward(q_proj, k_proj, wq, wk, cos, sin)
+        ctx.eps = eps
+        return _rope_forward(q_proj, k_proj, wq, wk, cos, sin, eps)
+
+    @staticmethod
+    def backward(ctx, gq, gk):
+        q_proj, k_proj, wq, wk, cos, sin = ctx.saved_tensors
+        grads = _recompute_grads(ctx, fused_rmsnorm_rope_plain,
+                                 (q_proj, k_proj, wq, wk), (cos, sin, ctx.eps),
+                                 (gq, gk))
+        return (*grads, None, None, None)
+
+
+class FusedRmsNormFunction(torch.autograd.Function):
+    """K5 forward; backward by autograd through `rms_norm`."""
+
+    @staticmethod
+    def forward(ctx, x, w, eps: float):
+        ctx.save_for_backward(x, w)
+        ctx.eps = eps
+        return _rms_forward(x, w, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        grads = _recompute_grads(ctx, fused_rmsnorm_plain, (x, w), (ctx.eps,),
+                                 (g,))
+        return (*grads, None)
+
+
+def _wants_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+def fused_rmsnorm_rope(q_proj, k_proj, wq, wk, cos, sin,
+                       eps: float = 1e-6) -> Tuple[torch.Tensor, torch.Tensor]:
+    """RMSNorm + RoPE for the Q/K pair: (B, S, N*D) -> (B, S, N, D) each."""
+    if _wants_grad(q_proj, k_proj, wq, wk):
+        return FusedRmsNormRopeFunction.apply(q_proj, k_proj, wq, wk, cos, sin, eps)
+    return _rope_forward(q_proj, k_proj, wq, wk, cos, sin, eps)
+
+
+def fused_rmsnorm(x, w, eps: float = 1e-6) -> torch.Tensor:
+    """Single-pass RMSNorm of (B, S, Dm) rows; `ops.basic.rms_norm` semantics."""
+    if _wants_grad(x, w):
+        return FusedRmsNormFunction.apply(x, w, eps)
+    return _rms_forward(x, w, eps)

@@ -5,8 +5,9 @@ Counterpart of the T2V/VACE subset of
 umT5 prompt encode, VACE context (a Wan2.1 VAE encode plus the 64-channel
 mask), a flow-match Euler loop with two-pass (or merged) CFG over
 `wan_dit_forward` with VACE hints, optional TeaCache step skipping, and the
-VAE decode. Checkpoint loading and LoRA merging are not ported yet; models
-come from `from_jax_params` or from `from_configs` (random weights).
+VAE decode. `load_lora` merges a LoRA into the DiT or the VACE branch.
+Checkpoint loading is not ported yet; models come from `from_jax_params`
+or from `from_configs` (random weights).
 
 Runs on `cuda` unless constructed with `device="cpu"`. Each stage's wall
 time (synchronised with the card) is kept in `stage_times`; on the card,
@@ -23,6 +24,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..lora import merge_lora
 from ..models import wan_vae as V
 from ..models.t5 import T5Config, T5Encoder, init_t5_
 from ..models.wan_dit import (WanDiT, WanDiTConfig, head, init_weights_,
@@ -132,6 +134,17 @@ class WanVideoPipeline:
         pipe.vae = V.init_wan_vae_(vae.to_empty(device=dev), gen).eval()
         pipe.prompter = WanPrompter(tokenizer, text_len, t5)
         return pipe
+
+    def load_lora(self, target: str = "dit", path: Optional[str] = None,
+                  state_dict=None, alpha: float = 1.0):
+        """Merge a LoRA (a safetensors file or a state dict) into the `dit`
+        or `vace` weights, as the JAX pipeline's `load_lora` does."""
+        if target not in ("dit", "vace") or getattr(self, target) is None:
+            raise ValueError(f"no {target!r} model to merge a LoRA into")
+        if state_dict is None:
+            from ..safetensors_io import load_file
+            state_dict = load_file(path)
+        merge_lora(getattr(self, target), state_dict, alpha=alpha)
 
     @contextmanager
     def _stage(self, name: str):

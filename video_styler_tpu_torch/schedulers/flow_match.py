@@ -5,6 +5,8 @@ Wan pipeline drives:
   sigmas    = shift*s / (1 + (shift-1)*s)  over linspace(sigma_start, sigma_min)
   step      = x + v * (sigma_next - sigma)          (Euler)
   add_noise = (1-sigma)*x + sigma*eps
+With training=True, set_timesteps also builds the bell-shaped per-timestep
+loss weights of the 1000-entry training tables (`linear_timesteps_weights`).
 """
 from __future__ import annotations
 
@@ -28,7 +30,7 @@ class FlowMatchScheduler:
 
     def set_timesteps(self, num_inference_steps: int = 100,
                       denoising_strength: float = 1.0,
-                      shift: Optional[float] = None):
+                      shift: Optional[float] = None, training: bool = False):
         if shift is not None:
             self.shift = shift
         sigma_start = self.sigma_min + (self.sigma_max - self.sigma_min) * denoising_strength
@@ -41,6 +43,13 @@ class FlowMatchScheduler:
         sigmas = self.shift * sigmas / (1 + (self.shift - 1) * sigmas)
         self.sigmas = sigmas.astype(np.float32)
         self.timesteps = (sigmas * self.num_train_timesteps).astype(np.float32)
+        self.training = training
+        if training:
+            x = self.timesteps.astype(np.float64)
+            y = np.exp(-2 * ((x - num_inference_steps / 2) / num_inference_steps) ** 2)
+            y_shifted = y - y.min()
+            self.linear_timesteps_weights = (
+                y_shifted * (num_inference_steps / y_shifted.sum())).astype(np.float32)
 
     def _timestep_id(self, timestep) -> int:
         return int(np.argmin(np.abs(self.timesteps - float(np.asarray(timestep)))))
@@ -59,3 +68,9 @@ class FlowMatchScheduler:
     def add_noise(self, original_samples, noise, timestep):
         sigma = float(self.sigmas[self._timestep_id(timestep)])
         return (1 - sigma) * original_samples + sigma * noise
+
+    def training_target(self, sample, noise, timestep=None):
+        return noise - sample
+
+    def training_weight(self, timestep) -> float:
+        return float(self.linear_timesteps_weights[self._timestep_id(timestep)])
