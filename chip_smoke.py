@@ -3,18 +3,19 @@
 
     python3 chip_smoke.py                          # all phases, one card
     python3 chip_smoke.py --frames 73 --steps 1    # the full Ditto clip size
-    python3 chip_smoke.py --train-frames 73 --train-remat-vace
-                                                   # a LoRA step at 29,640 tokens
+    python3 chip_smoke.py --train-frames 73        # LoRA steps at 29,640 tokens
 
 Phases, each printing one JSON line (any failure raises and exits non-zero):
   device     nvidia-smi name and power limit, torch/CUDA versions, the
              kernel build time (every csrc/*.cu, one nvcc each, in parallel)
   kernel     K1 (flash attention, self and cross), K4 (RMSNorm+RoPE) and K5
              (RMSNorm), then K1 with its stats output and K3 (the flash
-             backward, dq and dkv kernels) held against their plain
-             PyTorch versions on the card
+             backward, dq and dkv kernels) through the autograd Function
+             that training uses, held against their plain PyTorch versions
+             on the card
              at the Ditto shapes of a 73-frame 480x832 edit (29,640 tokens)
-             and of this run's request (--frames, default 9: 4,680 tokens):
+             and of this run's requests (--frames and --train-frames,
+             default 9: 4,680 tokens):
              max abs/rel error against the stated tolerance, median kernel
              time over CUDA-event timed runs (L2 flushed before each), plain
              and library times, and the bound from the work and the card's
@@ -339,11 +340,28 @@ def time_sdpa_bwd(torch, q, k, v, g, reps: int = 5):
     return statistics.median(times)
 
 
+def split_bound(flops_dq: float, flops_dkv: float, bytes_dq: float,
+                bytes_dkv: float):
+    """The flash backward's bound, from the work of the function itself
+    (each input read once, each output written once), split between the dq
+    and dkv rows in proportion to their share of the binding resource, so
+    that the two rows sum to the function's bound."""
+    t, by = bound(flops_dq + flops_dkv, bytes_dq + bytes_dkv)
+    if by == "operations":
+        share = flops_dq / (flops_dq + flops_dkv)
+    else:
+        share = bytes_dq / (bytes_dq + bytes_dkv)
+    return (t * share, by), (t * (1.0 - share), by)
+
+
 def check_attention_training(torch, s, sk, tag, kind, mag=1.0, check_heads=None):
     """K1 with its stats output and K3 (dq and dkv kernels) at 40 heads of
-    128: q (1, s, 40, 128) scaled by `mag`, k/v (1, sk, 40, 128). The plain
-    check covers every row of the first `check_heads` heads (a head-sliced
-    view: for dK/dV every query row contributes), all heads when None."""
+    128, through `flash_attention` on tensors that require grad (the
+    autograd Function of the training path: K1 with stats forward, K3
+    backward): q (1, s, 40, 128) scaled by `mag`, k/v (1, sk, 40, 128). The
+    plain check covers every row of the first `check_heads` heads (a
+    head-sliced view: for dK/dV every query row contributes), all heads
+    when None."""
     import torch.nn.functional as F
     from video_styler_tpu_torch.ops import flash_attention as fa
 
@@ -361,7 +379,12 @@ def check_attention_training(torch, s, sk, tag, kind, mag=1.0, check_heads=None)
     label = f"{kind} S={s} Sk={sk} N={n} D={d} [{tag}]"
     rows = []
 
-    o, l2 = fa._flash_cuda(q, k, v, scale, with_stats=True)
+    qr, kr, vr = (t.detach().requires_grad_() for t in (q, k, v))
+    o = fa.flash_attention(qr, kr, vr, scale)
+    if not isinstance(o.grad_fn, fa.FlashAttentionFunction._backward_cls):
+        raise AssertionError(f"flash_attention under grad ran {o.grad_fn}")
+    l2 = o.grad_fn.saved_tensors[4]
+    o = o.detach()
     po, pl2 = fa.flash_attention_plain(q[:, :, hs], k[:, :, hs], v[:, :, hs],
                                        scale, return_stats=True)
     err_o, scale_o = max_err(torch, o[:, :, hs], po)
@@ -379,15 +402,17 @@ def check_attention_training(torch, s, sk, tag, kind, mag=1.0, check_heads=None)
         replaces="video_styler_tpu/ops/flash_attention.py:213",
         max_abs_err=err_o, max_rel_err=err_o / scale_o, tol=TOL_ULPS * scale_o,
         l2_max_abs_err=err_l2, l2_tol=tol_l2, checked_heads=heads,
-        ms=time_ms(torch, lambda: fa._flash_cuda(q, k, v, scale, with_stats=True), 10),
-        ms_without_stats=time_ms(torch, lambda: fa._flash_cuda(q, k, v, scale), 10),
+        ms=time_ms(torch, lambda: fa.flash_attention(qr, kr, vr, scale), 10),
+        ms_without_stats=time_ms(torch, lambda: fa.flash_attention(q, k, v, scale), 10),
         plain_ms=time_ms(torch, lambda: fa.flash_attention_plain(
             q, k, v, scale, return_stats=True), reps=3, warmup=1),
         bound_ms=b_ms, bound_by=b_by,
         library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(qt, kt, vt), 10),
         clocks=gpu_clocks()))
 
-    dq, dk, dv = fa.flash_attention_bwd(q, k, v, o, l2, g, scale)
+    out = fa.flash_attention(qr, kr, vr, scale)
+    dq, dk, dv = torch.autograd.grad(out, (qr, kr, vr), g)
+    del out, qr, kr, vr
     want = fa.flash_attention_bwd_plain(q[:, :, hs], k[:, :, hs], v[:, :, hs],
                                         o[:, :, hs], l2[:, hs].contiguous(),
                                         g[:, :, hs], scale)
@@ -400,12 +425,20 @@ def check_attention_training(torch, s, sk, tag, kind, mag=1.0, check_heads=None)
     plain_ms = time_ms(torch, lambda: fa.flash_attention_bwd_plain(
         q, k, v, o, l2, g, scale), reps=2, warmup=1)
     lib_ms = time_sdpa_bwd(torch, q, k, v, g)
-    fused_ms, _ = bound(10.0 * n * s * sk * d, 0.0)
+    # the function needs five products of 2*s*sk*d flop per head: S and dP
+    # (then P and dS), dV, dK (the dkv row) and dQ (the dq row); it reads q,
+    # o, dO, L2 (the dq row) and k, v, and writes dq (dq) and dk, dv (dkv)
+    work = 2.0 * n * s * sk * d
+    bounds = split_bound(work, 4 * work, 2.0 * n * d * 4 * s + 4.0 * n * s,
+                         2.0 * n * d * 4 * sk)
+    # the two-kernel design computes S and dP in both kernels and re-reads
+    # q, dO, k and v; delta goes through a scratch
     stats_bytes = 4.0 * n * s * 2                    # L2 and delta
-    for part, fn, flop_k, nbytes, outs in (
+    for (part, fn, flop_k, nbytes, outs), (b_ms, b_by) in zip((
             ("dq", launch.dq_kernel, 6, 2.0 * n * d * (4 * s + 2 * sk), ("dq",)),
-            ("dkv", launch.dkv_kernel, 8, 2.0 * n * d * (2 * s + 4 * sk), ("dk", "dv"))):
-        b_ms, b_by = bound(flop_k * n * s * sk * d, nbytes + stats_bytes)
+            ("dkv", launch.dkv_kernel, 8, 2.0 * n * d * (2 * s + 4 * sk), ("dk", "dv"))),
+            bounds):
+        two_ms, _ = bound(flop_k * n * s * sk * d, nbytes + stats_bytes)
         worst = max(outs, key=lambda o_: errs[o_][0] / errs[o_][1])
         rows.append(dict(
             name=f"K3 flash_attention_bwd {part} {label}", kernel=f"K3{part}",
@@ -419,7 +452,7 @@ def check_attention_training(torch, s, sk, tag, kind, mag=1.0, check_heads=None)
             # the plain version and SDPA's backward compute dq, dk and dv
             # together: the same number in both rows
             plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-            fused_one_kernel_bound_ms=fused_ms, library_ms=lib_ms))
+            two_kernel_bound_ms=two_ms, library_ms=lib_ms))
         rows[-1]["tflops"] = flop_k * n * s * sk * d / rows[-1]["ms"] / 1e9
         rows[-1]["clocks"] = gpu_clocks()
     for r in rows:
@@ -496,19 +529,18 @@ def check_train_reference(torch):
         raise AssertionError(f"LoRA steps on the card and the CPU disagree: {res}")
 
 
-def expected_train_launches(dit_cfg, vace_cfg, targets, steps: int,
-                            remat_vace: bool):
+def expected_train_launches(dit_cfg, vace_cfg, targets, steps: int):
     """Kernel launches of `steps` LoRA steps on the VACE branch, from the
     configuration. Trunk blocks up to the first VACE layer see no input that
-    needs a gradient: they run forward only, unrecorded. The others are
-    rematerialised (one more forward each) and differentiated, as is every
-    VACE block. Self-attention backward needs dq and dK/dV; the trunk's
+    needs a gradient: they run forward only, unrecorded. The others and
+    every VACE block are rematerialised (one more forward each) and
+    differentiated. Self-attention backward needs dq and dK/dV; the trunk's
     cross-attention keys come from the frozen text path, so only dq, while
     the VACE cross-attention's k/v carry the LoRA when it targets them."""
     n_trunk, n_vace = dit_cfg.num_layers, len(vace_cfg.vace_layers)
     trunk_bwd = n_trunk - 1 - vace_cfg.vace_layers[0]
     fwd = n_trunk + n_vace
-    recompute = trunk_bwd + (n_vace if remat_vace else 0)
+    recompute = trunk_bwd + n_vace
     cross_kv = bool({"blocks.cross_attn.k", "blocks.cross_attn.v"} & set(targets))
     per_step = {"K1": 2 * (fwd + recompute), "K4": fwd + recompute,
                 "K5": fwd + recompute, "K3dq": 2 * (trunk_bwd + n_vace),
@@ -516,7 +548,7 @@ def expected_train_launches(dit_cfg, vace_cfg, targets, steps: int,
     return {k: v * steps for k, v in per_step.items()}
 
 
-def run_train(torch, pipe, kernels, frames: int, remat_vace: bool, steps: int = 2):
+def run_train(torch, pipe, kernels, frames: int, steps: int = 2):
     """The Ditto LoRA recipe at 14B width on the e2e phase's pipeline."""
     from video_styler_tpu_torch.pipelines.wan_video import _preprocess_images
     from video_styler_tpu_torch.trainers.lora_train import (
@@ -546,7 +578,7 @@ def run_train(torch, pipe, kernels, frames: int, remat_vace: bool, steps: int = 
     apply_lora(pipe.vace, lora)
     params = lora_parameters(lora)
     step = make_train_step(pipe.dit, adamw(params, 1e-4), training_scheduler(),
-                           vace=pipe.vace, remat=True, remat_vace=remat_vace)
+                           vace=pipe.vace, remat=True)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for kern in kernels.values():
@@ -560,13 +592,12 @@ def run_train(torch, pipe, kernels, frames: int, remat_vace: bool, steps: int = 
         losses.append(float(loss))
     launches = {name: kern.launches for name, kern in kernels.items()}
     expected = expected_train_launches(pipe.dit.cfg, pipe.vace.cfg, targets,
-                                       steps, remat_vace)
+                                       steps)
     res = dict(phase="train", dit_layers=pipe.dit.cfg.num_layers,
                vace_layers=list(pipe.vace.cfg.vace_layers), frames=f,
                tokens=int(math.prod(token_grid(f))), latents=list(latents.shape),
                lora_rank=128, lora_targets=list(targets),
-               lora_params=sum(p.numel() for p in params), remat="trunk" + (
-                   " and VACE" if remat_vace else ""),
+               lora_params=sum(p.numel() for p in params), remat="trunk and VACE",
                text_encoder="moved to the CPU after the prompt encode",
                preprocess_s=prep_s, losses=losses, step_s=step_s,
                max_memory_allocated_gib=torch.cuda.max_memory_allocated() / 2**30,
@@ -627,8 +658,6 @@ def main(argv=None):
                     help="frames (4k+1) of the 480x832 end-to-end request")
     ap.add_argument("--train-frames", type=int, default=RUN_FRAMES,
                     help="frames (4k+1) of the 480x832 clip of the LoRA steps")
-    ap.add_argument("--train-remat-vace", action="store_true",
-                    help="also rematerialise the VACE blocks in the LoRA steps")
     args = ap.parse_args(argv)
 
     import torch
@@ -672,8 +701,9 @@ def main(argv=None):
     train_rows += check_attention_training(torch, s_ditto, TEXT_LEN,
                                            f"ditto-{DITTO_FRAMES}f", "cross")
     if args.train_frames != DITTO_FRAMES:
-        train_rows += check_attention_training(torch, s_train, s_train,
-                                               f"train-{args.train_frames}f", "self")
+        for kind, sk in (("self", s_train), ("cross", TEXT_LEN)):
+            train_rows += check_attention_training(torch, s_train, sk,
+                                                   f"train-{args.train_frames}f", kind)
     # q x8: logits of std ~11 (RMS-normed q/k give ~1.4). The capped
     # softmax holds up to a largest logit of ~96 + 127 bits; q x24 over
     # 4,680^2 logits per head passes that (both the kernel and its plain
@@ -686,8 +716,7 @@ def main(argv=None):
     check_reference(torch)
     check_train_reference(torch)
     pipe, launches = run_e2e(torch, kernels, args.steps, args.frames)
-    train_launches = run_train(torch, pipe, kernels, args.train_frames,
-                               args.train_remat_vace)
+    train_launches = run_train(torch, pipe, kernels, args.train_frames)
 
     keys = ("name", "route", "source", "replaces", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")

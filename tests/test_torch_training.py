@@ -334,10 +334,55 @@ def test_train_step_matches_jax_value_and_grad():
             _close_scaled(ab[k], want_new[name][k].detach(), 1e-4)
 
 
+@pytest.mark.parametrize("act_dtype", [torch.float32, torch.bfloat16])
+def test_step_against_bf16_weight_recipe(act_dtype):
+    """The recipe's precision: bf16 weights, and examples/train.py:281 casts
+    latents, context and vace_context to fp32, so the JAX step runs fp32
+    activations (its linear casts each weight to x.dtype). The port's
+    kernels take bf16 only, so on the card it runs bf16 activations. Both
+    cases are held against the JAX recipe step: fp32 activations differ by
+    about one bf16 ULP of the output (rounding points of the bf16 weights);
+    bf16 activations add a rounding per op. Measured here (printed with
+    -s): loss 3.4e-4 rel for both, LoRA gradients 0.54% (fp32) and 0.83%
+    (bf16) rel L2; the bounds hold that divergence, not parity."""
+    (jcfg, jp, jvcfg, jvp), (dit, vace) = _models(jnp.bfloat16)
+    latents, context, vctx = _inputs()
+    _, tables = _jax_tables()
+    jlora = _jax_lora(jvp)
+    rng = jax.random.PRNGKey(11)
+
+    def loss_fn(lora):
+        return j_flow_match_loss(jp, jcfg, jnp.asarray(latents), jnp.asarray(context),
+                                 rng, *tables, min_tid=0, max_tid=1000,
+                                 vace_params=JL.apply_lora(jvp, lora),
+                                 vace_cfg=jvcfg, vace_context=jnp.asarray(vctx),
+                                 remat=True)
+
+    jloss, jgrads = jax.value_and_grad(loss_fn)(jlora)
+    tlora = from_jax_lora(_np_tree(jlora))
+    TL.apply_lora(vace, tlora)
+    sched = training_scheduler()
+    tid, noise = _jax_draws(rng, latents.shape)
+    loss = flow_match_loss(dit, *(torch.from_numpy(a).to(act_dtype)
+                                  for a in (latents, context)),
+                           sched.sigmas, sched.timesteps,
+                           sched.linear_timesteps_weights, tid=tid,
+                           noise=torch.from_numpy(noise), vace=vace,
+                           vace_context=torch.from_numpy(vctx).to(act_dtype))
+    loss.backward()
+    want = from_jax_lora(_np_tree(jgrads))
+    got = torch.cat([tlora[n][k].grad.reshape(-1) for n in tlora for k in ("A", "B")])
+    ref = torch.cat([want[n][k].reshape(-1) for n in tlora for k in ("A", "B")])
+    loss_rel = abs(loss.item() - float(jloss)) / float(jloss)
+    grads_rel = ((got - ref).norm() / ref.norm()).item()
+    print(f"{act_dtype}: loss rel {loss_rel:.3g}, LoRA grads rel L2 {grads_rel:.3g}")
+    assert loss_rel <= 1e-3 and grads_rel <= 2e-2, (loss_rel, grads_rel)
+
+
 def test_remat_changes_no_gradient():
     """Trunk and VACE rematerialisation recompute the same values."""
     grads = []
-    for remat, remat_vace in ((False, False), (True, True)):
+    for remat in (False, True):
         (_, _, _, jvp), (dit, vace) = _models()
         tlora = from_jax_lora(_np_tree(_jax_lora(jvp)))
         TL.apply_lora(vace, tlora)
@@ -346,8 +391,7 @@ def test_remat_changes_no_gradient():
         loss = flow_match_loss(dit, latents, context, sched.sigmas, sched.timesteps,
                                sched.linear_timesteps_weights, tid=500,
                                noise=torch.from_numpy(_rand(60, latents.shape)),
-                               vace=vace, vace_context=vctx, remat=remat,
-                               remat_vace=remat_vace)
+                               vace=vace, vace_context=vctx, remat=remat)
         grads.append(torch.autograd.grad(loss, TL.lora_parameters(tlora)))
     for a, b in zip(*grads):
         assert torch.equal(a, b)

@@ -12,9 +12,10 @@ The single-GPU port has no mesh: the sharding constraints and the
 mesh-divisibility padding of the JAX package are gone, so every token is
 real and no key is masked.
 
-`remat=True` (training) rematerialises each trunk block in the backward,
-as `jax.checkpoint` does in the JAX package: the forward keeps only the
-block's input, the backward runs the block again.
+`remat=True` (training) rematerialises each trunk block and each VACE
+block in the backward, as `jax.checkpoint` does for the trunk in the JAX
+package: the forward keeps only the block's input, the backward runs the
+block again.
 """
 from __future__ import annotations
 
@@ -301,7 +302,7 @@ def head(model: WanDiT, x, t):
 def wan_dit_forward_with_residual(model: WanDiT, x, timestep, context,
                                   rope_indices=None, vace=None,
                                   vace_context=None, vace_scale: float = 1.0,
-                                  remat: bool = False, remat_vace: bool = False):
+                                  remat: bool = False):
     """`wan_dit_forward`, also returning the block stack's residual
     (tokens out - tokens in, (B, S, dim)) that TeaCache replays."""
     cfg = model.cfg
@@ -314,7 +315,7 @@ def wan_dit_forward_with_residual(model: WanDiT, x, timestep, context,
     if vace is not None and vace_context is not None:
         from .wan_vace import vace_forward
         hints = vace_forward(vace, tokens_in, vace_context, context, t_mod,
-                             cos, sin, remat=remat_vace)
+                             cos, sin, remat=remat)
     tokens = run_blocks(model.blocks, tokens_in, context, t_mod, cos, sin, cfg,
                         vace_hints=hints,
                         vace_layers=None if hints is None else vace.cfg.vace_layers,
@@ -326,15 +327,16 @@ def wan_dit_forward_with_residual(model: WanDiT, x, timestep, context,
 
 def wan_dit_forward(model: WanDiT, x, timestep, context, rope_indices=None,
                     vace=None, vace_context=None, vace_scale: float = 1.0,
-                    remat: bool = False, remat_vace: bool = False):
+                    remat: bool = False):
     """Full DiT forward, optionally with the VACE branch.
 
     x: (B, C, F, H, W) latents; timestep: (B,); context: (B, L, text_dim);
     vace: a `WanVace`, vace_context: (B, vace_in_dim, F, H, W).
-    remat: recompute each trunk block in the backward (the JAX package's
-    `remat`); remat_vace: the VACE blocks too, which the JAX package does not
-    do (`models/wan_vace.py:85-92`); it changes no value and trades a
-    second VACE forward for the memory of its activations (PERF.md)."""
+    remat: recompute each trunk block and each VACE block in the backward.
+    The JAX package's `remat` covers the trunk only
+    (`models/wan_vace.py:85-92`); the VACE blocks are recomputed too because
+    their activations at 29,640 tokens do not fit one 80 GB card beside the
+    14B weights. It changes no value."""
     return wan_dit_forward_with_residual(model, x, timestep, context,
                                          rope_indices, vace, vace_context,
-                                         vace_scale, remat, remat_vace)[0]
+                                         vace_scale, remat)[0]

@@ -41,8 +41,8 @@ def flow_match_loss(dit: WanDiT, latents, context, sigmas: np.ndarray,
                     generator: Optional[torch.Generator] = None,
                     tid: Optional[int] = None, noise: Optional[torch.Tensor] = None,
                     min_tid: int = 0, max_tid: Optional[int] = None,
-                    vace=None, vace_context=None, remat: bool = True,
-                    remat_vace: bool = False) -> torch.Tensor:
+                    vace=None, vace_context=None,
+                    remat: bool = True) -> torch.Tensor:
     """One loss evaluation (0-dim fp32 tensor).
 
     latents: (B, C, F, H, W) clean latents; sigmas/timesteps/weights: the
@@ -60,8 +60,7 @@ def flow_match_loss(dit: WanDiT, latents, context, sigmas: np.ndarray,
     noisy = ((1 - sigma) * lat_f + sigma * noise).to(latents.dtype)
     timestep = torch.tensor([timesteps[tid]], dtype=torch.float32, device=dev)
     pred = wan_dit_forward(dit, noisy, timestep, context, vace=vace,
-                           vace_context=vace_context, remat=remat,
-                           remat_vace=remat_vace)
+                           vace_context=vace_context, remat=remat)
     loss = torch.mean(torch.square(pred.float() - (noise - lat_f)))
     return loss * torch.tensor(weights[tid], dtype=torch.float32, device=dev)
 
@@ -69,7 +68,7 @@ def flow_match_loss(dit: WanDiT, latents, context, sigmas: np.ndarray,
 def make_train_step(dit: WanDiT, optimizer: torch.optim.Optimizer,
                     scheduler: FlowMatchScheduler, vace=None,
                     min_tid: int = 0, max_tid: Optional[int] = None,
-                    remat: bool = True, remat_vace: bool = False) -> Callable:
+                    remat: bool = True) -> Callable:
     """(latents, context, vace_context=None, generator=None, tid=None,
     noise=None) -> loss: one loss, backward and optimizer step over the
     optimizer's (LoRA) parameters, with the tables of a training
@@ -83,8 +82,7 @@ def make_train_step(dit: WanDiT, optimizer: torch.optim.Optimizer,
         loss = flow_match_loss(dit, latents, context, *tables,
                                generator=generator, tid=tid, noise=noise,
                                min_tid=min_tid, max_tid=max_tid, vace=vace,
-                               vace_context=vace_context, remat=remat,
-                               remat_vace=remat_vace)
+                               vace_context=vace_context, remat=remat)
         loss.backward()
         optimizer.step()
         return loss.detach()
