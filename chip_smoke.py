@@ -11,7 +11,10 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
   kernel     K1 (flash attention, self and cross), K4 (RMSNorm+RoPE) and K5
              (RMSNorm), then K1 with its stats output and K3 (the flash
              backward, dq and dkv kernels) through the autograd Function
-             that training uses, held against their plain PyTorch versions
+             that training uses, then K2 and K8 (online softmax, single and
+             dual; K2 also with stats, on its 3-D entry, under a q x24
+             stress and feeding K3), K6 (int8 Q K^T, capped and online) and
+             K7 (its 3-D twin), held against their plain PyTorch versions
              on the card
              at the Ditto shapes of a 73-frame 480x832 edit (29,640 tokens)
              and of this run's requests (--frames and --train-frames,
@@ -22,6 +25,9 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
              data-sheet rates
   reference  the smoke-size pipeline on the card against the same weights
              on the CPU (plain versions), latents and decoded frames
+  reference_quant  the same after quantize(): int8 linears with int8
+             attention, then fp8, int4 and group-wise int4 linears, the card
+             against the CPU on the same quantised weights
   train_reference  2 LoRA steps of the smoke-size model on the card and on
              the CPU from the same weights, LoRA, inputs, tid and noise:
              losses, gradients and updated LoRA
@@ -36,12 +42,26 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
              times, peak memory, LoRA size, each kernel's launches against
              the count derived from the configuration; then one more step
              under torch.profiler
+  e2e_online one step of the same edit on the online-softmax route
+             (FLASH_CAPPED=0: K2), then one with FLASH_DUAL=1 (K8)
+  train_precision  one LoRA loss and gradient on the train clip with bf16
+             activations (the kernels) and with the recipe's fp32
+             activations (bf16 weights, the plain versions): how far the
+             loss and the LoRA gradients move, and the fp32 run's peak memory
+  e2e_quant  the trained LoRA merged, then quantize("int8",
+             quantize_attention=True) and the same edit again: int8 GEMMs
+             and K6 for every attention; profiled like e2e; then one step
+             with FLASH_CAPPED=0 (K6's online body)
+  entry_3d   the (BH, S, D) entry points driven as a caller would:
+             flash_attention_3d without and with grad (K2, K2 + K3) and
+             flash_attention_int8_3d (K7)
 Then the `kernels` summary line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Imports nothing of JAX or of the JAX package.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
 import json
 import math
@@ -55,6 +75,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 
 # H100 SXM data-sheet peaks (dense): bf16 tensor cores and HBM3
 PEAK_BF16_FLOPS = 989e12
+PEAK_INT8_OPS = 1979e12
 PEAK_BYTES = 3.35e12
 
 # DiT token grids (latent frames, H/16, W/16) after the (1, 2, 2) patchify
@@ -257,8 +278,72 @@ def check_reference(torch):
         raise AssertionError(f"card vs CPU disagree: {res}")
 
 
-def run_e2e(torch, kernels, steps: int, frames: int):
-    import numpy as np
+def check_reference_quant(torch):
+    """The smoke-size pipeline quantised on the CPU, then the same quantised
+    weights on the card: int8 linears with int8 attention (K6), then fp8,
+    int4 and group-wise int4 linears alone. The group is 32 here: the smoke
+    VACE patch embedding has 288 inputs, which 128 does not divide.
+
+    Two checks per mode. One quantised linear (the first block's fc1) on the
+    same input on both devices: the library GEMM multiplies the same
+    integers (or e4m3 values), so it holds to the kernels' two bf16 ULPs.
+    Then the pipeline's latents, card against CPU, within 5% as `reference`,
+    or within 1.5x the mode's own quantisation noise (the CPU's quantised
+    latents against its unquantised ones) where that is larger: a coarse
+    activation grid (e4m3 keeps 3 mantissa bits, steps of 6-12%) turns a
+    bf16-ULP difference between the devices into a flip to a neighbouring
+    value, so two runs of such a mode differ by about its own noise."""
+    from video_styler_tpu_torch.infer_ditto import build_smoke_pipeline, smoke_frames
+    from video_styler_tpu_torch.ops.attention import set_quantized_attention
+    from video_styler_tpu_torch.ops.quant import QuantLinear, quantized_fraction
+
+    kw = dict(prompt="a watercolor city at dusk", vace_video=smoke_frames(9, 32, 32),
+              num_frames=9, height=32, width=32, seed=42, cfg_scale=5.0,
+              num_inference_steps=2, tiled=True, return_latents=True)
+    lat_ref = build_smoke_pipeline(device="cpu", seed=0)(**kw).float()
+    x = torch.randn((1, 12, 256), generator=torch.Generator().manual_seed(7)
+                    ).to(torch.bfloat16)
+    res = dict(phase="reference_quant", latents_rel_l2={}, latents_tol={},
+               quantisation_noise_rel_l2={}, linear_max_abs_err={}, linear_tol={},
+               quantized_fraction={})
+    for mode, attn in (("int8", True), ("fp8", False), ("int4", False), ("int4_g32", False)):
+        cpu = build_smoke_pipeline(device="cpu", seed=0)
+        try:
+            cpu.quantize(mode, quantize_attention=attn)
+            gpu = copy.copy(cpu)
+            gpu.device = torch.device("cuda")
+            gpu.dit, gpu.vace, gpu.vae = (copy.deepcopy(m).to("cuda")
+                                          for m in (cpu.dit, cpu.vace, cpu.vae))
+            gpu.prompter = copy.copy(cpu.prompter)
+            gpu.prompter.text_encoder = copy.deepcopy(cpu.prompter.text_encoder).to("cuda")
+            lat_c = cpu(**kw).float()
+            lat_g = gpu(**kw).float().cpu()
+        finally:
+            set_quantized_attention(False)
+        name = mode + (" + int8 attention" if attn else "")
+        layer_c, layer_g = cpu.dit.blocks[0].ffn.fc1, gpu.dit.blocks[0].ffn.fc1
+        if not (isinstance(layer_g, QuantLinear) and layer_g.mode == mode):
+            raise AssertionError(f"{name}: fc1 is {layer_g}")
+        with torch.no_grad():
+            err, scale = max_err(torch, layer_g(x.cuda()).cpu(), layer_c(x))
+        noise = ((lat_c - lat_ref).norm() / lat_ref.norm()).item()
+        res["linear_max_abs_err"][name] = err
+        res["linear_tol"][name] = TOL_ULPS * scale
+        res["quantisation_noise_rel_l2"][name] = noise
+        res["latents_rel_l2"][name] = ((lat_g - lat_c).norm() / lat_c.norm()).item()
+        res["latents_tol"][name] = max(5e-2, 1.5 * noise)
+        res["quantized_fraction"][name] = quantized_fraction(gpu.dit)
+    emit(res)
+    bad = [k for k in res["latents_rel_l2"]
+           if not (res["latents_rel_l2"][k] <= res["latents_tol"][k]
+                   and res["linear_max_abs_err"][k] <= res["linear_tol"][k])]
+    if bad:
+        raise AssertionError(f"quantised pipeline, card vs CPU: {bad}")
+
+
+def build_pipeline(torch):
+    """The 14B-width pipeline (random bf16 weights from seed 0) and the
+    seconds it took to make."""
     from video_styler_tpu_torch.models.t5 import UMT5_XXL
     from video_styler_tpu_torch.models.wan_dit import WAN_T2V_14B
     from video_styler_tpu_torch.models.wan_vace import VACE_14B
@@ -266,55 +351,113 @@ def run_e2e(torch, kernels, steps: int, frames: int):
     from video_styler_tpu_torch.pipelines.wan_video import WanVideoPipeline
     from video_styler_tpu_torch.prompters.wan_prompter import StubTokenizer
 
-    dit_cfg, vace_cfg = WAN_T2V_14B, VACE_14B
     t0 = time.perf_counter()
-    pipe = WanVideoPipeline.from_configs(dit_cfg, vace_cfg, UMT5_XXL, WAN21_VAE,
+    pipe = WanVideoPipeline.from_configs(WAN_T2V_14B, VACE_14B, UMT5_XXL, WAN21_VAE,
                                          StubTokenizer(TEXT_LEN), TEXT_LEN,
                                          seed=0, device="cuda")
     torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
+    return pipe, time.perf_counter() - t0
 
+
+def run_edit(torch, pipe, kernels, steps: int, frames: int, phase: str,
+             attention_kernels: dict, profile: bool = True, **extra):
+    """One VACE edit of a 480x832 clip on `pipe`, with every launch count set
+    to 0 just before and read just after. `attention_kernels` names the
+    kernel(s) that the run's attention calls must go through and their share
+    of them (two attention calls per block and forward); K4 and K5 run once
+    per block and forward; every other kernel must stay at 0."""
+    import numpy as np
+    dit_cfg, vace_cfg = pipe.dit.cfg, pipe.vace.cfg
     f, h, w = frames, 480, 832
-    frames_in = frames_480x832(f)
-
     request = dict(prompt="turn the scene into a watercolor painting",
-                   negative_prompt="", vace_video=frames_in, num_frames=f,
+                   negative_prompt="", vace_video=frames_480x832(f), num_frames=f,
                    height=h, width=w, seed=42, cfg_scale=5.0,
                    num_inference_steps=steps, tiled=True)
+    torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for kern in kernels.values():
         kern.launches = 0
     t0 = time.perf_counter()
-    frames = pipe(**request)
+    out = pipe(**request)
     total_s = time.perf_counter() - t0
     launches = {name: kern.launches for name, kern in kernels.items()}
 
     n_layers = dit_cfg.num_layers + len(vace_cfg.vace_layers)
     forwards = 2 * steps
-    expected = {"K1": 2 * n_layers * forwards, "K4": n_layers * forwards,
-                "K5": n_layers * forwards}
-    res = dict(phase="e2e", dit_layers=dit_cfg.num_layers,
+    expected = {"K4": n_layers * forwards, "K5": n_layers * forwards}
+    expected.update({name: int(share * 2 * n_layers * forwards)
+                     for name, share in attention_kernels.items()})
+    res = dict(phase=phase, dit_layers=dit_cfg.num_layers,
                vace_layers=list(vace_cfg.vace_layers), frames=f,
                tokens=int(np.prod(token_grid(f))),
-               steps=steps, cfg="two-pass 5.0", init_s=init_s, total_s=total_s,
+               steps=steps, cfg="two-pass 5.0", total_s=total_s,
                stages=dict(pipe.stage_times),
                stage_peak_gib={k: v / 2**30 for k, v in pipe.stage_peak_bytes},
                max_memory_allocated_gib=torch.cuda.max_memory_allocated() / 2**30,
-               output_shape=list(frames.shape), output_dtype=str(frames.dtype),
+               output_shape=list(out.shape), output_dtype=str(out.dtype),
                # the pipeline raises on a non-finite decoded value
                # (WanVideoPipeline.vae_output_to_video)
                decoded_video_finite=True,
-               launches=launches, expected_launches=expected)
+               launches=launches, expected_launches=expected, **extra)
     emit(res)
-    if frames.shape != (f, h, w, 3):
-        raise AssertionError(f"output shape {frames.shape}")
+    if out.shape != (f, h, w, 3):
+        raise AssertionError(f"output shape {out.shape}")
     for name, count in launches.items():
         if count != expected.get(name, 0) or (name in expected and count == 0):
-            raise AssertionError(f"{name}: {count} launches in the run, "
+            raise AssertionError(f"{name}: {count} launches in the {phase} run, "
                                  f"expected {expected.get(name, 0)}")
-    emit({"phase": "e2e_profile", **profile_request(torch, lambda: pipe(**request),
-                                                     total_s)})
-    return pipe, launches
+    if profile:
+        emit({"phase": f"{phase}_profile",
+              **profile_request(torch, lambda: pipe(**request), total_s)})
+    return launches
+
+
+def run_e2e_online(torch, pipe, kernels, frames: int):
+    """One step of the edit on the online-softmax route, then one with the
+    dual kernel, switched the way a user switches them: the environment."""
+    launches = {}
+    for phase, env, name in (("e2e_online", {"FLASH_CAPPED": "0"}, "K2"),
+                             ("e2e_online_dual", {"FLASH_DUAL": "1"}, "K8")):
+        os.environ.update(env)
+        try:
+            launches[name] = run_edit(torch, pipe, kernels, 1, frames, phase, {name: 1.0},
+                                      profile=False, environment=env)[name]
+        finally:
+            for key in env:
+                del os.environ[key]
+    return launches
+
+
+def run_e2e_quant(torch, pipe, kernels, steps: int, frames: int):
+    """The edit after quantize("int8", quantize_attention=True). The LoRA of
+    the train phase is merged first (quantize must run after LoRA merging),
+    and the text encoder, parked on the CPU for training, comes back."""
+    from torch.nn.utils import parametrize
+    from video_styler_tpu_torch.ops.attention import set_quantized_attention
+    from video_styler_tpu_torch.ops.quant import QuantLinear, quantized_fraction
+
+    for m in pipe.vace.modules():
+        if parametrize.is_parametrized(m, "weight"):
+            with torch.no_grad():
+                parametrize.remove_parametrizations(m, "weight", leave_parametrized=True)
+    pipe.prompter.text_encoder.to("cuda")
+    t0 = time.perf_counter()
+    pipe.quantize("int8", quantize_attention=True)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    quantize_s = time.perf_counter() - t0
+    try:
+        return run_edit(
+            torch, pipe, kernels, steps, frames, "e2e_quant", {"K6": 1.0},
+            quantize="int8 linears + int8 attention", quantize_s=quantize_s,
+            quantized_fraction=dict(dit=quantized_fraction(pipe.dit),
+                                    vace=quantized_fraction(pipe.vace)),
+            quant_linears=sum(isinstance(m, QuantLinear) for m in
+                              list(pipe.dit.modules()) + list(pipe.vace.modules())),
+            weights_gib=sum(t.numel() * t.element_size() for m in (pipe.dit, pipe.vace)
+                            for t in list(m.parameters()) + list(m.buffers())) / 2**30)
+    finally:
+        set_quantized_attention(False)
 
 
 def time_sdpa_bwd(torch, q, k, v, g, reps: int = 5):
@@ -465,6 +608,226 @@ def check_attention_training(torch, s, sk, tag, kind, mag=1.0, check_heads=None)
     return rows
 
 
+def edge_rows(torch, s: int, count: int = 1024):
+    """The first and last `count` query rows: full tiles and the ragged tail."""
+    return torch.cat([torch.arange(0, min(count, s)),
+                      torch.arange(max(0, s - count), s)]).unique().cuda()
+
+
+def kernel_row(torch, *, name, kernel, source, replaces, got, want, run, plain,
+               library, flops, nbytes, int8_ops=0.0, reps=10, **extra):
+    """One `kernel` row: error against the plain version on the rows
+    compared, median times, and the bound from this call's work (bf16 flops
+    at the bf16 peak plus int8 operations at the int8 peak, against bytes)."""
+    err, scale = max_err(torch, got, want)
+    t_ops = (flops / PEAK_BF16_FLOPS + int8_ops / PEAK_INT8_OPS) * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    ms = time_ms(torch, run, reps=reps)
+    return dict(name=name, kernel=kernel, route="cuda", source=source,
+                replaces=replaces, max_abs_err=err, max_rel_err=err / scale,
+                tol=TOL_ULPS * scale, ms=ms,
+                plain_ms=time_ms(torch, plain, reps=2, warmup=1),
+                bound_ms=max(t_ops, t_bytes),
+                bound_by="operations" if t_ops >= t_bytes else "bytes",
+                library_ms=None if library is None else time_ms(torch, library, reps=10),
+                tflops=(flops + int8_ops) / ms / 1e9, clocks=gpu_clocks(), **extra)
+
+
+ONLINE_SRC = "video_styler_tpu_torch/csrc/flash_attention_online.cu"
+INT8_SRC = "video_styler_tpu_torch/csrc/flash_attention_int8.cu"
+JAX_FA = "video_styler_tpu/ops/flash_attention.py"
+
+
+def check_online_kernels(torch, s, tag, cross: bool, mag: float = 1.0):
+    """K2 (with and without stats, and on its 3-D entry) and K8 at 40 heads
+    of 128 on `s` query tokens: self-attention, and with `cross` K2 against
+    the 512 text tokens too. `mag` scales q (the magnitude stress runs K2's
+    self row alone)."""
+    import torch.nn.functional as F
+    from video_styler_tpu_torch.ops import flash_attention as fa
+
+    n, d = 40, 128
+    scale = d ** -0.5
+    gen = torch.Generator("cuda").manual_seed(2)
+
+    def randn(*shape, m=1.0):
+        return (torch.randn(shape, generator=gen, device="cuda") * m).to(torch.bfloat16)
+
+    q = randn(1, s, n, d, m=mag)
+    sub = edge_rows(torch, s)
+    rows = []
+    for kind, sk in (("self", s),) + ((("cross", TEXT_LEN),) if cross else ()):
+        k, v = randn(1, sk, n, d), randn(1, sk, n, d)
+        label = f"{kind}{'' if mag == 1.0 else f' q x{mag:g} (magnitude stress)'} " \
+                f"S={s} Sk={sk} N={n} D={d} [{tag}]"
+        flops = 4.0 * n * s * sk * d
+        nbytes = 2.0 * n * d * (2 * s + 2 * sk)
+        qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+        sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt)
+        want, want_l2 = fa.flash_attention_online_plain(q[:, sub], k, v, scale,
+                                                        return_stats=True)
+        common = dict(source=ONLINE_SRC, library=sdpa, flops=flops, checked_rows=int(sub.numel()))
+        rows.append(kernel_row(
+            torch, name=f"K2 flash_attention online {label}", kernel="K2",
+            replaces=f"{JAX_FA}:150", got=fa.flash_attention(q, k, v, scale, capped=False)[:, sub],
+            want=want, run=lambda: fa.flash_attention(q, k, v, scale, capped=False),
+            plain=lambda: fa.flash_attention_online_plain(q, k, v, scale),
+            nbytes=nbytes, **common))
+        if mag != 1.0:
+            continue
+        out, l2 = fa._flash_forward(q, k, v, scale, with_stats=True, capped=False)
+        err_l2 = (l2[:, :, sub] - want_l2).abs().max().item()
+        tol_l2 = 1e-4 * max(1.0, want_l2.abs().max().item())
+        rows.append(kernel_row(
+            torch, name=f"K2 flash_attention online with stats {label}", kernel="K2",
+            replaces=f"{JAX_FA}:150", got=out[:, sub], want=want,
+            run=lambda: fa._flash_forward(q, k, v, scale, with_stats=True, capped=False),
+            plain=lambda: fa.flash_attention_online_plain(q, k, v, scale, return_stats=True),
+            nbytes=nbytes + 4.0 * n * s, l2_max_abs_err=err_l2, l2_tol=tol_l2, **common))
+        if not err_l2 <= tol_l2:
+            raise AssertionError(f"K2 L2 {label}: {err_l2} > {tol_l2}")
+        del out, l2
+        if kind == "self":
+            want8 = fa.flash_attention_online_plain(q[:, sub], k, v, scale, dual=True)
+            rows.append(kernel_row(
+                torch, name=f"K8 flash_attention online dual {label}", kernel="K8",
+                replaces=f"{JAX_FA}:288",
+                got=fa.flash_attention(q, k, v, scale, capped=False, dual=True)[:, sub],
+                want=want8,
+                run=lambda: fa.flash_attention(q, k, v, scale, capped=False, dual=True),
+                plain=lambda: fa.flash_attention_online_plain(q, k, v, scale, dual=True),
+                nbytes=nbytes, **common))
+            del want8
+        del k, v, want, want_l2
+    if mag == 1.0 and cross:
+        # the 3-D entry on (heads, S, D): the same memory as a batch of
+        # one-head problems; q is scaled beforehand, the kernel takes it as is
+        q3, k3, v3 = randn(n, s, d), randn(n, s, d), randn(n, s, d)
+        want = fa.flash_attention_online_plain(q3[:, sub, None], k3[:, :, None],
+                                               v3[:, :, None], scale)[:, :, 0]
+        rows.append(kernel_row(
+            torch, name=f"K2 flash_attention_3d BH={n} S={s} D={d} [{tag}]", kernel="K2",
+            source=ONLINE_SRC, replaces=f"{JAX_FA}:54",
+            got=fa.flash_attention_3d(q3, k3, v3, scale)[:, sub], want=want,
+            run=lambda: fa.flash_attention_3d(q3, k3, v3, scale),
+            plain=lambda: fa.flash_attention_online_plain(
+                q3[:, :, None], k3[:, :, None], v3[:, :, None], scale),
+            library=lambda: F.scaled_dot_product_attention(q3[None], k3[None], v3[None]),
+            flops=4.0 * n * s * s * d, nbytes=2.0 * n * d * 4 * s,
+            checked_rows=int(sub.numel())))
+    for r in rows:
+        emit({"phase": "kernel", **r})
+        if not r["max_abs_err"] <= r["tol"]:
+            raise AssertionError(f"{r['name']}: max abs err {r['max_abs_err']} "
+                                 f"> tolerance {r['tol']}")
+    return rows
+
+
+def check_online_training(torch, s, tag):
+    """K2 with stats feeding K3 under autograd (`flash_attention(...,
+    capped=False)` on tensors that require grad) against the plain pair."""
+    from video_styler_tpu_torch.ops import flash_attention as fa
+    n, d = 40, 128
+    scale = d ** -0.5
+    gen = torch.Generator("cuda").manual_seed(3)
+    q, k, v, g = ((torch.randn((1, s, n, d), generator=gen, device="cuda")
+                   ).to(torch.bfloat16) for _ in range(4))
+    ins = [t.detach().requires_grad_() for t in (q, k, v)]
+    before = (fa.ONLINE_KERNEL.launches, fa.BWD_DQ_KERNEL.launches,
+              fa.BWD_DKV_KERNEL.launches, fa.KERNEL.launches)
+    out = fa.flash_attention(*ins, scale, capped=False)
+    l2 = out.grad_fn.saved_tensors[4]
+    got = torch.autograd.grad(out, ins, g)
+    after = (fa.ONLINE_KERNEL.launches, fa.BWD_DQ_KERNEL.launches,
+             fa.BWD_DKV_KERNEL.launches, fa.KERNEL.launches)
+    po, pl2 = fa.flash_attention_online_plain(q, k, v, scale, return_stats=True)
+    want = fa.flash_attention_bwd_plain(q, k, v, out.detach(), l2, g, scale)
+    errs = {}
+    for name, t, w in zip(("o", "dq", "dk", "dv"), (out,) + got, (po,) + want):
+        err, sc = max_err(torch, t, w)
+        errs[name] = dict(max_abs_err=err, tol=TOL_ULPS * sc)
+    err_l2 = (l2 - pl2).abs().max().item()
+    res = dict(phase="kernel", name=f"K2 with stats -> K3 under autograd S={s} N={n} "
+               f"D={d} [{tag}]", kernel="K2+K3", errors=errs, l2_max_abs_err=err_l2,
+               l2_tol=1e-4 * max(1.0, pl2.abs().max().item()),
+               launches=dict(zip(("K2", "K3dq", "K3dkv", "K1"),
+                                 (a - b for a, b in zip(after, before)))))
+    emit(res)
+    if (res["launches"] != {"K2": 1, "K3dq": 1, "K3dkv": 1, "K1": 0}
+            or not err_l2 <= res["l2_tol"]
+            or any(not e["max_abs_err"] <= e["tol"] for e in errs.values())):
+        raise AssertionError(f"online route under autograd: {res}")
+
+
+def check_int8_kernels(torch, s, tag, cross: bool, three_d: bool, mag: float = 1.0):
+    """K6 (capped and online bodies) at 40 heads of 128 on `s` query tokens,
+    K carrying a +0.7 mean offset for the token-mean smoothing to absorb;
+    with `three_d` K7 on (40, s, 128). Kernel and plain version read the
+    same pre-pass outputs (the same integers); the pre-pass is timed on its
+    own."""
+    from video_styler_tpu_torch.ops import flash_attention as fa
+
+    n, d = 40, 128
+    scale = d ** -0.5
+    gen = torch.Generator("cuda").manual_seed(4)
+
+    def randn(*shape, m=1.0):
+        return (torch.randn(shape, generator=gen, device="cuda") * m).to(torch.bfloat16)
+
+    def pick(pre, sub):
+        q8, k8, v, qs, ks, m2 = pre
+        return (q8[:, sub], k8, v, qs[:, :, sub].contiguous(), ks,
+                None if m2 is None else m2[:, :, sub].contiguous())
+
+    q = randn(1, s, n, d, m=mag)
+    sub = edge_rows(torch, s)
+    rows = []
+    for kind, sk in (("self", s),) + ((("cross", TEXT_LEN),) if cross else ()):
+        k, v = randn(1, sk, n, d) + 0.7, randn(1, sk, n, d)
+        label = f"{kind}{'' if mag == 1.0 else f' q x{mag:g} (magnitude stress)'} " \
+                f"S={s} Sk={sk} N={n} D={d} [{tag}]"
+        prepass_ms = time_ms(torch, lambda: fa.int8_prepass(q, k, v, scale, True), reps=5)
+        for body, replaces in (("capped", f"{JAX_FA}:1025"), ("online", f"{JAX_FA}:980")):
+            pre = fa.int8_prepass(q, k, v, scale, body == "capped")
+            # q8, k8 (1 byte), v, o (2 bytes), the row scales (and bounds)
+            nbytes = n * d * (s + sk) + 2.0 * n * d * (s + sk) \
+                + 4.0 * n * (s + sk) + (4.0 * n * s if body == "capped" else 0.0)
+            rows.append(kernel_row(
+                torch, name=f"K6 flash_attention_int8 {body} {label}",
+                kernel="K6" if body == "capped" else "K6o", source=INT8_SRC,
+                replaces=replaces, got=fa._flash_int8_cuda(*pre)[:, sub],
+                want=fa.flash_attention_int8_core_plain(*pick(pre, sub)),
+                run=lambda: fa._flash_int8_cuda(*pre),
+                plain=lambda: fa.flash_attention_int8_core_plain(*pre), library=None,
+                flops=2.0 * n * s * sk * d, int8_ops=2.0 * n * s * sk * d, nbytes=nbytes,
+                checked_rows=int(sub.numel()), prepass_ms=prepass_ms))
+            del pre
+        del k, v
+    if three_d:
+        q3, k3, v3 = randn(n, s, d), randn(n, s, d) + 0.7, randn(n, s, d)
+        pre = fa.int8_prepass(q3[:, :, None], k3[:, :, None], v3[:, :, None], scale, False)
+        rows.append(kernel_row(
+            torch, name=f"K7 flash_attention_int8_3d BH={n} S={s} D={d} [{tag}]",
+            kernel="K7", source=INT8_SRC, replaces=f"{JAX_FA}:862",
+            got=fa._flash_int8_cuda(*pre, three_d=True)[:, sub],
+            want=fa.flash_attention_int8_core_plain(*pick(pre, sub)),
+            run=lambda: fa._flash_int8_cuda(*pre, three_d=True),
+            plain=lambda: fa.flash_attention_int8_core_plain(*pre), library=None,
+            flops=2.0 * n * s * s * d, int8_ops=2.0 * n * s * s * d,
+            nbytes=n * d * 2 * s + 2.0 * n * d * 2 * s + 4.0 * n * 2 * s,
+            checked_rows=int(sub.numel())))
+        # the public entry runs the same pre-pass and kernel
+        if not torch.equal(fa.flash_attention_int8_3d(q3, k3, v3, scale),
+                           fa._flash_int8_cuda(*pre, three_d=True)[:, :, 0]):
+            raise AssertionError("flash_attention_int8_3d differs from its parts")
+    for r in rows:
+        emit({"phase": "kernel", **r})
+        if not r["max_abs_err"] <= r["tol"]:
+            raise AssertionError(f"{r['name']}: max abs err {r['max_abs_err']} "
+                                 f"> tolerance {r['tol']}")
+    return rows
+
+
 def check_train_reference(torch):
     """Two LoRA steps of the smoke-size model on the card (kernels) and on
     the CPU (plain versions), from the same weights, LoRA, inputs, tid and
@@ -606,22 +969,121 @@ def run_train(torch, pipe, kernels, frames: int, steps: int = 2):
     if not all(map(math.isfinite, losses)):
         raise AssertionError(f"non-finite loss: {losses}")
     for name, count in launches.items():
-        if count == 0 or count != expected[name]:
+        if count != expected.get(name, 0) or (name in expected and count == 0):
             raise AssertionError(f"{name}: {count} launches in the train run, "
-                                 f"expected {expected[name]}")
+                                 f"expected {expected.get(name, 0)}")
     emit({"phase": "train_profile", **profile_request(
         torch, lambda: step(latents, context, vace_context, generator=gen),
         step_s[-1])})
+    return launches, (latents, context, vace_context, params)
+
+
+@contextlib.contextmanager
+def plain_versions():
+    """Send the DiT's attention, RMSNorm+RoPE and RMSNorm through their plain
+    PyTorch versions on the card, for activations the kernels do not take
+    (fp32). A measurement device of this script: the port itself never runs
+    a plain version on a CUDA tensor."""
+    from video_styler_tpu_torch.models import wan_dit
+    from video_styler_tpu_torch.ops import flash_attention as fa
+    from video_styler_tpu_torch.ops import fused_norm_rope as fnr
+    saved = (wan_dit.attention, wan_dit.fused_rmsnorm_rope, wan_dit.fused_rmsnorm)
+    wan_dit.attention = fa.flash_attention_plain
+    wan_dit.fused_rmsnorm_rope = fnr.fused_rmsnorm_rope_plain
+    wan_dit.fused_rmsnorm = fnr.fused_rmsnorm_plain
+    try:
+        yield
+    finally:
+        wan_dit.attention, wan_dit.fused_rmsnorm_rope, wan_dit.fused_rmsnorm = saved
+
+
+def run_train_precision(torch, pipe, kernels, inputs, frames: int):
+    """One LoRA loss and gradient at 14B width and full depth on the train
+    clip, twice from the same tid and noise: bf16 activations through the
+    kernels (what the port's trainer runs) and fp32 activations on the bf16
+    weights through the plain versions (the recipe, examples/train.py:281)."""
+    from video_styler_tpu_torch.trainers.training import (flow_match_loss,
+                                                          training_scheduler)
+    latents, context, vace_context, params = inputs
+    sched = training_scheduler()
+    tables = (sched.sigmas, sched.timesteps, sched.linear_timesteps_weights)
+    tid = 500
+    noise = torch.randn(latents.shape, generator=torch.Generator().manual_seed(5))
+
+    def loss_and_grads(dtype):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        for kern in kernels.values():
+            kern.launches = 0
+        t0 = time.perf_counter()
+        loss = flow_match_loss(pipe.dit, latents.to(dtype), context.to(dtype), *tables,
+                               tid=tid, noise=noise, vace=pipe.vace,
+                               vace_context=vace_context.to(dtype), remat=True)
+        grads = torch.autograd.grad(loss, params)
+        torch.cuda.synchronize()
+        return dict(loss=float(loss), seconds=time.perf_counter() - t0,
+                    max_memory_allocated_gib=torch.cuda.max_memory_allocated() / 2**30,
+                    kernel_launches=sum(k.launches for k in kernels.values())), \
+            torch.cat([g.float().reshape(-1) for g in grads])
+
+    bf16, g16 = loss_and_grads(torch.bfloat16)
+    with plain_versions():
+        fp32, g32 = loss_and_grads(torch.float32)
+    res = dict(phase="train_precision", frames=frames,
+               tokens=int(math.prod(token_grid(frames))),
+               dit_layers=pipe.dit.cfg.num_layers,
+               vace_layers=list(pipe.vace.cfg.vace_layers), tid=tid,
+               lora_params=int(g32.numel()), bf16_activations=bf16,
+               fp32_activations=fp32,
+               loss_rel_err=abs(bf16["loss"] - fp32["loss"]) / abs(fp32["loss"]),
+               lora_grads_rel_l2=((g16 - g32).norm() / g32.norm()).item(),
+               lora_grads_cosine=(torch.dot(g16, g32) / (g16.norm() * g32.norm())).item())
+    emit(res)
+    if not (math.isfinite(res["loss_rel_err"]) and math.isfinite(res["lora_grads_rel_l2"])
+            and bf16["kernel_launches"] > 0 and fp32["kernel_launches"] == 0):
+        raise AssertionError(f"train_precision: {res}")
+
+
+def run_entry_3d(torch, kernels, s: int):
+    """The (BH, S, D) entry points, as a caller of them would drive them:
+    `flash_attention_3d` without and with grad (K2, then K2 with stats and
+    K3) and `flash_attention_int8_3d` (K7), at 40 heads of 128."""
+    from video_styler_tpu_torch.ops import flash_attention as fa
+    gen = torch.Generator("cuda").manual_seed(6)
+    q, k, v = ((torch.randn((40, s, 128), generator=gen, device="cuda")
+                ).to(torch.bfloat16) for _ in range(3))
+    for kern in kernels.values():
+        kern.launches = 0
+    out = fa.flash_attention_3d(q, k, v)
+    ins = [t.detach().requires_grad_() for t in (q, k, v)]
+    grads = torch.autograd.grad(fa.flash_attention_3d(*ins), ins, out)
+    out8 = fa.flash_attention_int8_3d(q, k, v)
+    torch.cuda.synchronize()
+    launches = {name: kern.launches for name, kern in kernels.items()}
+    expected = {"K2": 2, "K3dq": 1, "K3dkv": 1, "K7": 1}
+    finite = all(bool(torch.isfinite(t.float()).all()) for t in (out, out8) + grads)
+    # the exact softmax and its int8 approximation on the same inputs
+    cosine = torch.nn.functional.cosine_similarity(
+        out.float().reshape(1, -1), out8.float().reshape(1, -1)).item()
+    emit(dict(phase="entry_3d", shape=[40, s, 128], launches=launches,
+              expected_launches=expected, finite=finite, int8_vs_bf16_cosine=cosine))
+    if not finite or cosine < 0.99 or any(
+            count != expected.get(name, 0) for name, count in launches.items()):
+        raise AssertionError("entry_3d: launches, finiteness or int8 agreement")
     return launches
 
 
 KERNEL_CATEGORIES = (  # (category, substrings of the device kernel's name)
     ("K1", ("flash_fwd_capped_kernel",)),
+    ("K2/K8", ("flash_fwd_online_kernel",)),
+    ("K6", ("flash_fwd_int8_kernel",)),
     ("K3dq", ("fa_bwd_dq_kernel",)),
     ("K3dkv", ("fa_bwd_dkv_kernel",)),
     ("K4", ("rmsnorm_rope_kernel",)),
     ("K5", ("rmsnorm_kernel",)),
     ("conv", ("fprop", "dgrad", "wgrad", "cudnn", "convolve", "conv2d", "conv3d")),
+    ("int8 gemm", ("i8i8", "_s8_", "int8", "imma", "igemm", "i8816", "i16832")),
     ("gemm", ("gemm", "nvjet", "xmma", "cutlass", "sm90_")),
 )
 
@@ -687,13 +1149,17 @@ def main(argv=None):
               count=torch.cuda.device_count(), build_s=build_s, ptxas=ptxas))
 
     kernels = {"K1": fa.KERNEL, "K4": fnr.ROPE_KERNEL, "K5": fnr.RMS_KERNEL,
-               "K3dq": fa.BWD_DQ_KERNEL, "K3dkv": fa.BWD_DKV_KERNEL}
+               "K3dq": fa.BWD_DQ_KERNEL, "K3dkv": fa.BWD_DKV_KERNEL,
+               "K2": fa.ONLINE_KERNEL, "K8": fa.DUAL_KERNEL,
+               "K6": fa.INT8_CAPPED_KERNEL, "K6o": fa.INT8_ONLINE_KERNEL,
+               "K7": fa.INT8_3D_KERNEL}
     ditto, run = token_grid(DITTO_FRAMES), token_grid(args.frames)
     rows = check_kernels(torch, ditto, f"ditto-{DITTO_FRAMES}f")
     if args.frames != DITTO_FRAMES:
         rows += check_kernels(torch, run, f"run-{args.frames}f")
     torch.cuda.empty_cache()
     s_ditto = math.prod(ditto)
+    s_run = math.prod(run)
     s_train = math.prod(token_grid(args.train_frames))
     train_rows = check_attention_training(torch, s_ditto, s_ditto,
                                           f"ditto-{DITTO_FRAMES}f", "self",
@@ -713,15 +1179,51 @@ def main(argv=None):
                                            "self q x8 (magnitude stress)", mag=8.0)
     torch.cuda.empty_cache()
 
+    # the online-softmax and int8 kernels, at the Ditto shapes and this run's
+    new_rows = check_online_kernels(torch, s_ditto, f"ditto-{DITTO_FRAMES}f", cross=True)
+    new_rows += check_int8_kernels(torch, s_ditto, f"ditto-{DITTO_FRAMES}f", cross=True,
+                                   three_d=True)
+    if args.frames != DITTO_FRAMES:
+        new_rows += check_online_kernels(torch, s_run, f"run-{args.frames}f", cross=False)
+        new_rows += check_int8_kernels(torch, s_run, f"run-{args.frames}f", cross=False,
+                                       three_d=False)
+    # the q x24 logits that the capped softmax cannot take (above): the
+    # running max can; the int8 kernels are stressed at q x8 like K1
+    new_rows += check_online_kernels(torch, s_run, f"run-{args.frames}f", cross=False,
+                                     mag=24.0)
+    new_rows += check_int8_kernels(torch, s_run, f"run-{args.frames}f", cross=False,
+                                   three_d=False, mag=8.0)
+    check_online_training(torch, s_train, f"train-{args.train_frames}f")
+    torch.cuda.empty_cache()
+
     check_reference(torch)
+    check_reference_quant(torch)
     check_train_reference(torch)
-    pipe, launches = run_e2e(torch, kernels, args.steps, args.frames)
-    train_launches = run_train(torch, pipe, kernels, args.train_frames)
+    pipe, init_s = build_pipeline(torch)
+    launches = run_edit(torch, pipe, kernels, args.steps, args.frames, "e2e", {"K1": 1.0},
+                        init_s=init_s)
+    launches.update(run_e2e_online(torch, pipe, kernels, args.frames))
+    train_launches, train_inputs = run_train(torch, pipe, kernels, args.train_frames)
+    run_train_precision(torch, pipe, kernels, train_inputs, args.train_frames)
+    del train_inputs
+    launches["K6"] = run_e2e_quant(torch, pipe, kernels, args.steps, args.frames)["K6"]
+    # the int8 online body on the same quantised pipeline: FLASH_CAPPED=0
+    os.environ["FLASH_CAPPED"] = "0"
+    try:
+        from video_styler_tpu_torch.ops.attention import set_quantized_attention
+        set_quantized_attention(True)
+        launches["K6o"] = run_edit(torch, pipe, kernels, 1, args.frames, "e2e_quant_online",
+                                   {"K6o": 1.0}, profile=False,
+                                   environment={"FLASH_CAPPED": "0"})["K6o"]
+    finally:
+        set_quantized_attention(False)
+        del os.environ["FLASH_CAPPED"]
+    launches["K7"] = run_entry_3d(torch, kernels, s_run)["K7"]
 
     keys = ("name", "route", "source", "replaces", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     emit({"kernels": [{**{k: r[k] for k in keys}, "launches": launches[r["kernel"]]}
-                      for r in rows]
+                      for r in rows + new_rows]
           + [{**{k: r[k] for k in keys}, "launches": train_launches[
               "K1" if r["kernel"] == "K1s" else r["kernel"]]} for r in train_rows]})
     print(smi, flush=True)

@@ -1,5 +1,6 @@
-"""The port's hand-written CUDA kernels (K1 with and without stats, K3, K4,
-K5) against their plain versions, on the card. They skip on a host without a GPU; on the card run them with
+"""The port's hand-written CUDA kernels (K1 with and without stats, K2, K3,
+K4, K5, K6, K7, K8) against their plain versions, and the quantized linears'
+library GEMMs against the CPU's exact products, on the card. They skip on a host without a GPU; on the card run them with
 
     python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py
 
@@ -171,3 +172,108 @@ def test_k3_rejects_what_it_does_not_take(gen):
     with pytest.raises(ValueError):
         small = _randn(gen, 1, 16, 2, 64)
         fa.flash_attention_bwd(small, small, small, small, l2, small)
+
+
+# --------------------------------------------------------------------------
+# K2 / K8 (online softmax), K6 / K7 (int8 Q K^T), quantized linears
+# --------------------------------------------------------------------------
+
+ONLINE_CASES = [(1, 64, 64, 1, 1.0), (2, 200, 333, 3, 1.0), (1, 1000, 512, 4, 1.0),
+                (1, 300, 257, 2, 24.0), (1, 130, 129, 2, 1.0)]
+
+
+@pytest.mark.parametrize("dual", [False, True])
+@pytest.mark.parametrize("b,sq,sk,n,mag", ONLINE_CASES)
+def test_k2_k8_match_plain(gen, b, sq, sk, n, mag, dual):
+    q = _randn(gen, b, sq, n, 128, scale=mag)
+    k, v = _randn(gen, b, sk, n, 128), _randn(gen, b, sk, n, 128)
+    kern = fa.DUAL_KERNEL if dual else fa.ONLINE_KERNEL
+    before = (kern.launches, fa.KERNEL.launches)
+    out = fa.flash_attention(q, k, v, capped=False, dual=dual)
+    torch.cuda.synchronize()
+    assert (kern.launches, fa.KERNEL.launches) == (before[0] + 1, before[1])
+    _assert_close(out, fa.flash_attention_online_plain(q, k, v, dual=dual))
+
+
+def test_k2_stats_feed_k3_and_3d_entry(gen):
+    """K2's L2 against the plain version's; autograd on the online route
+    (K2 with stats, then K3) against the plain pair; the (BH, S, D) entry
+    with and without grad."""
+    q, k, v = _randn(gen, 1, 200, 2, 128), _randn(gen, 1, 333, 2, 128), _randn(gen, 1, 333, 2, 128)
+    g = _randn(gen, 1, 200, 2, 128)
+    o, l2 = fa._flash_forward(q, k, v, 128 ** -0.5, with_stats=True, capped=False)
+    po, pl2 = fa.flash_attention_online_plain(q, k, v, return_stats=True)
+    _assert_close(o, po)
+    assert (l2 - pl2).abs().max().item() <= 1e-4 * max(1.0, pl2.abs().max().item())
+    ins = [t.clone().requires_grad_() for t in (q, k, v)]
+    before = (fa.ONLINE_KERNEL.launches, fa.BWD_DQ_KERNEL.launches)
+    got = torch.autograd.grad(fa.flash_attention(*ins, capped=False), ins, g)
+    assert (fa.ONLINE_KERNEL.launches, fa.BWD_DQ_KERNEL.launches) == (before[0] + 1,
+                                                                      before[1] + 1)
+    for t, w in zip(got, fa.flash_attention_bwd_plain(q, k, v, o, l2, g)):
+        _assert_close(t, w)
+    q3, k3, v3, g3 = (t[0].transpose(0, 1).contiguous() for t in (q, k, v, g))
+    _assert_close(fa.flash_attention_3d(q3, k3, v3), po[0].transpose(0, 1))
+    ins = [t.clone().requires_grad_() for t in (q3, k3, v3)]
+    got3 = torch.autograd.grad(fa.flash_attention_3d(*ins), ins, g3)
+    for t, w in zip(got3, got):
+        _assert_close(t, w[0].transpose(0, 1))
+
+
+@pytest.mark.parametrize("capped", [True, False])
+@pytest.mark.parametrize("b,sq,sk,n,mag", ONLINE_CASES)
+def test_k6_matches_plain(gen, b, sq, sk, n, mag, capped):
+    q = _randn(gen, b, sq, n, 128, scale=mag)
+    k, v = _randn(gen, b, sk, n, 128) + 0.7, _randn(gen, b, sk, n, 128)
+    kern = fa.INT8_CAPPED_KERNEL if capped else fa.INT8_ONLINE_KERNEL
+    before = kern.launches
+    out = fa.flash_attention_int8(q, k, v, capped=capped)
+    torch.cuda.synchronize()
+    assert kern.launches == before + 1 and out.dtype == q.dtype
+    # the same pre-pass on the same device gives both the same integers
+    _assert_close(out, fa.flash_attention_int8_plain(q, k, v, capped=capped))
+
+
+def test_k6_reads_strided_views_and_k7_matches_plain(gen):
+    x = _randn(gen, 1, 130, 3 * 2 * 128)
+    q, k, v = x.view(1, 130, 6, 128).split(2, dim=2)
+    pre = fa.int8_prepass(q, k, v, 128 ** -0.5, capped=True)
+    wide = torch.zeros((1, 130, 4, 128), dtype=torch.int8, device="cuda")
+    wide[:, :, 1:3] = pre[0]
+    out = fa._flash_int8_cuda(wide[:, :, 1:3], *pre[1:])
+    _assert_close(out, fa.flash_attention_int8_core_plain(*pre))
+    q3, k3, v3 = _randn(gen, 5, 300, 128), _randn(gen, 5, 257, 128) + 0.7, _randn(gen, 5, 257, 128)
+    before = fa.INT8_3D_KERNEL.launches
+    out3 = fa.flash_attention_int8_3d(q3, k3, v3)
+    torch.cuda.synchronize()
+    assert fa.INT8_3D_KERNEL.launches == before + 1 and out3.dtype == torch.bfloat16
+    want = fa.flash_attention_int8_plain(q3[:, :, None], k3[:, :, None], v3[:, :, None],
+                                         capped=False)[:, :, 0]
+    _assert_close(out3, want)
+    with pytest.raises(RuntimeError):
+        fa.flash_attention_int8(q.clone().requires_grad_(), k, v)
+
+
+@pytest.mark.parametrize("rows", [1, 16, 77, 512])
+def test_quantized_linears_match_cpu(gen, rows):
+    """The library GEMMs of the quantized linears on the card against the
+    CPU's exact products: the same integers / e4m3 values on both sides."""
+    from video_styler_tpu_torch.ops import quant
+    x = _randn(gen, rows, 256)
+    w = (torch.randn(256, 384, generator=gen, device="cuda") / 16).to(torch.bfloat16)
+    bias = _randn(gen, 384)
+    for quantize, lin in ((quant.quantize_weight_int8, quant.linear_int8),
+                          (quant.quantize_weight_fp8, quant.linear_fp8),
+                          (quant.quantize_weight_int4, quant.linear_int4),
+                          (quant.quantize_weight_int4_g, quant.linear_int4_g)):
+        wq, ws = quantize(w)
+        cq, cs = quantize(w.cpu())
+        assert torch.equal(wq.cpu().view(torch.uint8), cq.view(torch.uint8))
+        assert torch.equal(ws.cpu(), cs)
+        got = lin(x, wq, ws, bias)
+        want = lin(x.cpu(), cq, cs, bias.cpu())
+        _assert_close(got.cpu(), want)
+    assert torch.equal(quant.unpack_int4(wq).cpu(), quant.unpack_int4(cq))
+    grid = torch.linspace(-448, 448, 100001, device="cuda")
+    assert torch.equal(grid.to(quant.FP8).cpu().view(torch.uint8),
+                       grid.cpu().to(quant.FP8).view(torch.uint8))

@@ -17,7 +17,12 @@ The layouts that differ: JAX linears store `w` as (in, out) and
 `nn.Linear` stores `weight` as (out, in); the stacked `blocks` (and VACE
 `after_proj`) trees carry a leading layer axis that becomes the index of an
 `nn.ModuleList`. VAE conv weights are already OIDHW and keep their names.
-bfloat16 leaves (ml_dtypes) keep their bits.
+bfloat16 and float8_e4m3fn leaves (ml_dtypes) keep their bits.
+
+A tree quantised by the JAX package's `quantize_params` (linear leaves
+`w_q` or `w_q4`, `w_scale`, `b`) converts too: each such leaf becomes an
+`ops.quant.QuantLinear` holding the same integers and scales in the same
+(in, out) layout, so both packages can run on identical quantised weights.
 """
 from __future__ import annotations
 
@@ -30,6 +35,7 @@ from .models.t5 import T5Encoder
 from .models.wan_dit import WanDiT
 from .models.wan_vace import WanVace
 from .models.wan_vae import WanVAE
+from .ops.quant import QuantLinear
 
 _MODULES = {"dit": WanDiT, "vace": WanVace, "t5": T5Encoder, "vae": WanVAE}
 _STACKED = ("blocks", "after_proj")
@@ -39,6 +45,8 @@ def _to_tensor(a) -> torch.Tensor:
     a = np.array(a)  # a writable, contiguous copy
     if a.dtype.name == "bfloat16":
         return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    if a.dtype.name == "float8_e4m3fn":
+        return torch.from_numpy(a.view(np.uint8)).view(torch.float8_e4m3fn)
     return torch.from_numpy(a)
 
 
@@ -55,6 +63,8 @@ def jax_tree_to_state_dict(tree, stacked: bool) -> Dict[str, torch.Tensor]:
     subtrees carry a leading layer axis (DiT, VACE)."""
     flat: Dict[str, np.ndarray] = {}
     _flatten(tree, "", flat)
+    quantized = {name.rsplit(".", 1)[0] for name in flat
+                 if name.endswith((".w_q", ".w_q4"))}
     sd = {}
     for name, arr in flat.items():
         parts = name.split(".")
@@ -65,10 +75,24 @@ def jax_tree_to_state_dict(tree, stacked: bool) -> Dict[str, torch.Tensor]:
         for p, a in items:
             if p[-1] == "w":
                 p, a = p[:-1] + ["weight"], a.T
-            elif p[-1] == "b":
+            elif p[-1] == "b" and name.rsplit(".", 1)[0] not in quantized:
                 p = p[:-1] + ["bias"]
             sd[".".join(p)] = _to_tensor(a)
     return sd
+
+
+def _swap_in_quant_linears(module: torch.nn.Module, sd: Dict[str, torch.Tensor]):
+    """Replace each linear whose leaf arrived quantised by a `QuantLinear`
+    holding that leaf's tensors."""
+    for key in [k for k in sd if k.endswith((".w_q", ".w_q4"))]:
+        path, kind = key.rsplit(".", 1)
+        parent, _, name = path.rpartition(".")
+        layer = QuantLinear(**{kind: sd.pop(key)}, w_scale=sd.pop(f"{path}.w_scale"),
+                            b=sd.pop(f"{path}.b", None))
+        setattr(module.get_submodule(parent) if parent else module, name, layer)
+        for buf in ("w_q", "w_q4", "w_scale", "b"):
+            if getattr(layer, buf) is not None:
+                sd[f"{path}.{buf}"] = getattr(layer, buf)
 
 
 def from_jax_params(kind: str, tree, cfg, device="cpu") -> torch.nn.Module:
@@ -78,6 +102,7 @@ def from_jax_params(kind: str, tree, cfg, device="cpu") -> torch.nn.Module:
     sd = jax_tree_to_state_dict(tree, stacked=kind in ("dit", "vace"))
     with torch.device("meta"):
         module = _MODULES[kind](cfg)
+    _swap_in_quant_linears(module, sd)
     module.load_state_dict(sd, strict=True, assign=True)
     return module.to(device).eval()
 

@@ -4,8 +4,9 @@
     python -m video_styler_tpu_torch.infer_ditto --input_video in.mp4 \
         --prompt "make it a watercolor" --dit_path ...
 
-Same flags as inference/infer_ditto.py, without --mesh, --quantize and
---streaming, plus --device (default cuda). --smoke runs the same pipeline
+Same flags as inference/infer_ditto.py, without --mesh and --streaming,
+plus --device (default cuda). --quantize int8|fp8 quantizes the DiT and
+VACE linears after any LoRA merge (`WanVideoPipeline.quantize`). --smoke runs the same pipeline
 code on tiny random models (head dim 128, so the CUDA kernels run too).
 --lora_path merges a LoRA (e.g. one that `python -m
 video_styler_tpu_torch.train` saved) into the VACE branch before the loop.
@@ -77,6 +78,9 @@ def parse_args(argv=None):
     p.add_argument("--tea_cache_l1_thresh", type=float, default=None)
     p.add_argument("--tea_cache_model_id", type=str, default="Wan2.1-T2V-14B")
     p.add_argument("--no_tiled", action="store_true")
+    p.add_argument("--quantize", type=str, default=None, choices=["int8", "fp8"],
+                   help="quantize the DiT linears (the analogue of the "
+                        "reference's fp8 baseline)")
     p.add_argument("--cfg_merge", action="store_true",
                    help="batch posi+nega in one DiT pass")
     p.add_argument("--smoke", action="store_true",
@@ -101,6 +105,8 @@ def main(argv=None):
     if args.lora_path:
         pipe.load_lora(target="vace" if pipe.vace is not None else "dit",
                        path=args.lora_path, alpha=args.lora_alpha)
+    if args.quantize:
+        pipe.quantize(mode=args.quantize)
 
     vace_video = None
     if args.input_video:

@@ -62,6 +62,10 @@ def merge_lora(module: nn.Module, lora_sd: Dict, alpha: float = 1.0) -> nn.Modul
             lin = module.get_submodule(module_path(target))
         except AttributeError as e:
             raise KeyError(f"cannot resolve LoRA target '{target}'") from e
+        if hasattr(lin, "w_scale"):
+            # the JAX merge fails on a quantised leaf too (it has no "w")
+            raise KeyError(f"LoRA target '{target}' is quantized: quantize "
+                           "must run after LoRA merging")
         if not isinstance(lin, nn.Linear):
             raise KeyError(f"LoRA target '{target}' is not a linear layer")
         w = lin.weight

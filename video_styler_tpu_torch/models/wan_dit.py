@@ -5,7 +5,8 @@ Counterpart of `video_styler_tpu/models/wan_dit.py`. Parameters live in
 place of the stacked per-layer trees); the forward pieces are the same
 functions: patchify, time/text embeddings, self-attention (K4 fused
 RMSNorm+RoPE, then K1), cross-attention (K5 RMSNorm on Q, then K1), the
-GELU-tanh FFN, the 6-way adaLN-modulated block, VACE hint injection after
+GELU-tanh FFN (after `ops.quant.quantize_params` the linears are
+`QuantLinear`s, and int8 / per-column int4 q, k, v run as one fused GEMM), the 6-way adaLN-modulated block, VACE hint injection after
 mapped layers, and the modulated head.
 
 The single-GPU port has no mesh: the sharding constraints and the
@@ -190,9 +191,21 @@ def _split_mod(modulation, t_mod, n: int) -> List[torch.Tensor]:
 def self_attention(p: Attention, x, cos, sin, num_heads: int,
                    eps: float = 1e-6):
     b, s, d = x.shape
-    q, k = fused_rmsnorm_rope(p.q(x), p.k(x), p.norm_q.scale, p.norm_k.scale,
+    mode = getattr(p.q, "mode", None)
+    if mode in ("int8", "int4"):
+        # one activation quantize and one (S, in) @ (in, 3*out) int8 GEMM;
+        # per-column int4 unpacks its nibbles to int8 first
+        from ..ops.quant import dequant_int4_leaf, fused_qkv_int8
+        pq, pk, pv = p.q, p.k, p.v
+        if mode == "int4":
+            pq, pk, pv = (dequant_int4_leaf(pq), dequant_int4_leaf(pk),
+                          dequant_int4_leaf(pv))
+        q0, k0, v = fused_qkv_int8(x, pq, pk, pv)
+    else:
+        q0, k0, v = p.q(x), p.k(x), p.v(x)
+    q, k = fused_rmsnorm_rope(q0, k0, p.norm_q.scale, p.norm_k.scale,
                               cos, sin, eps)
-    v = p.v(x).view(b, s, num_heads, d // num_heads)
+    v = v.view(b, s, num_heads, d // num_heads)
     out = attention(q, k, v)
     return p.o(out.reshape(b, s, d))
 

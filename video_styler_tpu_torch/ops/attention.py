@@ -1,10 +1,13 @@
 """Attention entry points.
 
 `attention` is what every DiT and VACE attention call goes through, self
-and cross: it launches K1 (`ops.flash_attention`) on a CUDA tensor and runs
-K1's plain version on a CPU tensor; under autograd its backward is K3 (or
-K3's plain version). A kernel failure raises; there is no quiet fallback to
-another attention.
+and cross: it launches K1 (`ops.flash_attention`; K2 or K8 under
+`FLASH_CAPPED=0` / `FLASH_DUAL=1`) on a CUDA tensor and runs the plain
+version on a CPU tensor; under autograd its backward is K3 (or K3's plain
+version). After `set_quantized_attention(True)` it goes through the int8
+kernel K6 instead, cross-attention to the text tokens included, as in the
+JAX package (`ops/attention.py:36-45, 75-77`). A kernel failure raises;
+there is no quiet fallback to another attention.
 
 `sdpa` is the exact-softmax attention the JAX package takes off the TPU,
 kept as the yardstick the tests hold the capped softmax against.
@@ -16,7 +19,17 @@ from typing import Optional
 
 import torch
 
-from .flash_attention import flash_attention
+from .flash_attention import flash_attention, flash_attention_int8
+
+_QUANTIZED_ATTENTION = False
+
+
+def set_quantized_attention(enabled: bool):
+    """Route `attention` through the SageAttention-style int8 kernel (K6).
+    Opt-in and process-wide, like the JAX package's flag: bf16 attention
+    stays the default."""
+    global _QUANTIZED_ATTENTION
+    _QUANTIZED_ATTENTION = bool(enabled)
 
 
 def sdpa(q, k, v, scale: Optional[float] = None) -> torch.Tensor:
@@ -31,9 +44,12 @@ def sdpa(q, k, v, scale: Optional[float] = None) -> torch.Tensor:
 
 def attention(q, k, v, scale: Optional[float] = None,
               kv_valid: Optional[int] = None) -> torch.Tensor:
-    """K1 on (B, S, N, D) tensors. kv_valid: count of real keys when the
-    key sequence carries zero padding; keys past it are excluded exactly."""
+    """Flash attention on (B, S, N, D) tensors. kv_valid: count of real keys
+    when the key sequence carries zero padding; keys past it are excluded
+    exactly."""
     if kv_valid is not None and kv_valid < k.shape[1]:
         k = k[:, :kv_valid]
         v = v[:, :kv_valid]
+    if _QUANTIZED_ATTENTION:
+        return flash_attention_int8(q, k, v, scale=scale)
     return flash_attention(q, k, v, scale=scale)

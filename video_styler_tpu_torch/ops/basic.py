@@ -6,7 +6,8 @@ in float32 and cast back to the activation dtype before the weight
 multiply; GELU (tanh form) is computed in float32; the sinusoidal timestep
 embedding is cos-first and computed in float32.
 
-Linear weights are stored as `nn.Linear` stores them, (out, in).
+Linear weights are stored as `nn.Linear` stores them, (out, in); quantized
+ones (`ops.quant.QuantLinear`) keep the JAX layout (in, out).
 """
 from __future__ import annotations
 
@@ -25,6 +26,22 @@ def linear(x: torch.Tensor, weight: torch.Tensor,
     rounding to x.dtype (the GEMM's epilogue), as the JAX linear does."""
     b = None if bias is None else bias.to(x.dtype)
     return F.linear(x, weight.to(x.dtype), b)
+
+
+def quantized_linear(x: torch.Tensor, w_q, w_q4, w_scale, bias=None) -> torch.Tensor:
+    """The quantized side of the JAX `linear`'s dispatch
+    (`video_styler_tpu/ops/basic.py:51-60`), on what a
+    `ops.quant.QuantLinear` holds: packed int4 with group scales (one more
+    scale axis) -> w4a16, packed int4 per column -> w4a8, int8 -> w8a8,
+    otherwise e4m3 storage."""
+    from . import quant
+    if w_q4 is not None:
+        if w_scale.dim() == w_q4.dim() + 1:
+            return quant.linear_int4_g(x, w_q4, w_scale, bias)
+        return quant.linear_int4(x, w_q4, w_scale, bias)
+    if w_q.dtype == torch.int8:
+        return quant.linear_int8(x, w_q, w_scale, bias)
+    return quant.linear_fp8(x, w_q, w_scale, bias)
 
 
 def layer_norm(x: torch.Tensor, scale: Optional[torch.Tensor] = None,

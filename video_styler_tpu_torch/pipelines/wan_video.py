@@ -5,7 +5,9 @@ Counterpart of the T2V/VACE subset of
 umT5 prompt encode, VACE context (a Wan2.1 VAE encode plus the 64-channel
 mask), a flow-match Euler loop with two-pass (or merged) CFG over
 `wan_dit_forward` with VACE hints, optional TeaCache step skipping, and the
-VAE decode. `load_lora` merges a LoRA into the DiT or the VACE branch.
+VAE decode. `load_lora` merges a LoRA into the DiT or the VACE branch;
+`quantize` (after any LoRA merge) turns the DiT and VACE linears into int8,
+fp8 or int4 layers and can route attention through the int8 kernel.
 Checkpoint loading is not ported yet; models come from `from_jax_params`
 or from `from_configs` (random weights).
 
@@ -145,6 +147,34 @@ class WanVideoPipeline:
             from ..safetensors_io import load_file
             state_dict = load_file(path)
         merge_lora(getattr(self, target), state_dict, alpha=alpha)
+
+    def quantize(self, mode: str = "int8", targets: tuple = ("dit", "dit2", "vace"),
+                 quantize_attention: bool = False):
+        """Quantize the DiT and VACE linear weights in place (the JAX
+        pipeline's `quantize`; the analogue of the reference's fp8 path).
+        Must run after LoRA merging. The output head, the modulation tables
+        and the time embedding stay in high precision; targets the pipeline
+        does not hold (`dit2`) are skipped.
+
+        Modes: "int8" (w8a8), "fp8" (e4m3 storage), "int4" (w4a8,
+        0.5 byte/param), "int4_g128" (w4a16 group scales).
+
+        quantize_attention also routes every attention call, cross-attention
+        included, through the int8 kernel K6 (process-wide:
+        `ops.attention.set_quantized_attention`)."""
+        from ..ops.quant import quantize_params
+        keep = ("head", "modulation", "time_embedding")
+
+        def pred(path, layer):
+            return not any(k in path for k in keep)
+
+        for t in targets:
+            model = getattr(self, t, None)
+            if model is not None:
+                quantize_params(model, mode=mode, predicate=pred)
+        if quantize_attention:
+            from ..ops.attention import set_quantized_attention
+            set_quantized_attention(True)
 
     @contextmanager
     def _stage(self, name: str):
