@@ -1,4 +1,4 @@
-// K3: flash-attention backward for Hopper (sm_90a), two kernels.
+// K3: flash-attention backward for Hopper (sm_90a), one fused kernel.
 //
 // Replaces the Pallas kernels `_fa_bwd_kernel_dkv` and `_fa_bwd_kernel_dq`
 // (video_styler_tpu/ops/flash_attention.py:582 and :624, reached through
@@ -13,475 +13,473 @@
 //   dV_j    = sum_i bf16(P_ij) dO_i
 //   dS_ij   = bf16(P_ij * (dO_i . v_j - delta_i) * scale)
 //   dK_j    = sum_i dS_ij q_i ;  dQ_i = sum_j dS_ij k_j
-// dQ, dK and dV accumulate in fp32 registers and are rounded once at the end.
+// dQ, dK and dV accumulate in fp32 and are rounded to bf16 once.
 //
-// Kernels, launched in this order on one stream:
-//   dq   one block per (64-row query tile, head, batch) loops over 64-key
-//        tiles: S, dP, dS, dQ += dS K. It also computes delta for its rows
-//        (from dO and O read once) and writes it to a (B, H, Sq) scratch.
-//   dkv  one block per (64-key tile, head, batch) loops over 64-row query
-//        tiles: S^T = K Q^T, P^T, dV += P^T dO, dP^T = V dO^T, dS^T,
-//        dK += dS^T Q. It reads L2 and delta per query tile.
-// Ragged tails: rows past Sq and keys past Sk are zero-filled on load;
-// past Sq, L2 reads as +1e30 (P = 0) and delta as 0, as the Pallas code pads
-// them; keys past Sk get P = 0 in dq and are never stored in dkv.
+// Launches, in this order on one stream, behind one entry point:
+//   memset  the fp32 dQ accumulator to 0
+//   stats   delta for every query row, and L2, into (B, H, Sq_pad) fp32
+//           buffers padded to a multiple of 64 rows (pad: delta 0, L2
+//           +1e30, so P = 0 there) that the main kernel copies whole
+//   main    one block per (128 keys, head, batch), K and V resident in
+//           shared memory, looping over every 64-row query tile
+//   convert the fp32 dQ accumulator to bf16 dq, rounded once
+// The main kernel: two warpgroups and no producer warp. Thread 0 issues
+// the TMA loads (K and V once, then Q, dO and the tile's L2/delta one tile
+// ahead into a ring of two stages, each stage released through an
+// mbarrier). Eight warps leave up to 255 registers to each thread, which
+// the 64 x 128 dK and dV accumulators need: with a third (producer)
+// warpgroup, three warps share each SM quarter's 16K registers, the
+// compiler held every thread to 168 and spilled, and setmaxnreg did not
+// change that. Warpgroups 0 and 1 each own 64 of the block's keys and, per
+// query tile:
+//   S^T  = K Q^T        wgmma m64n64k16, A and B from shared memory
+//   dP^T = V dO^T       the same
+//   P^T  = exp2(c s - L2), dS^T = bf16(P^T (dP^T - delta) scale), in
+//          registers, stored as bf16 to shared memory (128-byte swizzle by
+//          hand), then fence.proxy.async and a 256-thread barrier
+//   dV  += P^T dO       wgmma m64n128k16, A = P^T (K-major), dO MN-major
+//   dK  += dS^T Q       the same with dS^T and Q
+//   dQ   = dS K         wgmma m64n64k16 over the block's 128 keys, A = the
+//          dS^T of both warpgroups read transposed (MN-major), B = K
+//          (MN-major); each warpgroup takes 64 of the 128 columns of D
+// Keeping P^T and dS^T in shared memory rather than as A fragments in
+// registers leaves the registers to the 64 x 128 dK and dV accumulators.
+// Each warpgroup's dQ part (64 x 64 fp32) is staged in shared memory in
+// its register order and added into the accumulator with one 16 KB bulk
+// reduce-add (cp.reduce.async.bulk ... add.f32); the accumulator keeps
+// that order per (batch, head, query tile, half of D), which the convert
+// kernel undoes. dS^T is double-buffered, so one 256-thread barrier per
+// query tile orders its writes and reads. The order of the adds changes
+// from run to run: dq is not bit-reproducible, only within the fp32
+// rounding of its sum (then rounded once to bf16). dK and dV are stored
+// from registers. need_kv = false (dK/dV not wanted: the cross-attention
+// to frozen text keys) instantiates the same kernel without the dV and dK
+// products.
 //
-// What bounds it on the H100: the products. dkv does 4 of them and dq 3
-// (S is recomputed in both): 14 * Sq * Sk * D flops per head, 6.3e13 at the
-// 14B self-attention shape (29,640^2 x 40 heads), 63.7 ms at the 989
-// TFLOP/s bf16 peak, against ~1.5 GB of q/k/v/o/dO/dq/dk/dv traffic
-// (0.5 ms at 3.35 TB/s). A fused one-kernel backward (dQ by atomics) would
-// do 10 * Sq * Sk * D; this first version keeps two kernels and no atomics.
-//
-// Design, the simple first version: 4 warps per block, each warp owns 16
-// rows of the block's resident tile (queries in dq, keys in dkv) and all 64
-// columns of the streamed tile; the streamed tiles are double-buffered in
-// shared memory with cp.async. Every product is mma.sync m16n8k16 (bf16 in,
-// fp32 accumulate); A fragments of the resident tile are re-read from
-// shared memory per k-step (registers hold the fp32 accumulators: 128 a
-// thread in dkv), P and dS are re-packed from accumulators into A fragments
-// in registers. Tiles are XOR-swizzled for conflict-free ldmatrix.
+// What bounds it on the H100: the five products, 10 * Sq * Sk * D flops per
+// head, 4.5e13 at the 14B self-attention shape (29,640^2 x 40 heads),
+// 45.5 ms at the 989 TFLOP/s bf16 peak, against ~1.5 GB of q/k/v/o/dO/
+// dq/dk/dv traffic (0.5 ms at 3.35 TB/s); the dQ accumulation adds Sq*D*4
+// bytes of reduce-adds per head for every block of 128 keys (140 GB there,
+// resolved in L2; the buffer itself is 607 MB).
+// Ragged tails: TMA fills rows past Sq or Sk with zeros; keys past Sk get
+// P = 0 and are not stored; query rows past Sq read L2 = +1e30 (P = 0) and
+// delta = 0 and are not converted.
 
-#include "sm90_mma.cuh"
+#include "sm90_wgmma.cuh"
 
 namespace {
 
 using namespace sm90;
 
-constexpr int kBQ = 64;              // query rows per tile
-constexpr int kBK = 64;              // keys per tile
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
-constexpr int kTile = 64 * kChunks;  // uint4 slots of one 64-row tile
-// dq: q, dO + 2x(k, v); dkv: k, v + 2x(q, dO) + 2x(L2, delta) rows
-constexpr int kSmemDq = 6 * kTile * 16;
-constexpr int kSmemDkv = 6 * kTile * 16 + 4 * kBQ * 4;
-static_assert(kBQ == kBK && kBQ == kWarps * 16, "one 16-row slab per warp");
-static_assert(kThreads == 2 * kBQ, "dkv: one L2 or delta value per thread");
+constexpr int kBK = 128;              // keys per block (2 x 64)
+constexpr int kBQ = 64;               // query rows per tile
+constexpr int kThreads = 256;         // 2 warpgroups
+constexpr int kKVBytes = kBK * 256;   // K or V: [2 halves][128 rows][128 B]
+constexpr int kHalfKV = kBK * 128;
+constexpr int kQBytes = kBQ * 256;    // Q or dO tile: [2 halves][64 rows][128 B]
+constexpr int kHalfQ = kBQ * 128;
+constexpr int kDSBytes = kBK * 128;   // dS^T: [128 keys][64 queries] bf16
+constexpr int kOffV = kKVBytes;
+constexpr int kOffQ = 2 * kKVBytes;               // [2 stages]
+constexpr int kOffG = kOffQ + 2 * kQBytes;        // [2 stages]
+constexpr int kOffDS = kOffG + 2 * kQBytes;       // [2 buffers]
+constexpr int kOffStats = kOffDS + 2 * kDSBytes;  // [2 stages][L2 64, delta 64]
+constexpr int kOffPT = kOffStats + 2 * 2 * kBQ * 4;  // P^T: [128 keys][64 queries]
+constexpr int kDQTile = kBQ * 64 * 4;              // one warpgroup's dQ part, fp32
+constexpr int kOffDQ = kOffPT + kDSBytes;          // [2 warpgroups] staged dQ parts
+constexpr int kOffBar = kOffDQ + 2 * kDQTile;
+constexpr int kSmemBytes = kOffBar + 64 + 1024;  // + alignment slack
+constexpr int kStageTx = 2 * kQBytes + 2 * kBQ * 4;
 
-constexpr float kPadL2 = 1e30f;      // L2 of a row past Sq: P = 0
+constexpr float kPadL2 = 1e30f;       // L2 of a row past Sq: P = 0
 
-// tensors of the stride table, each (batch, seq, head) strides in elements
-enum { Q = 0, K, V, O, G, DQ, DK, DV, kTensors };
-
-struct Args {
-  const __nv_bfloat16 *q, *k, *v, *o, *g;
-  const float* l2;  // (B, H, Sq)
-  float* delta;     // (B, H, Sq): written by dq, read by dkv
-  __nv_bfloat16 *dq, *dk, *dv;
-  long long st[kTensors][3];
-  int heads, sq, sk;
-  float c_scale;    // scale * log2(e)
+struct Params {
+  const float* l2p;     // (B, H, sq_pad)
+  const float* deltap;  // (B, H, sq_pad)
+  float* dq_acc;        // (B, H, sq_pad / 64, 2, 4096) fp32, zeroed: see below
+  __nv_bfloat16 *dk, *dv;
+  long long dk_sb, dk_ss, dk_sh, dv_sb, dv_ss, dv_sh;
+  int heads, sq, sk, sq_pad;
+  float c_scale;        // scale * log2(e)
   float scale;
 };
 
-__device__ __forceinline__ long long row_base(const Args& a, int t, int b,
-                                              int h) {
-  return b * a.st[t][0] + h * a.st[t][2];
-}
-
-__device__ __forceinline__ void store_rows(__nv_bfloat16* base, long long ss,
-                                           const float (&acc)[16][4], int row0,
-                                           int limit, int g, int tig) {
-#pragma unroll
-  for (int hh = 0; hh < 2; ++hh) {
-    const int row = row0 + g + hh * 8;
-    if (row >= limit) continue;
-    __nv_bfloat16* out = base + (long long)row * ss;
-#pragma unroll
-    for (int dt = 0; dt < 16; ++dt) {
-      *reinterpret_cast<uint32_t*>(out + dt * 8 + tig * 2) =
-          pack_bf16(acc[dt][hh * 2], acc[dt][hh * 2 + 1]);
-    }
-  }
-}
-
-__global__ void __launch_bounds__(kThreads)
-fa_bwd_dq_kernel(const Args a) {
-  extern __shared__ __align__(128) uint4 smem[];
-  uint4* s_q = smem;
-  uint4* s_g = s_q + kTile;
-  uint4* s_k = s_g + kTile;      // two buffers
-  uint4* s_v = s_k + 2 * kTile;  // two buffers
-  __shared__ float s_delta[kBQ];
+template <bool kKV>
+__global__ void __launch_bounds__(kThreads, 1)
+fa_bwd_kernel(const __grid_constant__ CUtensorMap qmap,
+              const __grid_constant__ CUtensorMap kmap,
+              const __grid_constant__ CUtensorMap vmap,
+              const __grid_constant__ CUtensorMap gmap, const Params a) {
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  const uint32_t bar_kv = base + kOffBar;
+  const uint32_t bar_full = bar_kv + 8;    // [2]
+  const uint32_t bar_empty = bar_kv + 24;  // [2]
 
   const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int g = lane >> 2;
-  const int tig = lane & 3;
-  const int q0 = blockIdx.x * kBQ;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-
-  const __nv_bfloat16* qb = a.q + row_base(a, Q, b, h);
-  const __nv_bfloat16* kb = a.k + row_base(a, K, b, h);
-  const __nv_bfloat16* vb = a.v + row_base(a, V, b, h);
-  const __nv_bfloat16* ob = a.o + row_base(a, O, b, h);
-  const __nv_bfloat16* gb = a.g + row_base(a, G, b, h);
-  const long long stat = ((long long)b * a.heads + h) * a.sq;
-  const int ntiles = (a.sk + kBK - 1) / kBK;
-
-  auto load_kv = [&](int tile, int buf) {
-    load_tile_async<kBK, kThreads>(s_k + buf * kTile, kb, a.st[K][1],
-                                   tile * kBK, a.sk, tid);
-    load_tile_async<kBK, kThreads>(s_v + buf * kTile, vb, a.st[V][1],
-                                   tile * kBK, a.sk, tid);
-    cp_async_commit();
-  };
-
-  load_tile_async<kBQ, kThreads>(s_q, qb, a.st[Q][1], q0, a.sq, tid);
-  load_tile_async<kBQ, kThreads>(s_g, gb, a.st[G][1], q0, a.sq, tid);
-  cp_async_commit();
-  load_kv(0, 0);
-
-  // delta for the tile's rows while the copies fly: 16 threads per row,
-  // one 16-byte chunk of dO and of O each, reduced with shuffles
-  {
-    const int c = tid & 15;
-#pragma unroll
-    for (int r = tid >> 4; r < kBQ; r += kThreads / 16) {
-      const int row = q0 + r;
-      float acc = 0.f;
-      if (row < a.sq) {
-        const uint4 graw = *reinterpret_cast<const uint4*>(
-            gb + (long long)row * a.st[G][1] + c * 8);
-        const uint4 oraw = *reinterpret_cast<const uint4*>(
-            ob + (long long)row * a.st[O][1] + c * 8);
-        const __nv_bfloat162* ge = reinterpret_cast<const __nv_bfloat162*>(&graw);
-        const __nv_bfloat162* oe = reinterpret_cast<const __nv_bfloat162*>(&oraw);
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const float2 gf = __bfloat1622float2(ge[j]);
-          const float2 of = __bfloat1622float2(oe[j]);
-          acc += gf.x * of.x + gf.y * of.y;
-        }
-      }
-#pragma unroll
-      for (int m = 8; m >= 1; m >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, m);
-      if (c == 0) {
-        s_delta[r] = acc;
-        if (row < a.sq) a.delta[stat + row] = acc;
-      }
-    }
-  }
-  __syncthreads();
-
-  float l2r[2], dlr[2];
-#pragma unroll
-  for (int hh = 0; hh < 2; ++hh) {
-    const int r = warp * 16 + g + hh * 8;
-    l2r[hh] = q0 + r < a.sq ? a.l2[stat + q0 + r] : kPadL2;
-    dlr[hh] = s_delta[r];
-  }
-
-  float acc[16][4];
-#pragma unroll
-  for (int i = 0; i < 16; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
-
-  for (int t = 0; t < ntiles; ++t) {
-    const int buf = t & 1;
-    if (t + 1 < ntiles) {
-      load_kv(t + 1, buf ^ 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const uint4* tk = s_k + buf * kTile;
-    const uint4* tv = s_v + buf * kTile;
-
-    // S = Q K^T and dP = dO V^T: 16 rows x 64 keys per warp
-    float s[8][4], dp[8][4];
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      s[i][0] = s[i][1] = s[i][2] = s[i][3] = 0.f;
-      dp[i][0] = dp[i][1] = dp[i][2] = dp[i][3] = 0.f;
-    }
-#pragma unroll
-    for (int kk = 0; kk < 8; ++kk) {
-      uint32_t qa[4], ga[4];
-      ldsm_x4(qa, a_frag_addr(s_q, warp * 16, kk, lane));
-      ldsm_x4(ga, a_frag_addr(s_g, warp * 16, kk, lane));
-#pragma unroll
-      for (int np = 0; np < 4; ++np) {
-        uint32_t kf[4], vf[4];
-        ldsm_x4(kf, b_frag_addr(tk, np * 16, kk, lane));
-        mma_bf16(s[2 * np], qa, kf[0], kf[1]);
-        mma_bf16(s[2 * np + 1], qa, kf[2], kf[3]);
-        ldsm_x4(vf, b_frag_addr(tv, np * 16, kk, lane));
-        mma_bf16(dp[2 * np], ga, vf[0], vf[1]);
-        mma_bf16(dp[2 * np + 1], ga, vf[2], vf[3]);
-      }
-    }
-
-    // dS = bf16(P (dP - delta) scale), P = exp2(c s - L2), 0 past Sk
-    const int kbase = t * kBK;
-    uint32_t dsf[4][4];
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-      const int key = kbase + nt * 8 + tig * 2;
-      const bool ok0 = key < a.sk;
-      const bool ok1 = key + 1 < a.sk;
-      float p[4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const bool ok = (e & 1) ? ok1 : ok0;
-        p[e] = ok ? fast_exp2(__fmul_rn(s[nt][e], a.c_scale) - l2r[e >> 1]) : 0.f;
-        p[e] = p[e] * (dp[nt][e] - dlr[e >> 1]) * a.scale;
-      }
-      dsf[nt >> 1][(nt & 1) * 2 + 0] = pack_bf16(p[0], p[1]);
-      dsf[nt >> 1][(nt & 1) * 2 + 1] = pack_bf16(p[2], p[3]);
-    }
-
-    // dQ += dS K
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-#pragma unroll
-      for (int dpair = 0; dpair < 8; ++dpair) {
-        uint32_t kf[4];
-        ldsm_x4_trans(kf, bt_frag_addr(tk, j * 16, dpair, lane));
-        mma_bf16(acc[2 * dpair], dsf[j], kf[0], kf[1]);
-        mma_bf16(acc[2 * dpair + 1], dsf[j], kf[2], kf[3]);
-      }
-    }
-    __syncthreads();  // this buffer is refilled two iterations on
-  }
-
-  store_rows(a.dq + row_base(a, DQ, b, h), a.st[DQ][1], acc,
-             q0 + warp * 16, a.sq, g, tig);
-}
-
-__global__ void __launch_bounds__(kThreads)
-fa_bwd_dkv_kernel(const Args a) {
-  extern __shared__ __align__(128) uint4 smem[];
-  uint4* s_k = smem;
-  uint4* s_v = s_k + kTile;
-  uint4* s_q = s_v + kTile;      // two buffers
-  uint4* s_g = s_q + 2 * kTile;  // two buffers
-  float* s_l2 = reinterpret_cast<float*>(s_g + 2 * kTile);  // [2][kBQ]
-  float* s_dl = s_l2 + 2 * kBQ;                             // [2][kBQ]
-
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int g = lane >> 2;
-  const int tig = lane & 3;
   const int k0 = blockIdx.x * kBK;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
-
-  const __nv_bfloat16* qb = a.q + row_base(a, Q, b, h);
-  const __nv_bfloat16* kb = a.k + row_base(a, K, b, h);
-  const __nv_bfloat16* vb = a.v + row_base(a, V, b, h);
-  const __nv_bfloat16* gb = a.g + row_base(a, G, b, h);
-  const long long stat = ((long long)b * a.heads + h) * a.sq;
   const int ntiles = (a.sq + kBQ - 1) / kBQ;
 
-  // q/dO tiles by cp.async; L2 (threads 0..63) and delta (64..127) by plain
-  // loads, visible after the barrier that precedes their use
-  auto load_q = [&](int tile, int buf) {
-    const int r0 = tile * kBQ;
-    load_tile_async<kBQ, kThreads>(s_q + buf * kTile, qb, a.st[Q][1], r0,
-                                   a.sq, tid);
-    load_tile_async<kBQ, kThreads>(s_g + buf * kTile, gb, a.st[G][1], r0,
-                                   a.sq, tid);
-    cp_async_commit();
-    const int r = tid & (kBQ - 1);
-    const int row = r0 + r;
-    if (tid < kBQ) {
-      s_l2[buf * kBQ + r] = row < a.sq ? a.l2[stat + row] : kPadL2;
-    } else {
-      s_dl[buf * kBQ + r] = row < a.sq ? a.delta[stat + row] : 0.f;
+  if (tid == 0) {
+    mbar_init(bar_kv, 1);
+    for (int s = 0; s < 2; ++s) {
+      mbar_init(bar_full + 8 * s, 1);
+      mbar_init(bar_empty + 8 * s, 256);
     }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  // Thread 0 issues every TMA load: K and V once, then each query tile's
+  // Q, dO, L2 and delta, one tile ahead, into the stage that the tile two
+  // back has released
+  const long long stat = ((long long)b * a.heads + h) * a.sq_pad;
+  auto load_tile = [&](int u) {
+    const int su = u & 1;
+    const uint32_t full = bar_full + 8 * su;
+    mbar_expect_tx(full, kStageTx);
+    for (int hf = 0; hf < 2; ++hf) {
+      tma_load_4d(base + kOffQ + su * kQBytes + hf * kHalfQ, &qmap, hf * 64, h, u * kBQ, b,
+                  full);
+      tma_load_4d(base + kOffG + su * kQBytes + hf * kHalfQ, &gmap, hf * 64, h, u * kBQ, b,
+                  full);
+    }
+    const uint32_t st = base + kOffStats + su * 2 * kBQ * 4;
+    bulk_load(st, a.l2p + stat + u * kBQ, kBQ * 4, full);
+    bulk_load(st + kBQ * 4, a.deltap + stat + u * kBQ, kBQ * 4, full);
   };
-
-  load_tile_async<kBK, kThreads>(s_k, kb, a.st[K][1], k0, a.sk, tid);
-  load_tile_async<kBK, kThreads>(s_v, vb, a.st[V][1], k0, a.sk, tid);
-  cp_async_commit();
-  load_q(0, 0);
-
-  float dk[16][4], dv[16][4];
-#pragma unroll
-  for (int i = 0; i < 16; ++i) {
-    dk[i][0] = dk[i][1] = dk[i][2] = dk[i][3] = 0.f;
-    dv[i][0] = dv[i][1] = dv[i][2] = dv[i][3] = 0.f;
+  if (tid == 0) {
+    mbar_expect_tx(bar_kv, 2 * kKVBytes);
+    for (int hf = 0; hf < 2; ++hf) {
+      tma_load_4d(base + hf * kHalfKV, &kmap, hf * 64, h, k0, b, bar_kv);
+      tma_load_4d(base + kOffV + hf * kHalfKV, &vmap, hf * 64, h, k0, b, bar_kv);
+    }
+    for (int u = 0; u < 2 && u < ntiles; ++u) load_tile(u);
   }
+  {
+    const int wg = tid >> 7;  // keys k0 + 64 wg ..
+    const int warp = (tid >> 5) & 3;
+    const int lane = tid & 31;
+    const int g = lane >> 2;
+    const int tig = lane & 3;
+    const int wt = tid & 127;
+    const int krow = wg * 64 + warp * 16 + g;  // this thread's keys: krow, krow + 8
+    const bool key_ok[2] = {k0 + krow < a.sk, k0 + krow + 8 < a.sk};
 
-  for (int t = 0; t < ntiles; ++t) {
-    const int buf = t & 1;
-    if (t + 1 < ntiles) {
-      load_q(t + 1, buf ^ 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const uint4* tq = s_q + buf * kTile;
-    const uint4* tg = s_g + buf * kTile;
-    const float* l2t = s_l2 + buf * kBQ;
-    const float* dlt = s_dl + buf * kBQ;
+    float dk[64], dv[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) dk[i] = dv[i] = 0.f;
 
-    // S^T = K Q^T: 16 keys x 64 queries per warp
-    float st[8][4];
+    mbar_wait(bar_kv, 0);
+    for (int t = 0; t < ntiles; ++t) {
+      const int s = t & 1;
+      if (tid == 0 && t >= 1 && t + 1 < ntiles) {
+        mbar_wait(bar_empty + 8 * ((t + 1) & 1), (((t + 1) >> 1) - 1) & 1);
+        load_tile(t + 1);
+      }
+      // Shared addresses are rebuilt per tile from opaque bases: hoisted out
+      // of the loop, the wgmma descriptors and the per-thread store
+      // addresses would hold registers that the accumulators need.
+      const uint32_t sb = opaque(base);
+      const uint32_t tq = sb + kOffQ + s * kQBytes;
+      const uint32_t tg = sb + kOffG + s * kQBytes;
+      const uint32_t stats = sb + kOffStats + s * 2 * kBQ * 4 + opaque(tig * 8);
+      const uint32_t rowp = opaque(krow * 128 + tig * 4);  // + ((chunk ^ g) << 4)
+      const int gx = opaque(g);
+      mbar_wait(bar_full + 8 * s, (t >> 1) & 1);
+
+      // S^T = K Q^T and dP^T = V dO^T: 64 keys x 64 queries each
+      float st[32], dpt[32];
+      wgmma_fence();
 #pragma unroll
-    for (int i = 0; i < 8; ++i) st[i][0] = st[i][1] = st[i][2] = st[i][3] = 0.f;
+      for (int kk = 0; kk < 8; ++kk) {
+        const uint32_t aoff = (kk >> 2) * kHalfKV + wg * 64 * 128 + (kk & 3) * 32;
+        const uint32_t boff = (kk >> 2) * kHalfQ + (kk & 3) * 32;
+        wgmma_m64n64_ss<0, 0>(st, wgmma_desc(sb + aoff, 16, 1024),
+                              wgmma_desc(tq + boff, 16, 1024), kk > 0);
+      }
 #pragma unroll
-    for (int kk = 0; kk < 8; ++kk) {
-      uint32_t ka[4];
-      ldsm_x4(ka, a_frag_addr(s_k, warp * 16, kk, lane));
+      for (int kk = 0; kk < 8; ++kk) {
+        const uint32_t aoff = (kk >> 2) * kHalfKV + wg * 64 * 128 + (kk & 3) * 32;
+        const uint32_t boff = (kk >> 2) * kHalfQ + (kk & 3) * 32;
+        wgmma_m64n64_ss<0, 0>(dpt, wgmma_desc(sb + kOffV + aoff, 16, 1024),
+                              wgmma_desc(tg + boff, 16, 1024), kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      reg_fence(st);
+      reg_fence(dpt);
+
+      // P^T (0 past Sk; past Sq L2 = +1e30 gives 0) and dS^T, rounded to
+      // bf16 into shared memory (128-byte swizzle: rows krow and krow + 8
+      // share the chunk order of g), where the dV, dK and dQ products read
+      // them: no A fragments held in registers
+      const uint32_t dsb = sb + kOffDS + s * kDSBytes;
 #pragma unroll
-      for (int np = 0; np < 4; ++np) {
-        uint32_t qf[4];
-        ldsm_x4(qf, b_frag_addr(tq, np * 16, kk, lane));
-        mma_bf16(st[2 * np], ka, qf[0], qf[1]);
-        mma_bf16(st[2 * np + 1], ka, qf[2], qf[3]);
+      for (int nt = 0; nt < 8; ++nt) {
+        float p[4], ds[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const uint32_t col = stats + (nt * 8 + (e & 1)) * 4;
+          p[e] = key_ok[e >> 1]
+              ? fast_exp2(__fmul_rn(st[4 * nt + e], a.c_scale) - ld_shared_f32(col))
+              : 0.f;
+          ds[e] = p[e] * (dpt[4 * nt + e] - ld_shared_f32(col + kBQ * 4)) * a.scale;
+        }
+        const uint32_t at = rowp + ((nt ^ gx) << 4);
+        if (kKV) {
+          st_shared(sb + kOffPT + at, pack_bf16(p[0], p[1]));
+          st_shared(sb + kOffPT + at + 8 * 128, pack_bf16(p[2], p[3]));
+        }
+        st_shared(dsb + at, pack_bf16(ds[0], ds[1]));
+        st_shared(dsb + at + 8 * 128, pack_bf16(ds[2], ds[3]));
+      }
+      fence_proxy_async();
+      named_barrier(1, 256);
+
+      // dV += P^T dO and dK += dS^T Q (4 steps of 16 queries; A K-major
+      // from this warpgroup's 64 rows, B MN-major); dQ = dS K for this
+      // warpgroup's 64 columns of D (8 steps of 16 keys; A = dS^T read
+      // transposed, B = K, both MN-major)
+      float dq[32];
+      if (kKV) {
+        reg_fence(dv);
+        reg_fence(dk);
+      }
+      wgmma_fence();
+      if (kKV) {
+        const uint32_t rows = wg * 64 * 128;
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_m64n128_ss<0, 1>(dv, wgmma_desc(sb + kOffPT + rows + kk * 32, 16, 1024),
+                                 wgmma_desc(tg + kk * 2048, kHalfQ, 1024), 1);
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_m64n128_ss<0, 1>(dk, wgmma_desc(dsb + rows + kk * 32, 16, 1024),
+                                 wgmma_desc(tq + kk * 2048, kHalfQ, 1024), 1);
+      }
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk) {
+        wgmma_m64n64_ss<1, 1>(dq, wgmma_desc(dsb + kk * 2048, kDSBytes, 1024),
+                              wgmma_desc(sb + wg * kHalfKV + kk * 2048, kHalfKV, 1024),
+                              kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      reg_fence(dq);
+      if (kKV) {
+        reg_fence(dv);
+        reg_fence(dk);
+      }
+      mbar_arrive(bar_empty + 8 * s);
+
+      // This warpgroup's dQ part (64 rows x 64 columns) goes out as one
+      // bulk fp32 reduce-add of 16 KB, staged in the accumulator's own
+      // register order (element i of lane l of warp w at (w * 32 + i) * 32
+      // + l: conflict-free stores), which is the layout of dq_acc too. The
+      // previous tile's copy must have left the staging buffer first.
+      const uint32_t dqs = sb + kOffDQ + wg * kDQTile;
+      if (wt == 0) asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+      named_barrier(2 + wg, 128);
+      const uint32_t mine = dqs + opaque((warp * 1024 + lane) * 4);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) st_shared(mine + i * 128, dq[i]);
+      fence_proxy_async();
+      named_barrier(2 + wg, 128);
+      if (wt == 0) {
+        const float* out = a.dq_acc + ((((long long)b * a.heads + h) * (a.sq_pad / kBQ) + t) *
+                                       2 + wg) * (kDQTile / 4);
+        asm volatile(
+            "cp.reduce.async.bulk.global.shared::cta.bulk_group.add.f32 [%0], [%1], %2;\n"
+            "cp.async.bulk.commit_group;\n" ::"l"(out),
+            "r"(dqs), "n"(kDQTile)
+            : "memory");
       }
     }
+    if (wt == 0) asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
 
-    // P^T = exp2(c s - L2[query]); queries past Sq have L2 = +1e30 -> 0
-    uint32_t pf[4][4];
+    if (kKV) {
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-      const int col = nt * 8 + tig * 2;
+      for (int hh = 0; hh < 2; ++hh) {
+        const int key = k0 + krow + hh * 8;
+        if (key >= a.sk) continue;
+        __nv_bfloat16* ok = a.dk + b * a.dk_sb + h * a.dk_sh + (long long)key * a.dk_ss;
+        __nv_bfloat16* ov = a.dv + b * a.dv_sb + h * a.dv_sh + (long long)key * a.dv_ss;
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        st[nt][e] = fast_exp2(__fmul_rn(st[nt][e], a.c_scale) - l2t[col + (e & 1)]);
-      }
-      pf[nt >> 1][(nt & 1) * 2 + 0] = pack_bf16(st[nt][0], st[nt][1]);
-      pf[nt >> 1][(nt & 1) * 2 + 1] = pack_bf16(st[nt][2], st[nt][3]);
-    }
-
-    // dV += P^T dO
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-#pragma unroll
-      for (int dpair = 0; dpair < 8; ++dpair) {
-        uint32_t gf[4];
-        ldsm_x4_trans(gf, bt_frag_addr(tg, j * 16, dpair, lane));
-        mma_bf16(dv[2 * dpair], pf[j], gf[0], gf[1]);
-        mma_bf16(dv[2 * dpair + 1], pf[j], gf[2], gf[3]);
+        for (int nt = 0; nt < 16; ++nt) {
+          *reinterpret_cast<uint32_t*>(ok + nt * 8 + tig * 2) =
+              pack_bf16(dk[4 * nt + 2 * hh], dk[4 * nt + 2 * hh + 1]);
+          *reinterpret_cast<uint32_t*>(ov + nt * 8 + tig * 2) =
+              pack_bf16(dv[4 * nt + 2 * hh], dv[4 * nt + 2 * hh + 1]);
+        }
       }
     }
-
-    // dP^T = V dO^T
-    float dpt[8][4];
-#pragma unroll
-    for (int i = 0; i < 8; ++i) dpt[i][0] = dpt[i][1] = dpt[i][2] = dpt[i][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < 8; ++kk) {
-      uint32_t va[4];
-      ldsm_x4(va, a_frag_addr(s_v, warp * 16, kk, lane));
-#pragma unroll
-      for (int np = 0; np < 4; ++np) {
-        uint32_t gf[4];
-        ldsm_x4(gf, b_frag_addr(tg, np * 16, kk, lane));
-        mma_bf16(dpt[2 * np], va, gf[0], gf[1]);
-        mma_bf16(dpt[2 * np + 1], va, gf[2], gf[3]);
-      }
-    }
-
-    // dS^T = bf16(P^T (dP^T - delta[query]) scale), into A fragments
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-      const int col = nt * 8 + tig * 2;
-      float ds[4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        ds[e] = st[nt][e] * (dpt[nt][e] - dlt[col + (e & 1)]) * a.scale;
-      }
-      pf[nt >> 1][(nt & 1) * 2 + 0] = pack_bf16(ds[0], ds[1]);
-      pf[nt >> 1][(nt & 1) * 2 + 1] = pack_bf16(ds[2], ds[3]);
-    }
-
-    // dK += dS^T Q
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-#pragma unroll
-      for (int dpair = 0; dpair < 8; ++dpair) {
-        uint32_t qf[4];
-        ldsm_x4_trans(qf, bt_frag_addr(tq, j * 16, dpair, lane));
-        mma_bf16(dk[2 * dpair], pf[j], qf[0], qf[1]);
-        mma_bf16(dk[2 * dpair + 1], pf[j], qf[2], qf[3]);
-      }
-    }
-    __syncthreads();  // this buffer is refilled two iterations on
   }
-
-  store_rows(a.dk + row_base(a, DK, b, h), a.st[DK][1], dk, k0 + warp * 16,
-             a.sk, g, tig);
-  store_rows(a.dv + row_base(a, DV, b, h), a.st[DV][1], dv, k0 + warp * 16,
-             a.sk, g, tig);
 }
 
-Args make_args(const void* q, const void* k, const void* v, const void* o,
-               const void* g, const void* l2, void* delta, void* dq, void* dk,
-               void* dv, const long long* strides, int heads, int sq, int sk,
-               float scale, float c_scale) {
-  Args a;
-  a.q = static_cast<const __nv_bfloat16*>(q);
-  a.k = static_cast<const __nv_bfloat16*>(k);
-  a.v = static_cast<const __nv_bfloat16*>(v);
-  a.o = static_cast<const __nv_bfloat16*>(o);
-  a.g = static_cast<const __nv_bfloat16*>(g);
-  a.l2 = static_cast<const float*>(l2);
-  a.delta = static_cast<float*>(delta);
-  a.dq = static_cast<__nv_bfloat16*>(dq);
+// delta = sum_d dO * O (16 threads per row, 8 rows per block) and the
+// padded copies of delta and L2 that the main kernel loads by the tile
+__global__ void __launch_bounds__(128)
+fa_bwd_stats_kernel(const __nv_bfloat16* __restrict__ o,
+                    const __nv_bfloat16* __restrict__ g,
+                    const float* __restrict__ l2, float* __restrict__ l2p,
+                    float* __restrict__ deltap, long long o_sb, long long o_ss,
+                    long long o_sh, long long g_sb, long long g_ss, long long g_sh,
+                    int heads, int sq, int sq_pad) {
+  const int row = blockIdx.x * 8 + (threadIdx.x >> 4);
+  const int c = threadIdx.x & 15;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  float acc = 0.f;
+  if (row < sq) {
+    const uint4 graw = *reinterpret_cast<const uint4*>(
+        g + b * g_sb + h * g_sh + (long long)row * g_ss + c * 8);
+    const uint4 oraw = *reinterpret_cast<const uint4*>(
+        o + b * o_sb + h * o_sh + (long long)row * o_ss + c * 8);
+    const __nv_bfloat162* ge = reinterpret_cast<const __nv_bfloat162*>(&graw);
+    const __nv_bfloat162* oe = reinterpret_cast<const __nv_bfloat162*>(&oraw);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float2 gf = __bfloat1622float2(ge[j]);
+      const float2 of = __bfloat1622float2(oe[j]);
+      acc += gf.x * of.x + gf.y * of.y;
+    }
+  }
+#pragma unroll
+  for (int m = 8; m >= 1; m >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, m);
+  if (c == 0 && row < sq_pad) {
+    const long long bh = (long long)b * heads + h;
+    deltap[bh * sq_pad + row] = acc;
+    l2p[bh * sq_pad + row] = row < sq ? l2[bh * sq + row] : kPadL2;
+  }
+}
+
+// dq = bf16(dq_acc), 8 values (one row, 8 columns) per thread. dq_acc
+// holds, per (batch, head, 64-row query tile, 64-column half of D), the
+// main kernel's dQ accumulator in register order: row 16 w + g + 8 (e / 2)
+// and column 8 n + 2 c + e % 2 of the half sit at (w * 32 + 4 n + e) * 32 +
+// 4 g + c (warp w, n-tile n, element e, lane 4 g + c).
+__global__ void __launch_bounds__(256)
+fa_bwd_convert_kernel(const float* __restrict__ acc, __nv_bfloat16* __restrict__ dq,
+                      long long sb, long long ss, long long sh, int heads, int sq,
+                      int sq_pad, long long chunks) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= chunks) return;
+  const int c8 = static_cast<int>(i & 15);  // columns 8 c8 .. 8 c8 + 7
+  const long long r = i >> 4;               // (b, s, h) row of dq
+  const int h = static_cast<int>(r % heads);
+  const int s = static_cast<int>((r / heads) % sq);
+  const long long b = r / ((long long)heads * sq);
+  const int half = c8 >> 3, n = c8 & 7;
+  const int rr = s & (kBQ - 1), w = rr >> 4, g = rr & 7, hi = (rr >> 3) & 1;
+  const float* tile = acc + (((b * heads + h) * (sq_pad / kBQ) + s / kBQ) * 2 + half) *
+                                (kDQTile / 4);
+  uint32_t out[4];
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    const float* p = tile + (w * 32 + 4 * n + 2 * hi) * 32 + 4 * g + c;
+    out[c] = pack_bf16(p[0], p[32]);
+  }
+  *reinterpret_cast<uint4*>(dq + b * sb + (long long)s * ss + h * sh + c8 * 8) =
+      make_uint4(out[0], out[1], out[2], out[3]);
+}
+
+template <bool kKV>
+int launch(const void* q, const void* k, const void* v, const void* o,
+           const void* g, const void* l2, void* l2p, void* deltap, void* dq_acc,
+           void* dq, void* dk, void* dv, const long long* layout,
+           const long long* strides, int batch, int heads, int sq, int sk,
+           float scale, float c_scale, void* stream_ptr) {
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  CUtensorMap maps[4];
+  const void* ptrs[4] = {q, k, v, g};
+  const int rows[4] = {kBQ, kBK, kBK, kBQ};
+  for (int i = 0; i < 4; ++i) {
+    const int e = encode_bf16_map(&maps[i], ptrs[i], layout + kMapLayout * i, rows[i]);
+    if (e != 0) return kMapError + e;
+  }
+  const int sq_pad = (sq + kBQ - 1) / kBQ * kBQ;
+  const size_t acc_bytes = (size_t)batch * sq_pad * heads * 128 * sizeof(float);
+  cudaError_t e = cudaMemsetAsync(dq_acc, 0, acc_bytes, stream);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  // strides: (batch, seq, head) element strides of o, dO, dq, dk, dv
+  const long long* so = strides;
+  const long long* sg = strides + 3;
+  const long long* sdq = strides + 6;
+  fa_bwd_stats_kernel<<<dim3(sq_pad / 8, heads, batch), 128, 0, stream>>>(
+      static_cast<const __nv_bfloat16*>(o), static_cast<const __nv_bfloat16*>(g),
+      static_cast<const float*>(l2), static_cast<float*>(l2p),
+      static_cast<float*>(deltap), so[0], so[1], so[2], sg[0], sg[1], sg[2], heads, sq,
+      sq_pad);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+
+  Params a;
+  a.l2p = static_cast<const float*>(l2p);
+  a.deltap = static_cast<const float*>(deltap);
+  a.dq_acc = static_cast<float*>(dq_acc);
   a.dk = static_cast<__nv_bfloat16*>(dk);
   a.dv = static_cast<__nv_bfloat16*>(dv);
-  for (int t = 0; t < kTensors; ++t)
-    for (int j = 0; j < 3; ++j) a.st[t][j] = strides[3 * t + j];
+  a.dk_sb = kKV ? strides[9] : 0;
+  a.dk_ss = kKV ? strides[10] : 0;
+  a.dk_sh = kKV ? strides[11] : 0;
+  a.dv_sb = kKV ? strides[12] : 0;
+  a.dv_ss = kKV ? strides[13] : 0;
+  a.dv_sh = kKV ? strides[14] : 0;
   a.heads = heads;
   a.sq = sq;
   a.sk = sk;
-  a.scale = scale;
+  a.sq_pad = sq_pad;
   a.c_scale = c_scale;
-  return a;
+  a.scale = scale;
+  e = cudaFuncSetAttribute(fa_bwd_kernel<kKV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           kSmemBytes);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  fa_bwd_kernel<kKV><<<dim3((sk + kBK - 1) / kBK, heads, batch), kThreads, kSmemBytes,
+                       stream>>>(maps[0], maps[1], maps[2], maps[3], a);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+
+  const long long chunks = (long long)batch * sq * heads * 16;
+  fa_bwd_convert_kernel<<<static_cast<unsigned>((chunks + 255) / 256), 256, 0, stream>>>(
+      static_cast<const float*>(dq_acc), static_cast<__nv_bfloat16*>(dq), sdq[0], sdq[1],
+      sdq[2], heads, sq, sq_pad, chunks);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 extern "C" {
 
-// strides: 8 x (batch, seq, head) element strides of q, k, v, o, dO, dq,
-// dk, dv (host memory); c_scale = scale * log2(e). Each entry returns
-// cudaGetLastError() after its launch (0 on success). dq must run before
-// dkv: it writes delta.
-int flash_attention_bwd_dq(const void* q, const void* k, const void* v,
-                           const void* o, const void* g, const void* l2,
-                           void* delta, void* dq, const long long* strides,
-                           int batch, int heads, int sq, int sk, float scale,
-                           float c_scale, void* stream) {
-  const Args a = make_args(q, k, v, o, g, l2, delta, dq, nullptr, nullptr,
-                           strides, heads, sq, sk, scale, c_scale);
-  cudaError_t e = cudaFuncSetAttribute(
-      fa_bwd_dq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemDq);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  dim3 grid((sq + kBQ - 1) / kBQ, heads, batch);
-  fa_bwd_dq_kernel<<<grid, kThreads, kSmemDq,
-                     static_cast<cudaStream_t>(stream)>>>(a);
-  return static_cast<int>(cudaGetLastError());
+// layout: the tensor-map layouts of q, k, v and dO (7 values each, see
+// kMapLayout); strides: (batch, seq, head) element strides of o, dO, dq,
+// dk, dv (the last two unread without dK/dV). l2p and deltap are (B, H,
+// Sq rounded up to 64) fp32 scratch, dq_acc a (B, H, that, 128) fp32 scratch.
+// Returns 0, a cudaError_t, or kMapError + a CUresult.
+int flash_attention_bwd(const void* q, const void* k, const void* v, const void* o,
+                        const void* g, const void* l2, void* l2p, void* deltap,
+                        void* dq_acc, void* dq, void* dk, void* dv,
+                        const long long* layout, const long long* strides, int batch,
+                        int heads, int sq, int sk, float scale, float c_scale,
+                        void* stream) {
+  return launch<true>(q, k, v, o, g, l2, l2p, deltap, dq_acc, dq, dk, dv, layout,
+                      strides, batch, heads, sq, sk, scale, c_scale, stream);
 }
 
-int flash_attention_bwd_dkv(const void* q, const void* k, const void* v,
-                            const void* g, const void* l2, const void* delta,
-                            void* dk, void* dv, const long long* strides,
-                            int batch, int heads, int sq, int sk, float scale,
-                            float c_scale, void* stream) {
-  const Args a = make_args(q, k, v, nullptr, g, l2, const_cast<void*>(delta),
-                           nullptr, dk, dv, strides, heads, sq, sk, scale,
-                           c_scale);
-  cudaError_t e = cudaFuncSetAttribute(
-      fa_bwd_dkv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemDkv);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  dim3 grid((sk + kBK - 1) / kBK, heads, batch);
-  fa_bwd_dkv_kernel<<<grid, kThreads, kSmemDkv,
-                      static_cast<cudaStream_t>(stream)>>>(a);
-  return static_cast<int>(cudaGetLastError());
+// the same without dK and dV: three products instead of five
+int flash_attention_bwd_dq(const void* q, const void* k, const void* v, const void* o,
+                           const void* g, const void* l2, void* l2p, void* deltap,
+                           void* dq_acc, void* dq, const long long* layout,
+                           const long long* strides, int batch, int heads, int sq,
+                           int sk, float scale, float c_scale, void* stream) {
+  return launch<false>(q, k, v, o, g, l2, l2p, deltap, dq_acc, dq, nullptr, nullptr,
+                       layout, strides, batch, heads, sq, sk, scale, c_scale, stream);
 }
 
-const char* flash_attention_bwd_error_string(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
-}
+const char* flash_attention_bwd_error_string(int code) { return error_string(code); }
 
 }  // extern "C"

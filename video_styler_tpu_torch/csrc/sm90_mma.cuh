@@ -1,7 +1,8 @@
-// Shared device helpers of the attention kernels (K1 forward, K3 backward):
-// cp.async tile copies, ldmatrix, mma.sync m16n8k16 (bf16 in, fp32
-// accumulate), and the XOR swizzle of 16-byte chunks that makes ldmatrix
-// reads of a (rows x 128) bf16 tile free of bank conflicts.
+// Shared device helpers of the mma.sync attention kernels (K2 and K8, K6
+// and K7): cp.async tile copies, ldmatrix, mma.sync m16n8k16 (bf16 in,
+// fp32 accumulate), and the XOR swizzle of 16-byte chunks that makes
+// ldmatrix reads of a (rows x 128) bf16 tile free of bank conflicts; K1
+// and K3 (sm90_wgmma.cuh) use its exp2, packing and address helpers.
 #pragma once
 
 #include <cuda_runtime.h>

@@ -8,10 +8,12 @@ K1 replaces the Pallas kernel `_flash_kernel_4d_capped`
 capped=True, the default of the JAX package); with stats it also writes the
 per-row base-2 logsumexp L2 (B, N, Sq) that the backward needs (:284-285).
 K3 replaces `_fa_bwd_kernel_dkv` (:582) and `_fa_bwd_kernel_dq` (:624), via
-`_fa_bwd_pallas` (:664). Both are hand-written CUDA C++
-(`csrc/flash_attention.cu`, `csrc/flash_attention_bwd.cu`); their header
-notes say what bounds them on the H100 (the tensor cores) and how the
-mma.sync designs meet that.
+`_fa_bwd_pallas` (:664). Both are hand-written CUDA C++ for Hopper on
+`wgmma` and TMA (`csrc/flash_attention.cu`, `csrc/flash_attention_bwd.cu`,
+their building blocks in `csrc/sm90_wgmma.cuh`); their header notes say
+what bounds them on the H100 (the tensor cores) and how the designs meet
+that. They load q, k, v and dO through 4-D tensor maps, which
+`tma_layout` describes and checks.
 
 The capped softmax has no running max. Each query row gets an upper bound
 on its base-2 logits, m2 = min(||q'|| * max_j ||k_j|| * 1.0001, 96), with q'
@@ -62,16 +64,19 @@ LOG2_E = 1.4426950408889634
 NEG_INF = -1e30  # what a padded key's logit counts as
 HEAD_DIM = 128  # the kernels' head dim (every Wan DiT config)
 TILE_K = 64     # keys per step of the online kernels (K8: two such sub-tiles)
+BWD_TILE_Q = 64  # query rows per step of K3 (its L2/delta copies pad to it)
+TMA_MAX_STRIDE = 1 << 40  # a tensor map's byte strides stay below this
 
 KERNEL = Kernel("flash_attention", "flash_attention_capped_fwd",
-                [P] * 6 + [I64] * 12 + [I32, I32, I32, I32, F32, P],
+                [P] * 8 + [I32, I32, I32, I32, F32, P],
                 "flash_attention_error_string")
+# K3: dq, dk and dv in one kernel; without dK/dV wanted, its dq-only twin
+BWD_KERNEL = Kernel("flash_attention_bwd", "flash_attention_bwd",
+                    [P] * 14 + [I32] * 4 + [F32, F32, P],
+                    "flash_attention_bwd_error_string")
 BWD_DQ_KERNEL = Kernel("flash_attention_bwd", "flash_attention_bwd_dq",
-                       [P] * 9 + [I32] * 4 + [F32, F32, P],
+                       [P] * 12 + [I32] * 4 + [F32, F32, P],
                        "flash_attention_bwd_error_string")
-BWD_DKV_KERNEL = Kernel("flash_attention_bwd", "flash_attention_bwd_dkv",
-                        [P] * 9 + [I32] * 4 + [F32, F32, P],
-                        "flash_attention_bwd_error_string")
 ONLINE_KERNEL = Kernel("flash_attention_online", "flash_attention_online_fwd",
                        [P] * 6 + [I32] * 4 + [F32, P],
                        "flash_attention_online_error_string")
@@ -316,6 +321,37 @@ def _check_qkv(q, k, v):
                          f"q {tuple(q.shape)}")
 
 
+def tma_layout(t: torch.Tensor):
+    """The 4-D tensor map through which K1 and K3 load a (B, S, N, D)
+    tensor: its dims innermost first, (D, N, S, B), and the byte strides of
+    N, S and B. A dimension of size 1 takes the stride of a contiguous
+    layout, which its real one may not be (the map never steps along it).
+    Raises ValueError where TMA cannot read the tensor: D not contiguous,
+    a base or a byte stride not a multiple of 16, a stride of 0 (broadcast)
+    or of 2**40 bytes or more."""
+    b, s, n, d = t.shape
+    es = t.element_size()
+    if t.stride(3) != 1:
+        raise ValueError(f"tensor map: the last dim must be contiguous (strides {t.stride()})")
+    if t.data_ptr() % 16:
+        raise ValueError("tensor map: the base address must be 16-byte aligned")
+    strides, extent = [], d * es
+    for size, st in ((n, t.stride(2)), (s, t.stride(1)), (b, t.stride(0))):
+        nbytes = st * es if size > 1 else extent
+        if nbytes <= 0 or nbytes % 16 or nbytes >= TMA_MAX_STRIDE:
+            raise ValueError(f"tensor map: byte strides must be positive multiples of 16 "
+                             f"below 2**40 (strides {t.stride()}, {es}-byte elements)")
+        strides.append(nbytes)
+        extent = nbytes * size
+    return (d, n, s, b, *strides)
+
+
+def _layouts(*tensors):
+    """The tensor-map layouts of the tensors, 7 values each, as a C array."""
+    vals = [v for t in tensors for v in tma_layout(t)]
+    return (ctypes.c_longlong * len(vals))(*vals)
+
+
 def _flash_cuda(q, k, v, scale: float, with_stats: bool = False):
     b, sq, n, d = q.shape
     sk = k.shape[1]
@@ -324,18 +360,22 @@ def _flash_cuda(q, k, v, scale: float, with_stats: bool = False):
     out = torch.empty((b, sq, n, d), dtype=q.dtype, device=q.device)
     l2 = (torch.empty((b, n, sq), dtype=torch.float32, device=q.device)
           if with_stats else None)
+    layout = _layouts(q, k, v)
+    o_strides = _strides(out)
     KERNEL(q.data_ptr(), k.data_ptr(), v.data_ptr(), kmax.data_ptr(),
            out.data_ptr(), None if l2 is None else l2.data_ptr(),
-           *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-           *out.stride()[:3], b, n, sq, sk, scale * LOG2_E,
+           ctypes.addressof(layout), ctypes.addressof(o_strides),
+           b, n, sq, sk, scale * LOG2_E,
            torch.cuda.current_stream(q.device).cuda_stream)
     return (out, l2) if with_stats else out
 
 
 class _BwdLaunch:
-    """The checked arguments and outputs of one K3 call; `dq_kernel()`
-    launches the dq kernel (which also writes delta), `dkv_kernel()` the dkv
-    kernel, in that order."""
+    """The checked arguments, outputs and scratch of one K3 call; `run()`
+    launches it: the fused kernel when dK/dV are wanted, else its dq-only
+    twin. Scratch: L2 and delta padded to whole query tiles, and the fp32
+    dQ accumulator that the blocks add into, (B, N, Sq padded, D) elements
+    in the kernel's tile order."""
 
     def __init__(self, q, k, v, o, l2, g, scale: float, need_kv: bool):
         b, sq, n, d = q.shape
@@ -348,47 +388,48 @@ class _BwdLaunch:
         if (l2.dtype != torch.float32 or l2.shape != (b, n, sq)
                 or not l2.is_contiguous() or l2.device != q.device):
             raise ValueError(f"L2: need contiguous float32 {(b, n, sq)} on {q.device}")
-        self.delta = torch.empty((b, n, sq), dtype=torch.float32, device=q.device)
-        self.dq = torch.empty((b, sq, n, d), dtype=q.dtype, device=q.device)
+        dev = q.device
+        sq_pad = -(-sq // BWD_TILE_Q) * BWD_TILE_Q
+        self.l2p = torch.empty((b, n, sq_pad), dtype=torch.float32, device=dev)
+        self.deltap = torch.empty_like(self.l2p)
+        self.dq_acc = torch.empty((b, n, sq_pad, d), dtype=torch.float32, device=dev)
+        self.dq = torch.empty((b, sq, n, d), dtype=q.dtype, device=dev)
         self.dk = self.dv = None
         if need_kv:
-            self.dk = torch.empty(k.shape, dtype=k.dtype, device=q.device)
+            self.dk = torch.empty(k.shape, dtype=k.dtype, device=dev)
             self.dv = torch.empty_like(self.dk)
-        outs = (self.dq,) + ((self.dk, self.dv) if need_kv else (self.dq, self.dq))
-        self.strides = (ctypes.c_longlong * 24)(*(
-            st for t in (q, k, v, o, g) + outs for st in t.stride()[:3]))
-        self.q, self.k, self.v, self.o, self.l2, self.g = q, k, v, o, l2, g
+        self.need_kv = need_kv
+        self.layout = _layouts(q, k, v, g)
+        self.strides = _strides(o, g, self.dq, *((self.dk, self.dv) if need_kv else ()))
+        self.ptrs = [t.data_ptr() for t in (q, k, v, o, g, l2, self.l2p, self.deltap,
+                                            self.dq_acc, self.dq)]
+        self.keep = (q, k, v, o, l2, g)
         self.dims = (b, n, sq, k.shape[1], scale, scale * LOG2_E)
-        self.stream = torch.cuda.current_stream(q.device).cuda_stream
+        self.stream = torch.cuda.current_stream(dev).cuda_stream
 
-    def dq_kernel(self):
-        BWD_DQ_KERNEL(self.q.data_ptr(), self.k.data_ptr(), self.v.data_ptr(),
-                      self.o.data_ptr(), self.g.data_ptr(), self.l2.data_ptr(),
-                      self.delta.data_ptr(), self.dq.data_ptr(),
-                      ctypes.addressof(self.strides), *self.dims, self.stream)
-
-    def dkv_kernel(self):
-        BWD_DKV_KERNEL(self.q.data_ptr(), self.k.data_ptr(), self.v.data_ptr(),
-                       self.g.data_ptr(), self.l2.data_ptr(),
-                       self.delta.data_ptr(), self.dk.data_ptr(),
-                       self.dv.data_ptr(), ctypes.addressof(self.strides),
-                       *self.dims, self.stream)
+    def run(self):
+        tail = (ctypes.addressof(self.layout), ctypes.addressof(self.strides),
+                *self.dims, self.stream)
+        if self.need_kv:
+            BWD_KERNEL(*self.ptrs, self.dk.data_ptr(), self.dv.data_ptr(), *tail)
+        else:
+            BWD_DQ_KERNEL(*self.ptrs, *tail)
 
 
 def _flash_bwd_cuda(q, k, v, o, l2, g, scale: float, need_kv: bool = True):
-    """K3 on the card: the dq kernel, then, when dK or dV is wanted, the dkv
-    kernel. Returns (dq, dk, dv); dk and dv are None when not wanted."""
+    """K3 on the card. Returns (dq, dk, dv); dk and dv are None when not
+    wanted."""
     launch = _BwdLaunch(q, k, v, o, l2, g, scale, need_kv)
-    launch.dq_kernel()
-    if need_kv:
-        launch.dkv_kernel()
+    launch.run()
     return launch.dq, launch.dk, launch.dv
 
 
 def flash_attention_bwd(q, k, v, o, l2, g, scale: Optional[float] = None,
                         need_kv: bool = True):
     """K3: (dq, dk, dv) of K1 at cotangent g. CUDA tensors launch the
-    kernels (dk, dv None unless need_kv); CPU tensors run the plain version."""
+    kernel (dk, dv None unless need_kv); CPU tensors run the plain version.
+    On the card dq is summed by reduce-adds in an order that changes from run
+    to run: it agrees with itself within fp32 rounding, not bit for bit."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     if q.device.type == "cpu":
