@@ -13,8 +13,8 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
              (RMSNorm), then K1 with its stats output and K3 (the flash
              backward: dq, dk and dv in one kernel, and its dq-only twin)
              through the autograd Function that training uses, then K2 and K8 (online softmax, single and
-             dual; K2 also with stats, on its 3-D entry, under a q x24
-             stress and feeding K3), K6 (int8 Q K^T, capped and online) and
+             dual, self and cross; K2 also with stats, on its 3-D entry,
+             under a q x24 stress and feeding K3), K6 (int8 Q K^T, capped and online) and
              K7 (its 3-D twin), held against their plain PyTorch versions
              on the card
              at the Ditto shapes of a 73-frame 480x832 edit (29,640 tokens)
@@ -23,8 +23,8 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
              max abs/rel error against the stated tolerance, median kernel
              time over CUDA-event timed runs (L2 flushed before each), plain
              and library times, the bound from the work and the card's
-             data-sheet rates; K1 and K3 also their time over the library
-             call's and their registers and spills from the build log
+             data-sheet rates, the time over the library call's; K1, K2, K3
+             and K8 also their registers and spills from the build log
   reference  the smoke-size pipeline on the card against the same weights
              on the CPU (plain versions), latents and decoded frames
   reference_quant  the same after quantize(): int8 linears with int8
@@ -651,13 +651,14 @@ def kernel_row(torch, *, name, kernel, source, replaces, got, want, run, plain,
     t_ops = (flops / PEAK_BF16_FLOPS + int8_ops / PEAK_INT8_OPS) * 1e3
     t_bytes = nbytes / PEAK_BYTES * 1e3
     ms = time_ms(torch, run, reps=reps)
+    lib_ms = None if library is None else time_ms(torch, library, reps=10)
     return dict(name=name, kernel=kernel, route="cuda", source=source,
                 replaces=replaces, max_abs_err=err, max_rel_err=err / scale,
                 tol=TOL_ULPS * scale, ms=ms,
                 plain_ms=time_ms(torch, plain, reps=2, warmup=1),
                 bound_ms=max(t_ops, t_bytes),
                 bound_by="operations" if t_ops >= t_bytes else "bytes",
-                library_ms=None if library is None else time_ms(torch, library, reps=10),
+                library_ms=lib_ms, ratio_to_library=None if lib_ms is None else ms / lib_ms,
                 tflops=(flops + int8_ops) / ms / 1e9, clocks=gpu_clocks(), **extra)
 
 
@@ -668,9 +669,10 @@ JAX_FA = "video_styler_tpu/ops/flash_attention.py"
 
 def check_online_kernels(torch, s, tag, cross: bool, mag: float = 1.0):
     """K2 (with and without stats, and on its 3-D entry) and K8 at 40 heads
-    of 128 on `s` query tokens: self-attention, and with `cross` K2 against
-    the 512 text tokens too. `mag` scales q (the magnitude stress runs K2's
-    self row alone)."""
+    of 128 on `s` query tokens: self-attention, and with `cross` K2 and K8
+    against the 512 text tokens too. `mag` scales q (the magnitude stress
+    runs K2's self row alone). Each row carries the kernel's registers and
+    spills from the build log."""
     import torch.nn.functional as F
     from video_styler_tpu_torch.ops import flash_attention as fa
 
@@ -695,12 +697,13 @@ def check_online_kernels(torch, s, tag, cross: bool, mag: float = 1.0):
         want, want_l2 = fa.flash_attention_online_plain(q[:, sub], k, v, scale,
                                                         return_stats=True)
         common = dict(source=ONLINE_SRC, library=sdpa, flops=flops, checked_rows=int(sub.numel()))
+        k2 = dict(common, ptxas=kernel_usage("flash_fwd_online_kernel"))
         rows.append(kernel_row(
             torch, name=f"K2 flash_attention online {label}", kernel="K2",
             replaces=f"{JAX_FA}:150", got=fa.flash_attention(q, k, v, scale, capped=False)[:, sub],
             want=want, run=lambda: fa.flash_attention(q, k, v, scale, capped=False),
             plain=lambda: fa.flash_attention_online_plain(q, k, v, scale),
-            nbytes=nbytes, **common))
+            nbytes=nbytes, **k2))
         if mag != 1.0:
             continue
         out, l2 = fa._flash_forward(q, k, v, scale, with_stats=True, capped=False)
@@ -711,21 +714,20 @@ def check_online_kernels(torch, s, tag, cross: bool, mag: float = 1.0):
             replaces=f"{JAX_FA}:150", got=out[:, sub], want=want,
             run=lambda: fa._flash_forward(q, k, v, scale, with_stats=True, capped=False),
             plain=lambda: fa.flash_attention_online_plain(q, k, v, scale, return_stats=True),
-            nbytes=nbytes + 4.0 * n * s, l2_max_abs_err=err_l2, l2_tol=tol_l2, **common))
+            nbytes=nbytes + 4.0 * n * s, l2_max_abs_err=err_l2, l2_tol=tol_l2, **k2))
         if not err_l2 <= tol_l2:
             raise AssertionError(f"K2 L2 {label}: {err_l2} > {tol_l2}")
         del out, l2
-        if kind == "self":
-            want8 = fa.flash_attention_online_plain(q[:, sub], k, v, scale, dual=True)
-            rows.append(kernel_row(
-                torch, name=f"K8 flash_attention online dual {label}", kernel="K8",
-                replaces=f"{JAX_FA}:288",
-                got=fa.flash_attention(q, k, v, scale, capped=False, dual=True)[:, sub],
-                want=want8,
-                run=lambda: fa.flash_attention(q, k, v, scale, capped=False, dual=True),
-                plain=lambda: fa.flash_attention_online_plain(q, k, v, scale, dual=True),
-                nbytes=nbytes, **common))
-            del want8
+        want8 = fa.flash_attention_online_plain(q[:, sub], k, v, scale, dual=True)
+        rows.append(kernel_row(
+            torch, name=f"K8 flash_attention online dual {label}", kernel="K8",
+            replaces=f"{JAX_FA}:288",
+            got=fa.flash_attention(q, k, v, scale, capped=False, dual=True)[:, sub],
+            want=want8,
+            run=lambda: fa.flash_attention(q, k, v, scale, capped=False, dual=True),
+            plain=lambda: fa.flash_attention_online_plain(q, k, v, scale, dual=True),
+            nbytes=nbytes, ptxas=kernel_usage("flash_fwd_online_dual_kernel"), **common))
+        del want8
         del k, v, want, want_l2
     if mag == 1.0 and cross:
         # the 3-D entry on (heads, S, D): the same memory as a batch of
@@ -742,7 +744,7 @@ def check_online_kernels(torch, s, tag, cross: bool, mag: float = 1.0):
                 q3[:, :, None], k3[:, :, None], v3[:, :, None], scale),
             library=lambda: F.scaled_dot_product_attention(q3[None], k3[None], v3[None]),
             flops=4.0 * n * s * s * d, nbytes=2.0 * n * d * 4 * s,
-            checked_rows=int(sub.numel())))
+            checked_rows=int(sub.numel()), ptxas=kernel_usage("flash_fwd_online_kernel")))
     for r in rows:
         emit({"phase": "kernel", **r})
         if not r["max_abs_err"] <= r["tol"]:
@@ -1106,7 +1108,8 @@ def run_entry_3d(torch, kernels, s: int):
 
 KERNEL_CATEGORIES = (  # (category, substrings of the device kernel's name)
     ("K1", ("flash_fwd_capped_kernel",)),
-    ("K2/K8", ("flash_fwd_online_kernel",)),
+    ("K2", ("flash_fwd_online_kernel",)),
+    ("K8", ("flash_fwd_online_dual_kernel",)),
     ("K6", ("flash_fwd_int8_kernel",)),
     ("K3", ("fa_bwd_kernel<true>",)),
     ("K3q", ("fa_bwd_kernel<false>",)),

@@ -127,9 +127,32 @@ def test_online_plain_bf16_matches_pallas_interpret(interp, dual):
                              capped=False, dual=dual)
     got = tfa.flash_attention(tq, tk, tv, scale, capped=False, dual=dual)
     assert got.dtype == torch.bfloat16
-    # p is rounded to bf16 against running maxima that the two tilings (64
-    # and 128 keys) reach at different keys
+    # the same tiling on both sides (steps of 128 keys; dual 2 x 128), so p
+    # meets the same running maxima; exp2 and the fp32 sums differ in their
+    # last bits, which can move a bf16 rounding of p or of the output
     np.testing.assert_allclose(_np(got), _np(want), **TOL["bf16"])
+
+
+@pytest.mark.parametrize("which", ["fp32", "bf16"])
+@pytest.mark.parametrize("sk,block_k", [(300, 128), (200, 256)],
+                         ids=["port_step_256", "jax_step_512"])
+def test_k8_empty_second_sub_tile_matches_pallas_interpret(interp, sk, block_k, which):
+    """A last dual step whose second sub-tile holds no real key: Sk = 300
+    under steps of 2 x 128 keys (the port's K8 and the Pallas call alike:
+    keys 384..511 of the second step), and Sk = 200 under a Pallas step of
+    2 x 256 (the port's second sub-tile holds 72 keys there). Those logits
+    count as -1e30 on both sides, so their p are 0."""
+    (jq, tq), (jk, tk), (jv, tv) = _qkv((130, sk, 2, 128, 1.0), which, seed=5)
+    scale = 1.0 / np.sqrt(128)
+    want = jfa._flash_fwd_4d(jq, jk, jv, scale, block_q=128, block_k=block_k,
+                             capped=False, dual=True)
+    got = tfa.flash_attention(tq, tk, tv, scale, capped=False, dual=True)
+    assert got.dtype == tq.dtype and got.shape == tq.shape
+    tol = TOL["bf16"] if which == "bf16" else dict(rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(_np(got), _np(want), **tol)
+    # and the single-tile route on the same inputs: the same exact softmax
+    np.testing.assert_allclose(_np(got), _np(tfa.flash_attention_online_plain(tq, tk, tv, scale)),
+                               **tol)
 
 
 @pytest.mark.parametrize("case", list(CASES))
@@ -271,7 +294,7 @@ def test_k6_plain_matches_pallas_interpret(interp, case, capped):
     # the online body rounds p to bf16 against its running max, so the Pallas
     # call gets the port's step of 64 keys: both meet the same maxima
     want = jfa._flash_fwd_4d_int8(jq, jk, jv, scale, block_q=128,
-                                  block_k=128 if capped else tfa.TILE_K, capped=capped)
+                                  block_k=128 if capped else tfa.INT8_TILE_K, capped=capped)
     got = tfa.flash_attention_int8(tq, tk, tv, scale, capped=capped)
     assert got.dtype == tq.dtype and got.shape == tq.shape
     _assert_bf16_close(got, want)
@@ -287,7 +310,7 @@ def test_k7_plain_matches_pallas_interpret(interp, sq, sk):
     q, k, v = _grid(70, (4, sq, 32)), _grid(71, (4, sk, 32), offset=0.75), _rand(72, (4, sk, 32))
     scale = 1.0 / np.sqrt(32)
     want = jfa._flash_fwd_3d_int8(*(jnp.asarray(a) for a in (q, k, v)), scale,
-                                  block_q=128, block_k=tfa.TILE_K)  # as for K6 online
+                                  block_q=128, block_k=tfa.INT8_TILE_K)  # as for K6 online
     got = tfa.flash_attention_int8_3d(*(torch.from_numpy(a) for a in (q, k, v)), scale)
     assert got.dtype == torch.bfloat16 and got.shape == (4, sq, 32)
     _assert_bf16_close(got, want)

@@ -204,7 +204,7 @@ def test_k3_rejects_what_it_does_not_take(gen):
 # --------------------------------------------------------------------------
 
 ONLINE_CASES = [(1, 64, 64, 1, 1.0), (2, 200, 333, 3, 1.0), (1, 1000, 512, 4, 1.0),
-                (1, 300, 257, 2, 24.0), (1, 130, 129, 2, 1.0)]
+                (1, 300, 257, 2, 24.0), (1, 130, 129, 2, 1.0), (1, 200, 300, 2, 1.0)]
 
 
 @pytest.mark.parametrize("dual", [False, True])
@@ -243,6 +243,76 @@ def test_k2_stats_feed_k3_and_3d_entry(gen):
     got3 = torch.autograd.grad(fa.flash_attention_3d(*ins), ins, g3)
     for t, w in zip(got3, got):
         _assert_close(t, w[0].transpose(0, 1))
+
+
+@pytest.mark.parametrize("dual", [False, True])
+@pytest.mark.parametrize("sk", [29640, 300, 512])
+def test_k2_k8_ragged_ditto_lengths(gen, sk, dual):
+    """The Ditto self-attention keys (29,640 = 115 x 256 + 200: K8's last
+    second sub-tile holds 72 keys), Sk = 300 (K8's last second sub-tile
+    holds none) and the 512 text tokens (whole steps), on a ragged query
+    tail; K2 also with stats."""
+    q = _randn(gen, 1, 333, 2, 128)
+    k, v = _randn(gen, 1, sk, 2, 128), _randn(gen, 1, sk, 2, 128)
+    _assert_close(fa.flash_attention(q, k, v, capped=False, dual=dual),
+                  fa.flash_attention_online_plain(q, k, v, dual=dual))
+    if not dual:
+        o, l2 = fa._flash_forward(q, k, v, 128 ** -0.5, with_stats=True, capped=False)
+        po, pl2 = fa.flash_attention_online_plain(q, k, v, return_stats=True)
+        _assert_close(o, po)
+        assert (l2 - pl2).abs().max().item() <= 1e-4 * max(1.0, pl2.abs().max().item())
+
+
+@pytest.mark.parametrize("dual", [False, True])
+def test_k2_k8_read_strided_views(gen, dual):
+    """Head slices of one (B, S, 3 N D) projection and the kv_valid slice of
+    the keys: the kernels read through the tensor maps' strides, no copy."""
+    x = _randn(gen, 2, 130, 3 * 2 * 128)
+    q, k, v = x.view(2, 130, 6, 128).split(2, dim=2)
+    kern = fa.DUAL_KERNEL if dual else fa.ONLINE_KERNEL
+    before = kern.launches
+    out = fa.flash_attention(q, k[:, :97], v[:, :97], capped=False, dual=dual)
+    torch.cuda.synchronize()
+    assert kern.launches == before + 1
+    _assert_close(out, fa.flash_attention_online_plain(q, k[:, :97].contiguous(),
+                                                       v[:, :97].contiguous(), dual=dual))
+
+
+def test_k2_rejects_what_it_does_not_take(gen):
+    q = _randn(gen, 1, 16, 2, 128)
+    for dual in (False, True):
+        with pytest.raises(TypeError):
+            fa.flash_attention(q.float(), q.float(), q.float(), capped=False, dual=dual)
+        with pytest.raises(ValueError):
+            small = _randn(gen, 1, 16, 2, 64)
+            fa.flash_attention(small, small, small, capped=False, dual=dual)
+        with pytest.raises(ValueError):  # rows 260 bytes apart: not a TMA stride
+            wide = _randn(gen, 1, 16, 2, 130)[..., :128]
+            fa.flash_attention(q, wide, wide, capped=False, dual=dual)
+    with pytest.raises(ValueError):
+        fa._flash_forward(q, q, q, 128 ** -0.5, with_stats=True, capped=False, dual=True)
+
+
+@pytest.mark.parametrize("sq,sk,n", [(4680, 4680, 2), (333, 300, 3), (300, 512, 2)])
+def test_k2_stats_feed_k3_ragged(gen, sq, sk, n):
+    """The online training route under autograd at ragged lengths: K2 with
+    stats, then K3 (dq, dk, dv) from its L2, against the plain pair."""
+    q = _randn(gen, 1, sq, n, 128)
+    k, v = _randn(gen, 1, sk, n, 128), _randn(gen, 1, sk, n, 128)
+    g = _randn(gen, 1, sq, n, 128)
+    ins = [t.clone().requires_grad_() for t in (q, k, v)]
+    before = (fa.ONLINE_KERNEL.launches, fa.BWD_KERNEL.launches)
+    out = fa.flash_attention(*ins, capped=False)
+    l2 = out.grad_fn.saved_tensors[4]
+    got = torch.autograd.grad(out, ins, g)
+    torch.cuda.synchronize()
+    assert (fa.ONLINE_KERNEL.launches, fa.BWD_KERNEL.launches) == (before[0] + 1,
+                                                                   before[1] + 1)
+    po, pl2 = fa.flash_attention_online_plain(q, k, v, return_stats=True)
+    _assert_close(out.detach(), po)
+    assert (l2 - pl2).abs().max().item() <= 1e-4 * max(1.0, pl2.abs().max().item())
+    for t, w in zip(got, fa.flash_attention_bwd_plain(q, k, v, out.detach(), l2, g)):
+        _assert_close(t, w)
 
 
 @pytest.mark.parametrize("capped", [True, False])

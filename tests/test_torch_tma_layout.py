@@ -1,10 +1,11 @@
-"""The tensor-map layouts through which K1 and K3 load q, k, v and dO on
-the card (`tma_layout`), computed and checked on CPU tensors: the dims
-innermost first (D, N, S, B), the byte strides of N, S and B, and the
+"""The tensor-map layouts through which K1, K2, K3 and K8 load q, k, v and
+dO on the card (`tma_layout`), computed and checked on CPU tensors: the
+dims innermost first (D, N, S, B), the byte strides of N, S and B, and the
 tensors that TMA cannot read, which the wrappers refuse before a launch."""
 import pytest
 import torch
 
+from video_styler_tpu_torch.ops import flash_attention as fa
 from video_styler_tpu_torch.ops.flash_attention import tma_layout
 
 
@@ -57,3 +58,47 @@ def test_kv_valid_slice_keeps_the_layout():
 def test_refuses_what_tma_cannot_read(make):
     with pytest.raises(ValueError):
         tma_layout(make())
+
+
+def test_3d_entry_on_strided_rows():
+    """`flash_attention_3d` hands K2 the (BH, S, 1, D) view of its inputs;
+    a (BH, S, D) tensor that is itself a transposed (S, BH, D) buffer keeps
+    its strides: S steps over every head, BH over one row of D."""
+    x = _aligned(300, 40, 128).transpose(0, 1)                # (40, 300, 128)
+    assert tma_layout(x[:, :, None]) == (128, 1, 300, 40, 256, 40 * 256, 256)
+
+
+def test_cross_attention_kv_of_a_fused_projection():
+    """The online route's cross-attention keys and values: head views of one
+    (B, 512, 2 N D) projection of the text, rows 2 N D elements apart."""
+    kv = _aligned(2, 512, 2 * 40 * 128)
+    k, v = kv.view(2, 512, 80, 128).split(40, dim=2)
+    assert v.data_ptr() - k.data_ptr() == 40 * 256
+    for t in (k, v):
+        assert tma_layout(t) == (128, 40, 512, 2, 256, 80 * 256, 512 * 80 * 256)
+
+
+@pytest.mark.parametrize("dual", [False, True], ids=["k2", "k8"])
+@pytest.mark.parametrize("make,error", [
+    (lambda: [_aligned(1, 16, 2, 128, dtype=torch.float32)] * 3, TypeError),
+    (lambda: [_aligned(1, 16, 2, 64)] * 3, ValueError),            # head dim 64
+    (lambda: [_aligned(1, 16, 2, 128), _aligned(1, 16, 2, 130)[..., :128],
+              _aligned(1, 16, 2, 128)], ValueError),                # rows 260 bytes apart
+    (lambda: [_aligned(1, 16, 2, 128), _aligned(1, 1, 2, 128).expand(1, 16, 2, 128),
+              _aligned(1, 16, 2, 128)], ValueError),                # broadcast rows
+    (lambda: [_aligned(1, 16, 2, 128), _aligned(1, 16, 3, 128), _aligned(1, 16, 3, 128)],
+     ValueError),                                                   # heads differ
+], ids=["float32", "head_dim_64", "misaligned_rows", "broadcast", "heads"])
+def test_online_wrapper_refuses_before_a_launch(make, error, dual):
+    """K2's and K8's wrapper checks its inputs and their tensor maps before
+    it launches anything (here on CPU tensors, where a launch could not
+    happen at all: a refusal is the only outcome that passes)."""
+    q, k, v = make()
+    with pytest.raises(error):
+        fa._flash_online_cuda(q, k, v, 1.0, dual=dual)
+
+
+def test_dual_wrapper_writes_no_stats():
+    t = _aligned(1, 16, 2, 128)
+    with pytest.raises(ValueError, match="no stats"):
+        fa._flash_online_cuda(t, t, t, 1.0, with_stats=True, dual=True)

@@ -32,10 +32,14 @@ raises.
 K2 replaces `_flash_kernel_4d` (:150, `_flash_fwd_4d` with capped=False,
 i.e. `FLASH_CAPPED=0`) and its 3-D twin `_flash_kernel` (:54); K8 replaces
 `_flash_kernel_4d_dual` (:288, `FLASH_DUAL=1`). Both are the exact softmax
-with a running max (`csrc/flash_attention_online.cu`); K2 can write the same
-L2 = m + log2 l, so K3 serves that route unchanged. `flash_attention` reads
-`FLASH_CAPPED` / `FLASH_DUAL` at call time when its `capped` / `dual`
-arguments are None, as `_flash_fwd_4d` does (:372-379).
+with a running max over steps of TILE_K keys (K8: two such sub-tiles and
+one max), on the same `wgmma` and TMA building blocks as K1
+(`csrc/flash_attention_online.cu`, bound by the tensor cores as K1 is): K2
+in K1's block with a producer warpgroup, K8, whose two sub-tiles' logits
+do not fit three warpgroups' registers, in K3's block of two warpgroups.
+K2 can write the same L2 = m + log2 l, so K3 serves that route unchanged.
+`flash_attention` reads `FLASH_CAPPED` / `FLASH_DUAL` at call time when its
+`capped` / `dual` arguments are None, as `_flash_fwd_4d` does (:372-379).
 
 K6 replaces `_flash_kernel_int8_4d_capped` (:1025) and
 `_flash_kernel_int8_4d` (:980), K7 the 3-D `_flash_kernel_int8` (:862):
@@ -63,7 +67,8 @@ from .quant import quantize_act_int8 as quantize_rows_int8
 LOG2_E = 1.4426950408889634
 NEG_INF = -1e30  # what a padded key's logit counts as
 HEAD_DIM = 128  # the kernels' head dim (every Wan DiT config)
-TILE_K = 64     # keys per step of the online kernels (K8: two such sub-tiles)
+TILE_K = 128    # keys per step of K2 (K8: two such sub-tiles, one max)
+INT8_TILE_K = 64  # keys per step of K6's online body and K7
 BWD_TILE_Q = 64  # query rows per step of K3 (its L2/delta copies pad to it)
 TMA_MAX_STRIDE = 1 << 40  # a tensor map's byte strides stay below this
 
@@ -78,10 +83,10 @@ BWD_DQ_KERNEL = Kernel("flash_attention_bwd", "flash_attention_bwd_dq",
                        [P] * 12 + [I32] * 4 + [F32, F32, P],
                        "flash_attention_bwd_error_string")
 ONLINE_KERNEL = Kernel("flash_attention_online", "flash_attention_online_fwd",
-                       [P] * 6 + [I32] * 4 + [F32, P],
+                       [P] * 7 + [I32] * 4 + [F32, P],
                        "flash_attention_online_error_string")
 DUAL_KERNEL = Kernel("flash_attention_online", "flash_attention_online_dual_fwd",
-                     [P] * 6 + [I32] * 4 + [F32, P],
+                     [P] * 7 + [I32] * 4 + [F32, P],
                      "flash_attention_online_error_string")
 INT8_CAPPED_KERNEL = Kernel("flash_attention_int8", "flash_attention_int8_capped_fwd",
                             [P] * 8 + [I32] * 4 + [P],
@@ -195,8 +200,8 @@ def flash_attention_online_plain(q, k, v, scale: Optional[float] = None,
                                  dual: bool = False, return_stats: bool = False,
                                  max_elements: int = 1 << 27):
     """K2's plain version (K8's with dual=True): the exact softmax with the
-    kernels' running max over steps of 64 keys (dual: 128, one merged
-    update). q (B, Sq, N, D), k/v (B, Sk, N, D) -> (B, Sq, N, D), and with
+    kernels' running max over steps of TILE_K keys (dual: two such
+    sub-tiles, one merged update). q (B, Sq, N, D), k/v (B, Sk, N, D) -> (B, Sq, N, D), and with
     return_stats L2 = m + log2 l, (B, N, Sq) f32 (single only, as in the JAX
     package).
 
@@ -260,7 +265,7 @@ def int8_prepass(q, k, v, scale: float, capped: bool):
 def flash_attention_int8_core_plain(q_i8, k_i8, v, qs, ks, m2=None,
                                     max_elements: int = 1 << 27):
     """K6's plain version on the pre-pass's outputs (m2 given: the capped
-    body; None: the online body over steps of 64 keys) -> (B, Sq, N, D)
+    body; None: the online body over steps of INT8_TILE_K keys) -> (B, Sq, N, D)
     bfloat16.
 
     The kernels' rounding points: the integer dot is exact (128 terms of at
@@ -281,7 +286,7 @@ def flash_attention_int8_core_plain(q_i8, k_i8, v, qs, ks, m2=None,
             l = p.sum(dim=-1, keepdim=True).clamp_min(1e-37)
             o = torch.matmul(p.to(torch.bfloat16).float(), vf) / l
         else:
-            p, w, _ = _online_terms(s, TILE_K)
+            p, w, _ = _online_terms(s, INT8_TILE_K)
             l = (p * w).sum(dim=-1, keepdim=True)
             o = torch.matmul(p.to(torch.bfloat16).float() * w, vf) / l
         out[:, sl] = o.permute(0, 2, 1, 3).to(torch.bfloat16)
@@ -301,7 +306,7 @@ def flash_attention_int8_plain(q, k, v, scale: Optional[float] = None,
 
 def _check(name: str, t: torch.Tensor, device):
     if t.dtype != torch.bfloat16:
-        raise TypeError(f"{name}: K1/K3 take bfloat16, got {t.dtype}")
+        raise TypeError(f"{name}: K1/K2/K3/K8 take bfloat16, got {t.dtype}")
     if t.dim() != 4 or t.shape[-1] != HEAD_DIM:
         raise ValueError(f"{name}: need (B, S, N, {HEAD_DIM}), got {tuple(t.shape)}")
     if t.device != device:
@@ -322,7 +327,7 @@ def _check_qkv(q, k, v):
 
 
 def tma_layout(t: torch.Tensor):
-    """The 4-D tensor map through which K1 and K3 load a (B, S, N, D)
+    """The 4-D tensor map through which K1, K2, K3 and K8 load a (B, S, N, D)
     tensor: its dims innermost first, (D, N, S, B), and the byte strides of
     N, S and B. A dimension of size 1 takes the stride of a contiguous
     layout, which its real one may not be (the map never steps along it).
@@ -456,11 +461,12 @@ def _flash_online_cuda(q, k, v, q_scale: float, with_stats: bool = False,
     out = torch.empty((b, sq, n, d), dtype=q.dtype, device=q.device)
     l2 = (torch.empty((b, n, sq), dtype=torch.float32, device=q.device)
           if with_stats else None)
-    strides = _strides(q, k, v, out)
+    layout = _layouts(q, k, v)
+    o_strides = _strides(out)
     (DUAL_KERNEL if dual else ONLINE_KERNEL)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        None if l2 is None else l2.data_ptr(), ctypes.addressof(strides),
-        b, n, sq, k.shape[1], q_scale,
+        None if l2 is None else l2.data_ptr(), ctypes.addressof(layout),
+        ctypes.addressof(o_strides), b, n, sq, k.shape[1], q_scale,
         torch.cuda.current_stream(q.device).cuda_stream)
     return (out, l2) if with_stats else out
 
