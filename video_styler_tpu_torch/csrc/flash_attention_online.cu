@@ -373,20 +373,17 @@ flash_fwd_online_kernel(const __grid_constant__ CUtensorMap qmap,
 
 // ------------------------------------------------------------------ K8
 
-// kSub tiles of 128 keys per step (K8: 2) and one max over them. K tiles
-// (then the step's P tiles): a ring of two steps; V tiles: of kVSteps steps.
-template <int kSub>
-struct DualLayout {
-  static constexpr int kThreads = 256;  // 2 warpgroups, no producer
-  static constexpr int kVSteps = kSub == 1 ? 2 : 1;
-  static constexpr int kKStages = 2 * kSub;
-  static constexpr int kVStages = kVSteps * kSub;
-  static constexpr int kOffK = kQBytes;
-  static constexpr int kOffV = kOffK + kKStages * kTileBytes;
-  static constexpr int kOffBar = kOffV + kVStages * kTileBytes;
-  static constexpr int kBars = 1 + 2 * kKStages + 2 * kVStages;
-  static constexpr int kSmem = kOffBar + 8 * kBars + 1024;  // + alignment slack
-};
+constexpr int kSub = 2;                // 128-key sub-tiles per step, one max
+constexpr int kThreadsK8 = 256;        // 2 warpgroups, no producer
+constexpr int kKStagesK8 = 2 * kSub;   // K (then P) tiles of two steps
+constexpr int kVStagesK8 = kSub;       // V tiles of one step
+constexpr int kOffKK8 = kQBytes;
+constexpr int kOffVK8 = kOffKK8 + kKStagesK8 * kTileBytes;
+constexpr int kOffBarK8 = kOffVK8 + kVStagesK8 * kTileBytes;
+// mbarriers: Q, then K full and empty [kKStagesK8], V full and empty
+// [kVStagesK8]
+constexpr int kBarK = 1, kBarV = 1 + 2 * kKStagesK8;
+constexpr int kSmemK8 = kOffBarK8 + 8 * (kBarV + 2 * kVStagesK8) + 1024;  // + slack
 
 // Special registers read where they are used: the K8 loop's registers go
 // to the two sub-tiles' logits and the accumulator, not to coordinates.
@@ -404,62 +401,56 @@ __device__ __forceinline__ int sreg_ctaid(int dim) {
   return v;
 }
 
-template <int kSub>
-__global__ void __launch_bounds__(DualLayout<kSub>::kThreads, 1)
+__global__ void __launch_bounds__(kThreadsK8, 1)
 flash_fwd_online_dual_kernel(const __grid_constant__ CUtensorMap qmap,
                              const __grid_constant__ CUtensorMap kmap,
                              const __grid_constant__ CUtensorMap vmap, const Params a) {
-  using L = DualLayout<kSub>;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_addr(smem_raw);
   const uint32_t base = (raw + 1023) & ~1023u;
   uint8_t* const sbase = smem_raw + (base - raw);
-  // mbarriers: Q, then K full and empty [kKStages], V full and empty
-  // [kVStages], at addresses rebuilt from an opaque base where used
-  constexpr int kBarK = 1, kBarV = 1 + 2 * L::kKStages;
-  auto bar = [&](int i) { return opaque(base) + L::kOffBar + 8 * i; };
+  // barrier i, at an address rebuilt from an opaque base where used
+  auto bar = [&](int i) { return opaque(base) + kOffBarK8 + 8 * i; };
   const int nsteps = (a.sk + kSub * kBK - 1) / (kSub * kBK);
 
   if (threadIdx.x == 0) {
     mbar_init(bar(0), 1);
-    for (int s = 0; s < L::kKStages; ++s) {
+    for (int s = 0; s < kKStagesK8; ++s) {
       mbar_init(bar(kBarK + s), 1);
-      mbar_init(bar(kBarK + L::kKStages + s), 256);
+      mbar_init(bar(kBarK + kKStagesK8 + s), 256);
     }
-    for (int s = 0; s < L::kVStages; ++s) {
+    for (int s = 0; s < kVStagesK8; ++s) {
       mbar_init(bar(kBarV + s), 1);
-      mbar_init(bar(kBarV + L::kVStages + s), 256);
+      mbar_init(bar(kBarV + kVStagesK8 + s), 256);
     }
     mbar_init_fence();
   }
   __syncthreads();
 
   // Issued by thread 0: the K tiles of step u into stages (u % 2) * kSub..,
-  // the V tiles of step u into stages (u % kVSteps) * kSub.., each after
-  // the stage's previous use has been released by all 256 threads.
+  // the V tiles of step u into stages 0.., each after the stage's previous
+  // use (step u - 2 for K, u - 1 for V) has been released by all 256
+  // threads.
   auto load_k = [&](int u) {
     for (int i = 0; i < kSub; ++i) {
       const int st = (u & 1) * kSub + i;
-      if (u >= 2) mbar_wait(bar(kBarK + L::kKStages + st), ((u >> 1) - 1) & 1);
+      if (u >= 2) mbar_wait(bar(kBarK + kKStagesK8 + st), ((u >> 1) - 1) & 1);
       mbar_expect_tx(bar(kBarK + st), kTileBytes);
-      load_tile(opaque(base) + L::kOffK + st * kTileBytes, &kmap, sreg_ctaid(1),
+      load_tile(opaque(base) + kOffKK8 + st * kTileBytes, &kmap, sreg_ctaid(1),
                 (u * kSub + i) * kBK, sreg_ctaid(2), bar(kBarK + st));
     }
   };
   auto load_v = [&](int u) {
-    const int use = u / L::kVSteps;
     for (int i = 0; i < kSub; ++i) {
-      const int st = (u % L::kVSteps) * kSub + i;
-      if (use >= 1) mbar_wait(bar(kBarV + L::kVStages + st), (use - 1) & 1);
-      mbar_expect_tx(bar(kBarV + st), kTileBytes);
-      load_tile(opaque(base) + L::kOffV + st * kTileBytes, &vmap, sreg_ctaid(1),
-                (u * kSub + i) * kBK, sreg_ctaid(2), bar(kBarV + st));
+      if (u >= 1) mbar_wait(bar(kBarV + kVStagesK8 + i), (u - 1) & 1);
+      mbar_expect_tx(bar(kBarV + i), kTileBytes);
+      load_tile(opaque(base) + kOffVK8 + i * kTileBytes, &vmap, sreg_ctaid(1),
+                (u * kSub + i) * kBK, sreg_ctaid(2), bar(kBarV + i));
     }
   };
   if (threadIdx.x == 0) {
     load_q(base, &qmap, blockIdx.y, blockIdx.x * kBQ, blockIdx.z, bar(0));
     load_k(0);
-    for (int u = 0; u + 1 < L::kVSteps && u < nsteps; ++u) load_v(u);
   }
 
   {
@@ -478,64 +469,61 @@ flash_fwd_online_dual_kernel(const __grid_constant__ CUtensorMap qmap,
 
   for (int t = 0; t < nsteps; ++t) {
     const int kst = (t & 1) * kSub;
-    const int vst = (t % L::kVSteps) * kSub;
-    // the next step's K and this step's V (a ring of one step: its stages
-    // were released at the end of the previous step)
+    // the next step's K and this step's V (its stages were released at the
+    // end of the previous step)
     if (sreg_tid() == 0) {
       if (t + 1 < nsteps) load_k(t + 1);
-      if (t + L::kVSteps - 1 < nsteps) load_v(t + L::kVSteps - 1);
+      load_v(t);
     }
     __syncwarp();
     for (int i = 0; i < kSub; ++i) mbar_wait(bar(kBarK + kst + i), (t >> 1) & 1);
 
-    // S of every sub-tile, one commit group each
+    // S of both sub-tiles, one commit group each
     const uint32_t sb = opaque(base);
     const uint32_t qs = sb + (sreg_tid() >> 7) * (kQBytes / 2);
     float sacc[kSub][64];
     wgmma_fence();
 #pragma unroll
     for (int i = 0; i < kSub; ++i) {
-      s_product(sacc[i], qs, sb + L::kOffK + (kst + i) * kTileBytes);
+      s_product(sacc[i], qs, sb + kOffKK8 + (kst + i) * kTileBytes);
       wgmma_commit();
     }
 
     // one max over the step's keys: the first sub-tile's while the second
     // one's product runs
     float mx[2] = {kNegInf, kNegInf};
-    wgmma_wait<kSub - 1>();
+    wgmma_wait<1>();
     reg_fence(sacc[0]);
     mask_and_max(sacc[0], t * kSub * kBK, a.sk, sreg_tid() & 3, mx);
-    if constexpr (kSub == 2) {
-      wgmma_wait<0>();
-      reg_fence(sacc[1]);
-      mask_and_max(sacc[1], (t * kSub + 1) * kBK, a.sk, sreg_tid() & 3, mx);
-    }
+    wgmma_wait<0>();
+    reg_fence(sacc[1]);
+    mask_and_max(sacc[1], (t * kSub + 1) * kBK, a.sk, sreg_tid() & 3, mx);
     // both warpgroups' S products have read this step's K tiles: their
     // stages take the P tiles now
     named_barrier(3, 256);
     online_update(mx, m, l, acc);
 
-    // p and O += P V a sub-tile at a time: the next sub-tile's p while the
-    // previous product runs
-    for (int i = 0; i < kSub; ++i) mbar_wait(bar(kBarV + vst + i), (t / L::kVSteps) & 1);
+    // p and O += P V a sub-tile at a time: the second sub-tile's p while
+    // the first one's product runs
+    for (int i = 0; i < kSub; ++i) mbar_wait(bar(kBarV + i), t & 1);
     reg_fence(acc);
 #pragma unroll
     for (int i = 0; i < kSub; ++i) {
       const int tid = sreg_tid();
       const uint32_t pt =
-          opaque(base) + L::kOffK + (kst + i) * kTileBytes + (tid >> 7) * (kTileBytes / 2);
+          opaque(base) + kOffKK8 + (kst + i) * kTileBytes + (tid >> 7) * (kTileBytes / 2);
       p_to_smem(sacc[i], m, l, pt, (tid >> 5) & 3, (tid & 31) >> 2, tid & 3);
       fence_proxy_async();
       named_barrier(1 + (tid >> 7), 128);
       wgmma_fence();
-      pv_product_ss(acc, pt, opaque(base) + L::kOffV + (vst + i) * kTileBytes);
+      pv_product_ss(acc, pt, opaque(base) + kOffVK8 + i * kTileBytes);
       wgmma_commit();
     }
     wgmma_wait<0>();
     reg_fence(acc);
     for (int i = 0; i < kSub; ++i) {
-      mbar_arrive(bar(kBarK + L::kKStages + kst + i));
-      mbar_arrive(bar(kBarV + L::kVStages + vst + i));
+      mbar_arrive(bar(kBarK + kKStagesK8 + kst + i));
+      mbar_arrive(bar(kBarV + kVStagesK8 + i));
     }
   }
   const Lane ln(threadIdx.x);
@@ -543,9 +531,7 @@ flash_fwd_online_dual_kernel(const __grid_constant__ CUtensorMap qmap,
              blockIdx.x * kBQ + ln.wg * 64 + ln.warp * 16 + ln.g, ln.tig);
 }
 
-// kSub 0: K2 (three warpgroups); 1 or 2: the two-warpgroup block with that
-// many sub-tiles per step (2: K8)
-template <int kSub>
+template <bool kDual>
 int launch(const void* q, const void* k, const void* v, void* o, void* l2,
            const long long* layout, const long long* o_strides, int batch, int heads,
            int sq, int sk, float q_scale, void* stream) {
@@ -569,19 +555,18 @@ int launch(const void* q, const void* k, const void* v, void* o, void* l2,
   const dim3 grid((sq + kBQ - 1) / kBQ, heads, batch);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t e;
-  if constexpr (kSub == 0) {
+  if constexpr (kDual) {
+    e = cudaFuncSetAttribute(flash_fwd_online_dual_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemK8);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    flash_fwd_online_dual_kernel<<<grid, kThreadsK8, kSmemK8, st>>>(maps[0], maps[1],
+                                                                    maps[2], a);
+  } else {
     e = cudaFuncSetAttribute(flash_fwd_online_kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemK2);
     if (e != cudaSuccess) return static_cast<int>(e);
     flash_fwd_online_kernel<<<grid, kThreadsK2, kSmemK2, st>>>(maps[0], maps[1], maps[2],
                                                                a);
-  } else {
-    using L = DualLayout<kSub>;
-    e = cudaFuncSetAttribute(flash_fwd_online_dual_kernel<kSub>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, L::kSmem);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    flash_fwd_online_dual_kernel<kSub><<<grid, L::kThreads, L::kSmem, st>>>(
-        maps[0], maps[1], maps[2], a);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -600,8 +585,8 @@ int flash_attention_online_fwd(const void* q, const void* k, const void* v, void
                                void* l2, const long long* layout,
                                const long long* o_strides, int batch, int heads, int sq,
                                int sk, float q_scale, void* stream) {
-  return launch<0>(q, k, v, o, l2, layout, o_strides, batch, heads, sq, sk, q_scale,
-                   stream);
+  return launch<false>(q, k, v, o, l2, layout, o_strides, batch, heads, sq, sk, q_scale,
+                       stream);
 }
 
 // K8: two 128-key sub-tiles per step, one merged max / alpha update
@@ -609,17 +594,8 @@ int flash_attention_online_dual_fwd(const void* q, const void* k, const void* v,
                                     void* l2, const long long* layout,
                                     const long long* o_strides, int batch, int heads,
                                     int sq, int sk, float q_scale, void* stream) {
-  return launch<2>(q, k, v, o, l2, layout, o_strides, batch, heads, sq, sk, q_scale,
-                   stream);
-}
-
-// K2 on K8's two-warpgroup block (kSub = 1): the same function as K2
-int flash_attention_online_2wg_fwd(const void* q, const void* k, const void* v, void* o,
-                                   void* l2, const long long* layout,
-                                   const long long* o_strides, int batch, int heads,
-                                   int sq, int sk, float q_scale, void* stream) {
-  return launch<1>(q, k, v, o, l2, layout, o_strides, batch, heads, sq, sk, q_scale,
-                   stream);
+  return launch<true>(q, k, v, o, l2, layout, o_strides, batch, heads, sq, sk, q_scale,
+                      stream);
 }
 
 const char* flash_attention_online_error_string(int code) { return error_string(code); }

@@ -1,5 +1,5 @@
-// Hopper building blocks of the redesigned attention kernels (K1 forward,
-// K3 backward): warpgroup MMA (wgmma) on bf16 with fp32 accumulators, the
+// Hopper building blocks of the redesigned attention kernels (K1, K2 and
+// K8 forward, K3 backward): warpgroup MMA (wgmma) on bf16 with fp32 accumulators, the
 // 64-bit shared-memory matrix descriptor for the 128-byte swizzle, mbarrier
 // waits and arrivals, TMA tile loads (cp.async.bulk.tensor) completed on an
 // mbarrier, the async-proxy fence, register rebalancing (setmaxnreg) and
