@@ -14,7 +14,8 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
              backward: dq, dk and dv in one kernel, and its dq-only twin)
              through the autograd Function that training uses, then K2 and K8 (online softmax, single and
              dual, self and cross; K2 also with stats, on its 3-D entry,
-             under a q x24 stress and feeding K3), K6 (int8 Q K^T, capped and online) and
+             under a q x24 stress and feeding K3), K6 (int8 Q K^T, capped and online;
+             beside the bf16 kernel of the same body on the same inputs) and
              K7 (its 3-D twin), held against their plain PyTorch versions
              on the card
              at the Ditto shapes of a 73-frame 480x832 edit (29,640 tokens)
@@ -23,8 +24,9 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
              max abs/rel error against the stated tolerance, median kernel
              time over CUDA-event timed runs (L2 flushed before each), plain
              and library times, the bound from the work and the card's
-             data-sheet rates, the time over the library call's; K1, K2, K3
-             and K8 also their registers and spills from the build log
+             data-sheet rates, the time over the library call's; the
+             attention kernels and K5 also their registers and spills from
+             the build log
   reference  the smoke-size pipeline on the card against the same weights
              on the CPU (plain versions), latents and decoded frames
   reference_quant  the same after quantize(): int8 linears with int8
@@ -270,7 +272,9 @@ def check_kernels(torch, grid, tag):
         ms=time_ms(torch, lambda: fnr.fused_rmsnorm(xq, wq), 10),
         plain_ms=time_ms(torch, lambda: fnr.fused_rmsnorm_plain(xq, wq), 10),
         bound_ms=b_ms, bound_by=b_by,
-        library_ms=time_ms(torch, lambda: F.rms_norm(xq, (dm,), wq, 1e-6), 10)))
+        library_ms=time_ms(torch, lambda: F.rms_norm(xq, (dm,), wq, 1e-6), 10),
+        ptxas=kernel_usage("rmsnorm_kernel"), clocks=gpu_clocks()))
+    rows[-1]["ratio_to_library"] = rows[-1]["ms"] / rows[-1]["library_ms"]
     for r in rows:
         emit({"phase": "kernel", **r})
         if not r["max_abs_err"] <= r["tol"]:
@@ -794,7 +798,9 @@ def check_int8_kernels(torch, s, tag, cross: bool, three_d: bool, mag: float = 1
     K carrying a +0.7 mean offset for the token-mean smoothing to absorb;
     with `three_d` K7 on (40, s, 128). Kernel and plain version read the
     same pre-pass outputs (the same integers); the pre-pass is timed on its
-    own."""
+    own, and so is the bf16 kernel of the same body on the same q, k, v
+    (`bf16_ms`: K1 for the capped rows, K2 for the online ones), whether
+    int8 attention pays. Each row carries the kernel's registers and spills."""
     from video_styler_tpu_torch.ops import flash_attention as fa
 
     n, d = 40, 128
@@ -812,6 +818,9 @@ def check_int8_kernels(torch, s, tag, cross: bool, three_d: bool, mag: float = 1
     q = randn(1, s, n, d, m=mag)
     sub = edge_rows(torch, s)
     rows = []
+    # the capped and online instantiations of K6 (K7 is the online one)
+    ptxas = {"capped": kernel_usage("flash_fwd_int8_kernelILb1"),
+             "online": kernel_usage("flash_fwd_int8_kernelILb0")}
     for kind, sk in (("self", s),) + ((("cross", TEXT_LEN),) if cross else ()):
         k, v = randn(1, sk, n, d) + 0.7, randn(1, sk, n, d)
         label = f"{kind}{'' if mag == 1.0 else f' q x{mag:g} (magnitude stress)'} " \
@@ -830,7 +839,9 @@ def check_int8_kernels(torch, s, tag, cross: bool, three_d: bool, mag: float = 1
                 run=lambda: fa._flash_int8_cuda(*pre),
                 plain=lambda: fa.flash_attention_int8_core_plain(*pre), library=None,
                 flops=2.0 * n * s * sk * d, int8_ops=2.0 * n * s * sk * d, nbytes=nbytes,
-                checked_rows=int(sub.numel()), prepass_ms=prepass_ms))
+                checked_rows=int(sub.numel()), prepass_ms=prepass_ms,
+                bf16_ms=time_ms(torch, lambda: fa.flash_attention(
+                    q, k, v, scale, capped=body == "capped"), reps=10), ptxas=ptxas[body]))
             del pre
         del k, v
     if three_d:
@@ -845,7 +856,8 @@ def check_int8_kernels(torch, s, tag, cross: bool, three_d: bool, mag: float = 1
             plain=lambda: fa.flash_attention_int8_core_plain(*pre), library=None,
             flops=2.0 * n * s * s * d, int8_ops=2.0 * n * s * s * d,
             nbytes=n * d * 2 * s + 2.0 * n * d * 2 * s + 4.0 * n * 2 * s,
-            checked_rows=int(sub.numel())))
+            checked_rows=int(sub.numel()), ptxas=ptxas["online"],
+            bf16_ms=time_ms(torch, lambda: fa.flash_attention_3d(q3, k3, v3, scale), reps=10)))
         # the public entry runs the same pre-pass and kernel
         if not torch.equal(fa.flash_attention_int8_3d(q3, k3, v3, scale),
                            fa._flash_int8_cuda(*pre, three_d=True)[:, :, 0]):

@@ -292,7 +292,7 @@ def test_k6_plain_matches_pallas_interpret(interp, case, capped):
     else:
         assert tm2 is None
     # the online body rounds p to bf16 against its running max, so the Pallas
-    # call gets the port's step of 64 keys: both meet the same maxima
+    # call gets the port's step of INT8_TILE_K keys: both meet the same maxima
     want = jfa._flash_fwd_4d_int8(jq, jk, jv, scale, block_q=128,
                                   block_k=128 if capped else tfa.INT8_TILE_K, capped=capped)
     got = tfa.flash_attention_int8(tq, tk, tv, scale, capped=capped)
@@ -303,6 +303,23 @@ def test_k6_plain_matches_pallas_interpret(interp, case, capped):
     cos = (_np(got) * ref).sum() / (np.linalg.norm(_np(got)) * np.linalg.norm(ref))
     # (a q x24 softmax is sharp: a logit's quantisation error moves more mass)
     assert cos > (0.999 if mag == 1.0 else 0.99), cos
+
+
+@pytest.mark.parametrize("which", ["fp32", "bf16"])
+@pytest.mark.parametrize("sk", [300, 301])
+def test_k6_online_short_last_step_matches_pallas_interpret(interp, sk, which):
+    """K6's online body over steps of INT8_TILE_K keys where the last step is
+    short (Sk = 300 and 301: 44 and 45 keys of 128): the padded keys' logits
+    count as -1e30 on both sides and both meet the same running maxima."""
+    q, k, v = (_grid(110, (1, 200, 2, 128)), _grid(111, (1, sk, 2, 128), offset=0.75),
+               _rand(112, (1, sk, 2, 128)))
+    (jq, tq), (jk, tk), (jv, tv) = (_both(a, which) for a in (q, k, v))
+    scale = 1.0 / np.sqrt(128)
+    want = jfa._flash_fwd_4d_int8(jq, jk, jv, scale, block_q=128,
+                                  block_k=tfa.INT8_TILE_K, capped=False)
+    got = tfa.flash_attention_int8(tq, tk, tv, scale, capped=False)
+    assert got.dtype == tq.dtype and got.shape == tq.shape
+    _assert_bf16_close(got, want)
 
 
 @pytest.mark.parametrize("sq,sk", [(256, 256), (300, 520)])

@@ -88,6 +88,24 @@ def test_k4_k5_match_plain(gen, s, n):
     _assert_close(o5, fnr.fused_rmsnorm_plain(xq, wq))
 
 
+@pytest.mark.parametrize("rows", [29640, 4680, 4681])
+def test_k5_ditto_rows(gen, rows):
+    """K5 at the Ditto width (Dm = 5120: 20 chunks of 16 bytes a lane) on
+    the 29,640- and 4,680-token rows, and a count that leaves the last
+    block of 4 rows short; a row wider than 8192 is refused."""
+    x = _randn(gen, 1, rows, 5120)
+    w = (1 + 0.1 * torch.randn(5120, generator=gen, device="cuda")).to(torch.bfloat16)
+    before = fnr.RMS_KERNEL.launches
+    out = fnr.fused_rmsnorm(x, w)
+    torch.cuda.synchronize()
+    assert fnr.RMS_KERNEL.launches == before + 1
+    _assert_close(out, fnr.fused_rmsnorm_plain(x, w))
+    wide = _randn(gen, 1, 4, 8200)
+    with pytest.raises(ValueError):
+        fnr.fused_rmsnorm(wide, torch.ones(8200, dtype=torch.bfloat16, device="cuda"))
+    assert fnr.RMS_KERNEL.launches == before + 1
+
+
 def _k3_check(q, k, v, g, need_kv=True):
     """K1-with-stats then K3 against the plain forward's stats and the plain
     backward on the same o and L2."""
@@ -329,6 +347,45 @@ def test_k6_matches_plain(gen, b, sq, sk, n, mag, capped):
     _assert_close(out, fa.flash_attention_int8_plain(q, k, v, capped=capped))
 
 
+@pytest.mark.parametrize("capped", [True, False])
+@pytest.mark.parametrize("sk,mag", [(29640, 1.0), (512, 1.0), (301, 1.0), (77, 1.0),
+                                    (4680, 8.0)])
+def test_k6_ragged_ditto_lengths(gen, sk, mag, capped):
+    """The Ditto self-attention keys (29,640 = 231 x 128 + 72), the 512 text
+    tokens (whole steps), Sk = 301 and 77 (a short last step, and one step
+    shorter than a tile), and q x8 at 4,680 tokens (logits of std ~11), on a
+    ragged query tail: the key-scale padding, the masked last step and
+    the running max over 128-key steps."""
+    q = _randn(gen, 1, 333, 2, 128, scale=mag)
+    k, v = _randn(gen, 1, sk, 2, 128) + 0.7, _randn(gen, 1, sk, 2, 128)
+    kern = fa.INT8_CAPPED_KERNEL if capped else fa.INT8_ONLINE_KERNEL
+    before = kern.launches
+    out = fa.flash_attention_int8(q, k, v, capped=capped)
+    torch.cuda.synchronize()
+    assert kern.launches == before + 1
+    _assert_close(out, fa.flash_attention_int8_plain(q, k, v, capped=capped))
+
+
+def test_k6_rejects_what_it_does_not_take(gen):
+    """float32 v, head dim 64 and int8 rows that TMA cannot read (130 bytes
+    apart) are refused before any launch."""
+    q, k, v = _randn(gen, 1, 16, 2, 128), _randn(gen, 1, 16, 2, 128), _randn(gen, 1, 16, 2, 128)
+    pre = fa.int8_prepass(q, k, v, 128 ** -0.5, capped=True)
+    kernels = (fa.INT8_CAPPED_KERNEL, fa.INT8_ONLINE_KERNEL, fa.INT8_3D_KERNEL)
+    before = [kern.launches for kern in kernels]
+    with pytest.raises(TypeError):
+        fa._flash_int8_cuda(pre[0], pre[1], v.float(), *pre[3:])
+    small = fa.int8_prepass(*(t[..., :64].contiguous() for t in (q, k, v)), 0.125, True)
+    with pytest.raises(ValueError):
+        fa._flash_int8_cuda(*small)
+    wide = torch.zeros((1, 16, 2, 130), dtype=torch.int8, device="cuda")
+    wide[..., :128] = pre[0]
+    with pytest.raises(ValueError):
+        fa._flash_int8_cuda(wide[..., :128], *pre[1:])
+    torch.cuda.synchronize()
+    assert [kern.launches for kern in kernels] == before
+
+
 def test_k6_reads_strided_views_and_k7_matches_plain(gen):
     x = _randn(gen, 1, 130, 3 * 2 * 128)
     q, k, v = x.view(1, 130, 6, 128).split(2, dim=2)
@@ -338,10 +395,13 @@ def test_k6_reads_strided_views_and_k7_matches_plain(gen):
     out = fa._flash_int8_cuda(wide[:, :, 1:3], *pre[1:])
     _assert_close(out, fa.flash_attention_int8_core_plain(*pre))
     q3, k3, v3 = _randn(gen, 5, 300, 128), _randn(gen, 5, 257, 128) + 0.7, _randn(gen, 5, 257, 128)
-    before = fa.INT8_3D_KERNEL.launches
+    before = (fa.INT8_3D_KERNEL.launches, fa.INT8_ONLINE_KERNEL.launches)
     out3 = fa.flash_attention_int8_3d(q3, k3, v3)
     torch.cuda.synchronize()
-    assert fa.INT8_3D_KERNEL.launches == before + 1 and out3.dtype == torch.bfloat16
+    # K7 is K6's online entry on (BH, S, 1, D) views, counted apart
+    assert (fa.INT8_3D_KERNEL.launches, fa.INT8_ONLINE_KERNEL.launches) == (before[0] + 1,
+                                                                            before[1])
+    assert out3.dtype == torch.bfloat16
     want = fa.flash_attention_int8_plain(q3[:, :, None], k3[:, :, None], v3[:, :, None],
                                          capped=False)[:, :, 0]
     _assert_close(out3, want)

@@ -218,6 +218,21 @@ def test_k4_k5_plain_match_pallas_interpret(monkeypatch, which, rope_indices):
     _close(tfnr.fused_rmsnorm(tq, twq, 1e-6), jfnr._rms_fwd(jq, jwq, 1e-6), which)
 
 
+@pytest.mark.parametrize("which", ["fp32", "bf16"])
+def test_k5_plain_matches_pallas_interpret_at_ditto_width(monkeypatch, which):
+    """K5 at the 14B width (Dm = 5120, which the kernel holds in registers,
+    20 chunks of 16 bytes a lane) on 37 rows: not a whole number of the
+    kernel's 4-row blocks nor of the Pallas call's 8-row blocks (which pads)."""
+    _interp(monkeypatch, jfnr)
+    x = _rand(24, (1, 37, 5120))
+    w = 1.0 + _rand(25, (5120,), 0.1)
+    jx, tx = _both(x, which)
+    jw, tw = _both(w, which)
+    got = tfnr.fused_rmsnorm(tx, tw, 1e-6)
+    assert got.shape == (1, 37, 5120) and got.dtype == tx.dtype
+    _close(got, jfnr._rms_fwd(jx, jw, 1e-6), which)
+
+
 # --------------------------------------------------------------------------
 # K1 stats and K3: the flash backward
 # --------------------------------------------------------------------------

@@ -1,7 +1,8 @@
-"""The tensor-map layouts through which K1, K2, K3 and K8 load q, k, v and
-dO on the card (`tma_layout`), computed and checked on CPU tensors: the
-dims innermost first (D, N, S, B), the byte strides of N, S and B, and the
-tensors that TMA cannot read, which the wrappers refuse before a launch."""
+"""The tensor-map layouts through which K1, K2, K3, K6 and K8 load q, k, v
+and dO (K6: the int8 q8 and k8, and v) on the card (`tma_layout`), computed
+and checked on CPU tensors: the dims innermost first (D, N, S, B), the byte
+strides of N, S and B, and the tensors that TMA cannot read, which the
+wrappers refuse before a launch."""
 import pytest
 import torch
 
@@ -102,3 +103,73 @@ def test_dual_wrapper_writes_no_stats():
     t = _aligned(1, 16, 2, 128)
     with pytest.raises(ValueError, match="no stats"):
         fa._flash_online_cuda(t, t, t, 1.0, with_stats=True, dual=True)
+
+
+# --------------------------------------------------------------------------
+# K6 / K7: int8 q8 and k8 (one byte an element)
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("b,s,n", [(1, 4680, 40), (2, 333, 3), (1, 29640, 40)])
+def test_int8_contiguous_tensor(b, s, n):
+    t = _aligned(b, s, n, 128, dtype=torch.int8)
+    assert tma_layout(t) == (128, n, s, b, 128, n * 128, s * n * 128)
+
+
+def test_int8_head_slices_of_a_fused_projection():
+    """int8 q8, k8 and a third slice as head views of one (B, S, 3 N D)
+    int8 buffer: rows 3 N D bytes apart, bases offset by whole heads."""
+    x = _aligned(1, 130, 3 * 2 * 128, dtype=torch.int8)
+    parts = x.view(1, 130, 6, 128).split(2, dim=2)
+    for i, t in enumerate(parts):
+        assert t.data_ptr() - x.data_ptr() == i * 2 * 128
+        assert tma_layout(t) == (128, 2, 130, 1, 128, 6 * 128, 130 * 6 * 128)
+    # K7's (BH, S, 1, D) view of a (BH, S, D) int8 tensor
+    assert tma_layout(_aligned(5, 300, 128, dtype=torch.int8)[:, :, None]) == \
+        (128, 1, 300, 5, 128, 128, 300 * 128)
+
+
+@pytest.mark.parametrize("make", [
+    lambda: _aligned(1, 16, 2, 130, dtype=torch.int8)[..., :128],         # heads 130 bytes apart
+    lambda: _aligned(1, 16, 3, 136, dtype=torch.int8)[..., :128],         # heads 136 bytes apart
+    lambda: _aligned(1, 1, 2, 128, dtype=torch.int8).expand(1, 16, 2, 128),  # broadcast rows
+    lambda: _aligned(8 + 16 * 2 * 128, dtype=torch.int8)[8:].view(1, 16, 2, 128),  # base + 8
+], ids=["rows_130", "rows_136", "broadcast", "base_plus_8"])
+def test_refuses_int8_that_tma_cannot_read(make):
+    with pytest.raises(ValueError):
+        tma_layout(make())
+
+
+def _int8_inputs(sq=16, sk=16, n=2, d=128):
+    """What the pre-pass hands K6: q8, k8, v, qs, ks, m2 (CPU tensors)."""
+    return [_aligned(1, sq, n, d, dtype=torch.int8), _aligned(1, sk, n, d, dtype=torch.int8),
+            _aligned(1, sk, n, d), torch.ones(1, n, sq), torch.ones(1, n, sk),
+            torch.ones(1, n, sq)]
+
+
+def _replace(i, make):
+    def inputs():
+        pre = _int8_inputs()
+        pre[i] = make()
+        return pre
+    return inputs
+
+
+@pytest.mark.parametrize("capped", [True, False], ids=["capped", "online"])
+@pytest.mark.parametrize("make,error", [
+    (_replace(2, lambda: _aligned(1, 16, 2, 128, dtype=torch.float32)), TypeError),
+    (lambda: _int8_inputs(d=64), ValueError),                              # head dim 64
+    (_replace(0, lambda: _aligned(1, 16, 2, 130, dtype=torch.int8)[..., :128]),
+     ValueError),                                                          # rows 130 bytes apart
+    (_replace(1, lambda: _aligned(1, 1, 2, 128, dtype=torch.int8).expand(1, 16, 2, 128)),
+     ValueError),                                                          # broadcast rows
+    (_replace(4, lambda: torch.ones(1, 2, 15)), ValueError),               # ks of 15 keys
+], ids=["float32_v", "head_dim_64", "misaligned_rows", "broadcast", "ks_length"])
+def test_int8_wrapper_refuses_before_a_launch(make, error, capped):
+    """K6's wrapper checks its inputs and their tensor maps before it
+    launches anything (CPU tensors: a refusal is the only outcome that
+    passes)."""
+    pre = make()
+    if not capped:
+        pre[5] = None
+    with pytest.raises(error):
+        fa._flash_int8_cuda(*pre)

@@ -5,325 +5,342 @@
 // (video_styler_tpu/ops/flash_attention.py:1025) and `_flash_kernel_int8_4d`
 // (:980), reached through `_flash_fwd_4d_int8` (:1072); K7 replaces the 3-D
 // twin `_flash_kernel_int8` (:862, via `_flash_fwd_3d_int8`), which is the
-// online body on (BH, S, D) strides.  The pre-pass that makes the inputs
-// (token-mean smoothing of K, per-row absmax quantisation, the row bound m2)
-// is a set of plain reductions outside the kernel, as in the JAX package.
+// online body on (BH, S, D) tensors: the wrapper hands this kernel their
+// (BH, S, 1, D) views. The pre-pass that makes the inputs (token-mean
+// smoothing of K, per-row absmax quantisation, the row bound m2) is a set
+// of plain reductions outside the kernel, as in the JAX package.
 //
-// Inputs: q8 (B, Sq, N, D) and k8 (B, Sk, N, D) int8 through strides, v bf16
-// (B, Sk, N, D), qs (B, N, Sq) and ks (B, N, Sk) f32 row scales (qs carries
-// the softmax scale and log2 e), capped only: m2 (B, N, Sq) f32.
+// Inputs: q8 (B, Sq, N, D) and k8 (B, Sk, N, D) int8 and v bf16
+// (B, Sk, N, D), read through 4-D tensor maps; qs (B, N, Sq) f32 row
+// scales (carrying the softmax scale and log2 e), ks (B, N, Sk_pad) f32,
+// the key scales padded by the wrapper to whole 128-key tiles, and on the
+// capped body m2 (B, N, Sq) f32.
 // What it computes, per query row i (the Pallas kernels' rounding points):
 //   s_ij = (f32(q8_i . k8_j) * qs_i) * ks_j          (the int32 dot is exact)
 //   capped:  p_ij = exp2(s_ij - m2_i), 0 past Sk; l = sum_j p_ij;
 //            o = (sum_j bf16(p_ij) v_j) / max(l, 1e-37)
-//   online:  the running max of K2: m_new = max(m, max_j s_ij),
-//            alpha = exp2(m - m_new), p = exp2(s - m_new), l and acc rescaled
-//            by alpha, o = acc / l
+//   online:  K2's running max over 128-key steps, keys past Sk at -1e30:
+//            m_new = max(m, max_j s_ij), alpha = exp2(m - m_new),
+//            p = exp2(s - m_new), l and acc rescaled by alpha every step,
+//            o = acc / l
 //
 // What bounds it on the H100: 2*Sq*Sk*D int8 operations per head at 1,979
 // TOP/s plus 2*Sq*Sk*D bf16 flops at 989 TFLOP/s (13.6 ms at 29,640 tokens
 // and 40 heads, against K1's 18.2 ms); the bytes are a third of a
-// millisecond.  It is bound by the tensor cores.
+// millisecond. It is bound by the tensor cores, and beside them by the
+// per-logit work: a conversion, two multiplies and an exp2.
 //
-// Design: K1's structure (one block of 4 warps per 64 query rows, head and
-// batch; 64-key tiles double-buffered with cp.async).  The int8 tiles have
-// 128-byte rows, 8 chunks of 16 bytes, stored with their own XOR swizzle.
-// ldmatrix moves 16-bit pairs and knows no types: an 8x8 .b16 matrix is 8
-// rows of 16 bytes, and thread T receives bytes 4*(T%4)..+3 of row T/4,
-// which is exactly the 4 x s8 register of an m16n8k32 A or B fragment.  So
-// the fragment addressing of the bf16 kernels carries over with k-steps of
-// 32 bytes.  The int32 logits are dequantised in registers; the key scales
-// of a tile ride in shared memory beside it; p is packed to bf16 A
-// fragments for mma.sync m16n8k16 as in K1.
+// Design: K1's block. Per (128 query rows, head, batch) three warpgroups:
+// warpgroup 2 is the producer, which gives up registers (setmaxnreg) and
+// of which one thread issues every TMA load: the block's int8 Q tile once
+// (128 rows x 128 bytes, one 128-byte-swizzled box), then per step of 128
+// keys the int8 K tile (one box, 16 KB), the bf16 V tile (two 64-column
+// boxes, 32 KB) and the tile's 128 key scales (one 512-byte bulk copy)
+// into a ring of stages that mbarriers complete and release. Warpgroups 0
+// and 1 are the consumers, 64 query rows each; per step: S = q8 k8^T on
+// wgmma m64n128k32 s8 (both operands K-major from shared memory, four
+// steps of 32 bytes along D, exact s32 sums in 64 registers a thread),
+// the logits dequantised in registers with the key scales from shared
+// memory, p = exp2(s - m2) (capped) or the running max's p (online)
+// packed to bf16 A fragments, and O += bf16(P) V on wgmma with A from
+// registers and V as an MN-major B, as in K1. Q needs no rescale: the
+// scales are applied to the logits, so the consumers start on the tile as
+// TMA wrote it.
+// The dot is an integer of magnitude at most 128 * 127^2 = 2,064,512 <
+// 2^24, so cvt.rn.f32.s32 gives it exactly. An integer add and an fp32
+// subtract would too (|x| < 2^22: x + 0x4B400000 is the bit pattern of the
+// float 1.5 * 2^23 + x), but they load the fp32 pipe that the dequantising
+// multiplies already fill, and measured slower (K6_INT_ADD_CONVERT).
+// Ragged tails: TMA fills rows past Sq or Sk with zeros; keys past Sk get
+// p = 0 (capped) or the logit -1e30 before the row max (online); the key
+// scales past Sk are the wrapper's zero padding; rows past Sq are not
+// stored, and their qs and m2 are not read.
 
-#include "sm90_mma.cuh"
+#include "sm90_wgmma.cuh"
+
+#ifndef K6_STAGES
+#define K6_STAGES 2
+#endif
 
 namespace {
 
 using namespace sm90;
 
-constexpr int kBQ = 64;
-constexpr int kBK = 64;
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
-constexpr int kChunks8 = kD / 16;  // 16-byte chunks per int8 row
+constexpr int kBQ = 128;                 // query rows per block (2 x 64)
+constexpr int kBK = 128;                 // keys per step
+constexpr int kThreads = 384;            // 2 consumer warpgroups + 1 producer
+constexpr int kStages = K6_STAGES;
+constexpr int kQBytes = kBQ * 128;       // 16 KB: per consumer [64 rows][128 B]
+constexpr int kKBytes = kBK * 128;       // 16 KB: [128 keys][128 B]
+constexpr int kHalfV = kBK * 128;        // one 64-column box of a V tile
+constexpr int kVBytes = 2 * kHalfV;      // 32 KB
+constexpr int kKsBytes = kBK * 4;        // the step's key scales
+constexpr int kStageBytes = kKBytes + kVBytes;
+constexpr int kOffStages = kQBytes;
+constexpr int kOffKs = kOffStages + kStages * kStageBytes;
+constexpr int kOffBar = kOffKs + kStages * kKsBytes;
+constexpr int kSmemBytes = kOffBar + 8 * (1 + 2 * kStages) + 1024;  // + alignment slack
 constexpr float kNegInf = -1e30f;
-// q8 + 2 x k8 + 2 x v + 2 x ks
-constexpr int kSmemBytes =
-    (kBQ * kChunks8 + 2 * kBK * kChunks8 + 2 * kBK * kChunks) * 16 + 2 * kBK * 4;
 
-__device__ __forceinline__ int swz8(int r, int c) {
-  return r * kChunks8 + (c ^ (r & 7));
-}
-
-__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
-                                          int src_bytes) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
-               "l"(src), "r"(src_bytes));
-}
-
-// c += a (16x32, row) * b (32x8, col); s8 in, s32 accumulate
-__device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4],
-                                       uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// rows of 128 int8 (row stride `ss` bytes) into a swizzled tile; rows at or
-// past `limit` are zero-filled
-__device__ __forceinline__ void load_tile8_async(uint4* dst, const int8_t* src,
-                                                 long long ss, int row0,
-                                                 int limit, int tid) {
-  for (int i = tid; i < kBK * kChunks8; i += kThreads) {
-    const int r = i / kChunks8;
-    const int c = i % kChunks8;
-    const int row = row0 + r;
-    const bool ok = row < limit;
-    const long long sr = ok ? row : 0;
-    cp_async16(smem_addr(dst + swz8(r, c)), src + sr * ss + c * 16, ok ? 16 : 0);
-  }
-}
-
-struct Args {
-  const int8_t* q8;
-  const int8_t* k8;
-  const __nv_bfloat16* v;
+struct Params {
   const float* qs;  // (B, H, Sq)
-  const float* ks;  // (B, H, Sk)
+  const float* ks;  // (B, H, ks_row): each (b, h) row padded to whole steps
   const float* m2;  // (B, H, Sq), capped only
   __nv_bfloat16* o;
-  long long q_sb, q_ss, q_sh;
-  long long k_sb, k_ss, k_sh;
-  long long v_sb, v_ss, v_sh;
   long long o_sb, o_ss, o_sh;
-  int heads, sq, sk;
+  int heads, sq, sk, ks_row;
 };
 
+// The s32 dot as a float, exactly (|x| < 2^24; see the header).
+__device__ __forceinline__ float dot_to_float(int x) {
+#ifdef K6_INT_ADD_CONVERT
+  return __fsub_rn(__int_as_float(x + 0x4B400000), 12582912.f);
+#else
+  return __int2float_rn(x);
+#endif
+}
+
 template <bool kCapped>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_int8_kernel(const Args a) {
-  static_assert(kBQ == kBK, "one tile loader serves q8 and k8");
-  extern __shared__ __align__(128) uint4 smem[];
-  uint4* s_q = smem;                       // int8, kBQ x 8 chunks
-  uint4* s_k = s_q + kBQ * kChunks8;       // int8, two buffers
-  uint4* s_v = s_k + 2 * kBK * kChunks8;   // bf16, two buffers
-  float* s_ks = reinterpret_cast<float*>(s_v + 2 * kBK * kChunks);  // two x kBK
+__global__ void __launch_bounds__(kThreads, 1)
+flash_fwd_int8_kernel(const __grid_constant__ CUtensorMap qmap,
+                      const __grid_constant__ CUtensorMap kmap,
+                      const __grid_constant__ CUtensorMap vmap, const Params a) {
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  const uint32_t bar_q = base + kOffBar;
+  const uint32_t bar_full = bar_q + 8;                // [kStages]
+  const uint32_t bar_empty = bar_q + 8 + 8 * kStages;  // [kStages]
 
   const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int g = lane >> 2;
-  const int tig = lane & 3;
   const int q0 = blockIdx.x * kBQ;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
-
-  const int8_t* qb = a.q8 + b * a.q_sb + h * a.q_sh;
-  const int8_t* kb = a.k8 + b * a.k_sb + h * a.k_sh;
-  const __nv_bfloat16* vb = a.v + b * a.v_sb + h * a.v_sh;
-  const float* ksb = a.ks + ((long long)b * a.heads + h) * a.sk;
   const int ntiles = (a.sk + kBK - 1) / kBK;
+  const long long bh = (long long)b * a.heads + h;
 
-  auto load_kv = [&](int tile, int buf) {
-    const int k0 = tile * kBK;
-    load_tile8_async(s_k + buf * kBK * kChunks8, kb, a.k_ss, k0, a.sk, tid);
-    load_tile_async<kBK, kThreads>(s_v + buf * kBK * kChunks, vb, a.v_ss, k0,
-                                   a.sk, tid);
-    if (tid < kBK) {
-      const bool ok = k0 + tid < a.sk;
-      cp_async4(smem_addr(s_ks + buf * kBK + tid), ksb + (ok ? k0 + tid : 0),
-                ok ? 4 : 0);
+  if (tid == 0) {
+    mbar_init(bar_q, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(bar_full + 8 * s, 1);
+      mbar_init(bar_empty + 8 * s, 256);
     }
-    cp_async_commit();
-  };
-
-  load_tile8_async(s_q, qb, a.q_ss, q0, a.sq, tid);
-  cp_async_commit();
-  load_kv(0, 0);
-
-  // row scales (and bounds) of rows g and g + 8 of this warp
-  const long long rowbase = ((long long)b * a.heads + h) * a.sq;
-  float qsr[2], m2r[2];
-#pragma unroll
-  for (int hh = 0; hh < 2; ++hh) {
-    const int row = q0 + warp * 16 + g + hh * 8;
-    const bool ok = row < a.sq;
-    qsr[hh] = ok ? a.qs[rowbase + row] : 0.f;
-    m2r[hh] = (kCapped && ok) ? a.m2[rowbase + row] : 0.f;
+    mbar_init_fence();
   }
-
-  // q8 as A fragments, 4 steps of 32 along D (key tile 0 may still be in flight)
-  cp_async_wait<1>();
   __syncthreads();
-  uint32_t qf[4][4];
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    const int r = warp * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
-    const int c = kk * 2 + (lane >> 4);
-    ldsm_x4(qf[kk], smem_addr(s_q + swz8(r, c)));
-  }
 
-  float acc[16][4];
-#pragma unroll
-  for (int i = 0; i < 16; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
-  float lsum[2] = {0.f, 0.f};
-  float mrow[2] = {kNegInf, kNegInf};  // online only
-
-  for (int t = 0; t < ntiles; ++t) {
-    const int buf = t & 1;
-    if (t + 1 < ntiles) {
-      load_kv(t + 1, buf ^ 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const uint4* tk = s_k + buf * kBK * kChunks8;
-    const uint4* tv = s_v + buf * kBK * kChunks;
-    const float* tks = s_ks + buf * kBK;
-
-    // integer logits for 16 rows x 64 keys
-    int si[8][4];
-#pragma unroll
-    for (int i = 0; i < 8; ++i) si[i][0] = si[i][1] = si[i][2] = si[i][3] = 0;
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-#pragma unroll
-      for (int np = 0; np < 4; ++np) {
-        const int r = np * 16 + (lane & 7) + (lane >> 4) * 8;
-        const int c = kk * 2 + ((lane >> 3) & 1);
-        uint32_t kf[4];
-        ldsm_x4(kf, smem_addr(tk + swz8(r, c)));
-        mma_s8(si[2 * np], qf[kk], kf[0], kf[1]);
-        mma_s8(si[2 * np + 1], qf[kk], kf[2], kf[3]);
+  if (tid >= 256) {
+    // ------------------------------------------------------------ producer
+    regs_dealloc<40>();
+    if (tid == 256) {
+      mbar_expect_tx(bar_q, kQBytes);
+      tma_load_4d(base, &qmap, 0, h, q0, b, bar_q);
+      const float* ksb = a.ks + bh * a.ks_row;
+      for (int t = 0; t < ntiles; ++t) {
+        const int s = t % kStages;
+        if (t >= kStages) mbar_wait(bar_empty + 8 * s, ((t / kStages) - 1) & 1);
+        const uint32_t st = base + kOffStages + s * kStageBytes;
+        const uint32_t full = bar_full + 8 * s;
+#ifdef K6_KS_GLOBAL
+        mbar_expect_tx(full, kStageBytes);
+#else
+        mbar_expect_tx(full, kStageBytes + kKsBytes);
+        bulk_load(base + kOffKs + s * kKsBytes, ksb + t * kBK, kKsBytes, full);
+#endif
+        tma_load_4d(st, &kmap, 0, h, t * kBK, b, full);
+        tma_load_4d(st + kKBytes, &vmap, 0, h, t * kBK, b, full);
+        tma_load_4d(st + kKBytes + kHalfV, &vmap, 64, h, t * kBK, b, full);
       }
     }
+  } else {
+    // ----------------------------------------------------------- consumers
+    regs_alloc<232>();
+    const int wg = tid >> 7;  // consumer warpgroup: query rows 64 wg..
+    const int warp = (tid >> 5) & 3;
+    const int g = (tid & 31) >> 2;
+    const int tig = tid & 3;
+    const int row0 = q0 + wg * 64 + warp * 16 + g;  // and row0 + 8
 
-    // dequantise: (dot * qs) * ks, each product rounded (no contraction)
-    const int kbase = t * kBK;
-    float s[8][4];
+    float qsr[2], m2r[2];
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-      const float2 kq = *reinterpret_cast<const float2*>(tks + nt * 8 + tig * 2);
-      s[nt][0] = __fmul_rn(__fmul_rn(__int2float_rn(si[nt][0]), qsr[0]), kq.x);
-      s[nt][1] = __fmul_rn(__fmul_rn(__int2float_rn(si[nt][1]), qsr[0]), kq.y);
-      s[nt][2] = __fmul_rn(__fmul_rn(__int2float_rn(si[nt][2]), qsr[1]), kq.x);
-      s[nt][3] = __fmul_rn(__fmul_rn(__int2float_rn(si[nt][3]), qsr[1]), kq.y);
+    for (int hh = 0; hh < 2; ++hh) {
+      const int row = row0 + hh * 8;
+      const bool ok = row < a.sq;
+      qsr[hh] = ok ? a.qs[bh * a.sq + row] : 0.f;
+      m2r[hh] = (kCapped && ok) ? a.m2[bh * a.sq + row] : 0.f;
     }
+    mbar_wait(bar_q, 0);
 
-    float sub[2];  // what exp2 subtracts from each row's logits
-    if constexpr (kCapped) {
-      sub[0] = m2r[0];
-      sub[1] = m2r[1];
-    } else {
-      float mcur[2] = {kNegInf, kNegInf};
+    float acc[64];
 #pragma unroll
-      for (int nt = 0; nt < 8; ++nt) {
+    for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+    float l[2] = {0.f, 0.f};          // this thread's share of each row's l
+    float m[2] = {kNegInf, kNegInf};  // online: running max of rows g, g + 8
+
+    for (int t = 0; t < ntiles; ++t) {
+      const int s = t % kStages;
+      const uint32_t sb = opaque(base);
+      const uint32_t tk = sb + kOffStages + s * kStageBytes;
+      const uint32_t qt = sb + wg * (kQBytes / 2);
+      mbar_wait(bar_full + 8 * s, (t / kStages) & 1);
+
+      // S = q8 k8^T: 64 rows x 128 keys, 4 steps of 32 bytes along D
+      int si[64];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_m64n128k32_s8(si, wgmma_desc(qt + kk * 32, 16, 1024),
+                            wgmma_desc(tk + kk * 32, 16, 1024), kk > 0);
+      wgmma_commit();
+      wgmma_wait<0>();
+      reg_fence(si);
+
+      // dequantise: (dot * qs) * ks, each product rounded (no contraction);
+      // this thread's keys are 8 nt + 2 tig and + 1
+      const int kbase = t * kBK;
+      float sv[64];
+#pragma unroll
+      for (int nt = 0; nt < 16; ++nt) {
         const int key = kbase + nt * 8 + tig * 2;
-        if (key >= a.sk) s[nt][0] = s[nt][2] = kNegInf;
-        if (key + 1 >= a.sk) s[nt][1] = s[nt][3] = kNegInf;
-        mcur[0] = fmaxf(mcur[0], fmaxf(s[nt][0], s[nt][1]));
-        mcur[1] = fmaxf(mcur[1], fmaxf(s[nt][2], s[nt][3]));
+#ifdef K6_KS_GLOBAL
+        const float* ksb = a.ks + bh * a.ks_row;
+        const float2 kq = make_float2(__ldg(ksb + key), __ldg(ksb + key + 1));
+#else
+        float2 kq;
+        const uint32_t at = sb + kOffKs + s * kKsBytes + (nt * 8 + tig * 2) * 4;
+        asm volatile("ld.shared.v2.f32 {%0, %1}, [%2];\n"
+                     : "=f"(kq.x), "=f"(kq.y)
+                     : "r"(at));
+#endif
+        sv[4 * nt + 0] = __fmul_rn(__fmul_rn(dot_to_float(si[4 * nt + 0]), qsr[0]), kq.x);
+        sv[4 * nt + 1] = __fmul_rn(__fmul_rn(dot_to_float(si[4 * nt + 1]), qsr[0]), kq.y);
+        sv[4 * nt + 2] = __fmul_rn(__fmul_rn(dot_to_float(si[4 * nt + 2]), qsr[1]), kq.x);
+        sv[4 * nt + 3] = __fmul_rn(__fmul_rn(dot_to_float(si[4 * nt + 3]), qsr[1]), kq.y);
       }
-      float alpha[2];
+      const bool tail = kbase + kBK > a.sk;
+
+      float sub[2];  // what exp2 subtracts from each row's logits
+      if constexpr (kCapped) {
+        sub[0] = m2r[0];
+        sub[1] = m2r[1];
+      } else {
+        float mx[2] = {kNegInf, kNegInf};
+        if (tail) {
 #pragma unroll
-      for (int hh = 0; hh < 2; ++hh) {
-        mcur[hh] = fmaxf(mcur[hh], __shfl_xor_sync(0xffffffffu, mcur[hh], 1));
-        mcur[hh] = fmaxf(mcur[hh], __shfl_xor_sync(0xffffffffu, mcur[hh], 2));
-        const float mnew = fmaxf(mrow[hh], mcur[hh]);
-        alpha[hh] = fast_exp2(mrow[hh] - mnew);
-        mrow[hh] = mnew;
-        lsum[hh] *= alpha[hh];
-        sub[hh] = mnew;
-      }
+          for (int nt = 0; nt < 16; ++nt) {
+            const int key = kbase + nt * 8 + tig * 2;
+            if (key >= a.sk) sv[4 * nt + 0] = sv[4 * nt + 2] = kNegInf;
+            if (key + 1 >= a.sk) sv[4 * nt + 1] = sv[4 * nt + 3] = kNegInf;
+          }
+        }
 #pragma unroll
-      for (int dt = 0; dt < 16; ++dt) {
-        acc[dt][0] *= alpha[0];
-        acc[dt][1] *= alpha[0];
-        acc[dt][2] *= alpha[1];
-        acc[dt][3] *= alpha[1];
+        for (int nt = 0; nt < 16; ++nt) {
+          mx[0] = fmaxf(mx[0], fmaxf(sv[4 * nt + 0], sv[4 * nt + 1]));
+          mx[1] = fmaxf(mx[1], fmaxf(sv[4 * nt + 2], sv[4 * nt + 3]));
+        }
+        float alpha[2];
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 1));
+          mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 2));
+          const float m_new = fmaxf(m[hh], mx[hh]);
+          alpha[hh] = fast_exp2(m[hh] - m_new);
+          m[hh] = m_new;
+          l[hh] *= alpha[hh];
+          sub[hh] = m_new;
+        }
+#pragma unroll
+        for (int nt = 0; nt < 16; ++nt) {
+          acc[4 * nt + 0] *= alpha[0];
+          acc[4 * nt + 1] *= alpha[0];
+          acc[4 * nt + 2] *= alpha[1];
+          acc[4 * nt + 3] *= alpha[1];
+        }
       }
+
+      // p = exp2(s - sub) (capped: 0 past Sk); fp32 row sums; bf16 A
+      // fragments of the P V product
+      uint32_t pf[8][4];
+#pragma unroll
+      for (int nt = 0; nt < 16; ++nt) {
+        float p0 = fast_exp2(__fsub_rn(sv[4 * nt + 0], sub[0]));
+        float p1 = fast_exp2(__fsub_rn(sv[4 * nt + 1], sub[0]));
+        float p2 = fast_exp2(__fsub_rn(sv[4 * nt + 2], sub[1]));
+        float p3 = fast_exp2(__fsub_rn(sv[4 * nt + 3], sub[1]));
+        if (kCapped && tail) {
+          const int key = kbase + nt * 8 + tig * 2;
+          if (key >= a.sk) p0 = p2 = 0.f;
+          if (key + 1 >= a.sk) p1 = p3 = 0.f;
+        }
+        l[0] += p0 + p1;
+        l[1] += p2 + p3;
+        pf[nt >> 1][(nt & 1) * 2 + 0] = pack_bf16(p0, p1);
+        pf[nt >> 1][(nt & 1) * 2 + 1] = pack_bf16(p2, p3);
+      }
+
+      // O += P V: 8 steps of 16 keys, V an MN-major B (D contiguous)
+      const uint32_t tv = tk + kKBytes;
+      reg_fence(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk)
+        wgmma_m64n128_rs<1>(acc, pf[kk], wgmma_desc(tv + kk * 2048, kHalfV, 1024), 1);
+      wgmma_commit();
+      wgmma_wait<0>();
+      reg_fence(acc);
+      mbar_arrive(bar_empty + 8 * s);
     }
 
-    // p = exp2(s - sub), 0 past Sk; fp32 row sums; bf16 A fragments
-    uint32_t pf[4][4];
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-      const int key = kbase + nt * 8 + tig * 2;
-      const bool ok0 = key < a.sk;
-      const bool ok1 = key + 1 < a.sk;
-      const float p0 = ok0 ? fast_exp2(__fsub_rn(s[nt][0], sub[0])) : 0.f;
-      const float p1 = ok1 ? fast_exp2(__fsub_rn(s[nt][1], sub[0])) : 0.f;
-      const float p2 = ok0 ? fast_exp2(__fsub_rn(s[nt][2], sub[1])) : 0.f;
-      const float p3 = ok1 ? fast_exp2(__fsub_rn(s[nt][3], sub[1])) : 0.f;
-      lsum[0] += p0 + p1;
-      lsum[1] += p2 + p3;
-      pf[nt >> 1][(nt & 1) * 2 + 0] = pack_bf16(p0, p1);
-      pf[nt >> 1][(nt & 1) * 2 + 1] = pack_bf16(p2, p3);
+    for (int hh = 0; hh < 2; ++hh) {
+      l[hh] += __shfl_xor_sync(0xffffffffu, l[hh], 1);
+      l[hh] += __shfl_xor_sync(0xffffffffu, l[hh], 2);
+      if (kCapped) l[hh] = fmaxf(l[hh], 1e-37f);  // a flushed row gives 0, not NaN
     }
-
-    // O += P V
+    __nv_bfloat16* ob = a.o + b * a.o_sb + h * a.o_sh;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
+    for (int hh = 0; hh < 2; ++hh) {
+      const int row = row0 + hh * 8;
+      if (row >= a.sq) continue;
+      __nv_bfloat16* orow = ob + (long long)row * a.o_ss;
 #pragma unroll
-      for (int dp = 0; dp < 8; ++dp) {
-        uint32_t vf[4];
-        ldsm_x4_trans(vf, bt_frag_addr(tv, j * 16, dp, lane));
-        mma_bf16(acc[2 * dp], pf[j], vf[0], vf[1]);
-        mma_bf16(acc[2 * dp + 1], pf[j], vf[2], vf[3]);
+      for (int nt = 0; nt < 16; ++nt) {
+        *reinterpret_cast<uint32_t*>(orow + nt * 8 + tig * 2) =
+            pack_bf16(acc[4 * nt + 2 * hh] / l[hh], acc[4 * nt + 2 * hh + 1] / l[hh]);
       }
-    }
-    __syncthreads();  // this buffer is refilled two iterations on
-  }
-
-#pragma unroll
-  for (int hh = 0; hh < 2; ++hh) {
-    lsum[hh] += __shfl_xor_sync(0xffffffffu, lsum[hh], 1);
-    lsum[hh] += __shfl_xor_sync(0xffffffffu, lsum[hh], 2);
-    if (kCapped) lsum[hh] = fmaxf(lsum[hh], 1e-37f);  // flushed row -> 0, not NaN
-  }
-  __nv_bfloat16* ob = a.o + b * a.o_sb + h * a.o_sh;
-#pragma unroll
-  for (int hh = 0; hh < 2; ++hh) {
-    const int row = q0 + warp * 16 + g + hh * 8;
-    if (row >= a.sq) continue;
-    __nv_bfloat16* orow = ob + (long long)row * a.o_ss;
-#pragma unroll
-    for (int dt = 0; dt < 16; ++dt) {
-      const uint32_t val = pack_bf16(acc[dt][hh * 2] / lsum[hh],
-                                     acc[dt][hh * 2 + 1] / lsum[hh]);
-      *reinterpret_cast<uint32_t*>(orow + dt * 8 + tig * 2) = val;
     }
   }
 }
 
 template <bool kCapped>
-int launch(const void* q8, const void* k8, const void* v, const void* qs,
-           const void* ks, const void* m2, void* o, const long long* strides,
-           int batch, int heads, int sq, int sk, void* stream) {
-  Args a;
-  a.q8 = static_cast<const int8_t*>(q8);
-  a.k8 = static_cast<const int8_t*>(k8);
-  a.v = static_cast<const __nv_bfloat16*>(v);
+int launch(const void* q8, const void* k8, const void* v, const void* qs, const void* ks,
+           const void* m2, void* o, const long long* layout, const long long* o_strides,
+           int batch, int heads, int sq, int sk, int ks_row, void* stream) {
+  CUtensorMap maps[3];
+  int e = encode_int8_map(&maps[0], q8, layout, kBQ);
+  if (e == 0) e = encode_int8_map(&maps[1], k8, layout + kMapLayout, kBK);
+  if (e == 0) e = encode_bf16_map(&maps[2], v, layout + 2 * kMapLayout, kBK);
+  if (e != 0) return kMapError + e;
+  Params a;
   a.qs = static_cast<const float*>(qs);
   a.ks = static_cast<const float*>(ks);
   a.m2 = static_cast<const float*>(m2);
   a.o = static_cast<__nv_bfloat16*>(o);
-  a.q_sb = strides[0]; a.q_ss = strides[1]; a.q_sh = strides[2];
-  a.k_sb = strides[3]; a.k_ss = strides[4]; a.k_sh = strides[5];
-  a.v_sb = strides[6]; a.v_ss = strides[7]; a.v_sh = strides[8];
-  a.o_sb = strides[9]; a.o_ss = strides[10]; a.o_sh = strides[11];
-  a.heads = heads; a.sq = sq; a.sk = sk;
-  cudaError_t e = cudaFuncSetAttribute(
-      flash_fwd_int8_kernel<kCapped>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  dim3 grid((sq + kBQ - 1) / kBQ, heads, batch);
+  a.o_sb = o_strides[0];
+  a.o_ss = o_strides[1];
+  a.o_sh = o_strides[2];
+  a.heads = heads;
+  a.sq = sq;
+  a.sk = sk;
+  a.ks_row = ks_row;
+  cudaError_t ce = cudaFuncSetAttribute(flash_fwd_int8_kernel<kCapped>,
+                                        cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                        kSmemBytes);
+  if (ce != cudaSuccess) return static_cast<int>(ce);
+  const dim3 grid((sq + kBQ - 1) / kBQ, heads, batch);
   flash_fwd_int8_kernel<kCapped><<<grid, kThreads, kSmemBytes,
-                                   static_cast<cudaStream_t>(stream)>>>(a);
+                                   static_cast<cudaStream_t>(stream)>>>(maps[0], maps[1],
+                                                                        maps[2], a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -331,47 +348,33 @@ int launch(const void* q8, const void* k8, const void* v, const void* qs,
 
 extern "C" {
 
-// Each returns cudaGetLastError() after the launch (0 on success). `strides`
-// points at 12 element strides on the host: (batch, sequence, head) of q8,
-// k8, v, o.
+// layout: the tensor-map layouts of q8, k8 and v (7 values each, see
+// kMapLayout); o_strides: (batch, seq, head) element strides of o; ks_row:
+// the length of each (batch, head) row of ks, a multiple of 128 at least
+// Sk. Both return 0, a cudaError_t after the launch, or kMapError + a
+// CUresult. K7 is the online entry on (BH, S, 1, D) views, batch = BH,
+// heads = 1.
 
 // K6, capped: m2 holds each row's bound on its logits
-int flash_attention_int8_capped_fwd(const void* q8, const void* k8,
-                                    const void* v, const void* qs,
-                                    const void* ks, const void* m2, void* o,
-                                    const long long* strides, int batch,
-                                    int heads, int sq, int sk, void* stream) {
-  return launch<true>(q8, k8, v, qs, ks, m2, o, strides, batch, heads, sq, sk,
-                      stream);
+int flash_attention_int8_capped_fwd(const void* q8, const void* k8, const void* v,
+                                    const void* qs, const void* ks, const void* m2,
+                                    void* o, const long long* layout,
+                                    const long long* o_strides, int batch, int heads,
+                                    int sq, int sk, int ks_row, void* stream) {
+  return launch<true>(q8, k8, v, qs, ks, m2, o, layout, o_strides, batch, heads, sq, sk,
+                      ks_row, stream);
 }
 
-// K6, online softmax
-int flash_attention_int8_online_fwd(const void* q8, const void* k8,
-                                    const void* v, const void* qs,
-                                    const void* ks, void* o,
-                                    const long long* strides, int batch,
-                                    int heads, int sq, int sk, void* stream) {
-  return launch<false>(q8, k8, v, qs, ks, nullptr, o, strides, batch, heads, sq,
-                       sk, stream);
+// K6 (and K7), online softmax
+int flash_attention_int8_online_fwd(const void* q8, const void* k8, const void* v,
+                                    const void* qs, const void* ks, void* o,
+                                    const long long* layout, const long long* o_strides,
+                                    int batch, int heads, int sq, int sk, int ks_row,
+                                    void* stream) {
+  return launch<false>(q8, k8, v, qs, ks, nullptr, o, layout, o_strides, batch, heads, sq,
+                       sk, ks_row, stream);
 }
 
-// K7: the online body on (BH, S, D) tensors; `strides` holds the (batch,
-// sequence) strides of q8, k8, v, o (8 values), scales are (BH, Sq), (BH, Sk)
-int flash_attention_int8_3d_fwd(const void* q8, const void* k8, const void* v,
-                                const void* qs, const void* ks, void* o,
-                                const long long* strides, int bh, int sq,
-                                int sk, void* stream) {
-  long long s4[12];
-  for (int i = 0; i < 4; ++i) {
-    s4[3 * i] = strides[2 * i];
-    s4[3 * i + 1] = strides[2 * i + 1];
-    s4[3 * i + 2] = 0;  // one head per batch entry
-  }
-  return launch<false>(q8, k8, v, qs, ks, nullptr, o, s4, bh, 1, sq, sk, stream);
-}
-
-const char* flash_attention_int8_error_string(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
-}
+const char* flash_attention_int8_error_string(int code) { return error_string(code); }
 
 }  // extern "C"

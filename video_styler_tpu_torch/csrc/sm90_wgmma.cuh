@@ -1,21 +1,24 @@
-// Hopper building blocks of the redesigned attention kernels (K1, K2 and
-// K8 forward, K3 backward): warpgroup MMA (wgmma) on bf16 with fp32 accumulators, the
-// 64-bit shared-memory matrix descriptor for the 128-byte swizzle, mbarrier
-// waits and arrivals, TMA tile loads (cp.async.bulk.tensor) completed on an
-// mbarrier, the async-proxy fence, register rebalancing (setmaxnreg) and
-// named barriers; on the host, the tensor maps of a (B, S, N, D=128) bf16
-// tensor, encoded through the driver entry point that the runtime hands
-// out (nothing beyond the runtime is linked). sm_90a only.
+// Hopper building blocks of the attention kernels (K1, K2, K6 and K8
+// forward, K3 backward): warpgroup MMA (wgmma) on bf16 with fp32
+// accumulators and on s8 with s32 accumulators, the 64-bit shared-memory
+// matrix descriptor for the 128-byte swizzle, mbarrier waits and arrivals,
+// TMA tile loads (cp.async.bulk.tensor) completed on an mbarrier, the
+// async-proxy fence, register rebalancing (setmaxnreg) and named barriers;
+// on the host, the tensor maps of a (B, S, N, D=128) bf16 or int8 tensor,
+// encoded through the driver entry point that the runtime hands out
+// (nothing beyond the runtime is linked). sm_90a only.
 //
-// Tiles. A TMA box is 64 columns (128 bytes) of D by `rows` rows, stored
+// Tiles. A TMA box is 128 bytes of D (64 bf16 or 128 int8 columns) by
+// `rows` rows, stored
 // with CU_TENSOR_MAP_SWIZZLE_128B: 16-byte chunk c of row r sits at chunk
 // c ^ (r % 8) of its 128-byte row, in atoms of 8 rows (1024 bytes) that
-// start on 1024-byte boundaries. A (rows x 128) tile is two boxes, the
-// columns 0..63 then 64..127, each rows * 128 bytes. The wgmma descriptors
-// below read the same layout:
+// start on 1024-byte boundaries. A (rows x 128) bf16 tile is two boxes,
+// the columns 0..63 then 64..127, each rows * 128 bytes; an int8 tile is
+// one box. The wgmma descriptors below read the same layout:
 //   K-major operand (the reduction runs along D): start = box + k * 32
-//     bytes for the k-th step of 16 columns within the box, stride between
-//     8-row groups (SBO) 1024 bytes; the leading offset is unused.
+//     bytes for the k-th step of 32 bytes within the box (16 bf16 or 32
+//     int8 columns), stride between 8-row groups (SBO) 1024 bytes; the
+//     leading offset is unused.
 //   MN-major operand (the reduction runs along the rows, e.g. keys in
 //     P V): start = tile + k * 16 rows * 128 bytes, SBO 1024 bytes between
 //     8-row groups along the reduction, LBO = the box size between the two
@@ -27,9 +30,22 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
-#include "sm90_mma.cuh"
-
 namespace sm90 {
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
 
 // ---------------------------------------------------------------- wgmma
 
@@ -85,6 +101,12 @@ template <int N>
 __device__ __forceinline__ void reg_fence(float (&d)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+template <int N>
+__device__ __forceinline__ void reg_fence(int (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
 }
 
 // d (+)= A B, A (64 x 16) and B (128 x 16 rows of the operand) from shared
@@ -153,6 +175,31 @@ __device__ __forceinline__ void wgmma_m64n64_ss(float (&d)[32], uint64_t da,
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "l"(da), "l"(db), "r"(scale_d), "n"(kTransA), "n"(kTransB));
+}
+
+// d (+)= A B on int8: A (64 x 32) and B (128 x 32 rows of the operand)
+// from shared memory through descriptors, both K-major (the only layout s8
+// takes: the instruction has no transpose or scale operands), exact s32
+// sums; scale_d 0 overwrites d, 1 accumulates.
+__device__ __forceinline__ void wgmma_m64n128k32_s8(int (&d)[64], uint64_t da, uint64_t db,
+                                                    int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
 }
 
 // ------------------------------------------------------ barriers, copies
@@ -243,10 +290,11 @@ __device__ __forceinline__ void named_barrier(int id, int threads) {
 // innermost first (D, N, S, B) and the byte strides of N, S and B.
 constexpr int kMapLayout = 7;
 
-// Encode the tensor map of one bf16 tensor for boxes of 64 columns by
-// `box_rows` rows of one (batch, head). Returns 0, or the CUresult.
-inline int encode_bf16_map(CUtensorMap* map, const void* base,
-                           const long long* layout, int box_rows) {
+// Encode the tensor map of one tensor for boxes of 128 bytes of D
+// (`box_cols` elements of `type`) by `box_rows` rows of one (batch, head).
+// Returns 0, or the CUresult.
+inline int encode_map(CUtensorMap* map, const void* base, const long long* layout,
+                      int box_rows, CUtensorMapDataType type, int box_cols) {
   using Encode = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                               const cuuint64_t*, const cuuint64_t*,
                               const cuuint32_t*, const cuuint32_t*,
@@ -275,12 +323,26 @@ inline int encode_bf16_map(CUtensorMap* map, const void* base,
   cuuint64_t dims[4], strides[3];
   for (int i = 0; i < 4; ++i) dims[i] = static_cast<cuuint64_t>(layout[i]);
   for (int i = 0; i < 3; ++i) strides[i] = static_cast<cuuint64_t>(layout[4 + i]);
-  const cuuint32_t box[4] = {64, 1, static_cast<cuuint32_t>(box_rows), 1};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(box_cols), 1,
+                             static_cast<cuuint32_t>(box_rows), 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
   return static_cast<int>(encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
-      strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+      map, type, 4, const_cast<void*>(base), dims, strides, box, unit,
+      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
       CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE));
+}
+
+// bf16: boxes of 64 columns
+inline int encode_bf16_map(CUtensorMap* map, const void* base, const long long* layout,
+                           int box_rows) {
+  return encode_map(map, base, layout, box_rows, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 64);
+}
+
+// int8: boxes of all 128 columns. The tensor-map types have no signed
+// 8-bit one; a copy moves bytes, so the unsigned type serves.
+inline int encode_int8_map(CUtensorMap* map, const void* base, const long long* layout,
+                           int box_rows) {
+  return encode_map(map, base, layout, box_rows, CU_TENSOR_MAP_DATA_TYPE_UINT8, 128);
 }
 
 // Error codes of the entry points: a cudaError_t, or kMapError + the

@@ -44,10 +44,12 @@ K2 can write the same L2 = m + log2 l, so K3 serves that route unchanged.
 K6 replaces `_flash_kernel_int8_4d_capped` (:1025) and
 `_flash_kernel_int8_4d` (:980), K7 the 3-D `_flash_kernel_int8` (:862):
 SageAttention-style attention with Q K^T on the int8 tensor cores
-(`csrc/flash_attention_int8.cu`). Their pre-pass (K minus its token mean,
-per-row absmax int8 quantisation, the capped route's row bound m2) is plain
-PyTorch here as it is XLA in the JAX package (:1103-1120). They have no
-backward, there as here.
+(`csrc/flash_attention_int8.cu`: K1's block, S on `wgmma` s8, the int8 Q
+and K tiles through the same tensor maps, K7 the online body on an n = 1
+view). Their pre-pass (K minus its token mean, per-row absmax int8
+quantisation, the capped route's row bound m2) is plain PyTorch here as it
+is XLA in the JAX package (:1103-1120). They have no backward, there as
+here.
 """
 from __future__ import annotations
 
@@ -68,7 +70,7 @@ LOG2_E = 1.4426950408889634
 NEG_INF = -1e30  # what a padded key's logit counts as
 HEAD_DIM = 128  # the kernels' head dim (every Wan DiT config)
 TILE_K = 128    # keys per step of K2 (K8: two such sub-tiles, one max)
-INT8_TILE_K = 64  # keys per step of K6's online body and K7
+INT8_TILE_K = 128  # keys per step of K6's online body and K7
 BWD_TILE_Q = 64  # query rows per step of K3 (its L2/delta copies pad to it)
 TMA_MAX_STRIDE = 1 << 40  # a tensor map's byte strides stay below this
 
@@ -89,13 +91,14 @@ DUAL_KERNEL = Kernel("flash_attention_online", "flash_attention_online_dual_fwd"
                      [P] * 7 + [I32] * 4 + [F32, P],
                      "flash_attention_online_error_string")
 INT8_CAPPED_KERNEL = Kernel("flash_attention_int8", "flash_attention_int8_capped_fwd",
-                            [P] * 8 + [I32] * 4 + [P],
+                            [P] * 9 + [I32] * 5 + [P],
                             "flash_attention_int8_error_string")
 INT8_ONLINE_KERNEL = Kernel("flash_attention_int8", "flash_attention_int8_online_fwd",
-                            [P] * 7 + [I32] * 4 + [P],
+                            [P] * 8 + [I32] * 5 + [P],
                             "flash_attention_int8_error_string")
-INT8_3D_KERNEL = Kernel("flash_attention_int8", "flash_attention_int8_3d_fwd",
-                        [P] * 7 + [I32] * 3 + [P],
+# K7: the online entry on (BH, S, 1, D) views, counted apart
+INT8_3D_KERNEL = Kernel("flash_attention_int8", "flash_attention_int8_online_fwd",
+                        [P] * 8 + [I32] * 5 + [P],
                         "flash_attention_int8_error_string")
 
 
@@ -327,8 +330,9 @@ def _check_qkv(q, k, v):
 
 
 def tma_layout(t: torch.Tensor):
-    """The 4-D tensor map through which K1, K2, K3 and K8 load a (B, S, N, D)
-    tensor: its dims innermost first, (D, N, S, B), and the byte strides of
+    """The 4-D tensor map through which K1, K2, K3, K6 and K8 load a
+    (B, S, N, D) tensor (bf16, or int8 for K6's q8 and k8): its dims
+    innermost first, (D, N, S, B), and the byte strides of
     N, S and B. A dimension of size 1 takes the stride of a contiguous
     layout, which its real one may not be (the map never steps along it).
     Raises ValueError where TMA cannot read the tensor: D not contiguous,
@@ -582,10 +586,6 @@ def flash_attention_3d(q, k, v, scale: Optional[float] = None) -> torch.Tensor:
 def _check_int8(name: str, t: torch.Tensor, like, device):
     if t.dtype != torch.int8 or t.shape != like.shape or t.device != device:
         raise ValueError(f"{name}: need int8 {tuple(like.shape)} on {device}")
-    if t.stride(-1) != 1 or any(st % 16 for st in t.stride()[:-1]) \
-            or t.data_ptr() % 16:
-        raise ValueError(f"{name}: rows must be contiguous and 16-byte aligned "
-                         f"(strides {t.stride()})")
 
 
 def _check_rows(name: str, t: torch.Tensor, shape, device):
@@ -596,8 +596,11 @@ def _check_rows(name: str, t: torch.Tensor, shape, device):
 
 def _flash_int8_cuda(q_i8, k_i8, v, qs, ks, m2=None, three_d: bool = False):
     """K6 on the card (m2 given: the capped body, None: the online body), or
-    with three_d K7, on the pre-pass's outputs. 4-D tensors either way; K7
-    takes them as (BH, S, 1, D) views of 3-D tensors."""
+    with three_d K7 (the online body, counted apart), on the pre-pass's
+    outputs. 4-D tensors either way; K7 takes them as (BH, S, 1, D) views of
+    3-D tensors. q_i8, k_i8 and v go through tensor maps (`tma_layout`);
+    ks is copied with each (batch, head) row padded by zeros to whole
+    128-key steps, which the kernel reads 512 bytes at a time."""
     b, sq, n, d = q_i8.shape
     sk = k_i8.shape[1]
     dev = q_i8.device
@@ -610,25 +613,22 @@ def _flash_int8_cuda(q_i8, k_i8, v, qs, ks, m2=None, three_d: bool = False):
     _check_int8("k_i8", k_i8, v, dev)
     _check_rows("qs", qs, (b, n, sq), dev)
     _check_rows("ks", ks, (b, n, sk), dev)
-    out = torch.empty((b, sq, n, d), dtype=torch.bfloat16, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    ptrs = (q_i8.data_ptr(), k_i8.data_ptr(), v.data_ptr(), qs.data_ptr(),
-            ks.data_ptr())
-    if three_d:
-        if n != 1 or m2 is not None:
-            raise ValueError("K7 is the online body on one head per batch entry")
-        strides = _strides(q_i8, k_i8, v, out, dims=2)
-        INT8_3D_KERNEL(*ptrs, out.data_ptr(), ctypes.addressof(strides),
-                       b, sq, sk, stream)
-        return out
-    strides = _strides(q_i8, k_i8, v, out)
     if m2 is not None:
         _check_rows("m2", m2, (b, n, sq), dev)
-        INT8_CAPPED_KERNEL(*ptrs, m2.data_ptr(), out.data_ptr(),
-                           ctypes.addressof(strides), b, n, sq, sk, stream)
+    if three_d and (n != 1 or m2 is not None):
+        raise ValueError("K7 is the online body on one head per batch entry")
+    layout = _layouts(q_i8, k_i8, v)
+    ks_pad = F.pad(ks, (0, -sk % INT8_TILE_K))
+    out = torch.empty((b, sq, n, d), dtype=torch.bfloat16, device=dev)
+    o_strides = _strides(out)
+    ptrs = (q_i8.data_ptr(), k_i8.data_ptr(), v.data_ptr(), qs.data_ptr(),
+            ks_pad.data_ptr())
+    tail = (out.data_ptr(), ctypes.addressof(layout), ctypes.addressof(o_strides),
+            b, n, sq, sk, ks_pad.shape[-1], torch.cuda.current_stream(dev).cuda_stream)
+    if m2 is not None:
+        INT8_CAPPED_KERNEL(*ptrs, m2.data_ptr(), *tail)
     else:
-        INT8_ONLINE_KERNEL(*ptrs, out.data_ptr(), ctypes.addressof(strides),
-                           b, n, sq, sk, stream)
+        (INT8_3D_KERNEL if three_d else INT8_ONLINE_KERNEL)(*ptrs, *tail)
     return out
 
 

@@ -5,7 +5,8 @@ K4 replaces the Pallas kernel `_fused_kernel`
 (video_styler_tpu/ops/fused_norm_rope.py:51), K5 replaces `_rms_kernel`
 (:154). Both are hand-written CUDA C++ in `csrc/fused_norm_rope.cu`; its
 header note says what bounds them on the H100 (bytes: one read and one
-write of each row) and how the warp-per-row design meets that.
+write of each row) and how the warp-per-row designs meet that (K5 holds
+its row in registers and reads it once).
 
 On a CPU tensor each wrapper runs its plain version, the composition of
 `ops.basic.rms_norm` and `ops.rope.rope_apply`. On a CUDA tensor it launches
@@ -34,6 +35,7 @@ ROPE_KERNEL = Kernel("fused_norm_rope", "fused_rmsnorm_rope_fwd",
 RMS_KERNEL = Kernel("fused_norm_rope", "fused_rmsnorm_fwd",
                     [P, P, P, I32, I32, F32, P],
                     "fused_norm_rope_error_string")
+RMS_MAX_WIDTH = 8192  # K5's widest row: 32 lanes x 32 chunks of 8
 
 
 def fused_rmsnorm_rope_plain(q_proj, k_proj, wq, wk, cos, sin,
@@ -67,7 +69,9 @@ def _weight(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     if w.shape != (x.shape[-1],) or w.device != x.device:
         raise ValueError(f"weight of shape {tuple(w.shape)} on {w.device} does "
                          f"not fit rows of {x.shape[-1]} on {x.device}")
-    return w.to(x.dtype).contiguous()
+    if w.dtype != x.dtype or not w.is_contiguous():
+        w = w.to(x.dtype).contiguous()
+    return w
 
 
 def _rope_forward(q_proj, k_proj, wq, wk, cos, sin, eps: float):
@@ -100,18 +104,23 @@ def _rope_forward(q_proj, k_proj, wq, wk, cos, sin, eps: float):
 
 
 def _rms_forward(x, w, eps: float):
-    if x.device.type == "cpu":
-        return fused_rmsnorm_plain(x, w, eps)
-    if x.device.type != "cuda":
+    """K5's launch. Its kernel takes tens of microseconds at the 4,680-token
+    request, about what this function costs the host, so the path stays
+    short: the raw current stream, no copy of a weight that is already
+    bf16 and contiguous."""
+    if not x.is_cuda:
+        if x.device.type == "cpu":
+            return fused_rmsnorm_plain(x, w, eps)
         raise RuntimeError(f"K5 runs on CUDA or (plain) CPU, not {x.device}")
     b, s, dm = x.shape
-    if dm % 8:
-        raise ValueError(f"row width {dm} must be a multiple of 8")
+    if dm % 8 or dm > RMS_MAX_WIDTH:
+        raise ValueError(f"row width {dm} must be a multiple of 8, at most "
+                         f"{RMS_MAX_WIDTH} (K5 holds a row in one warp's registers)")
     _check_rows("x", x, dm)
     w = _weight(w, x)
     out = torch.empty_like(x)
     RMS_KERNEL(x.data_ptr(), w.data_ptr(), out.data_ptr(), b * s, dm, eps,
-               torch.cuda.current_stream(x.device).cuda_stream)
+               torch._C._cuda_getCurrentRawStream(x.get_device()))
     return out
 
 
