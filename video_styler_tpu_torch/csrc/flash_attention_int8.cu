@@ -36,7 +36,9 @@
 // (128 rows x 128 bytes, one 128-byte-swizzled box), then per step of 128
 // keys the int8 K tile (one box, 16 KB), the bf16 V tile (two 64-column
 // boxes, 32 KB) and the tile's 128 key scales (one 512-byte bulk copy)
-// into a ring of stages that mbarriers complete and release. Warpgroups 0
+// into a ring of two stages that mbarriers complete and release (a third
+// stage, which shared memory would hold, measured no faster; nor did the
+// consumers reading their key scales from device memory). Warpgroups 0
 // and 1 are the consumers, 64 query rows each; per step: S = q8 k8^T on
 // wgmma m64n128k32 s8 (both operands K-major from shared memory, four
 // steps of 32 bytes along D, exact s32 sums in 64 registers a thread),
@@ -50,17 +52,14 @@
 // 2^24, so cvt.rn.f32.s32 gives it exactly. An integer add and an fp32
 // subtract would too (|x| < 2^22: x + 0x4B400000 is the bit pattern of the
 // float 1.5 * 2^23 + x), but they load the fp32 pipe that the dequantising
-// multiplies already fill, and measured slower (K6_INT_ADD_CONVERT).
+// multiplies already fill, and measured 1-3% slower on the self-attention
+// shapes.
 // Ragged tails: TMA fills rows past Sq or Sk with zeros; keys past Sk get
 // p = 0 (capped) or the logit -1e30 before the row max (online); the key
 // scales past Sk are the wrapper's zero padding; rows past Sq are not
 // stored, and their qs and m2 are not read.
 
 #include "sm90_wgmma.cuh"
-
-#ifndef K6_STAGES
-#define K6_STAGES 2
-#endif
 
 namespace {
 
@@ -69,7 +68,7 @@ using namespace sm90;
 constexpr int kBQ = 128;                 // query rows per block (2 x 64)
 constexpr int kBK = 128;                 // keys per step
 constexpr int kThreads = 384;            // 2 consumer warpgroups + 1 producer
-constexpr int kStages = K6_STAGES;
+constexpr int kStages = 2;
 constexpr int kQBytes = kBQ * 128;       // 16 KB: per consumer [64 rows][128 B]
 constexpr int kKBytes = kBK * 128;       // 16 KB: [128 keys][128 B]
 constexpr int kHalfV = kBK * 128;        // one 64-column box of a V tile
@@ -90,15 +89,6 @@ struct Params {
   long long o_sb, o_ss, o_sh;
   int heads, sq, sk, ks_row;
 };
-
-// The s32 dot as a float, exactly (|x| < 2^24; see the header).
-__device__ __forceinline__ float dot_to_float(int x) {
-#ifdef K6_INT_ADD_CONVERT
-  return __fsub_rn(__int_as_float(x + 0x4B400000), 12582912.f);
-#else
-  return __int2float_rn(x);
-#endif
-}
 
 template <bool kCapped>
 __global__ void __launch_bounds__(kThreads, 1)
@@ -141,12 +131,8 @@ flash_fwd_int8_kernel(const __grid_constant__ CUtensorMap qmap,
         if (t >= kStages) mbar_wait(bar_empty + 8 * s, ((t / kStages) - 1) & 1);
         const uint32_t st = base + kOffStages + s * kStageBytes;
         const uint32_t full = bar_full + 8 * s;
-#ifdef K6_KS_GLOBAL
-        mbar_expect_tx(full, kStageBytes);
-#else
         mbar_expect_tx(full, kStageBytes + kKsBytes);
         bulk_load(base + kOffKs + s * kKsBytes, ksb + t * kBK, kKsBytes, full);
-#endif
         tma_load_4d(st, &kmap, 0, h, t * kBK, b, full);
         tma_load_4d(st + kKBytes, &vmap, 0, h, t * kBK, b, full);
         tma_load_4d(st + kKBytes + kHalfV, &vmap, 64, h, t * kBK, b, full);
@@ -195,27 +181,22 @@ flash_fwd_int8_kernel(const __grid_constant__ CUtensorMap qmap,
       wgmma_wait<0>();
       reg_fence(si);
 
-      // dequantise: (dot * qs) * ks, each product rounded (no contraction);
-      // this thread's keys are 8 nt + 2 tig and + 1
+      // dequantise: (dot * qs) * ks, the dot converted exactly and each
+      // product rounded (no contraction); this thread's keys are 8 nt +
+      // 2 tig and + 1
       const int kbase = t * kBK;
       float sv[64];
 #pragma unroll
       for (int nt = 0; nt < 16; ++nt) {
         const int key = kbase + nt * 8 + tig * 2;
-#ifdef K6_KS_GLOBAL
-        const float* ksb = a.ks + bh * a.ks_row;
-        const float2 kq = make_float2(__ldg(ksb + key), __ldg(ksb + key + 1));
-#else
         float2 kq;
-        const uint32_t at = sb + kOffKs + s * kKsBytes + (nt * 8 + tig * 2) * 4;
         asm volatile("ld.shared.v2.f32 {%0, %1}, [%2];\n"
                      : "=f"(kq.x), "=f"(kq.y)
-                     : "r"(at));
-#endif
-        sv[4 * nt + 0] = __fmul_rn(__fmul_rn(dot_to_float(si[4 * nt + 0]), qsr[0]), kq.x);
-        sv[4 * nt + 1] = __fmul_rn(__fmul_rn(dot_to_float(si[4 * nt + 1]), qsr[0]), kq.y);
-        sv[4 * nt + 2] = __fmul_rn(__fmul_rn(dot_to_float(si[4 * nt + 2]), qsr[1]), kq.x);
-        sv[4 * nt + 3] = __fmul_rn(__fmul_rn(dot_to_float(si[4 * nt + 3]), qsr[1]), kq.y);
+                     : "r"(sb + kOffKs + s * kKsBytes + (nt * 8 + tig * 2) * 4));
+        sv[4 * nt + 0] = __fmul_rn(__fmul_rn(__int2float_rn(si[4 * nt + 0]), qsr[0]), kq.x);
+        sv[4 * nt + 1] = __fmul_rn(__fmul_rn(__int2float_rn(si[4 * nt + 1]), qsr[0]), kq.y);
+        sv[4 * nt + 2] = __fmul_rn(__fmul_rn(__int2float_rn(si[4 * nt + 2]), qsr[1]), kq.x);
+        sv[4 * nt + 3] = __fmul_rn(__fmul_rn(__int2float_rn(si[4 * nt + 3]), qsr[1]), kq.y);
       }
       const bool tail = kbase + kBK > a.sk;
 
