@@ -448,9 +448,10 @@ def flash_attention_bwd(q, k, v, o, l2, g, scale: Optional[float] = None,
     return _flash_bwd_cuda(q, k, v, o, l2, g, scale, need_kv)
 
 
-def _strides(*tensors, dims: int = 3):
-    """The first `dims` element strides of each tensor, as a C array."""
-    vals = [st for t in tensors for st in t.stride()[:dims]]
+def _strides(*tensors):
+    """The (batch, sequence, head) element strides of each tensor, as a C
+    array."""
+    vals = [st for t in tensors for st in t.stride()[:3]]
     return (ctypes.c_longlong * len(vals))(*vals)
 
 
@@ -583,11 +584,6 @@ def flash_attention_3d(q, k, v, scale: Optional[float] = None) -> torch.Tensor:
     return _flash_online_cuda(q4, k4, v4, 1.0)[:, :, 0]
 
 
-def _check_int8(name: str, t: torch.Tensor, like, device):
-    if t.dtype != torch.int8 or t.shape != like.shape or t.device != device:
-        raise ValueError(f"{name}: need int8 {tuple(like.shape)} on {device}")
-
-
 def _check_rows(name: str, t: torch.Tensor, shape, device):
     if (t.dtype != torch.float32 or t.shape != shape or not t.is_contiguous()
             or t.device != device):
@@ -609,8 +605,9 @@ def _flash_int8_cuda(q_i8, k_i8, v, qs, ks, m2=None, three_d: bool = False):
             or k_i8.shape[2] != n or sk == 0:
         raise ValueError(f"q_i8 {tuple(q_i8.shape)} / k_i8 {tuple(k_i8.shape)} / "
                          f"v {tuple(v.shape)} do not fit (head dim {HEAD_DIM})")
-    _check_int8("q_i8", q_i8, q_i8, dev)
-    _check_int8("k_i8", k_i8, v, dev)
+    for name, t in (("q_i8", q_i8), ("k_i8", k_i8)):
+        if t.dtype != torch.int8 or t.device != dev:
+            raise ValueError(f"{name}: need int8 on {dev}, got {t.dtype} on {t.device}")
     _check_rows("qs", qs, (b, n, sq), dev)
     _check_rows("ks", ks, (b, n, sk), dev)
     if m2 is not None:
