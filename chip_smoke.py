@@ -105,13 +105,18 @@ def bound(flops: float, nbytes: float):
 
 
 def time_ms(torch, fn, reps: int, warmup: int = 2):
-    """Median CUDA-event time of fn, with L2 flushed before each run."""
+    """Median CUDA-event time of fn, with L2 flushed before each run. After
+    the flush the card spins for ~100 us before the start event, while the
+    host enqueues fn's launches, so the time is the device's: a wrapper's
+    host time per launch (17 us for K5's, 14 us for F.rms_norm's on the
+    H100's host) would otherwise land inside a kernel of tens of us."""
     flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
     for _ in range(warmup):
         fn()
     times = []
     for _ in range(reps):
         flush.zero_()
+        torch.cuda._sleep(200_000)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
