@@ -37,8 +37,8 @@
 // keys the int8 K tile (one box, 16 KB), the bf16 V tile (two 64-column
 // boxes, 32 KB) and the tile's 128 key scales (one 512-byte bulk copy)
 // into a ring of two stages that mbarriers complete and release (a third
-// stage, which shared memory would hold, measured no faster; nor did the
-// consumers reading their key scales from device memory). Warpgroups 0
+// stage, which shared memory would hold, measured no faster; consumers
+// reading their key scales from device memory measured slower). Warpgroups 0
 // and 1 are the consumers, 64 query rows each; per step: S = q8 k8^T on
 // wgmma m64n128k32 s8 (both operands K-major from shared memory, four
 // steps of 32 bytes along D, exact s32 sums in 64 registers a thread),
