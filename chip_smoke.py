@@ -40,12 +40,27 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
              480x832 clip: stage times, peak memory, output shape, and each
              kernel's launch count in this run; then the same request again
              under torch.profiler for device time by kernel category
+  load       that pipeline written in the layout of the Wan2.1-VACE-14B
+             release (DiT+VACE as 7 bf16 safetensors shards under the
+             reference's names, umT5 and the VAE as .pth) to --ckpt-dir,
+             freed, and built again by `from_pretrained` on the card:
+             detected kinds and configs, seconds, GB read, GB/s, the host's
+             peak RSS and the device's peak; every tensor bit-equal to what
+             was written (per-tensor checksums on the card); the e2e request
+             again (`load_edit`, counted): frames identical to e2e's; then a
+             random rank-128 Ditto-style LoRA hotloaded on the VACE branch,
+             its scale set to 0 and unloaded (weights bit-equal to the base
+             each time) and the time of one re-apply. Every later phase runs
+             on the loaded pipeline; the files are removed at the end
   train      2 steps of the Ditto LoRA recipe (rank 128 on the VACE q, k, v,
-             o, ffn.0, ffn.2; AdamW) on the same 14B-width pipeline, on the
-             --train-frames request (default 9: 4,680 tokens): losses, step
-             times, peak memory, LoRA size, each kernel's launches against
-             the count derived from the configuration; then one more step
-             under torch.profiler
+             o, ffn.0, ffn.2; AdamW) on the loaded 14B-width pipeline, on the
+             --train-frames request (default 9: 4,680 tokens), fed from the
+             latent cache: `launch_data_process_task` writes the clip's
+             encodes, `CachedLatentDataset` reads them back (bit-equal to the
+             in-memory ones, the same loss on both); seconds per cached
+             sample, losses, step times, peak memory, LoRA size, each
+             kernel's launches against the count derived from the
+             configuration; then one more step under torch.profiler
   e2e_online one step of the same edit on the online-softmax route
              (FLASH_CAPPED=0: K2), then one with FLASH_DUAL=1 (K8)
   train_precision  one LoRA loss and gradient on the train clip with bf16
@@ -68,12 +83,17 @@ from __future__ import annotations
 import argparse
 import contextlib
 import copy
+import gc
 import json
 import math
 import os
+import resource
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
+import threading
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -404,12 +424,13 @@ def build_pipeline(torch):
 
 
 def run_edit(torch, pipe, kernels, steps: int, frames: int, phase: str,
-             attention_kernels: dict, profile: bool = True, **extra):
+             attention_kernels: dict, profile: bool = True, outputs=None, **extra):
     """One VACE edit of a 480x832 clip on `pipe`, with every launch count set
     to 0 just before and read just after. `attention_kernels` names the
     kernel(s) that the run's attention calls must go through and their share
     of them (two attention calls per block and forward); K4 and K5 run once
-    per block and forward; every other kernel must stay at 0."""
+    per block and forward; every other kernel must stay at 0. `outputs`
+    (a list) receives the frames of each run of the request."""
     import numpy as np
     dit_cfg, vace_cfg = pipe.dit.cfg, pipe.vace.cfg
     f, h, w = frames, 480, 832
@@ -450,9 +471,14 @@ def run_edit(torch, pipe, kernels, steps: int, frames: int, phase: str,
         if count != expected.get(name, 0) or (name in expected and count == 0):
             raise AssertionError(f"{name}: {count} launches in the {phase} run, "
                                  f"expected {expected.get(name, 0)}")
+    if outputs is not None:
+        outputs.append(out)
     if profile:
-        emit({"phase": f"{phase}_profile",
-              **profile_request(torch, lambda: pipe(**request), total_s)})
+        def again():
+            frames_again = pipe(**request)
+            if outputs is not None:
+                outputs.append(frames_again)
+        emit({"phase": f"{phase}_profile", **profile_request(torch, again, total_s)})
     return launches
 
 
@@ -502,6 +528,253 @@ def run_e2e_quant(torch, pipe, kernels, steps: int, frames: int):
                             for t in list(m.parameters()) + list(m.buffers())) / 2**30)
     finally:
         set_quantized_attention(False)
+
+
+# ---------------------------------------------------------------- load phase
+
+def checksums(torch, modules: dict) -> dict:
+    """{"<module>.<tensor>": [s1, s2]} of every tensor of `modules`, taken on
+    the card over the tensor's bytes as 16-bit words w: s1 = sum(w), s2 =
+    sum(w * (position % 65521 + 1)), in int64 (no overflow below 2^31
+    words). Two tensors with the same sums hold the same bits unless a
+    change cancels in both."""
+    names, sums = [], []
+    chunk = 1 << 24
+    for mname, module in modules.items():
+        for key, t in module.state_dict().items():
+            words = t.detach().contiguous().reshape(-1).view(torch.int16)
+            s1 = torch.zeros((), dtype=torch.int64, device=t.device)
+            s2 = torch.zeros((), dtype=torch.int64, device=t.device)
+            for begin in range(0, words.numel(), chunk):
+                w = words[begin:begin + chunk].to(torch.int64) & 0xFFFF
+                pos = torch.arange(begin, begin + w.numel(), device=t.device)
+                s1 += w.sum()
+                s2 += (w * (pos % 65521 + 1)).sum()
+            names.append(f"{mname}.{key}")
+            sums.append(torch.stack([s1, s2]))
+    return dict(zip(names, torch.stack(sums).tolist()))
+
+
+def pipeline_modules(pipe) -> dict:
+    return {"dit": pipe.dit, "vace": pipe.vace, "t5": pipe.prompter.text_encoder,
+            "vae": pipe.vae}
+
+
+class RssPeak:
+    """The largest resident set size of this process while the block runs,
+    read from /proc/self/status every 5 ms (getrusage's ru_maxrss is the
+    whole life's peak and cannot be reset in the card's sandbox)."""
+
+    def __enter__(self):
+        self.peak = self.now()
+        self.stop = threading.Event()
+        self.thread = threading.Thread(target=self._watch, daemon=True)
+        self.thread.start()
+        return self
+
+    @staticmethod
+    def now() -> int:
+        with open("/proc/self/status") as f:
+            for ln in f:
+                if ln.startswith("VmRSS:"):
+                    return int(ln.split()[1]) * 1024
+        return 0
+
+    def _watch(self):
+        while not self.stop.wait(0.005):
+            self.peak = max(self.peak, self.now())
+
+    def __exit__(self, *exc):
+        self.stop.set()
+        self.thread.join()
+        self.peak = max(self.peak, self.now())
+
+
+def _drop_from_page_cache(paths):
+    """fsync each file and ask the kernel to drop its cached pages, so that
+    the load reads the disk as a first load would (advisory: a no-op where
+    the file system keeps no page cache of its own)."""
+    for path in paths:
+        fd = os.open(path, os.O_RDONLY)
+        try:
+            os.fsync(fd)
+            os.posix_fadvise(fd, 0, 0, os.POSIX_FADV_DONTNEED)
+        finally:
+            os.close(fd)
+
+
+def random_ditto_lora(torch, vace_cfg, rank: int = 128, seed: int = 7):
+    """A rank-`rank` LoRA under the reference's names on every VACE block's
+    q, k, v, o (self and cross), ffn.0 and ffn.2, bf16, from a seed."""
+    gen = torch.Generator().manual_seed(seed)
+    dim, ffn = vace_cfg.dim, vace_cfg.ffn_dim
+    shapes = {f"{a}.{n}": (dim, dim) for a in ("self_attn", "cross_attn") for n in "qkvo"}
+    shapes.update({"ffn.0": (ffn, dim), "ffn.2": (dim, ffn)})
+    sd = {}
+    for i in range(len(vace_cfg.vace_layers)):
+        for name, (out_f, in_f) in shapes.items():
+            pre = f"vace_blocks.{i}.{name}"
+            sd[f"{pre}.lora_A.weight"] = (torch.randn((rank, in_f), generator=gen)
+                                          / math.sqrt(in_f)).to(torch.bfloat16)
+            sd[f"{pre}.lora_B.weight"] = (torch.randn((out_f, rank), generator=gen)
+                                          * 1e-3).to(torch.bfloat16)
+    return sd
+
+
+def run_load(torch, holder: list, kernels, frames: int, steps: int, e2e_frames: list,
+             ckpt_root):
+    """Export the e2e pipeline (holder[0]) in the release layout, free it,
+    build it again from the files with `from_pretrained`, check every
+    tensor, the edit and the LoRA hotload stack. Returns the loaded pipeline
+    and the launches of its edit."""
+    import numpy as np
+    from video_styler_tpu_torch.models.t5 import UMT5_XXL
+    from video_styler_tpu_torch.models.wan_dit import WAN_T2V_14B
+    from video_styler_tpu_torch.models.wan_vace import VACE_14B
+    from video_styler_tpu_torch.models.wan_vae import WAN21_VAE
+    from video_styler_tpu_torch.pipelines.wan_video import WanVideoPipeline
+    from video_styler_tpu_torch.prompters.wan_prompter import StubTokenizer
+    from video_styler_tpu_torch.safetensors_io import save_file
+    from video_styler_tpu_torch.utils import ckpt as C
+    from video_styler_tpu_torch.utils.convert import save_release_files
+    from video_styler_tpu_torch.utils.model_config import ModelConfig
+
+    pipe = holder.pop()
+    folder = tempfile.mkdtemp(prefix="chip_smoke_ckpt_", dir=ckpt_root)
+    res = dict(phase="load", ckpt_dir=folder)
+    try:
+        want = checksums(torch, pipeline_modules(pipe))
+        nbytes = {name: sum(t.numel() * t.element_size() for t in m.state_dict().values())
+                  for name, m in pipeline_modules(pipe).items()}
+        free = shutil.disk_usage(folder).free
+        res.update(disk_free_gb=free / 1e9, weights_gb={k: v / 1e9 for k, v in nbytes.items()})
+        whole = free > 1.05 * sum(nbytes.values())
+        if not whole and free < 1.05 * (nbytes["dit"] + nbytes["vace"]):
+            raise RuntimeError(f"{free / 1e9:.1f} GB free under {folder}: the DiT+VACE "
+                               f"shards alone need {(nbytes['dit'] + nbytes['vace']) / 1e9:.1f}")
+        t0 = time.perf_counter()
+        # where the disk cannot hold umT5 and the VAE beside the shards, those
+        # two are carried over from the random pipeline
+        paths = save_release_files(pipe, folder, with_t5_vae=whole)
+        written = paths["dit"] + ([paths["t5"], paths["vae"]] if whole else [])
+        _drop_from_page_cache(written)
+        export_s = time.perf_counter() - t0
+        file_bytes = sum(os.path.getsize(p) for p in written)
+        res.update(export_s=export_s, files=[os.path.basename(p) for p in written],
+                   files_gb=file_bytes / 1e9, export_gb_per_s=file_bytes / 1e9 / export_s,
+                   exported="DiT+VACE shards, umT5 and VAE .pth" if whole else
+                   "DiT+VACE shards only (disk too small): umT5 and the VAE carried over")
+
+        carried = None if whole else (pipe.prompter.text_encoder, pipe.vae)
+        del pipe
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        res["device_allocated_before_gib"] = torch.cuda.memory_allocated() / 2**30
+
+        groups = [paths["dit"]] + ([[paths["vae"]], [paths["t5"]]] if whole else [])
+        res["detected_kinds"] = [C.detect_model_kind(C.load_state_dict_files(g, lazy=True))
+                                 for g in groups]
+        torch.cuda.reset_peak_memory_stats()
+        read0 = C.BYTES_READ
+        maxrss0 = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
+        with RssPeak() as rss:
+            rss_before = rss.peak
+            t0 = time.perf_counter()
+            pipe = WanVideoPipeline.from_pretrained([ModelConfig(path=g) for g in groups],
+                                                    device="cuda")
+            torch.cuda.synchronize()
+            load_s = time.perf_counter() - t0
+        read = C.BYTES_READ - read0
+        if carried is not None:
+            pipe.prompter.text_encoder, pipe.vae = carried
+        # the card's machine has no umT5 tokenizer files: e2e's stand-in
+        pipe.prompter.tokenizer = StubTokenizer(TEXT_LEN)
+        res.update(load_s=load_s, read_gb=read / 1e9, read_gb_per_s=read / 1e9 / load_s,
+                   host_rss_before_gb=rss_before / 1e9, host_rss_peak_gb=rss.peak / 1e9,
+                   host_rss_peak_over_before_gb=(rss.peak - rss_before) / 1e9,
+                   ru_maxrss_life_gb=max(maxrss0, resource.getrusage(
+                       resource.RUSAGE_SELF).ru_maxrss * 1024) / 1e9,
+                   device_peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                   device_allocated_gib=torch.cuda.memory_allocated() / 2**30,
+                   tokenizer="StubTokenizer (as e2e)")
+        configs = dict(dit=pipe.dit.cfg == WAN_T2V_14B, vace=pipe.vace.cfg == VACE_14B,
+                       t5=pipe.prompter.text_encoder.cfg == UMT5_XXL,
+                       vae=pipe.vae.cfg == WAN21_VAE)
+        res.update(dit_cfg=str(pipe.dit.cfg), vace_cfg=str(pipe.vace.cfg),
+                   configs_equal_14b=configs)
+
+        got = checksums(torch, pipeline_modules(pipe))
+        bad = sorted(k for k in want if got.get(k) != want[k])
+        res.update(tensors_checked=len(want), tensors_bit_equal=len(want) - len(bad),
+                   tensors_differing=bad[:10], tensors_missing=sorted(set(want) ^ set(got)))
+        emit(res)
+        if res["detected_kinds"] != (["dit+vace", "vae", "t5"] if whole else ["dit+vace"]):
+            raise AssertionError(f"detected kinds {res['detected_kinds']}")
+        if not all(configs.values()):
+            raise AssertionError(f"loaded configs differ from the 14B ones: {configs}")
+        if bad or set(want) != set(got):
+            raise AssertionError(f"{len(bad)} loaded tensors differ from the written ones")
+
+        # the e2e request on the loaded pipeline: the same frames
+        edit = []
+        launches = run_edit(torch, pipe, kernels, steps, frames, "load_edit", {"K1": 1.0},
+                            profile=False, outputs=edit)
+        e2e_runs_differ = float(max(np.abs(a.astype(np.int16) - e2e_frames[0]).max()
+                                    for a in e2e_frames))
+        diff = float(np.abs(edit[0].astype(np.int16) - e2e_frames[0]).max())
+        check = dict(phase="load_edit_check", frames_identical_to_e2e=diff == 0.0,
+                     max_abs_diff_to_e2e=diff, e2e_runs_max_abs_diff=e2e_runs_differ,
+                     e2e_runs=len(e2e_frames))
+        emit(check)
+        if diff > e2e_runs_differ:
+            raise AssertionError(f"the loaded pipeline's edit differs from e2e's: {check}")
+
+        # LoRA hotload on the VACE branch at 14B width
+        lora_path = os.path.join(folder, "ditto_lora_rank128.safetensors")
+        save_file(random_ditto_lora(torch, pipe.vace.cfg), lora_path)
+        base = {k: v for k, v in want.items() if k.startswith("vace.")}
+
+        def vace_equal_to_base():
+            return checksums(torch, {"vace": pipe.vace}) == base
+
+        hot = dict(phase="load_hotload", lora_rank=128, lora_file_gb=os.path.getsize(
+            lora_path) / 1e9)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pipe.load_lora("vace", path=lora_path, alpha=1.0, hotload=True)
+        torch.cuda.synchronize()
+        hot["load_lora_s"] = time.perf_counter() - t0
+        hot["lora_targets"] = len(pipe._lora_stacks["vace"]["base"])
+        hot["base_copy_gib"] = sum(w.numel() * w.element_size() for w in
+                                   pipe._lora_stacks["vace"]["base"].values()) / 2**30
+        hot["merged_differs_from_base"] = not vace_equal_to_base()
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            pipe.set_lora_scale("vace", 0.5)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        hot["reapply_scale_0.5_s"] = times
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pipe.set_lora_scale("vace", 0.0)
+        torch.cuda.synchronize()
+        hot["reapply_scale_0_s"] = time.perf_counter() - t0
+        hot["scale_0_bit_equal_to_base"] = vace_equal_to_base()
+        pipe.set_lora_scale("vace", 1.0)
+        pipe.unload_loras("vace")
+        torch.cuda.synchronize()
+        hot["unloaded_bit_equal_to_base"] = vace_equal_to_base()
+        hot["device_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        emit(hot)
+        if not (hot["merged_differs_from_base"] and hot["scale_0_bit_equal_to_base"]
+                and hot["unloaded_bit_equal_to_base"]):
+            raise AssertionError(f"LoRA hotload: {hot}")
+        return pipe, launches
+    finally:
+        shutil.rmtree(folder, ignore_errors=True)
 
 
 def time_sdpa_bwd(torch, q, k, v, g, reps: int = 5):
@@ -961,20 +1234,48 @@ def expected_train_launches(dit_cfg, vace_cfg, targets, steps: int):
 
 
 def run_train(torch, pipe, kernels, frames: int, steps: int = 2):
-    """The Ditto LoRA recipe at 14B width on the e2e phase's pipeline."""
+    """The Ditto LoRA recipe at 14B width on the loaded pipeline, fed from
+    the latent cache: the train clip's encodes are written by
+    `launch_data_process_task` and read back by `CachedLatentDataset`."""
     from video_styler_tpu_torch.pipelines.wan_video import _preprocess_images
+    from video_styler_tpu_torch.trainers.latent_cache import (
+        CachedLatentDataset, launch_data_process_task)
     from video_styler_tpu_torch.trainers.lora_train import (
         apply_lora, init_lora, lora_parameters, lora_targets)
     from video_styler_tpu_torch.trainers.training import (
-        adamw, make_train_step, training_scheduler)
+        adamw, flow_match_loss, make_train_step, training_scheduler)
 
     f, h, w = frames, 480, 832
-    clip = frames_480x832(f)
-    t0 = time.perf_counter()
-    with torch.no_grad():
-        context = pipe.encode_prompt("turn the scene into a watercolor painting")
-        latents = pipe.encode_video(_preprocess_images(clip), tiled=True)
-        vace_context = pipe.build_vace_context(clip, None, None, h, w, f, tiled=True)
+    keys = ("latents", "context", "vace_context")
+    in_memory = {}
+
+    def preprocess(row):
+        """The same units as inference (train.py's preprocess), kept here as
+        the in-memory inputs too."""
+        with torch.no_grad():
+            in_memory.update(
+                context=pipe.encode_prompt(row["prompt"]),
+                latents=pipe.encode_video(_preprocess_images(row["video"]), tiled=True),
+                vace_context=pipe.build_vace_context(row["video"], None, None, h, w, f,
+                                                     tiled=True))
+        return dict(in_memory)
+
+    cache = tempfile.mkdtemp(prefix="chip_smoke_cache_")
+    try:
+        t0 = time.perf_counter()
+        written = launch_data_process_task(
+            [{"prompt": "turn the scene into a watercolor painting",
+              "video": frames_480x832(f)}], preprocess, cache)
+        torch.cuda.synchronize()
+        data_process_s = (time.perf_counter() - t0) / len(written)
+        cache_mb = sum(os.path.getsize(p) for p in written) / 1e6
+        sample = CachedLatentDataset(cache)[0]
+    finally:
+        shutil.rmtree(cache, ignore_errors=True)
+    latents, context, vace_context = (torch.from_numpy(sample[k]).to("cuda", pipe.dtype)
+                                      for k in keys)
+    cache_bit_equal = {k: bool(torch.equal(in_memory[k], v)) for k, v in
+                       zip(keys, (latents, context, vace_context))}
     # the umT5-XXL weights (~10.6 GiB) are not needed past the prompt: give
     # their memory to the step's activations
     pipe.prompter.text_encoder.to("cpu")
@@ -982,15 +1283,25 @@ def run_train(torch, pipe, kernels, frames: int, steps: int = 2):
         m.requires_grad_(False)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
-    prep_s = time.perf_counter() - t0
 
     targets = lora_targets("q,k,v,o,ffn.0,ffn.2", "vace")
     gen = torch.Generator().manual_seed(0)
     lora = init_lora(pipe.vace, rank=128, targets=targets, generator=gen)
     apply_lora(pipe.vace, lora)
     params = lora_parameters(lora)
-    step = make_train_step(pipe.dit, adamw(params, 1e-4), training_scheduler(),
+    sched = training_scheduler()
+    step = make_train_step(pipe.dit, adamw(params, 1e-4), sched,
                            vace=pipe.vace, remat=True)
+    # one loss from the in-memory inputs and one from the cached ones, with
+    # the same tid and noise
+    noise = torch.randn(latents.shape, generator=torch.Generator().manual_seed(3))
+    with torch.no_grad():
+        same_loss = [float(flow_match_loss(
+            pipe.dit, inputs["latents"], inputs["context"], sched.sigmas, sched.timesteps,
+            sched.linear_timesteps_weights, tid=500, noise=noise, vace=pipe.vace,
+            vace_context=inputs["vace_context"]))
+            for inputs in (in_memory, dict(zip(keys, (latents, context, vace_context))))]
+    del in_memory
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for kern in kernels.values():
@@ -1011,12 +1322,17 @@ def run_train(torch, pipe, kernels, frames: int, steps: int = 2):
                lora_rank=128, lora_targets=list(targets),
                lora_params=sum(p.numel() for p in params), remat="trunk and VACE",
                text_encoder="moved to the CPU after the prompt encode",
-               preprocess_s=prep_s, losses=losses, step_s=step_s,
+               inputs="latent cache (launch_data_process_task, CachedLatentDataset)",
+               data_process_s_per_sample=data_process_s, cache_mb_per_sample=cache_mb,
+               cache_bit_equal_to_in_memory=cache_bit_equal,
+               loss_in_memory_vs_cached=same_loss, losses=losses, step_s=step_s,
                max_memory_allocated_gib=torch.cuda.max_memory_allocated() / 2**30,
                launches=launches, expected_launches=expected)
     emit(res)
     if not all(map(math.isfinite, losses)):
         raise AssertionError(f"non-finite loss: {losses}")
+    if not all(cache_bit_equal.values()) or same_loss[0] != same_loss[1]:
+        raise AssertionError("the cached inputs differ from the in-memory ones")
     for name, count in launches.items():
         if count != expected.get(name, 0) or (name in expected and count == 0):
             raise AssertionError(f"{name}: {count} launches in the train run, "
@@ -1171,6 +1487,10 @@ def main(argv=None):
                     help="frames (4k+1) of the 480x832 end-to-end request")
     ap.add_argument("--train-frames", type=int, default=RUN_FRAMES,
                     help="frames (4k+1) of the 480x832 clip of the LoRA steps")
+    ap.add_argument("--ckpt-dir", default=None,
+                    help="where the load phase writes its ~47 GB of checkpoint "
+                         "files (in a new folder it removes; default: the "
+                         "temporary directory)")
     args = ap.parse_args(argv)
 
     import torch
@@ -1248,8 +1568,16 @@ def main(argv=None):
     check_reference_quant(torch)
     check_train_reference(torch)
     pipe, init_s = build_pipeline(torch)
-    launches = run_edit(torch, pipe, kernels, args.steps, args.frames, "e2e", {"K1": 1.0},
-                        init_s=init_s)
+    e2e_frames = []
+    run_edit(torch, pipe, kernels, args.steps, args.frames, "e2e", {"K1": 1.0},
+             outputs=e2e_frames, init_s=init_s)
+    # from here on every phase runs on the pipeline loaded from the files,
+    # and the kernels line counts its launches
+    holder = [pipe]
+    del pipe
+    pipe, launches = run_load(torch, holder, kernels, args.frames, args.steps, e2e_frames,
+                              args.ckpt_dir)
+    del e2e_frames
     launches.update(run_e2e_online(torch, pipe, kernels, args.frames))
     train_launches, train_inputs = run_train(torch, pipe, kernels, args.train_frames)
     if args.train_frames <= RUN_FRAMES:

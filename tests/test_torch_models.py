@@ -61,8 +61,8 @@ def _models(which):
     jvcfg = JV.VaceConfig(**VACE)
     jp = JD.init_wan_dit(jax.random.PRNGKey(0), jcfg, jd)
     jvp = JV.init_vace(jax.random.PRNGKey(1), jvcfg, jd)
-    dit = from_jax_params("dit", _np_tree(jp), TD.WanDiTConfig(**DIT))
-    vace = from_jax_params("vace", _np_tree(jvp), TV.VaceConfig(**VACE))
+    dit = from_jax_params("dit", _np_tree(jp), TD.WanDiTConfig(**DIT), device="cpu")
+    vace = from_jax_params("vace", _np_tree(jvp), TV.VaceConfig(**VACE), device="cpu")
     return (jcfg, jp, jvcfg, jvp), (dit, vace)
 
 
@@ -152,7 +152,7 @@ def test_wan_dit_forward_with_vace_matches_jax(which):
 def test_t5_encode_and_prompter_match_jax():
     jcfg = JT.T5Config(**T5)
     jp = JT.init_t5(jax.random.PRNGKey(2), jcfg)
-    t5 = from_jax_params("t5", _np_tree(jp), TT.T5Config(**T5))
+    t5 = from_jax_params("t5", _np_tree(jp), TT.T5Config(**T5), device="cpu")
     rng = np.random.default_rng(12)
     ids = rng.integers(0, 128, (2, 16)).astype(np.int32)
     mask = np.ones((2, 16), np.int32)

@@ -84,12 +84,15 @@ def _pipelines(jd, td):
     jp.prompter.fetch_models(jp.text_encoder_params)
 
     tp = TPipe(device="cpu", dtype=td)
-    tp.dit = from_jax_params("dit", _tree(jp.dit_params), TD.WanDiTConfig(**DIT))
-    tp.vace = from_jax_params("vace", _tree(jp.vace_params), TV.VaceConfig(**VACE))
+    tp.dit = from_jax_params("dit", _tree(jp.dit_params), TD.WanDiTConfig(**DIT),
+                             device="cpu")
+    tp.vace = from_jax_params("vace", _tree(jp.vace_params), TV.VaceConfig(**VACE),
+                              device="cpu")
     tp.vae = from_jax_params("vae", _tree(jp.vae_params), TVAE.WanVAEConfig(
         dim=16, z_dim=4, num_res_blocks=1, latent_mean=(0.0,) * 4,
-        latent_std=(1.0,) * 4))
-    t5 = from_jax_params("t5", _tree(jp.text_encoder_params), TT.T5Config(**T5))
+        latent_std=(1.0,) * 4), device="cpu")
+    t5 = from_jax_params("t5", _tree(jp.text_encoder_params), TT.T5Config(**T5),
+                         device="cpu")
     tp.prompter = WanPrompter(StubTokenizer(TEXT_LEN), TEXT_LEN, t5)
     return jp, tp
 
@@ -198,6 +201,8 @@ def test_entry_points_refuse_cpu_unless_asked(tmp_path):
         build_smoke_pipeline()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         main(["--smoke", "--prompt", "x", "--output_path", str(tmp_path / "a.mp4")])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        from_jax_params("vae", {}, TVAE.WanVAEConfig())
     assert resolve_device("cpu").type == "cpu"
 
 
@@ -208,5 +213,7 @@ def test_cli_smoke_on_cpu(tmp_path):
                    "--num_inference_steps", "2", "--output_path", str(out)])
     assert frames.shape == (9, 32, 32, 3) and frames.dtype == np.uint8
     assert out.exists() and out.stat().st_size > 0
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        main(["--prompt", "x", "--dit_path", "dit.safetensors", "--device", "cpu"])
+    # --dit_path goes through from_pretrained: a missing file is named
+    with pytest.raises(FileNotFoundError, match="dit.safetensors"):
+        main(["--prompt", "x", "--dit_path", str(tmp_path / "dit.safetensors"),
+              "--device", "cpu"])

@@ -261,7 +261,7 @@ def test_quantize_params_keep_rules_match_jax(mode):
                dict(predicate=lambda path, leaf: not any(k in path for k in keep)),
                dict(min_dim=256)):
         want = _quantized_paths(jq.quantize_params(jp, mode=mode, **kw))
-        dit = from_jax_params("dit", _tree(jp), TD.WanDiTConfig(**cfg))
+        dit = from_jax_params("dit", _tree(jp), TD.WanDiTConfig(**cfg), device="cpu")
         assert tq.quantize_params(dit, mode=mode, **kw) is dit
         got = {name: m for name, m in dit.named_modules() if isinstance(m, tq.QuantLinear)}
         assert {_strip_index(n) for n in got} == set(want), kw
@@ -311,7 +311,7 @@ def test_quantized_dit_forward_matches_jax(mode, monkeypatch):
     jcfg = JD.WanDiTConfig(**DIT)
     jp = jq.quantize_params(JD.init_wan_dit(jax.random.PRNGKey(0), jcfg, jnp.float32),
                             mode=mode)
-    dit = from_jax_params("dit", _tree(jp), TD.WanDiTConfig(**DIT))
+    dit = from_jax_params("dit", _tree(jp), TD.WanDiTConfig(**DIT), device="cpu")
     q_layer = dit.blocks[1].self_attn.q
     assert isinstance(q_layer, tq.QuantLinear) and q_layer.mode == mode
     leaf = jax.tree_util.tree_map(lambda a: a[1], jp["blocks"]["self_attn"]["q"])

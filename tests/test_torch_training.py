@@ -79,8 +79,8 @@ def _models(jd=jnp.float32):
     jcfg, jvcfg = JD.WanDiTConfig(**DIT), JV.VaceConfig(**VACE)
     jp = JD.init_wan_dit(jax.random.PRNGKey(0), jcfg, jd)
     jvp = JV.init_vace(jax.random.PRNGKey(1), jvcfg, jd)
-    dit = from_jax_params("dit", _np_tree(jp), TD.WanDiTConfig(**DIT))
-    vace = from_jax_params("vace", _np_tree(jvp), TV.VaceConfig(**VACE))
+    dit = from_jax_params("dit", _np_tree(jp), TD.WanDiTConfig(**DIT), device="cpu")
+    vace = from_jax_params("vace", _np_tree(jvp), TV.VaceConfig(**VACE), device="cpu")
     dit.requires_grad_(False)
     vace.requires_grad_(False)
     return (jcfg, jp, jvcfg, jvp), (dit, vace)
@@ -459,10 +459,18 @@ def test_train_cli_smoke_resume_and_merge(tmp_path):
                   "--output_path", str(tmp_path / "run2"), "--lora_checkpoint",
                   os.path.join(out, "step-2.safetensors")])
     assert third["steps"] == 1
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        main(["--dit_path", "dit.safetensors", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        main(["--smoke", "--task", "data_process", "--device", "cpu"])
+    # the latent cache: encode the smoke samples once, then train from them
+    cache = str(tmp_path / "cache")
+    written = main(["--smoke", "--task", "data_process", "--device", "cpu",
+                    "--output_path", cache])["written"]
+    assert [os.path.relpath(w, cache) for w in written] == ["0/0.npz", "0/1.npz"]
+    fourth = main(["--smoke", "--device", "cpu", "--max_steps", "2", "--cache_path", cache,
+                   "--output_path", str(tmp_path / "run3")])
+    assert fourth["losses"] == first["losses"]
+    # --dit_path goes through from_pretrained: a missing file is named
+    with pytest.raises(FileNotFoundError, match="dit.safetensors"):
+        main(["--dit_path", str(tmp_path / "dit.safetensors"), "--device", "cpu",
+              "--dataset_metadata_path", str(tmp_path / "metadata.csv")])
 
 
 def test_train_cli_refuses_cpu_unless_asked(tmp_path):

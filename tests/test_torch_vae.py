@@ -29,7 +29,8 @@ def vaes():
                            num_res_blocks=jcfg.num_res_blocks,
                            temperal_downsample=jcfg.temperal_downsample,
                            latent_mean=jcfg.latent_mean, latent_std=jcfg.latent_std)
-    model = from_jax_params("vae", jax.tree_util.tree_map(np.asarray, jp), tcfg)
+    model = from_jax_params("vae", jax.tree_util.tree_map(np.asarray, jp), tcfg,
+                            device="cpu")
     return jcfg, jp, model
 
 

@@ -31,6 +31,7 @@ from typing import Dict
 import numpy as np
 import torch
 
+from .device import resolve_device
 from .models.t5 import T5Encoder
 from .models.wan_dit import WanDiT
 from .models.wan_vace import WanVace
@@ -95,8 +96,10 @@ def _swap_in_quant_linears(module: torch.nn.Module, sd: Dict[str, torch.Tensor])
                 sd[f"{path}.{buf}"] = getattr(layer, buf)
 
 
-def from_jax_params(kind: str, tree, cfg, device="cpu") -> torch.nn.Module:
-    """The port's `kind` module holding the JAX tree's values (strict)."""
+def from_jax_params(kind: str, tree, cfg, device=None) -> torch.nn.Module:
+    """The port's `kind` module holding the JAX tree's values (strict), on
+    `device` (the card unless "cpu", as every entry point)."""
+    device = resolve_device(device)
     if kind not in _MODULES:
         raise ValueError(f"unknown model kind {kind!r}; one of {sorted(_MODULES)}")
     sd = jax_tree_to_state_dict(tree, stacked=kind in ("dit", "vace"))

@@ -5,12 +5,17 @@
         --prompt "make it a watercolor" --dit_path ...
 
 Same flags as inference/infer_ditto.py, without --mesh and --streaming,
-plus --device (default cuda). --quantize int8|fp8 quantizes the DiT and
-VACE linears after any LoRA merge (`WanVideoPipeline.quantize`). --smoke runs the same pipeline
-code on tiny random models (head dim 128, so the CUDA kernels run too).
---lora_path merges a LoRA (e.g. one that `python -m
-video_styler_tpu_torch.train` saved) into the VACE branch before the loop.
-Checkpoint loading is not ported yet: --dit_path raises.
+plus --device (default cuda). --dit_path ('|'-separated shards of the DiT
+and VACE), --vae_path, --t5_path and --tokenizer_path go through
+`WanVideoPipeline.from_pretrained` (the official Wan2.1-VACE-14B files:
+`diffusion_pytorch_model-0000{1..7}-of-00007.safetensors`, `Wan2.1_VAE.pth`,
+`models_t5_umt5-xxl-enc-bf16.pth`, the `google/umt5-xxl` tokenizer, found
+beside the checkpoints when --tokenizer_path is not given). --quantize
+int8|fp8 quantizes the DiT and VACE linears after any LoRA merge
+(`WanVideoPipeline.quantize`). --smoke runs the same pipeline code on tiny
+random models (head dim 128, so the CUDA kernels run too). --lora_path
+merges a LoRA (e.g. one that `python -m video_styler_tpu_torch.train`
+saved) into the VACE branch before the loop.
 """
 from __future__ import annotations
 
@@ -47,6 +52,20 @@ def build_smoke_pipeline(device=None, seed: int = 0):
     return WanVideoPipeline.from_configs(
         dit, vace, t5, vae, StubTokenizer(SMOKE_TEXT_LEN),
         text_len=SMOKE_TEXT_LEN, seed=seed, device=device, dtype=torch.bfloat16)
+
+
+def build_pipeline(args):
+    """The pipeline from checkpoint files (--dit_path, --vae_path, --t5_path,
+    --tokenizer_path), on --device, as inference/infer_ditto.py builds it."""
+    from .pipelines.wan_video import WanVideoPipeline
+    from .utils.model_config import ModelConfig
+    model_configs = [ModelConfig(path=args.dit_path.split("|"))]
+    for path in (args.vae_path, args.t5_path):
+        if path:
+            model_configs.append(ModelConfig(path=path))
+    return WanVideoPipeline.from_pretrained(model_configs,
+                                            tokenizer_path=args.tokenizer_path,
+                                            device=args.device)
 
 
 def smoke_frames(num_frames: int, height: int, width: int, seed: int = 0):
@@ -100,8 +119,7 @@ def main(argv=None):
     elif not args.dit_path:
         p.error("--dit_path is required (or use --smoke)")
     else:
-        raise NotImplementedError("checkpoint loading (--dit_path, --vae_path, "
-                                  "--t5_path) is not yet ported; use --smoke")
+        pipe = build_pipeline(args)
     if args.lora_path:
         pipe.load_lora(target="vace" if pipe.vace is not None else "dit",
                        path=args.lora_path, alpha=args.lora_alpha)

@@ -51,24 +51,36 @@ def module_path(target: str) -> str:
                   lambda m: ".ffn.fc1" if m.group(1) == "0" else ".ffn.fc2", path)
 
 
+def target_linear(module: nn.Module, target: str) -> nn.Linear:
+    """The linear layer of `module` that the LoRA target names."""
+    try:
+        lin = module.get_submodule(module_path(target))
+    except AttributeError as e:
+        raise KeyError(f"cannot resolve LoRA target '{target}'") from e
+    if hasattr(lin, "w_scale"):
+        # the JAX merge fails on a quantised leaf too (it has no "w")
+        raise KeyError(f"LoRA target '{target}' is quantized: quantize "
+                       "must run after LoRA merging")
+    if not isinstance(lin, nn.Linear):
+        raise KeyError(f"LoRA target '{target}' is not a linear layer")
+    return lin
+
+
 @torch.no_grad()
+def merge_lora_pairs(module: nn.Module, pairs: Dict[str, Tuple[torch.Tensor, torch.Tensor]],
+                     alpha: float = 1.0) -> nn.Module:
+    """Merge W += alpha * (B @ A) for each {target: (A, B)} (fp32), in
+    place; the product is taken on the weight's device."""
+    for target, (a, b) in pairs.items():
+        w = target_linear(module, target).weight
+        delta = (b.to(w.device) @ a.to(w.device)) * alpha        # (out, in)
+        w.copy_((w.float() + delta).to(w.dtype))
+    return module
+
+
 def merge_lora(module: nn.Module, lora_sd: Dict, alpha: float = 1.0) -> nn.Module:
     """Merge W += alpha * (B @ A) into `module`'s linears (in place)."""
     pairs = extract_lora_pairs(lora_sd)
     if not pairs:
         raise ValueError("no LoRA A/B pairs found in state dict")
-    for target, (a, b) in pairs.items():
-        try:
-            lin = module.get_submodule(module_path(target))
-        except AttributeError as e:
-            raise KeyError(f"cannot resolve LoRA target '{target}'") from e
-        if hasattr(lin, "w_scale"):
-            # the JAX merge fails on a quantised leaf too (it has no "w")
-            raise KeyError(f"LoRA target '{target}' is quantized: quantize "
-                           "must run after LoRA merging")
-        if not isinstance(lin, nn.Linear):
-            raise KeyError(f"LoRA target '{target}' is not a linear layer")
-        w = lin.weight
-        delta = (b @ a) * alpha                                  # (out, in)
-        w.copy_((w.float() + delta.to(w.device)).to(w.dtype))
-    return module
+    return merge_lora_pairs(module, pairs, alpha)

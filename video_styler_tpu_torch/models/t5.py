@@ -165,3 +165,23 @@ def t5_encode(model: T5Encoder, ids, mask=None):
     for blk in model.blocks:
         x = t5_block(blk, x, mask, model.cfg)
     return t5_layer_norm(x, model.norm.scale)
+
+
+def convert_t5(sd, cfg: T5Config):
+    """Reference WanTextEncoder state dict -> `T5Encoder` state dict (the
+    JAX package's `convert_t5`): per block the norms' `.weight`, the
+    attention's q/k/v/o, the FFN's `gate.0`, `fc1`, `fc2`, and the block's
+    own `pos_embedding.embedding.weight`. Values pass through."""
+    out = {"token_embedding": sd["token_embedding.weight"],
+           "norm.scale": sd["norm.weight"]}
+    for i in range(cfg.num_layers):
+        pre = f"blocks.{i}"
+        out[f"{pre}.norm1.scale"] = sd[f"{pre}.norm1.weight"]
+        out[f"{pre}.norm2.scale"] = sd[f"{pre}.norm2.weight"]
+        for name in ("q", "k", "v", "o"):
+            out[f"{pre}.attn.{name}.weight"] = sd[f"{pre}.attn.{name}.weight"]
+        out[f"{pre}.ffn.gate.weight"] = sd[f"{pre}.ffn.gate.0.weight"]
+        out[f"{pre}.ffn.fc1.weight"] = sd[f"{pre}.ffn.fc1.weight"]
+        out[f"{pre}.ffn.fc2.weight"] = sd[f"{pre}.ffn.fc2.weight"]
+        out[f"{pre}.pos_emb"] = sd[f"{pre}.pos_embedding.embedding.weight"]
+    return out

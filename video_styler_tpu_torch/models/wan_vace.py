@@ -34,6 +34,8 @@ class VaceConfig:
                             patch_size=self.patch_size)
 
 
+VACE_1_3B = VaceConfig(vace_layers=tuple(range(0, 30, 2)), dim=1536,
+                       num_heads=12, ffn_dim=8960)
 VACE_14B = VaceConfig(vace_layers=(0, 5, 10, 15, 20, 25, 30, 35), dim=5120,
                       num_heads=40, ffn_dim=13824)
 

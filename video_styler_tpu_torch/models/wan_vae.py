@@ -20,7 +20,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -532,3 +532,12 @@ def decode(model: WanVAE, z, tiled: bool = False, chunk_size: Optional[int] = No
     if tiled:
         return vae_decode_stream(model, z, chunk_size=chunk_size or _auto_chunk(z))
     return vae_decode(model, z)
+
+
+def convert_wan_vae(sd: Dict) -> Dict:
+    """Reference WanVideoVAE state dict -> `WanVAE` state dict (the JAX
+    package's `convert_wan_vae`): the names are kept, a leading `model.`
+    is stripped. Values pass through (tensors or `utils.ckpt.LazyTensor`s);
+    the pipeline holds the VAE in fp32."""
+    return {k[len("model."):] if k.startswith("model.") else k: v
+            for k, v in sd.items()}

@@ -5,11 +5,13 @@ Counterpart of the T2V/VACE subset of
 umT5 prompt encode, VACE context (a Wan2.1 VAE encode plus the 64-channel
 mask), a flow-match Euler loop with two-pass (or merged) CFG over
 `wan_dit_forward` with VACE hints, optional TeaCache step skipping, and the
-VAE decode. `load_lora` merges a LoRA into the DiT or the VACE branch;
+VAE decode. `load_lora` merges a LoRA into the DiT or the VACE branch, or
+keeps it on a hotload stack (`set_lora_scale`, `unload_loras`);
 `quantize` (after any LoRA merge) turns the DiT and VACE linears into int8,
 fp8 or int4 layers and can route attention through the int8 kernel.
-Checkpoint loading is not ported yet; models come from `from_jax_params`
-or from `from_configs` (random weights).
+Models come from checkpoint files (`from_pretrained`: the official Wan2.1
+DiT, VACE, umT5 and VAE files, read by `utils.ckpt`), from
+`convert.from_jax_params`, or from `from_configs` (random weights).
 
 Runs on `cuda` unless constructed with `device="cpu"`. Each stage's wall
 time (synchronised with the card) is kept in `stage_times`; on the card,
@@ -26,15 +28,18 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..lora import merge_lora
+from ..lora import extract_lora_pairs, merge_lora, merge_lora_pairs, target_linear
 from ..models import wan_vae as V
-from ..models.t5 import T5Config, T5Encoder, init_t5_
+from ..models.t5 import UMT5_XXL, T5Config, T5Encoder, convert_t5, init_t5_
 from ..models.wan_dit import (WanDiT, WanDiTConfig, head, init_weights_,
                               patchify, time_embed, unpatchify,
                               wan_dit_forward_with_residual)
 from ..models.wan_vace import VaceConfig, WanVace
 from ..prompters.wan_prompter import WanPrompter
 from ..schedulers.flow_match import FlowMatchScheduler
+from ..utils import ckpt as C
+from ..utils.convert import convert_vace, convert_wan_dit
+from ..utils.model_config import ModelConfig
 
 
 def _preprocess_images(images) -> np.ndarray:
@@ -111,6 +116,11 @@ class WanVideoPipeline:
         self.dit: Optional[WanDiT] = None
         self.vace: Optional[WanVace] = None
         self.vae: Optional[V.WanVAE] = None
+        # the architectures `_attach` builds checkpoint files into (the JAX
+        # pipeline's: umT5-XXL and the Wan2.1 VAE)
+        self.t5_cfg: T5Config = UMT5_XXL
+        self.vae_cfg: V.WanVAEConfig = V.WAN21_VAE
+        self._lora_stacks = {}
         self.stage_times: List[Tuple[str, float]] = []
         self.stage_peak_bytes: List[Tuple[str, int]] = []
 
@@ -122,6 +132,7 @@ class WanVideoPipeline:
         """Random weights drawn on the device from one seeded generator, with
         the JAX init's std; the DiT, VACE and T5 in `dtype`, the VAE in fp32."""
         pipe = cls(device=device, dtype=dtype)
+        pipe.t5_cfg, pipe.vae_cfg = t5_cfg, vae_cfg
         dev = pipe.device
         gen = torch.Generator(dev).manual_seed(seed)
         with torch.device("meta"):
@@ -137,16 +148,112 @@ class WanVideoPipeline:
         pipe.prompter = WanPrompter(tokenizer, text_len, t5)
         return pipe
 
+    @classmethod
+    def from_pretrained(cls, model_configs: List[ModelConfig],
+                        tokenizer_path: Optional[str] = None, device=None,
+                        dtype=torch.bfloat16) -> "WanVideoPipeline":
+        """Build the pipeline from checkpoint files, as the JAX pipeline's
+        `from_pretrained` does: each source's files (shards of one model
+        together) are detected by their keys and attached; the tokenizer
+        comes from `tokenizer_path`, else from files beside the
+        checkpoints. Tensors go from the files to `device` in their stored
+        dtype and are cast there (`utils.ckpt.read_tensors`)."""
+        pipe = cls(device=device, dtype=dtype)
+        for mc in model_configs:
+            sd = C.load_state_dict_files(mc.paths(), lazy=True)
+            pipe._attach(mc.model_kind or C.detect_model_kind(sd), sd)
+        if tokenizer_path is not None:
+            pipe.prompter.fetch_tokenizer(tokenizer_path)
+        else:
+            pipe.prompter.fetch_tokenizer_near(
+                [p for mc in model_configs for p in mc.paths()])
+        return pipe
+
+    def _attach(self, kind: str, sd):
+        """Build the `kind` model from a (lazy) reference state dict onto
+        the pipeline's device. A combined file splits by the `vace` prefix."""
+        if kind in ("dit", "dit+vace"):
+            dit_sd = {k: v for k, v in sd.items() if not k.startswith("vace")}
+            cfg = C.detect_wan_dit_config(dit_sd)
+            self.dit = C.build_module(WanDiT, cfg, convert_wan_dit(dit_sd, cfg),
+                                      self.device, self.dtype)
+            if kind == "dit+vace":
+                self._attach("vace", {k: v for k, v in sd.items()
+                                      if k.startswith("vace")})
+        elif kind == "vace":
+            vcfg = C.detect_vace_config(sd)
+            if vcfg is None:
+                # keys under a leading `vace.` are not read (nor by the JAX
+                # converter): ROADMAP Queue 3
+                raise KeyError("vace_blocks.0.before_proj.weight: no VACE block "
+                               "under the names the converter reads")
+            self.vace = C.build_module(WanVace, vcfg, convert_vace(sd, vcfg),
+                                       self.device, self.dtype)
+        elif kind == "vae":
+            self.vae = C.build_module(V.WanVAE, self.vae_cfg, V.convert_wan_vae(sd),
+                                      self.device, torch.float32)
+        elif kind == "t5":
+            self.prompter.text_encoder = C.build_module(
+                T5Encoder, self.t5_cfg, convert_t5(sd, self.t5_cfg), self.device,
+                self.dtype)
+        elif kind in C.UNPORTED_KINDS:
+            raise C.unported(kind)
+        else:
+            raise ValueError(f"unknown model kind {kind}")
+
     def load_lora(self, target: str = "dit", path: Optional[str] = None,
-                  state_dict=None, alpha: float = 1.0):
-        """Merge a LoRA (a safetensors file or a state dict) into the `dit`
-        or `vace` weights, as the JAX pipeline's `load_lora` does."""
+                  state_dict=None, alpha: float = 1.0, hotload: bool = False):
+        """Merge a LoRA (a checkpoint file or a state dict) into the `dit`
+        or `vace` weights, as the JAX pipeline's `load_lora` does.
+
+        hotload=True keeps it on the target's LoRA stack instead, beside one
+        device copy of the pristine weights it touches: `set_lora_scale`
+        rescales a LoRA of the stack and `unload_loras` restores the base,
+        without reading any file again."""
         if target not in ("dit", "vace") or getattr(self, target) is None:
             raise ValueError(f"no {target!r} model to merge a LoRA into")
         if state_dict is None:
-            from ..safetensors_io import load_file
-            state_dict = load_file(path)
-        merge_lora(getattr(self, target), state_dict, alpha=alpha)
+            state_dict = C.load_state_dict(path)
+        if not hotload:
+            merge_lora(getattr(self, target), state_dict, alpha=alpha)
+            return
+        module = getattr(self, target)
+        pairs = {t: (a.to(self.device), b.to(self.device))
+                 for t, (a, b) in extract_lora_pairs(state_dict).items()}
+        if not pairs:
+            raise ValueError("no LoRA A/B pairs found in state dict")
+        stack = self._lora_stacks.setdefault(target, {"base": {}, "loras": []})
+        for t in pairs:
+            # a weight no LoRA of the stack has touched yet is still pristine
+            if t not in stack["base"]:
+                stack["base"][t] = target_linear(module, t).weight.detach().clone()
+        stack["loras"].append([pairs, alpha])
+        self._reapply_loras(target)
+
+    @torch.no_grad()
+    def _restore_base(self, target: str):
+        module = getattr(self, target)
+        for t, w in self._lora_stacks[target]["base"].items():
+            target_linear(module, t).weight.copy_(w)
+
+    def _reapply_loras(self, target: str):
+        """The pristine weights, then every LoRA of the stack at its scale."""
+        self._restore_base(target)
+        for pairs, alpha in self._lora_stacks[target]["loras"]:
+            if alpha != 0.0:
+                merge_lora_pairs(getattr(self, target), pairs, alpha=alpha)
+
+    def set_lora_scale(self, target: str = "dit", alpha: float = 1.0,
+                       index: int = -1):
+        """Rescale a hotloaded LoRA (no checkpoint IO)."""
+        self._lora_stacks[target]["loras"][index][1] = alpha
+        self._reapply_loras(target)
+
+    def unload_loras(self, target: str = "dit"):
+        """Restore the pristine weights of `target` and drop its stack."""
+        if target in self._lora_stacks:
+            self._restore_base(target)
+            del self._lora_stacks[target]
 
     def quantize(self, mode: str = "int8", targets: tuple = ("dit", "dit2", "vace"),
                  quantize_attention: bool = False):

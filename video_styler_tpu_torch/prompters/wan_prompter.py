@@ -5,10 +5,12 @@ prompt, tokenize to `text_len` with padding, run the umT5 encoder, and zero
 the embeddings past the sequence length. The tokenizer is any callable with
 the Hugging Face call signature; `transformers` (and `ftfy`, for cleaning)
 are imported only when a tokenizer path is given or a prompt is cleaned.
+`fetch_tokenizer_near` finds tokenizer files beside the checkpoints.
 """
 from __future__ import annotations
 
 import html
+import os
 import re
 from typing import Callable, Optional
 
@@ -61,6 +63,33 @@ class WanPrompter:
     def fetch_tokenizer(self, tokenizer_path: str):
         from transformers import AutoTokenizer
         self.tokenizer = AutoTokenizer.from_pretrained(tokenizer_path)
+
+    def fetch_tokenizer_near(self, checkpoint_paths) -> bool:
+        """Find the umT5 tokenizer beside the loaded checkpoints, as the JAX
+        prompter does: in each checkpoint's directory and its parent, the
+        directory itself or its `google/umt5-xxl`, `umt5-xxl` or
+        `tokenizer` folder, wherever tokenizer files lie. True when one
+        loads; the port downloads nothing, so False when none is there."""
+        roots = []
+        for p in checkpoint_paths or []:
+            d = os.path.dirname(os.path.abspath(p))
+            roots += [d, os.path.dirname(d)]
+        seen = set()
+        for root in roots:
+            if root in seen or not os.path.isdir(root):
+                continue
+            seen.add(root)
+            for sub in ("", "google/umt5-xxl", "umt5-xxl", "tokenizer"):
+                cand = os.path.join(root, sub) if sub else root
+                if any(os.path.isfile(os.path.join(cand, f))
+                       for f in ("tokenizer.json", "spiece.model",
+                                 "tokenizer_config.json")):
+                    try:
+                        self.fetch_tokenizer(cand)
+                        return True
+                    except Exception:
+                        continue
+        return False
 
     def tokenize(self, prompt: str):
         cleaned = whitespace_clean(basic_clean(prompt))

@@ -7,13 +7,18 @@ plus an optional "__metadata__" of strings), then the raw little-endian
 tensor bytes, offsets counted from the end of the header. Files written
 here load with `safetensors.numpy.load_file`/`safetensors.torch.load_file`,
 and theirs load here.
+
+`read_header` reads the header alone (names, dtypes, shapes and where each
+tensor's bytes lie), so that a loader can read each tensor's bytes straight
+into its destination (`utils.ckpt`); `save_file` writes one tensor at a
+time, so a 14B shard is never held whole on the host.
 """
 from __future__ import annotations
 
 import json
 import struct
 import sys
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -36,46 +41,54 @@ def _as_bytes(t: torch.Tensor) -> bytes:
 
 
 def save_file(tensors: Mapping[str, torch.Tensor], path: str) -> None:
-    """Write `tensors` (torch tensors or numpy arrays) to `path`."""
+    """Write `tensors` (torch tensors on any device, or numpy arrays) to
+    `path`, one tensor's bytes on the host at a time."""
     header: Dict[str, object] = {}
-    blobs = []
+    items = []
     offset = 0
     for name in sorted(tensors):
         t = tensors[name]
         t = torch.from_numpy(np.ascontiguousarray(t)) if isinstance(t, np.ndarray) else t
         if t.dtype not in _DTYPES:
             raise TypeError(f"{name}: dtype {t.dtype} has no safetensors code")
-        data = _as_bytes(t)
+        nbytes = t.numel() * t.element_size()
         header[name] = {"dtype": _DTYPES[t.dtype], "shape": list(t.shape),
-                        "data_offsets": [offset, offset + len(data)]}
-        blobs.append(data)
-        offset += len(data)
+                        "data_offsets": [offset, offset + nbytes]}
+        items.append(t)
+        offset += nbytes
     head = json.dumps(header, separators=(",", ":")).encode()
     head += b" " * (-len(head) % 8)  # data starts 8-byte aligned
     with open(path, "wb") as f:
         f.write(struct.pack("<Q", len(head)))
         f.write(head)
-        for data in blobs:
-            f.write(data)
+        for t in items:
+            f.write(_as_bytes(t))
+
+
+def read_header(path: str) -> Tuple[Dict[str, dict], int]:
+    """({name: {"dtype": torch dtype, "shape": [...], "data_offsets":
+    [begin, end]}}, the file offset of the data), reading the header only."""
+    with open(path, "rb") as f:
+        (n,) = struct.unpack("<Q", f.read(8))
+        header = json.loads(f.read(n))
+    header.pop("__metadata__", None)
+    for info in header.values():
+        info["dtype"] = _TORCH[info["dtype"]]
+    return header, 8 + n
 
 
 def load_file(path: str) -> Dict[str, torch.Tensor]:
     """Read every tensor of a safetensors file as CPU torch tensors."""
-    with open(path, "rb") as f:
-        raw = f.read()
-    (n,) = struct.unpack("<Q", raw[:8])
-    header = json.loads(raw[8:8 + n])
-    body = memoryview(raw)[8 + n:]
+    header, start = read_header(path)
     out = {}
-    for name, info in header.items():
-        if name == "__metadata__":
-            continue
-        dtype = _TORCH[info["dtype"]]
-        begin, end = info["data_offsets"]
-        np_dtype = torch.empty((), dtype=torch.int16 if dtype == torch.bfloat16
-                               else dtype).numpy().dtype
-        t = torch.from_numpy(np.frombuffer(body[begin:end], dtype=np_dtype).copy())
-        if dtype == torch.bfloat16:
-            t = t.view(torch.bfloat16)
-        out[name] = t.reshape(info["shape"])
+    with open(path, "rb") as f:
+        for name, info in header.items():
+            begin, end = info["data_offsets"]
+            f.seek(start + begin)
+            np_dtype = torch.empty((), dtype=torch.int16 if info["dtype"] == torch.bfloat16
+                                   else info["dtype"]).numpy().dtype
+            t = torch.from_numpy(np.frombuffer(f.read(end - begin), dtype=np_dtype).copy())
+            if info["dtype"] == torch.bfloat16:
+                t = t.view(torch.bfloat16)
+            out[name] = t.reshape(info["shape"])
     return out

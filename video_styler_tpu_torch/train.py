@@ -1,22 +1,35 @@
 """LoRA training CLI of the PyTorch/CUDA port (the train.sh surface).
 
     python -m video_styler_tpu_torch.train --smoke --device cpu --max_steps 2
-    python -m video_styler_tpu_torch.train --smoke --save_steps 1 --output_path out
+    python -m video_styler_tpu_torch.train \\
+        --dit_path "diffusion_pytorch_model-00001-of-00007.safetensors|..." \\
+        --vae_path Wan2.1_VAE.pth --t5_path models_t5_umt5-xxl-enc-bf16.pth \\
+        --dataset_base_path data --dataset_metadata_path data/metadata_vace.csv \\
+        --extra_inputs vace_video --height 480 --width 832 --num_frames 73 \\
+        --lora_base_model vace --lora_rank 128 --output_path out
+    (the same) --task data_process --output_path cache   # encode once
+    (the same) --cache_path cache --output_path out      # train from it
 
-Counterpart of examples/train.py: the same units as inference prepare each
-sample (umT5 prompt encode, the VACE context from a VAE encode), the
-flow-match loss on a random training timestep with rematerialised DiT
-blocks, AdamW with optax.adamw's defaults, LoRA safetensors every
-`--save_steps` (or per epoch), and full train-state checkpoints for
-`--resume`. The Ditto recipe is `--lora_base_model vace --lora_rank 128
---lora_target_modules q,k,v,o,ffn.0,ffn.2`.
+Counterpart of examples/train.py, with its flags. The models come from
+checkpoint files: --dit_path ('|'-separated shards), --vae_path, --t5_path,
+--tokenizer_path, or --model_id_with_origin_paths "id:pattern,..." found
+under $VIDEO_STYLER_MODEL_DIR (nothing is downloaded). Samples come from
+CSV/JSON/JSONL metadata through `UnifiedDataset`: the `video` column and
+the --extra_inputs columns are loaded as frames, the rows repeated
+--dataset_repeat times. The same units as inference prepare each sample
+(umT5 prompt encode, VAE encode of the video, the VACE context);
+`--task data_process` writes those inputs to a latent cache under
+--output_path, and `--cache_path` trains from one. Then the flow-match loss
+on a random training timestep with rematerialised DiT blocks, AdamW with
+optax.adamw's defaults, LoRA safetensors every `--save_steps` (or per
+epoch), and full train-state checkpoints for `--resume`. The Ditto recipe
+is `--lora_base_model vace --lora_rank 128 --lora_target_modules
+q,k,v,o,ffn.0,ffn.2`.
 
 --smoke trains on the tiny random pipeline of `infer_ditto --smoke` with
-synthetic samples. Checkpoint loading (--dit_path and its siblings), the
-CSV video dataset, the latent cache (--task data_process, --cache_path)
-are not ported yet and raise. Runs on `cuda` unless --device cpu.
-The inputs keep the pipeline's dtype (bf16, what the kernels take), where
-examples/train.py casts them to fp32.
+synthetic samples. Runs on `cuda` unless --device cpu. The inputs keep the
+pipeline's dtype (bf16, what the kernels take), where examples/train.py
+casts them to fp32.
 """
 from __future__ import annotations
 
@@ -28,12 +41,16 @@ import numpy as np
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description="LoRA training (PyTorch/CUDA)")
+    p.add_argument("--dataset_base_path", type=str, default="")
     p.add_argument("--dataset_metadata_path", type=str, default=None)
     p.add_argument("--height", type=int, default=480)
     p.add_argument("--width", type=int, default=832)
     p.add_argument("--num_frames", type=int, default=81)
+    p.add_argument("--dataset_repeat", type=int, default=1)
     p.add_argument("--dit_path", type=str, default=None)
-    p.add_argument("--model_id_with_origin_paths", type=str, default=None)
+    p.add_argument("--model_id_with_origin_paths", type=str, default=None,
+                   help='"id:pattern,id:pattern", resolved under '
+                        '$VIDEO_STYLER_MODEL_DIR (local files only)')
     p.add_argument("--vae_path", type=str, default=None)
     p.add_argument("--t5_path", type=str, default=None)
     p.add_argument("--tokenizer_path", type=str, default=None)
@@ -48,12 +65,19 @@ def parse_args(argv=None):
     p.add_argument("--lora_rank", type=int, default=32)
     p.add_argument("--lora_checkpoint", type=str, default=None,
                    help="start from the LoRA in this safetensors file")
+    p.add_argument("--extra_inputs", type=str, default=None,
+                   help="more file columns of the metadata to load as frames "
+                        "(vace_video)")
     p.add_argument("--max_timestep_boundary", type=float, default=1.0)
     p.add_argument("--min_timestep_boundary", type=float, default=0.0)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--task", type=str, default="train",
-                   choices=["train", "data_process"])
-    p.add_argument("--cache_path", type=str, default=None)
+                   choices=["train", "data_process"],
+                   help="data_process: run the encoders once and write each "
+                        "sample's inputs as .npz under --output_path")
+    p.add_argument("--cache_path", type=str, default=None,
+                   help="train from a latent cache that --task data_process "
+                        "wrote (no VAE or umT5 encode)")
     p.add_argument("--smoke", action="store_true",
                    help="tiny random models and synthetic samples")
     p.add_argument("--resume", action="store_true",
@@ -79,60 +103,64 @@ def load_lora_checkpoint(lora, state_dict):
             lora[path]["B"].copy_(b)
 
 
+def build_pipeline(args):
+    """The pipeline from --dit_path/--vae_path/--t5_path and
+    --model_id_with_origin_paths, on --device."""
+    from .pipelines.wan_video import WanVideoPipeline
+    from .utils.model_config import ModelConfig
+    mcs = [ModelConfig(path=p.split("|")) for p in
+           (args.dit_path, args.vae_path, args.t5_path) if p]
+    if args.model_id_with_origin_paths:
+        for spec in args.model_id_with_origin_paths.split(","):
+            mid, pat = spec.split(":", 1)
+            mcs.append(ModelConfig(model_id=mid, origin_file_pattern=pat))
+    return WanVideoPipeline.from_pretrained(mcs, tokenizer_path=args.tokenizer_path,
+                                            device=args.device)
+
+
+def build_dataset(args):
+    """`UnifiedDataset` over --dataset_metadata_path: the `video` and
+    --extra_inputs columns loaded as frames at --height x --width."""
+    from .trainers.unified_dataset import UnifiedDataset
+    keys = ["video"] + (args.extra_inputs.split(",") if args.extra_inputs else [])
+    op = UnifiedDataset.default_video_operator(
+        args.dataset_base_path, num_frames=args.num_frames, height=args.height,
+        width=args.width)
+    return UnifiedDataset(base_path=args.dataset_base_path,
+                          metadata_path=args.dataset_metadata_path,
+                          repeat=args.dataset_repeat, data_file_keys=tuple(keys),
+                          main_data_operator=op)
+
+
 def main(argv=None):
     p, args = parse_args(argv)
-    if args.task == "data_process" or args.cache_path or args.dataset_metadata_path:
-        raise NotImplementedError("the video dataset and the latent cache "
-                                  "(--dataset_metadata_path, --task data_process, "
-                                  "--cache_path) are not yet ported; use --smoke")
-    if (args.dit_path or args.vae_path or args.t5_path or args.tokenizer_path
-            or args.model_id_with_origin_paths):
-        raise NotImplementedError("checkpoint loading (--dit_path, --vae_path, "
-                                  "--t5_path, --tokenizer_path, "
-                                  "--model_id_with_origin_paths) is not yet "
-                                  "ported; use --smoke")
-    if not args.smoke:
-        p.error("--dit_path is required (or use --smoke)")
-
     import torch
-    from .infer_ditto import build_smoke_pipeline
     from .pipelines.wan_video import _preprocess_images
-    from .safetensors_io import load_file
     from .trainers.checkpoint import (latest_checkpoint, restore_train_state,
                                       save_train_state)
+    from .trainers.latent_cache import CachedLatentDataset, launch_data_process_task
     from .trainers.logger import ModelLogger
     from .trainers.lora_train import (apply_lora, init_lora, lora_parameters,
                                       lora_targets)
     from .trainers.training import adamw, make_train_step, training_scheduler
+    from .utils.ckpt import load_state_dict
 
-    pipe = build_smoke_pipeline(device=args.device)
-    args.height, args.width, args.num_frames = 32, 32, 5
-    dataset = [{"prompt": f"sample {i}", "video": None, "vace_video": None}
-               for i in range(2)]
-    args.lora_base_model = "vace"
-    args.max_steps = args.max_steps or 3
-
-    for m in (pipe.dit, pipe.vace, pipe.vae, pipe.prompter.text_encoder):
-        if m is not None:
-            m.requires_grad_(False)
-    base = pipe.vace if args.lora_base_model == "vace" else pipe.dit
-    generator = torch.Generator("cpu").manual_seed(args.seed)
-    lora = init_lora(base, rank=args.lora_rank,
-                     targets=lora_targets(args.lora_target_modules,
-                                          args.lora_base_model),
-                     generator=generator)
-    rename = "vace_blocks" if args.lora_base_model == "vace" else None
-    if args.lora_checkpoint:
-        print(f"starting from the LoRA in {args.lora_checkpoint}")
-        load_lora_checkpoint(lora, load_file(args.lora_checkpoint))
-    apply_lora(base, lora)
-    optimizer = adamw(lora_parameters(lora), args.learning_rate)
-    logger = ModelLogger(args.output_path, save_steps=args.save_steps,
-                         rename_blocks_to=rename)
-    step_fn = make_train_step(
-        pipe.dit, optimizer, training_scheduler(),
-        vace=pipe.vace, min_tid=int(args.min_timestep_boundary * 1000),
-        max_tid=int(args.max_timestep_boundary * 1000), remat=True)
+    if args.smoke:
+        from .infer_ditto import build_smoke_pipeline
+        pipe = build_smoke_pipeline(device=args.device)
+        args.height, args.width, args.num_frames = 32, 32, 5
+        dataset = [{"prompt": f"sample {i}", "video": None, "vace_video": None}
+                   for i in range(2)]
+        args.lora_base_model = "vace"
+        args.max_steps = args.max_steps or 3
+    elif not (args.dit_path or args.model_id_with_origin_paths):
+        p.error("--dit_path is required (or use --smoke)")
+    elif not (args.dataset_metadata_path or (args.cache_path and args.task == "train")):
+        p.error("--dataset_metadata_path is required (or --cache_path to train "
+                "from a latent cache)")
+    else:
+        pipe = build_pipeline(args)
+        dataset = build_dataset(args) if args.dataset_metadata_path else None
 
     def preprocess(row):
         """The same units as inference (examples/train.py preprocess)."""
@@ -161,6 +189,47 @@ def main(argv=None):
                                                device=pipe.device, dtype=pipe.dtype)
         return latents, context, vace_context
 
+    if args.task == "data_process":
+        def preprocess_sample(row):
+            latents, context, vace_context = preprocess(row)
+            return {"latents": latents, "context": context,
+                    "vace_context": vace_context}
+
+        written = launch_data_process_task(dataset, preprocess_sample, args.output_path)
+        print(f"data process done: {len(written)} samples cached in {args.output_path}")
+        return {"written": written}
+
+    if args.cache_path:
+        dataset = CachedLatentDataset(args.cache_path, repeat=args.dataset_repeat)
+
+    def cached(row):
+        """A cached sample's fp32 arrays as the pipeline's tensors."""
+        return tuple(None if row.get(k) is None else
+                     torch.from_numpy(row[k]).to(pipe.device, pipe.dtype)
+                     for k in ("latents", "context", "vace_context"))
+
+    for m in (pipe.dit, pipe.vace, pipe.vae, pipe.prompter.text_encoder):
+        if m is not None:
+            m.requires_grad_(False)
+    base = pipe.vace if args.lora_base_model == "vace" else pipe.dit
+    generator = torch.Generator("cpu").manual_seed(args.seed)
+    lora = init_lora(base, rank=args.lora_rank,
+                     targets=lora_targets(args.lora_target_modules,
+                                          args.lora_base_model),
+                     generator=generator)
+    rename = "vace_blocks" if args.lora_base_model == "vace" else None
+    if args.lora_checkpoint:
+        print(f"starting from the LoRA in {args.lora_checkpoint}")
+        load_lora_checkpoint(lora, load_state_dict(args.lora_checkpoint))
+    apply_lora(base, lora)
+    optimizer = adamw(lora_parameters(lora), args.learning_rate)
+    logger = ModelLogger(args.output_path, save_steps=args.save_steps,
+                         rename_blocks_to=rename)
+    step_fn = make_train_step(
+        pipe.dit, optimizer, training_scheduler(),
+        vace=pipe.vace, min_tid=int(args.min_timestep_boundary * 1000),
+        max_tid=int(args.max_timestep_boundary * 1000), remat=True)
+
     step_count = 0
     resumed_from = None
     if args.resume:
@@ -175,10 +244,14 @@ def main(argv=None):
                   f"{resumed_from}")
     losses = []
     for epoch in range(args.num_epochs):
-        for row in dataset:
+        for i in range(len(dataset)):
             if args.max_steps and step_count >= args.max_steps:
                 break
-            latents, context, vace_context = preprocess(row)
+            row = dataset[i]
+            if getattr(dataset, "load_from_cache", False):
+                latents, context, vace_context = cached(row)
+            else:
+                latents, context, vace_context = preprocess(row)
             loss = float(step_fn(latents, context, vace_context,
                                  generator=generator))
             step_count += 1
