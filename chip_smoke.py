@@ -54,11 +54,14 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
              on the loaded pipeline; the files are removed at the end
   train      2 steps of the Ditto LoRA recipe (rank 128 on the VACE q, k, v,
              o, ffn.0, ffn.2; AdamW) on the loaded 14B-width pipeline, on the
-             --train-frames request (default 9: 4,680 tokens), fed from the
-             latent cache: `launch_data_process_task` writes the clip's
-             encodes, `CachedLatentDataset` reads them back (bit-equal to the
-             in-memory ones, the same loss on both); seconds per cached
-             sample, losses, step times, peak memory, LoRA size, each
+             --train-frames request (default 9: 4,680 tokens), through the
+             training CLI's data path (video_styler_tpu_torch/train.py): its
+             `preprocess` with umT5 parked on the host between encodes,
+             `launch_data_process_task` writing the clip's encodes,
+             `CachedLatentDataset` reading them back (bit-equal to the
+             in-memory ones, the same loss on both), umT5 and the VAE parked
+             for the cache-fed steps; seconds per cached sample and the
+             encodes' peak memory, losses, step times, peak memory, LoRA size, each
              kernel's launches against the count derived from the
              configuration; then one more step under torch.profiler
   e2e_online one step of the same edit on the online-softmax route
@@ -93,7 +96,6 @@ import statistics
 import subprocess
 import sys
 import tempfile
-import threading
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -501,7 +503,7 @@ def run_e2e_online(torch, pipe, kernels, frames: int):
 def run_e2e_quant(torch, pipe, kernels, steps: int, frames: int):
     """The edit after quantize("int8", quantize_attention=True). The LoRA of
     the train phase is merged first (quantize must run after LoRA merging),
-    and the text encoder, parked on the CPU for training, comes back."""
+    and umT5 and the VAE, parked on the host for training, come back."""
     from torch.nn.utils import parametrize
     from video_styler_tpu_torch.ops.attention import set_quantized_attention
     from video_styler_tpu_torch.ops.quant import QuantLinear, quantized_fraction
@@ -511,6 +513,7 @@ def run_e2e_quant(torch, pipe, kernels, steps: int, frames: int):
             with torch.no_grad():
                 parametrize.remove_parametrizations(m, "weight", leave_parametrized=True)
     pipe.prompter.text_encoder.to("cuda")
+    pipe.vae.to("cuda")
     t0 = time.perf_counter()
     pipe.quantize("int8", quantize_attention=True)
     torch.cuda.synchronize()
@@ -560,49 +563,6 @@ def pipeline_modules(pipe) -> dict:
             "vae": pipe.vae}
 
 
-class RssPeak:
-    """The largest resident set size of this process while the block runs,
-    read from /proc/self/status every 5 ms (getrusage's ru_maxrss is the
-    whole life's peak and cannot be reset in the card's sandbox)."""
-
-    def __enter__(self):
-        self.peak = self.now()
-        self.stop = threading.Event()
-        self.thread = threading.Thread(target=self._watch, daemon=True)
-        self.thread.start()
-        return self
-
-    @staticmethod
-    def now() -> int:
-        with open("/proc/self/status") as f:
-            for ln in f:
-                if ln.startswith("VmRSS:"):
-                    return int(ln.split()[1]) * 1024
-        return 0
-
-    def _watch(self):
-        while not self.stop.wait(0.005):
-            self.peak = max(self.peak, self.now())
-
-    def __exit__(self, *exc):
-        self.stop.set()
-        self.thread.join()
-        self.peak = max(self.peak, self.now())
-
-
-def _drop_from_page_cache(paths):
-    """fsync each file and ask the kernel to drop its cached pages, so that
-    the load reads the disk as a first load would (advisory: a no-op where
-    the file system keeps no page cache of its own)."""
-    for path in paths:
-        fd = os.open(path, os.O_RDONLY)
-        try:
-            os.fsync(fd)
-            os.posix_fadvise(fd, 0, 0, os.POSIX_FADV_DONTNEED)
-        finally:
-            os.close(fd)
-
-
 def random_ditto_lora(torch, vace_cfg, rank: int = 128, seed: int = 7):
     """A rank-`rank` LoRA under the reference's names on every VACE block's
     q, k, v, o (self and cross), ffn.0 and ffn.2, bf16, from a seed."""
@@ -637,6 +597,7 @@ def run_load(torch, holder: list, kernels, frames: int, steps: int, e2e_frames: 
     from video_styler_tpu_torch.safetensors_io import save_file
     from video_styler_tpu_torch.utils import ckpt as C
     from video_styler_tpu_torch.utils.convert import save_release_files
+    from video_styler_tpu_torch.utils.host_memory import RssPeak, drop_from_page_cache
     from video_styler_tpu_torch.utils.model_config import ModelConfig
 
     pipe = holder.pop()
@@ -648,31 +609,25 @@ def run_load(torch, holder: list, kernels, frames: int, steps: int, e2e_frames: 
                   for name, m in pipeline_modules(pipe).items()}
         free = shutil.disk_usage(folder).free
         res.update(disk_free_gb=free / 1e9, weights_gb={k: v / 1e9 for k, v in nbytes.items()})
-        whole = free > 1.05 * sum(nbytes.values())
-        if not whole and free < 1.05 * (nbytes["dit"] + nbytes["vace"]):
-            raise RuntimeError(f"{free / 1e9:.1f} GB free under {folder}: the DiT+VACE "
-                               f"shards alone need {(nbytes['dit'] + nbytes['vace']) / 1e9:.1f}")
+        if free < 1.05 * sum(nbytes.values()):
+            raise RuntimeError(f"{free / 1e9:.1f} GB free under {folder}: the release's "
+                               f"files need {sum(nbytes.values()) / 1e9:.1f} (--ckpt-dir)")
         t0 = time.perf_counter()
-        # where the disk cannot hold umT5 and the VAE beside the shards, those
-        # two are carried over from the random pipeline
-        paths = save_release_files(pipe, folder, with_t5_vae=whole)
-        written = paths["dit"] + ([paths["t5"], paths["vae"]] if whole else [])
-        _drop_from_page_cache(written)
+        paths = save_release_files(pipe, folder)
+        written = paths["dit"] + [paths["t5"], paths["vae"]]
+        drop_from_page_cache(written)
         export_s = time.perf_counter() - t0
         file_bytes = sum(os.path.getsize(p) for p in written)
         res.update(export_s=export_s, files=[os.path.basename(p) for p in written],
-                   files_gb=file_bytes / 1e9, export_gb_per_s=file_bytes / 1e9 / export_s,
-                   exported="DiT+VACE shards, umT5 and VAE .pth" if whole else
-                   "DiT+VACE shards only (disk too small): umT5 and the VAE carried over")
+                   files_gb=file_bytes / 1e9, export_gb_per_s=file_bytes / 1e9 / export_s)
 
-        carried = None if whole else (pipe.prompter.text_encoder, pipe.vae)
         del pipe
         gc.collect()
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
         res["device_allocated_before_gib"] = torch.cuda.memory_allocated() / 2**30
 
-        groups = [paths["dit"]] + ([[paths["vae"]], [paths["t5"]]] if whole else [])
+        groups = [paths["dit"], [paths["vae"]], [paths["t5"]]]
         res["detected_kinds"] = [C.detect_model_kind(C.load_state_dict_files(g, lazy=True))
                                  for g in groups]
         torch.cuda.reset_peak_memory_stats()
@@ -686,8 +641,6 @@ def run_load(torch, holder: list, kernels, frames: int, steps: int, e2e_frames: 
             torch.cuda.synchronize()
             load_s = time.perf_counter() - t0
         read = C.BYTES_READ - read0
-        if carried is not None:
-            pipe.prompter.text_encoder, pipe.vae = carried
         # the card's machine has no umT5 tokenizer files: e2e's stand-in
         pipe.prompter.tokenizer = StubTokenizer(TEXT_LEN)
         res.update(load_s=load_s, read_gb=read / 1e9, read_gb_per_s=read / 1e9 / load_s,
@@ -709,7 +662,7 @@ def run_load(torch, holder: list, kernels, frames: int, steps: int, e2e_frames: 
         res.update(tensors_checked=len(want), tensors_bit_equal=len(want) - len(bad),
                    tensors_differing=bad[:10], tensors_missing=sorted(set(want) ^ set(got)))
         emit(res)
-        if res["detected_kinds"] != (["dit+vace", "vae", "t5"] if whole else ["dit+vace"]):
+        if res["detected_kinds"] != ["dit+vace", "vae", "t5"]:
             raise AssertionError(f"detected kinds {res['detected_kinds']}")
         if not all(configs.values()):
             raise AssertionError(f"loaded configs differ from the 14B ones: {configs}")
@@ -1234,10 +1187,14 @@ def expected_train_launches(dit_cfg, vace_cfg, targets, steps: int):
 
 
 def run_train(torch, pipe, kernels, frames: int, steps: int = 2):
-    """The Ditto LoRA recipe at 14B width on the loaded pipeline, fed from
-    the latent cache: the train clip's encodes are written by
-    `launch_data_process_task` and read back by `CachedLatentDataset`."""
-    from video_styler_tpu_torch.pipelines.wan_video import _preprocess_images
+    """The Ditto LoRA recipe at 14B width on the loaded pipeline, through the
+    training CLI's data path (`video_styler_tpu_torch.train`): its
+    `preprocess` of the train clip with umT5 parked on the host between
+    encodes (`park_encoders`, as the CLI trains from a dataset), written by
+    `launch_data_process_task` and read back by `CachedLatentDataset` and
+    `cached_inputs`; then umT5 and the VAE parked as the CLI parks them
+    when it trains from a cache."""
+    from video_styler_tpu_torch import train as cli
     from video_styler_tpu_torch.trainers.latent_cache import (
         CachedLatentDataset, launch_data_process_task)
     from video_styler_tpu_torch.trainers.lora_train import (
@@ -1246,18 +1203,27 @@ def run_train(torch, pipe, kernels, frames: int, steps: int = 2):
         adamw, flow_match_loss, make_train_step, training_scheduler)
 
     f, h, w = frames, 480, 832
+    args = cli.parse_args(["--height", str(h), "--width", str(w), "--num_frames", str(f),
+                           "--lora_base_model", "vace", "--lora_rank", "128",
+                           "--extra_inputs", "vace_video"])[1]
     keys = ("latents", "context", "vace_context")
+    for m in (pipe.dit, pipe.vace, pipe.vae, pipe.prompter.text_encoder):
+        m.requires_grad_(False)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    text_encoder = cli.park_encoders(pipe, cache_fed=False)
+    torch.cuda.synchronize()
+    park_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with text_encoder:
+        torch.cuda.synchronize()
+        borrow_s = time.perf_counter() - t0
     in_memory = {}
 
     def preprocess(row):
-        """The same units as inference (train.py's preprocess), kept here as
-        the in-memory inputs too."""
-        with torch.no_grad():
-            in_memory.update(
-                context=pipe.encode_prompt(row["prompt"]),
-                latents=pipe.encode_video(_preprocess_images(row["video"]), tiled=True),
-                vace_context=pipe.build_vace_context(row["video"], None, None, h, w, f,
-                                                     tiled=True))
+        """train.py's preprocess, its result kept as the in-memory inputs."""
+        in_memory.update(cli.preprocess(pipe, row, args, text_encoder))
         return dict(in_memory)
 
     cache = tempfile.mkdtemp(prefix="chip_smoke_cache_")
@@ -1268,21 +1234,15 @@ def run_train(torch, pipe, kernels, frames: int, steps: int = 2):
               "video": frames_480x832(f)}], preprocess, cache)
         torch.cuda.synchronize()
         data_process_s = (time.perf_counter() - t0) / len(written)
+        data_process_peak = torch.cuda.max_memory_allocated()
         cache_mb = sum(os.path.getsize(p) for p in written) / 1e6
-        sample = CachedLatentDataset(cache)[0]
+        sample = cli.cached_inputs(pipe, CachedLatentDataset(cache)[0])
     finally:
         shutil.rmtree(cache, ignore_errors=True)
-    latents, context, vace_context = (torch.from_numpy(sample[k]).to("cuda", pipe.dtype)
-                                      for k in keys)
-    cache_bit_equal = {k: bool(torch.equal(in_memory[k], v)) for k, v in
-                       zip(keys, (latents, context, vace_context))}
-    # the umT5-XXL weights (~10.6 GiB) are not needed past the prompt: give
-    # their memory to the step's activations
-    pipe.prompter.text_encoder.to("cpu")
-    for m in (pipe.dit, pipe.vace, pipe.vae, pipe.prompter.text_encoder):
-        m.requires_grad_(False)
+    latents, context, vace_context = (sample[k] for k in keys)
+    cache_bit_equal = {k: bool(torch.equal(in_memory[k], sample[k])) for k in keys}
+    cli.park_encoders(pipe, cache_fed=True)
     torch.cuda.synchronize()
-    torch.cuda.empty_cache()
 
     targets = lora_targets("q,k,v,o,ffn.0,ffn.2", "vace")
     gen = torch.Generator().manual_seed(0)
@@ -1300,8 +1260,8 @@ def run_train(torch, pipe, kernels, frames: int, steps: int = 2):
             pipe.dit, inputs["latents"], inputs["context"], sched.sigmas, sched.timesteps,
             sched.linear_timesteps_weights, tid=500, noise=noise, vace=pipe.vace,
             vace_context=inputs["vace_context"]))
-            for inputs in (in_memory, dict(zip(keys, (latents, context, vace_context))))]
-    del in_memory
+            for inputs in (in_memory, sample)]
+    del in_memory, sample
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for kern in kernels.values():
@@ -1321,9 +1281,15 @@ def run_train(torch, pipe, kernels, frames: int, steps: int = 2):
                tokens=int(math.prod(token_grid(f))), latents=list(latents.shape),
                lora_rank=128, lora_targets=list(targets),
                lora_params=sum(p.numel() for p in params), remat="trunk and VACE",
-               text_encoder="moved to the CPU after the prompt encode",
-               inputs="latent cache (launch_data_process_task, CachedLatentDataset)",
-               data_process_s_per_sample=data_process_s, cache_mb_per_sample=cache_mb,
+               encoders="umT5 on the host between encodes, then umT5 and the VAE "
+                        "on the host for the cache-fed steps (train.park_encoders)",
+               inputs="train.preprocess (streaming VAE encodes) -> latent cache "
+                      "(launch_data_process_task, CachedLatentDataset, "
+                      "train.cached_inputs)",
+               park_umt5_s=park_s, umt5_to_card_s=borrow_s,
+               data_process_s_per_sample=data_process_s,
+               data_process_peak_gib=data_process_peak / 2**30,
+               cache_mb_per_sample=cache_mb,
                cache_bit_equal_to_in_memory=cache_bit_equal,
                loss_in_memory_vs_cached=same_loss, losses=losses, step_s=step_s,
                max_memory_allocated_gib=torch.cuda.max_memory_allocated() / 2**30,

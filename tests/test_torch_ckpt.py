@@ -315,6 +315,16 @@ def test_safetensors_and_pth_load_identically(tmp_path):
     np.testing.assert_array_equal(jsd["a.weight"], sd["a.weight"].float().numpy())
 
 
+def test_pth_not_row_major_raises(tmp_path):
+    """A .pth tensor that is not row-major has no byte range of its own in
+    the file: the loader names the file and the tensor instead of reading it
+    through the mapping."""
+    path = str(tmp_path / "strided.pth")
+    torch.save({"w": torch.arange(12.0).reshape(3, 4).t(), "b": torch.zeros(4)}, path)
+    with pytest.raises(ValueError, match=r"strided\.pth.*not row-major.*'w'"):
+        TC.load_state_dict(path, lazy=True)
+
+
 def test_vace_prefix_quirk_is_mirrored(tmp_path, monkeypatch):
     """Both detectors call a file with `vace.vace_blocks.*` keys a DiT+VACE;
     both converters read only `vace_blocks.*`, so neither loads it."""

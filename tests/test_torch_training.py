@@ -42,6 +42,7 @@ from video_styler_tpu_torch.trainers.checkpoint import latest_checkpoint
 from video_styler_tpu_torch.trainers.training import (adamw, flow_match_loss,
                                                       make_train_step,
                                                       training_scheduler)
+from video_styler_tpu_torch.utils.ckpt import load_state_dict
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 DIT = dict(dim=256, in_dim=4, ffn_dim=512, out_dim=4, num_heads=2,
@@ -408,7 +409,7 @@ def test_safetensors_round_trip(tmp_path):
                "u": torch.tensor([1, 2, 250], dtype=torch.uint8)}
     path = str(tmp_path / "x.safetensors")
     safetensors_io.save_file(tensors, path)
-    back = safetensors_io.load_file(path)
+    back = load_state_dict(path)
     assert set(back) == set(tensors)
     for k, v in tensors.items():
         assert back[k].dtype == v.dtype and torch.equal(back[k], v)
@@ -417,7 +418,7 @@ def test_safetensors_round_trip(tmp_path):
     np.testing.assert_array_equal(theirs["w.lora_A.weight"], tensors["w.lora_A.weight"].numpy())
     np.testing.assert_array_equal(theirs["i"], tensors["i"].numpy())
     st.save_file({"a": _rand(72, (2, 5))}, path, metadata={"format": "np"})
-    np.testing.assert_array_equal(safetensors_io.load_file(path)["a"].numpy(), _rand(72, (2, 5)))
+    np.testing.assert_array_equal(load_state_dict(path)["a"].numpy(), _rand(72, (2, 5)))
 
 
 # --------------------------------------------------------------------------
@@ -435,7 +436,7 @@ def test_train_cli_smoke_resume_and_merge(tmp_path):
     assert files == ["state-1.pt", "state-2.pt", "step-1.safetensors",
                      "step-2.safetensors"]
     assert latest_checkpoint(out).endswith("state-2.pt")
-    saved = safetensors_io.load_file(os.path.join(out, "step-2.safetensors"))
+    saved = load_state_dict(os.path.join(out, "step-2.safetensors"))
     assert all(k.startswith("vace_blocks.") for k in saved)
 
     again = main(["--smoke", "--device", "cpu", "--max_steps", "3", "--num_epochs", "2",

@@ -6,12 +6,12 @@ of JSON header ({name: {"dtype", "shape", "data_offsets": [begin, end]}},
 plus an optional "__metadata__" of strings), then the raw little-endian
 tensor bytes, offsets counted from the end of the header. Files written
 here load with `safetensors.numpy.load_file`/`safetensors.torch.load_file`,
-and theirs load here.
+and theirs load with `utils.ckpt.load_state_dict`.
 
 `read_header` reads the header alone (names, dtypes, shapes and where each
-tensor's bytes lie), so that a loader can read each tensor's bytes straight
-into its destination (`utils.ckpt`); `save_file` writes one tensor at a
-time, so a 14B shard is never held whole on the host.
+tensor's bytes lie), so that the port's one reader, `utils.ckpt`, reads
+each tensor's bytes straight into its destination; `save_file` writes one
+tensor at a time, so a 14B shard is never held whole on the host.
 """
 from __future__ import annotations
 
@@ -76,19 +76,3 @@ def read_header(path: str) -> Tuple[Dict[str, dict], int]:
         info["dtype"] = _TORCH[info["dtype"]]
     return header, 8 + n
 
-
-def load_file(path: str) -> Dict[str, torch.Tensor]:
-    """Read every tensor of a safetensors file as CPU torch tensors."""
-    header, start = read_header(path)
-    out = {}
-    with open(path, "rb") as f:
-        for name, info in header.items():
-            begin, end = info["data_offsets"]
-            f.seek(start + begin)
-            np_dtype = torch.empty((), dtype=torch.int16 if info["dtype"] == torch.bfloat16
-                                   else info["dtype"]).numpy().dtype
-            t = torch.from_numpy(np.frombuffer(f.read(end - begin), dtype=np_dtype).copy())
-            if info["dtype"] == torch.bfloat16:
-                t = t.view(torch.bfloat16)
-            out[name] = t.reshape(info["shape"])
-    return out

@@ -19,10 +19,13 @@ the --extra_inputs columns are loaded as frames, the rows repeated
 --dataset_repeat times. The same units as inference prepare each sample
 (umT5 prompt encode, VAE encode of the video, the VACE context);
 `--task data_process` writes those inputs to a latent cache under
---output_path, and `--cache_path` trains from one. Then the flow-match loss
-on a random training timestep with rematerialised DiT blocks, AdamW with
-optax.adamw's defaults, LoRA safetensors every `--save_steps` (or per
-epoch), and full train-state checkpoints for `--resume`. The Ditto recipe
+--output_path, and `--cache_path` trains from one. While it trains, umT5
+waits on the host between prompt encodes (from a cache, umT5 and the VAE
+are not needed at all and stay there), so that their device memory goes to
+the steps. Then the flow-match loss on a random training timestep with
+rematerialised DiT blocks, AdamW with optax.adamw's defaults, LoRA
+safetensors every `--save_steps` (or per epoch), and full train-state
+checkpoints for `--resume`. The Ditto recipe
 is `--lora_base_model vace --lora_rank 128 --lora_target_modules
 q,k,v,o,ffn.0,ffn.2`.
 
@@ -34,6 +37,7 @@ casts them to fp32.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
 
 import numpy as np
@@ -132,10 +136,105 @@ def build_dataset(args):
                           main_data_operator=op)
 
 
+def preprocess(pipe, row, args, text_encoder=contextlib.nullcontext()):
+    """One dataset row's training inputs {"latents", "context",
+    "vace_context"} by the same units as inference (examples/train.py
+    preprocess): the umT5 prompt encode (inside `text_encoder`, the context
+    that puts umT5 on the device), the VAE encode of `video` and, for a VACE
+    LoRA, the VACE context of `vace_video` (else `video`). A row without
+    video gets seeded noise latents and a zero VACE context.
+
+    The VAE encodes stream (`tiled=True`: frame 0, then 4-frame chunks with
+    the causal caches carried, exact against the whole-clip encode), where
+    examples/train.py encodes the whole clip at once (`tiled=False`): at
+    480x832x73 that form's activations do not fit one 80 GB card beside
+    the DiT and VACE (one conv's padded input alone is 21.4 GiB)."""
+    import torch
+    from .pipelines.wan_video import _preprocess_images
+    with torch.no_grad():
+        with text_encoder:
+            context = pipe.encode_prompt(row.get("prompt", ""))
+        z = pipe.vae.cfg.z_dim
+        up = pipe.vae.cfg.upsampling_factor
+        shape = ((args.num_frames - 1) // 4 + 1, args.height // up, args.width // up)
+        if row.get("video") is None:
+            rng = np.random.default_rng(0)
+            latents = torch.from_numpy(rng.standard_normal(
+                (1, z) + shape).astype(np.float32)).to(pipe.device, pipe.dtype)
+        else:
+            latents = pipe.encode_video(_preprocess_images(row["video"]), tiled=True)
+        vace_context = None
+        if args.lora_base_model == "vace":
+            vv = row.get("vace_video") or row.get("video")
+            if vv is not None:
+                vace_context = pipe.build_vace_context(
+                    vv, None, None, args.height, args.width, args.num_frames,
+                    tiled=True)
+            else:
+                vace_context = torch.zeros((1, 2 * z + 64) + shape,
+                                           device=pipe.device, dtype=pipe.dtype)
+    return {"latents": latents, "context": context, "vace_context": vace_context}
+
+
+def cached_inputs(pipe, row):
+    """A latent cache sample's fp32 arrays as the pipeline's tensors."""
+    import torch
+    return {k: None if row.get(k) is None else
+            torch.from_numpy(row[k]).to(pipe.device, pipe.dtype)
+            for k in ("latents", "context", "vace_context")}
+
+
+class HostParked:
+    """A frozen module whose weights wait on the host and come to the device
+    only inside `with parked:`, so that between uses its device memory
+    (umT5-XXL's ~10.6 GiB) goes to the training steps. The host copy is
+    taken once, pinned beside a card: leaving the block drops the device
+    copy and copies nothing back. On the CPU it does nothing."""
+
+    def __init__(self, module):
+        import torch
+        self.tensors = list(module.parameters()) + list(module.buffers())
+        self.device = self.tensors[0].device
+        if self.device.type == "cpu":
+            self.host = [t.data for t in self.tensors]
+            return
+        self.host = []
+        for t in self.tensors:
+            self.host.append(torch.empty(t.shape, dtype=t.dtype, pin_memory=True))
+            self.host[-1].copy_(t.data)
+        self.__exit__()
+        torch.cuda.empty_cache()
+
+    def __enter__(self):
+        for t, h in zip(self.tensors, self.host):
+            t.data = h.to(self.device, non_blocking=True)
+        return self
+
+    def __exit__(self, *exc):
+        for t, h in zip(self.tensors, self.host):
+            t.data = h
+
+
+def park_encoders(pipe, cache_fed: bool):
+    """Give the encoders' device memory to the training steps. Fed from a
+    latent cache, neither umT5 nor the VAE runs again: both go to the host.
+    Else umT5 waits on the host between prompt encodes, and the returned
+    context brings it back for one; the VAE (~0.5 GB) stays."""
+    import torch
+    if not cache_fed:
+        t5 = pipe.prompter.text_encoder
+        return contextlib.nullcontext() if t5 is None else HostParked(t5)
+    for m in (pipe.prompter.text_encoder, pipe.vae):
+        if m is not None:
+            m.to("cpu")
+    if torch.device(pipe.device).type == "cuda":
+        torch.cuda.empty_cache()
+    return contextlib.nullcontext()
+
+
 def main(argv=None):
     p, args = parse_args(argv)
     import torch
-    from .pipelines.wan_video import _preprocess_images
     from .trainers.checkpoint import (latest_checkpoint, restore_train_state,
                                       save_train_state)
     from .trainers.latent_cache import CachedLatentDataset, launch_data_process_task
@@ -162,55 +261,19 @@ def main(argv=None):
         pipe = build_pipeline(args)
         dataset = build_dataset(args) if args.dataset_metadata_path else None
 
-    def preprocess(row):
-        """The same units as inference (examples/train.py preprocess)."""
-        with torch.no_grad():
-            context = pipe.encode_prompt(row.get("prompt", ""))
-            z = pipe.vae.cfg.z_dim
-            up = pipe.vae.cfg.upsampling_factor
-            shape = ((args.num_frames - 1) // 4 + 1, args.height // up,
-                     args.width // up)
-            if row.get("video") is None:
-                rng = np.random.default_rng(0)
-                latents = torch.from_numpy(rng.standard_normal(
-                    (1, z) + shape).astype(np.float32)).to(pipe.device, pipe.dtype)
-            else:
-                latents = pipe.encode_video(_preprocess_images(row["video"]),
-                                            tiled=False)
-            vace_context = None
-            if args.lora_base_model == "vace":
-                vv = row.get("vace_video") or row.get("video")
-                if vv is not None:
-                    vace_context = pipe.build_vace_context(
-                        vv, None, None, args.height, args.width,
-                        args.num_frames, tiled=False)
-                else:
-                    vace_context = torch.zeros((1, 2 * z + 64) + shape,
-                                               device=pipe.device, dtype=pipe.dtype)
-        return latents, context, vace_context
-
     if args.task == "data_process":
-        def preprocess_sample(row):
-            latents, context, vace_context = preprocess(row)
-            return {"latents": latents, "context": context,
-                    "vace_context": vace_context}
-
-        written = launch_data_process_task(dataset, preprocess_sample, args.output_path)
+        written = launch_data_process_task(dataset, lambda row: preprocess(pipe, row, args),
+                                           args.output_path)
         print(f"data process done: {len(written)} samples cached in {args.output_path}")
         return {"written": written}
 
     if args.cache_path:
         dataset = CachedLatentDataset(args.cache_path, repeat=args.dataset_repeat)
 
-    def cached(row):
-        """A cached sample's fp32 arrays as the pipeline's tensors."""
-        return tuple(None if row.get(k) is None else
-                     torch.from_numpy(row[k]).to(pipe.device, pipe.dtype)
-                     for k in ("latents", "context", "vace_context"))
-
     for m in (pipe.dit, pipe.vace, pipe.vae, pipe.prompter.text_encoder):
         if m is not None:
             m.requires_grad_(False)
+    text_encoder = park_encoders(pipe, cache_fed=bool(args.cache_path))
     base = pipe.vace if args.lora_base_model == "vace" else pipe.dit
     generator = torch.Generator("cpu").manual_seed(args.seed)
     lora = init_lora(base, rank=args.lora_rank,
@@ -248,12 +311,10 @@ def main(argv=None):
             if args.max_steps and step_count >= args.max_steps:
                 break
             row = dataset[i]
-            if getattr(dataset, "load_from_cache", False):
-                latents, context, vace_context = cached(row)
-            else:
-                latents, context, vace_context = preprocess(row)
-            loss = float(step_fn(latents, context, vace_context,
-                                 generator=generator))
+            inputs = (cached_inputs(pipe, row) if args.cache_path else
+                      preprocess(pipe, row, args, text_encoder))
+            loss = float(step_fn(inputs["latents"], inputs["context"],
+                                 inputs["vace_context"], generator=generator))
             step_count += 1
             losses.append(loss)
             print(f"epoch {epoch} step {step_count} loss {loss:.4f}")

@@ -1,2 +1,3 @@
 """Checkpoint loading (`ckpt`), the reference-to-port converters
-(`convert`) and local weight sources (`model_config`)."""
+(`convert`), local weight sources (`model_config`) and the loaders' host
+measures (`host_memory`)."""

@@ -193,10 +193,16 @@ def _lazy_pth(path: str, sd: Dict) -> Dict:
     """The mapped tensors of `torch.load(mmap=True)` as LazyTensors at their
     file offsets. The load maps the whole file at once, so a storage's
     address less its record's offset is one base for all: the base that
-    puts every storage on a record of its size. Without one (or for a
-    tensor that is not row-major) the tensors stay on the mapping."""
-    tensors = {k: v for k, v in sd.items()
-               if isinstance(v, torch.Tensor) and v.numel() and v.is_contiguous()}
+    puts every storage on a record of its size. A file without one, or with
+    a tensor that is not row-major, raises: reading it through the mapping
+    would hold up to the whole file in the host's resident set."""
+    tensors = {k: v for k, v in sd.items() if isinstance(v, torch.Tensor) and v.numel()}
+    strided = sorted(k for k, v in tensors.items() if not v.is_contiguous())
+    if strided:
+        raise ValueError(f"{path}: tensors that are not row-major ({strided[:3]}): "
+                         "save them with .contiguous() to load them")
+    if not tensors:
+        return sd
     records = _zip_data_records(path)
     storages = {v.untyped_storage().data_ptr(): v.untyped_storage().nbytes()
                 for v in tensors.values()}
@@ -208,7 +214,9 @@ def _lazy_pth(path: str, sd: Dict) -> Dict:
             out.update({k: LazyTensor(v.shape, v.dtype, path, v.data_ptr() - base)
                         for k, v in tensors.items()})
             return out
-    return sd
+    raise ValueError(f"{path}: no stored zip record holds each tensor's storage "
+                     "(a compressed or unknown .pth layout): save it again with "
+                     "torch.save to load it")
 
 
 def load_state_dict(path: str, prefix: Optional[str] = None,

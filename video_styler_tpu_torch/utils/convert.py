@@ -152,14 +152,13 @@ def export_wan_vae(vae: torch.nn.Module) -> Dict[str, torch.Tensor]:
     return dict(vae.state_dict())
 
 
-def save_release_files(pipe, folder: str, n_shards: int = 7,
-                       with_t5_vae: bool = True) -> Dict[str, object]:
+def save_release_files(pipe, folder: str, n_shards: int = 7) -> Dict[str, object]:
     """Write a pipeline's models in the layout of the Wan2.1-VACE-14B
     release: the DiT and VACE together under the reference's names, in
     safetensors shards `diffusion_pytorch_model-0000i-of-0000n`
     (consecutive names, split near equal in bytes); umT5 as
-    `models_t5_umt5-xxl-enc-bf16.pth` and the VAE as `Wan2.1_VAE.pth`
-    (unless with_t5_vae=False). Tensors keep their dtype; one at a time
+    `models_t5_umt5-xxl-enc-bf16.pth` and the VAE as `Wan2.1_VAE.pth`.
+    Tensors keep their dtype; one at a time
     passes through the host. Returns {"dit": [shard paths], "t5": path,
     "vae": path}."""
     import os
@@ -181,8 +180,6 @@ def save_release_files(pipe, folder: str, n_shards: int = 7,
                                     f"{len(shards):05d}.safetensors")
         save_file({k: sd[k] for k in part}, path)
         paths["dit"].append(path)
-    if not with_t5_vae:
-        return paths
     paths["t5"] = os.path.join(folder, "models_t5_umt5-xxl-enc-bf16.pth")
     torch.save(export_t5(pipe.prompter.text_encoder), paths["t5"])
     paths["vae"] = os.path.join(folder, "Wan2.1_VAE.pth")
