@@ -71,6 +71,28 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
              activations (bf16 weights, the plain versions): how far the
              loss and the LoRA gradients move, and the fp32 run's peak memory
              (up to 9 train frames: beyond, the fp32 run does not fit)
+  editor_reference  the smoke-size keyframe-guided editor (9 frames of
+             32x32, keyframes at frames 0 and 8, CFG 5 two-pass, 2 steps) on
+             the card against the same weights on the CPU
+  enhance_reference  the smoke-size Wan2.2 enhancer with two distinct tiny
+             experts on a window crossing the expert boundary (8 steps of
+             shift 5, the last 6: 2 high-noise, 4 low-noise), card vs CPU
+  editor     the keyframe-guided editor on the loaded pipeline's DiT: the
+             --frames clip with keyframes at its first and last frame (and
+             the middle one from 73 frames on), --steps steps, CFG 5
+             two-pass, alpha 10: the joint [main | keyframes] token count,
+             stage and step times, peak memory, compute_metrics, K1/K4/K5
+             launches against 2/1/1 per block and CFG pass; the request
+             again under torch.profiler; then K1, K4 and K5 held against
+             their plain versions at the joint sequence's length with its
+             RoPE ids
+  enhance    the Wan2.2 enhancer at A14B width: the loaded DiT as the
+             low-noise expert, a second WAN_T2V_14B DiT from a seed as the
+             high-noise expert (both resident; umT5 and VACE parked on the
+             host), the --frames clip, the boundary-crossing window, guide
+             scales (3, 4): each step's expert and seconds, peak memory,
+             launches (above --frames 9, running out of memory is reported,
+             not raised); the request again under torch.profiler
   e2e_quant  the trained LoRA merged, then quantize("int8",
              quantize_attention=True) and the same edit again: int8 GEMMs
              and K6 for every attention; profiled like e2e; then one step
@@ -212,8 +234,10 @@ def kernel_usage(*names):
     return {fn: u for fn, u in PTXAS.items() if any(n in fn for n in names)}
 
 
-def check_kernels(torch, grid, tag):
-    """K1 self/cross, K4, K5 at the Ditto 14B widths on this token grid."""
+def check_kernels(torch, grid, tag, rope_ids=None):
+    """K1 self/cross, K4, K5 at the Ditto 14B widths on this token grid
+    (rope_ids: the temporal RoPE index of each latent frame, as the editor
+    gives its joint sequence)."""
     import torch.nn.functional as F
     from video_styler_tpu_torch.ops import flash_attention as fa
     from video_styler_tpu_torch.ops import fused_norm_rope as fnr
@@ -265,7 +289,7 @@ def check_kernels(torch, grid, tag):
         del k, v, out, want
 
     # K4: RMSNorm + RoPE on q and k in one launch
-    cos, sin = assemble_freqs_grid(d, f, h, w, device="cuda")
+    cos, sin = assemble_freqs_grid(d, f, h, w, rope_ids, device="cuda")
     xq, xk = randn(1, s, dm), randn(1, s, dm) * 0.7
     wq = (1.0 + 0.1 * randn(dm).float()).to(torch.bfloat16)
     wk = (1.0 + 0.1 * randn(dm).float()).to(torch.bfloat16)
@@ -310,22 +334,27 @@ def check_kernels(torch, grid, tag):
     return rows
 
 
+def card_copy(torch, cpu, cls):
+    """A `cls` pipeline on the card holding copies of the CPU pipeline's
+    models (the same weights)."""
+    from video_styler_tpu_torch.prompters.wan_prompter import WanPrompter
+    gpu = cls(device="cuda")
+    for name in ("dit", "dit2", "vace", "vae"):
+        m = getattr(cpu, name)
+        setattr(gpu, name, None if m is None else copy.deepcopy(m).to("cuda"))
+    p = cpu.prompter
+    gpu.prompter = WanPrompter(p.tokenizer, p.text_len,
+                               copy.deepcopy(p.text_encoder).to("cuda"))
+    return gpu
+
+
 def check_reference(torch):
     """Smoke-size pipeline: card (kernels) vs CPU (plain), same weights."""
     import numpy as np
-    from video_styler_tpu_torch.infer_ditto import (SMOKE_TEXT_LEN,
-                                                    build_smoke_pipeline,
-                                                    smoke_frames)
+    from video_styler_tpu_torch.infer_ditto import build_smoke_pipeline, smoke_frames
     from video_styler_tpu_torch.pipelines.wan_video import WanVideoPipeline
-    from video_styler_tpu_torch.prompters.wan_prompter import (StubTokenizer,
-                                                               WanPrompter)
     cpu = build_smoke_pipeline(device="cpu", seed=0)
-    gpu = WanVideoPipeline(device="cuda")
-    gpu.dit = copy.deepcopy(cpu.dit).to("cuda")
-    gpu.vace = copy.deepcopy(cpu.vace).to("cuda")
-    gpu.vae = copy.deepcopy(cpu.vae).to("cuda")
-    gpu.prompter = WanPrompter(StubTokenizer(SMOKE_TEXT_LEN), SMOKE_TEXT_LEN,
-                               copy.deepcopy(cpu.prompter.text_encoder).to("cuda"))
+    gpu = card_copy(torch, cpu, WanVideoPipeline)
     kw = dict(prompt="a watercolor city at dusk", vace_video=smoke_frames(9, 32, 32),
               num_frames=9, height=32, width=32, seed=42, cfg_scale=5.0,
               num_inference_steps=2, tiled=True)
@@ -425,6 +454,15 @@ def build_pipeline(torch):
     return pipe, time.perf_counter() - t0
 
 
+def check_launches(launches, expected, phase):
+    """Each kernel's launches in a run against the derived count (0 for a
+    kernel the run must not reach)."""
+    for name, count in launches.items():
+        if count != expected.get(name, 0) or (name in expected and count == 0):
+            raise AssertionError(f"{name}: {count} launches in the {phase} run, "
+                                 f"expected {expected.get(name, 0)}")
+
+
 def run_edit(torch, pipe, kernels, steps: int, frames: int, phase: str,
              attention_kernels: dict, profile: bool = True, outputs=None, **extra):
     """One VACE edit of a 480x832 clip on `pipe`, with every launch count set
@@ -469,10 +507,7 @@ def run_edit(torch, pipe, kernels, steps: int, frames: int, phase: str,
     emit(res)
     if out.shape != (f, h, w, 3):
         raise AssertionError(f"output shape {out.shape}")
-    for name, count in launches.items():
-        if count != expected.get(name, 0) or (name in expected and count == 0):
-            raise AssertionError(f"{name}: {count} launches in the {phase} run, "
-                                 f"expected {expected.get(name, 0)}")
+    check_launches(launches, expected, phase)
     if outputs is not None:
         outputs.append(out)
     if profile:
@@ -1299,10 +1334,7 @@ def run_train(torch, pipe, kernels, frames: int, steps: int = 2):
         raise AssertionError(f"non-finite loss: {losses}")
     if not all(cache_bit_equal.values()) or same_loss[0] != same_loss[1]:
         raise AssertionError("the cached inputs differ from the in-memory ones")
-    for name, count in launches.items():
-        if count != expected.get(name, 0) or (name in expected and count == 0):
-            raise AssertionError(f"{name}: {count} launches in the train run, "
-                                 f"expected {expected.get(name, 0)}")
+    check_launches(launches, expected, "train")
     emit({"phase": "train_profile", **profile_request(
         torch, lambda: step(latents, context, vace_context, generator=gen),
         step_s[-1])})
@@ -1374,6 +1406,206 @@ def run_train_precision(torch, pipe, kernels, inputs, frames: int):
     if not (math.isfinite(res["loss_rel_err"]) and math.isfinite(res["lora_grads_rel_l2"])
             and bf16["kernel_launches"] > 0 and fp32["kernel_launches"] == 0):
         raise AssertionError(f"train_precision: {res}")
+
+
+# ------------------------------------------------- editor and enhancer phases
+
+def check_card_against_cpu(torch, phase, cpu, gpu, run, **extra):
+    """run(pipe) -> latents on the CPU pipeline and on its card copy, within
+    the 5% relative L2 of `reference`."""
+    lat_c = run(cpu).float()
+    lat_g = run(gpu).float().cpu()
+    rel = ((lat_g - lat_c).norm() / lat_c.norm()).item()
+    res = dict(phase=phase, latents_shape=list(lat_c.shape), latents_rel_l2=rel,
+               latents_tol=5e-2, finite=bool(torch.isfinite(lat_g).all()), **extra)
+    return res, rel <= 5e-2 and res["finite"]
+
+
+def check_editor_reference(torch):
+    """The smoke-size editor (9 frames of 32x32, keyframes at frames 0 and
+    8, CFG 5 two-pass, 2 steps, no TeaCache), card against CPU."""
+    from video_styler_tpu_torch.infer_ditto import smoke_frames
+    from video_styler_tpu_torch.pipelines.wan_video_editor import WanVideoEditorPipeline
+    from video_styler_tpu_torch.step2_video_editing import build_smoke_pipeline
+    cpu = build_smoke_pipeline(device="cpu", seed=0)
+    gpu = card_copy(torch, cpu, WanVideoEditorPipeline)
+    video = smoke_frames(9, 32, 32)
+    kw = dict(prompt="a watercolor city at dusk", source_video=video,
+              edited_keyframes=255 - video[[0, 8]], keyframe_indices=[0, 8],
+              num_frames=9, height=32, width=32, seed=42, cfg_scale=5.0,
+              num_inference_steps=2, alpha=10.0, tiled=True, verbose=False,
+              return_latents=True)
+    res, ok = check_card_against_cpu(torch, "editor_reference", cpu, gpu,
+                                     lambda pipe: pipe(**kw), keyframes=[0, 8],
+                                     steps=2, cfg="two-pass 5.0")
+    emit(res)
+    if not ok:
+        raise AssertionError(f"editor, card vs CPU disagree: {res}")
+
+
+ENHANCE_WINDOW = dict(sampling_steps=8, forward_step=6, skip_backward_step=6, shift=5.0,
+                      guide_scale=(3.0, 4.0), boundary=0.875, seed=42)
+
+
+def check_enhance_reference(torch):
+    """The smoke-size enhancer with two distinct tiny experts on a window
+    that crosses the boundary (timesteps 937, 892 on the high-noise expert;
+    833, 749, 624, 416 on the low-noise one), card against CPU."""
+    from video_styler_tpu_torch.enhance_video import build_smoke_pipeline
+    from video_styler_tpu_torch.infer_ditto import smoke_frames
+    from video_styler_tpu_torch.pipelines.wan_enhancer import WanEnhancerPipeline
+    cpu = build_smoke_pipeline(device="cpu", seed=0)
+    gpu = card_copy(torch, cpu, WanEnhancerPipeline)
+    video = smoke_frames(9, 32, 32)
+    res, ok = check_card_against_cpu(
+        torch, "enhance_reference", cpu, gpu,
+        lambda pipe: pipe.enhance(video, prompt="sharp and clean", return_latents=True,
+                                  **ENHANCE_WINDOW), window=ENHANCE_WINDOW)
+    res["experts"] = gpu.experts
+    emit(res)
+    if not ok or {w for _, w in gpu.experts} != {"dit", "dit2"}:
+        raise AssertionError(f"enhancer, card vs CPU disagree: {res}")
+
+
+def step_times(pipe):
+    return [s for name, s in pipe.stage_times if name.startswith("denoise_step_")]
+
+
+def editor_keyframes(frames: int):
+    """Pixel frames of the editor phase's keyframes: the first and the last,
+    and the middle one from 73 frames on."""
+    return [0, frames - 1] if frames < DITTO_FRAMES else [0, (frames - 1) // 2, frames - 1]
+
+
+def run_editor(torch, pipe, kernels, frames: int, steps: int):
+    """The keyframe-guided editor on the loaded 14B pipeline's DiT (no
+    VACE): a 480x832 clip, keyframes from `editor_keyframes`, CFG 5 two-pass,
+    alpha 10, streaming VAE; launches counted from 0."""
+    import numpy as np
+    from video_styler_tpu_torch.pipelines.wan_video_editor import WanVideoEditorPipeline
+    ed = WanVideoEditorPipeline(device="cuda")
+    ed.__dict__.update(pipe.__dict__)
+    video = frames_480x832(frames)
+    kf = editor_keyframes(frames)
+    t_lat = (frames - 1) // 4 + 1
+    kf_lat = ed.latent_keyframe_indices(kf, t_lat)
+    grid = (t_lat + len(kf_lat), 30, 52)
+    n_layers = ed.dit.cfg.num_layers
+
+    def request():
+        return ed(prompt="turn the scene into a watercolor painting", source_video=video,
+                  edited_keyframes=255 - video[kf], keyframe_indices=kf, seed=42,
+                  height=480, width=832, num_frames=frames, cfg_scale=5.0,
+                  num_inference_steps=steps, alpha=10.0, tiled=True, verbose=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for kern in kernels.values():
+        kern.launches = 0
+    t0 = time.perf_counter()
+    out = request()
+    total_s = time.perf_counter() - t0
+    forwards = 2 * steps
+    expected = {"K1": 2 * n_layers * forwards, "K4": n_layers * forwards,
+                "K5": n_layers * forwards}
+    launches = {name: kern.launches for name, kern in kernels.items()}
+    res = dict(phase="editor", frames=frames, keyframes=kf, latent_keyframes=kf_lat,
+               joint_tokens=int(np.prod(grid)), dit_layers=n_layers, steps=steps,
+               cfg="two-pass 5.0", alpha=10.0, total_s=total_s,
+               stages=dict(ed.stage_times), step_s=step_times(ed),
+               stage_peak_gib={k: v / 2**30 for k, v in ed.stage_peak_bytes},
+               max_memory_allocated_gib=torch.cuda.max_memory_allocated() / 2**30,
+               metrics=ed.metrics, output_shape=list(out.shape),
+               decoded_video_finite=True, launches=launches,
+               expected_launches=expected)
+    emit(res)
+    check_launches(launches, expected, "editor")
+    if out.shape != (frames, 480, 832, 3):
+        raise AssertionError(f"editor output shape {out.shape}")
+    emit({"phase": "editor_profile", **profile_request(torch, request, total_s)})
+    return launches, grid, ed.construct_rope_ids(t_lat, kf_lat)
+
+
+def run_enhance(torch, pipe, kernels, frames: int):
+    """The Wan2.2 enhancer at A14B width: the loaded DiT as the low-noise
+    expert and a second WAN_T2V_14B DiT from a seed as the high-noise one,
+    both resident; umT5 and VACE parked on the host (`train.HostParked`)
+    with umT5 brought back for each prompt encode. A 480x832 clip, the
+    boundary-crossing window, guide scales (3, 4), streaming VAE."""
+    from video_styler_tpu_torch.models.wan_dit import WAN_T2V_14B, WanDiT, init_weights_
+    from video_styler_tpu_torch.pipelines.wan_enhancer import WanEnhancerPipeline
+    from video_styler_tpu_torch.pipelines.wan_video import WanVideoPipeline
+    from video_styler_tpu_torch.train import HostParked
+    enh = WanEnhancerPipeline(device="cuda")
+    enh.__dict__.update(pipe.__dict__)
+    enh.vace = None
+    parked_t5 = HostParked(pipe.prompter.text_encoder)
+    parked_vace = HostParked(pipe.vace)
+
+    def encode_prompt(prompt):
+        with parked_t5:
+            return WanVideoPipeline.encode_prompt(enh, prompt)
+    enh.encode_prompt = encode_prompt
+
+    t0 = time.perf_counter()
+    with torch.device("meta"):
+        dit2 = WanDiT(WAN_T2V_14B, dtype=torch.bfloat16)
+    enh.dit2 = init_weights_(dit2.to_empty(device="cuda"),
+                             torch.Generator("cuda").manual_seed(1)).eval()
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    n_layers = enh.dit.cfg.num_layers
+    steps = ENHANCE_WINDOW["skip_backward_step"]
+    res = dict(phase="enhance", frames=frames,
+               tokens=int(math.prod(token_grid(frames))), dit_layers=n_layers,
+               window=ENHANCE_WINDOW, dit2_build_s=build_s,
+               weights_on_card_gib=torch.cuda.memory_allocated() / 2**30,
+               parked_on_host=["umT5", "VACE"])
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for kern in kernels.values():
+            kern.launches = 0
+        video = frames_480x832(frames)
+
+        def request():
+            return enh.enhance(video, prompt="sharp, clean, detailed",
+                               negative_prompt="blurry, noisy", tiled=True,
+                               **ENHANCE_WINDOW)
+        t0 = time.perf_counter()
+        try:
+            out = request()
+        except torch.cuda.OutOfMemoryError as e:
+            if frames <= RUN_FRAMES:
+                raise
+            res.update(fits=False, error=str(e).splitlines()[0],
+                       max_memory_allocated_gib=torch.cuda.max_memory_allocated() / 2**30)
+            emit(res)
+            return {}
+        total_s = time.perf_counter() - t0
+        expected = {"K1": 2 * n_layers * 2 * steps, "K4": n_layers * 2 * steps,
+                    "K5": n_layers * 2 * steps}
+        launches = {name: kern.launches for name, kern in kernels.items()}
+        res.update(fits=True, total_s=total_s, stages=dict(enh.stage_times),
+                   steps=[dict(timestep=t, expert=w, seconds=s) for (t, w), s
+                          in zip(enh.experts, step_times(enh))],
+                   stage_peak_gib={k: v / 2**30 for k, v in enh.stage_peak_bytes},
+                   max_memory_allocated_gib=torch.cuda.max_memory_allocated() / 2**30,
+                   output_shape=list(out.shape), decoded_video_finite=True,
+                   launches=launches, expected_launches=expected)
+        emit(res)
+        check_launches(launches, expected, "enhance")
+        if out.shape != (frames, 480, 832, 3) or \
+                {w for _, w in enh.experts} != {"dit", "dit2"}:
+            raise AssertionError(f"enhance: {res}")
+        emit({"phase": "enhance_profile", **profile_request(torch, request, total_s)})
+        return launches
+    finally:
+        enh.dit2 = dit2 = None
+        del enh
+        parked_t5.__enter__()    # back on the card for the later phases
+        parked_vace.__enter__()
+        gc.collect()
+        torch.cuda.empty_cache()
 
 
 def run_entry_3d(torch, kernels, s: int):
@@ -1533,6 +1765,8 @@ def main(argv=None):
     check_reference(torch)
     check_reference_quant(torch)
     check_train_reference(torch)
+    check_editor_reference(torch)
+    check_enhance_reference(torch)
     pipe, init_s = build_pipeline(torch)
     e2e_frames = []
     run_edit(torch, pipe, kernels, args.steps, args.frames, "e2e", {"K1": 1.0},
@@ -1556,6 +1790,16 @@ def main(argv=None):
                   skipped=f"the fp32 run needs more than one card's memory above "
                           f"{RUN_FRAMES} frames"))
     del train_inputs
+    # the editor and the enhancer on the loaded pipeline; umT5 and the VAE,
+    # parked on the host for the cache-fed LoRA steps, come back
+    pipe.prompter.text_encoder.to("cuda")
+    pipe.vae.to("cuda")
+    path_launches = {}
+    path_launches["editor"], editor_grid, editor_rope_ids = run_editor(
+        torch, pipe, kernels, args.frames, args.steps)
+    rows += check_kernels(torch, editor_grid, f"editor-{args.frames}f", editor_rope_ids)
+    torch.cuda.empty_cache()
+    path_launches["enhance"] = run_enhance(torch, pipe, kernels, args.frames)
     launches["K6"] = run_e2e_quant(torch, pipe, kernels, args.steps, args.frames)["K6"]
     # the int8 online body on the same quantised pipeline: FLASH_CAPPED=0
     os.environ["FLASH_CAPPED"] = "0"
@@ -1572,7 +1816,11 @@ def main(argv=None):
 
     keys = ("name", "route", "source", "replaces", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
-    emit({"kernels": [{**{k: r[k] for k in keys}, "launches": launches[r["kernel"]]}
+    by_path = {name: {path: counts[name] for path, counts in path_launches.items()
+                      if name in counts} for name in ("K1", "K4", "K5")}
+    emit({"kernels": [{**{k: r[k] for k in keys}, "launches": launches[r["kernel"]],
+                       **({"launches_by_path": by_path[r["kernel"]]}
+                          if r["kernel"] in by_path else {})}
                       for r in rows + new_rows]
           + [{**{k: r[k] for k in keys}, "launches": train_launches[
               "K1" if r["kernel"] == "K1s" else r["kernel"]]} for r in train_rows]})

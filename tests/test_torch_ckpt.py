@@ -349,16 +349,16 @@ def test_unported_kinds_raise(tmp_path):
     with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
         TC.load_model(path, device="cpu")
     tp = TW.WanVideoPipeline(device="cpu")
-    for kind, item in (("dit2", 5), ("clip", 9), ("animate", 9), ("s2v", 9),
+    for kind, item in (("clip", 9), ("animate", 9), ("s2v", 9),
                        ("motion_controller", 9)):
         with pytest.raises(NotImplementedError, match=f"Queue 1 item {item}"):
             tp._attach(kind, {})
     with pytest.raises(ValueError, match="unknown model kind"):
         tp._attach("not-a-kind", {})
     shards, _, _ = _reference_files(str(tmp_path))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
         TW.WanVideoPipeline.from_pretrained(
-            [ModelConfig(path=shards, model_kind="dit2")], device="cpu")
+            [ModelConfig(path=shards, model_kind="clip")], device="cpu")
 
 
 def test_model_config_resolves_locally(tmp_path, monkeypatch):

@@ -88,6 +88,28 @@ def test_k4_k5_match_plain(gen, s, n):
     _assert_close(o5, fnr.fused_rmsnorm_plain(xq, wq))
 
 
+def test_k4_editor_rope_ids(gen):
+    """K4 on the editor's joint [main | keyframes] sequence at 480x832, 9
+    frames, keyframes at pixel frames 0 and 8: 3 + 2 latent frames, 7,800
+    tokens (not a multiple of 128), temporal rope ids 0, 1, 2, 0, 2 (the
+    keyframe tokens repeat their source frames' rotations)."""
+    rope_ids = [0, 1, 2, 0, 2]
+    s, n = 5 * 30 * 52, 40
+    xq, xk = _randn(gen, 1, s, n * 128), _randn(gen, 1, s, n * 128, scale=0.7)
+    wq = (1 + 0.1 * torch.randn(n * 128, generator=gen, device="cuda")).to(torch.bfloat16)
+    wk = (1 + 0.1 * torch.randn(n * 128, generator=gen, device="cuda")).to(torch.bfloat16)
+    cos, sin = assemble_freqs_grid(128, 5, 30, 52, rope_ids, device="cuda")
+    assert cos.shape == (7800, 64)
+    torch.testing.assert_close(cos[3 * 1560:4 * 1560], cos[:1560], rtol=0, atol=0)
+    before = fnr.ROPE_KERNEL.launches
+    oq, ok = fnr.fused_rmsnorm_rope(xq, xk, wq, wk, cos, sin)
+    torch.cuda.synchronize()
+    assert fnr.ROPE_KERNEL.launches == before + 1
+    pq, pk = fnr.fused_rmsnorm_rope_plain(xq, xk, wq, wk, cos, sin)
+    _assert_close(oq, pq)
+    _assert_close(ok, pk)
+
+
 @pytest.mark.parametrize("rows", [29640, 4680, 4681])
 def test_k5_ditto_rows(gen, rows):
     """K5 at the Ditto width (Dm = 5120: 20 chunks of 16 bytes a lane) on

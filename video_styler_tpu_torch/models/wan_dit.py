@@ -249,16 +249,23 @@ def block_fn(remat: bool):
 def run_blocks(blocks: Sequence[DiTBlock], x, context, t_mod, cos, sin,
                cfg: WanDiTConfig, vace_hints=None,
                vace_layers: Optional[Sequence[int]] = None,
-               vace_scale: float = 1.0, remat: bool = False):
+               vace_scale: float = 1.0, remat: bool = False, layer_gate=None):
     """The block stack; VACE hint j is added after layer vace_layers[j],
     cast to the trunk dtype (the scale too, so an fp32 scale never promotes
-    a bf16 trunk)."""
+    a bf16 trunk).
+
+    layer_gate: optional (num_layers, B) tensor; layer i's update of batch
+    row b becomes x + g[i, b] * (block(x) - x) in the trunk dtype, so a 0
+    makes the block an identity for that row (skip-layer guidance)."""
     inject = {}
     if vace_hints is not None and vace_layers is not None:
         inject = {layer: j for j, layer in enumerate(vace_layers)}
     body = block_fn(remat)
     for i, blk in enumerate(blocks):
-        x = body(blk, x, context, t_mod, cos, sin, cfg)
+        y = body(blk, x, context, t_mod, cos, sin, cfg)
+        if layer_gate is not None:
+            y = x + layer_gate[i].to(x.dtype)[:, None, None] * (y - x)
+        x = y
         if i in inject:
             x = x + vace_hints[inject[i]].to(x.dtype) * \
                 torch.tensor(vace_scale, dtype=x.dtype, device=x.device)
@@ -315,7 +322,7 @@ def head(model: WanDiT, x, t):
 def wan_dit_forward_with_residual(model: WanDiT, x, timestep, context,
                                   rope_indices=None, vace=None,
                                   vace_context=None, vace_scale: float = 1.0,
-                                  remat: bool = False):
+                                  remat: bool = False, layer_gate=None):
     """`wan_dit_forward`, also returning the block stack's residual
     (tokens out - tokens in, (B, S, dim)) that TeaCache replays."""
     cfg = model.cfg
@@ -332,7 +339,7 @@ def wan_dit_forward_with_residual(model: WanDiT, x, timestep, context,
     tokens = run_blocks(model.blocks, tokens_in, context, t_mod, cos, sin, cfg,
                         vace_hints=hints,
                         vace_layers=None if hints is None else vace.cfg.vace_layers,
-                        vace_scale=vace_scale, remat=remat)
+                        vace_scale=vace_scale, remat=remat, layer_gate=layer_gate)
     out = unpatchify(head(model, tokens, t), (f, h, w), cfg.patch_size,
                      cfg.out_dim)
     return out, tokens - tokens_in
@@ -340,11 +347,12 @@ def wan_dit_forward_with_residual(model: WanDiT, x, timestep, context,
 
 def wan_dit_forward(model: WanDiT, x, timestep, context, rope_indices=None,
                     vace=None, vace_context=None, vace_scale: float = 1.0,
-                    remat: bool = False):
+                    remat: bool = False, layer_gate=None):
     """Full DiT forward, optionally with the VACE branch.
 
     x: (B, C, F, H, W) latents; timestep: (B,); context: (B, L, text_dim);
     vace: a `WanVace`, vace_context: (B, vace_in_dim, F, H, W).
+    layer_gate: optional (num_layers, B) per-row block gates (`run_blocks`).
     remat: recompute each trunk block and each VACE block in the backward.
     The JAX package's `remat` covers the trunk only
     (`models/wan_vace.py:85-92`); the VACE blocks are recomputed too because
@@ -352,4 +360,4 @@ def wan_dit_forward(model: WanDiT, x, timestep, context, rope_indices=None,
     14B weights. It changes no value."""
     return wan_dit_forward_with_residual(model, x, timestep, context,
                                          rope_indices, vace, vace_context,
-                                         vace_scale, remat)[0]
+                                         vace_scale, remat, layer_gate)[0]

@@ -3,9 +3,10 @@
 Counterpart of the Wan2.1 part of `video_styler_tpu/models/wan_vae.py`:
 `vae_encode`/`vae_decode` over the whole clip, and the streaming forms
 `vae_encode_stream`/`vae_decode_stream` that carry per-conv temporal caches
-from chunk to chunk (`_CacheIO`). `encode`/`decode` take the streaming form
-when `tiled=True` (the pipeline default), as the JAX package does; its
-spatial tiling is not ported yet.
+from chunk to chunk (`_CacheIO`), and the spatially tiled forms
+`tiled_encode`/`tiled_decode`. `encode`/`decode` dispatch as the JAX
+package does: the streaming form when `tiled=True` with `streaming` unset
+(the pipeline default), spatial tiles with `streaming=False, tiled=True`.
 
 The public contract is (B, C, T, H, W), and so is the internal layout here.
 Parameters follow the JAX tree of `init_wan_vae` (torch names: `weight`,
@@ -22,6 +23,7 @@ import math
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -513,11 +515,99 @@ def vae_decode_stream(model: WanVAE, z, chunk_size: int = 4, clamp: bool = True)
     return video.clamp(-1.0, 1.0) if clamp else video
 
 
-def encode(model: WanVAE, video, tiled: bool = False):
-    """tiled=True runs the streaming encoder (the JAX package's default for
-    tiled=True with streaming unset)."""
-    if tiled:
+# --------------------------------------------------------------------------
+# Spatial tiling: overlapping tiles blended with linear ramps. The tiles'
+# weighted sums are kept in fp32 on the tensors' device.
+# --------------------------------------------------------------------------
+
+def _build_1d_mask(length, left_bound, right_bound, border_width) -> np.ndarray:
+    x = np.ones((length,), np.float32)
+    if border_width > 0:
+        if not left_bound:
+            x[:border_width] = (np.arange(border_width) + 1) / border_width
+        if not right_bound:
+            x[-border_width:] = ((np.arange(border_width) + 1) / border_width)[::-1]
+    return x
+
+
+def _build_mask(h_size, w_size, is_bound, border_width) -> np.ndarray:
+    """(1, 1, 1, h, w) blend weights of one tile; is_bound = (top, bottom,
+    left, right) edges of the whole frame, which get no ramp."""
+    h = _build_1d_mask(h_size, is_bound[0], is_bound[1], border_width[0])
+    w = _build_1d_mask(w_size, is_bound[2], is_bound[3], border_width[1])
+    return np.minimum(h[:, None], w[None, :])[None, None, None]
+
+
+def _tile_tasks(H, W, size_h, size_w, stride_h, stride_w):
+    """(h0, h1, w0, w1) of each tile; a tile whose predecessor already
+    reaches the edge is skipped, in each direction."""
+    tasks = []
+    for h in range(0, H, stride_h):
+        if h - stride_h >= 0 and h - stride_h + size_h >= H:
+            continue
+        for w in range(0, W, stride_w):
+            if w - stride_w >= 0 and w - stride_w + size_w >= W:
+                continue
+            tasks.append((h, min(h + size_h, H), w, min(w + size_w, W)))
+    return tasks
+
+
+def _blend_tiles(run_tile, x, out_shape, to_out, size, stride):
+    """Sum run_tile(tile) * mask over the tiles of x, divided by the summed
+    masks. size/stride in x's spatial units; to_out maps a length in those
+    units to the output's."""
+    H, W = x.shape[3], x.shape[4]
+    values = torch.zeros(out_shape, dtype=torch.float32, device=x.device)
+    weight = torch.zeros((1, 1, 1) + tuple(out_shape[3:]), dtype=torch.float32,
+                         device=x.device)
+    border = (to_out(size[0] - stride[0]), to_out(size[1] - stride[1]))
+    for h, h_, w, w_ in _tile_tasks(H, W, size[0], size[1], stride[0], stride[1]):
+        out = run_tile(x[:, :, :, h:h_, w:w_]).float()
+        mask = torch.from_numpy(_build_mask(out.shape[3], out.shape[4],
+                                            (h == 0, h_ >= H, w == 0, w_ >= W),
+                                            border)).to(x.device)
+        th, tw = to_out(h), to_out(w)
+        region = (slice(None),) * 3 + (slice(th, th + out.shape[3]),
+                                       slice(tw, tw + out.shape[4]))
+        values[region] += out * mask
+        weight[region] += mask
+    return values / weight
+
+
+def tiled_encode(model: WanVAE, video, tile_size=(34, 34), tile_stride=(18, 16)):
+    """Spatially tiled encode; tile sizes in latent units (times the 8x
+    spatial factor in pixels)."""
+    up = model.cfg.upsampling_factor
+    B, _, T, H, W = video.shape
+    out_shape = (B, model.cfg.z_dim, (T + 3) // 4, H // up, W // up)
+    return _blend_tiles(lambda tile: vae_encode(model, tile), video, out_shape,
+                        lambda n: n // up, (tile_size[0] * up, tile_size[1] * up),
+                        (tile_stride[0] * up, tile_stride[1] * up))
+
+
+def tiled_decode(model: WanVAE, z, tile_size=(34, 34), tile_stride=(18, 16)):
+    """Spatially tiled decode of latents; tile sizes in latent units."""
+    up = model.cfg.upsampling_factor
+    B, _, T, H, W = z.shape
+    out_shape = (B, 3, T * 4 - 3, H * up, W * up)
+    video = _blend_tiles(lambda tile: vae_decode(model, tile, clamp=False), z,
+                         out_shape, lambda n: n * up, tile_size, tile_stride)
+    return video.clamp(-1.0, 1.0)
+
+
+# --------------------------------------------------------------------------
+# Public API: whole-clip, streaming (temporal chunks) or spatially tiled
+# --------------------------------------------------------------------------
+
+def encode(model: WanVAE, video, tiled: bool = False, tile_size=(34, 34),
+           tile_stride=(18, 16), streaming: Optional[bool] = None):
+    """streaming=True, or tiled=True with streaming unset, runs the
+    streaming encoder (exact, O(chunk) memory); streaming=False with
+    tiled=True tiles the frame spatially, as the JAX package does."""
+    if streaming or (tiled and streaming is None):
         return vae_encode_stream(model, video)
+    if tiled:
+        return tiled_encode(model, video, tile_size, tile_stride)
     return vae_encode(model, video)
 
 
@@ -528,9 +618,14 @@ def _auto_chunk(z, default: int = 4) -> int:
     return max(1, min(default, int(round(default * 6240.0 / max(area, 1)))))
 
 
-def decode(model: WanVAE, z, tiled: bool = False, chunk_size: Optional[int] = None):
-    if tiled:
+def decode(model: WanVAE, z, tiled: bool = False, tile_size=(34, 34),
+           tile_stride=(18, 16), streaming: Optional[bool] = None,
+           chunk_size: Optional[int] = None):
+    """The dispatch of `encode`, for latents."""
+    if streaming or (tiled and streaming is None):
         return vae_decode_stream(model, z, chunk_size=chunk_size or _auto_chunk(z))
+    if tiled:
+        return tiled_decode(model, z, tile_size, tile_stride)
     return vae_decode(model, z)
 
 

@@ -3,15 +3,21 @@
 Counterpart of the T2V/VACE subset of
 `video_styler_tpu/pipelines/wan_video.py`: shape check, seeded noise,
 umT5 prompt encode, VACE context (a Wan2.1 VAE encode plus the 64-channel
-mask), a flow-match Euler loop with two-pass (or merged) CFG over
-`wan_dit_forward` with VACE hints, optional TeaCache step skipping, and the
-VAE decode. `load_lora` merges a LoRA into the DiT or the VACE branch, or
+mask), a denoise loop with two-pass (or merged) CFG over `wan_dit_forward`
+with VACE hints, and the VAE decode (streaming, whole-clip or spatially
+tiled). The loop's options are the JAX pipeline's: TeaCache step skipping,
+skip-layer guidance (`slg_blocks`: the listed blocks skipped on the
+unconditional rows), the temporal sliding window with ramp blending, a
+second expert `dit2` taking over below `switch_DiT_boundary`, and the
+multistep schedulers (UniPC, DPM++) in place of the flow-match Euler step.
+`load_lora` merges a LoRA into the DiT, `dit2` or the VACE branch, or
 keeps it on a hotload stack (`set_lora_scale`, `unload_loras`);
-`quantize` (after any LoRA merge) turns the DiT and VACE linears into int8,
-fp8 or int4 layers and can route attention through the int8 kernel.
-Models come from checkpoint files (`from_pretrained`: the official Wan2.1
-DiT, VACE, umT5 and VAE files, read by `utils.ckpt`), from
-`convert.from_jax_params`, or from `from_configs` (random weights).
+`quantize` (after any LoRA merge) turns the DiT, `dit2` and VACE linears
+into int8, fp8 or int4 layers and can route attention through the int8
+kernel. Models come from checkpoint files (`from_pretrained`: the official
+Wan2.1 DiT, VACE, umT5 and VAE files, and a Wan2.2 expert as kind `dit2`,
+read by `utils.ckpt`), from `convert.from_jax_params`, or from
+`from_configs` (random weights).
 
 Runs on `cuda` unless constructed with `device="cpu"`. Each stage's wall
 time (synchronised with the card) is kept in `stage_times`; on the card,
@@ -115,6 +121,9 @@ class WanVideoPipeline:
         self.prompter = WanPrompter()
         self.dit: Optional[WanDiT] = None
         self.vace: Optional[WanVace] = None
+        # the second expert (Wan2.2 A14B: the high-noise DiT) and its VACE
+        self.dit2: Optional[WanDiT] = None
+        self.vace2: Optional[WanVace] = None
         self.vae: Optional[V.WanVAE] = None
         # the architectures `_attach` builds checkpoint files into (the JAX
         # pipeline's: umT5-XXL and the Wan2.1 VAE)
@@ -172,11 +181,12 @@ class WanVideoPipeline:
     def _attach(self, kind: str, sd):
         """Build the `kind` model from a (lazy) reference state dict onto
         the pipeline's device. A combined file splits by the `vace` prefix."""
-        if kind in ("dit", "dit+vace"):
+        if kind in ("dit", "dit2", "dit+vace"):
             dit_sd = {k: v for k, v in sd.items() if not k.startswith("vace")}
             cfg = C.detect_wan_dit_config(dit_sd)
-            self.dit = C.build_module(WanDiT, cfg, convert_wan_dit(dit_sd, cfg),
-                                      self.device, self.dtype)
+            setattr(self, "dit2" if kind == "dit2" else "dit",
+                    C.build_module(WanDiT, cfg, convert_wan_dit(dit_sd, cfg),
+                                   self.device, self.dtype))
             if kind == "dit+vace":
                 self._attach("vace", {k: v for k, v in sd.items()
                                       if k.startswith("vace")})
@@ -203,14 +213,14 @@ class WanVideoPipeline:
 
     def load_lora(self, target: str = "dit", path: Optional[str] = None,
                   state_dict=None, alpha: float = 1.0, hotload: bool = False):
-        """Merge a LoRA (a checkpoint file or a state dict) into the `dit`
-        or `vace` weights, as the JAX pipeline's `load_lora` does.
+        """Merge a LoRA (a checkpoint file or a state dict) into the `dit`,
+        `dit2` or `vace` weights, as the JAX pipeline's `load_lora` does.
 
         hotload=True keeps it on the target's LoRA stack instead, beside one
         device copy of the pristine weights it touches: `set_lora_scale`
         rescales a LoRA of the stack and `unload_loras` restores the base,
         without reading any file again."""
-        if target not in ("dit", "vace") or getattr(self, target) is None:
+        if target not in ("dit", "dit2", "vace") or getattr(self, target) is None:
             raise ValueError(f"no {target!r} model to merge a LoRA into")
         if state_dict is None:
             state_dict = C.load_state_dict(path)
@@ -257,11 +267,13 @@ class WanVideoPipeline:
 
     def quantize(self, mode: str = "int8", targets: tuple = ("dit", "dit2", "vace"),
                  quantize_attention: bool = False):
-        """Quantize the DiT and VACE linear weights in place (the JAX
-        pipeline's `quantize`; the analogue of the reference's fp8 path).
-        Must run after LoRA merging. The output head, the modulation tables
-        and the time embedding stay in high precision; targets the pipeline
-        does not hold (`dit2`) are skipped.
+        """Quantize the DiT, `dit2` and VACE linear weights in place (the
+        JAX pipeline's `quantize`; the analogue of the reference's fp8
+        path). Must run after any LoRA merge or hotload, for every expert:
+        a hotload stack keeps its target's pristine weights, which a later
+        re-apply would copy back over the quantised layers. The output
+        head, the modulation tables and the time embedding stay in high
+        precision; targets the pipeline does not hold are skipped.
 
         Modes: "int8" (w8a8), "fp8" (e4m3 storage), "int4" (w4a8,
         0.5 byte/param), "int4_g128" (w4a16 group scales).
@@ -310,17 +322,21 @@ class WanVideoPipeline:
         return self.prompter.encode_prompt(prompt, dtype=self.dtype)
 
     @torch.no_grad()
-    def encode_video(self, video_np: np.ndarray, tiled: bool = True) -> torch.Tensor:
+    def encode_video(self, video_np: np.ndarray, tiled: bool = True,
+                     tile_size=(30, 52), tile_stride=(15, 26)) -> torch.Tensor:
         video = torch.from_numpy(np.ascontiguousarray(video_np, np.float32))
-        return V.encode(self.vae, video.to(self.device), tiled=tiled).to(self.dtype)
+        return V.encode(self.vae, video.to(self.device), tiled=tiled,
+                        tile_size=tile_size, tile_stride=tile_stride).to(self.dtype)
 
     @torch.no_grad()
-    def decode_video(self, latents: torch.Tensor, tiled: bool = True) -> torch.Tensor:
-        return V.decode(self.vae, latents.float(), tiled=tiled)
+    def decode_video(self, latents: torch.Tensor, tiled: bool = True,
+                     tile_size=(30, 52), tile_stride=(15, 26)) -> torch.Tensor:
+        return V.decode(self.vae, latents.float(), tiled=tiled,
+                        tile_size=tile_size, tile_stride=tile_stride)
 
     def build_vace_context(self, vace_video, vace_video_mask,
                            vace_reference_image, height, width, num_frames,
-                           tiled: bool):
+                           **tiler):
         """Inactive/reactive latents + the 64-channel downsampled mask ->
         the 96-channel VACE context."""
         if vace_video is None and vace_video_mask is None and vace_reference_image is None:
@@ -336,7 +352,7 @@ class WanVideoPipeline:
         inactive = video * (1 - mask)
         reactive = video * mask
         # one batch-2 VAE pass (batch entries are independent)
-        both = self.encode_video(np.concatenate([inactive, reactive], axis=0), tiled)
+        both = self.encode_video(np.concatenate([inactive, reactive], axis=0), **tiler)
         latents = torch.cat([both[0:1], both[1:2]], dim=1)
 
         # mask -> (1, 64, T_lat, H/8, W/8): 8x8 shuffle, nearest-exact in time
@@ -352,7 +368,7 @@ class WanVideoPipeline:
         if vace_reference_image is not None:
             refs = (vace_reference_image if isinstance(vace_reference_image, list)
                     else [vace_reference_image])
-            ref_lat = self.encode_video(_preprocess_images(refs), tiled)
+            ref_lat = self.encode_video(_preprocess_images(refs), **tiler)
             ref_lat = torch.cat([ref_lat, torch.zeros_like(ref_lat)], dim=1)
             latents = torch.cat([ref_lat, latents], dim=2)
             mask_lat = torch.cat([torch.zeros_like(mask_lat[:, :, :ref_lat.shape[2]]),
@@ -361,46 +377,113 @@ class WanVideoPipeline:
 
     # ---------------- model functions ----------------
 
-    def _skip(self, latents, timestep, residual):
+    def _expert(self, which: str) -> WanDiT:
+        return self.dit if which == "dit" else self.dit2
+
+    def _skip(self, which, latents, timestep, residual):
         """TeaCache replay: patchify + cached residual + head."""
-        dit = self.dit
+        dit = self._expert(which)
         cfg = dit.cfg
         t, _ = time_embed(dit, timestep)
         tokens, grid = patchify(dit.patch_embedding, latents, cfg.patch_size)
         out = head(dit, tokens + residual, t)
         return unpatchify(out, grid, cfg.patch_size, cfg.out_dim)
 
-    def _branch_forward(self, latents, timestep, context, vace_context,
-                        vace_scale, tea_cache: Optional[TeaCache]):
+    def _branch_forward(self, which, vace, latents, timestep, context,
+                        vace_context, vace_scale, tea_cache: Optional[TeaCache],
+                        rope_indices=None, layer_gate=None):
+        """One DiT forward of expert `which` ("dit" or "dit2"), or a TeaCache
+        replay of its last residual."""
+        dit = self._expert(which)
         if tea_cache is not None:
-            _, t_mod = time_embed(self.dit, timestep)
+            _, t_mod = time_embed(dit, timestep)
             if tea_cache.check(t_mod) and tea_cache.previous_residual is not None:
-                return self._skip(latents, timestep, tea_cache.previous_residual)
+                return self._skip(which, latents, timestep, tea_cache.previous_residual)
         v, residual = wan_dit_forward_with_residual(
-            self.dit, latents, timestep, context, vace=self.vace,
-            vace_context=vace_context, vace_scale=vace_scale)
+            dit, latents, timestep, context, rope_indices=rope_indices, vace=vace,
+            vace_context=vace_context, vace_scale=vace_scale, layer_gate=layer_gate)
         if tea_cache is not None:
             tea_cache.store(residual)
         return v
 
-    def _velocity(self, latents, timestep, ctx_posi, ctx_nega, vace_context,
-                  vace_scale, cfg_scale, tc_posi, tc_nega, cfg_merge=False):
-        """One denoise velocity: CFG by two passes or one merged batch."""
+    def _forward_all_branches(self, which, vace, latents, timestep, ctx_posi,
+                              ctx_nega, vace_context, vace_scale, cfg_scale,
+                              tc_posi, tc_nega, cfg_merge=False, slg_gate=None):
+        """One denoise velocity: CFG by two passes or one merged batch.
+
+        slg_gate: optional (num_layers,) keep-gate of skip-layer guidance,
+        applied to the unconditional rows only: under cfg_merge the merged
+        gate is ones for the posi rows and slg_gate for the nega rows; in
+        two passes only the nega pass is gated."""
         if cfg_scale == 1.0 or ctx_nega is None:
-            return self._branch_forward(latents, timestep, ctx_posi,
+            return self._branch_forward(which, vace, latents, timestep, ctx_posi,
                                         vace_context, vace_scale, tc_posi)
+        b = latents.shape[0]
         if cfg_merge:
+            # one batched forward; the per-branch TeaCaches are not used
             vc2 = None if vace_context is None else torch.cat([vace_context] * 2)
-            v2 = self._branch_forward(torch.cat([latents, latents]), timestep,
-                                      torch.cat([ctx_posi, ctx_nega]), vc2,
-                                      vace_scale, None)
+            gate2 = None
+            if slg_gate is not None:
+                g = slg_gate[:, None]
+                gate2 = torch.cat([torch.ones_like(g).expand(-1, b),
+                                   g.expand(-1, b)], dim=1)
+            v2 = self._branch_forward(which, vace, torch.cat([latents, latents]),
+                                      timestep, torch.cat([ctx_posi, ctx_nega]),
+                                      vc2, vace_scale, None, layer_gate=gate2)
             v_posi, v_nega = v2[:1], v2[1:]
         else:
-            v_posi = self._branch_forward(latents, timestep, ctx_posi,
+            v_posi = self._branch_forward(which, vace, latents, timestep, ctx_posi,
                                           vace_context, vace_scale, tc_posi)
-            v_nega = self._branch_forward(latents, timestep, ctx_nega,
-                                          vace_context, vace_scale, tc_nega)
+            gate1 = None if slg_gate is None else slg_gate[:, None].expand(-1, b)
+            v_nega = self._branch_forward(which, vace, latents, timestep, ctx_nega,
+                                          vace_context, vace_scale, tc_nega,
+                                          layer_gate=gate1)
         return v_nega + cfg_scale * (v_posi - v_nega)
+
+    @staticmethod
+    def _temporal_ramp(length, left_bound, right_bound, border) -> np.ndarray:
+        """The sliding window's 1-D blend ramp (0.5-shifted) over `length`
+        latent frames; an edge of the clip gets no ramp."""
+        x = np.ones((length,), np.float32)
+        if border > 0:
+            if not left_bound:
+                x[:border] = (np.arange(border) + 0.5) / border
+            if not right_bound:
+                x[-border:] = ((np.arange(border) + 0.5) / border)[::-1]
+        return x
+
+    def _sliding_window_velocity(self, window_size, window_stride, fwd_fn,
+                                 latents, vace_context=None):
+        """Velocity over windows of `window_size` latent frames every
+        `window_stride`, blended with ramps in fp32 on the device. A window
+        whose predecessor already reaches the end is skipped; vace_context
+        is sliced with the latents (its temporal axis lines up with them)."""
+        T = latents.shape[2]
+        value = torch.zeros(latents.shape, dtype=torch.float32, device=latents.device)
+        weight = torch.zeros((1, 1, T, 1, 1), dtype=torch.float32, device=latents.device)
+        for t0 in range(0, T, window_stride):
+            if t0 - window_stride >= 0 and t0 - window_stride + window_size >= T:
+                continue
+            t1 = min(t0 + window_size, T)
+            vc_w = None if vace_context is None else vace_context[:, :, t0:t1]
+            v = fwd_fn(latents[:, :, t0:t1], vc_w).float()
+            mask = torch.from_numpy(self._temporal_ramp(
+                t1 - t0, t0 == 0, t1 == T, window_size - window_stride)
+            ).to(latents.device)[None, None, :, None, None]
+            value[:, :, t0:t1] += v * mask
+            weight[:, :, t0:t1] += mask
+        return value / weight
+
+    def _slg_gate(self, which, slg_blocks, slg_start, slg_end, i, n_steps):
+        """(num_layers,) fp32 keep-gate of step i, or None outside
+        [slg_start, slg_end) of the step progress. Block indices past the
+        stack are ignored."""
+        if not slg_blocks or not slg_start <= i / n_steps < slg_end:
+            return None
+        n_layers = self._expert(which).cfg.num_layers
+        g = np.ones((n_layers,), np.float32)
+        g[[b for b in slg_blocks if b < n_layers]] = 0.0
+        return torch.from_numpy(g).to(self.device)
 
     # ---------------- main call ----------------
 
@@ -412,10 +495,16 @@ class WanVideoPipeline:
                  seed: Optional[int] = None, height: int = 480,
                  width: int = 832, num_frames: int = 81,
                  cfg_scale: float = 5.0, cfg_merge: bool = False,
+                 switch_DiT_boundary: float = 0.875,
                  num_inference_steps: int = 50, sigma_shift: float = 5.0,
-                 tiled: bool = True,
+                 tiled: bool = True, tile_size: Tuple[int, int] = (30, 52),
+                 tile_stride: Tuple[int, int] = (15, 26),
+                 sliding_window_size: Optional[int] = None,
+                 sliding_window_stride: Optional[int] = None,
                  tea_cache_l1_thresh: Optional[float] = None,
                  tea_cache_model_id: str = "",
+                 slg_blocks: Optional[Tuple[int, ...]] = None,
+                 slg_start: float = 0.0, slg_end: float = 1.0,
                  return_latents: bool = False):
         """Frames in as a PIL list or uint8 (T, H, W, 3) arrays; out as a
         uint8 (T, H, W, 3) array, or the latents with return_latents."""
@@ -425,6 +514,7 @@ class WanVideoPipeline:
         self.scheduler.set_timesteps(num_inference_steps,
                                      denoising_strength=denoising_strength,
                                      shift=sigma_shift)
+        tiler = dict(tiled=tiled, tile_size=tile_size, tile_stride=tile_stride)
         length = (num_frames - 1) // 4 + 1
         ref_count = 0
         if vace_reference_image is not None:
@@ -440,7 +530,8 @@ class WanVideoPipeline:
 
         if input_video is not None:
             with self._stage("vae_encode_input"):
-                input_latents = self.encode_video(_preprocess_images(input_video), tiled)
+                input_latents = self.encode_video(_preprocess_images(input_video),
+                                                  **tiler)
                 if vace_reference_image is not None:
                     refs = (vace_reference_image if isinstance(vace_reference_image, list)
                             else [vace_reference_image])
@@ -458,7 +549,7 @@ class WanVideoPipeline:
         with self._stage("vae_encode"):
             vace_context = self.build_vace_context(
                 vace_video, vace_video_mask, vace_reference_image, height,
-                width, num_frames, tiled)
+                width, num_frames, **tiler)
         if vace_context is not None and self.vace is None:
             raise ValueError("VACE inputs were given but the pipeline has no "
                              "VACE model")
@@ -468,22 +559,48 @@ class WanVideoPipeline:
             tc_posi = TeaCache(num_inference_steps, tea_cache_l1_thresh, tea_cache_model_id)
             tc_nega = TeaCache(num_inference_steps, tea_cache_l1_thresh, tea_cache_model_id)
 
-        for i in range(len(self.scheduler.timesteps)):
+        which, vace = "dit", self.vace
+        n_steps = len(self.scheduler.timesteps)
+        for i in range(n_steps):
             with self._stage(f"denoise_step_{i}"):
-                timestep = torch.tensor([float(self.scheduler.timesteps[i])],
-                                        dtype=torch.float32, device=self.device)
-                v = self._velocity(latents, timestep, ctx_posi, ctx_nega,
-                                   vace_context, vace_scale, cfg_scale,
-                                   tc_posi, tc_nega, cfg_merge=cfg_merge)
-                sigma, sigma_next = self.scheduler.sigma_pair(i)
-                latents = (latents.float() + v.float() * (sigma_next - sigma)
-                           ).to(self.dtype)
+                t_host = float(self.scheduler.timesteps[i])
+                if (which == "dit" and self.dit2 is not None and t_host
+                        < switch_DiT_boundary * self.scheduler.num_train_timesteps):
+                    which = "dit2"
+                    vace = self.vace2 if self.vace2 is not None else self.vace
+                timestep = torch.tensor([t_host], dtype=torch.float32,
+                                        device=self.device)
+                slg_gate = self._slg_gate(which, slg_blocks, slg_start, slg_end,
+                                          i, n_steps)
+                if sliding_window_size is not None and sliding_window_stride is not None:
+                    def fwd(lat_w, vc_w):
+                        return self._forward_all_branches(
+                            which, vace, lat_w, timestep, ctx_posi, ctx_nega, vc_w,
+                            vace_scale, cfg_scale, None, None, cfg_merge=cfg_merge,
+                            slg_gate=slg_gate)
+                    v = self._sliding_window_velocity(
+                        sliding_window_size, sliding_window_stride, fwd, latents,
+                        vace_context=vace_context)
+                else:
+                    v = self._forward_all_branches(
+                        which, vace, latents, timestep, ctx_posi, ctx_nega,
+                        vace_context, vace_scale, cfg_scale, tc_posi, tc_nega,
+                        cfg_merge=cfg_merge, slg_gate=slg_gate)
+                if hasattr(self.scheduler, "sigma_pair"):
+                    sigma, sigma_next = self.scheduler.sigma_pair(i)
+                    latents = (latents.float() + v.float() * (sigma_next - sigma)
+                               ).to(self.dtype)
+                else:
+                    # multistep solvers (UniPC, DPM++) keep their history on
+                    # the device in fp32
+                    latents = self.scheduler.step(v.float(), t_host,
+                                                  latents.float()).to(self.dtype)
         if ref_count:
             latents = latents[:, :, ref_count:]
         if return_latents:
             return latents
         with self._stage("vae_decode"):
-            video = self.decode_video(latents, tiled)
+            video = self.decode_video(latents, **tiler)
         return self.vae_output_to_video(video)
 
     @staticmethod

@@ -311,7 +311,7 @@ def detect_vace_config(sd: Dict) -> Optional[VaceConfig]:
 # kinds `detect_model_kind` knows that the port cannot build yet, and the
 # ROADMAP Queue 1 item that ports each
 UNPORTED_KINDS = {
-    "dit2": 5, "animate": 9, "s2v": 9, "clip": 9, "motion_controller": 9,
+    "animate": 9, "s2v": 9, "clip": 9, "motion_controller": 9,
     "wav2vec": 9,
     "motion_modules": 11, "flux_dit": 11, "flux_controlnet": 11,
     "flux_ipadapter": 11, "ipadapter": 11, "flux_lora_encoder": 11,
