@@ -20,7 +20,10 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
              on the card
              at the Ditto shapes of a 73-frame 480x832 edit (29,640 tokens)
              and of this run's requests (--frames and --train-frames,
-             default 9: 4,680 tokens):
+             default 9: 4,680 tokens), and K1 cross to 257 and 769 keys
+             (I2V's image branch, FLF2V's text branch) at this run's and
+             the I2V recipe's 81-frame (32,760) query rows, K1/K4/K5 at
+             TI2V-5B's 24 heads (Dm 3072) over 5,070 tokens:
              max abs/rel error against the stated tolerance, median kernel
              time over CUDA-event timed runs (L2 flushed before each), plain
              and library times, the bound from the work and the card's
@@ -93,6 +96,11 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
              scales (3, 4): each step's expert and seconds, peak memory,
              launches (above --frames 9, running out of memory is reported,
              not raised); the request again under torch.profiler
+  i2v_reference  the FLF2V smoke recipe of `wan_video_gen` (a tiny
+             257-token CLIP tower, y, a first and an end image) on the card
+             against the same weights on the CPU
+  ti2v_reference  the TI2V smoke recipe (the first frame's latent fused
+             into the noise, a tiny Wan2.2-family VAE), card vs CPU
   e2e_quant  the trained LoRA merged, then quantize("int8",
              quantize_attention=True) and the same edit again: int8 GEMMs
              and K6 for every attention; profiled like e2e; then one step
@@ -100,6 +108,21 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
   entry_3d   the (BH, S, D) entry points driven as a caller would:
              flash_attention_3d without and with grad (K2, K2 + K3) and
              flash_attention_int8_3d (K7)
+  i2v        Wan2.1-I2V-14B-480P at full width in the VACE pipeline's
+             place (its DiT and VACE freed; umT5-XXL and the Wan2.1 VAE
+             kept): a random WAN_I2V_14B DiT and CLIP ViT-H/14 tower, the
+             --frames clip's first frame as the image, --steps steps, CFG 5
+             two-pass: stage times (clip_encode, vae_encode_image, steps,
+             decode), peak memory, K1/K4/K5 launches against 3/1/1 per
+             block and pass; profiled; then an FLF2V request (a 514-row
+             position table, the clip's last frame as the end image) and a
+             2-step dual-expert request (a second I2V expert below
+             switch_DiT_boundary, umT5 and CLIP parked on the host)
+  ti2v       Wan2.2-TI2V-5B at full width: a random WAN_TI2V_5B DiT and
+             Wan2.2 VAE, 49 frames of 480x832 (5,070 tokens), --steps
+             steps, CFG 5 two-pass, streaming encode and decode: stage and
+             step times, peak memory, launches (2/1/1 per block and pass),
+             the first latent frame bit-equal to the image's encode
 Then the `kernels` summary line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Imports nothing of JAX or of the JAX package.
 """
@@ -130,7 +153,12 @@ PEAK_BYTES = 3.35e12
 # DiT token grids (latent frames, H/16, W/16) after the (1, 2, 2) patchify
 DITTO_FRAMES = 73            # 73 frames 480x832 -> 29,640 tokens
 RUN_FRAMES = 9               # 9 frames 480x832 -> 4,680 tokens
+I2V_RECIPE_FRAMES = 81       # Wan2.1 I2V's 81 frames 480x832 -> 32,760 tokens
+TI2V_FRAMES = 49             # Wan2.2 TI2V-5B's 49 frames 480x832 (16x VAE) ->
+TI2V_GRID = (13, 15, 26)     # 13 x 15 x 26 = 5,070 tokens
 TEXT_LEN = 512
+CLIP_ROWS = 257              # the image branch's keys; FLF2V's text branch
+FLF2V_TEXT_ROWS = 512 + 257  # takes the end image's 257 rows: 769 keys
 
 
 def token_grid(frames: int):
@@ -234,17 +262,20 @@ def kernel_usage(*names):
     return {fn: u for fn, u in PTXAS.items() if any(n in fn for n in names)}
 
 
-def check_kernels(torch, grid, tag, rope_ids=None):
-    """K1 self/cross, K4, K5 at the Ditto 14B widths on this token grid
+def check_kernels(torch, grid, tag, rope_ids=None, heads: int = 40,
+                  cross_lens=(TEXT_LEN,), self_attn: bool = True, norms: bool = True):
+    """K1 self and cross (to each of `cross_lens` keys), K4 and K5 at `heads`
+    heads of 128 (the Ditto 14B width by default) on this token grid
     (rope_ids: the temporal RoPE index of each latent frame, as the editor
-    gives its joint sequence)."""
+    gives its joint sequence). self_attn/norms: whether to hold K1 self and
+    K4/K5 too."""
     import torch.nn.functional as F
     from video_styler_tpu_torch.ops import flash_attention as fa
     from video_styler_tpu_torch.ops import fused_norm_rope as fnr
     from video_styler_tpu_torch.ops.rope import assemble_freqs_grid
 
     f, h, w = grid
-    s, n, d = f * h * w, 40, 128
+    s, n, d = f * h * w, heads, 128
     dm = n * d
     gen = torch.Generator("cuda").manual_seed(0)
 
@@ -255,9 +286,10 @@ def check_kernels(torch, grid, tag, rope_ids=None):
     rows = []
     tol_ulps = TOL_ULPS
 
-    # K1: self (Sk = S) and cross (Sk = 512 text tokens)
+    # K1: self (Sk = S) and cross (Sk = 512 text tokens; 257 CLIP rows and
+    # FLF2V's 769-row text branch on the I2V path)
     q = randn(1, s, n, d)
-    for kind, sk in (("self", s), ("cross", TEXT_LEN)):
+    for kind, sk in ([("self", s)] if self_attn else []) + [("cross", c) for c in cross_lens]:
         k = randn(1, sk, n, d)
         v = randn(1, sk, n, d)
         out = fa.flash_attention(q, k, v)
@@ -287,6 +319,8 @@ def check_kernels(torch, grid, tag, rope_ids=None):
             library_ms=lib_ms, ratio_to_library=ms / lib_ms, tflops=flops / ms / 1e9,
             ptxas=kernel_usage("flash_fwd_capped_kernel"), clocks=gpu_clocks()))
         del k, v, out, want
+    if not norms:
+        return emit_rows(rows)
 
     # K4: RMSNorm + RoPE on q and k in one launch
     cos, sin = assemble_freqs_grid(d, f, h, w, rope_ids, device="cuda")
@@ -326,6 +360,11 @@ def check_kernels(torch, grid, tag, rope_ids=None):
         library_ms=time_ms(torch, lambda: F.rms_norm(xq, (dm,), wq, 1e-6), 10),
         ptxas=kernel_usage("rmsnorm_kernel"), clocks=gpu_clocks()))
     rows[-1]["ratio_to_library"] = rows[-1]["ms"] / rows[-1]["library_ms"]
+    return emit_rows(rows)
+
+
+def emit_rows(rows):
+    """Print each kernel row; raise on the first outside its tolerance."""
     for r in rows:
         emit({"phase": "kernel", **r})
         if not r["max_abs_err"] <= r["tol"]:
@@ -339,7 +378,7 @@ def card_copy(torch, cpu, cls):
     models (the same weights)."""
     from video_styler_tpu_torch.prompters.wan_prompter import WanPrompter
     gpu = cls(device="cuda")
-    for name in ("dit", "dit2", "vace", "vae"):
+    for name in ("dit", "dit2", "vace", "vae", "image_encoder"):
         m = getattr(cpu, name)
         setattr(gpu, name, None if m is None else copy.deepcopy(m).to("cuda"))
     p = cpu.prompter
@@ -1637,6 +1676,240 @@ def run_entry_3d(torch, kernels, s: int):
     return launches
 
 
+# ------------------------------------------------ image-conditioned phases
+
+def check_image_references(torch):
+    """`i2v_reference`: the FLF2V smoke recipe of `wan_video_gen` (a tiny
+    CLIP tower, y, both images); `ti2v_reference`: the TI2V smoke recipe
+    (the fused first frame on a tiny Wan2.2-family VAE). 9 frames, CFG 5
+    two-pass, 2 steps, card against CPU on the same weights."""
+    from video_styler_tpu_torch import wan_video_gen as G
+    from video_styler_tpu_torch.pipelines.wan_video import WanVideoPipeline
+    for phase, name in (("i2v_reference", "Wan2.1-FLF2V-14B-720P"),
+                        ("ti2v_reference", "Wan2.2-TI2V-5B")):
+        recipe = G.RECIPES[name]
+        cpu = G.build_smoke_pipeline(recipe, device="cpu", seed=0)
+        gpu = card_copy(torch, cpu, WanVideoPipeline)
+        h, w, _ = G.smoke_size(recipe)
+        images = G.smoke_images(recipe, h, w)
+        kw = dict(prompt="a lighthouse in a storm", negative_prompt="blurry",
+                  num_frames=9, height=h, width=w, seed=42, cfg_scale=5.0,
+                  num_inference_steps=2, tiled=True, return_latents=True, **images)
+        res, ok = check_card_against_cpu(torch, phase, cpu, gpu, lambda pipe: pipe(**kw),
+                                         recipe=name, images=sorted(images), steps=2,
+                                         cfg="two-pass 5.0")
+        emit(res)
+        if not ok:
+            raise AssertionError(f"{name} smoke, card vs CPU disagree: {res}")
+
+
+def random_module(torch, cls, cfg, init, seed: int, dtype):
+    """`cls(cfg)` on the card with random weights from `init` and a seed."""
+    with torch.device("meta"):
+        module = cls(cfg, dtype=dtype)
+    return init(module.to_empty(device="cuda"),
+                torch.Generator("cuda").manual_seed(seed)).eval()
+
+
+def gib(modules) -> float:
+    return sum(t.numel() * t.element_size() for m in modules
+               for t in list(m.parameters()) + list(m.buffers())) / 2**30
+
+
+def run_image_request(torch, pipe, kernels, phase: str, steps: int, request: dict,
+                      profile: bool = False, **extra):
+    """One request of `pipe` with every launch count set to 0 just before
+    and read just after; K1 runs per block and CFG pass once for
+    self-attention, once for the text and once more for an image branch,
+    K4 and K5 once. Returns (result, output, launches)."""
+    cfg = pipe.dit.cfg
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for kern in kernels.values():
+        kern.launches = 0
+    t0 = time.perf_counter()
+    out = pipe(**request)
+    total_s = time.perf_counter() - t0
+    launches = {name: kern.launches for name, kern in kernels.items()}
+    forwards = 2 * steps
+    expected = {"K1": (3 if cfg.has_image_input else 2) * cfg.num_layers * forwards,
+                "K4": cfg.num_layers * forwards, "K5": cfg.num_layers * forwards}
+    res = dict(phase=phase, dit_dim=cfg.dim, dit_heads=cfg.num_heads,
+               dit_layers=cfg.num_layers, frames=request["num_frames"],
+               height=request["height"], width=request["width"], steps=steps,
+               cfg="two-pass 5.0", total_s=total_s, stages=dict(pipe.stage_times),
+               step_s=step_times(pipe),
+               stage_peak_gib={k: v / 2**30 for k, v in pipe.stage_peak_bytes},
+               max_memory_allocated_gib=torch.cuda.max_memory_allocated() / 2**30,
+               output_shape=list(out.shape), launches=launches, expected_launches=expected,
+               launches_per_two_pass_step={k: v / steps for k, v in launches.items() if v},
+               **extra)
+    emit(res)
+    check_launches(launches, expected, phase)
+    if profile:
+        emit({"phase": f"{phase}_profile",
+              **profile_request(torch, lambda: pipe(**request), total_s)})
+    return res, out, launches
+
+
+def run_i2v(torch, pipe, kernels, frames: int, steps: int):
+    """Wan2.1-I2V-14B-480P at full width on the card: a random
+    `WAN_I2V_14B` DiT (seed 2) and `CLIP_VIT_H_14` tower (seed 3) beside
+    the loaded umT5-XXL and Wan2.1 VAE; the --frames 480x832 clip's first
+    frame as the image, --steps steps, CFG 5 two-pass; profiled. Then an
+    FLF2V request (a random 514-row position table, the clip's last frame
+    as the end image) and a dual-expert request of 2 steps (t = 1000 on
+    `dit`, 833 on a second I2V expert from seed 5 below switch_DiT_boundary
+    0.875; its latents, not decoded) with umT5 and CLIP parked on the host.
+    The caller has freed the VACE pipeline's DiT and VACE."""
+    import dataclasses
+    from video_styler_tpu_torch.models.clip_vit import CLIP_VIT_H_14, ClipVit, init_clip_vit_
+    from video_styler_tpu_torch.models.wan_dit import WAN_I2V_14B, WanDiT, init_weights_
+    from video_styler_tpu_torch.pipelines.wan_video import WanVideoPipeline
+    from video_styler_tpu_torch.train import HostParked
+
+    before_gib = torch.cuda.memory_allocated() / 2**30
+    ip = WanVideoPipeline(device="cuda")
+    ip.vae, ip.prompter = pipe.vae, pipe.prompter
+    t0 = time.perf_counter()
+    ip.dit = random_module(torch, WanDiT, WAN_I2V_14B, init_weights_, 2, torch.bfloat16)
+    ip.image_encoder = random_module(torch, ClipVit, CLIP_VIT_H_14, init_clip_vit_, 3,
+                                     torch.bfloat16)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    video = frames_480x832(frames)
+    base = dict(prompt="the camera slowly pushes in as the light changes",
+                negative_prompt="blurry, static", height=480, width=832, num_frames=frames,
+                seed=42, cfg_scale=5.0, num_inference_steps=steps, tiled=True)
+    path = {}
+    params_b = sum(p.numel() for p in ip.dit.parameters()) / 1e9
+    res, out, path["i2v"] = run_image_request(
+        torch, ip, kernels, "i2v", steps, dict(base, input_image=video[0]), profile=True,
+        tokens=int(math.prod(token_grid(frames))), dit_params_b=params_b,
+        dit_gib=gib([ip.dit]), clip_gib=gib([ip.image_encoder]),
+        allocated_before_build_gib=before_gib, build_s=build_s,
+        weights_on_card_gib=torch.cuda.memory_allocated() / 2**30)
+    if out.shape != (frames, 480, 832, 3):
+        raise AssertionError(f"i2v output shape {out.shape}")
+
+    # FLF2V: the same trunk with the CLIP position table of two images
+    gen = torch.Generator("cuda").manual_seed(4)
+    ip.dit.img_emb.emb_pos = torch.nn.Parameter(
+        (torch.randn((1, 2 * CLIP_ROWS, 1280), generator=gen, device="cuda")
+         / math.sqrt(1280)).to(torch.bfloat16))
+    ip.dit.cfg = dataclasses.replace(WAN_I2V_14B, has_image_pos_emb=True)
+    try:
+        _, out, _ = run_image_request(
+            torch, ip, kernels, "i2v_flf2v", steps,
+            dict(base, input_image=video[0], end_image=video[-1]),
+            text_branch_keys=FLF2V_TEXT_ROWS, image_branch_keys=CLIP_ROWS)
+    finally:
+        del ip.dit.img_emb.emb_pos
+        ip.dit.cfg = WAN_I2V_14B
+    if out.shape != (frames, 480, 832, 3):
+        raise AssertionError(f"flf2v output shape {out.shape}")
+
+    # two I2V experts resident: umT5 and CLIP wait on the host between uses
+    parked_t5 = HostParked(ip.prompter.text_encoder)
+    parked_clip = HostParked(ip.image_encoder)
+
+    def encode_prompt(prompt):
+        with parked_t5:
+            return WanVideoPipeline.encode_prompt(ip, prompt)
+
+    def encode_clip(image_np):
+        with parked_clip:
+            return WanVideoPipeline.encode_clip(ip, image_np)
+    ip.encode_prompt, ip.encode_clip = encode_prompt, encode_clip
+    experts = []
+
+    def expert(which):
+        experts.append(which)
+        return WanVideoPipeline._expert(ip, which)
+    ip._expert = expert
+    try:
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        ip.dit2 = random_module(torch, WanDiT, WAN_I2V_14B, init_weights_, 5, torch.bfloat16)
+        torch.cuda.synchronize()
+        dit2_s = time.perf_counter() - t0
+        res, out, _ = run_image_request(
+            torch, ip, kernels, "i2v_dual_expert", 2,
+            dict(base, input_image=video[0], num_inference_steps=2, return_latents=True),
+            parked_on_host=["umT5", "CLIP"], dit2_build_s=dit2_s,
+            weights_on_card_gib=torch.cuda.memory_allocated() / 2**30,
+            experts_per_forward=experts, switch_DiT_boundary=0.875,
+            timesteps=[float(t) for t in ip.scheduler.timesteps])
+        if experts != ["dit", "dit", "dit2", "dit2"] or not torch.isfinite(out.float()).all():
+            raise AssertionError(f"dual-expert I2V: experts {experts}, shape {out.shape}")
+    finally:
+        ip.dit = ip.dit2 = ip.image_encoder = None
+        parked_t5.__enter__()    # umT5 back on the card for the TI2V phase
+        del ip, parked_clip
+        gc.collect()
+        torch.cuda.empty_cache()
+    return path["i2v"]
+
+
+def run_ti2v(torch, pipe, kernels, steps: int):
+    """Wan2.2-TI2V-5B at full width: a random `WAN_TI2V_5B` DiT (seed 6)
+    and `WAN22_VAE` (seed 7, fp32) with the loaded umT5-XXL; the recipe's
+    49 frames of 480x832 (5,070 tokens), the first frame as the image,
+    `steps` steps, CFG 5 two-pass, streaming encode and decode. The image's
+    latent (the pipeline's own encode, captured) must equal the first latent
+    frame bit for bit after the loop."""
+    from video_styler_tpu_torch.models import wan_vae as V
+    from video_styler_tpu_torch.models.wan_dit import WAN_TI2V_5B, WanDiT, init_weights_
+    from video_styler_tpu_torch.pipelines.wan_video import WanVideoPipeline, _preprocess_images
+
+    tp = WanVideoPipeline(device="cuda")
+    tp.prompter = pipe.prompter
+    t0 = time.perf_counter()
+    tp.dit = random_module(torch, WanDiT, WAN_TI2V_5B, init_weights_, 6, torch.bfloat16)
+    tp.vae = random_module(torch, V.WanVAE38, V.WAN22_VAE, V.init_wan_vae_, 7, torch.float32)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    encodes = []
+
+    def encode_video(video_np, **tiler):
+        encodes.append(WanVideoPipeline.encode_video(tp, video_np, **tiler))
+        return encodes[-1]
+    tp.encode_video = encode_video
+    image = frames_480x832(TI2V_FRAMES)[0]
+    request = dict(prompt="a paper boat drifts down a rainy street",
+                   negative_prompt="blurry, static", input_image=image, height=480,
+                   width=832, num_frames=TI2V_FRAMES, seed=42, cfg_scale=5.0,
+                   num_inference_steps=steps, tiled=True, return_latents=True)
+    try:
+        res, lat, launches = run_image_request(
+            torch, tp, kernels, "ti2v", steps, request,
+            tokens=int(math.prod(TI2V_GRID)), build_s=build_s,
+            dit_params_b=sum(p.numel() for p in tp.dit.parameters()) / 1e9,
+            dit_gib=gib([tp.dit]), vae_gib=gib([tp.vae]))
+        first = encodes[0]
+        again = tp.encode_video(_preprocess_images([image]), tiled=True)
+        with tp._stage("vae_decode"):
+            frames = tp.vae_output_to_video(tp.decode_video(lat))
+        check = dict(phase="ti2v_check", latents_shape=list(lat.shape),
+                     first_frame_bit_equal_to_image_encode=bool(torch.equal(lat[:, :, :1],
+                                                                            first)),
+                     image_encode_repeats_bit_equal=bool(torch.equal(again, first)),
+                     latents_finite=bool(torch.isfinite(lat.float()).all()),
+                     decode_s=tp.stage_times[-1][1], frames_shape=list(frames.shape),
+                     max_memory_allocated_gib=torch.cuda.max_memory_allocated() / 2**30)
+        emit(check)
+        if not (check["first_frame_bit_equal_to_image_encode"] and check["latents_finite"]
+                and lat.shape == (1, 48, 13, 30, 52)
+                and frames.shape == (TI2V_FRAMES, 480, 832, 3)):
+            raise AssertionError(f"ti2v: {check}")
+        return launches
+    finally:
+        tp.dit = tp.vae = None
+        del tp, encodes
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
 KERNEL_CATEGORIES = (  # (category, substrings of the device kernel's name)
     ("K1", ("flash_fwd_capped_kernel",)),
     ("K2", ("flash_fwd_online_kernel",)),
@@ -1723,6 +1996,14 @@ def main(argv=None):
     rows = check_kernels(torch, ditto, f"ditto-{DITTO_FRAMES}f")
     if args.frames != DITTO_FRAMES:
         rows += check_kernels(torch, run, f"run-{args.frames}f")
+    # the image-conditioned path's new shapes: K1 cross to the 257 CLIP rows
+    # and to FLF2V's 769-row text branch at this run's and the I2V recipe's
+    # 32,760 query rows; TI2V-5B's 24 heads (Dm 3072) over 5,070 tokens
+    image_lens = (CLIP_ROWS, FLF2V_TEXT_ROWS)
+    for frames in sorted({args.frames, I2V_RECIPE_FRAMES}):
+        rows += check_kernels(torch, token_grid(frames), f"i2v-{frames}f",
+                              cross_lens=image_lens, self_attn=False, norms=False)
+    rows += check_kernels(torch, TI2V_GRID, f"ti2v-{TI2V_FRAMES}f", heads=24)
     torch.cuda.empty_cache()
     s_ditto = math.prod(ditto)
     s_run = math.prod(run)
@@ -1767,6 +2048,7 @@ def main(argv=None):
     check_train_reference(torch)
     check_editor_reference(torch)
     check_enhance_reference(torch)
+    check_image_references(torch)
     pipe, init_s = build_pipeline(torch)
     e2e_frames = []
     run_edit(torch, pipe, kernels, args.steps, args.frames, "e2e", {"K1": 1.0},
@@ -1813,6 +2095,13 @@ def main(argv=None):
         set_quantized_attention(False)
         del os.environ["FLASH_CAPPED"]
     launches["K7"] = run_entry_3d(torch, kernels, s_run)["K7"]
+    # the image-conditioned models in the VACE pipeline's place: its DiT and
+    # VACE go; umT5 and the Wan2.1 VAE stay
+    pipe.dit = pipe.vace = None
+    gc.collect()
+    torch.cuda.empty_cache()
+    path_launches["i2v"] = run_i2v(torch, pipe, kernels, args.frames, args.steps)
+    path_launches["ti2v"] = run_ti2v(torch, pipe, kernels, args.steps)
 
     keys = ("name", "route", "source", "replaces", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")

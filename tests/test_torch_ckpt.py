@@ -11,6 +11,7 @@ the VAE as `.pth`. Widths: DiT/VACE dim 128 with `text_dim` 4096 and
 the module-level `UMT5_XXL`/`WAN21_VAE` of both packages (their
 `from_pretrained` always builds those). Loaded weights must be bit-equal.
 """
+import dataclasses
 import os
 
 import numpy as np
@@ -19,13 +20,16 @@ import jax.numpy as jnp
 import pytest
 import torch
 
+import video_styler_tpu.models.clip_vit as JCLIP
 import video_styler_tpu.models.t5 as JT
+import video_styler_tpu.models.wan_dit as JD
 import video_styler_tpu.models.wan_vae as JVAE
 import video_styler_tpu.pipelines.wan_video as JW
 from video_styler_tpu.prompters.wan_prompter import WanPrompter as JPrompter
 from video_styler_tpu.utils import ckpt as JC
 from video_styler_tpu.utils.model_config import ModelConfig as JModelConfig
 
+import video_styler_tpu_torch.models.clip_vit as TCLIP
 import video_styler_tpu_torch.models.t5 as TT
 import video_styler_tpu_torch.models.wan_dit as TD
 import video_styler_tpu_torch.models.wan_vace as TV
@@ -211,16 +215,67 @@ def test_detect_configs_match_jax(case):
         assert vace == want_vace
 
 
-def test_detect_unported_dit_raises():
-    """The JAX detector reports an I2V (image input) or TI2V DiT; the port
-    has no such fields and refuses the file."""
-    i2v = _wan_keys(5120, 13824, 2, 0, in_dim=36)
-    i2v["blocks.0.cross_attn.k_img.weight"] = _Shape(5120, 5120)
-    ti2v = _wan_keys(3072, 14336, 2, 0, in_dim=48, out_dim=48)
-    for sd, field in ((i2v, "has_image_input"), (ti2v, "seperated_timestep")):
-        assert getattr(JC.detect_wan_dit_config(sd), field)
-        with pytest.raises(NotImplementedError, match="not ported"):
+def _image_dit_keys(case):
+    if case == "ti2v":
+        return _wan_keys(3072, 14336, 2, 0, in_dim=48, out_dim=48)
+    sd = _wan_keys(5120, 13824, 2, 0, in_dim=36)
+    if case in ("i2v", "flf2v", "ref_conv"):
+        sd["blocks.0.cross_attn.k_img.weight"] = _Shape(5120, 5120)
+    if case == "flf2v":
+        sd["img_emb.emb_pos"] = _Shape(1, 514, 1280)
+    if case == "ref_conv":
+        sd["ref_conv.weight"] = _Shape(5120, 16, 2, 2)
+    return sd
+
+
+@pytest.mark.parametrize("case", ["i2v", "flf2v", "ti2v", "ref_conv"])
+def test_detect_unported_dit_raises(case):
+    """I2V (image input), FLF2V (and its CLIP position table) and TI2V
+    (separated timestep, fused first frame) DiTs are detected as the JAX
+    detector detects them; a Fun DiT with a reference conv, which the port
+    does not build, still raises."""
+    sd = _image_dit_keys(case)
+    jcfg = JC.detect_wan_dit_config(sd)
+    if case == "ref_conv":
+        assert jcfg.has_ref_conv
+        with pytest.raises(NotImplementedError, match="not ported.*Queue 1 item 9"):
             TC.detect_wan_dit_config(sd)
+        return
+    cfg = TC.detect_wan_dit_config(sd)
+    assert cfg == _port_cfg(TD.WanDiTConfig, jcfg)
+    want = {"i2v": TD.WAN_I2V_14B, "ti2v": TD.WAN_TI2V_5B,
+            "flf2v": dataclasses.replace(TD.WAN_I2V_14B, has_image_pos_emb=True)}[case]
+    assert cfg == dataclasses.replace(want, num_layers=2)
+
+
+def test_wan22_i2v_detection_fault_is_mirrored(tmp_path):
+    """A Wan2.2-I2V-A14B expert has 36 input channels but no `k_img` (no
+    CLIP branch): both detectors give has_image_input=False, so both
+    pipelines build no y for an input image and 16 latent channels meet
+    the 36-channel patch embedding (ROADMAP Queue 3). At smoke size: a DiT
+    taking 2z + 4 channels without image input, given an image."""
+    sd = _wan_keys(5120, 13824, 2, 0, in_dim=36)
+    for detect in (JC.detect_wan_dit_config, TC.detect_wan_dit_config):
+        cfg = detect(sd)
+        assert cfg.in_dim == 36 and not cfg.has_image_input and cfg.require_vae_embedding
+    from test_torch_pipeline import DIT as SMOKE_DIT, _pipelines, _tree
+    jp, tp = _pipelines(jnp.float32, torch.float32)
+    jp.vace_cfg = jp.vace_params = None
+    tp.vace = None
+    jp.dit_cfg = JD.WanDiTConfig(**dict(SMOKE_DIT, in_dim=12))
+    jp.dit_params = JD.init_wan_dit(jax.random.PRNGKey(0), jp.dit_cfg)
+    tp.dit = from_jax_params("dit", _tree(jp.dit_params),
+                             TD.WanDiTConfig(**dict(SMOKE_DIT, in_dim=12)), device="cpu")
+    from PIL import Image
+    image = Image.fromarray(np.full((32, 32, 3), 128, np.uint8))
+    kw = dict(prompt="x", input_image=image, num_frames=5, height=32, width=32, seed=1,
+              num_inference_steps=1, cfg_scale=1.0, return_latents=True)
+    assert jp.build_image_conditioning(image, None, 5, 32, 32, False, None, None) == (None,
+                                                                                      None)
+    with pytest.raises(TypeError, match="dot_general"):
+        jp(**kw)
+    with pytest.raises(RuntimeError, match="shapes cannot be multiplied"):
+        tp(**kw)
 
 
 # ---------------------------------------------------------------- loading
@@ -279,6 +334,108 @@ def test_load_model_matches_from_pretrained(tmp_path, monkeypatch):
     _assert_bit_equal(out["vace"], tp.vace)
     _assert_bit_equal(vae["vae"], tp.vae)
     _assert_bit_equal(t5, tp.prompter.text_encoder)
+
+
+CLIP_FILE = dict(image_size=28, patch_size=14, dim=64, num_heads=2, num_layers=32)
+VAE38_FILE = dict(dim=16, dec_dim=16, z_dim=48, num_res_blocks=1,
+                  latent_mean=(0.0,) * 48, latent_std=(1.0,) * 48)
+FLF2V_FILE = dict(DIT, in_dim=36, has_image_input=True, has_image_pos_emb=True)
+
+
+def _image_files(folder, file_dtype=torch.bfloat16, seed=10):
+    """An FLF2V DiT (k_img, v_img, norm_k_img, img_emb with emb_pos) as two
+    safetensors shards, a CLIP `.pth` (`visual.*` keys; 32 blocks, as the
+    JAX converter reads ViT-H/14's count, 64 wide) and a Wan2.2 VAE `.pth`
+    (z 48, so its top conv1 has 96 rows; 16 wide), under the reference's
+    names. Returns (shard paths, clip path, vae path)."""
+    with torch.device("meta"):
+        names = export_wan_dit(TD.WanDiT(TD.WanDiTConfig(**FLF2V_FILE)))
+        clip_names = TCLIP.export_clip_vit(TCLIP.ClipVit(TCLIP.ClipVitConfig(**CLIP_FILE)))
+        vae_names = export_wan_vae(TVAE.WanVAE38(TVAE.WanVAE38Config(**VAE38_FILE)))
+    sd = _random_like(names, seed, file_dtype)
+    keys = sorted(sd)
+    shards = []
+    for i, part in enumerate((keys[::2], keys[1::2])):
+        path = os.path.join(folder, f"diffusion_pytorch_model-0000{i + 1}-of-00002.safetensors")
+        safetensors_io.save_file({k: sd[k] for k in part}, path)
+        shards.append(path)
+    clip_path = os.path.join(folder, "models_clip_open-clip-xlm-roberta-large-vit-huge-14.pth")
+    torch.save(_random_like(clip_names, seed + 1, file_dtype), clip_path)
+    vae_path = os.path.join(folder, "Wan2.2_VAE.pth")
+    torch.save(_random_like(vae_names, seed + 2, torch.float32), vae_path)
+    return shards, clip_path, vae_path
+
+
+@pytest.mark.parametrize("case", list(LOAD_CASES))
+def test_image_files_from_pretrained_match_jax(case, tmp_path, small_t5_vae, monkeypatch):
+    """FLF2V DiT shards, a CLIP `.pth` and a Wan2.2 VAE `.pth` through both
+    packages' `from_pretrained` (and the port's `load_model`): the port's
+    modules are bit-equal to `from_jax_params` of the JAX converters'
+    output. The JAX pipeline keeps its Wan2.1 VAE config for the Wan2.2
+    file (ROADMAP Queue 3); the port builds a `WanVAE38`."""
+    monkeypatch.setattr(TCLIP, "CLIP_VIT_H_14", TCLIP.ClipVitConfig(**CLIP_FILE))
+    monkeypatch.setattr(JCLIP, "CLIP_VIT_H_14", JCLIP.ClipVitConfig(**CLIP_FILE))
+    monkeypatch.setattr(TVAE, "WAN22_VAE", TVAE.WanVAE38Config(**VAE38_FILE))
+    file_dtype, dtype = LOAD_CASES[case]
+    shards, clip_path, vae_path = _image_files(str(tmp_path), TORCH[file_dtype])
+    jp = JW.WanVideoPipeline.from_pretrained(
+        [JModelConfig(path=shards), JModelConfig(path=clip_path), JModelConfig(path=vae_path)],
+        dtype=JAXD[dtype])
+    tp = TW.WanVideoPipeline.from_pretrained(
+        [ModelConfig(path=shards), ModelConfig(path=clip_path), ModelConfig(path=vae_path)],
+        device="cpu", dtype=TORCH[dtype])
+
+    assert tp.dit.cfg == _port_cfg(TD.WanDiTConfig, jp.dit_cfg) == TD.WanDiTConfig(**FLF2V_FILE)
+    _assert_bit_equal(tp.dit, from_jax_params("dit", _np(jp.dit_params), tp.dit.cfg,
+                                              device="cpu"))
+    clip_cfg = TCLIP.ClipVitConfig(**CLIP_FILE)
+    _assert_bit_equal(tp.image_encoder, from_jax_params(
+        "clip", _np(jp.image_encoder_params), clip_cfg, device="cpu"))
+    vae_cfg = TVAE.WanVAE38Config(**VAE38_FILE)
+    _assert_bit_equal(tp.vae, from_jax_params("vae", _np(jp.vae_params), vae_cfg,
+                                              device="cpu"))
+    assert isinstance(tp.vae, TVAE.WanVAE38) and tp.vae.cfg == vae_cfg
+    assert jp.vae_cfg == JVAE.WAN21_VAE
+    assert tp.dit.img_emb.emb_pos.dtype == TORCH[dtype]
+    assert tp.image_encoder.blocks[0].to_qkv.weight.dtype == TORCH[dtype]
+    assert tp.vae.conv1.weight.dtype == torch.float32
+
+    kind, clip = TC.load_model(clip_path, device="cpu", dtype=TORCH[dtype])
+    assert kind == "clip"
+    _assert_bit_equal(clip, tp.image_encoder)
+    kind, vae = TC.load_model(vae_path, device="cpu")
+    assert kind == "vae" and vae["vae_cfg"] == vae_cfg
+    _assert_bit_equal(vae["vae"], tp.vae)
+    kind, dit = TC.load_model(shards, device="cpu", dtype=TORCH[dtype])
+    assert kind == "dit" and dit["dit_cfg"] == tp.dit.cfg
+    _assert_bit_equal(dit["dit"], tp.dit)
+
+
+def test_release_files_of_an_flf2v_pipeline_load_back(tmp_path, small_t5_vae, monkeypatch):
+    """`save_release_files` of an FLF2V pipeline (no VACE; a CLIP tower):
+    DiT shards with the image keys and the position table, umT5, the VAE
+    and the CLIP `.pth`, read back by `from_pretrained` bit-equal, module by
+    module."""
+    from video_styler_tpu_torch.prompters.wan_prompter import StubTokenizer
+    from video_styler_tpu_torch.utils.convert import save_release_files
+    clip_cfg = TCLIP.ClipVitConfig(**dict(CLIP_FILE, num_layers=2))
+    monkeypatch.setattr(TCLIP, "CLIP_VIT_H_14", clip_cfg)
+    pipe = TW.WanVideoPipeline.from_configs(
+        TD.WanDiTConfig(**FLF2V_FILE), None, TT.T5Config(**T5), TVAE.WanVAEConfig(**VAE),
+        StubTokenizer(16), 16, seed=0, device="cpu", clip_cfg=clip_cfg)
+    with torch.no_grad():
+        pipe.dit.img_emb.emb_pos.normal_()   # zero at init: make it count
+    paths = save_release_files(pipe, str(tmp_path), n_shards=3)
+    assert len(paths["dit"]) == 3 and os.path.basename(paths["vae"]) == "Wan2.1_VAE.pth"
+    groups = [paths["dit"], [paths["vae"]], [paths["t5"]], [paths["clip"]]]
+    kinds = [TC.detect_model_kind(TC.load_state_dict_files(g, lazy=True)) for g in groups]
+    assert kinds == ["dit", "vae", "t5", "clip"]
+    back = TW.WanVideoPipeline.from_pretrained([ModelConfig(path=g) for g in groups],
+                                               device="cpu")
+    assert back.dit.cfg == pipe.dit.cfg
+    for name in ("dit", "vae", "image_encoder"):
+        _assert_bit_equal(getattr(back, name), getattr(pipe, name))
+    _assert_bit_equal(back.prompter.text_encoder, pipe.prompter.text_encoder)
 
 
 def test_safetensors_and_pth_load_identically(tmp_path):
@@ -349,8 +506,7 @@ def test_unported_kinds_raise(tmp_path):
     with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
         TC.load_model(path, device="cpu")
     tp = TW.WanVideoPipeline(device="cpu")
-    for kind, item in (("clip", 9), ("animate", 9), ("s2v", 9),
-                       ("motion_controller", 9)):
+    for kind, item in (("animate", 9), ("s2v", 9), ("motion_controller", 9)):
         with pytest.raises(NotImplementedError, match=f"Queue 1 item {item}"):
             tp._attach(kind, {})
     with pytest.raises(ValueError, match="unknown model kind"):
@@ -358,7 +514,7 @@ def test_unported_kinds_raise(tmp_path):
     shards, _, _ = _reference_files(str(tmp_path))
     with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
         TW.WanVideoPipeline.from_pretrained(
-            [ModelConfig(path=shards, model_kind="clip")], device="cpu")
+            [ModelConfig(path=shards, model_kind="animate")], device="cpu")
 
 
 def test_model_config_resolves_locally(tmp_path, monkeypatch):

@@ -110,6 +110,54 @@ def test_k4_editor_rope_ids(gen):
     _assert_close(ok, pk)
 
 
+@pytest.mark.parametrize("sq,sk", [(4680, 257), (4680, 769), (32760, 257), (32760, 769)])
+def test_k1_image_cross_lengths(gen, sq, sk):
+    """K1 on the I2V path's cross-attention: 257 CLIP rows (the image
+    branch) and FLF2V's 769-row text branch (512 text + the end image's 257
+    CLIP rows), key tails that are not a multiple of 128, at the 9-frame and
+    the 81-frame (32,760-token) 480x832 query rows, 40 heads; the image
+    branch's keys are a slice of a (B, 514, D) context, read through its
+    strides."""
+    q = _randn(gen, 1, sq, 40, 128)
+    ctx = _randn(gen, 1, max(sk, 514), 40, 128)
+    k, v = ctx[:, :sk], _randn(gen, 1, sk, 40, 128)
+    before = fa.KERNEL.launches
+    out = fa.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert fa.KERNEL.launches == before + 1
+    rows = torch.cat([torch.arange(0, 1024), torch.arange(sq - 1024, sq)]).cuda()
+    _assert_close(out[:, rows], fa.flash_attention_plain(q[:, rows], k, v))
+
+
+def test_k1_k4_k5_ti2v_width(gen):
+    """TI2V-5B's width: 24 heads of 128 (Dm 3072: 12 chunks of 16 bytes a
+    lane, K5's 16-chunk instantiation) over its 5,070 tokens (13 x 15 x 26,
+    not a multiple of 128): K4 on q and k, K5, and K1 self and cross."""
+    f, h, w, n = 13, 15, 26, 24
+    s = f * h * w
+    xq, xk = _randn(gen, 1, s, n * 128), _randn(gen, 1, s, n * 128, scale=0.7)
+    wq = (1 + 0.1 * torch.randn(n * 128, generator=gen, device="cuda")).to(torch.bfloat16)
+    wk = (1 + 0.1 * torch.randn(n * 128, generator=gen, device="cuda")).to(torch.bfloat16)
+    cos, sin = assemble_freqs_grid(128, f, h, w, device="cuda")
+    before = (fnr.ROPE_KERNEL.launches, fnr.RMS_KERNEL.launches, fa.KERNEL.launches)
+    oq, ok = fnr.fused_rmsnorm_rope(xq, xk, wq, wk, cos, sin)
+    o5 = fnr.fused_rmsnorm(xq, wq)
+    v = _randn(gen, 1, s, n, 128)
+    o1 = fa.flash_attention(oq, ok, v)
+    ctx = _randn(gen, 1, 512, n, 128)
+    o1x = fa.flash_attention(oq, ctx, ctx)
+    torch.cuda.synchronize()
+    assert (fnr.ROPE_KERNEL.launches, fnr.RMS_KERNEL.launches, fa.KERNEL.launches) == (
+        before[0] + 1, before[1] + 1, before[2] + 2)
+    pq, pk = fnr.fused_rmsnorm_rope_plain(xq, xk, wq, wk, cos, sin)
+    _assert_close(oq, pq)
+    _assert_close(ok, pk)
+    _assert_close(o5, fnr.fused_rmsnorm_plain(xq, wq))
+    rows = torch.cat([torch.arange(0, 1024), torch.arange(s - 1024, s)]).cuda()
+    _assert_close(o1[:, rows], fa.flash_attention_plain(oq[:, rows], ok, v))
+    _assert_close(o1x[:, rows], fa.flash_attention_plain(oq[:, rows], ctx, ctx))
+
+
 @pytest.mark.parametrize("rows", [29640, 4680, 4681])
 def test_k5_ditto_rows(gen, rows):
     """K5 at the Ditto width (Dm = 5120: 20 chunks of 16 bytes a lane) on

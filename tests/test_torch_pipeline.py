@@ -177,7 +177,8 @@ def test_port_imports_no_jax():
         "import video_styler_tpu_torch as p\n"
         "names = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.')]\n"
         "for n in names: importlib.import_module(n)\n"
-        "for cli in ('infer_ditto', 'train', 'step2_video_editing', 'enhance_video'):\n"
+        "for cli in ('infer_ditto', 'train', 'step2_video_editing', 'enhance_video',\n"
+        "            'wan_video_gen'):\n"
         "    assert 'video_styler_tpu_torch.' + cli in sys.modules, cli\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'video_styler_tpu' or m.startswith('video_styler_tpu.'))\n"
@@ -186,7 +187,7 @@ def test_port_imports_no_jax():
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 46
+    assert int(out.stdout.strip()) >= 48
 
 
 def test_entry_points_refuse_cpu_unless_asked(tmp_path):

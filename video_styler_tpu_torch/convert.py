@@ -7,7 +7,9 @@ and returns the port's module for `kind`:
   "dit"  -> models.wan_dit.WanDiT       (cfg: WanDiTConfig)
   "vace" -> models.wan_vace.WanVace     (cfg: VaceConfig)
   "t5"   -> models.t5.T5Encoder         (cfg: T5Config)
-  "vae"  -> models.wan_vae.WanVAE       (cfg: WanVAEConfig)
+  "vae"  -> models.wan_vae.WanVAE       (cfg: WanVAEConfig), or
+            models.wan_vae.WanVAE38     (cfg: WanVAE38Config, the Wan2.2 VAE)
+  "clip" -> models.clip_vit.ClipVit     (cfg: ClipVitConfig)
 
 `from_jax_lora(lora)` turns a JAX LoRA pytree (`trainers.lora_train
 .init_lora`: {path: {"A": (L, in, r), "B": (L, r, out)}}, stacked over
@@ -16,7 +18,8 @@ blocks) into the port's per-block factors in torch layout.
 The layouts that differ: JAX linears store `w` as (in, out) and
 `nn.Linear` stores `weight` as (out, in); the stacked `blocks` (and VACE
 `after_proj`) trees carry a leading layer axis that becomes the index of an
-`nn.ModuleList`. VAE conv weights are already OIDHW and keep their names.
+`nn.ModuleList` (the CLIP tower's `blocks` are a dict keyed by index, the
+same names). VAE conv weights are already OIDHW and keep their names.
 bfloat16 and float8_e4m3fn leaves (ml_dtypes) keep their bits.
 
 A tree quantised by the JAX package's `quantize_params` (linear leaves
@@ -32,13 +35,15 @@ import numpy as np
 import torch
 
 from .device import resolve_device
+from .models.clip_vit import ClipVit
 from .models.t5 import T5Encoder
 from .models.wan_dit import WanDiT
 from .models.wan_vace import WanVace
-from .models.wan_vae import WanVAE
+from .models.wan_vae import WanVAE, WanVAE38, WanVAE38Config
 from .ops.quant import QuantLinear
 
-_MODULES = {"dit": WanDiT, "vace": WanVace, "t5": T5Encoder, "vae": WanVAE}
+_MODULES = {"dit": WanDiT, "vace": WanVace, "t5": T5Encoder, "vae": WanVAE,
+            "clip": ClipVit}
 _STACKED = ("blocks", "after_proj")
 
 
@@ -103,8 +108,9 @@ def from_jax_params(kind: str, tree, cfg, device=None) -> torch.nn.Module:
     if kind not in _MODULES:
         raise ValueError(f"unknown model kind {kind!r}; one of {sorted(_MODULES)}")
     sd = jax_tree_to_state_dict(tree, stacked=kind in ("dit", "vace"))
+    cls = WanVAE38 if isinstance(cfg, WanVAE38Config) else _MODULES[kind]
     with torch.device("meta"):
-        module = _MODULES[kind](cfg)
+        module = cls(cfg)
     _swap_in_quant_linears(module, sd)
     module.load_state_dict(sd, strict=True, assign=True)
     return module.to(device).eval()

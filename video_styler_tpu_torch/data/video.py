@@ -1,6 +1,7 @@
-"""Video IO for the CLI: lazy frame reading with center crop + resize, and
-an mp4 writer. Frames are uint8 (H, W, 3) numpy arrays. `imageio`, `cv2`
-and PIL are imported only when a file is read or written.
+"""Video IO for the CLI: lazy frame reading with center crop + resize, one
+image read whole, and an mp4 writer. Frames are uint8 (H, W, 3) numpy
+arrays. `imageio`, `cv2` and PIL are imported only when a file is read or
+written.
 """
 from __future__ import annotations
 
@@ -20,6 +21,14 @@ def crop_and_resize(frame: np.ndarray, height: int, width: int) -> np.ndarray:
     left = (w2 - width) // 2
     top = (h2 - height) // 2
     return np.asarray(image.crop((left, top, left + width, top + height)).convert("RGB"))
+
+
+def read_image(path: str) -> np.ndarray:
+    """One image file as uint8 (H, W, 3) RGB, at its own size (the pipeline
+    resizes it, as the JAX CLIs pass `Image.open(path).convert("RGB")`)."""
+    from PIL import Image
+    with Image.open(path) as image:
+        return np.asarray(image.convert("RGB"))
 
 
 class VideoData:

@@ -47,14 +47,39 @@ class WanDiTConfig:
     freq_dim: int = 256
     eps: float = 1e-6
     patch_size: Tuple[int, int, int] = (1, 2, 2)
+    has_image_input: bool = False
+    has_image_pos_emb: bool = False
+    # a Fun reference-conv DiT: detected, not built (utils.ckpt raises)
+    has_ref_conv: bool = False
+    seperated_timestep: bool = False
+    require_vae_embedding: bool = True
+    fuse_vae_embedding_in_latents: bool = False
 
     @property
     def head_dim(self) -> int:
         return self.dim // self.num_heads
 
+    @property
+    def require_clip_embedding(self) -> bool:
+        """Whether the DiT takes CLIP rows: exactly where it has the image
+        branch. (The JAX config keeps a field that defaults to True and that
+        its detector sets to `has_image_input and not seperated_timestep`:
+        the same value wherever the image branch exists; a T2V DiT never
+        receives CLIP features in either package.)"""
+        return self.has_image_input
+
 
 WAN_T2V_14B = WanDiTConfig(dim=5120, in_dim=16, ffn_dim=13824, out_dim=16,
                            num_heads=40, num_layers=40)
+WAN_I2V_14B = WanDiTConfig(dim=5120, in_dim=36, ffn_dim=13824, out_dim=16,
+                           num_heads=40, num_layers=40, has_image_input=True)
+WAN_TI2V_5B = WanDiTConfig(dim=3072, in_dim=48, ffn_dim=14336, out_dim=48,
+                           num_heads=24, num_layers=30, seperated_timestep=True,
+                           require_vae_embedding=False, fuse_vae_embedding_in_latents=True)
+# CLIP ViT-H/14 features: 257 rows (the class token and 16 x 16 patches)
+# of 1280; FLF2V's two images give 514
+CLIP_TOKENS = 257
+CLIP_DIM = 1280
 
 
 # --------------------------------------------------------------------------
@@ -83,7 +108,7 @@ class LayerNormAffine(nn.Module):
 
 
 class Attention(nn.Module):
-    def __init__(self, dim: int, device=None, dtype=None):
+    def __init__(self, dim: int, cross_image: bool = False, device=None, dtype=None):
         super().__init__()
         kw = dict(device=device, dtype=dtype)
         self.q = Linear(dim, dim, **kw)
@@ -92,6 +117,10 @@ class Attention(nn.Module):
         self.o = Linear(dim, dim, **kw)
         self.norm_q = RMSNorm(dim, **kw)
         self.norm_k = RMSNorm(dim, **kw)
+        if cross_image:
+            self.k_img = Linear(dim, dim, **kw)
+            self.v_img = Linear(dim, dim, **kw)
+            self.norm_k_img = RMSNorm(dim, **kw)
 
 
 class FFN(nn.Module):
@@ -110,7 +139,7 @@ class DiTBlock(nn.Module):
         kw = dict(device=device, dtype=dtype)
         self.cfg = cfg
         self.self_attn = Attention(cfg.dim, **kw)
-        self.cross_attn = Attention(cfg.dim, **kw)
+        self.cross_attn = Attention(cfg.dim, cross_image=cfg.has_image_input, **kw)
         self.norm3 = LayerNormAffine(cfg.dim, **kw)
         self.ffn = FFN(cfg.dim, cfg.ffn_dim, **kw)
         self.modulation = nn.Parameter(torch.empty(1, 6, cfg.dim, **kw))
@@ -128,6 +157,22 @@ class TimeEmbedding(nn.Module):
         super().__init__()
         self.fc1 = Linear(cfg.freq_dim, cfg.dim, device=device, dtype=dtype)
         self.fc2 = Linear(cfg.dim, cfg.dim, device=device, dtype=dtype)
+
+
+class ImageEmbedding(nn.Module):
+    """The CLIP feature MLP (`img_emb`): LayerNorm, Linear, exact GELU,
+    Linear to the DiT width, LayerNorm; FLF2V adds a (1, 514, 1280)
+    position table to its two images' features first."""
+
+    def __init__(self, cfg: WanDiTConfig, device=None, dtype=None):
+        super().__init__()
+        kw = dict(device=device, dtype=dtype)
+        self.norm_in = LayerNormAffine(CLIP_DIM, **kw)
+        self.fc1 = Linear(CLIP_DIM, CLIP_DIM, **kw)
+        self.fc2 = Linear(CLIP_DIM, cfg.dim, **kw)
+        self.norm_out = LayerNormAffine(cfg.dim, **kw)
+        if cfg.has_image_pos_emb:
+            self.emb_pos = nn.Parameter(torch.zeros(1, 2 * CLIP_TOKENS, CLIP_DIM, **kw))
 
 
 class Head(nn.Module):
@@ -155,13 +200,15 @@ class WanDiT(nn.Module):
         self.head = Head(cfg, **kw)
         self.blocks = nn.ModuleList(DiTBlock(cfg, **kw)
                                     for _ in range(cfg.num_layers))
+        if cfg.has_image_input:
+            self.img_emb = ImageEmbedding(cfg, **kw)
 
 
 @torch.no_grad()
 def init_weights_(module: nn.Module, generator: torch.Generator) -> nn.Module:
     """Random init with the JAX package's std: linear weights N(0, 1/in),
-    biases 0, norm scales 1, modulation tables N(0, 1/dim), other free
-    parameters (embedding tables) N(0, 1)."""
+    biases 0, norm scales 1, modulation tables N(0, 1/dim), FLF2V's image
+    position table 0."""
     for m in module.modules():
         if isinstance(m, nn.Linear):
             m.weight.normal_(0.0, 1.0 / math.sqrt(m.in_features),
@@ -175,6 +222,8 @@ def init_weights_(module: nn.Module, generator: torch.Generator) -> nn.Module:
         elif isinstance(m, (DiTBlock, Head)):
             m.modulation.normal_(0.0, 1.0 / math.sqrt(m.modulation.shape[-1]),
                                  generator=generator)
+        elif isinstance(m, ImageEmbedding) and hasattr(m, "emb_pos"):
+            m.emb_pos.zero_()
     return module
 
 
@@ -183,9 +232,13 @@ def init_weights_(module: nn.Module, generator: torch.Generator) -> nn.Module:
 # --------------------------------------------------------------------------
 
 def _split_mod(modulation, t_mod, n: int) -> List[torch.Tensor]:
-    """(1, n, D) table + (B, n, D) t_mod -> n terms of shape (B, 1, D)."""
-    mod = modulation.to(t_mod.dtype) + t_mod
-    return [mod[:, i][:, None, :] for i in range(n)]
+    """(1, n, D) table + t_mod -> n terms: (B, 1, D) each from a per-batch
+    (B, n, D) t_mod, (B, S, D) each from a per-token (B, S, n, D) one."""
+    if t_mod.dim() == 3:
+        mod = modulation.to(t_mod.dtype) + t_mod
+        return [mod[:, i][:, None, :] for i in range(n)]
+    mod = modulation[:, None].to(t_mod.dtype) + t_mod
+    return [mod[:, :, i] for i in range(n)]
 
 
 def self_attention(p: Attention, x, cos, sin, num_heads: int,
@@ -210,16 +263,25 @@ def self_attention(p: Attention, x, cos, sin, num_heads: int,
     return p.o(out.reshape(b, s, d))
 
 
-def cross_attention(p: Attention, x, y, num_heads: int, eps: float = 1e-6):
+def cross_attention(p: Attention, x, y, num_heads: int, eps: float = 1e-6,
+                    has_image_input: bool = False):
+    """Cross-attention to the context y. With image input, y's first 257
+    rows are CLIP slots attended through k_img/v_img with the same q; the
+    rest (the text, and FLF2V's end-image rows) take the text branch."""
     b, s, d = x.shape
     hd = d // num_heads
-    q = fused_rmsnorm(p.q(x), p.norm_q.scale, eps)
-    k = rms_norm(p.k(y), p.norm_k.scale, eps)
-    v = p.v(y)
-    out = attention(q.view(b, s, num_heads, hd),
-                    k.view(b, y.shape[1], num_heads, hd),
-                    v.view(b, y.shape[1], num_heads, hd))
-    return p.o(out.reshape(b, s, d))
+    img, ctx = (y[:, :CLIP_TOKENS], y[:, CLIP_TOKENS:]) if has_image_input else (None, y)
+    q = fused_rmsnorm(p.q(x), p.norm_q.scale, eps).view(b, s, num_heads, hd)
+    k = rms_norm(p.k(ctx), p.norm_k.scale, eps)
+    v = p.v(ctx)
+    out = attention(q, k.view(b, ctx.shape[1], num_heads, hd),
+                    v.view(b, ctx.shape[1], num_heads, hd)).reshape(b, s, d)
+    if has_image_input:
+        k_img = rms_norm(p.k_img(img), p.norm_k_img.scale, eps)
+        v_img = p.v_img(img)
+        out = out + attention(q, k_img.view(b, img.shape[1], num_heads, hd),
+                              v_img.view(b, img.shape[1], num_heads, hd)).reshape(b, s, d)
+    return p.o(out)
 
 
 def dit_block(p: DiTBlock, x, context, t_mod, cos, sin, cfg: WanDiTConfig):
@@ -230,7 +292,7 @@ def dit_block(p: DiTBlock, x, context, t_mod, cos, sin, cfg: WanDiTConfig):
                                       cfg.num_heads, cfg.eps)
     x = x + cross_attention(p.cross_attn,
                             layer_norm(x, p.norm3.scale, p.norm3.bias, cfg.eps),
-                            context, cfg.num_heads, cfg.eps)
+                            context, cfg.num_heads, cfg.eps, cfg.has_image_input)
     h = modulate(layer_norm(x, eps=cfg.eps), shift_mlp, scale_mlp)
     return x + gate_mlp * p.ffn(h)
 
@@ -296,7 +358,8 @@ def unpatchify(x, grid: Tuple[int, int, int], patch_size: Tuple[int, int, int],
 
 
 def time_embed(model: WanDiT, timestep):
-    """timestep (B,) -> (t, t_mod (B, 6, dim))."""
+    """timestep (B,) -> (t (B, dim), t_mod (B, 6, dim)); a per-token (B, S)
+    timestep -> (B, S, dim) and (B, S, 6, dim)."""
     cfg = model.cfg
     emb = sinusoidal_embedding_1d(cfg.freq_dim, timestep.float())
     te = model.time_embedding
@@ -311,23 +374,53 @@ def text_embed(model: WanDiT, context):
     return p.fc2(gelu_tanh(p.fc1(context)))
 
 
+def img_embed(model: WanDiT, clip_feature):
+    """(B, 257 or 514, 1280) CLIP features -> (B, same, dim) context rows;
+    LayerNorms of eps 1e-5 and exact GELU in fp32."""
+    p = model.img_emb
+    x = clip_feature
+    if hasattr(p, "emb_pos"):
+        x = x + p.emb_pos.to(x.dtype)
+    x = p.fc1(layer_norm(x, p.norm_in.scale, p.norm_in.bias, eps=1e-5))
+    x = p.fc2(torch.nn.functional.gelu(x.float()).to(x.dtype))
+    return layer_norm(x, p.norm_out.scale, p.norm_out.bias, eps=1e-5)
+
+
 def head(model: WanDiT, x, t):
+    """Modulated output head; t (B, dim), or (B, S, dim) per token."""
     p = model.head
-    mod = p.modulation.to(t.dtype) + t[:, None, :]
-    shift, scale = mod[:, 0][:, None, :], mod[:, 1][:, None, :]
+    if t.dim() == 3:
+        mod = p.modulation[:, None].to(t.dtype) + t[:, :, None]
+        shift, scale = mod[:, :, 0], mod[:, :, 1]
+    else:
+        mod = p.modulation.to(t.dtype) + t[:, None, :]
+        shift, scale = mod[:, 0][:, None, :], mod[:, 1][:, None, :]
     x = layer_norm(x, eps=model.cfg.eps) * (1 + scale) + shift
     return p.head(x)
+
+
+def image_inputs(model: WanDiT, x, context, clip_feature=None, y=None):
+    """The image conditioning as the JAX pipeline applies it: y joins the
+    latents' channels where the DiT takes a VAE embedding, the CLIP rows
+    go in front of the (embedded) text context where it takes a CLIP one."""
+    cfg = model.cfg
+    if y is not None and cfg.require_vae_embedding:
+        x = torch.cat([x, y.to(x.dtype)], dim=1)
+    if clip_feature is not None and cfg.require_clip_embedding:
+        context = torch.cat([img_embed(model, clip_feature), context], dim=1)
+    return x, context
 
 
 def wan_dit_forward_with_residual(model: WanDiT, x, timestep, context,
                                   rope_indices=None, vace=None,
                                   vace_context=None, vace_scale: float = 1.0,
-                                  remat: bool = False, layer_gate=None):
+                                  remat: bool = False, layer_gate=None,
+                                  clip_feature=None, y=None):
     """`wan_dit_forward`, also returning the block stack's residual
     (tokens out - tokens in, (B, S, dim)) that TeaCache replays."""
     cfg = model.cfg
     t, t_mod = time_embed(model, timestep)
-    context = text_embed(model, context)
+    x, context = image_inputs(model, x, text_embed(model, context), clip_feature, y)
     tokens_in, (f, h, w) = patchify(model.patch_embedding, x, cfg.patch_size)
     cos, sin = assemble_freqs_grid(cfg.head_dim, f, h, w, rope_indices,
                                    device=tokens_in.device)
@@ -347,11 +440,13 @@ def wan_dit_forward_with_residual(model: WanDiT, x, timestep, context,
 
 def wan_dit_forward(model: WanDiT, x, timestep, context, rope_indices=None,
                     vace=None, vace_context=None, vace_scale: float = 1.0,
-                    remat: bool = False, layer_gate=None):
+                    remat: bool = False, layer_gate=None, clip_feature=None, y=None):
     """Full DiT forward, optionally with the VACE branch.
 
-    x: (B, C, F, H, W) latents; timestep: (B,); context: (B, L, text_dim);
-    vace: a `WanVace`, vace_context: (B, vace_in_dim, F, H, W).
+    x: (B, C, F, H, W) latents; timestep: (B,), or (B, S) per token;
+    context: (B, L, text_dim); vace: a `WanVace`, vace_context: (B,
+    vace_in_dim, F, H, W); clip_feature: (B, 257 or 514, 1280) and y:
+    (B, 4 + z, F, H, W) for an image-conditioned DiT (`image_inputs`).
     layer_gate: optional (num_layers, B) per-row block gates (`run_blocks`).
     remat: recompute each trunk block and each VACE block in the backward.
     The JAX package's `remat` covers the trunk only
@@ -360,4 +455,5 @@ def wan_dit_forward(model: WanDiT, x, timestep, context, rope_indices=None,
     14B weights. It changes no value."""
     return wan_dit_forward_with_residual(model, x, timestep, context,
                                          rope_indices, vace, vace_context,
-                                         vace_scale, remat, layer_gate)[0]
+                                         vace_scale, remat, layer_gate,
+                                         clip_feature, y)[0]

@@ -1,12 +1,21 @@
-"""Wan2.1 causal 3-D video VAE (8x8 spatial, 4x temporal, z=16) in PyTorch.
+"""Wan causal 3-D video VAEs in PyTorch: Wan2.1 (8x8 spatial, 4x temporal,
+z=16) and Wan2.2 (16x16 spatial through a 2x2 pixel patchify, z=48).
 
-Counterpart of the Wan2.1 part of `video_styler_tpu/models/wan_vae.py`:
+Counterpart of `video_styler_tpu/models/wan_vae.py`. The Wan2.1 part:
 `vae_encode`/`vae_decode` over the whole clip, and the streaming forms
 `vae_encode_stream`/`vae_decode_stream` that carry per-conv temporal caches
 from chunk to chunk (`_CacheIO`), and the spatially tiled forms
 `tiled_encode`/`tiled_decode`. `encode`/`decode` dispatch as the JAX
 package does: the streaming form when `tiled=True` with `streaming` unset
 (the pipeline default), spatial tiles with `streaming=False, tiled=True`.
+
+The Wan2.2 VAE (`WanVAE38`, TI2V-5B's) adds the pixel patchify and
+unpatchify, down/up residual blocks whose shortcut averages
+(`avg_down3d`) or duplicates (`dup_up3d`) space-time into channels, and
+upsampling convs that keep the channel count; `vae38_encode`/`vae38_decode`
+and the streaming `vae38_encode_stream`/`vae38_decode_stream` run it, and
+`encode`/`decode` dispatch on the model's config as the JAX package does
+(streaming, or the whole clip: it has no spatial tiling).
 
 The public contract is (B, C, T, H, W), and so is the internal layout here.
 Parameters follow the JAX tree of `init_wan_vae` (torch names: `weight`,
@@ -603,7 +612,12 @@ def encode(model: WanVAE, video, tiled: bool = False, tile_size=(34, 34),
            tile_stride=(18, 16), streaming: Optional[bool] = None):
     """streaming=True, or tiled=True with streaming unset, runs the
     streaming encoder (exact, O(chunk) memory); streaming=False with
-    tiled=True tiles the frame spatially, as the JAX package does."""
+    tiled=True tiles the frame spatially, as the JAX package does (the
+    Wan2.2 VAE then encodes the whole clip)."""
+    if isinstance(model, WanVAE38):
+        if streaming or (tiled and streaming is None):
+            return vae38_encode_stream(model, video)
+        return vae38_encode(model, video)
     if streaming or (tiled and streaming is None):
         return vae_encode_stream(model, video)
     if tiled:
@@ -622,6 +636,10 @@ def decode(model: WanVAE, z, tiled: bool = False, tile_size=(34, 34),
            tile_stride=(18, 16), streaming: Optional[bool] = None,
            chunk_size: Optional[int] = None):
     """The dispatch of `encode`, for latents."""
+    if isinstance(model, WanVAE38):
+        if streaming or (tiled and streaming is None):
+            return vae38_decode_stream(model, z, chunk_size=chunk_size or _auto_chunk(z))
+        return vae38_decode(model, z)
     if streaming or (tiled and streaming is None):
         return vae_decode_stream(model, z, chunk_size=chunk_size or _auto_chunk(z))
     if tiled:
@@ -629,9 +647,300 @@ def decode(model: WanVAE, z, tiled: bool = False, tile_size=(34, 34),
     return vae_decode(model, z)
 
 
+# --------------------------------------------------------------------------
+# Wan2.2 VAE (z=48): 2x2 pixel patchify around an 8x conv path
+# --------------------------------------------------------------------------
+
+WAN22_LATENT_MEAN = (
+    -0.2289, -0.0052, -0.1323, -0.2339, -0.2799, 0.0174, 0.1838, 0.1557,
+    -0.1382, 0.0542, 0.2813, 0.0891, 0.1570, -0.0098, 0.0375, -0.1825,
+    -0.2246, -0.1207, -0.0698, 0.5109, 0.2665, -0.2108, -0.2158, 0.2502,
+    -0.2055, -0.0322, 0.1109, 0.1567, -0.0729, 0.0899, -0.2799, -0.1230,
+    -0.0313, -0.1649, 0.0117, 0.0723, -0.2839, -0.2083, -0.0520, 0.3748,
+    0.0152, 0.1957, 0.1433, -0.2944, 0.3573, -0.0548, -0.1681, -0.0667)
+WAN22_LATENT_STD = (
+    0.4765, 1.0364, 0.4514, 1.1677, 0.5313, 0.4990, 0.4818, 0.5013,
+    0.8158, 1.0344, 0.5894, 1.0901, 0.6885, 0.6165, 0.8454, 0.4978,
+    0.5759, 0.3523, 0.7135, 0.6804, 0.5833, 1.4146, 0.8986, 0.5659,
+    0.7069, 0.5338, 0.4889, 0.4917, 0.4069, 0.4999, 0.6866, 0.4093,
+    0.5709, 0.6065, 0.6415, 0.4944, 0.5726, 1.2042, 0.5458, 1.6887,
+    0.3971, 1.0600, 0.3943, 0.5537, 0.5444, 0.4089, 0.7468, 0.7744)
+
+
+@dataclass(frozen=True)
+class WanVAE38Config:
+    dim: int = 160
+    dec_dim: int = 256
+    z_dim: int = 48
+    dim_mult: Tuple[int, ...] = (1, 2, 4, 4)
+    num_res_blocks: int = 2
+    temperal_downsample: Tuple[bool, ...] = (False, True, True)
+    latent_mean: Tuple[float, ...] = WAN22_LATENT_MEAN
+    latent_std: Tuple[float, ...] = WAN22_LATENT_STD
+
+    @property
+    def temperal_upsample(self):
+        return tuple(reversed(self.temperal_downsample))
+
+    @property
+    def upsampling_factor(self) -> int:
+        return 16   # the 8x conv path times the 2x pixel patchify
+
+
+WAN22_VAE = WanVAE38Config()
+
+
+def _t_flag(flags, i: int) -> bool:
+    return flags[i] if i < len(flags) else False
+
+
+def _resample38_up(c: int, mode: str, **kw) -> nn.ModuleDict:
+    """An upsampling Resample whose spatial conv keeps the channel count."""
+    m = nn.ModuleDict({"resample": nn.ModuleDict({"1": Conv(c, c, (3, 3), **kw)})})
+    if mode == "upsample3d":
+        m["time_conv"] = Conv(c * 2, c, (3, 1, 1), **kw)
+    return m
+
+
+class WanVAE38(nn.Module):
+    """Parameters of the Wan2.2 VAE under the checkpoint's names:
+    `encoder.downsamples.{i}.downsamples.{j}` (residual blocks, then the
+    resample) and `decoder.upsamples.{i}.upsamples.{j}`."""
+
+    def __init__(self, cfg: WanVAE38Config = WAN22_VAE, device=None, dtype=None):
+        super().__init__()
+        kw = dict(device=device, dtype=dtype)
+        self.cfg = cfg
+        n = len(cfg.dim_mult)
+        e_dims = [cfg.dim * u for u in (1,) + tuple(cfg.dim_mult)]
+        down = nn.ModuleDict()
+        for i in range(n):
+            in_c, out_c = e_dims[i], e_dims[i + 1]
+            blk = nn.ModuleDict()
+            for j in range(cfg.num_res_blocks):
+                blk[str(j)] = _res_block(in_c, out_c, **kw)
+                in_c = out_c
+            if i != n - 1:
+                mode = "downsample3d" if _t_flag(cfg.temperal_downsample, i) else "downsample2d"
+                blk[str(cfg.num_res_blocks)] = _resample(out_c, mode, **kw)
+            down[str(i)] = nn.ModuleDict({"downsamples": blk})
+        top = e_dims[-1]
+        self.encoder = nn.ModuleDict({
+            "conv1": Conv(e_dims[0], 12, (3, 3, 3), **kw),
+            "downsamples": down,
+            "middle": nn.ModuleDict({"0": _res_block(top, top, **kw),
+                                     "1": _attn_block(top, **kw),
+                                     "2": _res_block(top, top, **kw)}),
+            "head": nn.ModuleDict({"0": Gamma((top, 1, 1, 1), **kw),
+                                   "2": Conv(cfg.z_dim * 2, top, (3, 3, 3), **kw)}),
+        })
+        d_dims = [cfg.dec_dim * u for u in (cfg.dim_mult[-1],) + tuple(reversed(cfg.dim_mult))]
+        up = nn.ModuleDict()
+        for i in range(n):
+            in_c, out_c = d_dims[i], d_dims[i + 1]
+            blk = nn.ModuleDict()
+            for j in range(cfg.num_res_blocks + 1):
+                blk[str(j)] = _res_block(in_c, out_c, **kw)
+                in_c = out_c
+            if i != n - 1:
+                mode = "upsample3d" if _t_flag(cfg.temperal_upsample, i) else "upsample2d"
+                blk[str(cfg.num_res_blocks + 1)] = _resample38_up(out_c, mode, **kw)
+            up[str(i)] = nn.ModuleDict({"upsamples": blk})
+        self.decoder = nn.ModuleDict({
+            "conv1": Conv(d_dims[0], cfg.z_dim, (3, 3, 3), **kw),
+            "middle": nn.ModuleDict({"0": _res_block(d_dims[0], d_dims[0], **kw),
+                                     "1": _attn_block(d_dims[0], **kw),
+                                     "2": _res_block(d_dims[0], d_dims[0], **kw)}),
+            "upsamples": up,
+            "head": nn.ModuleDict({"0": Gamma((d_dims[-1], 1, 1, 1), **kw),
+                                   "2": Conv(12, d_dims[-1], (3, 3, 3), **kw)}),
+        })
+        self.conv1 = Conv(cfg.z_dim * 2, cfg.z_dim * 2, (1, 1, 1), **kw)
+        self.conv2 = Conv(cfg.z_dim, cfg.z_dim, (1, 1, 1), **kw)
+
+
+def pixel_patchify(x, p: int = 2):
+    """(B, C, F, H, W) -> (B, C*p*p, F, H/p, W/p), channels in the
+    reference's (c, r, q) order (r: the column phase, q: the row phase)."""
+    b, c, f, h, w = x.shape
+    x = x.reshape(b, c, f, h // p, p, w // p, p).permute(0, 1, 6, 4, 2, 3, 5)
+    return x.reshape(b, c * p * p, f, h // p, w // p)
+
+
+def pixel_unpatchify(x, p: int = 2):
+    """`pixel_patchify` inverted."""
+    b, cpp, f, h, w = x.shape
+    c = cpp // (p * p)
+    x = x.reshape(b, c, p, p, f, h, w).permute(0, 1, 4, 5, 3, 6, 2)
+    return x.reshape(b, c, f, h * p, w * p)
+
+
+def avg_down3d(x, out_channels: int, factor_t: int, factor_s: int = 1):
+    """Left-pad T to a multiple of factor_t with zeros, fold each
+    (factor_t, factor_s, factor_s) block into channels in (c, t, h, w)
+    order, and average groups of them down to out_channels."""
+    b, c, t, h, w = x.shape
+    pad_t = (factor_t - t % factor_t) % factor_t
+    if pad_t:
+        x = F.pad(x, (0, 0, 0, 0, pad_t, 0))
+        t += pad_t
+    group = c * factor_t * factor_s * factor_s // out_channels
+    x = x.reshape(b, c, t // factor_t, factor_t, h // factor_s, factor_s,
+                  w // factor_s, factor_s).permute(0, 1, 3, 5, 7, 2, 4, 6)
+    x = x.reshape(b, out_channels, group, t // factor_t, h // factor_s, w // factor_s)
+    return x.mean(dim=2)
+
+
+def dup_up3d(x, out_channels: int, factor_t: int, factor_s: int = 1,
+             first_chunk: bool = False):
+    """Repeat each channel, unfold the copies into (factor_t, factor_s,
+    factor_s) space-time blocks; the first chunk drops its first
+    factor_t - 1 frames."""
+    b, c, t, h, w = x.shape
+    repeats = out_channels * factor_t * factor_s * factor_s // c
+    x = x.repeat_interleave(repeats, dim=1)
+    x = x.reshape(b, out_channels, factor_t, factor_s, factor_s, t, h, w)
+    x = x.permute(0, 1, 5, 2, 6, 3, 7, 4).reshape(
+        b, out_channels, t * factor_t, h * factor_s, w * factor_s)
+    return x[:, :, factor_t - 1:] if first_chunk else x
+
+
+def _down_block(p, x, t_down: bool, down_flag: bool, mult: int, io=None, first=False):
+    """Down residual block (whole clip, or one streaming chunk with `io`)."""
+    out_c = p["downsamples"]["0"]["residual"]["6"].weight.shape[0]
+    shortcut = avg_down3d(x, out_c, 2 if t_down else 1, 2 if down_flag else 1)
+    h = x
+    for j in range(mult):
+        blk = p["downsamples"][str(j)]
+        h = residual_block(blk, h) if io is None else _residual_block_io(blk, h, io)
+    if down_flag:
+        mode = "downsample3d" if t_down else "downsample2d"
+        rs = p["downsamples"][str(mult)]
+        h = resample(rs, h, mode) if io is None else _resample_down_io(rs, h, mode, io, first)
+    return h + shortcut
+
+
+def _up_block(p, x, t_up: bool, up_flag: bool, mult: int, first: bool, io=None):
+    """Up residual block (whole clip, or one streaming chunk with `io`)."""
+    h = x
+    for j in range(mult):
+        blk = p["upsamples"][str(j)]
+        h = residual_block(blk, h) if io is None else _residual_block_io(blk, h, io)
+    if not up_flag:
+        return h
+    mode = "upsample3d" if t_up else "upsample2d"
+    rs = p["upsamples"][str(mult)]
+    h = resample(rs, h, mode) if io is None else _resample_up_io(rs, h, mode, io, first)
+    return h + dup_up3d(x, h.shape[1], 2 if t_up else 1, 2, first_chunk=first)
+
+
+def _encoder38(p, x, cfg: WanVAE38Config, io=None, first=False):
+    cc = causal_conv3d if io is None else (lambda q, y: _causal_conv3d_io(q, y, io))
+    rb = residual_block if io is None else (lambda q, y: _residual_block_io(q, y, io))
+    x = cc(p["conv1"], x)
+    n = len(cfg.dim_mult)
+    for i in range(n):
+        x = _down_block(p["downsamples"][str(i)], x, _t_flag(cfg.temperal_downsample, i),
+                        i != n - 1, cfg.num_res_blocks, io, first)
+    x = rb(p["middle"]["0"], x)
+    x = attention_block(p["middle"]["1"], x)
+    x = rb(p["middle"]["2"], x)
+    x = _silu(rms_norm_spatial(p["head"]["0"], x))
+    return cc(p["head"]["2"], x)
+
+
+def _decoder38(p, x, cfg: WanVAE38Config, first: bool, io=None):
+    cc = causal_conv3d if io is None else (lambda q, y: _causal_conv3d_io(q, y, io))
+    rb = residual_block if io is None else (lambda q, y: _residual_block_io(q, y, io))
+    x = cc(p["conv1"], x)
+    x = rb(p["middle"]["0"], x)
+    x = attention_block(p["middle"]["1"], x)
+    x = rb(p["middle"]["2"], x)
+    n = len(cfg.dim_mult)
+    for i in range(n):
+        x = _up_block(p["upsamples"][str(i)], x, _t_flag(cfg.temperal_upsample, i),
+                      i != n - 1, cfg.num_res_blocks + 1, first, io)
+    x = _silu(rms_norm_spatial(p["head"]["0"], x))
+    return cc(p["head"]["2"], x)
+
+
+def vae38_encode(model: WanVAE38, video):
+    """video (B, 3, T, H, W) in [-1, 1] -> normalized latents
+    (B, 48, 1+(T-1)/4, H/16, W/16)."""
+    cfg = model.cfg
+    out = _encoder38(model.encoder, pixel_patchify(video), cfg)
+    moments = causal_conv3d(model.conv1, out)
+    return _normalize(moments[:, :cfg.z_dim], cfg)
+
+
+def vae38_decode(model: WanVAE38, z, clamp: bool = True):
+    """normalized latents -> video (B, 3, T, H, W)."""
+    cfg = model.cfg
+    x = causal_conv3d(model.conv2, _denormalize(z, cfg))
+    video = pixel_unpatchify(_decoder38(model.decoder, x, cfg, first=True))
+    return video.clamp(-1.0, 1.0) if clamp else video
+
+
+def _encode38_stream_step(model: WanVAE38, chunk, caches, first: bool):
+    cfg = model.cfg
+    io = _CacheIO(caches)
+    x = _encoder38(model.encoder, pixel_patchify(chunk), cfg, io, first)
+    moments = _causal_conv3d_io(model.conv1, x, io)
+    return _normalize(moments[:, :cfg.z_dim], cfg), io.out
+
+
+def _decode38_stream_step(model: WanVAE38, z_chunk, caches, first: bool):
+    cfg = model.cfg
+    io = _CacheIO(caches)
+    x = _causal_conv3d_io(model.conv2, _denormalize(z_chunk, cfg), io)
+    return pixel_unpatchify(_decoder38(model.decoder, x, cfg, first, io)), io.out
+
+
+def vae38_encode_stream(model: WanVAE38, video):
+    """`vae_encode_stream`'s 1+4k chunk schedule on the Wan2.2 VAE: the
+    shortcuts' averaging needs no cache (its zero left-pad covers exactly
+    the first chunk)."""
+    t_total = video.shape[2]
+    out, caches = _encode38_stream_step(model, video[:, :, 0:1], None, True)
+    outs = [out]
+    t0 = 1
+    while t0 < t_total:
+        t1 = min(t0 + 4, t_total)
+        out, caches = _encode38_stream_step(model, video[:, :, t0:t1], caches, False)
+        outs.append(out)
+        t0 = t1
+    return torch.cat(outs, dim=2)
+
+
+def vae38_decode_stream(model: WanVAE38, z, chunk_size: int = 4, clamp: bool = True):
+    """`vae_decode_stream` on the Wan2.2 VAE: the duplicating shortcuts
+    drop their leading frames on the first chunk only."""
+    t_total = z.shape[2]
+    out, caches = _decode38_stream_step(model, z[:, :, 0:1], None, True)
+    outs = [out]
+    t0 = 1
+    while t0 < t_total:
+        t1 = min(t0 + chunk_size, t_total)
+        out, caches = _decode38_stream_step(model, z[:, :, t0:t1], caches, False)
+        outs.append(out)
+        t0 = t1
+    video = torch.cat(outs, dim=2)
+    return video.clamp(-1.0, 1.0) if clamp else video
+
+
+def is_wan22_vae(sd: Dict) -> bool:
+    """A Wan2.2 VAE state dict: `.conv3.` layers, or a top-level 1x1 conv1
+    of 2 x 48 rows. (The JAX loader's test of any key ending in
+    `conv1.weight` with 96 rows also takes the Wan2.1 encoder's first conv,
+    96 wide: ROADMAP Queue 3.)"""
+    conv1 = sd.get("conv1.weight", sd.get("model.conv1.weight"))
+    return any(".conv3." in k for k in sd) or (conv1 is not None and conv1.shape[0] == 96)
+
+
 def convert_wan_vae(sd: Dict) -> Dict:
-    """Reference WanVideoVAE state dict -> `WanVAE` state dict (the JAX
-    package's `convert_wan_vae`): the names are kept, a leading `model.`
+    """Reference WanVideoVAE or WanVideoVAE38 state dict -> `WanVAE` or
+    `WanVAE38` state dict (the JAX package's `convert_wan_vae`): the names
+    are kept, a leading `model.`
     is stripped. Values pass through (tensors or `utils.ckpt.LazyTensor`s);
     the pipeline holds the VAE in fp32."""
     return {k[len("model."):] if k.startswith("model.") else k: v

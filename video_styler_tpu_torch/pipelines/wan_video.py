@@ -1,11 +1,16 @@
-"""WanVideoPipeline in PyTorch: the text-to-video / VACE edit path.
+"""WanVideoPipeline in PyTorch: text-to-video, the VACE edit and
+image-to-video.
 
-Counterpart of the T2V/VACE subset of
+Counterpart of the T2V/VACE/I2V subset of
 `video_styler_tpu/pipelines/wan_video.py`: shape check, seeded noise,
 umT5 prompt encode, VACE context (a Wan2.1 VAE encode plus the 64-channel
-mask), a denoise loop with two-pass (or merged) CFG over `wan_dit_forward`
-with VACE hints, and the VAE decode (streaming, whole-clip or spatially
-tiled). The loop's options are the JAX pipeline's: TeaCache step skipping,
+mask), the image conditioning (`input_image`, and FLF2V's `end_image`: the
+CLIP ViT-H/14 features and y = the 4-channel first-frame mask with the VAE
+latent of the clip padded with zeros; for Wan2.2 TI2V-5B the first frame's
+latent written into the noise and pinned after every step), a denoise loop
+with two-pass (or merged) CFG over `wan_dit_forward` with VACE hints, and
+the VAE decode (streaming, whole-clip or spatially tiled; the Wan2.1 or
+the Wan2.2 VAE). The loop's options are the JAX pipeline's: TeaCache step skipping,
 skip-layer guidance (`slg_blocks`: the listed blocks skipped on the
 unconditional rows), the temporal sliding window with ramp blending, a
 second expert `dit2` taking over below `switch_DiT_boundary`, and the
@@ -15,9 +20,10 @@ keeps it on a hotload stack (`set_lora_scale`, `unload_loras`);
 `quantize` (after any LoRA merge) turns the DiT, `dit2` and VACE linears
 into int8, fp8 or int4 layers and can route attention through the int8
 kernel. Models come from checkpoint files (`from_pretrained`: the official
-Wan2.1 DiT, VACE, umT5 and VAE files, and a Wan2.2 expert as kind `dit2`,
-read by `utils.ckpt`), from `convert.from_jax_params`, or from
-`from_configs` (random weights).
+Wan2.1 DiT (T2V, I2V, FLF2V), VACE, umT5, CLIP and VAE files, the Wan2.2
+TI2V-5B DiT and VAE, and a Wan2.2 expert as kind `dit2`, read by
+`utils.ckpt`), from `convert.from_jax_params`, or from `from_configs`
+(random weights).
 
 Runs on `cuda` unless constructed with `device="cpu"`. Each stage's wall
 time (synchronised with the card) is kept in `stage_times`; on the card,
@@ -35,9 +41,10 @@ import torch
 
 from ..device import resolve_device
 from ..lora import extract_lora_pairs, merge_lora, merge_lora_pairs, target_linear
+from ..models import clip_vit as CV
 from ..models import wan_vae as V
 from ..models.t5 import UMT5_XXL, T5Config, T5Encoder, convert_t5, init_t5_
-from ..models.wan_dit import (WanDiT, WanDiTConfig, head, init_weights_,
+from ..models.wan_dit import (WanDiT, WanDiTConfig, head, image_inputs, init_weights_,
                               patchify, time_embed, unpatchify,
                               wan_dit_forward_with_residual)
 from ..models.wan_vace import VaceConfig, WanVace
@@ -57,6 +64,18 @@ def _preprocess_images(images) -> np.ndarray:
         arr = np.stack([np.asarray(im, dtype=np.float32) for im in images])
     arr = arr * (2.0 / 255.0) - 1.0
     return arr.transpose(3, 0, 1, 2)[None].astype(np.float32)
+
+
+def _image_array(image, width: int, height: int) -> np.ndarray:
+    """A PIL image or uint8 (H, W, 3) array -> uint8 (height, width, 3),
+    resized as the JAX pipeline resizes (PIL's `resize`, imported only when
+    the size differs)."""
+    if isinstance(image, np.ndarray) and image.shape[:2] == (height, width):
+        return image
+    from PIL import Image
+    if isinstance(image, np.ndarray):
+        image = Image.fromarray(image)
+    return np.asarray(image.resize((width, height)))
 
 
 def generate_noise(shape, seed: Optional[int] = None) -> torch.Tensor:
@@ -125,8 +144,10 @@ class WanVideoPipeline:
         self.dit2: Optional[WanDiT] = None
         self.vace2: Optional[WanVace] = None
         self.vae: Optional[V.WanVAE] = None
+        self.image_encoder: Optional[CV.ClipVit] = None
         # the architectures `_attach` builds checkpoint files into (the JAX
-        # pipeline's: umT5-XXL and the Wan2.1 VAE)
+        # pipeline's: umT5-XXL and the Wan2.1 VAE; a Wan2.2 VAE file gets
+        # `WAN22_VAE`, a CLIP file `CLIP_VIT_H_14`)
         self.t5_cfg: T5Config = UMT5_XXL
         self.vae_cfg: V.WanVAEConfig = V.WAN21_VAE
         self._lora_stacks = {}
@@ -135,25 +156,32 @@ class WanVideoPipeline:
 
     @classmethod
     def from_configs(cls, dit_cfg: WanDiTConfig, vace_cfg: Optional[VaceConfig],
-                     t5_cfg: T5Config, vae_cfg: V.WanVAEConfig,
-                     tokenizer: Callable, text_len: int = 512, seed: int = 0,
-                     device=None, dtype=torch.bfloat16) -> "WanVideoPipeline":
+                     t5_cfg: T5Config, vae_cfg, tokenizer: Callable,
+                     text_len: int = 512, seed: int = 0, device=None,
+                     dtype=torch.bfloat16,
+                     clip_cfg: Optional[CV.ClipVitConfig] = None) -> "WanVideoPipeline":
         """Random weights drawn on the device from one seeded generator, with
-        the JAX init's std; the DiT, VACE and T5 in `dtype`, the VAE in fp32."""
+        the JAX init's std; the DiT, VACE, T5 and CLIP tower (with
+        `clip_cfg`) in `dtype`, the VAE (a `WanVAE38Config` builds the
+        Wan2.2 one) in fp32."""
         pipe = cls(device=device, dtype=dtype)
         pipe.t5_cfg, pipe.vae_cfg = t5_cfg, vae_cfg
         dev = pipe.device
         gen = torch.Generator(dev).manual_seed(seed)
+        vae_cls = V.WanVAE38 if isinstance(vae_cfg, V.WanVAE38Config) else V.WanVAE
         with torch.device("meta"):
             dit = WanDiT(dit_cfg, dtype=dtype)
             vace = None if vace_cfg is None else WanVace(vace_cfg, dtype=dtype)
             t5 = T5Encoder(t5_cfg, dtype=dtype)
-            vae = V.WanVAE(vae_cfg, dtype=torch.float32)
+            vae = vae_cls(vae_cfg, dtype=torch.float32)
+            clip = None if clip_cfg is None else CV.ClipVit(clip_cfg, dtype=dtype)
         pipe.dit = init_weights_(dit.to_empty(device=dev), gen).eval()
         if vace is not None:
             pipe.vace = init_weights_(vace.to_empty(device=dev), gen).eval()
         t5 = init_t5_(t5.to_empty(device=dev), gen).eval()
         pipe.vae = V.init_wan_vae_(vae.to_empty(device=dev), gen).eval()
+        if clip is not None:
+            pipe.image_encoder = CV.init_clip_vit_(clip.to_empty(device=dev), gen).eval()
         pipe.prompter = WanPrompter(tokenizer, text_len, t5)
         return pipe
 
@@ -200,8 +228,17 @@ class WanVideoPipeline:
             self.vace = C.build_module(WanVace, vcfg, convert_vace(sd, vcfg),
                                        self.device, self.dtype)
         elif kind == "vae":
-            self.vae = C.build_module(V.WanVAE, self.vae_cfg, V.convert_wan_vae(sd),
+            # the JAX pipeline keeps its Wan2.1 config for any VAE file
+            # (ROADMAP Queue 3); the port builds a Wan2.2 file as one
+            if V.is_wan22_vae(sd):
+                self.vae_cfg = V.WAN22_VAE
+            cls = V.WanVAE38 if isinstance(self.vae_cfg, V.WanVAE38Config) else V.WanVAE
+            self.vae = C.build_module(cls, self.vae_cfg, V.convert_wan_vae(sd),
                                       self.device, torch.float32)
+        elif kind == "clip":
+            self.image_encoder = C.build_module(
+                CV.ClipVit, CV.CLIP_VIT_H_14, CV.convert_clip_vit(sd, CV.CLIP_VIT_H_14),
+                self.device, self.dtype)
         elif kind == "t5":
             self.prompter.text_encoder = C.build_module(
                 T5Encoder, self.t5_cfg, convert_t5(sd, self.t5_cfg), self.device,
@@ -375,52 +412,102 @@ class WanVideoPipeline:
                                   mask_lat], dim=2)
         return torch.cat([latents, mask_lat], dim=1)
 
+    @torch.no_grad()
+    def encode_clip(self, image_np: np.ndarray) -> torch.Tensor:
+        """(1, 3, H, W) float32 in [-1, 1] -> (1, 257, 1280) CLIP features."""
+        return CV.encode_image(self.image_encoder, torch.from_numpy(image_np).to(self.device),
+                               dtype=self.dtype)
+
+    def build_image_conditioning(self, input_image, end_image, num_frames, height,
+                                 width, **tiler):
+        """The I2V units: the CLIP features of the first image (and of
+        FLF2V's end image, concatenated), and y = [the 4-channel temporal
+        mask | the VAE latent of the clip that holds the image(s) and zeros].
+        (None, None) without an input image or for a DiT without image
+        input; each part only where the DiT takes it."""
+        cfg = None if self.dit is None else self.dit.cfg
+        if input_image is None or cfg is None or not cfg.has_image_input:
+            return None, None
+        img_np = _preprocess_images([_image_array(input_image, width, height)])[:, :, 0]
+        end_np = None if end_image is None else _preprocess_images(
+            [_image_array(end_image, width, height)])[:, :, 0]
+        clip_feature = None
+        if self.image_encoder is not None and cfg.require_clip_embedding:
+            with self._stage("clip_encode"):
+                clip_feature = self.encode_clip(img_np)
+                if end_np is not None and cfg.has_image_pos_emb:
+                    clip_feature = torch.cat([clip_feature, self.encode_clip(end_np)], dim=1)
+        y = None
+        if cfg.require_vae_embedding:
+            with self._stage("vae_encode_image"):
+                up = self.vae.cfg.upsampling_factor
+                msk = np.ones((1, num_frames, height // up, width // up), np.float32)
+                msk[:, 1:] = 0
+                vae_input = np.zeros((1, 3, num_frames, height, width), np.float32)
+                vae_input[:, :, 0] = img_np[0]
+                if end_np is not None:
+                    vae_input[:, :, -1] = end_np[0]
+                    msk[:, -1:] = 1
+                msk = np.concatenate([np.repeat(msk[:, 0:1], 4, axis=1), msk[:, 1:]], axis=1)
+                msk = msk.reshape(1, msk.shape[1] // 4, 4, height // up, width // up)
+                msk = np.ascontiguousarray(msk.transpose(0, 2, 1, 3, 4))
+                lat = self.encode_video(vae_input, **tiler)
+                y = torch.cat([torch.from_numpy(msk).to(self.device, self.dtype), lat], dim=1)
+        return clip_feature, y
+
     # ---------------- model functions ----------------
 
     def _expert(self, which: str) -> WanDiT:
         return self.dit if which == "dit" else self.dit2
 
-    def _skip(self, which, latents, timestep, residual):
-        """TeaCache replay: patchify + cached residual + head."""
+    def _skip(self, which, latents, timestep, residual, y=None):
+        """TeaCache replay: patchify (of the latents with y) + cached
+        residual + head."""
         dit = self._expert(which)
         cfg = dit.cfg
         t, _ = time_embed(dit, timestep)
+        latents, _ = image_inputs(dit, latents, None, y=y)
         tokens, grid = patchify(dit.patch_embedding, latents, cfg.patch_size)
         out = head(dit, tokens + residual, t)
         return unpatchify(out, grid, cfg.patch_size, cfg.out_dim)
 
     def _branch_forward(self, which, vace, latents, timestep, context,
                         vace_context, vace_scale, tea_cache: Optional[TeaCache],
-                        rope_indices=None, layer_gate=None):
+                        rope_indices=None, layer_gate=None, clip_feature=None, y=None):
         """One DiT forward of expert `which` ("dit" or "dit2"), or a TeaCache
         replay of its last residual."""
         dit = self._expert(which)
         if tea_cache is not None:
             _, t_mod = time_embed(dit, timestep)
             if tea_cache.check(t_mod) and tea_cache.previous_residual is not None:
-                return self._skip(which, latents, timestep, tea_cache.previous_residual)
+                return self._skip(which, latents, timestep, tea_cache.previous_residual, y)
         v, residual = wan_dit_forward_with_residual(
             dit, latents, timestep, context, rope_indices=rope_indices, vace=vace,
-            vace_context=vace_context, vace_scale=vace_scale, layer_gate=layer_gate)
+            vace_context=vace_context, vace_scale=vace_scale, layer_gate=layer_gate,
+            clip_feature=clip_feature, y=y)
         if tea_cache is not None:
             tea_cache.store(residual)
         return v
 
     def _forward_all_branches(self, which, vace, latents, timestep, ctx_posi,
                               ctx_nega, vace_context, vace_scale, cfg_scale,
-                              tc_posi, tc_nega, cfg_merge=False, slg_gate=None):
-        """One denoise velocity: CFG by two passes or one merged batch.
+                              tc_posi, tc_nega, cfg_merge=False, slg_gate=None,
+                              clip_feature=None, y=None):
+        """One denoise velocity: CFG by two passes or one merged batch (the
+        image conditioning, like the VACE context, repeated for both rows).
 
         slg_gate: optional (num_layers,) keep-gate of skip-layer guidance,
         applied to the unconditional rows only: under cfg_merge the merged
         gate is ones for the posi rows and slg_gate for the nega rows; in
         two passes only the nega pass is gated."""
+        image = dict(clip_feature=clip_feature, y=y)
         if cfg_scale == 1.0 or ctx_nega is None:
             return self._branch_forward(which, vace, latents, timestep, ctx_posi,
-                                        vace_context, vace_scale, tc_posi)
+                                        vace_context, vace_scale, tc_posi, **image)
         b = latents.shape[0]
         if cfg_merge:
             # one batched forward; the per-branch TeaCaches are not used
+            image2 = {k: None if v is None else torch.cat([v, v]) for k, v in image.items()}
             vc2 = None if vace_context is None else torch.cat([vace_context] * 2)
             gate2 = None
             if slg_gate is not None:
@@ -429,15 +516,15 @@ class WanVideoPipeline:
                                    g.expand(-1, b)], dim=1)
             v2 = self._branch_forward(which, vace, torch.cat([latents, latents]),
                                       timestep, torch.cat([ctx_posi, ctx_nega]),
-                                      vc2, vace_scale, None, layer_gate=gate2)
+                                      vc2, vace_scale, None, layer_gate=gate2, **image2)
             v_posi, v_nega = v2[:1], v2[1:]
         else:
             v_posi = self._branch_forward(which, vace, latents, timestep, ctx_posi,
-                                          vace_context, vace_scale, tc_posi)
+                                          vace_context, vace_scale, tc_posi, **image)
             gate1 = None if slg_gate is None else slg_gate[:, None].expand(-1, b)
             v_nega = self._branch_forward(which, vace, latents, timestep, ctx_nega,
                                           vace_context, vace_scale, tc_nega,
-                                          layer_gate=gate1)
+                                          layer_gate=gate1, **image)
         return v_nega + cfg_scale * (v_posi - v_nega)
 
     @staticmethod
@@ -453,11 +540,12 @@ class WanVideoPipeline:
         return x
 
     def _sliding_window_velocity(self, window_size, window_stride, fwd_fn,
-                                 latents, vace_context=None):
+                                 latents, y=None, vace_context=None):
         """Velocity over windows of `window_size` latent frames every
         `window_stride`, blended with ramps in fp32 on the device. A window
-        whose predecessor already reaches the end is skipped; vace_context
-        is sliced with the latents (its temporal axis lines up with them)."""
+        whose predecessor already reaches the end is skipped; y and
+        vace_context are sliced with the latents (their temporal axes line
+        up with them)."""
         T = latents.shape[2]
         value = torch.zeros(latents.shape, dtype=torch.float32, device=latents.device)
         weight = torch.zeros((1, 1, T, 1, 1), dtype=torch.float32, device=latents.device)
@@ -465,8 +553,9 @@ class WanVideoPipeline:
             if t0 - window_stride >= 0 and t0 - window_stride + window_size >= T:
                 continue
             t1 = min(t0 + window_size, T)
+            y_w = None if y is None else y[:, :, t0:t1]
             vc_w = None if vace_context is None else vace_context[:, :, t0:t1]
-            v = fwd_fn(latents[:, :, t0:t1], vc_w).float()
+            v = fwd_fn(latents[:, :, t0:t1], y_w, vc_w).float()
             mask = torch.from_numpy(self._temporal_ramp(
                 t1 - t0, t0 == 0, t1 == T, window_size - window_stride)
             ).to(latents.device)[None, None, :, None, None]
@@ -489,6 +578,7 @@ class WanVideoPipeline:
 
     @torch.no_grad()
     def __call__(self, prompt: str, negative_prompt: str = "",
+                 input_image=None, end_image=None,
                  input_video=None, denoising_strength: float = 1.0,
                  vace_video=None, vace_video_mask=None,
                  vace_reference_image=None, vace_scale: float = 1.0,
@@ -506,8 +596,9 @@ class WanVideoPipeline:
                  slg_blocks: Optional[Tuple[int, ...]] = None,
                  slg_start: float = 0.0, slg_end: float = 1.0,
                  return_latents: bool = False):
-        """Frames in as a PIL list or uint8 (T, H, W, 3) arrays; out as a
-        uint8 (T, H, W, 3) array, or the latents with return_latents."""
+        """Frames in as a PIL list or uint8 (T, H, W, 3) arrays, images
+        (`input_image`, FLF2V's `end_image`) as PIL or uint8 (H, W, 3); out
+        as a uint8 (T, H, W, 3) array, or the latents with return_latents."""
         self.stage_times = []
         self.stage_peak_bytes = []
         height, width, num_frames = self.check_resize(height, width, num_frames)
@@ -553,6 +644,17 @@ class WanVideoPipeline:
         if vace_context is not None and self.vace is None:
             raise ValueError("VACE inputs were given but the pipeline has no "
                              "VACE model")
+        clip_feature, y = self.build_image_conditioning(
+            input_image, end_image, num_frames, height, width, **tiler)
+        # TI2V-5B: the first frame's latent written into the noise and
+        # pinned after every step (each token still gets the one (1,)
+        # timestep, as in the JAX pipeline: ROADMAP Queue 3)
+        first_frame_latents = None
+        if input_image is not None and self.dit.cfg.fuse_vae_embedding_in_latents:
+            with self._stage("vae_encode_image"):
+                img_np = _preprocess_images([_image_array(input_image, width, height)])
+                first_frame_latents = self.encode_video(img_np, **tiler)
+            latents[:, :, 0:1] = first_frame_latents
 
         tc_posi = tc_nega = None
         if tea_cache_l1_thresh is not None:
@@ -573,19 +675,20 @@ class WanVideoPipeline:
                 slg_gate = self._slg_gate(which, slg_blocks, slg_start, slg_end,
                                           i, n_steps)
                 if sliding_window_size is not None and sliding_window_stride is not None:
-                    def fwd(lat_w, vc_w):
+                    def fwd(lat_w, y_w, vc_w):
                         return self._forward_all_branches(
                             which, vace, lat_w, timestep, ctx_posi, ctx_nega, vc_w,
                             vace_scale, cfg_scale, None, None, cfg_merge=cfg_merge,
-                            slg_gate=slg_gate)
+                            slg_gate=slg_gate, clip_feature=clip_feature, y=y_w)
                     v = self._sliding_window_velocity(
                         sliding_window_size, sliding_window_stride, fwd, latents,
-                        vace_context=vace_context)
+                        y=y, vace_context=vace_context)
                 else:
                     v = self._forward_all_branches(
                         which, vace, latents, timestep, ctx_posi, ctx_nega,
                         vace_context, vace_scale, cfg_scale, tc_posi, tc_nega,
-                        cfg_merge=cfg_merge, slg_gate=slg_gate)
+                        cfg_merge=cfg_merge, slg_gate=slg_gate,
+                        clip_feature=clip_feature, y=y)
                 if hasattr(self.scheduler, "sigma_pair"):
                     sigma, sigma_next = self.scheduler.sigma_pair(i)
                     latents = (latents.float() + v.float() * (sigma_next - sigma)
@@ -595,6 +698,8 @@ class WanVideoPipeline:
                     # the device in fp32
                     latents = self.scheduler.step(v.float(), t_host,
                                                   latents.float()).to(self.dtype)
+                if first_frame_latents is not None:
+                    latents[:, :, 0:1] = first_frame_latents
         if ref_count:
             latents = latents[:, :, ref_count:]
         if return_latents:

@@ -21,9 +21,10 @@ process's resident set).
 
 Detection (`detect_model_kind`, `detect_wan_dit_config`,
 `detect_vace_config`) reads keys and shapes only. `load_model` builds the
-kinds the port has modules for: `dit`, `vace`, `dit+vace`, the Wan2.1 `vae`
-and `t5`; every other kind raises `NotImplementedError` naming the ROADMAP
-item that ports it.
+kinds the port has modules for: `dit` (T2V, I2V, FLF2V, TI2V), `vace`,
+`dit+vace`, the Wan2.1 and Wan2.2 `vae`, `t5` and the CLIP image encoder
+(`clip`); every other kind, and a Fun reference-conv DiT, raises
+`NotImplementedError` naming the ROADMAP item that ports it.
 """
 from __future__ import annotations
 
@@ -262,9 +263,10 @@ def hash_state_dict_keys(sd: Dict, with_shape: bool = True) -> str:
 
 def detect_wan_dit_config(sd: Dict) -> Optional[WanDiTConfig]:
     """The Wan DiT architecture from the state dict's keys and shapes, as
-    the JAX package detects it (text_dim and freq_dim keep their defaults).
-    The port's DiT has no image input, reference conv or separated
-    timestep: a checkpoint with any of them raises."""
+    the JAX package detects it (text_dim and freq_dim keep their defaults):
+    image input from `k_img`, FLF2V's position table from `img_emb.emb_pos`,
+    TI2V-5B from dim 3072 with 48 input channels. A Fun DiT with a
+    reference conv raises: the port does not build it."""
     if "blocks.0.self_attn.q.weight" not in sd:
         return None
     dim = sd["blocks.0.self_attn.q.weight"].shape[0]
@@ -274,17 +276,18 @@ def detect_wan_dit_config(sd: Dict) -> Optional[WanDiTConfig]:
     ffn_dim = sd["blocks.0.ffn.0.weight"].shape[0]
     in_dim = sd["patch_embedding.weight"].shape[1]
     out_dim = sd["head.head.weight"].shape[0] // 4  # patch (1,2,2) -> 4
-    unported = {"has_image_input": "blocks.0.cross_attn.k_img.weight" in sd,
-                "has_ref_conv": "ref_conv.weight" in sd,
-                "seperated_timestep": dim == 3072 and in_dim == 48}
-    if any(unported.values()):
-        raise NotImplementedError(
-            f"the checkpoint is an I2V/Fun/TI2V DiT ({[k for k, v in unported.items() if v]}): "
-            "not ported yet (ROADMAP Queue 1 item 9; TI2V: item 5)")
+    if "ref_conv.weight" in sd:
+        raise NotImplementedError("the checkpoint is a Fun DiT with a reference conv "
+                                  "(has_ref_conv): not ported yet (ROADMAP Queue 1 item 9)")
+    has_image_input = "blocks.0.cross_attn.k_img.weight" in sd
     heads_by_dim = {1536: 12, 5120: 40, 3072: 24}
-    num_heads = heads_by_dim.get(dim, dim // 128)
-    return WanDiTConfig(dim=dim, in_dim=in_dim, ffn_dim=ffn_dim, out_dim=out_dim,
-                        num_heads=num_heads, num_layers=num_layers)
+    seperated = dim == 3072 and in_dim == 48
+    return WanDiTConfig(
+        dim=dim, in_dim=in_dim, ffn_dim=ffn_dim, out_dim=out_dim,
+        num_heads=heads_by_dim.get(dim, dim // 128), num_layers=num_layers,
+        has_image_input=has_image_input,
+        has_image_pos_emb="img_emb.emb_pos" in sd, seperated_timestep=seperated,
+        require_vae_embedding=not seperated, fuse_vae_embedding_in_latents=seperated)
 
 
 def detect_vace_config(sd: Dict) -> Optional[VaceConfig]:
@@ -311,7 +314,7 @@ def detect_vace_config(sd: Dict) -> Optional[VaceConfig]:
 # kinds `detect_model_kind` knows that the port cannot build yet, and the
 # ROADMAP Queue 1 item that ports each
 UNPORTED_KINDS = {
-    "animate": 9, "s2v": 9, "clip": 9, "motion_controller": 9,
+    "animate": 9, "s2v": 9, "motion_controller": 9,
     "wav2vec": 9,
     "motion_modules": 11, "flux_dit": 11, "flux_controlnet": 11,
     "flux_ipadapter": 11, "ipadapter": 11, "flux_lora_encoder": 11,
@@ -341,9 +344,11 @@ def build_module(cls, cfg, sd: Dict, device, dtype: torch.dtype) -> torch.nn.Mod
 def load_model(path, device=None, dtype: torch.dtype = torch.bfloat16):
     """Point at a checkpoint file (or a list of shards) and get `(kind,
     models)`, the JAX `load_model`'s analogue: {"dit", "dit_cfg"} and/or
-    {"vace", "vace_cfg"}; {"vae", "vae_cfg"} (fp32); or the T5 encoder
-    (umT5-XXL). Modules are built on `device` (the card unless "cpu")."""
+    {"vace", "vace_cfg"}; {"vae", "vae_cfg"} (fp32; the Wan2.1 or the
+    Wan2.2 VAE); the T5 encoder (umT5-XXL); or the CLIP ViT-H/14 tower.
+    Modules are built on `device` (the card unless "cpu")."""
     from ..device import resolve_device
+    from ..models import clip_vit as CV
     from ..models import t5 as T5M
     from ..models import wan_vae as V
     from ..models.wan_dit import WanDiT
@@ -366,16 +371,13 @@ def load_model(path, device=None, dtype: torch.dtype = torch.bfloat16):
             out["vace_cfg"] = vcfg
         return kind, out
     if kind == "vae":
-        # the Wan2.2 VAE: conv3 layers, or a top-level 1x1 conv1 of 2 x 48
-        # channels (the JAX test of any "conv1.weight" with 96 rows also
-        # takes the Wan2.1 encoder's first conv, 96 wide)
-        conv1 = sd.get("conv1.weight", sd.get("model.conv1.weight"))
-        if any(".conv3." in k for k in sd) or (conv1 is not None and conv1.shape[0] == 96):
-            raise NotImplementedError("the Wan2.2 VAE (z=48) is not ported yet "
-                                      "(ROADMAP Queue 1 item 5)")
-        return kind, {"vae": build_module(V.WanVAE, V.WAN21_VAE, V.convert_wan_vae(sd),
-                                          device, torch.float32),
-                      "vae_cfg": V.WAN21_VAE}
+        cls, cfg = (V.WanVAE38, V.WAN22_VAE) if V.is_wan22_vae(sd) else (V.WanVAE,
+                                                                          V.WAN21_VAE)
+        return kind, {"vae": build_module(cls, cfg, V.convert_wan_vae(sd), device,
+                                          torch.float32), "vae_cfg": cfg}
+    if kind == "clip":
+        return kind, build_module(CV.ClipVit, CV.CLIP_VIT_H_14, CV.convert_clip_vit(sd),
+                                  device, dtype)
     if kind == "t5":
         return kind, build_module(T5M.T5Encoder, T5M.UMT5_XXL,
                                   T5M.convert_t5(sd, T5M.UMT5_XXL), device, dtype)

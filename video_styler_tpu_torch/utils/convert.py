@@ -15,15 +15,20 @@ JAX pytree:
       the JAX `_conv_as_lin` (:48)
   vace_blocks.{i}.before_proj (block 0 only)    ->  before_proj
   vace_blocks.{i}.after_proj                    ->  after_proj.{i}
+  img_emb.proj.0 / .1 / .3 / .4 (I2V, FLF2V)    ->  img_emb.norm_in / .fc1
+                                                    / .fc2 / .norm_out
+  img_emb.emb_pos (FLF2V)                       ->  img_emb.emb_pos
 
-Values pass through untouched (tensors or `utils.ckpt.LazyTensor`s, which
-reshape without reading), in the file's dtype. Keys the port's modules do
-not hold (an I2V image embedding, for one) are left out, as the JAX
-converters leave them.
+An image-conditioned DiT also has `k_img`, `v_img` and `norm_k_img` in
+each block's cross-attention. Values pass through untouched (tensors or
+`utils.ckpt.LazyTensor`s, which reshape without reading), in the file's
+dtype. Keys the port's modules do not hold (a Fun control adapter, for
+one) are left out, as the JAX converters leave them.
 
-`export_wan_dit`, `export_vace`, `export_t5` and `export_wan_vae` invert
-them: a module's tensors under the reference's names, which is how the
-tests and `chip_smoke.py` write checkpoints in the release layout.
+`export_wan_dit`, `export_vace`, `export_t5`, `export_wan_vae` (both VAEs)
+and `models.clip_vit.export_clip_vit` invert them: a module's tensors under
+the reference's names, which is how the tests and `chip_smoke.py` write
+checkpoints in the release layout.
 """
 from __future__ import annotations
 
@@ -50,12 +55,16 @@ def _conv_as_lin(sd: Dict, src: str, dst: str, out: Dict) -> None:
         out[f"{dst}.bias"] = sd[f"{src}.bias"]
 
 
-def _block(sd: Dict, src: str, dst: str, out: Dict) -> None:
+def _block(sd: Dict, src: str, dst: str, out: Dict, image: bool = False) -> None:
     for attn in ("self_attn", "cross_attn"):
         for name in ("q", "k", "v", "o"):
             _lin(sd, f"{src}.{attn}.{name}", f"{dst}.{attn}.{name}", out)
         for norm in ("norm_q", "norm_k"):
             out[f"{dst}.{attn}.{norm}.scale"] = sd[f"{src}.{attn}.{norm}.weight"]
+    if image:
+        for name in ("k_img", "v_img"):
+            _lin(sd, f"{src}.cross_attn.{name}", f"{dst}.cross_attn.{name}", out)
+        out[f"{dst}.cross_attn.norm_k_img.scale"] = sd[f"{src}.cross_attn.norm_k_img.weight"]
     out[f"{dst}.norm3.scale"] = sd[f"{src}.norm3.weight"]
     out[f"{dst}.norm3.bias"] = sd[f"{src}.norm3.bias"]
     _lin(sd, f"{src}.ffn.0", f"{dst}.ffn.fc1", out)
@@ -74,7 +83,15 @@ def convert_wan_dit(sd: Dict, cfg: WanDiTConfig) -> Dict:
     _lin(sd, "head.head", "head.head", out)
     out["head.modulation"] = sd["head.modulation"]
     for i in range(cfg.num_layers):
-        _block(sd, f"blocks.{i}", f"blocks.{i}", out)
+        _block(sd, f"blocks.{i}", f"blocks.{i}", out, cfg.has_image_input)
+    if cfg.has_image_input:
+        for src, dst in (("0", "norm_in"), ("4", "norm_out")):
+            out[f"img_emb.{dst}.scale"] = sd[f"img_emb.proj.{src}.weight"]
+            out[f"img_emb.{dst}.bias"] = sd[f"img_emb.proj.{src}.bias"]
+        _lin(sd, "img_emb.proj.1", "img_emb.fc1", out)
+        _lin(sd, "img_emb.proj.3", "img_emb.fc2", out)
+        if cfg.has_image_pos_emb:
+            out["img_emb.emb_pos"] = sd["img_emb.emb_pos"]
     return out
 
 
@@ -106,7 +123,7 @@ def _renamed(sd: Dict[str, torch.Tensor], rules) -> Dict[str, torch.Tensor]:
 
 _BLOCK_RULES = [
     (r"\.ffn\.fc1\.", ".ffn.0."), (r"\.ffn\.fc2\.", ".ffn.2."),
-    (r"\.(norm_q|norm_k|norm3)\.scale$", r".\1.weight"),
+    (r"\.(norm_q|norm_k|norm3|norm_k_img)\.scale$", r".\1.weight"),
 ]
 
 
@@ -116,7 +133,12 @@ def export_wan_dit(dit: torch.nn.Module) -> Dict[str, torch.Tensor]:
     sd = _renamed(dit.state_dict(), _BLOCK_RULES + [
         (r"^(text_embedding|time_embedding)\.fc1\.", r"\1.0."),
         (r"^(text_embedding|time_embedding)\.fc2\.", r"\1.2."),
-        (r"^time_projection\.", "time_projection.1.")])
+        (r"^time_projection\.", "time_projection.1."),
+        (r"^img_emb\.norm_in\.scale$", "img_emb.proj.0.weight"),
+        (r"^img_emb\.norm_in\.bias$", "img_emb.proj.0.bias"),
+        (r"^img_emb\.fc1\.", "img_emb.proj.1."), (r"^img_emb\.fc2\.", "img_emb.proj.3."),
+        (r"^img_emb\.norm_out\.scale$", "img_emb.proj.4.weight"),
+        (r"^img_emb\.norm_out\.bias$", "img_emb.proj.4.bias")])
     w = sd["patch_embedding.weight"]
     sd["patch_embedding.weight"] = w.reshape(w.shape[0], cfg.in_dim, *cfg.patch_size)
     return sd
@@ -147,23 +169,28 @@ def export_t5(t5: torch.nn.Module) -> Dict[str, torch.Tensor]:
 
 
 def export_wan_vae(vae: torch.nn.Module) -> Dict[str, torch.Tensor]:
-    """A `WanVAE`'s tensors under the reference WanVideoVAE's names (the
+    """A `WanVAE`'s or `WanVAE38`'s tensors under the reference's names (the
     port keeps them; the official file has no `model.` prefix)."""
     return dict(vae.state_dict())
 
 
 def save_release_files(pipe, folder: str, n_shards: int = 7) -> Dict[str, object]:
-    """Write a pipeline's models in the layout of the Wan2.1-VACE-14B
-    release: the DiT and VACE together under the reference's names, in
-    safetensors shards `diffusion_pytorch_model-0000i-of-0000n`
+    """Write a pipeline's models in the layout of the Wan releases: the DiT
+    (and VACE, where the pipeline has one) together under the reference's
+    names, in safetensors shards `diffusion_pytorch_model-0000i-of-0000n`
     (consecutive names, split near equal in bytes); umT5 as
-    `models_t5_umt5-xxl-enc-bf16.pth` and the VAE as `Wan2.1_VAE.pth`.
-    Tensors keep their dtype; one at a time
-    passes through the host. Returns {"dit": [shard paths], "t5": path,
-    "vae": path}."""
+    `models_t5_umt5-xxl-enc-bf16.pth`, the VAE as `Wan2.1_VAE.pth` (or
+    `Wan2.2_VAE.pth`) and an I2V pipeline's CLIP tower as
+    `models_clip_open-clip-xlm-roberta-large-vit-huge-14.pth`. Tensors keep
+    their dtype; one at a time passes through the host. Returns {"dit":
+    [shard paths], "t5": path, "vae": path[, "clip": path]}."""
     import os
+    from ..models.clip_vit import export_clip_vit
+    from ..models.wan_vae import WanVAE38
     from ..safetensors_io import save_file
-    sd = {**export_wan_dit(pipe.dit), **export_vace(pipe.vace)}
+    sd = export_wan_dit(pipe.dit)
+    if pipe.vace is not None:
+        sd.update(export_vace(pipe.vace))
     names = sorted(sd)
     total = sum(sd[k].numel() * sd[k].element_size() for k in names)
     shards, part, size = [], [], 0
@@ -182,6 +209,11 @@ def save_release_files(pipe, folder: str, n_shards: int = 7) -> Dict[str, object
         paths["dit"].append(path)
     paths["t5"] = os.path.join(folder, "models_t5_umt5-xxl-enc-bf16.pth")
     torch.save(export_t5(pipe.prompter.text_encoder), paths["t5"])
-    paths["vae"] = os.path.join(folder, "Wan2.1_VAE.pth")
+    paths["vae"] = os.path.join(folder, "Wan2.2_VAE.pth" if isinstance(pipe.vae, WanVAE38)
+                                else "Wan2.1_VAE.pth")
     torch.save(export_wan_vae(pipe.vae), paths["vae"])
+    if pipe.image_encoder is not None:
+        paths["clip"] = os.path.join(
+            folder, "models_clip_open-clip-xlm-roberta-large-vit-huge-14.pth")
+        torch.save(export_clip_vit(pipe.image_encoder), paths["clip"])
     return paths
