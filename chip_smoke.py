@@ -101,6 +101,12 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
              against the same weights on the CPU
   ti2v_reference  the TI2V smoke recipe (the first frame's latent fused
              into the noise, a tiny Wan2.2-family VAE), card vs CPU
+  fun_reference  the Fun V1.1 Control (a control video and a reference
+             image), V1.1 Control-Camera and speed-control smoke recipes
+             of `wan_video_gen`, card vs CPU
+  animate_reference  the Wan2.2-Animate smoke recipe (a tiny adapter at
+             face size 64, pose and face videos cut from the clip), card
+             vs CPU
   e2e_quant  the trained LoRA merged, then quantize("int8",
              quantize_attention=True) and the same edit again: int8 GEMMs
              and K6 for every attention; profiled like e2e; then one step
@@ -118,6 +124,27 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
              position table, the clip's last frame as the end image) and a
              2-step dual-expert request (a second I2V expert below
              switch_DiT_boundary, umT5 and CLIP parked on the host)
+  fun        Wan2.1-Fun-14B on the I2V phase's trunk, before its dual
+             expert: InP (the trunk as it is, the first and last frames),
+             V1.1 Control (a random 48-channel patch embedding and
+             `ref_conv`: the clip as the control video, its first frame as
+             the reference image, one more leading latent frame: 6,240
+             tokens at 9 frames) and V1.1 Control-Camera (a random
+             SimpleAdapter 24 -> 5120, the camera moving left, the I2V y):
+             stage and step times, peak memory, tokens, K1/K4/K5 launches
+             against 3/1/1 per block and pass
+  animate    Wan2.2-Animate-14B on the same trunk: a random adapter (the
+             pose embedding 16 -> 5120, 8 face blocks of 40 heads, the face
+             and motion encoders at face size 512), the clip's frames 1..
+             as the pose video, 5 face crops of 512x512: the adapter's
+             stage (pose tokens, motion and face encoders once) and one
+             face block timed apart, step times, peak, launches (3/1/1; the
+             face blocks' 5-key attention is the plain `sdpa`)
+  speed      Wan2.1-T2V-1.3B at full width (30 blocks of 1536, 12 heads)
+             with a random speed controller (its last layer random, not
+             zero), the loaded umT5 and VAE, --frames, --steps, CFG 5
+             two-pass: step times, peak, launches (2/1/1); two motion ids
+             give different latents
   ti2v       Wan2.2-TI2V-5B at full width: a random WAN_TI2V_5B DiT and
              Wan2.2 VAE, 49 frames of 480x832 (5,070 tokens), --steps
              steps, CFG 5 two-pass, streaming encode and decode: stage and
@@ -378,7 +405,8 @@ def card_copy(torch, cpu, cls):
     models (the same weights)."""
     from video_styler_tpu_torch.prompters.wan_prompter import WanPrompter
     gpu = cls(device="cuda")
-    for name in ("dit", "dit2", "vace", "vae", "image_encoder"):
+    for name in ("dit", "dit2", "vace", "vae", "image_encoder", "animate",
+                 "motion_controller"):
         m = getattr(cpu, name)
         setattr(gpu, name, None if m is None else copy.deepcopy(m).to("cuda"))
     p = cpu.prompter
@@ -1691,12 +1719,40 @@ def check_image_references(torch):
         cpu = G.build_smoke_pipeline(recipe, device="cpu", seed=0)
         gpu = card_copy(torch, cpu, WanVideoPipeline)
         h, w, _ = G.smoke_size(recipe)
-        images = G.smoke_images(recipe, h, w)
+        images = G.smoke_inputs(recipe, h, w, 9)
         kw = dict(prompt="a lighthouse in a storm", negative_prompt="blurry",
                   num_frames=9, height=h, width=w, seed=42, cfg_scale=5.0,
                   num_inference_steps=2, tiled=True, return_latents=True, **images)
         res, ok = check_card_against_cpu(torch, phase, cpu, gpu, lambda pipe: pipe(**kw),
                                          recipe=name, images=sorted(images), steps=2,
+                                         cfg="two-pass 5.0")
+        emit(res)
+        if not ok:
+            raise AssertionError(f"{name} smoke, card vs CPU disagree: {res}")
+
+
+def check_fun_references(torch):
+    """`fun_reference`: the Fun V1.1 Control (control video, reference
+    image), V1.1 Control-Camera and speed-control smoke recipes of
+    `wan_video_gen`; `animate_reference`: its Animate smoke recipe. 9
+    frames of 32x32, CFG 5 two-pass, 2 steps, the recipe's smoke inputs,
+    card against CPU on the same weights."""
+    from video_styler_tpu_torch import wan_video_gen as G
+    from video_styler_tpu_torch.pipelines.wan_video import WanVideoPipeline
+    for phase, name in (("fun_reference", "Wan2.1-Fun-V1.1-14B-Control"),
+                        ("fun_reference", "Wan2.1-Fun-V1.1-14B-Control-Camera"),
+                        ("fun_reference", "Wan2.1-1.3b-speedcontrol-v1"),
+                        ("animate_reference", "Wan2.2-Animate-14B")):
+        recipe = G.RECIPES[name]
+        cpu = G.build_smoke_pipeline(recipe, device="cpu", seed=0)
+        gpu = card_copy(torch, cpu, WanVideoPipeline)
+        h, w, _ = G.smoke_size(recipe)
+        inputs = G.smoke_inputs(recipe, h, w, 9)
+        kw = dict(prompt="a lighthouse in a storm", negative_prompt="blurry",
+                  num_frames=9, height=h, width=w, seed=42, cfg_scale=5.0,
+                  num_inference_steps=2, tiled=True, return_latents=True, **inputs)
+        res, ok = check_card_against_cpu(torch, phase, cpu, gpu, lambda pipe: pipe(**kw),
+                                         recipe=name, inputs=sorted(inputs), steps=2,
                                          cfg="two-pass 5.0")
         emit(res)
         if not ok:
@@ -1758,10 +1814,13 @@ def run_i2v(torch, pipe, kernels, frames: int, steps: int):
     the loaded umT5-XXL and Wan2.1 VAE; the --frames 480x832 clip's first
     frame as the image, --steps steps, CFG 5 two-pass; profiled. Then an
     FLF2V request (a random 514-row position table, the clip's last frame
-    as the end image) and a dual-expert request of 2 steps (t = 1000 on
-    `dit`, 833 on a second I2V expert from seed 5 below switch_DiT_boundary
-    0.875; its latents, not decoded) with umT5 and CLIP parked on the host.
-    The caller has freed the VACE pipeline's DiT and VACE."""
+    as the end image), the Fun and Animate requests on the same trunk
+    (`run_fun`, `run_animate`), and a dual-expert request of 2 steps (t =
+    1000 on `dit`, 833 on a second I2V expert from seed 5 below
+    switch_DiT_boundary 0.875; its latents, not decoded) with umT5 and CLIP
+    parked on the host. The caller has freed the VACE pipeline's DiT and
+    VACE. Returns the launches of the I2V request and of the Fun and the
+    Animate runs by path."""
     import dataclasses
     from video_styler_tpu_torch.models.clip_vit import CLIP_VIT_H_14, ClipVit, init_clip_vit_
     from video_styler_tpu_torch.models.wan_dit import WAN_I2V_14B, WanDiT, init_weights_
@@ -1809,6 +1868,10 @@ def run_i2v(torch, pipe, kernels, frames: int, steps: int):
     if out.shape != (frames, 480, 832, 3):
         raise AssertionError(f"flf2v output shape {out.shape}")
 
+    # the Fun and Animate models on the same trunk
+    path["fun"] = run_fun(torch, ip, kernels, video, base, steps)
+    path["animate"] = run_animate(torch, ip, kernels, video, base, steps)
+
     # two I2V experts resident: umT5 and CLIP wait on the host between uses
     parked_t5 = HostParked(ip.prompter.text_encoder)
     parked_clip = HostParked(ip.image_encoder)
@@ -1848,7 +1911,198 @@ def run_i2v(torch, pipe, kernels, frames: int, steps: int):
         del ip, parked_clip
         gc.collect()
         torch.cuda.empty_cache()
-    return path["i2v"]
+    return path
+
+
+def clip_frames(f: int, h: int, w: int):
+    """`frames_480x832`'s pattern rendered at h x w."""
+    import numpy as np
+    tt = np.linspace(0.0, 1.0, f, dtype=np.float32)[:, None, None, None]
+    yy = np.linspace(0.0, 1.0, h, dtype=np.float32)[None, :, None, None]
+    xx = np.linspace(0.0, 1.0, w, dtype=np.float32)[None, None, :, None]
+    cc = np.array([0.2, 0.5, 0.8], np.float32)[None, None, None, :]
+    return (255 * (0.5 + 0.5 * np.sin(6.28 * (xx + yy * cc + tt * 0.3)))
+            ).astype(np.uint8)
+
+
+def _summed(total: dict, launches: dict):
+    for k, v in launches.items():
+        total[k] = total.get(k, 0) + v
+
+
+def run_fun(torch, ip, kernels, video, base: dict, steps: int):
+    """Wan2.1-Fun-14B on the I2V pipeline's `WAN_I2V_14B` trunk (random
+    weights): InP with the clip's first and last frames; V1.1 Control with
+    a random 48-channel patch embedding (16 latent + 16 control + 16 y
+    channels) and `ref_conv` (seed 8), the clip as the control video and
+    its first frame as the reference image (CLIP features of the
+    reference); V1.1 Control-Camera with a random SimpleAdapter (24 ->
+    5120, seed 9), the camera moving left (the DiT takes 36 channels, so
+    the camera unit builds the I2V y). The trunk is restored after each.
+    Returns the three requests' launches summed."""
+    import dataclasses
+    from video_styler_tpu_torch.models.wan_controllers import (SimpleAdapter,
+                                                               init_simple_adapter_)
+    from video_styler_tpu_torch.models.wan_dit import WAN_I2V_14B, Linear, init_weights_
+    dit = ip.dit
+    frames = base["num_frames"]
+    f, h, w = token_grid(frames)
+    total = {}
+
+    def check(out, name):
+        if out.shape != (frames, 480, 832, 3):
+            raise AssertionError(f"{name} output shape {out.shape}")
+
+    _, out, launches = run_image_request(
+        torch, ip, kernels, "fun_inp", steps,
+        dict(base, input_image=video[0], end_image=video[-1]),
+        recipe="Wan2.1-Fun-14B-InP", tokens=f * h * w)
+    check(out, "fun_inp")
+    _summed(total, launches)
+
+    gen = torch.Generator("cuda").manual_seed(8)
+
+    def linear(cin, cout):
+        with torch.device("meta"):
+            lin = Linear(cin, cout, dtype=torch.bfloat16)
+        return init_weights_(lin.to_empty(device="cuda"), gen)
+    patch36 = dit.patch_embedding
+    dit.patch_embedding = linear(48 * 4, dit.cfg.dim)
+    dit.ref_conv = linear(16 * 4, dit.cfg.dim)
+    dit.cfg = dataclasses.replace(WAN_I2V_14B, in_dim=48, has_ref_conv=True)
+    try:
+        _, out, launches = run_image_request(
+            torch, ip, kernels, "fun_control_reference", steps,
+            dict(base, control_video=video, reference_image=video[0]),
+            recipe="Wan2.1-Fun-V1.1-14B-Control", tokens=(f + 1) * h * w,
+            patch_embedding_in=48 * 4)
+    finally:
+        dit.patch_embedding = patch36
+        del dit.ref_conv
+        dit.cfg = WAN_I2V_14B
+    check(out, "fun_control_reference")
+    _summed(total, launches)
+
+    adapter = random_module(torch, lambda cfg, dtype: SimpleAdapter(24, cfg, dtype=dtype),
+                            dit.cfg.dim, init_simple_adapter_, 9, torch.bfloat16)
+    dit.control_adapter = adapter
+    dit.cfg = dataclasses.replace(WAN_I2V_14B, has_control_adapter=True)
+    try:
+        _, out, launches = run_image_request(
+            torch, ip, kernels, "fun_camera", steps,
+            dict(base, input_image=video[0], camera_control_direction="Left"),
+            recipe="Wan2.1-Fun-V1.1-14B-Control-Camera", tokens=f * h * w,
+            adapter_gib=gib([adapter]))
+    finally:
+        del dit.control_adapter
+        dit.cfg = WAN_I2V_14B
+        del adapter
+        torch.cuda.empty_cache()
+    check(out, "fun_camera")
+    _summed(total, launches)
+    return total
+
+
+def run_animate(torch, ip, kernels, video, base: dict, steps: int):
+    """Wan2.2-Animate-14B on the I2V trunk: a random `WAN_ANIMATE_14B`
+    adapter (seed 10), the clip's last 4k - 3 frames as the pose video and
+    the same frames rendered at 512x512 as the face video (one pose latent
+    and one motion frame per latent frame after the first). Before the request,
+    the adapter's stage (pose tokens, the motion encoder on the faces, the
+    face encoder) and one face block are timed apart, synchronised."""
+    from video_styler_tpu_torch import wan_video_gen as G
+    from video_styler_tpu_torch.models import wan_animate as A
+    frames = base["num_frames"]
+    f, h, w = token_grid(frames)
+    t0 = time.perf_counter()
+    ip.animate = random_module(torch, A.WanAnimateAdapter, A.WAN_ANIMATE_14B,
+                               A.init_wan_animate_, 10, torch.bfloat16)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    pose = G.animate_clip(video)
+    faces = G.animate_clip(clip_frames(frames, 512, 512))
+    try:
+        pose_lat, face_values = ip.build_animate_inputs(pose, faces, tiled=True)
+        gen = torch.Generator("cuda").manual_seed(11)
+        tokens = torch.randn((1, f * h * w, ip.dit.cfg.dim), generator=gen,
+                             device="cuda").to(torch.bfloat16)
+        with torch.no_grad():
+            _, motion_vec = A.animate_after_patch_embedding(ip.animate, tokens, (f, h, w),
+                                                            pose_lat, face_values)
+            adapter_ms = time_ms(torch, lambda: A.animate_after_patch_embedding(
+                ip.animate, tokens, (f, h, w), pose_lat, face_values), reps=3, warmup=1)
+            face_block_ms = time_ms(torch, lambda: A.face_block(
+                ip.animate.face_adapter.fuser_blocks[0], tokens, motion_vec,
+                ip.dit.cfg.num_heads), reps=5, warmup=1)
+        del tokens
+        _, out, launches = run_image_request(
+            torch, ip, kernels, "animate", steps,
+            dict(base, input_image=video[0], animate_pose_video=pose,
+                 animate_face_video=faces),
+            recipe="Wan2.2-Animate-14B", tokens=f * h * w, adapter_build_s=build_s,
+            adapter_gib=gib([ip.animate]), adapter_stage_ms=adapter_ms,
+            face_block_ms=face_block_ms, face_blocks=len(ip.animate.face_adapter.fuser_blocks),
+            pose_latents_shape=list(pose_lat.shape), face_frames=len(faces),
+            motion_tokens_shape=list(motion_vec.shape))
+        if out.shape != (frames, 480, 832, 3):
+            raise AssertionError(f"animate output shape {out.shape}")
+        return launches
+    finally:
+        ip.animate = None
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def run_speed(torch, pipe, kernels, frames: int, steps: int):
+    """Wan2.1-T2V-1.3B with the speed controller at full width: a random
+    `WAN_T2V_1_3B` DiT (seed 12) and controller (seed 13; its last layer
+    drawn N(0, 1/dim), not the reference's zeros, so the id acts) beside the
+    loaded umT5 and VAE; the --frames clip's request, motion id 50,
+    counted and profiled; then the latents of ids 50 and 10 must differ."""
+    from video_styler_tpu_torch.models.wan_controllers import (MotionController,
+                                                               init_motion_controller_)
+    from video_styler_tpu_torch.models.wan_dit import WAN_T2V_1_3B, WanDiT, init_weights_
+    from video_styler_tpu_torch.pipelines.wan_video import WanVideoPipeline
+    sp = WanVideoPipeline(device="cuda")
+    sp.vae, sp.prompter = pipe.vae, pipe.prompter
+    t0 = time.perf_counter()
+    sp.dit = random_module(torch, WanDiT, WAN_T2V_1_3B, init_weights_, 12, torch.bfloat16)
+    mc = random_module(torch, lambda cfg, dtype: MotionController(*cfg, dtype=dtype),
+                       (WAN_T2V_1_3B.dim, WAN_T2V_1_3B.freq_dim), init_motion_controller_,
+                       13, torch.bfloat16)
+    with torch.no_grad():
+        mc.fc3.weight.normal_(0.0, WAN_T2V_1_3B.dim ** -0.5,
+                              generator=torch.Generator("cuda").manual_seed(14))
+    sp.motion_controller = mc
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    request = dict(prompt="a train rushes through a snowy valley",
+                   negative_prompt="blurry, static", height=480, width=832,
+                   num_frames=frames, seed=42, cfg_scale=5.0, num_inference_steps=steps,
+                   tiled=True, motion_bucket_id=50.0)
+    try:
+        _, out, launches = run_image_request(
+            torch, sp, kernels, "speed", steps, request, profile=True,
+            recipe="Wan2.1-1.3b-speedcontrol-v1",
+            tokens=int(math.prod(token_grid(frames))), build_s=build_s,
+            dit_params_b=sum(p.numel() for p in sp.dit.parameters()) / 1e9,
+            dit_gib=gib([sp.dit]), controller_gib=gib([mc]))
+        if out.shape != (frames, 480, 832, 3):
+            raise AssertionError(f"speed output shape {out.shape}")
+        lat = {mid: sp(**dict(request, motion_bucket_id=mid, return_latents=True)).float()
+               for mid in (50.0, 10.0)}
+        rel = ((lat[50.0] - lat[10.0]).norm() / lat[50.0].norm()).item()
+        res = dict(phase="speed_check", motion_ids=[50.0, 10.0], latents_rel_l2_between=rel,
+                   finite=all(bool(torch.isfinite(v).all()) for v in lat.values()))
+        emit(res)
+        if not (res["finite"] and rel > 1e-3):
+            raise AssertionError(f"speed control: {res}")
+        return launches
+    finally:
+        sp.dit = sp.motion_controller = None
+        del sp, mc
+        gc.collect()
+        torch.cuda.empty_cache()
 
 
 def run_ti2v(torch, pipe, kernels, steps: int):
@@ -2004,6 +2258,12 @@ def main(argv=None):
         rows += check_kernels(torch, token_grid(frames), f"i2v-{frames}f",
                               cross_lens=image_lens, self_attn=False, norms=False)
     rows += check_kernels(torch, TI2V_GRID, f"ti2v-{TI2V_FRAMES}f", heads=24)
+    # the Fun reference frame: one more leading latent frame (6,240 tokens
+    # at 9 frames, RoPE rows over f + 1 frames); the 1.3B speed-control
+    # width: 12 heads of 128, Dm 1536
+    rows += check_kernels(torch, (run[0] + 1,) + run[1:], f"fun-ref-{args.frames}f",
+                          cross_lens=())
+    rows += check_kernels(torch, run, f"speed-{args.frames}f", heads=12)
     torch.cuda.empty_cache()
     s_ditto = math.prod(ditto)
     s_run = math.prod(run)
@@ -2049,6 +2309,7 @@ def main(argv=None):
     check_editor_reference(torch)
     check_enhance_reference(torch)
     check_image_references(torch)
+    check_fun_references(torch)
     pipe, init_s = build_pipeline(torch)
     e2e_frames = []
     run_edit(torch, pipe, kernels, args.steps, args.frames, "e2e", {"K1": 1.0},
@@ -2100,7 +2361,8 @@ def main(argv=None):
     pipe.dit = pipe.vace = None
     gc.collect()
     torch.cuda.empty_cache()
-    path_launches["i2v"] = run_i2v(torch, pipe, kernels, args.frames, args.steps)
+    path_launches.update(run_i2v(torch, pipe, kernels, args.frames, args.steps))
+    path_launches["speed"] = run_speed(torch, pipe, kernels, args.frames, args.steps)
     path_launches["ti2v"] = run_ti2v(torch, pipe, kernels, args.steps)
 
     keys = ("name", "route", "source", "replaces", "max_abs_err", "ms",

@@ -99,9 +99,11 @@ def _np(tree):
     return jax.tree_util.tree_map(np.asarray, tree)
 
 
-def _port_cfg(cls, jcfg):
+def _port_cfg(cls, jcfg, **port_only):
+    """The port's config of a JAX config; `port_only`: the port's fields the
+    JAX config has not (`has_control_adapter`), else their defaults."""
     fields = cls.__dataclass_fields__
-    return cls(**{k: getattr(jcfg, k) for k in fields})
+    return cls(**{k: getattr(jcfg, k) for k in fields if hasattr(jcfg, k)}, **port_only)
 
 
 def _bits(t):
@@ -230,22 +232,18 @@ def _image_dit_keys(case):
 
 @pytest.mark.parametrize("case", ["i2v", "flf2v", "ti2v", "ref_conv"])
 def test_detect_unported_dit_raises(case):
-    """I2V (image input), FLF2V (and its CLIP position table) and TI2V
-    (separated timestep, fused first frame) DiTs are detected as the JAX
-    detector detects them; a Fun DiT with a reference conv, which the port
-    does not build, still raises."""
+    """I2V (image input), FLF2V (and its CLIP position table), TI2V
+    (separated timestep, fused first frame) and Fun V1.1 (a reference conv)
+    DiTs are detected as the JAX detector detects them."""
     sd = _image_dit_keys(case)
     jcfg = JC.detect_wan_dit_config(sd)
-    if case == "ref_conv":
-        assert jcfg.has_ref_conv
-        with pytest.raises(NotImplementedError, match="not ported.*Queue 1 item 9"):
-            TC.detect_wan_dit_config(sd)
-        return
     cfg = TC.detect_wan_dit_config(sd)
     assert cfg == _port_cfg(TD.WanDiTConfig, jcfg)
     want = {"i2v": TD.WAN_I2V_14B, "ti2v": TD.WAN_TI2V_5B,
-            "flf2v": dataclasses.replace(TD.WAN_I2V_14B, has_image_pos_emb=True)}[case]
+            "flf2v": dataclasses.replace(TD.WAN_I2V_14B, has_image_pos_emb=True),
+            "ref_conv": dataclasses.replace(TD.WAN_I2V_14B, has_ref_conv=True)}[case]
     assert cfg == dataclasses.replace(want, num_layers=2)
+    assert cfg.has_ref_conv == jcfg.has_ref_conv == (case == "ref_conv")
 
 
 def test_wan22_i2v_detection_fault_is_mirrored(tmp_path):
@@ -506,15 +504,16 @@ def test_unported_kinds_raise(tmp_path):
     with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
         TC.load_model(path, device="cpu")
     tp = TW.WanVideoPipeline(device="cpu")
-    for kind, item in (("animate", 9), ("s2v", 9), ("motion_controller", 9)):
+    for kind, item in (("s2v", 9), ("wav2vec", 9)):
         with pytest.raises(NotImplementedError, match=f"Queue 1 item {item}"):
             tp._attach(kind, {})
+    assert not {"animate", "motion_controller"} & set(TC.UNPORTED_KINDS)
     with pytest.raises(ValueError, match="unknown model kind"):
         tp._attach("not-a-kind", {})
     shards, _, _ = _reference_files(str(tmp_path))
     with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
         TW.WanVideoPipeline.from_pretrained(
-            [ModelConfig(path=shards, model_kind="animate")], device="cpu")
+            [ModelConfig(path=shards, model_kind="s2v")], device="cpu")
 
 
 def test_model_config_resolves_locally(tmp_path, monkeypatch):
@@ -636,3 +635,118 @@ def test_fetch_tokenizer_near_matches_jax(tmp_path, monkeypatch):
         np.testing.assert_array_equal(t_ids, j_ids)
         np.testing.assert_array_equal(t_mask, j_mask)
         assert t_mask.sum() > 1
+
+
+# ------------------------------------------------- Fun, Animate, speed files
+
+FUN_FILES = {"control-ref_conv": dict(DIT, in_dim=16, has_ref_conv=True),
+             "camera-control_adapter": dict(DIT, in_dim=8, has_control_adapter=True)}
+
+
+def _write_shards(folder, sd, name="diffusion_pytorch_model"):
+    keys = sorted(sd)
+    paths = []
+    for i, part in enumerate((keys[::2], keys[1::2])):
+        path = os.path.join(folder, f"{name}-0000{i + 1}-of-00002.safetensors")
+        safetensors_io.save_file({k: sd[k] for k in part}, path)
+        paths.append(path)
+    return paths
+
+
+@pytest.mark.parametrize("case", list(FUN_FILES))
+def test_fun_dit_files_from_pretrained_match_jax(case, tmp_path, monkeypatch):
+    """A Fun V1.1 Control DiT (`ref_conv`, a Conv2d (dim, z, 2, 2)) and a Fun
+    Camera DiT (`control_adapter.*`, the SimpleAdapter) through both
+    packages' `from_pretrained`: detected alike (the port's config also
+    names the adapter, which the JAX converter adds by key), the port's
+    DiT bit-equal to `from_jax_params` of the JAX converter's tree."""
+    monkeypatch.setenv("VIDEO_STYLER_OFFLINE", "1")
+    cfg = TD.WanDiTConfig(**FUN_FILES[case])
+    with torch.device("meta"):
+        names = export_wan_dit(TD.WanDiT(cfg))
+    assert ("ref_conv.weight" in names) == cfg.has_ref_conv
+    if cfg.has_ref_conv:
+        assert tuple(names["ref_conv.weight"].shape) == (128, 4, 2, 2)
+    shards = _write_shards(str(tmp_path), _random_like(names, 3, torch.bfloat16))
+    jp = JW.WanVideoPipeline.from_pretrained([JModelConfig(path=shards)], dtype=jnp.bfloat16)
+    tp = TW.WanVideoPipeline.from_pretrained([ModelConfig(path=shards)], device="cpu")
+    assert tp.dit.cfg == cfg
+    assert tp.dit.cfg == _port_cfg(TD.WanDiTConfig, jp.dit_cfg,
+                                   has_control_adapter="control_adapter" in jp.dit_params)
+    assert ("ref_conv" in jp.dit_params) == cfg.has_ref_conv
+    _assert_bit_equal(tp.dit, from_jax_params("dit", _np(jp.dit_params), cfg, device="cpu"))
+    kind, dit = TC.load_model(shards, device="cpu")
+    assert kind == "dit"
+    _assert_bit_equal(dit["dit"], tp.dit)
+
+
+def _animate_file(folder, seed=4):
+    """The Wan2.2-Animate release's layout: the DiT (I2V keys) and the
+    adapter in the same shards (small widths: dim 128, 1 head of 128, 2
+    layers; a face size of 64, 1 face block)."""
+    from video_styler_tpu_torch.models import wan_animate as TA
+    cfg = TA.AnimateConfig(dim=128, num_face_blocks=1, face_size=64, face_conv_dim=32,
+                           pose_in_dim=4)
+    with torch.device("meta"):
+        names = {**export_wan_dit(TD.WanDiT(TD.WanDiTConfig(**dict(DIT, in_dim=12,
+                                                                   has_image_input=True)))),
+                 **TA.export_wan_animate(TA.WanAnimateAdapter(cfg, 128))}
+    sd = _random_like(names, seed, torch.bfloat16)
+    for k in sd:
+        if k.endswith(".kernel"):   # the blur kernels are fixed values
+            sd[k] = TA._blur_kernel().to(torch.bfloat16)
+    return _write_shards(folder, sd), cfg
+
+
+def test_animate_file_detection_fault_is_mirrored(tmp_path, monkeypatch):
+    """The official Animate file holds the DiT beside the adapter: both
+    detectors call it `animate` (a `face_adapter.`/`pose_patch_embedding.`
+    key wins before the DiT rule), both pipelines attach only the adapter
+    (the JAX one nests the whole file into it) and load no DiT (ROADMAP
+    Queue 3). The adapter is bit-equal to `from_jax_params` of the JAX
+    tree's adapter part; naming the DiT's kind as well loads both."""
+    from video_styler_tpu_torch.models import wan_animate as TA
+    monkeypatch.setenv("VIDEO_STYLER_OFFLINE", "1")
+    shards, cfg = _animate_file(str(tmp_path))
+    sd = TC.load_state_dict_files(shards, lazy=True)
+    assert TC.detect_model_kind(sd) == JC.detect_model_kind(sd) == "animate"
+    jp = JW.WanVideoPipeline.from_pretrained([JModelConfig(path=shards)], dtype=jnp.bfloat16)
+    tp = TW.WanVideoPipeline.from_pretrained([ModelConfig(path=shards)], device="cpu")
+    assert jp.dit_params is None and tp.dit is None
+    assert "blocks" in jp.animate_params   # the DiT's keys, nested into the adapter
+    tree = {k: v for k, v in jp.animate_params.items() if k + "." in TA.ANIMATE_PREFIXES}
+    assert tp.animate.cfg == cfg
+    _assert_bit_equal(tp.animate, from_jax_params("animate", _np(tree), cfg, device="cpu"))
+    both = TW.WanVideoPipeline.from_pretrained(
+        [ModelConfig(path=shards, model_kind="dit"),
+         ModelConfig(path=shards, model_kind="animate")], device="cpu")
+    assert both.dit is not None and both.dit.cfg.has_image_input
+    _assert_bit_equal(both.animate, tp.animate)
+    kind, adapter = TC.load_model(shards, device="cpu")
+    assert kind == "animate"
+    _assert_bit_equal(adapter, tp.animate)
+
+
+def test_speed_controller_file_detection_fault_is_mirrored(tmp_path, monkeypatch):
+    """The speed controller's `model.safetensors` (`linear.{0,2,4}.*`) is
+    detected by neither package (a ValueError: ROADMAP Queue 3); with its
+    kind named, both load it, the port's bit-equal to `from_jax_params`."""
+    from video_styler_tpu_torch.models import wan_controllers as TCTL
+    monkeypatch.setenv("VIDEO_STYLER_OFFLINE", "1")
+    with torch.device("meta"):
+        names = TCTL.export_motion_controller(TCTL.MotionController(128, 256))
+    path = str(tmp_path / "model.safetensors")
+    safetensors_io.save_file(_random_like(names, 5, torch.bfloat16), path)
+    sd = TC.load_state_dict(path)
+    for detect in (TC.detect_model_kind, JC.detect_model_kind):
+        with pytest.raises(ValueError, match="cannot detect model kind"):
+            detect(sd)
+    with pytest.raises(ValueError, match="cannot detect model kind"):
+        TW.WanVideoPipeline.from_pretrained([ModelConfig(path=path)], device="cpu")
+    jp = JW.WanVideoPipeline.from_pretrained(
+        [JModelConfig(path=path, model_kind="motion_controller")], dtype=jnp.bfloat16)
+    tp = TW.WanVideoPipeline.from_pretrained(
+        [ModelConfig(path=path, model_kind="motion_controller")], device="cpu")
+    _assert_bit_equal(tp.motion_controller, from_jax_params(
+        "motion_controller", _np(jp.motion_controller_params), None, device="cpu"))
+    assert tp.motion_controller.fc3.weight.shape == (6 * 128, 128)

@@ -1,5 +1,6 @@
 """The port's hand-written CUDA kernels (K1 with and without stats, K2, K3,
-K4, K5, K6, K7, K8) against their plain versions, and the quantized linears'
+K4, K5, K6, K7, K8) against their plain versions, at the widths and token
+counts of the paths that run them, and the quantized linears'
 library GEMMs against the CPU's exact products, on the card. They skip on a host without a GPU; on the card run them with
 
     python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py
@@ -134,6 +135,59 @@ def test_k1_k4_k5_ti2v_width(gen):
     lane, K5's 16-chunk instantiation) over its 5,070 tokens (13 x 15 x 26,
     not a multiple of 128): K4 on q and k, K5, and K1 self and cross."""
     f, h, w, n = 13, 15, 26, 24
+    s = f * h * w
+    xq, xk = _randn(gen, 1, s, n * 128), _randn(gen, 1, s, n * 128, scale=0.7)
+    wq = (1 + 0.1 * torch.randn(n * 128, generator=gen, device="cuda")).to(torch.bfloat16)
+    wk = (1 + 0.1 * torch.randn(n * 128, generator=gen, device="cuda")).to(torch.bfloat16)
+    cos, sin = assemble_freqs_grid(128, f, h, w, device="cuda")
+    before = (fnr.ROPE_KERNEL.launches, fnr.RMS_KERNEL.launches, fa.KERNEL.launches)
+    oq, ok = fnr.fused_rmsnorm_rope(xq, xk, wq, wk, cos, sin)
+    o5 = fnr.fused_rmsnorm(xq, wq)
+    v = _randn(gen, 1, s, n, 128)
+    o1 = fa.flash_attention(oq, ok, v)
+    ctx = _randn(gen, 1, 512, n, 128)
+    o1x = fa.flash_attention(oq, ctx, ctx)
+    torch.cuda.synchronize()
+    assert (fnr.ROPE_KERNEL.launches, fnr.RMS_KERNEL.launches, fa.KERNEL.launches) == (
+        before[0] + 1, before[1] + 1, before[2] + 2)
+    pq, pk = fnr.fused_rmsnorm_rope_plain(xq, xk, wq, wk, cos, sin)
+    _assert_close(oq, pq)
+    _assert_close(ok, pk)
+    _assert_close(o5, fnr.fused_rmsnorm_plain(xq, wq))
+    rows = torch.cat([torch.arange(0, 1024), torch.arange(s - 1024, s)]).cuda()
+    _assert_close(o1[:, rows], fa.flash_attention_plain(oq[:, rows], ok, v))
+    _assert_close(o1x[:, rows], fa.flash_attention_plain(oq[:, rows], ctx, ctx))
+
+
+def test_k4_k1_fun_reference_frame(gen):
+    """The Fun V1.1 reference frame at 480x832, 9 frames: 3 latent frames
+    and the reference's one in front, 4 x 1,560 = 6,240 tokens with RoPE
+    rows over f + 1 = 4 frames (the reference at temporal index 0): K4 on
+    q and k, then K1 self-attention over all 6,240, 40 heads."""
+    s, n = 4 * 30 * 52, 40
+    xq, xk = _randn(gen, 1, s, n * 128), _randn(gen, 1, s, n * 128, scale=0.7)
+    wq = (1 + 0.1 * torch.randn(n * 128, generator=gen, device="cuda")).to(torch.bfloat16)
+    wk = (1 + 0.1 * torch.randn(n * 128, generator=gen, device="cuda")).to(torch.bfloat16)
+    cos, sin = assemble_freqs_grid(128, 4, 30, 52, device="cuda")
+    assert cos.shape == (6240, 64)
+    v = _randn(gen, 1, s, n, 128)
+    before = (fnr.ROPE_KERNEL.launches, fa.KERNEL.launches)
+    oq, ok = fnr.fused_rmsnorm_rope(xq, xk, wq, wk, cos, sin)
+    out = fa.flash_attention(oq, ok, v)
+    torch.cuda.synchronize()
+    assert (fnr.ROPE_KERNEL.launches, fa.KERNEL.launches) == (before[0] + 1, before[1] + 1)
+    pq, pk = fnr.fused_rmsnorm_rope_plain(xq, xk, wq, wk, cos, sin)
+    _assert_close(oq, pq)
+    _assert_close(ok, pk)
+    rows = torch.cat([torch.arange(0, 1024), torch.arange(s - 1024, s)]).cuda()
+    _assert_close(out[:, rows], fa.flash_attention_plain(oq[:, rows], ok, v))
+
+
+def test_k1_k4_k5_speed_control_width(gen):
+    """Wan2.1-T2V-1.3B's width (the speed-control recipe): 12 heads of 128,
+    Dm 1536 (6 chunks of 16 bytes a lane: K5's 8-chunk instantiation) over
+    the 9-frame 480x832 clip's 4,680 tokens: K4, K5, K1 self and cross."""
+    f, h, w, n = 3, 30, 52, 12
     s = f * h * w
     xq, xk = _randn(gen, 1, s, n * 128), _randn(gen, 1, s, n * 128, scale=0.7)
     wq = (1 + 0.1 * torch.randn(n * 128, generator=gen, device="cuda")).to(torch.bfloat16)

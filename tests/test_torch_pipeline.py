@@ -187,7 +187,7 @@ def test_port_imports_no_jax():
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 48
+    assert int(out.stdout.strip()) >= 50
 
 
 def test_entry_points_refuse_cpu_unless_asked(tmp_path):

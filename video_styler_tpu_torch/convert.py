@@ -10,6 +10,15 @@ and returns the port's module for `kind`:
   "vae"  -> models.wan_vae.WanVAE       (cfg: WanVAEConfig), or
             models.wan_vae.WanVAE38     (cfg: WanVAE38Config, the Wan2.2 VAE)
   "clip" -> models.clip_vit.ClipVit     (cfg: ClipVitConfig)
+  "animate" -> models.wan_animate.WanAnimateAdapter (cfg: AnimateConfig;
+            the tree nests the reference's names, torch layouts)
+  "motion_controller" -> models.wan_controllers.MotionController
+  "control_adapter"   -> models.wan_controllers.SimpleAdapter
+            (cfg: None for these two; the widths come from the tree)
+
+A Fun DiT's tree carries `ref_conv` ({"w", "b"}, as the patch embedding)
+and `control_adapter` (torch layout), which a config with `has_ref_conv`
+and `has_control_adapter` takes.
 
 `from_jax_lora(lora)` turns a JAX LoRA pytree (`trainers.lora_train
 .init_lora`: {path: {"A": (L, in, r), "B": (L, r, out)}}, stacked over
@@ -37,13 +46,32 @@ import torch
 from .device import resolve_device
 from .models.clip_vit import ClipVit
 from .models.t5 import T5Encoder
+from .models.wan_animate import WanAnimateAdapter, animate_head_dim
+from .models.wan_controllers import MotionController, SimpleAdapter
 from .models.wan_dit import WanDiT
 from .models.wan_vace import WanVace
 from .models.wan_vae import WanVAE, WanVAE38, WanVAE38Config
 from .ops.quant import QuantLinear
 
+def _animate(cfg, sd):
+    return WanAnimateAdapter(cfg, animate_head_dim(sd))
+
+
+def _motion_controller(cfg, sd):
+    dim, freq_dim = sd["fc1.weight"].shape
+    return MotionController(dim, freq_dim)
+
+
+def _simple_adapter(cfg, sd):
+    blocks = len({k.split(".")[1] for k in sd if k.startswith("residual_blocks.")})
+    return SimpleAdapter(sd["conv.weight"].shape[1] // 64, sd["conv.weight"].shape[0],
+                         blocks)
+
+
 _MODULES = {"dit": WanDiT, "vace": WanVace, "t5": T5Encoder, "vae": WanVAE,
             "clip": ClipVit}
+_BUILDERS = {"animate": _animate, "motion_controller": _motion_controller,
+             "control_adapter": _simple_adapter}
 _STACKED = ("blocks", "after_proj")
 
 
@@ -105,12 +133,15 @@ def from_jax_params(kind: str, tree, cfg, device=None) -> torch.nn.Module:
     """The port's `kind` module holding the JAX tree's values (strict), on
     `device` (the card unless "cpu", as every entry point)."""
     device = resolve_device(device)
-    if kind not in _MODULES:
-        raise ValueError(f"unknown model kind {kind!r}; one of {sorted(_MODULES)}")
+    if kind not in _MODULES and kind not in _BUILDERS:
+        raise ValueError(f"unknown model kind {kind!r}; one of "
+                         f"{sorted(_MODULES) + sorted(_BUILDERS)}")
     sd = jax_tree_to_state_dict(tree, stacked=kind in ("dit", "vace"))
-    cls = WanVAE38 if isinstance(cfg, WanVAE38Config) else _MODULES[kind]
     with torch.device("meta"):
-        module = cls(cfg)
+        if kind in _BUILDERS:
+            module = _BUILDERS[kind](cfg, sd)
+        else:
+            module = (WanVAE38 if isinstance(cfg, WanVAE38Config) else _MODULES[kind])(cfg)
     _swap_in_quant_linears(module, sd)
     module.load_state_dict(sd, strict=True, assign=True)
     return module.to(device).eval()

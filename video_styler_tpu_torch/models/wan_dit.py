@@ -7,7 +7,13 @@ functions: patchify, time/text embeddings, self-attention (K4 fused
 RMSNorm+RoPE, then K1), cross-attention (K5 RMSNorm on Q, then K1), the
 GELU-tanh FFN (after `ops.quant.quantize_params` the linears are
 `QuantLinear`s, and int8 / per-column int4 q, k, v run as one fused GEMM), the 6-way adaLN-modulated block, VACE hint injection after
-mapped layers, and the modulated head.
+mapped layers, and the modulated head. The Fun and Animate conditioning
+enters through `wan_dit_forward_with_residual`: a Fun reference frame
+(`ref_conv`, its tokens prepended as an extra leading RoPE frame and
+dropped after the head), the Fun camera adapter's features added to the
+tokens (`control_adapter`), a term added to t_mod (the speed controller's),
+and the Animate adapter (pose tokens on frames 1.., a face block after
+every 5th layer through `run_blocks`' segments).
 
 The single-GPU port has no mesh: the sharding constraints and the
 mesh-divisibility padding of the JAX package are gone, so every token is
@@ -22,7 +28,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import List, Optional, Sequence, Tuple
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -33,6 +39,8 @@ from ..ops.basic import (gelu_tanh, layer_norm, linear, modulate, rms_norm,
                          silu, sinusoidal_embedding_1d)
 from ..ops.fused_norm_rope import fused_rmsnorm, fused_rmsnorm_rope
 from ..ops.rope import assemble_freqs_grid
+from . import wan_animate as A
+from .wan_controllers import SimpleAdapter, init_simple_adapter_, simple_adapter_forward
 
 
 @dataclass(frozen=True)
@@ -49,11 +57,15 @@ class WanDiTConfig:
     patch_size: Tuple[int, int, int] = (1, 2, 2)
     has_image_input: bool = False
     has_image_pos_emb: bool = False
-    # a Fun reference-conv DiT: detected, not built (utils.ckpt raises)
+    # a Fun V1.1 reference conv (`ref_conv`: z * 2 * 2 -> dim, z = out_dim)
     has_ref_conv: bool = False
     seperated_timestep: bool = False
     require_vae_embedding: bool = True
     fuse_vae_embedding_in_latents: bool = False
+    # a Fun camera DiT's SimpleAdapter (`control_adapter`, 24 -> dim). The
+    # JAX config has no such field: its converter adds the adapter wherever
+    # the file has `control_adapter.*` keys; the port's detection sets it
+    has_control_adapter: bool = False
 
     @property
     def head_dim(self) -> int:
@@ -69,6 +81,8 @@ class WanDiTConfig:
         return self.has_image_input
 
 
+WAN_T2V_1_3B = WanDiTConfig(dim=1536, in_dim=16, ffn_dim=8960, out_dim=16,
+                            num_heads=12, num_layers=30)
 WAN_T2V_14B = WanDiTConfig(dim=5120, in_dim=16, ffn_dim=13824, out_dim=16,
                            num_heads=40, num_layers=40)
 WAN_I2V_14B = WanDiTConfig(dim=5120, in_dim=36, ffn_dim=13824, out_dim=16,
@@ -202,13 +216,17 @@ class WanDiT(nn.Module):
                                     for _ in range(cfg.num_layers))
         if cfg.has_image_input:
             self.img_emb = ImageEmbedding(cfg, **kw)
+        if cfg.has_ref_conv:
+            self.ref_conv = Linear(cfg.out_dim * ph * pw, cfg.dim, **kw)
+        if cfg.has_control_adapter:
+            self.control_adapter = SimpleAdapter(24, cfg.dim, **kw)
 
 
 @torch.no_grad()
 def init_weights_(module: nn.Module, generator: torch.Generator) -> nn.Module:
     """Random init with the JAX package's std: linear weights N(0, 1/in),
     biases 0, norm scales 1, modulation tables N(0, 1/dim), FLF2V's image
-    position table 0."""
+    position table 0; a camera adapter as `init_simple_adapter_`."""
     for m in module.modules():
         if isinstance(m, nn.Linear):
             m.weight.normal_(0.0, 1.0 / math.sqrt(m.in_features),
@@ -224,6 +242,8 @@ def init_weights_(module: nn.Module, generator: torch.Generator) -> nn.Module:
                                  generator=generator)
         elif isinstance(m, ImageEmbedding) and hasattr(m, "emb_pos"):
             m.emb_pos.zero_()
+        elif isinstance(m, SimpleAdapter):
+            init_simple_adapter_(m, generator)
     return module
 
 
@@ -311,17 +331,30 @@ def block_fn(remat: bool):
 def run_blocks(blocks: Sequence[DiTBlock], x, context, t_mod, cos, sin,
                cfg: WanDiTConfig, vace_hints=None,
                vace_layers: Optional[Sequence[int]] = None,
-               vace_scale: float = 1.0, remat: bool = False, layer_gate=None):
+               vace_scale: float = 1.0, remat: bool = False, layer_gate=None,
+               segment_layers: Optional[Sequence[int]] = None,
+               segment_callback: Optional[Callable] = None):
     """The block stack; VACE hint j is added after layer vace_layers[j],
     cast to the trunk dtype (the scale too, so an fp32 scale never promotes
     a bf16 trunk).
 
     layer_gate: optional (num_layers, B) tensor; layer i's update of batch
     row b becomes x + g[i, b] * (block(x) - x) in the trunk dtype, so a 0
-    makes the block an identity for that row (skip-layer guidance)."""
+    makes the block an identity for that row (skip-layer guidance).
+
+    segment_layers / segment_callback: x = segment_callback(j, x) after
+    layer segment_layers[j] (the Animate face blocks), after that layer's
+    gate. As in the JAX package, the callback takes the VACE hints' place:
+    with segments no hint is added."""
     inject = {}
-    if vace_hints is not None and vace_layers is not None:
+    if segment_layers is not None:
+        inject = {layer: j for j, layer in enumerate(segment_layers)}
+    elif vace_hints is not None and vace_layers is not None:
         inject = {layer: j for j, layer in enumerate(vace_layers)}
+
+        def segment_callback(j, x):
+            return x + vace_hints[j].to(x.dtype) * \
+                torch.tensor(vace_scale, dtype=x.dtype, device=x.device)
     body = block_fn(remat)
     for i, blk in enumerate(blocks):
         y = body(blk, x, context, t_mod, cos, sin, cfg)
@@ -329,8 +362,7 @@ def run_blocks(blocks: Sequence[DiTBlock], x, context, t_mod, cos, sin,
             y = x + layer_gate[i].to(x.dtype)[:, None, None] * (y - x)
         x = y
         if i in inject:
-            x = x + vace_hints[inject[i]].to(x.dtype) * \
-                torch.tensor(vace_scale, dtype=x.dtype, device=x.device)
+            x = segment_callback(inject[i], x)
     return x
 
 
@@ -411,42 +443,89 @@ def image_inputs(model: WanDiT, x, context, clip_feature=None, y=None):
     return x, context
 
 
+def assemble_tokens(model: WanDiT, x, control_camera=None, reference_latents=None):
+    """Patchify, then the Fun conditioning, in the JAX pipeline's order:
+    the camera adapter's features (B, dim, f, h, w) added token by token,
+    then the reference frame's tokens (`ref_conv` on its (1, 2, 2) patches)
+    put in front. Returns (tokens, (f, h, w) of the latents, n_ref)."""
+    cfg = model.cfg
+    tokens, grid = patchify(model.patch_embedding, x, cfg.patch_size)
+    if control_camera is not None:
+        cam = simple_adapter_forward(model.control_adapter, control_camera.to(tokens.dtype))
+        tokens = tokens + cam.flatten(2).transpose(1, 2)
+    n_ref = 0
+    if reference_latents is not None:
+        ref, _ = patchify(model.ref_conv, reference_latents.to(tokens.dtype),
+                          (1,) + tuple(cfg.patch_size[1:]))
+        tokens = torch.cat([ref, tokens], dim=1)
+        n_ref = ref.shape[1]
+    return tokens, grid, n_ref
+
+
 def wan_dit_forward_with_residual(model: WanDiT, x, timestep, context,
                                   rope_indices=None, vace=None,
                                   vace_context=None, vace_scale: float = 1.0,
                                   remat: bool = False, layer_gate=None,
-                                  clip_feature=None, y=None):
+                                  clip_feature=None, y=None, control_camera=None,
+                                  reference_latents=None, t_mod_add=None,
+                                  animate=None):
     """`wan_dit_forward`, also returning the block stack's residual
-    (tokens out - tokens in, (B, S, dim)) that TeaCache replays."""
+    (tokens out - tokens in, (B, S, dim)) that TeaCache replays.
+
+    control_camera: (B, 24, F, H, W) packed Plücker latents for the camera
+    adapter; reference_latents: (B, z, 1, H, W), one more leading RoPE
+    frame whose tokens are dropped after the head; t_mod_add: (B, 6, dim)
+    added to t_mod (the speed controller's term); animate: (adapter, pose
+    latents (B, 16, F - 1, H, W), face crops (B, 3, T, size, size)): the
+    pose tokens added after the VACE hints are taken, a face block after
+    every 5th layer."""
     cfg = model.cfg
     t, t_mod = time_embed(model, timestep)
+    if t_mod_add is not None:
+        t_mod = t_mod + t_mod_add.to(t_mod.dtype)
     x, context = image_inputs(model, x, text_embed(model, context), clip_feature, y)
-    tokens_in, (f, h, w) = patchify(model.patch_embedding, x, cfg.patch_size)
-    cos, sin = assemble_freqs_grid(cfg.head_dim, f, h, w, rope_indices,
-                                   device=tokens_in.device)
+    tokens_in, (f, h, w), n_ref = assemble_tokens(model, x, control_camera,
+                                                  reference_latents)
+    cos, sin = assemble_freqs_grid(cfg.head_dim, f + (1 if n_ref else 0), h, w,
+                                   rope_indices, device=tokens_in.device)
     hints = None
     if vace is not None and vace_context is not None:
         from .wan_vace import vace_forward
         hints = vace_forward(vace, tokens_in, vace_context, context, t_mod,
                              cos, sin, remat=remat)
+    segments = {}
+    if animate is not None:
+        adapter, pose_latents, face_values = animate
+        tokens_in, motion_vec = A.animate_after_patch_embedding(
+            adapter, tokens_in, (f, h, w), pose_latents, face_values)
+
+        def after_block(j, x):
+            return A.animate_after_transformer_block(adapter, 5 * j, x, motion_vec,
+                                                     cfg.num_heads)
+        segments = dict(segment_layers=tuple(range(0, cfg.num_layers, 5)),
+                        segment_callback=after_block)
     tokens = run_blocks(model.blocks, tokens_in, context, t_mod, cos, sin, cfg,
                         vace_hints=hints,
                         vace_layers=None if hints is None else vace.cfg.vace_layers,
-                        vace_scale=vace_scale, remat=remat, layer_gate=layer_gate)
-    out = unpatchify(head(model, tokens, t), (f, h, w), cfg.patch_size,
-                     cfg.out_dim)
+                        vace_scale=vace_scale, remat=remat, layer_gate=layer_gate,
+                        **segments)
+    out = head(model, tokens, t)[:, n_ref:]
+    out = unpatchify(out, (f, h, w), cfg.patch_size, cfg.out_dim)
     return out, tokens - tokens_in
 
 
 def wan_dit_forward(model: WanDiT, x, timestep, context, rope_indices=None,
                     vace=None, vace_context=None, vace_scale: float = 1.0,
-                    remat: bool = False, layer_gate=None, clip_feature=None, y=None):
+                    remat: bool = False, layer_gate=None, clip_feature=None, y=None,
+                    **conditioning):
     """Full DiT forward, optionally with the VACE branch.
 
     x: (B, C, F, H, W) latents; timestep: (B,), or (B, S) per token;
     context: (B, L, text_dim); vace: a `WanVace`, vace_context: (B,
     vace_in_dim, F, H, W); clip_feature: (B, 257 or 514, 1280) and y:
-    (B, 4 + z, F, H, W) for an image-conditioned DiT (`image_inputs`).
+    (B, 4 + z, F, H, W) for an image-conditioned DiT (`image_inputs`);
+    conditioning: the Fun and Animate inputs of
+    `wan_dit_forward_with_residual`.
     layer_gate: optional (num_layers, B) per-row block gates (`run_blocks`).
     remat: recompute each trunk block and each VACE block in the backward.
     The JAX package's `remat` covers the trunk only
@@ -456,4 +535,4 @@ def wan_dit_forward(model: WanDiT, x, timestep, context, rope_indices=None,
     return wan_dit_forward_with_residual(model, x, timestep, context,
                                          rope_indices, vace, vace_context,
                                          vace_scale, remat, layer_gate,
-                                         clip_feature, y)[0]
+                                         clip_feature, y, **conditioning)[0]

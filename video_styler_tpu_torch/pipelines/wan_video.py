@@ -1,5 +1,5 @@
-"""WanVideoPipeline in PyTorch: text-to-video, the VACE edit and
-image-to-video.
+"""WanVideoPipeline in PyTorch: text-to-video, the VACE edit,
+image-to-video, the Wan Fun units, speed control and Wan2.2-Animate.
 
 Counterpart of the T2V/VACE/I2V subset of
 `video_styler_tpu/pipelines/wan_video.py`: shape check, seeded noise,
@@ -10,8 +10,14 @@ latent of the clip padded with zeros; for Wan2.2 TI2V-5B the first frame's
 latent written into the noise and pinned after every step), a denoise loop
 with two-pass (or merged) CFG over `wan_dit_forward` with VACE hints, and
 the VAE decode (streaming, whole-clip or spatially tiled; the Wan2.1 or
-the Wan2.2 VAE). The loop's options are the JAX pipeline's: TeaCache step skipping,
-skip-layer guidance (`slg_blocks`: the listed blocks skipped on the
+the Wan2.2 VAE). The Fun units (`control_video`: control latents in front
+of y; `reference_image`: a one-frame latent through the DiT's `ref_conv`,
+its CLIP feature replacing the input image's; `camera_control_direction`:
+Plücker latents through the DiT's camera adapter, with a first-frame y),
+speed control (`motion_bucket_id` through the motion controller into
+t_mod) and Animate (`animate_pose_video` / `animate_face_video` through the
+pose/face adapter) are the JAX pipeline's units. The loop's options are
+the JAX pipeline's: TeaCache step skipping, skip-layer guidance (`slg_blocks`: the listed blocks skipped on the
 unconditional rows), the temporal sliding window with ramp blending, a
 second expert `dit2` taking over below `switch_DiT_boundary`, and the
 multistep schedulers (UniPC, DPM++) in place of the flow-match Euler step.
@@ -21,9 +27,11 @@ keeps it on a hotload stack (`set_lora_scale`, `unload_loras`);
 into int8, fp8 or int4 layers and can route attention through the int8
 kernel. Models come from checkpoint files (`from_pretrained`: the official
 Wan2.1 DiT (T2V, I2V, FLF2V), VACE, umT5, CLIP and VAE files, the Wan2.2
-TI2V-5B DiT and VAE, and a Wan2.2 expert as kind `dit2`, read by
-`utils.ckpt`), from `convert.from_jax_params`, or from `from_configs`
-(random weights).
+TI2V-5B DiT and VAE, the Wan Fun DiTs (a reference conv, a camera adapter),
+the Wan2.2-Animate adapter, the speed controller (kind
+`motion_controller`, which detection cannot tell), and a Wan2.2 expert as
+kind `dit2`, read by `utils.ckpt`), from `convert.from_jax_params`, or
+from `from_configs` (random weights).
 
 Runs on `cuda` unless constructed with `device="cpu"`. Each stage's wall
 time (synchronised with the card) is kept in `stage_times`; on the card,
@@ -42,10 +50,14 @@ import torch
 from ..device import resolve_device
 from ..lora import extract_lora_pairs, merge_lora, merge_lora_pairs, target_linear
 from ..models import clip_vit as CV
+from ..models import wan_animate as A
 from ..models import wan_vae as V
 from ..models.t5 import UMT5_XXL, T5Config, T5Encoder, convert_t5, init_t5_
-from ..models.wan_dit import (WanDiT, WanDiTConfig, head, image_inputs, init_weights_,
-                              patchify, time_embed, unpatchify,
+from ..models.wan_controllers import (MotionController, convert_motion_controller,
+                                      motion_controller_forward, pack_camera_latents,
+                                      process_camera_coordinates)
+from ..models.wan_dit import (CLIP_DIM, CLIP_TOKENS, WanDiT, WanDiTConfig, assemble_tokens,
+                              head, image_inputs, init_weights_, time_embed, unpatchify,
                               wan_dit_forward_with_residual)
 from ..models.wan_vace import VaceConfig, WanVace
 from ..prompters.wan_prompter import WanPrompter
@@ -145,6 +157,8 @@ class WanVideoPipeline:
         self.vace2: Optional[WanVace] = None
         self.vae: Optional[V.WanVAE] = None
         self.image_encoder: Optional[CV.ClipVit] = None
+        self.animate: Optional[A.WanAnimateAdapter] = None
+        self.motion_controller: Optional[MotionController] = None
         # the architectures `_attach` builds checkpoint files into (the JAX
         # pipeline's: umT5-XXL and the Wan2.1 VAE; a Wan2.2 VAE file gets
         # `WAN22_VAE`, a CLIP file `CLIP_VIT_H_14`)
@@ -243,6 +257,17 @@ class WanVideoPipeline:
             self.prompter.text_encoder = C.build_module(
                 T5Encoder, self.t5_cfg, convert_t5(sd, self.t5_cfg), self.device,
                 self.dtype)
+        elif kind == "animate":
+            # the JAX pipeline nests the whole file into its adapter: a file
+            # that holds the DiT beside the adapter (the official
+            # Wan2.2-Animate-14B one) leaves no DiT (ROADMAP Queue 3)
+            self.animate = A.build_wan_animate(sd, self.device, self.dtype)
+        elif kind == "motion_controller":
+            mc = convert_motion_controller(sd)
+            dim, freq_dim = mc["fc1.weight"].shape
+            self.motion_controller = C.build_module(
+                lambda cfg, dtype: MotionController(*cfg, dtype=dtype), (dim, freq_dim),
+                mc, self.device, self.dtype)
         elif kind in C.UNPORTED_KINDS:
             raise C.unported(kind)
         else:
@@ -440,51 +465,137 @@ class WanVideoPipeline:
         y = None
         if cfg.require_vae_embedding:
             with self._stage("vae_encode_image"):
-                up = self.vae.cfg.upsampling_factor
-                msk = np.ones((1, num_frames, height // up, width // up), np.float32)
-                msk[:, 1:] = 0
-                vae_input = np.zeros((1, 3, num_frames, height, width), np.float32)
-                vae_input[:, :, 0] = img_np[0]
-                if end_np is not None:
-                    vae_input[:, :, -1] = end_np[0]
-                    msk[:, -1:] = 1
-                msk = np.concatenate([np.repeat(msk[:, 0:1], 4, axis=1), msk[:, 1:]], axis=1)
-                msk = msk.reshape(1, msk.shape[1] // 4, 4, height // up, width // up)
-                msk = np.ascontiguousarray(msk.transpose(0, 2, 1, 3, 4))
-                lat = self.encode_video(vae_input, **tiler)
-                y = torch.cat([torch.from_numpy(msk).to(self.device, self.dtype), lat], dim=1)
+                y = self._image_y(img_np, end_np, num_frames, height, width, **tiler)
         return clip_feature, y
+
+    def _image_y(self, img_np, end_np, num_frames, height, width, **tiler) -> torch.Tensor:
+        """y of the I2V units: [the 4-channel temporal mask (ones on the
+        first frame, and on the last with an end image) | the VAE latent of
+        the clip that holds the (1, 3, H, W) image(s) and zeros]."""
+        up = self.vae.cfg.upsampling_factor
+        msk = np.ones((1, num_frames, height // up, width // up), np.float32)
+        msk[:, 1:] = 0
+        vae_input = np.zeros((1, 3, num_frames, height, width), np.float32)
+        vae_input[:, :, 0] = img_np[0]
+        if end_np is not None:
+            vae_input[:, :, -1] = end_np[0]
+            msk[:, -1:] = 1
+        msk = np.concatenate([np.repeat(msk[:, 0:1], 4, axis=1), msk[:, 1:]], axis=1)
+        msk = msk.reshape(1, msk.shape[1] // 4, 4, height // up, width // up)
+        msk = np.ascontiguousarray(msk.transpose(0, 2, 1, 3, 4))
+        lat = self.encode_video(vae_input, **tiler)
+        return torch.cat([torch.from_numpy(msk).to(self.device, self.dtype), lat], dim=1)
+
+    def build_fun_control(self, control_video, num_frames, height, width,
+                          clip_feature, y, **tiler):
+        """Fun Control: the control video's latents in front of y's last
+        `in_dim - 2z` channels; without image conditioning, zero CLIP
+        features and a zero y of those channels."""
+        with self._stage("vae_encode_control"):
+            control = self.encode_video(_preprocess_images(control_video), **tiler)
+        up = self.vae.cfg.upsampling_factor
+        y_dim = self.dit.cfg.in_dim - control.shape[1] - self.vae.cfg.z_dim
+        if clip_feature is None or y is None:
+            clip_feature = torch.zeros((1, CLIP_TOKENS, CLIP_DIM), dtype=self.dtype,
+                                       device=self.device)
+            y = torch.zeros((1, y_dim, (num_frames - 1) // 4 + 1, height // up, width // up),
+                            dtype=self.dtype, device=self.device)
+        else:
+            y = y[:, -y_dim:]
+        return clip_feature, torch.cat([control, y], dim=1)
+
+    def build_fun_reference(self, reference_image, height, width):
+        """Fun Reference: the image's one-frame latent (for the DiT's
+        `ref_conv`) and, where the DiT takes CLIP rows and a tower is
+        loaded, its CLIP feature."""
+        ref_np = _preprocess_images([_image_array(reference_image, width, height)])
+        with self._stage("vae_encode_reference"):
+            reference_latents = self.encode_video(ref_np, tiled=False)
+        clip_feature = None
+        if self.image_encoder is not None and self.dit.cfg.require_clip_embedding:
+            with self._stage("clip_encode_reference"):
+                clip_feature = self.encode_clip(ref_np[:, :, 0])
+        return reference_latents, clip_feature
+
+    def build_fun_camera_control(self, direction, speed, origin, input_image, num_frames,
+                                 height, width, latents_shape, **tiler):
+        """Fun Camera: the packed Plücker latents (1, 24, T_lat, H, W) for the
+        DiT's camera adapter, and y: the input image's latent on the first
+        frame of zeros, or, where the DiT takes other than z channels of y,
+        the I2V units' [mask | the padded clip's latent]."""
+        if input_image is None:
+            raise ValueError("camera control requires input_image")
+        with self._stage("camera_control"):
+            plucker = process_camera_coordinates(direction, num_frames, height, width,
+                                                 speed, origin)
+            control_camera = torch.from_numpy(pack_camera_latents(plucker, num_frames)).to(
+                self.device, self.dtype)
+            img_np = _preprocess_images([_image_array(input_image, width, height)])
+            y = torch.zeros(latents_shape, dtype=self.dtype, device=self.device)
+            y[:, :, :1] = self.encode_video(img_np, tiled=False)
+            if y.shape[1] != self.dit.cfg.in_dim - self.vae.cfg.z_dim:
+                y = self._image_y(img_np[:, :, 0], None, num_frames, height, width, **tiler)
+        return control_camera, y
+
+    def build_animate_inputs(self, pose_video, face_video, **tiler):
+        """Animate: the pose video's latents and the face crops resized to
+        the adapter's face size, (1, 3, T, size, size) in [-1, 1]."""
+        with self._stage("vae_encode_pose"):
+            pose = self.encode_video(_preprocess_images(pose_video), **tiler)
+        size = self.animate.cfg.face_size
+        faces = _preprocess_images([_image_array(im, size, size) for im in face_video])
+        return pose, torch.from_numpy(faces).to(self.device, self.dtype)
 
     # ---------------- model functions ----------------
 
     def _expert(self, which: str) -> WanDiT:
         return self.dit if which == "dit" else self.dit2
 
-    def _skip(self, which, latents, timestep, residual, y=None):
-        """TeaCache replay: patchify (of the latents with y) + cached
-        residual + head."""
+    def _skip(self, which, latents, timestep, residual, y=None, control_camera=None,
+              reference_latents=None):
+        """TeaCache replay: the tokens as the full forward assembles them
+        (the latents with y, the camera features, the reference frame's
+        tokens in front) + the cached residual + head, the reference's rows
+        dropped."""
         dit = self._expert(which)
         cfg = dit.cfg
         t, _ = time_embed(dit, timestep)
         latents, _ = image_inputs(dit, latents, None, y=y)
-        tokens, grid = patchify(dit.patch_embedding, latents, cfg.patch_size)
-        out = head(dit, tokens + residual, t)
+        tokens, grid, n_ref = assemble_tokens(dit, latents, control_camera,
+                                              reference_latents)
+        out = head(dit, tokens + residual, t)[:, n_ref:]
         return unpatchify(out, grid, cfg.patch_size, cfg.out_dim)
 
     def _branch_forward(self, which, vace, latents, timestep, context,
                         vace_context, vace_scale, tea_cache: Optional[TeaCache],
-                        rope_indices=None, layer_gate=None, clip_feature=None, y=None):
+                        rope_indices=None, layer_gate=None, clip_feature=None, y=None,
+                        animate_inputs=None, motion_bucket_id=None, control_camera=None,
+                        reference_latents=None):
         """One DiT forward of expert `which` ("dit" or "dit2"), or a TeaCache
-        replay of its last residual."""
+        replay of its last residual. The Animate inputs exclude the Fun
+        reference and camera (a ValueError, as in the JAX pipeline); the
+        replay, like the JAX pipeline's, takes neither the pose tokens nor
+        the speed term."""
+        if animate_inputs is not None and (reference_latents is not None
+                                           or control_camera is not None):
+            raise ValueError("animate conditioning cannot combine with "
+                             "FunReference/FunCameraControl")
         dit = self._expert(which)
         if tea_cache is not None:
             _, t_mod = time_embed(dit, timestep)
             if tea_cache.check(t_mod) and tea_cache.previous_residual is not None:
-                return self._skip(which, latents, timestep, tea_cache.previous_residual, y)
+                return self._skip(which, latents, timestep, tea_cache.previous_residual, y,
+                                  control_camera, reference_latents)
+        t_mod_add = None
+        if motion_bucket_id is not None:
+            mc = motion_controller_forward(self.motion_controller, motion_bucket_id)
+            t_mod_add = mc.reshape(mc.shape[0], 6, dit.cfg.dim)
+        animate = None if animate_inputs is None else (self.animate,) + tuple(animate_inputs)
         v, residual = wan_dit_forward_with_residual(
             dit, latents, timestep, context, rope_indices=rope_indices, vace=vace,
             vace_context=vace_context, vace_scale=vace_scale, layer_gate=layer_gate,
-            clip_feature=clip_feature, y=y)
+            clip_feature=clip_feature, y=y, control_camera=control_camera,
+            reference_latents=reference_latents, t_mod_add=t_mod_add, animate=animate)
         if tea_cache is not None:
             tea_cache.store(residual)
         return v
@@ -492,22 +603,32 @@ class WanVideoPipeline:
     def _forward_all_branches(self, which, vace, latents, timestep, ctx_posi,
                               ctx_nega, vace_context, vace_scale, cfg_scale,
                               tc_posi, tc_nega, cfg_merge=False, slg_gate=None,
-                              clip_feature=None, y=None):
+                              clip_feature=None, y=None, animate_inputs=None,
+                              motion_bucket_id=None, control_camera=None,
+                              reference_latents=None):
         """One denoise velocity: CFG by two passes or one merged batch (the
-        image conditioning, like the VACE context, repeated for both rows).
+        image conditioning, the reference latents and the Animate inputs,
+        like the VACE context, repeated for both rows; the camera latents
+        and the motion id broadcast).
 
         slg_gate: optional (num_layers,) keep-gate of skip-layer guidance,
         applied to the unconditional rows only: under cfg_merge the merged
         gate is ones for the posi rows and slg_gate for the nega rows; in
         two passes only the nega pass is gated."""
-        image = dict(clip_feature=clip_feature, y=y)
+        image = dict(clip_feature=clip_feature, y=y, animate_inputs=animate_inputs,
+                     motion_bucket_id=motion_bucket_id, control_camera=control_camera,
+                     reference_latents=reference_latents)
         if cfg_scale == 1.0 or ctx_nega is None:
             return self._branch_forward(which, vace, latents, timestep, ctx_posi,
                                         vace_context, vace_scale, tc_posi, **image)
         b = latents.shape[0]
         if cfg_merge:
             # one batched forward; the per-branch TeaCaches are not used
-            image2 = {k: None if v is None else torch.cat([v, v]) for k, v in image.items()}
+            image2 = dict(image)
+            for k in ("clip_feature", "y", "reference_latents"):
+                image2[k] = None if image[k] is None else torch.cat([image[k]] * 2)
+            if animate_inputs is not None:
+                image2["animate_inputs"] = tuple(torch.cat([a, a]) for a in animate_inputs)
             vc2 = None if vace_context is None else torch.cat([vace_context] * 2)
             gate2 = None
             if slg_gate is not None:
@@ -582,6 +703,11 @@ class WanVideoPipeline:
                  input_video=None, denoising_strength: float = 1.0,
                  vace_video=None, vace_video_mask=None,
                  vace_reference_image=None, vace_scale: float = 1.0,
+                 animate_pose_video=None, animate_face_video=None,
+                 control_video=None, reference_image=None,
+                 camera_control_direction: Optional[str] = None,
+                 camera_control_speed: float = 1 / 54, camera_control_origin=None,
+                 motion_bucket_id: Optional[float] = None,
                  seed: Optional[int] = None, height: int = 480,
                  width: int = 832, num_frames: int = 81,
                  cfg_scale: float = 5.0, cfg_merge: bool = False,
@@ -597,8 +723,13 @@ class WanVideoPipeline:
                  slg_start: float = 0.0, slg_end: float = 1.0,
                  return_latents: bool = False):
         """Frames in as a PIL list or uint8 (T, H, W, 3) arrays, images
-        (`input_image`, FLF2V's `end_image`) as PIL or uint8 (H, W, 3); out
-        as a uint8 (T, H, W, 3) array, or the latents with return_latents."""
+        (`input_image`, FLF2V's `end_image`, the Fun `reference_image`) as
+        PIL or uint8 (H, W, 3); out as a uint8 (T, H, W, 3) array, or the
+        latents with return_latents. The units apply in the JAX pipeline's
+        order: image conditioning, Fun control, Fun reference (its CLIP
+        feature replaces the input image's), Fun camera (its y replaces the
+        others'), the motion id, the TI2V first frame, Animate (both its
+        videos and an adapter needed, else it is not applied)."""
         self.stage_times = []
         self.stage_peak_bytes = []
         height, width, num_frames = self.check_resize(height, width, num_frames)
@@ -646,6 +777,26 @@ class WanVideoPipeline:
                              "VACE model")
         clip_feature, y = self.build_image_conditioning(
             input_image, end_image, num_frames, height, width, **tiler)
+        if control_video is not None:
+            clip_feature, y = self.build_fun_control(control_video, num_frames, height,
+                                                     width, clip_feature, y, **tiler)
+        reference_latents = None
+        if reference_image is not None:
+            reference_latents, clip_ref = self.build_fun_reference(reference_image,
+                                                                   height, width)
+            if clip_ref is not None:
+                clip_feature = clip_ref
+        control_camera = None
+        if camera_control_direction is not None:
+            control_camera, y = self.build_fun_camera_control(
+                camera_control_direction, camera_control_speed, camera_control_origin,
+                input_image, num_frames, height, width, latents.shape, **tiler)
+        if motion_bucket_id is not None:
+            if self.motion_controller is None:
+                raise RuntimeError("motion_bucket_id given but no motion "
+                                   "controller attached")
+            motion_bucket_id = torch.tensor([motion_bucket_id], dtype=torch.float32,
+                                            device=self.device)
         # TI2V-5B: the first frame's latent written into the noise and
         # pinned after every step (each token still gets the one (1,)
         # timestep, as in the JAX pipeline: ROADMAP Queue 3)
@@ -655,6 +806,12 @@ class WanVideoPipeline:
                 img_np = _preprocess_images([_image_array(input_image, width, height)])
                 first_frame_latents = self.encode_video(img_np, **tiler)
             latents[:, :, 0:1] = first_frame_latents
+        animate_inputs = None
+        if (animate_pose_video is not None and animate_face_video is not None
+                and self.animate is not None):
+            animate_inputs = self.build_animate_inputs(animate_pose_video,
+                                                       animate_face_video, **tiler)
+        fun = dict(motion_bucket_id=motion_bucket_id, reference_latents=reference_latents)
 
         tc_posi = tc_nega = None
         if tea_cache_l1_thresh is not None:
@@ -675,11 +832,14 @@ class WanVideoPipeline:
                 slg_gate = self._slg_gate(which, slg_blocks, slg_start, slg_end,
                                           i, n_steps)
                 if sliding_window_size is not None and sliding_window_stride is not None:
+                    # the windows take the reference latents and the motion
+                    # id, not the camera or Animate inputs (as in the JAX
+                    # pipeline)
                     def fwd(lat_w, y_w, vc_w):
                         return self._forward_all_branches(
                             which, vace, lat_w, timestep, ctx_posi, ctx_nega, vc_w,
                             vace_scale, cfg_scale, None, None, cfg_merge=cfg_merge,
-                            slg_gate=slg_gate, clip_feature=clip_feature, y=y_w)
+                            slg_gate=slg_gate, clip_feature=clip_feature, y=y_w, **fun)
                     v = self._sliding_window_velocity(
                         sliding_window_size, sliding_window_stride, fwd, latents,
                         y=y, vace_context=vace_context)
@@ -688,7 +848,8 @@ class WanVideoPipeline:
                         which, vace, latents, timestep, ctx_posi, ctx_nega,
                         vace_context, vace_scale, cfg_scale, tc_posi, tc_nega,
                         cfg_merge=cfg_merge, slg_gate=slg_gate,
-                        clip_feature=clip_feature, y=y)
+                        clip_feature=clip_feature, y=y, animate_inputs=animate_inputs,
+                        control_camera=control_camera, **fun)
                 if hasattr(self.scheduler, "sigma_pair"):
                     sigma, sigma_next = self.scheduler.sigma_pair(i)
                     latents = (latents.float() + v.float() * (sigma_next - sigma)

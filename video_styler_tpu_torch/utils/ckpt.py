@@ -265,8 +265,9 @@ def detect_wan_dit_config(sd: Dict) -> Optional[WanDiTConfig]:
     """The Wan DiT architecture from the state dict's keys and shapes, as
     the JAX package detects it (text_dim and freq_dim keep their defaults):
     image input from `k_img`, FLF2V's position table from `img_emb.emb_pos`,
-    TI2V-5B from dim 3072 with 48 input channels. A Fun DiT with a
-    reference conv raises: the port does not build it."""
+    TI2V-5B from dim 3072 with 48 input channels, a Fun V1.1 reference
+    conv from `ref_conv.weight`; and, where the JAX converter adds one, the
+    Fun camera adapter from `control_adapter.*` keys (a port-only field)."""
     if "blocks.0.self_attn.q.weight" not in sd:
         return None
     dim = sd["blocks.0.self_attn.q.weight"].shape[0]
@@ -276,9 +277,6 @@ def detect_wan_dit_config(sd: Dict) -> Optional[WanDiTConfig]:
     ffn_dim = sd["blocks.0.ffn.0.weight"].shape[0]
     in_dim = sd["patch_embedding.weight"].shape[1]
     out_dim = sd["head.head.weight"].shape[0] // 4  # patch (1,2,2) -> 4
-    if "ref_conv.weight" in sd:
-        raise NotImplementedError("the checkpoint is a Fun DiT with a reference conv "
-                                  "(has_ref_conv): not ported yet (ROADMAP Queue 1 item 9)")
     has_image_input = "blocks.0.cross_attn.k_img.weight" in sd
     heads_by_dim = {1536: 12, 5120: 40, 3072: 24}
     seperated = dim == 3072 and in_dim == 48
@@ -286,8 +284,10 @@ def detect_wan_dit_config(sd: Dict) -> Optional[WanDiTConfig]:
         dim=dim, in_dim=in_dim, ffn_dim=ffn_dim, out_dim=out_dim,
         num_heads=heads_by_dim.get(dim, dim // 128), num_layers=num_layers,
         has_image_input=has_image_input,
-        has_image_pos_emb="img_emb.emb_pos" in sd, seperated_timestep=seperated,
-        require_vae_embedding=not seperated, fuse_vae_embedding_in_latents=seperated)
+        has_image_pos_emb="img_emb.emb_pos" in sd, has_ref_conv="ref_conv.weight" in sd,
+        seperated_timestep=seperated, require_vae_embedding=not seperated,
+        fuse_vae_embedding_in_latents=seperated,
+        has_control_adapter=any(k.startswith("control_adapter.") for k in sd))
 
 
 def detect_vace_config(sd: Dict) -> Optional[VaceConfig]:
@@ -314,8 +314,7 @@ def detect_vace_config(sd: Dict) -> Optional[VaceConfig]:
 # kinds `detect_model_kind` knows that the port cannot build yet, and the
 # ROADMAP Queue 1 item that ports each
 UNPORTED_KINDS = {
-    "animate": 9, "s2v": 9, "motion_controller": 9,
-    "wav2vec": 9,
+    "s2v": 9, "wav2vec": 9,
     "motion_modules": 11, "flux_dit": 11, "flux_controlnet": 11,
     "flux_ipadapter": 11, "ipadapter": 11, "flux_lora_encoder": 11,
     "flux_value_encoder": 11, "flux_infiniteyou_projector": 11,
@@ -345,7 +344,8 @@ def load_model(path, device=None, dtype: torch.dtype = torch.bfloat16):
     """Point at a checkpoint file (or a list of shards) and get `(kind,
     models)`, the JAX `load_model`'s analogue: {"dit", "dit_cfg"} and/or
     {"vace", "vace_cfg"}; {"vae", "vae_cfg"} (fp32; the Wan2.1 or the
-    Wan2.2 VAE); the T5 encoder (umT5-XXL); or the CLIP ViT-H/14 tower.
+    Wan2.2 VAE); the T5 encoder (umT5-XXL); the CLIP ViT-H/14 tower; or the
+    Wan2.2-Animate adapter.
     Modules are built on `device` (the card unless "cpu")."""
     from ..device import resolve_device
     from ..models import clip_vit as CV
@@ -381,6 +381,9 @@ def load_model(path, device=None, dtype: torch.dtype = torch.bfloat16):
     if kind == "t5":
         return kind, build_module(T5M.T5Encoder, T5M.UMT5_XXL,
                                   T5M.convert_t5(sd, T5M.UMT5_XXL), device, dtype)
+    if kind == "animate":
+        from ..models.wan_animate import build_wan_animate
+        return kind, build_wan_animate(sd, device, dtype)
     raise unported(kind)
 
 

@@ -18,15 +18,18 @@ JAX pytree:
   img_emb.proj.0 / .1 / .3 / .4 (I2V, FLF2V)    ->  img_emb.norm_in / .fc1
                                                     / .fc2 / .norm_out
   img_emb.emb_pos (FLF2V)                       ->  img_emb.emb_pos
+  ref_conv (Fun V1.1, a Conv2d (dim, z, 2, 2))  ->  a Linear (dim, z*4)
+  control_adapter.* (Fun camera)                ->  control_adapter.*, as is
 
 An image-conditioned DiT also has `k_img`, `v_img` and `norm_k_img` in
 each block's cross-attention. Values pass through untouched (tensors or
 `utils.ckpt.LazyTensor`s, which reshape without reading), in the file's
-dtype. Keys the port's modules do not hold (a Fun control adapter, for
-one) are left out, as the JAX converters leave them.
+dtype. Keys the port's modules do not hold are left out, as the JAX
+converters leave them.
 
-`export_wan_dit`, `export_vace`, `export_t5`, `export_wan_vae` (both VAEs)
-and `models.clip_vit.export_clip_vit` invert them: a module's tensors under
+`export_wan_dit`, `export_vace`, `export_t5`, `export_wan_vae` (both VAEs),
+`models.clip_vit.export_clip_vit`, `models.wan_animate.export_wan_animate`
+and `models.wan_controllers.export_motion_controller` invert them: a module's tensors under
 the reference's names, which is how the tests and `chip_smoke.py` write
 checkpoints in the release layout.
 """
@@ -92,6 +95,12 @@ def convert_wan_dit(sd: Dict, cfg: WanDiTConfig) -> Dict:
         _lin(sd, "img_emb.proj.3", "img_emb.fc2", out)
         if cfg.has_image_pos_emb:
             out["img_emb.emb_pos"] = sd["img_emb.emb_pos"]
+    if cfg.has_ref_conv:
+        _conv_as_lin(sd, "ref_conv", "ref_conv", out)
+    if cfg.has_control_adapter:
+        from ..models.wan_controllers import convert_simple_adapter
+        out.update({f"control_adapter.{k}": v for k, v in
+                    convert_simple_adapter(sd, "control_adapter.").items()})
     return out
 
 
@@ -141,6 +150,9 @@ def export_wan_dit(dit: torch.nn.Module) -> Dict[str, torch.Tensor]:
         (r"^img_emb\.norm_out\.bias$", "img_emb.proj.4.bias")])
     w = sd["patch_embedding.weight"]
     sd["patch_embedding.weight"] = w.reshape(w.shape[0], cfg.in_dim, *cfg.patch_size)
+    if cfg.has_ref_conv:
+        w = sd["ref_conv.weight"]
+        sd["ref_conv.weight"] = w.reshape(w.shape[0], cfg.out_dim, *cfg.patch_size[1:])
     return sd
 
 
@@ -180,17 +192,24 @@ def save_release_files(pipe, folder: str, n_shards: int = 7) -> Dict[str, object
     names, in safetensors shards `diffusion_pytorch_model-0000i-of-0000n`
     (consecutive names, split near equal in bytes); umT5 as
     `models_t5_umt5-xxl-enc-bf16.pth`, the VAE as `Wan2.1_VAE.pth` (or
-    `Wan2.2_VAE.pth`) and an I2V pipeline's CLIP tower as
-    `models_clip_open-clip-xlm-roberta-large-vit-huge-14.pth`. Tensors keep
-    their dtype; one at a time passes through the host. Returns {"dit":
-    [shard paths], "t5": path, "vae": path[, "clip": path]}."""
+    `Wan2.2_VAE.pth`), an I2V pipeline's CLIP tower as
+    `models_clip_open-clip-xlm-roberta-large-vit-huge-14.pth`, an Animate
+    adapter in the DiT's shards (as the Wan2.2-Animate-14B release holds
+    it) and a speed controller as `model.safetensors`. Tensors keep their
+    dtype; one at a time passes through the host. Returns {"dit": [shard
+    paths], "t5": path, "vae": path[, "clip": path][, "motion_controller":
+    path]}."""
     import os
     from ..models.clip_vit import export_clip_vit
     from ..models.wan_vae import WanVAE38
     from ..safetensors_io import save_file
+    from ..models.wan_animate import export_wan_animate
+    from ..models.wan_controllers import export_motion_controller
     sd = export_wan_dit(pipe.dit)
     if pipe.vace is not None:
         sd.update(export_vace(pipe.vace))
+    if pipe.animate is not None:
+        sd.update(export_wan_animate(pipe.animate))
     names = sorted(sd)
     total = sum(sd[k].numel() * sd[k].element_size() for k in names)
     shards, part, size = [], [], 0
@@ -216,4 +235,8 @@ def save_release_files(pipe, folder: str, n_shards: int = 7) -> Dict[str, object
         paths["clip"] = os.path.join(
             folder, "models_clip_open-clip-xlm-roberta-large-vit-huge-14.pth")
         torch.save(export_clip_vit(pipe.image_encoder), paths["clip"])
+    if pipe.motion_controller is not None:
+        paths["motion_controller"] = os.path.join(folder, "model.safetensors")
+        save_file(export_motion_controller(pipe.motion_controller),
+                  paths["motion_controller"])
     return paths
