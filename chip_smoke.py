@@ -232,10 +232,9 @@ def time_ms(torch, fn, reps: int, warmup: int = 2):
 TOL_ULPS = 2.0 ** -7
 
 
-def frames_480x832(f: int):
-    """A smooth synthetic uint8 clip (f, 480, 832, 3)."""
+def synthetic_clip(f: int, h: int = 480, w: int = 832):
+    """A smooth synthetic uint8 clip (f, h, w, 3)."""
     import numpy as np
-    h, w = 480, 832
     tt = np.linspace(0.0, 1.0, f, dtype=np.float32)[:, None, None, None]
     yy = np.linspace(0.0, 1.0, h, dtype=np.float32)[None, :, None, None]
     xx = np.linspace(0.0, 1.0, w, dtype=np.float32)[None, None, :, None]
@@ -542,7 +541,7 @@ def run_edit(torch, pipe, kernels, steps: int, frames: int, phase: str,
     dit_cfg, vace_cfg = pipe.dit.cfg, pipe.vace.cfg
     f, h, w = frames, 480, 832
     request = dict(prompt="turn the scene into a watercolor painting",
-                   negative_prompt="", vace_video=frames_480x832(f), num_frames=f,
+                   negative_prompt="", vace_video=synthetic_clip(f), num_frames=f,
                    height=h, width=w, seed=42, cfg_scale=5.0,
                    num_inference_steps=steps, tiled=True)
     torch.cuda.synchronize()
@@ -1333,7 +1332,7 @@ def run_train(torch, pipe, kernels, frames: int, steps: int = 2):
         t0 = time.perf_counter()
         written = launch_data_process_task(
             [{"prompt": "turn the scene into a watercolor painting",
-              "video": frames_480x832(f)}], preprocess, cache)
+              "video": synthetic_clip(f)}], preprocess, cache)
         torch.cuda.synchronize()
         data_process_s = (time.perf_counter() - t0) / len(written)
         data_process_peak = torch.cuda.max_memory_allocated()
@@ -1552,7 +1551,7 @@ def run_editor(torch, pipe, kernels, frames: int, steps: int):
     from video_styler_tpu_torch.pipelines.wan_video_editor import WanVideoEditorPipeline
     ed = WanVideoEditorPipeline(device="cuda")
     ed.__dict__.update(pipe.__dict__)
-    video = frames_480x832(frames)
+    video = synthetic_clip(frames)
     kf = editor_keyframes(frames)
     t_lat = (frames - 1) // 4 + 1
     kf_lat = ed.latent_keyframe_indices(kf, t_lat)
@@ -1632,7 +1631,7 @@ def run_enhance(torch, pipe, kernels, frames: int):
         torch.cuda.reset_peak_memory_stats()
         for kern in kernels.values():
             kern.launches = 0
-        video = frames_480x832(frames)
+        video = synthetic_clip(frames)
 
         def request():
             return enh.enhance(video, prompt="sharp, clean, detailed",
@@ -1836,7 +1835,7 @@ def run_i2v(torch, pipe, kernels, frames: int, steps: int):
                                      torch.bfloat16)
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
-    video = frames_480x832(frames)
+    video = synthetic_clip(frames)
     base = dict(prompt="the camera slowly pushes in as the light changes",
                 negative_prompt="blurry, static", height=480, width=832, num_frames=frames,
                 seed=42, cfg_scale=5.0, num_inference_steps=steps, tiled=True)
@@ -1912,17 +1911,6 @@ def run_i2v(torch, pipe, kernels, frames: int, steps: int):
         gc.collect()
         torch.cuda.empty_cache()
     return path
-
-
-def clip_frames(f: int, h: int, w: int):
-    """`frames_480x832`'s pattern rendered at h x w."""
-    import numpy as np
-    tt = np.linspace(0.0, 1.0, f, dtype=np.float32)[:, None, None, None]
-    yy = np.linspace(0.0, 1.0, h, dtype=np.float32)[None, :, None, None]
-    xx = np.linspace(0.0, 1.0, w, dtype=np.float32)[None, None, :, None]
-    cc = np.array([0.2, 0.5, 0.8], np.float32)[None, None, None, :]
-    return (255 * (0.5 + 0.5 * np.sin(6.28 * (xx + yy * cc + tt * 0.3)))
-            ).astype(np.uint8)
 
 
 def _summed(total: dict, launches: dict):
@@ -2020,7 +2008,7 @@ def run_animate(torch, ip, kernels, video, base: dict, steps: int):
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
     pose = G.animate_clip(video)
-    faces = G.animate_clip(clip_frames(frames, 512, 512))
+    faces = G.animate_clip(synthetic_clip(frames, 512, 512))
     try:
         pose_lat, face_values = ip.build_animate_inputs(pose, faces, tiled=True)
         gen = torch.Generator("cuda").manual_seed(11)
@@ -2129,7 +2117,7 @@ def run_ti2v(torch, pipe, kernels, steps: int):
         encodes.append(WanVideoPipeline.encode_video(tp, video_np, **tiler))
         return encodes[-1]
     tp.encode_video = encode_video
-    image = frames_480x832(TI2V_FRAMES)[0]
+    image = synthetic_clip(TI2V_FRAMES)[0]
     request = dict(prompt="a paper boat drifts down a rainy street",
                    negative_prompt="blurry, static", input_image=image, height=480,
                    width=832, num_frames=TI2V_FRAMES, seed=42, cfg_scale=5.0,
@@ -2259,10 +2247,12 @@ def main(argv=None):
                               cross_lens=image_lens, self_attn=False, norms=False)
     rows += check_kernels(torch, TI2V_GRID, f"ti2v-{TI2V_FRAMES}f", heads=24)
     # the Fun reference frame: one more leading latent frame (6,240 tokens
-    # at 9 frames, RoPE rows over f + 1 frames); the 1.3B speed-control
+    # at 9 frames, RoPE rows over f + 1 frames), whose queries also reach
+    # the text and the 257 CLIP keys (V1.1 Control keeps the image input);
+    # the 1.3B speed-control
     # width: 12 heads of 128, Dm 1536
     rows += check_kernels(torch, (run[0] + 1,) + run[1:], f"fun-ref-{args.frames}f",
-                          cross_lens=())
+                          cross_lens=(TEXT_LEN, CLIP_ROWS))
     rows += check_kernels(torch, run, f"speed-{args.frames}f", heads=12)
     torch.cuda.empty_cache()
     s_ditto = math.prod(ditto)

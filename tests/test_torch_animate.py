@@ -28,6 +28,8 @@ import video_styler_tpu_torch.models.wan_animate as TA
 
 from test_torch_fun import REQUEST, _rel, jax_smoke_pipe, port_pipe
 
+from test_torch_pipeline import cpu_share  # noqa: F401
+
 SMALL = TA.AnimateConfig(dim=96, num_face_blocks=1, face_size=64, face_conv_dim=32,
                          pose_in_dim=4)
 

@@ -43,6 +43,8 @@ from video_styler_tpu_torch.utils.convert import (export_t5, export_vace,
                                                   export_wan_dit, export_wan_vae)
 from video_styler_tpu_torch.utils.model_config import ModelConfig
 
+from test_torch_pipeline import cpu_share  # noqa: F401
+
 DIT = dict(dim=128, in_dim=4, ffn_dim=256, out_dim=4, num_heads=1, num_layers=2)
 VACE = dict(vace_layers=(0, 1), vace_in_dim=72, dim=128, num_heads=1, ffn_dim=256)
 T5 = dict(vocab=128, dim=64, dim_attn=64, dim_ffn=128, num_heads=4,

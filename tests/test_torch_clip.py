@@ -24,6 +24,8 @@ import video_styler_tpu.models.clip_vit as JC
 import video_styler_tpu_torch.models.clip_vit as TC
 from video_styler_tpu_torch.convert import from_jax_params
 
+from test_torch_pipeline import cpu_share  # noqa: F401
+
 TINY = dict(image_size=28, patch_size=14, dim=64, num_heads=2, num_layers=3)
 SMOKE = dict(image_size=112, patch_size=7, dim=1280, num_heads=4, num_layers=2)
 

@@ -21,7 +21,7 @@ import video_styler_tpu.models.wan_controllers as JC
 import video_styler_tpu_torch.models.wan_controllers as TC
 from video_styler_tpu_torch.convert import from_jax_params
 
-from test_torch_pipeline import _tree
+from test_torch_pipeline import _tree, cpu_share  # noqa: F401
 
 
 def _rel(got, want):

@@ -36,6 +36,8 @@ from video_styler_tpu_torch.trainers import latent_cache as TL
 from video_styler_tpu_torch.trainers import unified_dataset as TU
 from video_styler_tpu_torch.utils.convert import save_release_files
 
+from test_torch_pipeline import cpu_share  # noqa: F401
+
 
 def _clip(seed, frames=7, h=40, w=56):
     """A smooth uint8 clip that drifts with time."""

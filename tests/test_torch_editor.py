@@ -23,7 +23,7 @@ from video_styler_tpu.pipelines.wan_video_editor import WanVideoEditorPipeline a
 from video_styler_tpu_torch.pipelines.wan_video import TeaCache as TTeaCache
 from video_styler_tpu_torch.pipelines.wan_video_editor import WanVideoEditorPipeline as TEditor
 
-from test_torch_pipeline import _frames, _pipelines
+from test_torch_pipeline import _frames, _pipelines, cpu_share  # noqa: F401
 
 EDIT = dict(prompt="turn it into a watercolor", negative_prompt="blurry",
             keyframe_indices=[0, 8], seed=42, height=32, width=32, num_frames=9,

@@ -29,7 +29,7 @@ from video_styler_tpu_torch.utils.model_config import ModelConfig
 
 from test_torch_ckpt import DIT as FILE_DIT
 from test_torch_ckpt import _assert_bit_equal, _np, _reference_files, small_t5_vae  # noqa: F401
-from test_torch_pipeline import DIT, _frames, _pipelines, _tree
+from test_torch_pipeline import DIT, _frames, _pipelines, _tree, cpu_share  # noqa: F401
 
 # 8 steps of shift 5, the last 6: timesteps 937, 892, 833, 749, 624, 416;
 # the boundary 875 puts the first two on the high-noise expert

@@ -31,6 +31,8 @@ jatt = importlib.import_module("video_styler_tpu.ops.attention")
 from video_styler_tpu_torch.ops import attention as tatt
 from video_styler_tpu_torch.ops import flash_attention as tfa
 
+from test_torch_pipeline import cpu_share  # noqa: F401
+
 JD = {"fp32": jnp.float32, "bf16": jnp.bfloat16}
 TD = {"fp32": torch.float32, "bf16": torch.bfloat16}
 TOL = {"fp32": dict(rtol=1e-4, atol=1e-5), "bf16": dict(rtol=2e-2, atol=2e-2)}

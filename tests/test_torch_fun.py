@@ -40,7 +40,7 @@ from video_styler_tpu_torch.convert import from_jax_params
 from video_styler_tpu_torch.pipelines.wan_video import WanVideoPipeline as TPipe
 from video_styler_tpu_torch.prompters.wan_prompter import StubTokenizer, WanPrompter
 
-from test_torch_pipeline import REPO, _tree
+from test_torch_pipeline import REPO, _tree, cpu_share  # noqa: F401
 
 REQUEST = dict(prompt="a cat walks into the light", negative_prompt="blurry",
                num_frames=9, height=32, width=32, seed=42, cfg_scale=5.0,

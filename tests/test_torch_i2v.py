@@ -39,7 +39,7 @@ from video_styler_tpu_torch import wan_video_gen
 from video_styler_tpu_torch.convert import from_jax_params
 from video_styler_tpu_torch.utils.convert import export_wan_vae
 
-from test_torch_pipeline import DIT, REPO, _frames, _pipelines, _tree
+from test_torch_pipeline import DIT, REPO, _frames, _pipelines, _tree, cpu_share  # noqa: F401
 from test_torch_vae38 import CFG as VAE38, random_vae38
 
 Z = 4

@@ -31,6 +31,8 @@ from video_styler_tpu_torch.ops.rope import assemble_freqs_grid as t_freqs
 from video_styler_tpu_torch.prompters.wan_prompter import StubTokenizer, WanPrompter
 from video_styler_tpu_torch.schedulers.flow_match import FlowMatchScheduler as TSched
 
+from test_torch_pipeline import cpu_share  # noqa: F401
+
 DIT = dict(dim=256, in_dim=4, ffn_dim=512, out_dim=4, num_heads=2,
            num_layers=2, text_dim=64, freq_dim=32)
 VACE = dict(vace_layers=(0, 1), vace_in_dim=72, dim=256, num_heads=2, ffn_dim=512)

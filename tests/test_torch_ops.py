@@ -25,6 +25,8 @@ from video_styler_tpu_torch.ops import flash_attention as tfa
 from video_styler_tpu_torch.ops import fused_norm_rope as tfnr
 from video_styler_tpu_torch.ops import rope as trope
 
+from test_torch_pipeline import cpu_share  # noqa: F401
+
 DTYPES = {"fp32": (np.float32, jnp.float32, torch.float32),
           "bf16": (np.float32, jnp.bfloat16, torch.bfloat16)}
 TOL = {"fp32": dict(rtol=2e-5, atol=2e-6), "bf16": dict(rtol=1e-2, atol=1e-2)}

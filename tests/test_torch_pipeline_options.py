@@ -26,7 +26,8 @@ from video_styler_tpu_torch.ops.rope import assemble_freqs_grid as t_freqs
 from video_styler_tpu_torch.schedulers.flow_dpm import FlowDPMSolverMultistepScheduler as TDPM
 from video_styler_tpu_torch.schedulers.flow_unipc import FlowUniPCMultistepScheduler as TUniPC
 
-from test_torch_pipeline import DIT, REQUEST, _frames, _jax_vae_params, _pipelines, _tree
+from test_torch_pipeline import (DIT, REQUEST, _frames, _jax_vae_params, _pipelines, _tree,
+                                cpu_share)  # noqa: F401
 
 
 def _rel(got, want):

@@ -44,6 +44,8 @@ from video_styler_tpu_torch.trainers.training import (adamw, flow_match_loss,
                                                       training_scheduler)
 from video_styler_tpu_torch.utils.ckpt import load_state_dict
 
+from test_torch_pipeline import cpu_share  # noqa: F401
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 DIT = dict(dim=256, in_dim=4, ffn_dim=512, out_dim=4, num_heads=2,
            num_layers=2, text_dim=64, freq_dim=32)

@@ -18,6 +18,8 @@ import video_styler_tpu.models.wan_vae as JV
 import video_styler_tpu_torch.models.wan_vae as TV
 from video_styler_tpu_torch.convert import from_jax_params
 
+from test_torch_pipeline import cpu_share  # noqa: F401
+
 TOL = dict(rtol=2e-4, atol=2e-4)
 
 

@@ -25,6 +25,8 @@ from video_styler_tpu_torch.utils.convert import export_wan_vae
 
 from test_torch_vae import _ramp_video
 
+from test_torch_pipeline import cpu_share  # noqa: F401
+
 CFG = dict(dim=16, dec_dim=16, z_dim=8, dim_mult=(1, 2, 4, 4), num_res_blocks=1,
            temperal_downsample=(False, True, True), latent_mean=(0.0,) * 8,
            latent_std=(1.0,) * 8)

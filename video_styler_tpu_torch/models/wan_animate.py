@@ -35,7 +35,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.attention import sdpa
-from ..ops.basic import layer_norm, rms_norm, silu
+from ..ops.basic import layer_norm, patchify, rms_norm, silu
 
 # the appearance encoder's channels by resolution
 _CHANNELS = {4: 512, 8: 512, 16: 512, 32: 512, 64: 256, 128: 128, 256: 64,
@@ -377,16 +377,14 @@ def face_block(p: FaceBlock, x, motion_vec, heads_num: int):
 # ------------------------------------------------------------ adapter
 
 def pose_tokens(m: WanAnimateAdapter, pose_latents):
-    """(B, 16, F - 1, H, W) pose latents -> (B, (F - 1) h w, dim) tokens,
-    patchified in the (c, pt, ph, pw) order of the Conv3d weight."""
-    w = m.pose_patch_embedding.weight
-    tok = pose_latents
-    b, c, f, hh, ww = tok.shape
-    pt, ph, pw = w.shape[2:]
-    t = tok.reshape(b, c, f // pt, pt, hh // ph, ph, ww // pw, pw)
-    t = t.permute(0, 2, 4, 6, 1, 3, 5, 7).reshape(b, -1, c * pt * ph * pw)
-    return t @ w.reshape(w.shape[0], -1).t().to(t.dtype) + \
-        m.pose_patch_embedding.bias.to(t.dtype)
+    """(B, 16, F - 1, H, W) pose latents -> (B, (F - 1) h w, dim) tokens:
+    the Conv3d as a product over patches, rounded before the bias as the
+    JAX one is."""
+    pe = m.pose_patch_embedding
+    w = pe.weight.reshape(pe.weight.shape[0], -1).t()
+    tok, _ = patchify(lambda t: t @ w.to(t.dtype) + pe.bias.to(t.dtype),
+                      pose_latents, tuple(pe.weight.shape[2:]))
+    return tok
 
 
 def animate_after_patch_embedding(m: WanAnimateAdapter, tokens, grid, pose_latents,

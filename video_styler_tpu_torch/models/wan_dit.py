@@ -35,8 +35,8 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention import attention
-from ..ops.basic import (gelu_tanh, layer_norm, linear, modulate, rms_norm,
-                         silu, sinusoidal_embedding_1d)
+from ..ops.basic import (gelu_tanh, layer_norm, linear, modulate, patchify,
+                         rms_norm, silu, sinusoidal_embedding_1d)
 from ..ops.fused_norm_rope import fused_rmsnorm, fused_rmsnorm_rope
 from ..ops.rope import assemble_freqs_grid
 from . import wan_animate as A
@@ -364,17 +364,6 @@ def run_blocks(blocks: Sequence[DiTBlock], x, context, t_mod, cos, sin,
         if i in inject:
             x = segment_callback(inject[i], x)
     return x
-
-
-def patchify(p: Linear, x, patch_size: Tuple[int, int, int]):
-    """(B, C, F, H, W) -> tokens (B, f*h*w, dim) and the (f, h, w) grid;
-    token features flatten in (c, pt, ph, pw) order."""
-    pt, ph, pw = patch_size
-    b, c, F_, H, W = x.shape
-    f, h, w = F_ // pt, H // ph, W // pw
-    t = x.reshape(b, c, f, pt, h, ph, w, pw)
-    t = t.permute(0, 2, 4, 6, 1, 3, 5, 7).reshape(b, f * h * w, c * pt * ph * pw)
-    return p(t), (f, h, w)
 
 
 def unpatchify(x, grid: Tuple[int, int, int], patch_size: Tuple[int, int, int],

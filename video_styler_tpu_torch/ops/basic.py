@@ -12,7 +12,7 @@ ones (`ops.quant.QuantLinear`) keep the JAX layout (in, out).
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Callable, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -102,3 +102,15 @@ def sinusoidal_embedding_1d(dim: int, position: torch.Tensor) -> torch.Tensor:
     sinusoid = position.float()[..., None] * freqs
     return torch.cat([torch.cos(sinusoid), torch.sin(sinusoid)],
                      dim=-1).to(position.dtype)
+
+
+def patchify(embed: Callable, x: torch.Tensor, patch_size: Tuple[int, int, int]):
+    """(B, C, F, H, W) -> embed(tokens) (B, f*h*w, dim) and the (f, h, w)
+    grid; token features flatten in (c, pt, ph, pw) order, as a Conv3d
+    weight's do."""
+    pt, ph, pw = patch_size
+    b, c, F_, H, W = x.shape
+    f, h, w = F_ // pt, H // ph, W // pw
+    t = x.reshape(b, c, f, pt, h, ph, w, pw)
+    t = t.permute(0, 2, 4, 6, 1, 3, 5, 7).reshape(b, f * h * w, c * pt * ph * pw)
+    return embed(t), (f, h, w)
