@@ -23,7 +23,11 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
              default 9: 4,680 tokens), and K1 cross to 257 and 769 keys
              (I2V's image branch, FLF2V's text branch) at this run's and
              the I2V recipe's 81-frame (32,760) query rows, K1/K4/K5 at
-             TI2V-5B's 24 heads (Dm 3072) over 5,070 tokens:
+             TI2V-5B's 24 heads (Dm 3072) over 5,070 tokens, K1/K4/K5 at
+             S2V's 448x832 shapes (self over 5,824 and 30,576 tokens with
+             the segment RoPE rows, the text cross at 5,824 rows, the audio
+             cross of 3 and 20 batch rows of 1,456 queries against 5 keys
+             with K5 on those rows):
              max abs/rel error against the stated tolerance, median kernel
              time over CUDA-event timed runs (L2 flushed before each), plain
              and library times, the bound from the work and the card's
@@ -107,6 +111,10 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
   animate_reference  the Wan2.2-Animate smoke recipe (a tiny adapter at
              face size 64, pose and face videos cut from the clip), card
              vs CPU
+  s2v_reference  the Wan2.2-S2V smoke recipe (a tiny S2V model and
+             wav2vec2 tower, a synthetic waveform through
+             `extract_audio_features` on each device, 12 frames with a pose
+             video, CFG 4.5), card vs CPU: audio features and latents
   e2e_quant  the trained LoRA merged, then quantize("int8",
              quantize_attention=True) and the same edit again: int8 GEMMs
              and K6 for every attention; profiled like e2e; then one step
@@ -150,6 +158,15 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
              steps, CFG 5 two-pass, streaming encode and decode: stage and
              step times, peak memory, launches (2/1/1 per block and pass),
              the first latent frame bit-equal to the image's encode
+  s2v        Wan2.2-S2V-14B at full width: a random WAN_S2V_14B (the
+             40-block trunk, 12 audio injectors and their AdaLN, the audio
+             encoder, the frame packer, cond_encoder) and XLSR-53 tower
+             beside the loaded umT5 and VAE; 5 s of synthetic audio through
+             the tower; 12 frames of 448x832 (5,824 tokens), --steps steps,
+             CFG 4.5 two-pass: the tower's and the audio encoder's times,
+             stage and step times, peak, launches against 184/80/104 per
+             two-pass step; profiled; then one step at the recipe's 80
+             frames (30,576 tokens), latents only (`s2v_recipe_frames`)
 Then the `kernels` summary line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Imports nothing of JAX or of the JAX package.
 """
@@ -289,12 +306,14 @@ def kernel_usage(*names):
 
 
 def check_kernels(torch, grid, tag, rope_ids=None, heads: int = 40,
-                  cross_lens=(TEXT_LEN,), self_attn: bool = True, norms: bool = True):
+                  cross_lens=(TEXT_LEN,), self_attn: bool = True, norms: bool = True,
+                  rope_tables=None):
     """K1 self and cross (to each of `cross_lens` keys), K4 and K5 at `heads`
     heads of 128 (the Ditto 14B width by default) on this token grid
     (rope_ids: the temporal RoPE index of each latent frame, as the editor
-    gives its joint sequence). self_attn/norms: whether to hold K1 self and
-    K4/K5 too."""
+    gives its joint sequence; rope_tables: numpy (cos, sin) rows for the
+    grid's tokens in their place, as S2V's segments give them).
+    self_attn/norms: whether to hold K1 self and K4/K5 too."""
     import torch.nn.functional as F
     from video_styler_tpu_torch.ops import flash_attention as fa
     from video_styler_tpu_torch.ops import fused_norm_rope as fnr
@@ -349,7 +368,10 @@ def check_kernels(torch, grid, tag, rope_ids=None, heads: int = 40,
         return emit_rows(rows)
 
     # K4: RMSNorm + RoPE on q and k in one launch
-    cos, sin = assemble_freqs_grid(d, f, h, w, rope_ids, device="cuda")
+    if rope_tables is None:
+        cos, sin = assemble_freqs_grid(d, f, h, w, rope_ids, device="cuda")
+    else:
+        cos, sin = (torch.from_numpy(t).cuda() for t in rope_tables)
     xq, xk = randn(1, s, dm), randn(1, s, dm) * 0.7
     wq = (1.0 + 0.1 * randn(dm).float()).to(torch.bfloat16)
     wk = (1.0 + 0.1 * randn(dm).float()).to(torch.bfloat16)
@@ -399,13 +421,80 @@ def emit_rows(rows):
     return rows
 
 
+S2V_GRID = (28, 52)         # 448x832 after the 8x VAE and the (1, 2, 2) patchify
+S2V_RUN_FRAMES = 12         # 3 latent frames + the reference: 5,824 tokens
+S2V_RECIPE_FRAMES = 80      # 20 latent frames + the reference: 30,576 tokens
+AUDIO_KEYS = 5              # 4 audio tokens a frame and the padding token
+
+
+def s2v_grid(frames: int):
+    """S2V's token grid at 448x832: the latent frames and the reference's."""
+    return ((frames - 1) // 4 + 2,) + S2V_GRID
+
+
+def s2v_rope_tables(frames: int):
+    from video_styler_tpu_torch.models.wan_s2v import s2v_rope_segments, video_segments
+    f, (h, w) = (frames - 1) // 4 + 1, S2V_GRID
+    return s2v_rope_segments(128, video_segments(f, h, w, h, w))
+
+
+def check_audio_cross_kernels(torch, frames, tag, heads: int = 40):
+    """S2V's audio injection: K5 on the (frames, 1,456, 5120) query rows,
+    then K1 with a batch row per latent frame, 1,456 queries against that
+    frame's 5 audio keys (one key tile: 5 real keys, 123 of TMA zero-fill)."""
+    import torch.nn.functional as F
+    from video_styler_tpu_torch.ops import flash_attention as fa
+    from video_styler_tpu_torch.ops import fused_norm_rope as fnr
+    b, s, n, d = frames, math.prod(S2V_GRID), heads, 128
+    dm, sk = n * d, AUDIO_KEYS
+    gen = torch.Generator("cuda").manual_seed(1)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+    xq = randn(b, s, dm)
+    wq = (1.0 + 0.1 * randn(dm).float()).to(torch.bfloat16)
+    q = fnr.fused_rmsnorm(xq, wq)
+    err, scale = max_err(torch, q, fnr.fused_rmsnorm_plain(xq, wq))
+    b_ms, b_by = bound(0.0, 2.0 * 2 * b * s * dm + 2.0 * dm)
+    rows = [dict(
+        name=f"K5 fused_rmsnorm audio-q B={b} S={s} Dm={dm} [{tag}]", kernel="K5",
+        route="cuda", source="video_styler_tpu_torch/csrc/fused_norm_rope.cu",
+        replaces="video_styler_tpu/ops/fused_norm_rope.py:154",
+        max_abs_err=err, max_rel_err=err / scale, tol=TOL_ULPS * scale,
+        ms=time_ms(torch, lambda: fnr.fused_rmsnorm(xq, wq), 10),
+        plain_ms=time_ms(torch, lambda: fnr.fused_rmsnorm_plain(xq, wq), 10),
+        bound_ms=b_ms, bound_by=b_by,
+        library_ms=time_ms(torch, lambda: F.rms_norm(xq, (dm,), wq, 1e-6), 10),
+        clocks=gpu_clocks())]
+    rows[-1]["ratio_to_library"] = rows[-1]["ms"] / rows[-1]["library_ms"]
+    q = q.view(b, s, n, d)
+    k, v = randn(b, sk, n, d), randn(b, sk, n, d)
+    out = fa.flash_attention(q, k, v)
+    err, scale = max_err(torch, out, fa.flash_attention_plain(q, k, v))
+    flops = 4.0 * b * n * s * sk * d
+    b_ms, b_by = bound(flops, 2.0 * (2 * b * s * dm + 2 * b * sk * dm))
+    ms = time_ms(torch, lambda: fa.flash_attention(q, k, v), reps=10)
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(qt, kt, vt), reps=10)
+    rows.append(dict(
+        name=f"K1 flash_attention audio-cross B={b} S={s} Sk={sk} N={n} D={d} [{tag}]",
+        kernel="K1", route="cuda", source="video_styler_tpu_torch/csrc/flash_attention.cu",
+        replaces="video_styler_tpu/ops/flash_attention.py:213",
+        max_abs_err=err, max_rel_err=err / scale, tol=TOL_ULPS * scale,
+        checked_rows=b * s, ms=ms,
+        plain_ms=time_ms(torch, lambda: fa.flash_attention_plain(q, k, v), reps=3, warmup=1),
+        bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms, ratio_to_library=ms / lib_ms,
+        tflops=flops / ms / 1e9, clocks=gpu_clocks()))
+    return emit_rows(rows)
+
+
 def card_copy(torch, cpu, cls):
     """A `cls` pipeline on the card holding copies of the CPU pipeline's
     models (the same weights)."""
     from video_styler_tpu_torch.prompters.wan_prompter import WanPrompter
     gpu = cls(device="cuda")
     for name in ("dit", "dit2", "vace", "vae", "image_encoder", "animate",
-                 "motion_controller"):
+                 "motion_controller", "s2v_model"):
         m = getattr(cpu, name)
         setattr(gpu, name, None if m is None else copy.deepcopy(m).to("cuda"))
     p = cpu.prompter
@@ -2152,6 +2241,162 @@ def run_ti2v(torch, pipe, kernels, steps: int):
         torch.cuda.empty_cache()
 
 
+# ------------------------------------------------------------ speech to video
+
+def check_s2v_reference(torch):
+    """`s2v_reference`: the S2V smoke recipe of `wan_video_gen` (a tiny S2V
+    model, a tiny wav2vec2 tower from seed 5), a synthetic 16 kHz waveform
+    through `extract_audio_features` on each device, 12 frames of 32x32
+    with a 12-frame pose video, CFG 4.5 two-pass, 2 steps, whole-clip VAE:
+    the audio features and the latents, card against CPU on the same
+    weights."""
+    import numpy as np
+    from video_styler_tpu_torch import wan_video_gen as G
+    from video_styler_tpu_torch.models import wav2vec as W
+    from video_styler_tpu_torch.models.audio_features import extract_audio_features
+    from video_styler_tpu_torch.pipelines.wan_video import WanVideoPipeline
+    recipe = G.RECIPES["Wan2.2-S2V-14B"]
+    cpu = G.build_smoke_pipeline(recipe, device="cpu", seed=0)
+    gpu = card_copy(torch, cpu, WanVideoPipeline)
+    w2v_cpu = random_module(torch, W.Wav2Vec2, G.smoke_s2v_configs()[1], W.init_wav2vec_, 5,
+                            torch.float32).cpu()
+    w2v_gpu = copy.deepcopy(w2v_cpu).cuda()
+    frames = S2V_RUN_FRAMES
+    wav = G.smoke_waveform(frames)
+    audio = {"cpu": extract_audio_features(wav, num_frames=frames, model=w2v_cpu),
+             "cuda": extract_audio_features(wav, num_frames=frames, model=w2v_gpu)}
+    audio_rel = float(np.linalg.norm(audio["cuda"] - audio["cpu"])
+                      / np.linalg.norm(audio["cpu"]))
+    clip = G.smoke_inputs(G.RECIPES["Wan2.1-VACE-14B"], 32, 32, frames)["vace_video"]
+    # the pipeline's whole-clip VAE (`s2v`'s default): the streaming encoder
+    # takes 4k + 1 frames, the 12-frame pose video is not
+    kw = dict(negative_prompt="blurry", num_frames=frames, height=32, width=32, seed=42,
+              cfg_scale=4.5, num_inference_steps=2, tiled=False, return_latents=True,
+              pose_video=clip)
+    res, ok = check_card_against_cpu(
+        torch, "s2v_reference", cpu, gpu,
+        lambda pipe: pipe.s2v("a woman sings on a rooftop", clip[0],
+                              audio[pipe.device.type], **kw),
+        recipe=recipe.name, frames=frames, steps=2, cfg="two-pass 4.5",
+        audio_shape=list(audio["cpu"].shape), audio_rel_l2=audio_rel)
+    emit(res)
+    if not ok or not audio_rel <= 5e-2:
+        raise AssertionError(f"S2V smoke, card vs CPU disagree: {res}")
+
+
+def run_s2v(torch, pipe, kernels, steps: int):
+    """Wan2.2-S2V-14B at full width on the card: a random `WAN_S2V_14B`
+    (seed 20: the 40-block trunk, 12 audio injectors with their AdaLN, the
+    audio encoder, the frame packer, `cond_encoder`) and `WAV2VEC2_XLSR_53`
+    tower (seed 21, fp32) beside the loaded umT5-XXL and Wan2.1 VAE; 5 s of
+    synthetic 16 kHz audio through the tower; a 12-frame 448x832 request
+    (5,824 tokens; the reference image cut from `synthetic_clip`), `steps`
+    steps, CFG 4.5 two-pass, counted and profiled; then one step at the
+    recipe's 80 frames (30,576 tokens), latents only, counted. Returns the
+    launches of both runs, summed."""
+    import numpy as np
+    from video_styler_tpu_torch import wan_video_gen as G
+    from video_styler_tpu_torch.models import wan_s2v as S
+    from video_styler_tpu_torch.models import wav2vec as W
+    from video_styler_tpu_torch.models.audio_features import extract_audio_features
+    from video_styler_tpu_torch.pipelines.wan_video import WanVideoPipeline
+    sp = WanVideoPipeline(device="cuda")
+    sp.vae, sp.prompter = pipe.vae, pipe.prompter
+    torch.cuda.synchronize()
+    before_gib = torch.cuda.memory_allocated() / 2**30
+    t0 = time.perf_counter()
+    sp.s2v_model = random_module(torch, S.WanS2V, S.WAN_S2V_14B, S.init_wan_s2v_, 20,
+                                 torch.bfloat16)
+    w2v = random_module(torch, W.Wav2Vec2, W.WAV2VEC2_XLSR_53, W.init_wav2vec_, 21,
+                        torch.float32)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    model = sp.s2v_model
+    trunk = ("patch_embedding", "text_embedding", "time_embedding", "time_projection",
+             "head", "blocks")
+    s2v_params = sum(p.numel() for n, p in model.named_parameters()
+                     if n.split(".")[0] not in trunk)
+    wav = G.smoke_waveform(64)          # 5 s: (64 / 16 + 1) s at 16 kHz
+    cfg = S.WAN_S2V_14B
+    per_step = {"K1": 2 * (2 * cfg.num_layers + len(cfg.audio_inject_layers)),
+                "K4": 2 * cfg.num_layers,
+                "K5": 2 * (cfg.num_layers + len(cfg.audio_inject_layers))}
+    total = {}
+    try:
+        audio, wav2vec_s = {}, {}
+        for frames in (S2V_RUN_FRAMES, S2V_RECIPE_FRAMES):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            audio[frames] = extract_audio_features(wav, num_frames=frames, model=w2v)
+            torch.cuda.synchronize()
+            wav2vec_s[frames] = time.perf_counter() - t0
+        with torch.no_grad():
+            states_ms = time_ms(torch, lambda: W.wav2vec_forward(
+                w2v, torch.from_numpy(W.normalize_waveform(wav)[None]).cuda()), reps=3)
+            a12 = torch.from_numpy(audio[S2V_RUN_FRAMES]).cuda().to(torch.bfloat16)
+            encoder_ms = time_ms(torch, lambda: S.cal_audio_emb(
+                model.casual_audio_encoder, a12, cfg.num_audio_token, cfg.enable_adain),
+                reps=5)
+        image = synthetic_clip(S2V_RUN_FRAMES, 448, 832)[0]
+        request = dict(prompt="a woman sings on a rooftop at dusk", ref_image=image,
+                       negative_prompt="blurry, static", num_frames=S2V_RUN_FRAMES,
+                       height=448, width=832, seed=42, cfg_scale=4.5,
+                       num_inference_steps=steps, tiled=True)
+        runs = [("s2v", S2V_RUN_FRAMES, steps, False),
+                ("s2v_recipe_frames", S2V_RECIPE_FRAMES, 1, True)]
+        for phase, frames, n_steps, latents_only in runs:
+            kw = dict(request, audio_input=audio[frames], num_frames=frames,
+                      num_inference_steps=n_steps, return_latents=latents_only)
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            for kern in kernels.values():
+                kern.launches = 0
+            t0 = time.perf_counter()
+            out = sp.s2v(**kw)
+            torch.cuda.synchronize()
+            total_s = time.perf_counter() - t0
+            launches = {name: kern.launches for name, kern in kernels.items()}
+            expected = {k: v * n_steps for k, v in per_step.items()}
+            f_lat = (frames - 1) // 4 + 1
+            res = dict(phase=phase, recipe="Wan2.2-S2V-14B", dim=cfg.dim,
+                       heads=cfg.num_heads, layers=cfg.num_layers,
+                       audio_injections=len(cfg.audio_inject_layers), frames=frames,
+                       height=448, width=832, tokens=int(math.prod(s2v_grid(frames))),
+                       steps=n_steps, cfg="two-pass 4.5", total_s=total_s,
+                       stages=dict(sp.stage_times), step_s=step_times(sp),
+                       stage_peak_gib={k: v / 2**30 for k, v in sp.stage_peak_bytes},
+                       max_memory_allocated_gib=torch.cuda.max_memory_allocated() / 2**30,
+                       output_shape=list(out.shape), launches=launches,
+                       expected_launches=expected,
+                       launches_per_two_pass_step={k: v / n_steps for k, v in launches.items()
+                                                   if v},
+                       finite=bool(np.isfinite(out).all()) if isinstance(out, np.ndarray)
+                       else bool(torch.isfinite(out.float()).all()),
+                       wav2vec_s=wav2vec_s[frames], wav2vec_forward_ms=states_ms,
+                       audio_shape=list(audio[frames].shape), audio_seconds=len(wav) / 16000,
+                       audio_encoder_ms=encoder_ms, build_s=build_s,
+                       s2v_params_b=s2v_params / 1e9, model_gib=gib([model]),
+                       wav2vec_gib=gib([w2v]), allocated_before_build_gib=before_gib)
+            emit(res)
+            check_launches(launches, expected, phase)
+            want = ((1, 16, f_lat, 56, 104) if latents_only
+                    else (1 + (f_lat - 1) * 4, 448, 832, 3))
+            if tuple(out.shape) != want or not res["finite"]:
+                raise AssertionError(f"{phase}: output {tuple(out.shape)}, want {want}")
+            _summed(total, launches)
+            if phase == "s2v":
+                emit({"phase": "s2v_profile",
+                      **profile_request(torch, lambda: sp.s2v(**kw), total_s)})
+        return total
+    finally:
+        sp.s2v_model = None
+        del sp, model, w2v
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
 KERNEL_CATEGORIES = (  # (category, substrings of the device kernel's name)
     ("K1", ("flash_fwd_capped_kernel",)),
     ("K2", ("flash_fwd_online_kernel",)),
@@ -2254,6 +2499,14 @@ def main(argv=None):
     rows += check_kernels(torch, (run[0] + 1,) + run[1:], f"fun-ref-{args.frames}f",
                           cross_lens=(TEXT_LEN, CLIP_ROWS))
     rows += check_kernels(torch, run, f"speed-{args.frames}f", heads=12)
+    # Wan2.2-S2V at 448x832: self-attention over the latent frames and the
+    # reference frame (RoPE rows from its segments) at the run's 12 frames
+    # (5,824 tokens, with the text cross) and the recipe's 80 (30,576);
+    # the audio cross, a batch row per latent frame against 5 keys
+    for frames, cross in ((S2V_RUN_FRAMES, (TEXT_LEN,)), (S2V_RECIPE_FRAMES, ())):
+        rows += check_kernels(torch, s2v_grid(frames), f"s2v-{frames}f", cross_lens=cross,
+                              rope_tables=s2v_rope_tables(frames))
+        rows += check_audio_cross_kernels(torch, (frames - 1) // 4 + 1, f"s2v-{frames}f")
     torch.cuda.empty_cache()
     s_ditto = math.prod(ditto)
     s_run = math.prod(run)
@@ -2300,6 +2553,7 @@ def main(argv=None):
     check_enhance_reference(torch)
     check_image_references(torch)
     check_fun_references(torch)
+    check_s2v_reference(torch)
     pipe, init_s = build_pipeline(torch)
     e2e_frames = []
     run_edit(torch, pipe, kernels, args.steps, args.frames, "e2e", {"K1": 1.0},
@@ -2354,6 +2608,7 @@ def main(argv=None):
     path_launches.update(run_i2v(torch, pipe, kernels, args.frames, args.steps))
     path_launches["speed"] = run_speed(torch, pipe, kernels, args.frames, args.steps)
     path_launches["ti2v"] = run_ti2v(torch, pipe, kernels, args.steps)
+    path_launches["s2v"] = run_s2v(torch, pipe, kernels, args.steps)
 
     keys = ("name", "route", "source", "replaces", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -167,3 +167,29 @@ def test_animate_pipeline_matches_jax(case, monkeypatch):
         plain = tp(**kw)
         tp.animate = animate
         assert _rel(plain.numpy(), got.numpy()) > 1e-3
+
+
+def test_animate_tea_cache_replay_matches_jax(monkeypatch):
+    """TeaCache on the Animate pipeline, 4 steps at a threshold that replays
+    the cached residual on the two middle steps of each CFG branch: the
+    replay (the JAX pipeline's `skip`) takes neither the pose tokens nor the
+    face blocks, and the port mirrors it, so the run matches JAX; a replay
+    happened, and the run differs from the one without TeaCache."""
+    jp, tp = _animate_pipes("fp32")
+    orig = JA.animate_after_patch_embedding
+    monkeypatch.setattr(JA, "animate_after_patch_embedding",
+                        lambda p, x, pose, face: orig(p, x, pose, face, size=SMALL.face_size))
+    replays = []
+    skip = tp._skip
+    monkeypatch.setattr(tp, "_skip", lambda *a, **kw: replays.append(1) or skip(*a, **kw))
+    rng = np.random.default_rng(0)
+    kw = dict(REQUEST, input_image=_frames(rng, 1, 32)[0],
+              animate_pose_video=_frames(rng, 5, 32), animate_face_video=_frames(rng, 3, 64),
+              num_inference_steps=4)
+    tea = dict(tea_cache_l1_thresh=10.0, tea_cache_model_id="Wan2.1-T2V-1.3B")
+    want = np.asarray(jnp.asarray(jp(**kw, **tea), jnp.float32))
+    got = tp(**kw, **tea)
+    assert len(replays) == 4
+    assert got.shape == want.shape == (1, 4, 3, 4, 4)
+    assert _rel(got.numpy(), want) < 2e-5
+    assert _rel(tp(**kw).numpy(), got.numpy()) > 1e-3

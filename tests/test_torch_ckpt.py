@@ -499,21 +499,41 @@ def test_vace_prefix_quirk_is_mirrored(tmp_path, monkeypatch):
         TW.WanVideoPipeline.from_pretrained([ModelConfig(path=path)], device="cpu")
 
 
-def test_unported_kinds_raise(tmp_path):
+def test_unported_kinds_raise(tmp_path, monkeypatch):
+    """flux_dit and motion_modules raise with their Queue 1 item; `s2v` and
+    `wav2vec` are ported and attach as in the JAX pipeline: `s2v` builds
+    the default (14B) config whatever the file, `wav2vec` raises the JAX
+    pipeline's ValueError (ROADMAP Queue 3)."""
+    import video_styler_tpu_torch.models.wan_s2v as TS
     path = str(tmp_path / "flux.safetensors")
     safetensors_io.save_file({"double_blocks.0.img_attn.qkv.weight": torch.zeros(4, 4)},
                              path)
     with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
         TC.load_model(path, device="cpu")
     tp = TW.WanVideoPipeline(device="cpu")
-    for kind, item in (("s2v", 9), ("wav2vec", 9)):
-        with pytest.raises(NotImplementedError, match=f"Queue 1 item {item}"):
+    for kind in ("flux_dit", "motion_modules"):
+        with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
             tp._attach(kind, {})
-    assert not {"animate", "motion_controller"} & set(TC.UNPORTED_KINDS)
-    with pytest.raises(ValueError, match="unknown model kind"):
-        tp._attach("not-a-kind", {})
+    assert not {"animate", "motion_controller", "s2v", "wav2vec"} & set(TC.UNPORTED_KINDS)
+    jp = JW.WanVideoPipeline(dtype=jnp.float32)
+    for pipe in (jp, tp):
+        with pytest.raises(ValueError, match="unknown model kind wav2vec"):
+            pipe._attach("wav2vec", {})
+        with pytest.raises(ValueError, match="unknown model kind"):
+            pipe._attach("not-a-kind", {})
+    built = []
+
+    def convert(sd, cfg):
+        built.append(cfg)
+        raise KeyError("stop")
+    monkeypatch.setattr(TS, "convert_wan_s2v", convert)
+    with pytest.raises(KeyError, match="stop"):
+        tp._attach("s2v", {})
+    assert built == [TS.WAN_S2V_14B]
+    monkeypatch.undo()
+    # the DiT's shards read as an S2V file: the 14B S2V keys are missing
     shards, _, _ = _reference_files(str(tmp_path))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
+    with pytest.raises(KeyError):
         TW.WanVideoPipeline.from_pretrained(
             [ModelConfig(path=shards, model_kind="s2v")], device="cpu")
 

@@ -7,7 +7,11 @@ under the reference's `visual.*` names. Sizes: the tiny tower of the JAX
 tests (28x28 images, 14-pixel patches, dim 64, 2 heads, 3 blocks), the
 smoke runner's 257-token tower (112x112, 7-pixel patches, dim 1280, 4
 heads, 2 blocks) and one block at ViT-H/14's full width (1280, 16 heads of
-80, MLP 5120: ~20M weights) on 257 tokens. fp32 within 2e-5 relative L2
+80, MLP 5120: ~20M weights) on 257 tokens. The XLM-RoBERTa text tower of
+the same checkpoint (no pipeline reaches it): the JAX package has no init
+for it, so a `textual.*` state dict is drawn with numpy (vocab 100, dim
+64, 4 heads, 2 blocks, a 48-wide head) and both converters read it; two
+rows of 12 ids, one padded. fp32 within 2e-5 relative L2
 (the same arithmetic summed in other orders); bf16 within 5% (each side
 rounds at its own points).
 """
@@ -122,3 +126,99 @@ def test_convert_round_trip_matches_jax():
     for got in (from_jax, converted):
         for k, v in model.state_dict().items():
             assert torch.equal(got.state_dict()[k], v), k
+
+
+# -- the XLM-RoBERTa text tower ---------------------------------------------
+
+XLMR = dict(vocab_size=100, max_positions=40, dim=64, ffn_dim=128, num_heads=4,
+            num_layers=2, out_dim=48)
+
+
+def _xlmr_state_dict(cfg, seed=0, head=True):
+    """A random open-clip-xlm-roberta `textual.*` state dict (the JAX
+    package has no init for the tower), with `visual.*` keys beside it."""
+    rng = np.random.default_rng(seed)
+
+    def lin(name, i, o, out):
+        out[f"{name}.weight"] = rng.standard_normal((o, i)).astype(np.float32) / np.sqrt(i)
+        out[f"{name}.bias"] = 0.05 * rng.standard_normal(o).astype(np.float32)
+
+    def ln(name, d, out):
+        out[f"{name}.weight"] = (1 + 0.1 * rng.standard_normal(d)).astype(np.float32)
+        out[f"{name}.bias"] = 0.05 * rng.standard_normal(d).astype(np.float32)
+    d = cfg.dim
+    sd = {"token_embedding.weight": rng.standard_normal((cfg.vocab_size, d)),
+          "type_embedding.weight": rng.standard_normal((cfg.type_size, d)),
+          "pos_embedding.weight": rng.standard_normal((cfg.max_positions, d))}
+    sd = {k: (0.5 * v).astype(np.float32) for k, v in sd.items()}
+    ln("norm", d, sd)
+    for i in range(cfg.num_layers):
+        for name in ("q", "k", "v", "o"):
+            lin(f"blocks.{i}.attn.{name}", d, d, sd)
+        ln(f"blocks.{i}.norm1", d, sd)
+        lin(f"blocks.{i}.ffn.0", d, cfg.ffn_dim, sd)
+        lin(f"blocks.{i}.ffn.2", cfg.ffn_dim, d, sd)
+        ln(f"blocks.{i}.norm2", d, sd)
+    if head:
+        lin("head.0", d, (d + cfg.out_dim) // 2, sd)
+        lin("head.2", (d + cfg.out_dim) // 2, cfg.out_dim, sd)
+    out = {f"textual.{k}": torch.from_numpy(v) for k, v in sd.items()}
+    out["visual.cls_embedding"] = torch.zeros(1, 1, 8)
+    return out
+
+
+def _xlmr_ids(cfg):
+    """Two rows of 12 token ids, the second padded (pad id 1) after 7."""
+    ids = np.random.default_rng(1).integers(3, cfg.vocab_size, (2, 12))
+    ids[:, 0] = 0
+    ids[1, 7:] = cfg.pad_id
+    return ids
+
+
+@pytest.mark.parametrize("dtype,with_head", [("fp32", True), ("fp32", False),
+                                             ("bf16", True)])
+def test_xlm_roberta_matches_jax(dtype, with_head):
+    """The tower on padded ids: the pooled head output (or the hidden
+    states), fp32 within 2e-5, bf16 within 5%; both converters on the same
+    state dict, and `from_jax_params` of the JAX tree equal to the port's."""
+    cfg = TC.XlmRobertaConfig(**XLMR)
+    jd, td = {"fp32": (jnp.float32, torch.float32), "bf16": (jnp.bfloat16, torch.bfloat16)}[dtype]
+    sd = _xlmr_state_dict(cfg)
+    jp = JC.convert_xlm_roberta({k: v.numpy() for k, v in sd.items()}, cfg.num_layers,
+                                dtype=jd)
+    tower = from_jax_params("xlm_roberta", jax.tree_util.tree_map(np.asarray, jp), cfg,
+                            device="cpu")
+    with torch.device("meta"):
+        direct = TC.XlmRoberta(cfg, dtype=td)
+    direct.load_state_dict({k: v.to(td) for k, v in TC.convert_xlm_roberta(sd, cfg).items()},
+                           strict=True, assign=True)
+    for name, t in direct.state_dict().items():
+        assert torch.equal(t, tower.state_dict()[name]), name
+    ids = _xlmr_ids(cfg)
+    want = np.asarray(jnp.asarray(JC.xlm_roberta_forward(
+        jp, jnp.asarray(ids, jnp.int32), num_heads=cfg.num_heads, with_head=with_head),
+        jnp.float32))
+    with torch.no_grad():
+        got = TC.xlm_roberta_forward(tower, torch.from_numpy(ids), with_head=with_head)
+    assert got.shape == want.shape == ((2, 48) if with_head else (2, 12, 64))
+    assert got.dtype == td
+    assert _rel(got.float().numpy(), want) < (5e-2 if dtype == "bf16" else 2e-5)
+
+
+def test_xlm_roberta_without_head_file():
+    """A file without `head.*` builds the tower with with_head=False and
+    returns the hidden states, as the JAX forward does without head params."""
+    cfg = TC.XlmRobertaConfig(**XLMR, with_head=False)
+    sd = _xlmr_state_dict(cfg, head=False)
+    jp = JC.convert_xlm_roberta({k: v.numpy() for k, v in sd.items()}, cfg.num_layers,
+                                dtype=jnp.float32)
+    with torch.device("meta"):
+        tower = TC.XlmRoberta(cfg)
+    tower.load_state_dict(TC.convert_xlm_roberta(sd, cfg), strict=True, assign=True)
+    ids = _xlmr_ids(cfg)
+    want = np.asarray(JC.xlm_roberta_forward(jp, jnp.asarray(ids, jnp.int32),
+                                             num_heads=cfg.num_heads))
+    with torch.no_grad():
+        got = TC.xlm_roberta_forward(tower, torch.from_numpy(ids)).numpy()
+    assert got.shape == want.shape == (2, 12, 64)
+    assert _rel(got, want) < 2e-5

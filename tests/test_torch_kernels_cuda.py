@@ -212,6 +212,58 @@ def test_k1_k4_k5_speed_control_width(gen):
     _assert_close(o1x[:, rows], fa.flash_attention_plain(oq[:, rows], ctx, ctx))
 
 
+@pytest.mark.parametrize("frames", [3, 20])
+def test_k1_k5_s2v_audio_cross(gen, frames):
+    """Wan2.2-S2V's audio injection at 448x832: each latent frame's 1,456
+    tokens (a batch row per frame: 3 at 12 frames, 20 at 80) attend to
+    that frame's 5 audio tokens (4 and a padding token), 40 heads: K5 on
+    the (frames, 1,456, 5120) query rows, K1 with one key tile of 5 real
+    keys and 123 rows of TMA zero-fill."""
+    s, n = 28 * 52, 40
+    xq = _randn(gen, frames, s, n * 128)
+    wq = (1 + 0.1 * torch.randn(n * 128, generator=gen, device="cuda")).to(torch.bfloat16)
+    k, v = _randn(gen, frames, 5, n, 128), _randn(gen, frames, 5, n, 128)
+    before = (fnr.RMS_KERNEL.launches, fa.KERNEL.launches)
+    q = fnr.fused_rmsnorm(xq, wq)
+    out = fa.flash_attention(q.view(frames, s, n, 128), k, v)
+    torch.cuda.synchronize()
+    assert (fnr.RMS_KERNEL.launches, fa.KERNEL.launches) == (before[0] + 1, before[1] + 1)
+    _assert_close(q, fnr.fused_rmsnorm_plain(xq, wq))
+    _assert_close(out, fa.flash_attention_plain(q.view(frames, s, n, 128), k, v))
+
+
+@pytest.mark.parametrize("frames", [12, 80])
+def test_k4_k1_s2v_segment_tables(gen, frames):
+    """Wan2.2-S2V's self-attention at 448x832: the latent frames' tokens
+    and the reference frame's 1,456 at temporal RoPE index 30 (5,824
+    tokens at 12 frames, 30,576 at 80), their cos/sin rows from
+    `s2v_rope_segments`: K4 on q and k, K1 self, the text cross (512
+    keys) on 5,824 query rows."""
+    from video_styler_tpu_torch.models.wan_s2v import s2v_rope_segments, video_segments
+    f, h, w, n = (frames - 1) // 4 + 1, 28, 52, 40
+    cos, sin = (torch.from_numpy(t).cuda()
+                for t in s2v_rope_segments(128, video_segments(f, h, w, h, w)))
+    s = (f + 1) * h * w
+    assert cos.shape == (s, 64)
+    xq, xk = _randn(gen, 1, s, n * 128), _randn(gen, 1, s, n * 128, scale=0.7)
+    wq = (1 + 0.1 * torch.randn(n * 128, generator=gen, device="cuda")).to(torch.bfloat16)
+    wk = (1 + 0.1 * torch.randn(n * 128, generator=gen, device="cuda")).to(torch.bfloat16)
+    v = _randn(gen, 1, s, n, 128)
+    ctx = _randn(gen, 1, 512, n, 128)
+    before = (fnr.ROPE_KERNEL.launches, fa.KERNEL.launches)
+    oq, ok = fnr.fused_rmsnorm_rope(xq, xk, wq, wk, cos, sin)
+    out = fa.flash_attention(oq, ok, v)
+    outx = fa.flash_attention(oq, ctx, ctx)
+    torch.cuda.synchronize()
+    assert (fnr.ROPE_KERNEL.launches, fa.KERNEL.launches) == (before[0] + 1, before[1] + 2)
+    pq, pk = fnr.fused_rmsnorm_rope_plain(xq, xk, wq, wk, cos, sin)
+    _assert_close(oq, pq)
+    _assert_close(ok, pk)
+    rows = torch.cat([torch.arange(0, 1024), torch.arange(s - 1024, s)]).cuda()
+    _assert_close(out[:, rows], fa.flash_attention_plain(oq[:, rows], ok, v))
+    _assert_close(outx[:, rows], fa.flash_attention_plain(oq[:, rows], ctx, ctx))
+
+
 @pytest.mark.parametrize("rows", [29640, 4680, 4681])
 def test_k5_ditto_rows(gen, rows):
     """K5 at the Ditto width (Dm = 5120: 20 chunks of 16 bytes a lane) on

@@ -49,9 +49,7 @@ def cpu_share():
     while a module's tests run, and restored after it. Under pytest-xdist
     each worker process would start a thread per core; the workers' threads
     then wait on each other at every parallel region. Imported by every
-    CPU test module of the port but `test_torch_quant`, whose int8 frames
-    were bounded at the default thread count (at one thread the fp32 sums
-    round an activation the other way and its frame difference moves)."""
+    CPU test module of the port."""
     workers = int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))
     before = torch.get_num_threads()
     torch.set_num_threads(min(before, max(1, (os.cpu_count() or 1) // workers)))

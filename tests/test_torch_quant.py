@@ -28,7 +28,7 @@ from video_styler_tpu_torch.ops import attention as tatt
 from video_styler_tpu_torch.ops import basic as tb
 from video_styler_tpu_torch.ops import quant as tq
 
-from test_torch_pipeline import REQUEST, _frames, _pipelines
+from test_torch_pipeline import REQUEST, _frames, _pipelines, cpu_share  # noqa: F401
 
 # `video_styler_tpu.ops` exports a function of the same name as this module
 jatt = importlib.import_module("video_styler_tpu.ops.attention")
@@ -390,6 +390,8 @@ def test_quantized_pipeline_matches_jax(monkeypatch, float_attention):
     frames_j = np.stack([np.asarray(im) for im in jp(vace_video=video, **REQUEST)])
     frames_t = tp(vace_video=video, **REQUEST)
     diff = np.abs(frames_t.astype(np.int16) - frames_j.astype(np.int16))
+    # measured 1.838 at 1, 3 and 8 threads (the VAE's channel norm sums in
+    # a fixed order on the CPU; before, 2.34 at one thread)
     assert diff.mean() <= 2.0, diff.mean()
     with pytest.raises(KeyError, match="after LoRA merging"):
         tp.load_lora("vace", state_dict={

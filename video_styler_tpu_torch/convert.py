@@ -15,6 +15,9 @@ and returns the port's module for `kind`:
   "motion_controller" -> models.wan_controllers.MotionController
   "control_adapter"   -> models.wan_controllers.SimpleAdapter
             (cfg: None for these two; the widths come from the tree)
+  "s2v"  -> models.wan_s2v.WanS2V       (cfg: WanS2VConfig)
+  "wav2vec" -> models.wav2vec.Wav2Vec2  (cfg: Wav2Vec2Config)
+  "xlm_roberta" -> models.clip_vit.XlmRoberta (cfg: XlmRobertaConfig)
 
 A Fun DiT's tree carries `ref_conv` ({"w", "b"}, as the patch embedding)
 and `control_adapter` (torch layout), which a config with `has_ref_conv`
@@ -25,10 +28,13 @@ and `has_control_adapter` takes.
 blocks) into the port's per-block factors in torch layout.
 
 The layouts that differ: JAX linears store `w` as (in, out) and
-`nn.Linear` stores `weight` as (out, in); the stacked `blocks` (and VACE
-`after_proj`) trees carry a leading layer axis that becomes the index of an
-`nn.ModuleList` (the CLIP tower's `blocks` are a dict keyed by index, the
-same names). VAE conv weights are already OIDHW and keep their names.
+`nn.Linear` stores `weight` as (out, in) (a convolution's `w`, 3-D and up,
+is already in the torch layout and only takes the name `weight`); the
+stacked `blocks` (and VACE `after_proj`) trees of the DiT, VACE and S2V
+carry a leading layer axis that becomes the index of an `nn.ModuleList`
+(the CLIP tower's `blocks` are a dict keyed by index, the wav2vec and
+XLM-R towers' a list: the same names). VAE conv weights are already OIDHW
+and keep their names.
 bfloat16 and float8_e4m3fn leaves (ml_dtypes) keep their bits.
 
 A tree quantised by the JAX package's `quantize_params` (linear leaves
@@ -44,13 +50,15 @@ import numpy as np
 import torch
 
 from .device import resolve_device
-from .models.clip_vit import ClipVit
+from .models.clip_vit import ClipVit, XlmRoberta
 from .models.t5 import T5Encoder
 from .models.wan_animate import WanAnimateAdapter, animate_head_dim
 from .models.wan_controllers import MotionController, SimpleAdapter
 from .models.wan_dit import WanDiT
+from .models.wan_s2v import WanS2V
 from .models.wan_vace import WanVace
 from .models.wan_vae import WanVAE, WanVAE38, WanVAE38Config
+from .models.wav2vec import Wav2Vec2
 from .ops.quant import QuantLinear
 
 def _animate(cfg, sd):
@@ -69,7 +77,7 @@ def _simple_adapter(cfg, sd):
 
 
 _MODULES = {"dit": WanDiT, "vace": WanVace, "t5": T5Encoder, "vae": WanVAE,
-            "clip": ClipVit}
+            "clip": ClipVit, "s2v": WanS2V, "wav2vec": Wav2Vec2, "xlm_roberta": XlmRoberta}
 _BUILDERS = {"animate": _animate, "motion_controller": _motion_controller,
              "control_adapter": _simple_adapter}
 _STACKED = ("blocks", "after_proj")
@@ -88,6 +96,9 @@ def _flatten(node, prefix: str, out: Dict[str, np.ndarray]):
     if isinstance(node, dict):
         for k, v in node.items():
             _flatten(v, f"{prefix}{k}.", out)
+    elif isinstance(node, (list, tuple)):
+        for i, v in enumerate(node):
+            _flatten(v, f"{prefix}{i}.", out)
     else:
         out[prefix[:-1]] = np.asarray(node)
 
@@ -108,7 +119,7 @@ def jax_tree_to_state_dict(tree, stacked: bool) -> Dict[str, torch.Tensor]:
                      for i in range(arr.shape[0])]
         for p, a in items:
             if p[-1] == "w":
-                p, a = p[:-1] + ["weight"], a.T
+                p, a = p[:-1] + ["weight"], (a.T if a.ndim == 2 else a)
             elif p[-1] == "b" and name.rsplit(".", 1)[0] not in quantized:
                 p = p[:-1] + ["bias"]
             sd[".".join(p)] = _to_tensor(a)
@@ -136,7 +147,7 @@ def from_jax_params(kind: str, tree, cfg, device=None) -> torch.nn.Module:
     if kind not in _MODULES and kind not in _BUILDERS:
         raise ValueError(f"unknown model kind {kind!r}; one of "
                          f"{sorted(_MODULES) + sorted(_BUILDERS)}")
-    sd = jax_tree_to_state_dict(tree, stacked=kind in ("dit", "vace"))
+    sd = jax_tree_to_state_dict(tree, stacked=kind in ("dit", "vace", "s2v"))
     with torch.device("meta"):
         if kind in _BUILDERS:
             module = _BUILDERS[kind](cfg, sd)

@@ -8,9 +8,13 @@ the last block and the post LayerNorm are held (the checkpoint has them)
 but not run.
 
 Its attention is the exact-softmax `ops.attention.sdpa`, as the JAX tower
-runs XLA's sdpa and no Pallas kernel: 257 tokens of 16 heads of 80. The
-XLM-R text tower of the same checkpoint is not on the I2V path and is not
-ported (ROADMAP Queue 1 item 9).
+runs XLA's sdpa and no Pallas kernel: 257 tokens of 16 heads of 80.
+
+The XLM-RoBERTa text tower of the same checkpoint (`XlmRoberta`,
+`xlm_roberta_forward`, `convert_xlm_roberta`; the `textual.*` keys):
+padding-aware positions, post-norm blocks with masked exact attention
+(plain `sdpa` with a key bias), the mean-pooled GELU head. No pipeline
+reaches it, in either package.
 """
 from __future__ import annotations
 
@@ -192,4 +196,110 @@ def export_clip_vit(model: ClipVit) -> Dict[str, torch.Tensor]:
             w_name = "scale" if src.startswith("norm") else "weight"
             out[f"visual.transformer.{i}.{dst}.weight"] = sd[f"blocks.{i}.{src}.{w_name}"]
             out[f"visual.transformer.{i}.{dst}.bias"] = sd[f"blocks.{i}.{src}.bias"]
+    return out
+
+
+# -- XLM-RoBERTa text tower ----------------------------------------------------
+
+@dataclass(frozen=True)
+class XlmRobertaConfig:
+    vocab_size: int = 250002
+    max_positions: int = 514
+    type_size: int = 1
+    dim: int = 1024
+    ffn_dim: int = 4096
+    num_heads: int = 16
+    num_layers: int = 24
+    out_dim: int = 1024
+    pad_id: int = 1
+    eps: float = 1e-5
+    with_head: bool = True
+
+
+XLM_ROBERTA_LARGE = XlmRobertaConfig()
+
+
+class XlmRobertaBlock(nn.Module):
+    def __init__(self, cfg: XlmRobertaConfig, device=None, dtype=None):
+        super().__init__()
+        kw = dict(device=device, dtype=dtype)
+        self.q = Linear(cfg.dim, cfg.dim, **kw)
+        self.k = Linear(cfg.dim, cfg.dim, **kw)
+        self.v = Linear(cfg.dim, cfg.dim, **kw)
+        self.o = Linear(cfg.dim, cfg.dim, **kw)
+        self.norm1 = LayerNormAffine(cfg.dim, **kw)
+        self.fc1 = Linear(cfg.dim, cfg.ffn_dim, **kw)
+        self.fc2 = Linear(cfg.ffn_dim, cfg.dim, **kw)
+        self.norm2 = LayerNormAffine(cfg.dim, **kw)
+
+
+class XlmRoberta(nn.Module):
+    """Parameters of the text tower (the JAX tree of `convert_xlm_roberta`),
+    with the pooling head when `cfg.with_head`."""
+
+    def __init__(self, cfg: XlmRobertaConfig = XLM_ROBERTA_LARGE, device=None, dtype=None):
+        super().__init__()
+        kw = dict(device=device, dtype=dtype)
+        self.cfg = cfg
+        self.token_embedding = nn.Parameter(torch.empty(cfg.vocab_size, cfg.dim, **kw))
+        self.type_embedding = nn.Parameter(torch.empty(cfg.type_size, cfg.dim, **kw))
+        self.pos_embedding = nn.Parameter(torch.empty(cfg.max_positions, cfg.dim, **kw))
+        self.norm = LayerNormAffine(cfg.dim, **kw)
+        self.blocks = nn.ModuleList(XlmRobertaBlock(cfg, **kw) for _ in range(cfg.num_layers))
+        if cfg.with_head:
+            hidden = (cfg.dim + cfg.out_dim) // 2
+            self.head_fc1 = Linear(cfg.dim, hidden, **kw)
+            self.head_fc2 = Linear(hidden, cfg.out_dim, **kw)
+
+
+def _gelu(x):
+    return F.gelu(x.float()).to(x.dtype)
+
+
+def xlm_roberta_forward(model: XlmRoberta, ids, with_head: bool = True):
+    """ids (B, L) int -> (B, out_dim) with the head, else (B, L, dim).
+    Position ids pad_id + cumsum(mask) * mask; padded keys get the most
+    negative fp32 logit bias; the head mean-pools the unpadded rows."""
+    cfg = model.cfg
+    b, s = ids.shape
+    mask = (ids != cfg.pad_id).long()
+    pos = cfg.pad_id + torch.cumsum(mask, dim=1) * mask
+    x = (model.token_embedding[ids] + model.type_embedding[torch.zeros_like(ids)]
+         + model.pos_embedding[pos])
+    x = layer_norm(x, model.norm.scale, model.norm.bias, cfg.eps)
+    bias = torch.where(mask[:, None, None, :] > 0, 0.0, torch.finfo(torch.float32).min)
+    n, d = cfg.num_heads, cfg.dim
+    for p in model.blocks:
+        q = p.q(x).reshape(b, s, n, d // n)
+        k = p.k(x).reshape(b, s, n, d // n)
+        v = p.v(x).reshape(b, s, n, d // n)
+        a = sdpa(q, k, v, bias=bias).reshape(b, s, d)
+        x = layer_norm(x + p.o(a), p.norm1.scale, p.norm1.bias, cfg.eps)
+        x = layer_norm(x + p.fc2(_gelu(p.fc1(x))), p.norm2.scale, p.norm2.bias, cfg.eps)
+    if not with_head or not hasattr(model, "head_fc1"):
+        return x
+    m = mask[..., None].to(x.dtype)
+    pooled = (x * m).sum(dim=1) / m.sum(dim=1)
+    return model.head_fc2(_gelu(model.head_fc1(pooled)))
+
+
+def convert_xlm_roberta(sd: Dict, cfg: XlmRobertaConfig = XLM_ROBERTA_LARGE) -> Dict:
+    """`textual.*` keys of the open-clip-xlm-roberta checkpoint (or the same
+    names unprefixed; `visual.*` dropped) -> `XlmRoberta` state dict, reading
+    `cfg.num_layers` blocks and the head where the file has one."""
+    sd = {k[len("textual."):] if k.startswith("textual.") else k: v
+          for k, v in sd.items() if not k.startswith("visual.")}
+    out = {f"{name}_embedding": sd[f"{name}_embedding.weight"]
+           for name in ("token", "type", "pos")}
+    out["norm.scale"], out["norm.bias"] = sd["norm.weight"], sd["norm.bias"]
+    names = {"attn.q": "q", "attn.k": "k", "attn.v": "v", "attn.o": "o", "norm1": "norm1",
+             "ffn.0": "fc1", "ffn.2": "fc2", "norm2": "norm2"}
+    for i in range(cfg.num_layers):
+        for src, dst in names.items():
+            w_name = "scale" if dst.startswith("norm") else "weight"
+            out[f"blocks.{i}.{dst}.{w_name}"] = sd[f"blocks.{i}.{src}.weight"]
+            out[f"blocks.{i}.{dst}.bias"] = sd[f"blocks.{i}.{src}.bias"]
+    if cfg.with_head and "head.0.weight" in sd:
+        for src, dst in (("head.0", "head_fc1"), ("head.2", "head_fc2")):
+            out[f"{dst}.weight"], out[f"{dst}.bias"] = sd[f"{src}.weight"], sd[f"{src}.bias"]
     return out

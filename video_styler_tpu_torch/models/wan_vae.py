@@ -236,11 +236,22 @@ def conv2d_on_frames(p: Conv, x, stride: int = 1, pad_br: bool = False,
     return conv3d(p, x, stride=(1, stride, stride), padding=(0, padding, padding))
 
 
+def _channel_norm(xf):
+    """The L2 norm over dim 1. On the CPU the squares are summed in channel
+    order (a scan), whatever torch's thread count: its reduction over a
+    small tensor splits differently with the count, and the last bit it
+    moves can flip an int8 rounding downstream (ROADMAP Queue 3). On the
+    card one reduction, deterministic for a given launch."""
+    if xf.device.type == "cpu":
+        return torch.cumsum(xf.square(), dim=1).narrow(1, xf.shape[1] - 1, 1).sqrt_()
+    return torch.linalg.vector_norm(xf, dim=1, keepdim=True)
+
+
 def rms_norm_spatial(p: Gamma, x, eps: float = 1e-12):
     """F.normalize over channels (dim 1) * sqrt(C) * gamma, in fp32. One
     full-size temporary: the later multiplies run in place on it."""
     xf = x.float()
-    norm = torch.linalg.vector_norm(xf, dim=1, keepdim=True)
+    norm = _channel_norm(xf)
     gamma = p.gamma.float().reshape(1, -1, *([1] * (x.dim() - 2)))
     y = xf / torch.clamp(norm, min=eps)
     y.mul_(x.shape[1] ** 0.5).mul_(gamma)

@@ -32,11 +32,14 @@ def set_quantized_attention(enabled: bool):
     _QUANTIZED_ATTENTION = bool(enabled)
 
 
-def sdpa(q, k, v, scale: Optional[float] = None) -> torch.Tensor:
-    """q: (B, Sq, N, D), k/v: (B, Sk, N, D) -> (B, Sq, N, D); fp32 softmax."""
+def sdpa(q, k, v, scale: Optional[float] = None, bias=None) -> torch.Tensor:
+    """q: (B, Sq, N, D), k/v: (B, Sk, N, D) -> (B, Sq, N, D); fp32 softmax.
+    bias: added to the scaled fp32 logits (B or 1, N or 1, Sq or 1, Sk)."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     logits = torch.einsum("bqnd,bknd->bnqk", q.float(), k.float()) * scale
+    if bias is not None:
+        logits = logits + bias
     probs = torch.softmax(logits, dim=-1)
     out = torch.einsum("bnqk,bknd->bqnd", probs.to(v.dtype).float(), v.float())
     return out.to(v.dtype)

@@ -16,7 +16,9 @@ its CLIP feature replacing the input image's; `camera_control_direction`:
 Plücker latents through the DiT's camera adapter, with a first-frame y),
 speed control (`motion_bucket_id` through the motion controller into
 t_mod) and Animate (`animate_pose_video` / `animate_face_video` through the
-pose/face adapter) are the JAX pipeline's units. The loop's options are
+pose/face adapter) are the JAX pipeline's units; `s2v` is its
+speech-to-video loop (Wan2.2-S2V-14B: the reference image's latent pinned
+at frame 0, wav2vec features injected per block). The loop's options are
 the JAX pipeline's: TeaCache step skipping, skip-layer guidance (`slg_blocks`: the listed blocks skipped on the
 unconditional rows), the temporal sliding window with ramp blending, a
 second expert `dit2` taking over below `switch_DiT_boundary`, and the
@@ -29,8 +31,9 @@ kernel. Models come from checkpoint files (`from_pretrained`: the official
 Wan2.1 DiT (T2V, I2V, FLF2V), VACE, umT5, CLIP and VAE files, the Wan2.2
 TI2V-5B DiT and VAE, the Wan Fun DiTs (a reference conv, a camera adapter),
 the Wan2.2-Animate adapter, the speed controller (kind
-`motion_controller`, which detection cannot tell), and a Wan2.2 expert as
-kind `dit2`, read by `utils.ckpt`), from `convert.from_jax_params`, or
+`motion_controller`, which detection cannot tell), the S2V model, and a
+Wan2.2 expert as kind `dit2`, read by `utils.ckpt`), from
+`convert.from_jax_params`, or
 from `from_configs` (random weights).
 
 Runs on `cuda` unless constructed with `device="cpu"`. Each stage's wall
@@ -51,6 +54,7 @@ from ..device import resolve_device
 from ..lora import extract_lora_pairs, merge_lora, merge_lora_pairs, target_linear
 from ..models import clip_vit as CV
 from ..models import wan_animate as A
+from ..models import wan_s2v as S
 from ..models import wan_vae as V
 from ..models.t5 import UMT5_XXL, T5Config, T5Encoder, convert_t5, init_t5_
 from ..models.wan_controllers import (MotionController, convert_motion_controller,
@@ -159,6 +163,7 @@ class WanVideoPipeline:
         self.image_encoder: Optional[CV.ClipVit] = None
         self.animate: Optional[A.WanAnimateAdapter] = None
         self.motion_controller: Optional[MotionController] = None
+        self.s2v_model: Optional[S.WanS2V] = None
         # the architectures `_attach` builds checkpoint files into (the JAX
         # pipeline's: umT5-XXL and the Wan2.1 VAE; a Wan2.2 VAE file gets
         # `WAN22_VAE`, a CLIP file `CLIP_VIT_H_14`)
@@ -169,27 +174,28 @@ class WanVideoPipeline:
         self.stage_peak_bytes: List[Tuple[str, int]] = []
 
     @classmethod
-    def from_configs(cls, dit_cfg: WanDiTConfig, vace_cfg: Optional[VaceConfig],
+    def from_configs(cls, dit_cfg: Optional[WanDiTConfig], vace_cfg: Optional[VaceConfig],
                      t5_cfg: T5Config, vae_cfg, tokenizer: Callable,
                      text_len: int = 512, seed: int = 0, device=None,
                      dtype=torch.bfloat16,
                      clip_cfg: Optional[CV.ClipVitConfig] = None) -> "WanVideoPipeline":
         """Random weights drawn on the device from one seeded generator, with
-        the JAX init's std; the DiT, VACE, T5 and CLIP tower (with
-        `clip_cfg`) in `dtype`, the VAE (a `WanVAE38Config` builds the
-        Wan2.2 one) in fp32."""
+        the JAX init's std; the DiT (none with `dit_cfg` None), VACE, T5
+        and CLIP tower (with `clip_cfg`) in `dtype`, the VAE (a
+        `WanVAE38Config` builds the Wan2.2 one) in fp32."""
         pipe = cls(device=device, dtype=dtype)
         pipe.t5_cfg, pipe.vae_cfg = t5_cfg, vae_cfg
         dev = pipe.device
         gen = torch.Generator(dev).manual_seed(seed)
         vae_cls = V.WanVAE38 if isinstance(vae_cfg, V.WanVAE38Config) else V.WanVAE
         with torch.device("meta"):
-            dit = WanDiT(dit_cfg, dtype=dtype)
+            dit = None if dit_cfg is None else WanDiT(dit_cfg, dtype=dtype)
             vace = None if vace_cfg is None else WanVace(vace_cfg, dtype=dtype)
             t5 = T5Encoder(t5_cfg, dtype=dtype)
             vae = vae_cls(vae_cfg, dtype=torch.float32)
             clip = None if clip_cfg is None else CV.ClipVit(clip_cfg, dtype=dtype)
-        pipe.dit = init_weights_(dit.to_empty(device=dev), gen).eval()
+        if dit is not None:
+            pipe.dit = init_weights_(dit.to_empty(device=dev), gen).eval()
         if vace is not None:
             pipe.vace = init_weights_(vace.to_empty(device=dev), gen).eval()
         t5 = init_t5_(t5.to_empty(device=dev), gen).eval()
@@ -268,9 +274,17 @@ class WanVideoPipeline:
             self.motion_controller = C.build_module(
                 lambda cfg, dtype: MotionController(*cfg, dtype=dtype), (dim, freq_dim),
                 mc, self.device, self.dtype)
+        elif kind == "s2v":
+            # the JAX pipeline builds the default (14B) config whatever the
+            # file holds (ROADMAP Queue 3); read when called, as there
+            cfg = S.WanS2VConfig()
+            self.s2v_model = C.build_module(S.WanS2V, cfg, S.convert_wan_s2v(sd, cfg),
+                                            self.device, self.dtype)
         elif kind in C.UNPORTED_KINDS:
             raise C.unported(kind)
         else:
+            # a wav2vec file included: the JAX pipeline holds no tower and
+            # raises here; `models.audio_features` loads it (ROADMAP Queue 3)
             raise ValueError(f"unknown model kind {kind}")
 
     def load_lora(self, target: str = "dit", path: Optional[str] = None,
@@ -694,6 +708,72 @@ class WanVideoPipeline:
         g = np.ones((n_layers,), np.float32)
         g[[b for b in slg_blocks if b < n_layers]] = 0.0
         return torch.from_numpy(g).to(self.device)
+
+    # ---------------- speech to video ----------------
+
+    @torch.no_grad()
+    def s2v(self, prompt: str, ref_image, audio_input, negative_prompt: str = "",
+            num_frames: int = 80, height: int = 448, width: int = 832,
+            cfg_scale: float = 4.5, num_inference_steps: int = 40,
+            sigma_shift: float = 5.0, motion_latents=None, pose_video=None,
+            seed: Optional[int] = None, tiled: bool = False,
+            tile_size: Tuple[int, int] = (30, 52), tile_stride: Tuple[int, int] = (15, 26),
+            return_latents: bool = False):
+        """Speech-to-video, as the JAX pipeline's `s2v`: the reference image
+        (PIL or uint8 (H, W, 3)) encoded to one latent frame in front of the
+        noise and pinned there after every step; `pose_video` (frames)
+        through the VAE into the model's `cond_encoder`; two-pass CFG; the
+        Euler update in fp32.
+
+        audio_input: (1, num_audio_layers, audio_dim, num_frames) wav2vec
+        states (`models.audio_features.extract_audio_features`). As in the
+        JAX pipeline nothing checks that its audio frames equal the latent
+        frames (they do when num_frames is a multiple of 4), and
+        `motion_latents` reaches a forward that drops them (the
+        reference's default): ROADMAP Queue 3."""
+        if self.s2v_model is None:
+            raise RuntimeError("no S2V model attached")
+        self.stage_times = []
+        self.stage_peak_bytes = []
+        tiler = dict(tiled=tiled, tile_size=tile_size, tile_stride=tile_stride)
+        self.scheduler.set_timesteps(num_inference_steps, shift=sigma_shift)
+        with self._stage("vae_encode_reference"):
+            ref_np = _preprocess_images([_image_array(ref_image, width, height)])
+            ref_lat = self.encode_video(ref_np, **tiler)
+        z = self.vae.cfg.z_dim
+        up = self.vae.cfg.upsampling_factor
+        t_lat = (num_frames - 1) // 4 + 1
+        noise = generate_noise((1, z, t_lat, height // up, width // up), seed=seed)
+        latents = torch.cat([ref_lat, noise.to(self.device, self.dtype)], dim=2)
+        pose_cond = None
+        if pose_video is not None:
+            with self._stage("vae_encode_pose"):
+                pose_cond = self.encode_video(_preprocess_images(pose_video), **tiler)
+        with self._stage("t5"):
+            ctx_posi = self.encode_prompt(prompt)
+            ctx_nega = self.encode_prompt(negative_prompt) if cfg_scale != 1.0 else None
+        audio = torch.as_tensor(audio_input).to(self.device, self.dtype)
+
+        def fwd(timestep, ctx):
+            return S.wan_s2v_forward(self.s2v_model, latents, timestep, ctx, audio,
+                                     motion_latents=motion_latents, pose_cond=pose_cond)
+        for i in range(len(self.scheduler.timesteps)):
+            with self._stage(f"denoise_step_{i}"):
+                timestep = torch.tensor([float(self.scheduler.timesteps[i])],
+                                        dtype=torch.float32, device=self.device)
+                v = fwd(timestep, ctx_posi)
+                if cfg_scale != 1.0:
+                    v_nega = fwd(timestep, ctx_nega)
+                    v = v_nega + cfg_scale * (v - v_nega)
+                sigma, sigma_next = self.scheduler.sigma_pair(i)
+                latents = (latents.float() + v.float() * (sigma_next - sigma)).to(self.dtype)
+                latents[:, :, :1] = ref_lat
+        latents = latents[:, :, 1:]
+        if return_latents:
+            return latents
+        with self._stage("vae_decode"):
+            video = self.decode_video(latents, **tiler)
+        return self.vae_output_to_video(video)
 
     # ---------------- main call ----------------
 

@@ -22,9 +22,11 @@ process's resident set).
 Detection (`detect_model_kind`, `detect_wan_dit_config`,
 `detect_vace_config`) reads keys and shapes only. `load_model` builds the
 kinds the port has modules for: `dit` (T2V, I2V, FLF2V, TI2V), `vace`,
-`dit+vace`, the Wan2.1 and Wan2.2 `vae`, `t5` and the CLIP image encoder
-(`clip`); every other kind, and a Fun reference-conv DiT, raises
-`NotImplementedError` naming the ROADMAP item that ports it.
+`dit+vace`, the Wan2.1 and Wan2.2 `vae`, `t5`, the CLIP image encoder
+(`clip`), the Wan2.2-Animate adapter and the wav2vec2 tower (`wav2vec`);
+every other kind raises `NotImplementedError`, naming the ROADMAP item
+that ports it where one does (the S2V model, like the JAX loader's, is
+built by the pipeline's `from_pretrained` only).
 """
 from __future__ import annotations
 
@@ -314,7 +316,6 @@ def detect_vace_config(sd: Dict) -> Optional[VaceConfig]:
 # kinds `detect_model_kind` knows that the port cannot build yet, and the
 # ROADMAP Queue 1 item that ports each
 UNPORTED_KINDS = {
-    "s2v": 9, "wav2vec": 9,
     "motion_modules": 11, "flux_dit": 11, "flux_controlnet": 11,
     "flux_ipadapter": 11, "ipadapter": 11, "flux_lora_encoder": 11,
     "flux_value_encoder": 11, "flux_infiniteyou_projector": 11,
@@ -344,8 +345,9 @@ def load_model(path, device=None, dtype: torch.dtype = torch.bfloat16):
     """Point at a checkpoint file (or a list of shards) and get `(kind,
     models)`, the JAX `load_model`'s analogue: {"dit", "dit_cfg"} and/or
     {"vace", "vace_cfg"}; {"vae", "vae_cfg"} (fp32; the Wan2.1 or the
-    Wan2.2 VAE); the T5 encoder (umT5-XXL); the CLIP ViT-H/14 tower; or the
-    Wan2.2-Animate adapter.
+    Wan2.2 VAE); the T5 encoder (umT5-XXL); the CLIP ViT-H/14 tower; the
+    Wan2.2-Animate adapter; or the wav2vec2-XLSR-53 tower
+    (`models.wav2vec.WAV2VEC2_XLSR_53`, read when called).
     Modules are built on `device` (the card unless "cpu")."""
     from ..device import resolve_device
     from ..models import clip_vit as CV
@@ -384,7 +386,15 @@ def load_model(path, device=None, dtype: torch.dtype = torch.bfloat16):
     if kind == "animate":
         from ..models.wan_animate import build_wan_animate
         return kind, build_wan_animate(sd, device, dtype)
-    raise unported(kind)
+    if kind == "wav2vec":
+        from ..models import wav2vec as W
+        cfg = W.WAV2VEC2_XLSR_53
+        return kind, build_module(W.Wav2Vec2, cfg, W.convert_wav2vec(sd, cfg), device,
+                                  dtype)
+    if kind in UNPORTED_KINDS:
+        raise unported(kind)
+    raise NotImplementedError(f"detected '{kind}' — use its family pipeline/converter "
+                              "directly")
 
 
 def detect_model_kind(sd: Dict) -> str:

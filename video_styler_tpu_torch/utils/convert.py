@@ -138,8 +138,12 @@ _BLOCK_RULES = [
 
 def export_wan_dit(dit: torch.nn.Module) -> Dict[str, torch.Tensor]:
     """A `WanDiT`'s tensors under the reference's names and shapes."""
-    cfg = dit.cfg
-    sd = _renamed(dit.state_dict(), _BLOCK_RULES + [
+    return export_wan_dit_state(dit.state_dict(), dit.cfg)
+
+
+def export_wan_dit_state(sd: Dict[str, torch.Tensor], cfg: WanDiTConfig) -> Dict[str, torch.Tensor]:
+    """`export_wan_dit` of a `WanDiT` state dict (the S2V model's trunk)."""
+    sd = _renamed(sd, _BLOCK_RULES + [
         (r"^(text_embedding|time_embedding)\.fc1\.", r"\1.0."),
         (r"^(text_embedding|time_embedding)\.fc2\.", r"\1.2."),
         (r"^time_projection\.", "time_projection.1."),

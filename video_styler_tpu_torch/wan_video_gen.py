@@ -2,7 +2,9 @@
 image-to-video (Wan2.1 I2V, FLF2V with an end image, the Wan2.2 A14B
 dual-expert I2V), Wan2.2 TI2V-5B, the Wan Fun models (InP, Control, V1.1
 Control with a reference image, V1.1 Control-Camera; Wan2.1 and the Wan2.2
-A14B experts), speed control and Wan2.2-Animate.
+A14B experts), speed control, Wan2.2-Animate, VACE (Wan2.1 1.3B, 1.3B
+Preview and 14B, the Wan2.2 VACE-Fun A14B experts) and Wan2.2-S2V-14B
+speech-to-video.
 
     python -m video_styler_tpu_torch.wan_video_gen --recipe Wan2.1-I2V-14B-480P \
         --dit_path "shard1.safetensors|shard2.safetensors" --vae_path Wan2.1_VAE.pth \
@@ -13,6 +15,9 @@ A14B experts), speed control and Wan2.2-Animate.
     python -m video_styler_tpu_torch.wan_video_gen --recipe Wan2.1-Fun-V1.1-14B-Control \
         --dit_path ... --vae_path ... --t5_path ... --clip_path ... \
         --control_video depth.mp4 --reference_image ref.png --prompt "..."
+    python -m video_styler_tpu_torch.wan_video_gen --recipe Wan2.2-S2V-14B \
+        --dit_path ... --vae_path ... --t5_path ... --wav2vec_path wav2vec2-large-xlsr-53 \
+        --input_image face.png --s2v_audio speech.wav --prompt "..."
 
 The counterpart of the JAX package's per-recipe runner
 (`examples/wanvideo/_runner.py`), for the recipes the port runs (its own
@@ -25,16 +30,25 @@ above `switch_DiT_boundary`, the pipeline's `dit`). --input_image and
 smoke mode: ROADMAP Queue 3), as are the flags named after the pipeline's
 other inputs: --control_video, --reference_image,
 --camera_control_direction, --camera_control_speed, --motion_bucket_id,
---animate_pose_video and --animate_face_video (videos as files, read to
-the request's size and frame count; face crops at their own size). The
-speed controller comes from --motion_controller_path (read as kind
-`motion_controller`: detection cannot tell its keys); an Animate recipe
-reads its adapter from the --dit_path files, where the release keeps it.
---smoke runs tiny random models shaped like the recipe's family (head dim
-128, so the CUDA kernels run too; TI2V on a tiny z=48-family VAE) on 5
-frames of 32x32 (TI2V 64x64) with synthetic inputs, 2 steps without CFG,
-and prints whether its latents are finite. Runs on the card unless
---device cpu.
+--animate_pose_video, --animate_face_video, --vace_video and
+--vace_reference_image (videos as files, read to the request's size and
+frame count; face crops at their own size). The speed controller comes
+from --motion_controller_path (read as kind `motion_controller`:
+detection cannot tell its keys); an Animate recipe reads its adapter from
+the --dit_path files, where the release keeps it; a VACE recipe's
+--dit_path files hold the DiT and its VACE branch (detected), and its
+--lora_path merges into the VACE branch. A Wan2.2 VACE-Fun high-noise file
+loses its VACE as the JAX pipeline's loader drops it: both experts run the
+low-noise file's VACE (ROADMAP Queue 3). Wan2.2-S2V-14B reads --dit_path
+as the S2V model, --s2v_audio through `load_audio` and the wav2vec2 tower
+of --wav2vec_path, and runs `s2v` with its own defaults (80 frames of
+448x832, 40 steps, CFG 4.5). --smoke runs tiny random models shaped like
+the recipe's family (head dim 128, so the CUDA kernels run too; TI2V on a
+tiny z=48-family VAE; S2V with a tiny wav2vec2 tower on a 16 kHz waveform
+from the seed) on 5 frames of 32x32 (TI2V 64x64; S2V 8 frames, so its 2
+audio frames meet its 2 latent frames) with synthetic inputs, 2 steps
+without CFG, and prints whether its latents are finite. Runs on the card
+unless --device cpu.
 """
 from __future__ import annotations
 
@@ -48,15 +62,19 @@ import numpy as np
 @dataclass(frozen=True)
 class WanRecipe:
     name: str                            # the release it runs
-    arch: str                            # t2v | i2v | ti2v | animate
+    arch: str                            # t2v | i2v | ti2v | vace | animate | s2v
     extra_inputs: Tuple[str, ...] = ()
     num_frames: int = 81
     height: int = 480
     width: int = 832
     dual_expert: bool = False            # Wan2.2 A14B: high/low-noise experts
+    lora_base: str = "dit"               # the model --lora_path merges into
+    num_inference_steps: int = 50
+    cfg_scale: float = 5.0
 
 
 CAMERA = ("input_image", "camera_control_direction", "camera_control_speed")
+VACE = ("vace_video", "vace_reference_image")
 RECIPES = {r.name: r for r in [
     WanRecipe("Wan2.1-T2V-1.3B", "t2v"),
     WanRecipe("Wan2.1-T2V-14B", "t2v"),
@@ -66,6 +84,9 @@ RECIPES = {r.name: r for r in [
     WanRecipe("Wan2.2-T2V-A14B", "t2v", num_frames=49, dual_expert=True),
     WanRecipe("Wan2.2-I2V-A14B", "i2v", ("input_image",), num_frames=49, dual_expert=True),
     WanRecipe("Wan2.2-TI2V-5B", "ti2v", ("input_image",), num_frames=49),
+    WanRecipe("Wan2.1-VACE-1.3B", "vace", VACE, lora_base="vace"),
+    WanRecipe("Wan2.1-VACE-1.3B-Preview", "vace", VACE, lora_base="vace"),
+    WanRecipe("Wan2.1-VACE-14B", "vace", VACE, lora_base="vace"),
     WanRecipe("Wan2.1-1.3b-speedcontrol-v1", "t2v", ("motion_bucket_id",)),
     WanRecipe("Wan2.1-Fun-1.3B-InP", "i2v", ("input_image", "end_image")),
     WanRecipe("Wan2.1-Fun-14B-InP", "i2v", ("input_image", "end_image")),
@@ -83,8 +104,14 @@ RECIPES = {r.name: r for r in [
               dual_expert=True),
     WanRecipe("Wan2.2-Fun-A14B-Control-Camera", "i2v", CAMERA, num_frames=49,
               dual_expert=True),
+    WanRecipe("Wan2.2-VACE-Fun-A14B", "vace", VACE, num_frames=49, dual_expert=True,
+              lora_base="vace"),
     WanRecipe("Wan2.2-Animate-14B", "animate",
               ("input_image", "animate_pose_video", "animate_face_video")),
+    # the pipeline's `s2v` defaults, not the JAX runner row's 81 frames (at
+    # 81 the audio frames miss the latent frames and the forward fails)
+    WanRecipe("Wan2.2-S2V-14B", "s2v", ("input_image", "s2v_audio"), num_frames=80,
+              height=448, num_inference_steps=40, cfg_scale=4.5),
 ]}
 
 SMOKE_STEPS = 2
@@ -92,13 +119,35 @@ SMOKE_STEPS = 2
 
 def smoke_size(recipe: WanRecipe) -> Tuple[int, int, int]:
     """(height, width, frames) of a smoke run: 32x32 (the TI2V smoke VAE
-    compresses 16x, so 64x64 there) and 5 frames."""
-    return (64, 64, 5) if recipe.arch == "ti2v" else (32, 32, 5)
+    compresses 16x, so 64x64 there) and 5 frames (S2V 8: a multiple of 4,
+    where its audio frames equal its latent frames)."""
+    if recipe.arch == "ti2v":
+        return 64, 64, 5
+    return (32, 32, 8) if recipe.arch == "s2v" else (32, 32, 5)
+
+
+def smoke_s2v_configs():
+    """(S2V, wav2vec) configs of the S2V smoke: the smoke DiT's trunk
+    (dim 256, 2 heads of 128, 2 blocks; z=4 latents and pose), 2 audio
+    tokens a frame, an injection after each block, audio features of the
+    tiny wav2vec2 tower (3 states of 32)."""
+    from .infer_ditto import smoke_configs as ditto_smoke
+    from .models.wan_s2v import WanS2VConfig
+    from .models.wav2vec import WAV2VEC2_TINY
+    dit, _, _, vae = ditto_smoke()
+    s2v = WanS2VConfig(dim=dit.dim, in_dim=vae.z_dim, ffn_dim=dit.ffn_dim,
+                       out_dim=vae.z_dim, text_dim=dit.text_dim, freq_dim=dit.freq_dim,
+                       num_heads=dit.num_heads, num_layers=dit.num_layers,
+                       cond_dim=vae.z_dim, audio_dim=WAV2VEC2_TINY.hidden_size,
+                       num_audio_token=2, num_audio_layers=WAV2VEC2_TINY.num_layers + 1,
+                       audio_inject_layers=(0, 1))
+    return s2v, WAV2VEC2_TINY
 
 
 def smoke_configs(recipe: WanRecipe):
-    """(dit, t5, vae, clip) configs of the recipe's smoke pipeline: the
-    smoke DiT of `infer_ditto` (dim 256, 2 heads of 128, 2 blocks) with the
+    """(dit, vace, t5, vae, clip) configs of the recipe's smoke pipeline: the
+    smoke DiT of `infer_ditto` (dim 256, 2 heads of 128, 2 blocks; a VACE
+    recipe with its 2-block VACE, as the JAX runner's smoke) with the
     channel math of the JAX runner: I2V (and Animate) takes y (2z + 4 input
     channels), FLF2V also the CLIP position table; Fun Control takes the
     control latents in front of y (3z + 4, image input, no CLIP tower: zero
@@ -111,7 +160,8 @@ def smoke_configs(recipe: WanRecipe):
     from .infer_ditto import smoke_configs as ditto_smoke
     from .models.clip_vit import ClipVitConfig
     from .models.wan_vae import WanVAE38Config
-    dit, _, t5, vae = ditto_smoke()
+    dit, vace, t5, vae = ditto_smoke()
+    vace = vace if recipe.arch == "vace" else None
     clip = None
     z = vae.z_dim
     if "camera_control_direction" in recipe.extra_inputs:
@@ -130,7 +180,7 @@ def smoke_configs(recipe: WanRecipe):
         dit = dataclasses.replace(dit, in_dim=vae.z_dim, out_dim=vae.z_dim,
                                   seperated_timestep=True, require_vae_embedding=False,
                                   fuse_vae_embedding_in_latents=True)
-    return dit, t5, vae, clip
+    return dit, vace, t5, vae, clip
 
 
 # the smoke Animate adapter: one face block (after layer 0 of 2), face
@@ -140,20 +190,31 @@ SMOKE_ANIMATE = dict(num_face_blocks=1, face_size=64, face_conv_dim=32, pose_in_
 
 def build_smoke_pipeline(recipe: WanRecipe, device=None, seed: int = 0):
     """Random smoke models of `smoke_configs` from `seed` (a second expert
-    from seed + 1 for a dual-expert recipe; a speed controller, with a
-    random last layer in place of the reference's zeros so the id acts,
-    from seed + 2; an Animate adapter from seed + 3), bf16, on `device`."""
+    from seed + 1 for a dual-expert recipe, which shares the one VACE as
+    in the JAX runner's smoke; a speed controller, with a random last layer
+    in place of the reference's zeros so the id acts, from seed + 2; an
+    Animate adapter from seed + 3; S2V: the S2V model of
+    `smoke_s2v_configs` from seed + 4 and no DiT), bf16, on `device`."""
     import torch
     from .infer_ditto import SMOKE_TEXT_LEN
     from .models import wan_animate as A
+    from .models import wan_s2v as S
     from .models.wan_controllers import MotionController, init_motion_controller_
     from .models.wan_dit import WanDiT, init_weights_
     from .pipelines.wan_video import WanVideoPipeline
     from .prompters.wan_prompter import StubTokenizer
-    dit, t5, vae, clip = smoke_configs(recipe)
+    dit, vace, t5, vae, clip = smoke_configs(recipe)
+    s2v = recipe.arch == "s2v"
     pipe = WanVideoPipeline.from_configs(
-        dit, None, t5, vae, StubTokenizer(SMOKE_TEXT_LEN), text_len=SMOKE_TEXT_LEN,
-        seed=seed, device=device, dtype=torch.bfloat16, clip_cfg=clip)
+        None if s2v else dit, vace, t5, vae, StubTokenizer(SMOKE_TEXT_LEN),
+        text_len=SMOKE_TEXT_LEN, seed=seed, device=device, dtype=torch.bfloat16,
+        clip_cfg=clip)
+    if s2v:
+        with torch.device("meta"):
+            model = S.WanS2V(smoke_s2v_configs()[0], dtype=pipe.dtype)
+        gen = torch.Generator(pipe.device).manual_seed(seed + 4)
+        pipe.s2v_model = S.init_wan_s2v_(model.to_empty(device=pipe.device), gen).eval()
+        return pipe
     with torch.device("meta"):
         dit2 = WanDiT(dit, dtype=pipe.dtype) if recipe.dual_expert else None
         mc = (MotionController(dit.dim, dit.freq_dim, dtype=pipe.dtype)
@@ -185,20 +246,40 @@ def animate_clip(frames):
     return frames[4:]
 
 
+SMOKE_SAMPLE_RATE = 16000
+
+
+def smoke_waveform(num_frames: int, fps: int = 16, seed: int = 9) -> np.ndarray:
+    """A synthetic 16 kHz float32 waveform from a numpy seed, one second
+    longer than `num_frames` at `fps`: two tones under noise."""
+    n = int((num_frames / fps + 1.0) * SMOKE_SAMPLE_RATE)
+    t = np.arange(n, dtype=np.float32) / SMOKE_SAMPLE_RATE
+    noise = np.random.default_rng(seed).standard_normal(n).astype(np.float32)
+    return (0.5 * np.sin(2 * np.pi * 220 * t) + 0.3 * np.sin(2 * np.pi * 587 * t * (1 + t))
+            + 0.1 * noise).astype(np.float32)
+
+
 def smoke_inputs(recipe: WanRecipe, height: int, width: int, num_frames: int):
     """The smoke call's inputs as the JAX runner draws them: uint8 (H, W, 3)
     images from numpy seeds 2 (input image), 3 (end image), 5 (reference
-    image), frames from seed 4 (control video), the camera moving left at
-    the reference's speed, motion id 50; Animate's pose and face videos cut
-    from clips of seeds 7 and 8 (faces at the smoke adapter's 64x64)."""
+    image), 1 (VACE reference image), frames from seeds 0 (VACE video) and
+    4 (control video), the camera moving left at the reference's speed,
+    motion id 50; Animate's pose and face videos cut from clips of seeds 7
+    and 8 (faces at the smoke adapter's 64x64); S2V's waveform
+    (`smoke_waveform`) as `s2v_audio`."""
     kw = {}
     ei = recipe.extra_inputs
 
     def frames(seed, n, h=height, w=width):
         return np.random.default_rng(seed).integers(0, 255, (n, h, w, 3), np.uint8)
-    for name, seed in (("input_image", 2), ("end_image", 3), ("reference_image", 5)):
+    for name, seed in (("input_image", 2), ("end_image", 3), ("reference_image", 5),
+                       ("vace_reference_image", 1)):
         if name in ei:
             kw[name] = frames(seed, 1)[0]
+    if "vace_video" in ei:
+        kw["vace_video"] = frames(0, num_frames)
+    if "s2v_audio" in ei:
+        kw["s2v_audio"] = smoke_waveform(num_frames)
     if "control_video" in ei:
         kw["control_video"] = frames(4, num_frames)
     if "camera_control_direction" in ei:
@@ -217,8 +298,11 @@ def build_pipeline(args):
     """The pipeline from local checkpoint files on --device."""
     from .pipelines.wan_video import WanVideoPipeline
     from .utils.model_config import ModelConfig
-    configs = [ModelConfig(path=args.dit_path.split("|"), model_kind="dit")]
-    if RECIPES[args.recipe].arch == "animate":
+    arch = RECIPES[args.recipe].arch
+    # a VACE release's files hold the DiT and its VACE branch (detected)
+    main_kind = {"s2v": "s2v", "vace": None}.get(arch, "dit")
+    configs = [ModelConfig(path=args.dit_path.split("|"), model_kind=main_kind)]
+    if arch == "animate":
         configs.append(ModelConfig(path=args.dit_path.split("|"), model_kind="animate"))
     if args.motion_controller_path:
         configs.append(ModelConfig(path=args.motion_controller_path,
@@ -253,9 +337,15 @@ def read_inputs(args, height: int, width: int, num_frames: int):
         finally:
             data.close()
     kw = {name: read_image(getattr(args, name)) for name in
-          ("input_image", "end_image", "reference_image") if getattr(args, name)}
+          ("input_image", "end_image", "reference_image", "vace_reference_image")
+          if getattr(args, name)}
     if args.control_video:
         kw["control_video"] = video(args.control_video, num_frames, height, width)
+    if args.vace_video:
+        kw["vace_video"] = video(args.vace_video, num_frames, height, width)
+    if args.s2v_audio:
+        from .models.audio_features import load_audio
+        kw["s2v_audio"] = load_audio(args.s2v_audio)
     if args.animate_pose_video:
         kw["animate_pose_video"] = video(args.animate_pose_video, num_frames - 4, height,
                                          width)
@@ -281,7 +371,8 @@ def parse_args(argv=None):
     p.add_argument("--width", type=int, default=None)
     p.add_argument("--num_frames", type=int, default=None)
     p.add_argument("--num_inference_steps", type=int, default=None)
-    p.add_argument("--cfg_scale", type=float, default=5.0)
+    p.add_argument("--cfg_scale", type=float, default=None,
+                   help="default: the recipe's (5.0; S2V 4.5)")
     p.add_argument("--input_image", default=None, help="first frame (image file)")
     p.add_argument("--end_image", default=None, help="last frame (FLF2V)")
     p.add_argument("--control_video", default=None, help="Fun Control: control video file")
@@ -297,9 +388,17 @@ def parse_args(argv=None):
     p.add_argument("--animate_face_video", default=None, help="Animate: face crop video file")
     p.add_argument("--motion_controller_path", default=None,
                    help="the speed controller's model.safetensors (kind motion_controller)")
+    p.add_argument("--vace_video", default=None, help="VACE: the video file to edit")
+    p.add_argument("--vace_reference_image", default=None,
+                   help="VACE: reference image file")
+    p.add_argument("--s2v_audio", default=None,
+                   help="S2V: speech audio file (soundfile or ffmpeg decodes it)")
+    p.add_argument("--wav2vec_path", default=None,
+                   help="S2V: wav2vec2-large-xlsr-53 checkpoint file or directory")
     p.add_argument("--output", default=None)
     p.add_argument("--fps", type=int, default=15)
-    p.add_argument("--lora_path", default=None, help="LoRA to merge into the DiT")
+    p.add_argument("--lora_path", default=None,
+                   help="LoRA to merge into the DiT (a VACE recipe: its VACE branch)")
     p.add_argument("--lora_alpha", type=float, default=1.0)
     p.add_argument("--dit_path", default=None,
                    help="DiT safetensors, '|'-separated shards (Wan2.2 A14B: the "
@@ -313,6 +412,25 @@ def parse_args(argv=None):
     p.add_argument("--return_latents", action="store_true")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     return p, p.parse_args(argv)
+
+
+def s2v_audio_input(args, waveform, num_frames: int, smoke: bool):
+    """The S2V request's (1, layers, dim, num_frames) wav2vec features: the
+    tiny tower from the seed on --smoke, else the --wav2vec_path tower, on
+    --device."""
+    from .models.audio_features import extract_audio_features
+    model = None
+    if smoke:
+        import torch
+        from .device import resolve_device
+        from .models import wav2vec as W
+        device = resolve_device(args.device)
+        with torch.device("meta"):
+            model = W.Wav2Vec2(smoke_s2v_configs()[1])
+        model = W.init_wav2vec_(model.to_empty(device=device),
+                                torch.Generator(device).manual_seed(5)).eval()
+    return extract_audio_features(waveform, num_frames=num_frames, model=model,
+                                  model_path=args.wav2vec_path, device=args.device)
 
 
 def main(argv=None):
@@ -330,23 +448,31 @@ def main(argv=None):
         w = args.width or recipe.width
         n = args.num_frames or recipe.num_frames
         kw = read_inputs(args, h, w, n)
-        # the speed has a default; a camera recipe needs its direction
+        # the speed has a default; a camera recipe needs its direction;
+        # a VACE reference image is optional
         missing = [name for name in recipe.extra_inputs
-                   if name not in kw and name != "camera_control_speed"]
+                   if name not in kw and name not in ("camera_control_speed",
+                                                      "vace_reference_image")]
         if missing:
             p.error(f"recipe {recipe.name} needs --{' --'.join(missing)}")
         if "motion_bucket_id" in recipe.extra_inputs and not args.motion_controller_path:
             p.error(f"recipe {recipe.name} needs --motion_controller_path")
+        if recipe.arch == "s2v" and not args.wav2vec_path:
+            p.error(f"recipe {recipe.name} needs --wav2vec_path")
         pipe = build_pipeline(args)
-        steps = args.num_inference_steps or 50
-        cfg_scale = args.cfg_scale
+        steps = args.num_inference_steps or recipe.num_inference_steps
+        cfg_scale = recipe.cfg_scale if args.cfg_scale is None else args.cfg_scale
     if args.lora_path:
-        pipe.load_lora("dit", args.lora_path, alpha=args.lora_alpha)
+        pipe.load_lora(recipe.lora_base, args.lora_path, alpha=args.lora_alpha)
     latents_only = args.smoke or args.return_latents
-    out = pipe(args.prompt, negative_prompt=args.negative_prompt, height=h, width=w,
-               num_frames=n, seed=args.seed, num_inference_steps=steps,
-               cfg_scale=cfg_scale, tiled=not args.smoke, return_latents=latents_only,
-               **kw)
+    common = dict(negative_prompt=args.negative_prompt, height=h, width=w, num_frames=n,
+                  seed=args.seed, num_inference_steps=steps, cfg_scale=cfg_scale,
+                  tiled=not args.smoke, return_latents=latents_only)
+    if recipe.arch == "s2v":
+        audio = s2v_audio_input(args, kw.pop("s2v_audio"), n, args.smoke)
+        out = pipe.s2v(args.prompt, kw.pop("input_image"), audio, **common)
+    else:
+        out = pipe(args.prompt, **common, **kw)
     if latents_only:
         import torch
         ok = bool(torch.isfinite(out.float()).all())
