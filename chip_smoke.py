@@ -27,7 +27,10 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
              S2V's 448x832 shapes (self over 5,824 and 30,576 tokens with
              the segment RoPE rows, the text cross at 5,824 rows, the audio
              cross of 3 and 20 batch rows of 1,456 queries against 5 keys
-             with K5 on those rows):
+             with K5 on those rows), and FastBlend's F1-F3 (remap, patch
+             error, pairwise patch error; fp32) at the post-processing
+             path's top pyramid level (8 pairs of 480x832, pad 6, patch 13
+             and 5, a coherent field):
              max abs/rel error against the stated tolerance, median kernel
              time over CUDA-event timed runs (L2 flushed before each), plain
              and library times, the bound from the work and the card's
@@ -111,6 +114,11 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
   animate_reference  the Wan2.2-Animate smoke recipe (a tiny adapter at
              face size 64, pose and face videos cut from the clip), card
              vs CPU
+  postprocess_reference  the post-processing chain (FastBlend balanced,
+             RIFE 2x at full IFNet width, ESRGAN x4 with 2 blocks, the six
+             image-quality metrics at their tiny configs) on 4 frames of
+             64x64, card vs CPU on the same weights, stage by stage, and
+             the share of NNF entries that differ
   s2v_reference  the Wan2.2-S2V smoke recipe (a tiny S2V model and
              wav2vec2 tower, a synthetic waveform through
              `extract_audio_features` on each device, 12 frames with a pose
@@ -167,6 +175,16 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
              stage and step times, peak, launches against 184/80/104 per
              two-pass step; profiled; then one step at the recipe's 80
              frames (30,576 tokens), latents only (`s2v_recipe_frames`)
+  postprocess  on a free card, the chain at full width on 9 frames of
+             480x832: FastBlend balanced with its defaults (F1/F2 launches
+             against the count derived from the config, the host time of
+             its random-search draws, the frame-to-frame change before and
+             after), RIFE 2x (9 -> 17 frames), ESRGAN x4 (23 blocks) to
+             1920x3328 on all 17, the six metrics at full width (random
+             towers, stub token ids): each stage's seconds and peak; one
+             FastBlend batch profiled (`postprocess_profile`); one pyramid
+             estimate with use_pairwise_patch_error, counted for F3
+             (`postprocess_pairwise`)
 Then the `kernels` summary line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Imports nothing of JAX or of the JAX package.
 """
@@ -193,6 +211,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 PEAK_BF16_FLOPS = 989e12
 PEAK_INT8_OPS = 1979e12
 PEAK_BYTES = 3.35e12
+PEAK_FP32_FLOPS = 67e12      # fp32 outside the tensor cores (FastBlend's F1-F3)
 
 # DiT token grids (latent frames, H/16, W/16) after the (1, 2, 2) patchify
 DITTO_FRAMES = 73            # 73 frames 480x832 -> 29,640 tokens
@@ -2397,6 +2416,441 @@ def run_s2v(torch, pipe, kernels, steps: int):
         torch.cuda.empty_cache()
 
 
+# ------------------------------------------------------------- post-processing
+
+FASTBLEND_SRC = "video_styler_tpu_torch/csrc/fastblend.cu"
+JAX_FASTBLEND = "video_styler_tpu/extensions/fastblend/kernels.py"
+# fp32, summed in the plain versions' order without FMA contraction: the
+# kernels agree bit for bit; 2^-20 of the largest magnitude is the bound
+FASTBLEND_TOL = 2.0 ** -20
+POST_FRAMES = 9              # synthetic_clip(9) at 480x832
+POST_PROMPT = "a watercolor city at dusk"
+# OpenAI CLIP ViT-L/14 (the aesthetic head's 768-wide features, CLIP score)
+CLIP_VIT_L_14 = dict(vision_dim=1024, vision_layers=24, vision_heads=16, text_dim=768,
+                     text_layers=12, text_heads=12, proj_dim=768, quick_gelu=True)
+
+
+def coherent_nnf(torch, gen, b: int, h: int, w: int, spread: int = 4):
+    """A field like PatchMatch's: identity plus offsets up to +-spread,
+    clamped to the image."""
+    ii, jj = torch.meshgrid(torch.arange(h, device="cuda"), torch.arange(w, device="cuda"),
+                            indexing="ij")
+    off = torch.randint(-spread, spread + 1, (b, h, w, 2), generator=gen, device="cuda")
+    return torch.stack([(ii + off[..., 0]).clamp(0, h - 1),
+                        (jj + off[..., 1]).clamp(0, w - 1)], -1).to(torch.int32).contiguous()
+
+
+def remap_votes(torch, nnf, h: int, w: int, r: int) -> int:
+    """F1's data-dependent work: the votes that fall inside the image."""
+    xx = torch.arange(h, device=nnf.device)[None, :, None]
+    yy = torch.arange(w, device=nnf.device)[None, None, :]
+    total = 0
+    for px in range(-r, r + 1):
+        for py in range(-r, r + 1):
+            xn, yn = xx + px, yy + py
+            inside = (xn >= 0) & (xn < h) & (yn >= 0) & (yn < w)
+            m = nnf[:, xn.clamp(0, h - 1)[0, :, 0]][:, :, yn.clamp(0, w - 1)[0, 0]]
+            xs, ys = m[..., 0] - px, m[..., 1] - py
+            total += int((inside & (xs >= 0) & (ys >= 0) & (xs < h) & (ys < w)).sum())
+    return total
+
+
+def check_fastblend_kernels(torch, b: int = 8, h: int = 480, w: int = 832, c: int = 3,
+                            pad: int = 6):
+    """F1-F3 at the main path's top pyramid level (a batch of 8 pairs,
+    480x832, pad 6; F3 on the even and odd halves of the batch, B = 4, as
+    `PatchMatcher.get_pairwise_patch_error` passes them) with patch 13 (the
+    first iteration) and 5 (the last), on a coherent field, against their
+    plain versions. The bound: fp32
+    operations (a sub, a mul and an add per channel and patch tap; F1 an
+    add per channel and vote) at the card's fp32 rate without the tensor
+    cores, against each input read once and the output written once."""
+    from torch.nn.functional import pad as fpad
+    from video_styler_tpu_torch.extensions.fastblend import kernels as fk
+    gen = torch.Generator("cuda").manual_seed(11)
+    imgs = [fpad(torch.rand((b, h, w, c), generator=gen, device="cuda") * 255,
+                 (0, 0, pad, pad, pad, pad)) for _ in range(2)]
+    src, tgt = imgs
+    nnf = coherent_nnf(torch, gen, b, h, w)
+    pair = (src[0::2].contiguous(), nnf[0::2].contiguous(), src[1::2].contiguous(),
+            nnf[1::2].contiguous())
+    img_bytes, nnf_bytes, err_bytes = src.numel() * 4, nnf.numel() * 4, b * h * w * 4
+    rows = []
+    for ps in (13, 5):
+        r, args = (ps - 1) // 2, (h, w, c, ps, pad)
+        ssd_flops = b * h * w * ps * ps * 3 * c
+        cases = (
+            ("F1", "remap", b, "12remap_kernel", 104, lambda: fk.remap(*args, src, nnf),
+             lambda: fk.remap_plain(*args, src, nnf),
+             remap_votes(torch, nnf, h, w, r) * c + b * h * w * c, 2 * img_bytes + nnf_bytes),
+            ("F2", "patch_error", b, "18patch_error_kernel", 139,
+             lambda: fk.patch_error(*args, src, nnf, tgt),
+             lambda: fk.patch_error_plain(*args, src, nnf, tgt), ssd_flops,
+             2 * img_bytes + nnf_bytes + err_bytes),
+            ("F3", "pairwise_patch_error", b // 2, "pairwise_patch_error_kernel", 156,
+             lambda: fk.pairwise_patch_error(*args, *pair),
+             lambda: fk.pairwise_patch_error_plain(*args, *pair), ssd_flops // 2,
+             img_bytes + nnf_bytes + err_bytes // 2))
+        for kid, fn, batch, sym, line, run, plain, flops, nbytes in cases:
+            err, scale = max_err(torch, run(), plain())
+            t_ops, t_bytes = flops / PEAK_FP32_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+            rows.append(dict(
+                name=f"{kid} {fn} B={batch} {h}x{w} C={c} patch={ps} pad={pad}", kernel=kid,
+                route="cuda", source=FASTBLEND_SRC, replaces=f"{JAX_FASTBLEND}:{line}",
+                max_abs_err=err, max_rel_err=err / scale, tol=FASTBLEND_TOL * scale,
+                ms=time_ms(torch, run, 10), plain_ms=time_ms(torch, plain, reps=2, warmup=1),
+                bound_ms=max(t_ops, t_bytes),
+                bound_by="operations" if t_ops >= t_bytes else "bytes", library_ms=None,
+                fp32_gflop=flops / 1e9, mbytes=nbytes / 1e6, ptxas=kernel_usage(sym),
+                clocks=gpu_clocks()))
+    return emit_rows(rows)
+
+
+class StubMetricTokenizer:
+    """Token ids from a seed of the text (crc32): `length` ids, the EOS id
+    last; no vocabulary is on the machine."""
+
+    def __init__(self, vocab: int, eos: int, length: int):
+        self.vocab, self.eos, self.length = vocab, eos, length
+
+    def __call__(self, texts, max_length=None, **kw):
+        import zlib
+        import numpy as np
+        n = min(self.length, max_length or self.length)
+        rng = np.random.default_rng(zlib.crc32(texts[0].encode()))
+        ids = rng.integers(2, self.vocab - 1, (len(texts), n)).astype(np.int64)
+        ids[:, -1] = self.eos
+        return {"input_ids": ids, "attention_mask": np.ones_like(ids)}
+
+
+def random_tower(torch, cls, cfg, seed: int, device: str):
+    """`cls(cfg)` in fp32 with random weights: matrices N(0, 1/in), norms 1,
+    biases 0, embeddings and tokens N(0, 0.02^2), logit_scale log 100."""
+    with torch.device("meta"):
+        module = cls(cfg)
+    module = module.to_empty(device=device)
+    gen = torch.Generator(device).manual_seed(seed)
+    with torch.no_grad():
+        for name, p in module.named_parameters():
+            if name.endswith(("scale",)):
+                p.fill_(1.0)
+            elif name.endswith("bias"):
+                p.zero_()
+            elif p.dim() == 2 and name.endswith("weight"):
+                p.normal_(0.0, 1.0 / math.sqrt(p.shape[1]), generator=gen)
+            else:
+                p.normal_(0.0, 0.02, generator=gen)
+        if hasattr(module, "logit_scale"):
+            module.logit_scale.fill_(math.log(100.0))
+    return module.eval()
+
+
+def random_conv_weights(shapes, seed: int):
+    """A checkpoint's tensors from a numpy seed: convolutions N(0, 1/fan_in),
+    PReLU slopes 0.25, biases N(0, 0.01^2)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    sd = {}
+    for name, shape in shapes.items():
+        if len(shape) > 1:
+            v = rng.standard_normal(shape) / np.sqrt(np.prod(shape[1:]))
+        elif name.endswith(".1.weight"):
+            v = np.full(shape, 0.25)
+        else:
+            v = 0.01 * rng.standard_normal(shape)
+        sd[name] = v.astype(np.float32)
+    return sd
+
+
+def post_models(torch, device: str, full: bool):
+    """The chain's random weights on `device`: full IFNet width (c=90)
+    always; RRDBNet with 23 blocks (full) or 2; the metric towers at their
+    published widths (full) or the tiny configs."""
+    from video_styler_tpu_torch.extensions import esrgan, rife
+    from video_styler_tpu_torch.models import blip_reward as B
+    from video_styler_tpu_torch.models import clip_dual as C
+    blocks = 23 if full else 2
+    cfg_h = C.CLIP_VIT_H_14_DUAL if full else C.CLIP_DUAL_TINY
+    cfg_l = C.CLIPDualConfig(**CLIP_VIT_L_14) if full else C.CLIP_DUAL_TINY
+    cfg_b = B.IMAGE_REWARD if full else B.BLIP_REWARD_TINY
+    cross = C.MPS_CROSS if full else C.CrossModelConfig(dim=cfg_h.proj_dim, heads=2)
+    import numpy as np
+    rng = np.random.default_rng(30)
+    dims = (cfg_l.proj_dim, 1024, 128, 64, 16, 1)
+    aes = {str(i): {"w": torch.from_numpy((rng.standard_normal((b, a)) / np.sqrt(a))
+                                          .astype(np.float32)).to(device),
+                    "b": torch.zeros(b, device=device)}
+           for i, (a, b) in enumerate(zip(dims[:-1], dims[1:]))}
+    return dict(
+        ifnet=rife.convert_ifnet(random_conv_weights(rife.ifnet_shapes(), 31), device),
+        rrdb=esrgan.convert_rrdbnet(random_conv_weights(esrgan.rrdbnet_shapes(blocks), 32),
+                                    device),
+        rrdb_blocks=blocks, aes=aes,
+        clip_l=random_tower(torch, C.ClipDual, cfg_l, 33, device),
+        clip_h=random_tower(torch, C.ClipDual, cfg_h, 34, device),
+        cross=random_tower(torch, C.CrossModel, cross, 35, device),
+        blip=random_tower(torch, B.BlipReward, cfg_b, 36, device),
+        cfg_l=cfg_l, cfg_h=cfg_h, cfg_b=cfg_b, cross_heads=cross.heads)
+
+
+def score_metrics(torch, m, images, seconds: dict):
+    """The six metrics of `extensions.image_quality_metric` on `images`
+    (uint8 frames) with `m`'s towers and stub token ids; `seconds` gets
+    each metric's wall time."""
+    import numpy as np
+    from video_styler_tpu_torch.extensions import image_quality_metric as Q
+    from video_styler_tpu_torch.models import clip_dual as C
+    dev = m["clip_h"].logit_scale.device
+    cfg_l, cfg_h, cfg_b = m["cfg_l"], m["cfg_h"], m["cfg_b"]
+    tok_l = StubMetricTokenizer(cfg_l.vocab_size, cfg_l.eos_token_id, cfg_l.max_len)
+    tok_h = StubMetricTokenizer(cfg_h.vocab_size, cfg_h.eos_token_id, cfg_h.max_len)
+    tok_b = StubMetricTokenizer(cfg_b.vocab_size, cfg_b.vocab_size - 1, min(35, cfg_b.max_pos))
+
+    def image_l(ims):
+        pix = np.stack([Q.preprocess_metric_image(im, cfg_l.image_size) for im in ims])
+        return C.clip_image_features(m["clip_l"], cfg_l, torch.from_numpy(pix).to(dev))
+
+    def text_l(texts):
+        return C.clip_text_features(m["clip_l"], cfg_l, tok_l(texts)["input_ids"]).cpu()
+
+    metrics = {
+        "aesthetic": lambda: Q.AestheticPredictor(m["aes"], image_l).score(images),
+        "clip": lambda: Q.CLIPScore(lambda ims: image_l(ims).cpu(), text_l).score(
+            images, POST_PROMPT),
+        "pickscore": lambda: Q.PickScore(m["clip_h"], cfg_h, tok_h).score(images, POST_PROMPT),
+        "hps": lambda: Q.HPScore(m["clip_h"], cfg_h, tok_h).score(images, POST_PROMPT),
+        "mps": lambda: Q.MPScore(m["clip_h"], m["cross"], cfg_h, tok_h,
+                                 cross_heads=m["cross_heads"]).score(images, POST_PROMPT),
+        "imagereward": lambda: Q.ImageRewardScore(m["blip"], cfg_b, tok_b).score(
+            images, POST_PROMPT)}
+    scores = {}
+    with torch.no_grad():
+        for name, fn in metrics.items():
+            t0 = time.perf_counter()
+            scores[name] = fn()
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            seconds[name] = time.perf_counter() - t0
+    return scores
+
+
+def run_chain(torch, m, frames, device: str, seconds: dict, peaks: dict,
+              kernels=None, counts=None):
+    """FastBlend balanced (FastBlendSmoother's defaults) -> RIFE 2x -> ESRGAN
+    x4 -> the six metrics, through the extensions' entry points on
+    `device`, stage by stage: `seconds` and `peaks` (device GiB) get each
+    stage's; with `kernels`, every count is set to 0 before a stage and
+    read after it into `counts`."""
+    from video_styler_tpu_torch.extensions import esrgan, rife
+    from video_styler_tpu_torch.extensions.fastblend import FastBlendSmoother
+    cuda = device == "cuda"
+    stages = (
+        ("fastblend", lambda x: FastBlendSmoother(device=device)(x)),
+        ("rife", lambda x: rife.RIFEInterpolater(m["ifnet"], device=device).interpolate(x)),
+        ("esrgan", lambda x: esrgan.ESRGANUpscaler(m["rrdb"], m["rrdb_blocks"],
+                                                   device=device)(x)))
+    outputs, x = {}, list(frames)
+    for name, fn in stages + (("metrics", None),):
+        if cuda:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        for kern in (kernels or {}).values():
+            kern.launches = 0
+        t0 = time.perf_counter()
+        if fn is None:
+            metric_s = {}
+            outputs["scores"] = score_metrics(torch, m, x, metric_s)
+            seconds["metric_s"] = metric_s
+        else:
+            x = outputs[name] = fn(x)
+        if cuda:
+            torch.cuda.synchronize()
+            peaks[name] = torch.cuda.max_memory_allocated() / 2**30
+        seconds[name] = time.perf_counter() - t0
+        if kernels is not None:
+            counts[name] = {k: kern.launches for k, kern in kernels.items()}
+    return outputs
+
+
+def _rel_l2(a, b) -> float:
+    import numpy as np
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-12))
+
+
+def check_postprocess_reference(torch):
+    """`postprocess_reference`: the chain on 4 frames of 64x64 (FastBlend
+    balanced with its defaults, RIFE at full IFNet width, ESRGAN with 2
+    blocks, the six metrics at their tiny configs) on the card and on the
+    CPU with the same weights: each stage's frames and the scores within 5%
+    relative L2; and one pyramid estimate's share of NNF entries that differ
+    between the card and the CPU."""
+    import numpy as np
+    from video_styler_tpu_torch.extensions.fastblend import (DEFAULT_EBSYNTH_CONFIG,
+                                                             PyramidPatchMatcher)
+    frames = synthetic_clip(4, 64, 64)
+    cpu = post_models(torch, "cpu", full=False)
+    gpu = {k: copy.deepcopy(v).to("cuda") if isinstance(v, torch.nn.Module)
+           else _tree_to(v, "cuda") if isinstance(v, dict) else v for k, v in cpu.items()}
+    runs = {}
+    for dev, m in (("cpu", cpu), ("cuda", gpu)):
+        seconds = {}
+        runs[dev] = (run_chain(torch, m, frames, dev, seconds, {}), seconds)
+    (c, c_s), (g, g_s) = runs["cpu"], runs["cuda"]
+    rel = {k: _rel_l2(np.stack(g[k]), np.stack(c[k])) for k in ("fastblend", "rife", "esrgan")}
+    rel.update({f"score_{k}": _rel_l2(g["scores"][k], v) for k, v in c["scores"].items()})
+    nnf = {}
+    for dev in ("cpu", "cuda"):
+        pm = PyramidPatchMatcher(64, 64, 3, device=dev, **DEFAULT_EBSYNTH_CONFIG)
+        nnf[dev] = pm.estimate_nnf(frames[:3], frames[1:], frames[:3])[0].cpu().numpy()
+    res = dict(phase="postprocess_reference", frames=4, height=64, width=64,
+               rel_l2=rel, tol=5e-2, cpu_s=c_s, cuda_s=g_s,
+               nnf_entries_differ_share=float((nnf["cpu"] != nnf["cuda"]).any(-1).mean()),
+               output_shapes={k: list(np.stack(g[k]).shape)
+                              for k in ("fastblend", "rife", "esrgan")},
+               scores_cuda=g["scores"])
+    emit(res)
+    finite = all(np.isfinite(v).all() for v in g["scores"].values())
+    if not (finite and all(v <= 5e-2 for v in rel.values())):
+        raise AssertionError(f"postprocess, card vs CPU disagree: {res}")
+
+
+def _tree_to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, device) for k, v in tree.items()}
+    return tree.to(device)
+
+
+def fastblend_launches(estimates: int, cfg: dict, pairwise: bool = False, levels: int = 5):
+    """F1/F2/F3 launches of `estimates` pyramid estimates, derived from the
+    config: per level and iteration one remap and a guide and a style error
+    for the start and for each update (4 propagation directions, 3 random
+    steps, no tracking); one more remap per level. With the pairwise flag
+    the style error is F3's."""
+    errors = estimates * levels * cfg["num_iter"] * (1 + 4 + 3)
+    out = {"F1": estimates * levels * (cfg["num_iter"] + 1),
+           "F2": errors * (1 if pairwise else 2)}
+    if pairwise:
+        out["F3"] = errors
+    return out
+
+
+def balanced_tasks(n: int, window: int = 15) -> int:
+    """Source -> target pairs of FastBlend balanced over n frames."""
+    return sum(1 for t in range(n) for s in range(t - window, t + window + 1)
+               if 0 <= s < n and s != t)
+
+
+def frame_change(frames) -> float:
+    """Mean absolute change between consecutive frames (flicker)."""
+    import numpy as np
+    f = np.stack(frames).astype(np.float32)
+    return float(np.abs(f[1:] - f[:-1]).mean())
+
+
+def run_postprocess(torch, kernels):
+    """`postprocess`: the chain at the published widths on synthetic_clip(9)
+    at 480x832, counted stage by stage: FastBlend balanced (window 15,
+    batch 8, patch 5..13 over 5 iterations, 5 pyramid levels: 72 pairs in 9
+    batches) with its F1/F2 launches against the derived counts; RIFE 2x
+    (9 -> 17 frames) with random full-width IFNet weights; ESRGAN x4 (23
+    RRDBs, fp32) to 1920x3328 on all 17 frames; the six metrics on them at
+    full width (CLIP ViT-H/14 dual for PickScore, HPS and MPS with the
+    4-layer cross model, ViT-L/14 for the 768-wide aesthetic head and the
+    CLIP score, BLIP ViT-L + BERT-base for ImageReward). Then one FastBlend
+    batch profiled, and one pyramid estimate with use_pairwise_patch_error
+    (F3) counted. Returns the F1-F3 launches of the counted runs."""
+    import numpy as np
+    from video_styler_tpu_torch.extensions.fastblend import (DEFAULT_EBSYNTH_CONFIG,
+                                                             PyramidPatchMatcher)
+    from video_styler_tpu_torch.extensions.fastblend import patch_match as pm_mod
+    frames = list(synthetic_clip(POST_FRAMES))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    models = post_models(torch, "cuda", full=True)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    model_gib = gib([models[k] for k in ("clip_l", "clip_h", "cross", "blip")])
+    # host time of the random-search draws (numpy, then pinned, then copied)
+    draw = {"calls": 0, "s": 0.0}
+    original_draw = pm_mod._draw_to
+
+    def timed_draw(*a, **k):
+        t = time.perf_counter()
+        out = original_draw(*a, **k)
+        draw["s"] += time.perf_counter() - t
+        draw["calls"] += 1
+        return out
+
+    seconds, peaks, counts = {}, {}, {}
+    pm_mod._draw_to = timed_draw
+    try:
+        out = run_chain(torch, models, frames, "cuda", seconds, peaks, kernels, counts)
+    finally:
+        pm_mod._draw_to = original_draw
+    tasks = balanced_tasks(POST_FRAMES)
+    batches = -(-tasks // 8)
+    expected = fastblend_launches(batches, DEFAULT_EBSYNTH_CONFIG)
+    shapes = {k: list(np.stack(out[k]).shape) for k in ("fastblend", "rife", "esrgan")}
+    res = dict(phase="postprocess", frames=POST_FRAMES, height=480, width=832,
+               fastblend=dict(window=15, batch=8, **DEFAULT_EBSYNTH_CONFIG, tasks=tasks,
+                              batches=batches, pyramid_levels=5),
+               rife_ifnet_width=90, esrgan_blocks=23, esrgan_frames=len(out["rife"]),
+               stage_s=seconds, stage_peak_gib=peaks, build_s=build_s,
+               metric_model_gib=model_gib, output_shapes=shapes,
+               frame_change_before=frame_change(frames),
+               frame_change_after_fastblend=frame_change(out["fastblend"]),
+               random_draws=draw["calls"], random_draw_host_s=draw["s"],
+               scores=out["scores"], launches=counts, expected_fastblend_launches=expected)
+    emit(res)
+    check_launches(counts["fastblend"], expected, "postprocess fastblend")
+    for stage in ("rife", "esrgan", "metrics"):
+        check_launches(counts[stage], {}, f"postprocess {stage}")
+    want = {"fastblend": [POST_FRAMES, 480, 832, 3], "rife": [2 * POST_FRAMES - 1, 480, 832, 3],
+            "esrgan": [2 * POST_FRAMES - 1, 1920, 3328, 3]}
+    finite = all(np.isfinite(v).all() and len(v) == want["esrgan"][0]
+                 for v in out["scores"].values())
+    if shapes != want or not finite:
+        raise AssertionError(f"postprocess outputs {shapes}, want {want}; finite {finite}")
+    launches = {k: counts["fastblend"][k] for k in ("F1", "F2")}
+    del out, models
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # one batch of 8 pairs, profiled: the FastBlend stage's device share
+    # (the frames already on the card, as the runner holds them)
+    engine = PyramidPatchMatcher(480, 832, 3, device="cuda", **DEFAULT_EBSYNTH_CONFIG)
+    clip = torch.from_numpy(np.stack(frames)).cuda().float()
+    sg, tg = clip[:8], clip[1:]
+
+    def one_batch():
+        engine.estimate_nnf(sg, tg, sg)
+        torch.cuda.synchronize()
+
+    one_batch()
+    t0 = time.perf_counter()
+    one_batch()
+    batch_s = time.perf_counter() - t0
+    emit({"phase": "postprocess_profile", "batch_s": batch_s,
+          **profile_request(torch, one_batch, batch_s)})
+    # the pairwise flag, the one path to F3
+    for kern in kernels.values():
+        kern.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    nnf, _ = PyramidPatchMatcher(480, 832, 3, use_pairwise_patch_error=True, device="cuda",
+                                 **DEFAULT_EBSYNTH_CONFIG).estimate_nnf(sg, tg, sg)
+    torch.cuda.synchronize()
+    pair_s = time.perf_counter() - t0
+    counted = {k: kern.launches for k, kern in kernels.items()}
+    want_pair = fastblend_launches(1, DEFAULT_EBSYNTH_CONFIG, pairwise=True)
+    emit(dict(phase="postprocess_pairwise", pairs=8, height=480, width=832, seconds=pair_s,
+              nnf_shape=list(nnf.shape), launches=counted, expected_launches=want_pair))
+    check_launches(counted, want_pair, "postprocess pairwise")
+    launches["F3"] = counted["F3"]
+    return launches
+
+
 KERNEL_CATEGORIES = (  # (category, substrings of the device kernel's name)
     ("K1", ("flash_fwd_capped_kernel",)),
     ("K2", ("flash_fwd_online_kernel",)),
@@ -2407,6 +2861,9 @@ KERNEL_CATEGORIES = (  # (category, substrings of the device kernel's name)
     ("K3 stats/convert", ("fa_bwd_stats_kernel", "fa_bwd_convert_kernel")),
     ("K4", ("rmsnorm_rope_kernel",)),
     ("K5", ("rmsnorm_kernel",)),
+    ("F3", ("pairwise_patch_error_kernel",)),
+    ("F2", ("patch_error_kernel",)),
+    ("F1", ("remap_kernel",)),
     ("conv", ("fprop", "dgrad", "wgrad", "cudnn", "convolve", "conv2d", "conv3d")),
     ("int8 gemm", ("i8i8", "_s8_", "int8", "imma", "igemm", "i8816", "i16832")),
     ("gemm", ("gemm", "nvjet", "xmma", "cutlass", "sm90_")),
@@ -2459,6 +2916,7 @@ def main(argv=None):
         print("chip_smoke: run from a checkout of the repository", file=sys.stderr)
         return 2
     sys.path.insert(0, HERE)
+    from video_styler_tpu_torch.extensions.fastblend import kernels as fk
     from video_styler_tpu_torch.ops import cuda_build
     from video_styler_tpu_torch.ops import flash_attention as fa
     from video_styler_tpu_torch.ops import fused_norm_rope as fnr
@@ -2478,7 +2936,8 @@ def main(argv=None):
                "K3": fa.BWD_KERNEL, "K3q": fa.BWD_DQ_KERNEL,
                "K2": fa.ONLINE_KERNEL, "K8": fa.DUAL_KERNEL,
                "K6": fa.INT8_CAPPED_KERNEL, "K6o": fa.INT8_ONLINE_KERNEL,
-               "K7": fa.INT8_3D_KERNEL}
+               "K7": fa.INT8_3D_KERNEL, "F1": fk.REMAP_KERNEL,
+               "F2": fk.PATCH_ERROR_KERNEL, "F3": fk.PAIRWISE_KERNEL}
     ditto, run = token_grid(DITTO_FRAMES), token_grid(args.frames)
     rows = check_kernels(torch, ditto, f"ditto-{DITTO_FRAMES}f")
     if args.frames != DITTO_FRAMES:
@@ -2507,6 +2966,8 @@ def main(argv=None):
         rows += check_kernels(torch, s2v_grid(frames), f"s2v-{frames}f", cross_lens=cross,
                               rope_tables=s2v_rope_tables(frames))
         rows += check_audio_cross_kernels(torch, (frames - 1) // 4 + 1, f"s2v-{frames}f")
+    # FastBlend's F1-F3 at the post-processing path's top pyramid level
+    rows += check_fastblend_kernels(torch)
     torch.cuda.empty_cache()
     s_ditto = math.prod(ditto)
     s_run = math.prod(run)
@@ -2554,6 +3015,7 @@ def main(argv=None):
     check_image_references(torch)
     check_fun_references(torch)
     check_s2v_reference(torch)
+    check_postprocess_reference(torch)
     pipe, init_s = build_pipeline(torch)
     e2e_frames = []
     run_edit(torch, pipe, kernels, args.steps, args.frames, "e2e", {"K1": 1.0},
@@ -2609,17 +3071,25 @@ def main(argv=None):
     path_launches["speed"] = run_speed(torch, pipe, kernels, args.frames, args.steps)
     path_launches["ti2v"] = run_ti2v(torch, pipe, kernels, args.steps)
     path_launches["s2v"] = run_s2v(torch, pipe, kernels, args.steps)
+    # the post-processing chain on a free card: umT5 and the VAE go too
+    del pipe
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches.update(run_postprocess(torch, kernels))
 
     keys = ("name", "route", "source", "replaces", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     by_path = {name: {path: counts[name] for path, counts in path_launches.items()
                       if name in counts} for name in ("K1", "K4", "K5")}
-    emit({"kernels": [{**{k: r[k] for k in keys}, "launches": launches[r["kernel"]],
-                       **({"launches_by_path": by_path[r["kernel"]]}
-                          if r["kernel"] in by_path else {})}
-                      for r in rows + new_rows]
-          + [{**{k: r[k] for k in keys}, "launches": train_launches[
-              "K1" if r["kernel"] == "K1s" else r["kernel"]]} for r in train_rows]})
+    line = ([{**{k: r[k] for k in keys}, "launches": launches[r["kernel"]],
+              **({"launches_by_path": by_path[r["kernel"]]} if r["kernel"] in by_path else {})}
+             for r in rows + new_rows]
+            + [{**{k: r[k] for k in keys}, "launches": train_launches[
+                "K1" if r["kernel"] == "K1s" else r["kernel"]]} for r in train_rows])
+    unlaunched = sorted({r["name"].split()[0] for r in line if r["launches"] == 0})
+    if unlaunched:
+        raise AssertionError(f"kernels never launched on their main-path runs: {unlaunched}")
+    emit({"kernels": line})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -1,7 +1,8 @@
 """The port's hand-written CUDA kernels (K1 with and without stats, K2, K3,
-K4, K5, K6, K7, K8) against their plain versions, at the widths and token
-counts of the paths that run them, and the quantized linears'
-library GEMMs against the CPU's exact products, on the card. They skip on a host without a GPU; on the card run them with
+K4, K5, K6, K7, K8, and FastBlend's F1-F3) against their plain versions,
+at the widths and token counts of the paths that run them, and the
+quantized linears' library GEMMs against the CPU's exact products, on the
+card. They skip on a host without a GPU; on the card run them with
 
     python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py
 
@@ -10,7 +11,9 @@ machine does not have; this file imports only torch and the port).
 
 Tolerance: two bf16 ULPs at the output's largest magnitude. The kernel and
 the plain version round at the same points; exp2 and rsqrt differ in their
-last fp32 bits, which can move one bf16 rounding by one ULP.
+last fp32 bits, which can move one bf16 rounding by one ULP. F1-F3 are
+fp32 and sum in their plain versions' order: 2^-20 of the largest
+magnitude.
 """
 import pytest
 import torch
@@ -608,3 +611,93 @@ def test_quantized_linears_match_cpu(gen, rows):
     grid = torch.linspace(-448, 448, 100001, device="cuda")
     assert torch.equal(grid.to(quant.FP8).cpu().view(torch.uint8),
                        grid.cpu().to(quant.FP8).view(torch.uint8))
+
+
+def _fastblend_inputs(gen, b, h, w, pad, kind, c=3):
+    from torch.nn.functional import pad as fpad
+    img = [fpad(torch.rand((b, h, w, c), generator=gen, device="cuda") * 255,
+                (0, 0, pad, pad, pad, pad)) for _ in range(2)]
+    if kind == "random":
+        nnf = torch.stack([torch.randint(0, h, (b, h, w), generator=gen, device="cuda"),
+                           torch.randint(0, w, (b, h, w), generator=gen, device="cuda")], -1)
+    elif kind == "borders":  # every entry on an edge row or column
+        pick = lambda n: torch.randint(0, 2, (b, h, w), generator=gen, device="cuda") * (n - 1)
+        nnf = torch.stack([pick(h), pick(w)], -1)
+    else:  # "outside": shifted identity, so votes near the border fall outside
+        ii, jj = torch.meshgrid(torch.arange(h, device="cuda"), torch.arange(w, device="cuda"),
+                                indexing="ij")
+        nnf = torch.stack([(ii + 3).clamp(max=h - 1), (jj - 4).clamp(min=0)], -1).expand(
+            b, h, w, 2)
+    return img[0], img[1], nnf.to(torch.int32).contiguous()
+
+
+@pytest.mark.parametrize("shape", [(2, 12, 10), (3, 61, 97), (8, 480, 832)])
+@pytest.mark.parametrize("ps", [3, 5, 13])
+@pytest.mark.parametrize("kind", ["random", "borders", "outside"])
+def test_fastblend_kernels_match_plain(gen, shape, ps, kind):
+    """F1-F3 against their plain versions: the kernels add and divide in the
+    plain versions' order without FMA contraction, so they agree bit for
+    bit (the stated bound, fp32: 2^-20 of the largest magnitude, is not
+    needed)."""
+    from video_styler_tpu_torch.extensions.fastblend import kernels as fk
+    b, h, w = shape
+    pad = 6  # patch_size varies, pad_size stays that of the largest patch
+    src, tgt, nnf = _fastblend_inputs(gen, b, h, w, pad, kind)
+    counts = [k.launches for k in (fk.REMAP_KERNEL, fk.PATCH_ERROR_KERNEL, fk.PAIRWISE_KERNEL)]
+    got = [fk.remap(h, w, 3, ps, pad, src, nnf),
+           fk.patch_error(h, w, 3, ps, pad, src, nnf, tgt),
+           fk.pairwise_patch_error(h, w, 3, ps, pad, src, nnf, tgt, nnf.flip(0).contiguous())]
+    torch.cuda.synchronize()
+    assert [k.launches for k in (fk.REMAP_KERNEL, fk.PATCH_ERROR_KERNEL,
+                                 fk.PAIRWISE_KERNEL)] == [n + 1 for n in counts]
+    want = [fk.remap_plain(h, w, 3, ps, pad, src, nnf),
+            fk.patch_error_plain(h, w, 3, ps, pad, src, nnf, tgt),
+            fk.pairwise_patch_error_plain(h, w, 3, ps, pad, src, nnf, tgt,
+                                          nnf.flip(0).contiguous())]
+    for g, w_ in zip(got, want):
+        err = (g - w_).abs().max().item()
+        assert err <= 2.0 ** -20 * w_.abs().max().item(), err
+
+
+@pytest.mark.parametrize("opts", [{}, {"use_mean_target_style": True},
+                                  {"use_pairwise_patch_error": True, "tracking_window_size": 1}])
+def test_fastblend_pyramid_waits_for_no_host(gen, opts):
+    """A pyramid estimate on the card makes no synchronising call: at 50x70
+    the levels take cv2's fractional area tables and the field's upsample
+    the linear resize, whose tables, like the random draws, cross from
+    pinned memory without a wait."""
+    from video_styler_tpu_torch.extensions.fastblend import PyramidPatchMatcher
+    imgs = torch.rand((3, 4, 50, 70, 3), generator=gen, device="cuda") * 255
+    warm = torch.rand((3, 4, 24, 24, 3), generator=gen, device="cuda") * 255
+    cfg = dict(minimum_patch_size=3, num_iter=2, device="cuda", **opts)
+    PyramidPatchMatcher(24, 24, 3, **cfg).estimate_nnf(*warm)  # binds the kernels
+    pm = PyramidPatchMatcher(50, 70, 3, **cfg)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        nnf, style = pm.estimate_nnf(*imgs)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert pm.pyramid_level == 3 and tuple(nnf.shape) == (4, 50, 70, 2)
+    assert torch.isfinite(style).all()
+
+
+def test_fastblend_kernels_refuse_and_count(gen):
+    from video_styler_tpu_torch.extensions.fastblend import kernels as fk
+    src, tgt, nnf = _fastblend_inputs(gen, 2, 16, 16, 2, "random")
+    before = fk.PATCH_ERROR_KERNEL.launches
+    with pytest.raises(ValueError):
+        fk.patch_error(16, 16, 3, 7, 2, src, nnf, tgt)  # radius 3 > pad 2
+    with pytest.raises(ValueError):
+        fk.patch_error(16, 16, 3, 5, 2, src, nnf.long(), tgt)
+    with pytest.raises(ValueError):
+        fk.patch_error(16, 16, 3, 5, 2, src, nnf.cpu(), tgt)
+    assert fk.PATCH_ERROR_KERNEL.launches == before
+    from video_styler_tpu_torch.extensions.fastblend.patch_match import PatchMatcher
+    pm = PatchMatcher(16, 16, 3, minimum_patch_size=3, num_iter=2, device="cuda")
+    counts = (fk.REMAP_KERNEL.launches, fk.PATCH_ERROR_KERNEL.launches)
+    pm.estimate_nnf(src[:, 2:-2, 2:-2], tgt[:, 2:-2, 2:-2], src[:, 2:-2, 2:-2], nnf)
+    torch.cuda.synchronize()
+    # per iteration: 1 remap, 2 errors for the start, 2 for each of 4 + 3 updates
+    assert fk.REMAP_KERNEL.launches - counts[0] == 2 + 1
+    assert fk.PATCH_ERROR_KERNEL.launches - counts[1] == 2 * 16

@@ -18,6 +18,11 @@ and returns the port's module for `kind`:
   "s2v"  -> models.wan_s2v.WanS2V       (cfg: WanS2VConfig)
   "wav2vec" -> models.wav2vec.Wav2Vec2  (cfg: Wav2Vec2Config)
   "xlm_roberta" -> models.clip_vit.XlmRoberta (cfg: XlmRobertaConfig)
+  "clip_dual" -> models.clip_dual.ClipDual (cfg: CLIPDualConfig; the tree's
+            `logit_scale`, a Python float, becomes a float64 scalar)
+  "cross_model" -> models.clip_dual.CrossModel (cfg: None, the widths come
+            from the tree)
+  "blip_reward" -> models.blip_reward.BlipReward (cfg: BlipRewardConfig)
 
 A Fun DiT's tree carries `ref_conv` ({"w", "b"}, as the patch embedding)
 and `control_adapter` (torch layout), which a config with `has_ref_conv`
@@ -50,6 +55,8 @@ import numpy as np
 import torch
 
 from .device import resolve_device
+from .models.blip_reward import BlipReward
+from .models.clip_dual import ClipDual, CrossModel, cross_model_config
 from .models.clip_vit import ClipVit, XlmRoberta
 from .models.t5 import T5Encoder
 from .models.wan_animate import WanAnimateAdapter, animate_head_dim
@@ -77,9 +84,11 @@ def _simple_adapter(cfg, sd):
 
 
 _MODULES = {"dit": WanDiT, "vace": WanVace, "t5": T5Encoder, "vae": WanVAE,
-            "clip": ClipVit, "s2v": WanS2V, "wav2vec": Wav2Vec2, "xlm_roberta": XlmRoberta}
+            "clip": ClipVit, "s2v": WanS2V, "wav2vec": Wav2Vec2, "xlm_roberta": XlmRoberta,
+            "clip_dual": ClipDual, "blip_reward": BlipReward}
 _BUILDERS = {"animate": _animate, "motion_controller": _motion_controller,
-             "control_adapter": _simple_adapter}
+             "control_adapter": _simple_adapter,
+             "cross_model": lambda cfg, sd: CrossModel(cross_model_config(sd))}
 _STACKED = ("blocks", "after_proj")
 
 
