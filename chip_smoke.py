@@ -185,6 +185,28 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
              FastBlend batch profiled (`postprocess_profile`); one pyramid
              estimate with use_pairwise_patch_error, counted for F3
              (`postprocess_pairwise`)
+  usp_kernels  (with the kernel rows) one rank's work of the multi-GPU path
+             at Wan2.1-14B width over the Ditto clip's 29,640 tokens, in
+             this process: K1 on a Ulysses share (20 and 10 heads over the
+             whole sequence), K1 cross, K4 and K5 on one rank's 7,410 rows
+             with its cos/sin rows, and the ring's per-rank body (7,410
+             queries against 4 key blocks of 7,410 through K1 with stats and
+             the fp32 merge, held against K1's plain version over the whole
+             key sequence within four bf16 ULPs), as kernel rows
+  usp        last, on a free card: ranks spawned by `parallel.run_local` on
+             cuda:0 over gloo (NCCL refuses two ranks on one device). (a)
+             Wan2.1-T2V-1.3B at full width on meshes (1, 1, 2) and (1, 2, 2)
+             (--frames, --steps, CFG 5 two-pass); (b) the e2e edit at
+             Wan2.1-VACE-14B width on (1, 2, 1), FSDP over 2 ranks, one
+             step (its host-staged all-gathers take ~80 s a step), each
+             rank drawing only its shards of the e2e weights, umT5 parked
+             on the host between encodes; per rank:
+             latents against the same weights in one process (5%), peak
+             memory, DiT+VACE shard GiB, K1/K4/K5 launches against the
+             one-process count, step times (a card shared by the ranks, not
+             a multi-card speed); (c) `infer_ditto --smoke --mesh 1,1,1` on
+             a one-rank NCCL group: frames and latents bit-equal to the run
+             without a mesh
 Then the `kernels` summary line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Imports nothing of JAX or of the JAX package.
 """
@@ -317,6 +339,7 @@ def ptxas_usage(build_dir):
 
 
 PTXAS = {}  # filled by main() from the build logs
+CARD = {}   # the card's name and power limit (nvidia-smi), filled by main()
 
 
 def kernel_usage(*names):
@@ -433,7 +456,7 @@ def check_kernels(torch, grid, tag, rope_ids=None, heads: int = 40,
 def emit_rows(rows):
     """Print each kernel row; raise on the first outside its tolerance."""
     for r in rows:
-        emit({"phase": "kernel", **r})
+        emit({"phase": "kernel", **r, **CARD})
         if not r["max_abs_err"] <= r["tol"]:
             raise AssertionError(f"{r['name']}: max abs err {r['max_abs_err']} "
                                  f"> tolerance {r['tol']}")
@@ -637,6 +660,14 @@ def check_launches(launches, expected, phase):
                                  f"expected {expected.get(name, 0)}")
 
 
+def edit_request(frames: int, steps: int) -> dict:
+    """The e2e phase's VACE edit of a 480x832 clip."""
+    return dict(prompt="turn the scene into a watercolor painting",
+                negative_prompt="", vace_video=synthetic_clip(frames), num_frames=frames,
+                height=480, width=832, seed=42, cfg_scale=5.0,
+                num_inference_steps=steps, tiled=True)
+
+
 def run_edit(torch, pipe, kernels, steps: int, frames: int, phase: str,
              attention_kernels: dict, profile: bool = True, outputs=None, **extra):
     """One VACE edit of a 480x832 clip on `pipe`, with every launch count set
@@ -648,10 +679,7 @@ def run_edit(torch, pipe, kernels, steps: int, frames: int, phase: str,
     import numpy as np
     dit_cfg, vace_cfg = pipe.dit.cfg, pipe.vace.cfg
     f, h, w = frames, 480, 832
-    request = dict(prompt="turn the scene into a watercolor painting",
-                   negative_prompt="", vace_video=synthetic_clip(f), num_frames=f,
-                   height=h, width=w, seed=42, cfg_scale=5.0,
-                   num_inference_steps=steps, tiled=True)
+    request = edit_request(frames, steps)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for kern in kernels.values():
@@ -1071,7 +1099,7 @@ def check_attention_training(torch, s, sk, tag, kind, mag=1.0, check_heads=None)
             clocks=gpu_clocks()))
         del launch
     for r in rows:
-        emit({"phase": "kernel", **r})
+        emit({"phase": "kernel", **r, **CARD})
     failed = [o_ for o_, (e, t, _) in errs.items() if not e <= t]
     if not (rows[0]["max_abs_err"] <= rows[0]["tol"] and err_l2 <= tol_l2):
         failed.append("o/L2")
@@ -1190,7 +1218,7 @@ def check_online_kernels(torch, s, tag, cross: bool, mag: float = 1.0):
             flops=4.0 * n * s * s * d, nbytes=2.0 * n * d * 4 * s,
             checked_rows=int(sub.numel()), ptxas=kernel_usage("flash_fwd_online_kernel")))
     for r in rows:
-        emit({"phase": "kernel", **r})
+        emit({"phase": "kernel", **r, **CARD})
         if not r["max_abs_err"] <= r["tol"]:
             raise AssertionError(f"{r['name']}: max abs err {r['max_abs_err']} "
                                  f"> tolerance {r['tol']}")
@@ -1303,7 +1331,7 @@ def check_int8_kernels(torch, s, tag, cross: bool, three_d: bool, mag: float = 1
                            fa._flash_int8_cuda(*pre, three_d=True)[:, :, 0]):
             raise AssertionError("flash_attention_int8_3d differs from its parts")
     for r in rows:
-        emit({"phase": "kernel", **r})
+        emit({"phase": "kernel", **r, **CARD})
         if not r["max_abs_err"] <= r["tol"]:
             raise AssertionError(f"{r['name']}: max abs err {r['max_abs_err']} "
                                  f"> tolerance {r['tol']}")
@@ -1522,16 +1550,17 @@ def plain_versions():
     (fp32). A measurement device of this script: the port itself never runs
     a plain version on a CUDA tensor."""
     from video_styler_tpu_torch.models import wan_dit
+    from video_styler_tpu_torch.ops import attention
     from video_styler_tpu_torch.ops import flash_attention as fa
     from video_styler_tpu_torch.ops import fused_norm_rope as fnr
-    saved = (wan_dit.attention, wan_dit.fused_rmsnorm_rope, wan_dit.fused_rmsnorm)
-    wan_dit.attention = fa.flash_attention_plain
+    saved = (attention.flash_attention, wan_dit.fused_rmsnorm_rope, wan_dit.fused_rmsnorm)
+    attention.flash_attention = fa.flash_attention_plain
     wan_dit.fused_rmsnorm_rope = fnr.fused_rmsnorm_rope_plain
     wan_dit.fused_rmsnorm = fnr.fused_rmsnorm_plain
     try:
         yield
     finally:
-        wan_dit.attention, wan_dit.fused_rmsnorm_rope, wan_dit.fused_rmsnorm = saved
+        attention.flash_attention, wan_dit.fused_rmsnorm_rope, wan_dit.fused_rmsnorm = saved
 
 
 def run_train_precision(torch, pipe, kernels, inputs, frames: int):
@@ -2870,6 +2899,263 @@ KERNEL_CATEGORIES = (  # (category, substrings of the device kernel's name)
 )
 
 
+# ---------------------------------------------------------------------------
+# Multi-GPU: one rank's kernels in this process, then ranks sharing the card
+# ---------------------------------------------------------------------------
+
+USP_HEADS = 40          # Wan2.1-14B: 40 heads of 128
+RING_BLOCKS = 4         # sp = 4 over the Ditto clip's 29,640 tokens: 7,410 a rank
+# four bf16 ULPs at the output's largest magnitude: the ring's merge adds
+# four bf16-rounded partial outputs (each within two ULPs of its own
+# magnitude) with fp32 weights, against K1's one rounding over all keys
+TOL_RING = 2.0 ** -6
+# steps of the usp phase's 14B FSDP edit: each of its steps gathers ~33.6 GB
+# a rank through host memory over gloo (75-88 s a step on one H100), so one
+# step keeps the script well inside its time limit
+USP_VACE_STEPS = 1
+
+
+def check_ring_body(torch, rows: int, blocks: int):
+    """The ring's per-rank body (`parallel.ring.ring_body`): `rows` query
+    rows against `blocks` key blocks of `rows`, each through K1 with its
+    stats, merged in fp32; held against K1's plain version over the whole
+    key sequence (and reported against the JAX body's online softmax,
+    `ring_body_plain`, on the same rows)."""
+    import torch.nn.functional as F
+    from video_styler_tpu_torch.ops import flash_attention as fa
+    from video_styler_tpu_torch.parallel import ring
+    n, d = USP_HEADS, 128
+    gen = torch.Generator("cuda").manual_seed(1)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+
+    q = randn(1, rows, n, d)
+    k, v = randn(1, rows * blocks, n, d), randn(1, rows * blocks, n, d)
+    kv = [(k[:, i * rows:(i + 1) * rows], v[:, i * rows:(i + 1) * rows])
+          for i in range(blocks)]
+    out = ring.ring_body(q, kv)
+    torch.cuda.synchronize()
+    sub = torch.cat([torch.arange(0, 1024), torch.arange(rows - 1024, rows)]).cuda()
+    err, scale = max_err(torch, out[:, sub], fa.flash_attention_plain(q[:, sub], k, v))
+    err_body, _ = max_err(torch, out[:, sub], ring.ring_body_plain(q[:, sub], kv))
+    flops = 4.0 * n * rows * rows * blocks * d
+    nbytes = 2.0 * (2 * rows + 2 * rows * blocks) * n * d
+    b_ms, b_by = bound(flops, nbytes)
+    ms = time_ms(torch, lambda: ring.ring_body(q, kv), reps=10)
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(qt, kt, vt), reps=10)
+    return emit_rows([dict(
+        name=f"K1 ring body Sq={rows} Sk={blocks}x{rows} N={n} D={d} [usp-ring-sp{blocks}]",
+        kernel="K1", route="cuda", source="video_styler_tpu_torch/csrc/flash_attention.cu",
+        replaces="video_styler_tpu/ops/flash_attention.py:213",
+        max_abs_err=err, max_rel_err=err / scale, tol=TOL_RING * scale,
+        max_abs_err_vs_ring_plain=err_body, checked_rows=int(sub.numel()),
+        ms=ms, plain_ms=time_ms(torch, lambda: ring.ring_body_plain(q, kv), reps=2, warmup=1),
+        k1_whole_ms=time_ms(torch, lambda: fa.flash_attention(q, k, v), reps=10),
+        bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms, ratio_to_library=ms / lib_ms,
+        tflops=flops / ms / 1e9, clocks=gpu_clocks())])
+
+
+def check_usp_kernels(torch):
+    """`usp_kernels`: one rank's kernel work at Wan2.1-14B width over the
+    Ditto clip (29,640 tokens), in this process: K1 on a Ulysses share (20
+    and 10 heads over the whole sequence, sp = 2 and 4), K1 cross, K4 and
+    K5 on one rank's 7,410 rows with its cos/sin rows (rank 1 of 4), and
+    the ring's body over 4 blocks."""
+    from video_styler_tpu_torch.ops.rope import assemble_freqs_grid
+    ditto = token_grid(DITTO_FRAMES)
+    rows = []
+    for sp in (2, RING_BLOCKS):
+        rows += check_kernels(torch, ditto, f"usp-ulysses-sp{sp}", heads=USP_HEADS // sp,
+                              cross_lens=(), norms=False)
+    n = math.prod(ditto) // RING_BLOCKS
+    cos, sin = assemble_freqs_grid(128, *ditto)
+    rows += check_kernels(torch, (1, n, 1), f"usp-rank1-of-{RING_BLOCKS}",
+                          cross_lens=(TEXT_LEN,), self_attn=False,
+                          rope_tables=(cos[n:2 * n].numpy(), sin[n:2 * n].numpy()))
+    rows += check_ring_body(torch, n, RING_BLOCKS)
+    torch.cuda.empty_cache()
+    return rows
+
+
+def usp_pipeline(torch, model: str, mesh=None):
+    """The usp phase's pipeline from seed 0, on the card: Wan2.1-T2V-1.3B
+    ("t2v-1.3B") or the e2e phase's Wan2.1-VACE-14B ("vace-14B", the same
+    weights as `build_pipeline`), with umT5-XXL and the Wan2.1 VAE; under
+    `mesh`, its DiT and VACE drawn FSDP-sharded."""
+    from video_styler_tpu_torch.models.t5 import UMT5_XXL
+    from video_styler_tpu_torch.models.wan_dit import WAN_T2V_14B, WAN_T2V_1_3B
+    from video_styler_tpu_torch.models.wan_vace import VACE_14B
+    from video_styler_tpu_torch.models.wan_vae import WAN21_VAE
+    from video_styler_tpu_torch.pipelines.wan_video import WanVideoPipeline
+    from video_styler_tpu_torch.prompters.wan_prompter import StubTokenizer
+    dit, vace = {"t2v-1.3B": (WAN_T2V_1_3B, None), "vace-14B": (WAN_T2V_14B, VACE_14B)}[model]
+    return WanVideoPipeline.from_configs(dit, vace, UMT5_XXL, WAN21_VAE,
+                                         StubTokenizer(TEXT_LEN), TEXT_LEN, seed=0,
+                                         device="cuda", mesh=mesh)
+
+
+def usp_request(model: str, frames: int, steps: int) -> dict:
+    """The request of the usp phase's model, for latents: the e2e edit, or
+    a text-to-video request of the same size."""
+    if model == "vace-14B":
+        return dict(edit_request(frames, steps), return_latents=True)
+    return dict(prompt="a cat boxing on a stage", negative_prompt="", num_frames=frames,
+                height=480, width=832, seed=42, cfg_scale=5.0, num_inference_steps=steps,
+                tiled=True, return_latents=True)
+
+
+def park_text_encoder(pipe):
+    """umT5 waits on the host and comes to the card for each prompt encode
+    (`train.HostParked`), so that the ranks sharing the card leave its
+    ~10.6 GiB to the others between encodes."""
+    from video_styler_tpu_torch.train import HostParked
+    parked = HostParked(pipe.prompter.text_encoder)
+    encode = pipe.prompter.encode_prompt
+
+    def encode_parked(*args, **kwargs):
+        with parked:
+            return encode(*args, **kwargs)
+    pipe.prompter.encode_prompt = encode_parked
+
+
+def usp_rank(spec: dict) -> dict:
+    """One rank of a `usp` run (spawned by `parallel.run_local`): the
+    pipeline under spec["mesh"], the request with its K1/K4/K5 launches
+    counted from 0, the rank's peak memory and step times."""
+    import torch
+    from video_styler_tpu_torch.ops import flash_attention as fa
+    from video_styler_tpu_torch.ops import fused_norm_rope as fnr
+    from video_styler_tpu_torch.parallel import make_mesh, process_index
+    t0 = time.perf_counter()
+    pipe = usp_pipeline(torch, spec["model"], make_mesh(*spec["mesh"], device_type="cuda"))
+    if spec["park_t5"]:
+        park_text_encoder(pipe)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    shard_gib = sum((p.to_local() if hasattr(p, "to_local") else p).numel() * p.element_size()
+                    for m in (pipe.dit, pipe.vace) if m is not None
+                    for p in m.parameters()) / 2**30
+    kernels = {"K1": fa.KERNEL, "K4": fnr.ROPE_KERNEL, "K5": fnr.RMS_KERNEL}
+    for kern in kernels.values():
+        kern.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    latents = pipe(**usp_request(spec["model"], spec["frames"], spec["steps"]))
+    total_s = time.perf_counter() - t0
+    return dict(rank=process_index(), latents=latents.float().cpu().numpy(),
+                launches={name: kern.launches for name, kern in kernels.items()},
+                peak_gib=torch.cuda.max_memory_allocated() / 2**30, dit_vace_gib=shard_gib,
+                build_s=build_s, total_s=total_s, step_s=step_times(pipe),
+                stages=dict(pipe.stage_times))
+
+
+def ditto_mesh_rank(out_dir: str) -> dict:
+    """`usp` (c): `infer_ditto --smoke --mesh 1,1,1` on a one-rank NCCL
+    group against the same CLI without --mesh (frames), and the smoke
+    pipeline's latents under the (1, 1, 1) mesh against none."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from video_styler_tpu_torch import infer_ditto
+    from video_styler_tpu_torch.parallel import make_mesh
+    argv = ["--smoke", "--prompt", "a watercolor city at dusk"]
+    meshed = infer_ditto.main(argv + ["--mesh", "1,1,1", "--output_path",
+                                      os.path.join(out_dir, "mesh.mp4")])
+    plain = infer_ditto.main(argv + ["--output_path", os.path.join(out_dir, "plain.mp4")])
+    request = dict(prompt="a watercolor city at dusk",
+                   vace_video=infer_ditto.smoke_frames(9, 32, 32), num_frames=9, height=32,
+                   width=32, seed=42, cfg_scale=5.0, num_inference_steps=4, tiled=False,
+                   return_latents=True)
+    lat_mesh = infer_ditto.build_smoke_pipeline().shard(make_mesh(1, 1, 1))(**request)
+    lat = infer_ditto.build_smoke_pipeline()(**request)
+    return dict(backend=dist.get_backend(), world_size=dist.get_world_size(),
+                frames_bit_equal=bool(np.array_equal(meshed, plain)),
+                latents_bit_equal=bool(torch.equal(lat_mesh, lat)),
+                latents_max_abs_diff=(lat_mesh.float() - lat.float()).abs().max().item())
+
+
+def expected_usp_launches(model: str, steps: int) -> dict:
+    """K1/K4/K5 launches of one rank: those of one process (two K1 and one
+    K4 and K5 per block, DiT and VACE, and forward; two forwards a step)."""
+    from video_styler_tpu_torch.models.wan_dit import WAN_T2V_14B, WAN_T2V_1_3B
+    from video_styler_tpu_torch.models.wan_vace import VACE_14B
+    layers = (WAN_T2V_1_3B.num_layers if model == "t2v-1.3B"
+              else WAN_T2V_14B.num_layers + len(VACE_14B.vace_layers))
+    forwards = 2 * steps
+    return {"K1": 2 * layers * forwards, "K4": layers * forwards, "K5": layers * forwards}
+
+
+def run_usp(torch, frames: int, steps: int, vace_reference, smi: str):
+    """`usp` (last, on a free card): ranks spawned by `parallel.run_local`
+    on cuda:0 with gloo named (NCCL refuses two ranks on one device).
+    (a) Wan2.1-T2V-1.3B at full width on meshes (1, 1, 2) and (1, 2, 2),
+    against the same weights in this process; (b) the e2e edit at
+    Wan2.1-VACE-14B width on (1, 2, 1), FSDP over 2 ranks, for
+    USP_VACE_STEPS steps, against the e2e request's latents in one process
+    (`vace_reference`); (c) `ditto_mesh_rank` on a one-rank
+    NCCL group. Returns rank 0's launches summed over (a) and (b)."""
+    import numpy as np
+    from video_styler_tpu_torch.parallel import run_local
+    store_dir = tempfile.mkdtemp(prefix="usp-")
+    pipe = usp_pipeline(torch, "t2v-1.3B")
+    t2v_reference = pipe(**usp_request("t2v-1.3B", frames, steps)).float().cpu().numpy()
+    del pipe
+    gc.collect()
+    torch.cuda.empty_cache()
+    total, failures = {}, []
+    runs = [("t2v-1.3B", (1, 1, 2), steps, t2v_reference, False),
+            ("t2v-1.3B", (1, 2, 2), steps, t2v_reference, False),
+            ("vace-14B", (1, 2, 1), USP_VACE_STEPS, vace_reference, True)]
+    for model, mesh, n_steps, reference, park in runs:
+        world = math.prod(mesh)
+        spec = dict(model=model, mesh=mesh, frames=frames, steps=n_steps, park_t5=park)
+        t0 = time.perf_counter()
+        ranks = run_local(usp_rank, world, "gloo",
+                          os.path.join(store_dir, f"{model}-{world}-{mesh[1]}"), spec,
+                          device="cuda:0", timeout_s=900)
+        wall_s = time.perf_counter() - t0
+        expected = expected_usp_launches(model, n_steps)
+        rel = [float(np.linalg.norm(r["latents"] - reference) / np.linalg.norm(reference))
+               for r in ranks]
+        res = dict(phase="usp", model=model, mesh=dict(zip(("dp", "fsdp", "sp"), mesh)),
+                   backend="gloo", card=smi,
+                   note=f"{world} ranks share one card over gloo: step times are not a "
+                        "multi-card speed",
+                   frames=frames, tokens=math.prod(token_grid(frames)), steps=n_steps,
+                   cfg="two-pass 5.0", latents_rel_l2=rel, latents_tol=5e-2,
+                   bit_equal_to_one_process=[bool(np.array_equal(r["latents"], reference))
+                                             for r in ranks],
+                   ranks_bit_equal=all(np.array_equal(r["latents"], ranks[0]["latents"])
+                                       for r in ranks),
+                   peak_gib=[r["peak_gib"] for r in ranks],
+                   dit_vace_gib=[r["dit_vace_gib"] for r in ranks],
+                   launches=[r["launches"] for r in ranks], expected_launches=expected,
+                   step_s=[r["step_s"] for r in ranks], total_s=[r["total_s"] for r in ranks],
+                   build_s=[r["build_s"] for r in ranks], wall_s=wall_s,
+                   stages=ranks[0]["stages"])
+        emit(res)
+        if any(r["launches"] != expected for r in ranks):
+            failures.append(f"{model} mesh {mesh}: launches {res['launches']}, "
+                            f"expected {expected} a rank")
+        if not max(rel) <= 5e-2:
+            failures.append(f"{model} mesh {mesh}: latents {rel} from one process")
+        for name, count in ranks[0]["launches"].items():
+            total[name] = total.get(name, 0) + count
+    res = run_local(ditto_mesh_rank, 1, "nccl", os.path.join(store_dir, "nccl"), store_dir,
+                    timeout_s=300)[0]
+    emit(dict(phase="usp_nccl_mesh_1_1_1", **res))
+    if not (res["backend"] == "nccl" and res["frames_bit_equal"] and res["latents_bit_equal"]):
+        failures.append(f"infer_ditto --mesh 1,1,1 differs from the run without: {res}")
+    shutil.rmtree(store_dir, ignore_errors=True)
+    if failures:
+        raise AssertionError("usp: " + "; ".join(failures))
+    return total
+
+
+
+
 def profile_request(torch, run, unprofiled_s: float):
     """Device time by kernel category over one more identical request,
     under torch.profiler. idle_share compares the summed kernel time with
@@ -2928,6 +3214,7 @@ def main(argv=None):
     cuda_build.build_all()
     build_s = time.perf_counter() - t0
     PTXAS.update(ptxas_usage(cuda_build.BUILD_DIR))
+    CARD["card"] = smi
     emit(dict(phase="device", nvidia_smi=smi, torch=torch.__version__,
               cuda=torch.version.cuda, device=torch.cuda.get_device_name(0),
               count=torch.cuda.device_count(), build_s=build_s, ptxas=PTXAS))
@@ -2968,6 +3255,8 @@ def main(argv=None):
         rows += check_audio_cross_kernels(torch, (frames - 1) // 4 + 1, f"s2v-{frames}f")
     # FastBlend's F1-F3 at the post-processing path's top pyramid level
     rows += check_fastblend_kernels(torch)
+    # one rank's share of the multi-GPU path at 14B width
+    rows += check_usp_kernels(torch)
     torch.cuda.empty_cache()
     s_ditto = math.prod(ditto)
     s_run = math.prod(run)
@@ -3020,6 +3309,9 @@ def main(argv=None):
     e2e_frames = []
     run_edit(torch, pipe, kernels, args.steps, args.frames, "e2e", {"K1": 1.0},
              outputs=e2e_frames, init_s=init_s)
+    # the e2e request's latents in one process, for the usp phase's FSDP ranks
+    usp_reference = pipe(**usp_request("vace-14B", args.frames, USP_VACE_STEPS)
+                         ).float().cpu().numpy()
     # from here on every phase runs on the pipeline loaded from the files,
     # and the kernels line counts its launches
     holder = [pipe]
@@ -3076,6 +3368,8 @@ def main(argv=None):
     gc.collect()
     torch.cuda.empty_cache()
     launches.update(run_postprocess(torch, kernels))
+    # the multi-GPU path: ranks sharing the free card
+    path_launches["usp"] = run_usp(torch, args.frames, args.steps, usp_reference, smi)
 
     keys = ("name", "route", "source", "replaces", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")

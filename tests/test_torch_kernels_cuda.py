@@ -215,6 +215,55 @@ def test_k1_k4_k5_speed_control_width(gen):
     _assert_close(o1x[:, rows], fa.flash_attention_plain(oq[:, rows], ctx, ctx))
 
 
+@pytest.mark.parametrize("rows,blocks,n", [(300, 4, 3), (1000, 2, 2), (64, 3, 1)])
+def test_ring_body_matches_plain(gen, rows, blocks, n):
+    """The ring's per-rank body: K1 with stats on each key block (one launch
+    a block), the partials merged in fp32, against K1's plain version over
+    all keys within four bf16 ULPs (four bf16-rounded partials) and against
+    the JAX body's online softmax (`ring_body_plain`) alike."""
+    from video_styler_tpu_torch.parallel import ring
+    q = _randn(gen, 1, rows, n, 128)
+    k, v = _randn(gen, 1, rows * blocks, n, 128), _randn(gen, 1, rows * blocks, n, 128)
+    kv = [(k[:, i * rows:(i + 1) * rows], v[:, i * rows:(i + 1) * rows])
+          for i in range(blocks)]
+    before = fa.KERNEL.launches
+    out = ring.ring_body(q, kv)
+    torch.cuda.synchronize()
+    assert fa.KERNEL.launches == before + blocks
+    for want in (fa.flash_attention_plain(q, k, v), ring.ring_body_plain(q, kv)):
+        err = (out.float() - want.float()).abs().max().item()
+        assert err <= 2.0 ** -6 * want.float().abs().max().item(), err
+
+
+def test_k1_rows_keep_their_bits_at_shifts_of_8(gen):
+    """A query row's output depends on its position modulo 8 only (its norm
+    bound sums the row's chunks in the order of their 128-byte swizzle):
+    why each rank's share of a sequence is a whole number of 8 rows
+    (`models.wan_dit.SHARD_ROWS`), so that cross-attention on a rank's rows
+    keeps every bit of the one-process result."""
+    q = _randn(gen, 1, 4688, 2, 128)
+    k, v = _randn(gen, 1, 512, 2, 128), _randn(gen, 1, 512, 2, 128)
+    whole = fa.flash_attention(q, k, v)
+    for start in (8, 2344, 4680):
+        part = fa.flash_attention(q[:, start:].contiguous(), k, v)
+        assert torch.equal(part, whole[:, start:]), start
+
+
+@pytest.mark.parametrize("sp", [2, 4])
+def test_k1_ulysses_share_cuts_padded_keys(gen, sp):
+    """One Ulysses rank's share as the all-to-all leaves it: the receive
+    buffer (sp, 1, S/sp, N/sp, D) viewed as (1, S, N/sp, D) with no copy,
+    over a sequence of 997 real tokens padded to a multiple of sp; K1 reads
+    it through its tensor maps and cuts the padded keys at kv_valid."""
+    real = 997
+    s = real + (-real) % sp
+    recv = _randn(gen, sp, 1, s // sp, 2, 128)
+    q, k, v = (recv.view(1, s, 2, 128), _randn(gen, sp, 1, s // sp, 2, 128).view(1, s, 2, 128),
+               _randn(gen, sp, 1, s // sp, 2, 128).view(1, s, 2, 128))
+    out = attention(q, k, v, kv_valid=real)
+    _assert_close(out, fa.flash_attention_plain(q, k[:, :real], v[:, :real]))
+
+
 @pytest.mark.parametrize("frames", [3, 20])
 def test_k1_k5_s2v_audio_cross(gen, frames):
     """Wan2.2-S2V's audio injection at 448x832: each latent frame's 1,456

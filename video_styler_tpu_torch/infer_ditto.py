@@ -4,8 +4,14 @@
     python -m video_styler_tpu_torch.infer_ditto --input_video in.mp4 \
         --prompt "make it a watercolor" --dit_path ...
 
-Same flags as inference/infer_ditto.py, without --mesh and --streaming,
-plus --device (default cuda). --dit_path ('|'-separated shards of the DiT
+Same flags as inference/infer_ditto.py, without --streaming, plus
+--device (default cuda). --mesh dp,fsdp,sp runs one rank of a multi-GPU
+edit: launch `torchrun --nproc_per_node N -m video_styler_tpu_torch.infer_ditto
+--mesh dp,fsdp,sp ...` with N = dp*fsdp*sp (`parallel.initialize` reads
+torchrun's variables; each rank takes cuda:LOCAL_RANK, or the CPU with
+--device cpu over gloo). The DiT and VACE are FSDP-sharded over fsdp and
+run sequence-parallel over sp; every rank runs umT5 and the VAE whole, and
+only rank 0 writes the mp4. --dit_path ('|'-separated shards of the DiT
 and VACE), --vae_path, --t5_path and --tokenizer_path go through
 `WanVideoPipeline.from_pretrained` (the official Wan2.1-VACE-14B files:
 `diffusion_pytorch_model-0000{1..7}-of-00007.safetensors`, `Wan2.1_VAE.pth`,
@@ -102,6 +108,8 @@ def parse_args(argv=None):
                         "reference's fp8 baseline)")
     p.add_argument("--cfg_merge", action="store_true",
                    help="batch posi+nega in one DiT pass")
+    p.add_argument("--mesh", type=str, default=None,
+                   help="dp,fsdp,sp mesh sizes (e.g. 1,1,4), one process per rank")
     p.add_argument("--smoke", action="store_true",
                    help="tiny random models, no checkpoints")
     p.add_argument("--device", type=str, default="cuda",
@@ -111,6 +119,14 @@ def parse_args(argv=None):
 
 def main(argv=None):
     p, args = parse_args(argv)
+    mesh = None
+    if args.mesh:
+        from .parallel import initialize, make_mesh, parse_mesh
+        sizes = parse_mesh(args.mesh)
+        if args.quantize and sizes[1] > 1:
+            p.error("--quantize with fsdp > 1 is not supported yet (ROADMAP item 8)")
+        args.device = initialize(device=args.device)
+        mesh = make_mesh(*sizes, device_type=args.device.type)
     if args.smoke:
         pipe = build_smoke_pipeline(device=args.device)
         args.height, args.width = 32, 32
@@ -125,6 +141,8 @@ def main(argv=None):
                        path=args.lora_path, alpha=args.lora_alpha)
     if args.quantize:
         pipe.quantize(mode=args.quantize)
+    if mesh is not None:
+        pipe.shard(mesh)
 
     vace_video = None
     if args.input_video:
@@ -146,9 +164,11 @@ def main(argv=None):
                   tiled=not args.no_tiled and not args.smoke,
                   tea_cache_l1_thresh=args.tea_cache_l1_thresh,
                   tea_cache_model_id=args.tea_cache_model_id)
-    from .data.video import save_video
-    save_video(frames, args.output_path, fps=args.fps)
-    print(f"saved {len(frames)} frames to {args.output_path}")
+    from .parallel import is_main_process
+    if is_main_process():
+        from .data.video import save_video
+        save_video(frames, args.output_path, fps=args.fps)
+        print(f"saved {len(frames)} frames to {args.output_path}")
     return frames
 
 

@@ -15,9 +15,17 @@ tokens (`control_adapter`), a term added to t_mod (the speed controller's),
 and the Animate adapter (pose tokens on frames 1.., a face block after
 every 5th layer through `run_blocks`' segments).
 
-The single-GPU port has no mesh: the sharding constraints and the
-mesh-divisibility padding of the JAX package are gone, so every token is
-real and no key is masked.
+Under a sharding context (`parallel.use_sharding`) with sp > 1 the
+tokens are padded to sp shares of whole SHARD_ROWS rows
+(`pad_tokens_for_mesh`: zeros, cos padded with 1 and sin with 0), each
+rank keeps its S/sp rows with their
+cos/sin rows (`parallel.split_seq`), self-attention exchanges rows for
+heads (Ulysses, or the ring with `ctx.ulysses` False) over the whole padded
+sequence with the padded keys cut at `seq_valid`, cross-attention, the FFN
+and the head run on the local rows, and the head's rows are gathered and
+unpadded before `unpatchify`. Modules that `parallel.shard_params_fsdp`
+wrapped are gathered around their use (`parallel.gathered`). Without a
+context none of this runs: every token is real and no key is masked.
 
 `remat=True` (training) rematerialises each trunk block and each VACE
 block in the backward, as `jax.checkpoint` does for the trunk in the JAX
@@ -39,6 +47,10 @@ from ..ops.basic import (gelu_tanh, layer_norm, linear, modulate, patchify,
                          rms_norm, silu, sinusoidal_embedding_1d)
 from ..ops.fused_norm_rope import fused_rmsnorm, fused_rmsnorm_rope
 from ..ops.rope import assemble_freqs_grid
+from ..parallel.context import axis_size, current_sharding, gather_seq, pad_rows, split_seq
+from ..parallel.fsdp import gathered
+from ..parallel.ring import ring_attention
+from ..parallel.ulysses import ulysses_attention
 from . import wan_animate as A
 from .wan_controllers import SimpleAdapter, init_simple_adapter_, simple_adapter_forward
 
@@ -262,7 +274,10 @@ def _split_mod(modulation, t_mod, n: int) -> List[torch.Tensor]:
 
 
 def self_attention(p: Attention, x, cos, sin, num_heads: int,
-                   eps: float = 1e-6):
+                   eps: float = 1e-6, seq_valid: Optional[int] = None):
+    """seq_valid: the count of real tokens when the sequence carries mesh
+    padding (masked as keys in every layer; a padded query row is dropped
+    after the head)."""
     b, s, d = x.shape
     mode = getattr(p.q, "mode", None)
     if mode in ("int8", "int4"):
@@ -279,7 +294,12 @@ def self_attention(p: Attention, x, cos, sin, num_heads: int,
     q, k = fused_rmsnorm_rope(q0, k0, p.norm_q.scale, p.norm_k.scale,
                               cos, sin, eps)
     v = v.view(b, s, num_heads, d // num_heads)
-    out = attention(q, k, v)
+    ctx = current_sharding()
+    if ctx is not None and ctx.axis_size("sp") > 1:
+        seq_parallel = ulysses_attention if ctx.ulysses else ring_attention
+        out = seq_parallel(q, k, v, ctx, kv_valid=seq_valid)
+    else:
+        out = attention(q, k, v, kv_valid=seq_valid)
     return p.o(out.reshape(b, s, d))
 
 
@@ -304,12 +324,13 @@ def cross_attention(p: Attention, x, y, num_heads: int, eps: float = 1e-6,
     return p.o(out)
 
 
-def dit_block(p: DiTBlock, x, context, t_mod, cos, sin, cfg: WanDiTConfig):
+def dit_block(p: DiTBlock, x, context, t_mod, cos, sin, cfg: WanDiTConfig,
+              seq_valid: Optional[int] = None):
     shift_msa, scale_msa, gate_msa, shift_mlp, scale_mlp, gate_mlp = \
         _split_mod(p.modulation, t_mod, 6)
     h = modulate(layer_norm(x, eps=cfg.eps), shift_msa, scale_msa)
     x = x + gate_msa * self_attention(p.self_attn, h, cos, sin,
-                                      cfg.num_heads, cfg.eps)
+                                      cfg.num_heads, cfg.eps, seq_valid)
     x = x + cross_attention(p.cross_attn,
                             layer_norm(x, p.norm3.scale, p.norm3.bias, cfg.eps),
                             context, cfg.num_heads, cfg.eps, cfg.has_image_input)
@@ -318,14 +339,18 @@ def dit_block(p: DiTBlock, x, context, t_mod, cos, sin, cfg: WanDiTConfig):
 
 
 def block_fn(remat: bool):
-    """`dit_block`, or with remat a version whose activations are recomputed
-    in the backward (torch.utils.checkpoint, non-reentrant); same values."""
+    """`dit_block` with the block's parameters gathered if FSDP sharded
+    them, or with remat a version whose activations are recomputed in the
+    backward (torch.utils.checkpoint, non-reentrant); same values."""
     if not remat:
-        return dit_block
+        def run(blk, *args):
+            with gathered(blk):
+                return dit_block(blk, *args)
+        return run
 
-    def run(*args):
+    def run_remat(*args):
         return checkpoint(dit_block, *args, use_reentrant=False)
-    return run
+    return run_remat
 
 
 def run_blocks(blocks: Sequence[DiTBlock], x, context, t_mod, cos, sin,
@@ -333,7 +358,8 @@ def run_blocks(blocks: Sequence[DiTBlock], x, context, t_mod, cos, sin,
                vace_layers: Optional[Sequence[int]] = None,
                vace_scale: float = 1.0, remat: bool = False, layer_gate=None,
                segment_layers: Optional[Sequence[int]] = None,
-               segment_callback: Optional[Callable] = None):
+               segment_callback: Optional[Callable] = None,
+               seq_valid: Optional[int] = None):
     """The block stack; VACE hint j is added after layer vace_layers[j],
     cast to the trunk dtype (the scale too, so an fp32 scale never promotes
     a bf16 trunk).
@@ -345,7 +371,10 @@ def run_blocks(blocks: Sequence[DiTBlock], x, context, t_mod, cos, sin,
     segment_layers / segment_callback: x = segment_callback(j, x) after
     layer segment_layers[j] (the Animate face blocks), after that layer's
     gate. As in the JAX package, the callback takes the VACE hints' place:
-    with segments no hint is added."""
+    with segments no hint is added.
+
+    seq_valid: the real token count of a mesh-padded sequence
+    (`self_attention`)."""
     inject = {}
     if segment_layers is not None:
         inject = {layer: j for j, layer in enumerate(segment_layers)}
@@ -357,13 +386,61 @@ def run_blocks(blocks: Sequence[DiTBlock], x, context, t_mod, cos, sin,
                 torch.tensor(vace_scale, dtype=x.dtype, device=x.device)
     body = block_fn(remat)
     for i, blk in enumerate(blocks):
-        y = body(blk, x, context, t_mod, cos, sin, cfg)
+        y = body(blk, x, context, t_mod, cos, sin, cfg, seq_valid)
         if layer_gate is not None:
             y = x + layer_gate[i].to(x.dtype)[:, None, None] * (y - x)
         x = y
         if i in inject:
             x = segment_callback(inject[i], x)
     return x
+
+
+# rows of each rank's share are a multiple of this: K1 sums a query row's
+# squares for its norm bound over the row's 16-byte chunks in the order of
+# their 128-byte swizzle, which repeats every 8 rows, so a row keeps every
+# bit of its one-process result only where it keeps its position modulo 8
+SHARD_ROWS = 8
+
+
+def mesh_padded_length(s: int) -> int:
+    """S rounded up to a multiple of sp x SHARD_ROWS under a context with
+    sp > 1 (the JAX package rounds to a multiple of sp); S otherwise."""
+    sp = axis_size("sp")
+    return s if sp == 1 else s + (-s) % (sp * SHARD_ROWS)
+
+
+def pad_tokens_for_mesh(tokens, cos, sin):
+    """Pad (B, S, D) tokens and their (S, d/2) RoPE tables so S divides the
+    active mesh's sp axis (into shares of whole SHARD_ROWS): zero tokens,
+    cos padded with 1 and sin with 0 (an identity rotation, so K4 stays
+    finite on the padded rows). Returns (tokens, cos, sin, seq_valid),
+    seq_valid the original S, or None where nothing was padded."""
+    s = tokens.shape[1]
+    length = mesh_padded_length(s)
+    if length == s:
+        return tokens, cos, sin, None
+    return (pad_rows(tokens, length), pad_rows(cos, length, dim=0, value=1.0),
+            pad_rows(sin, length, dim=0), s)
+
+
+def shard_tokens(tokens, cos, sin, t=None, t_mod=None):
+    """The mesh's share of a sequence: `pad_tokens_for_mesh`, then this
+    rank's rows of the tokens, of cos/sin and of a per-token t (B, S, dim)
+    and t_mod (B, S, 6, dim) (padded with zeros). Returns (tokens, cos,
+    sin, t, t_mod, seq_valid); without sp all as given, seq_valid None."""
+    tokens, cos, sin, seq_valid = pad_tokens_for_mesh(tokens, cos, sin)
+    length = tokens.shape[1]
+    if t is not None and t.dim() == 3:
+        t = split_seq(pad_rows(t, length))
+        t_mod = split_seq(pad_rows(t_mod, length))
+    return (split_seq(tokens), split_seq(cos, dim=0), split_seq(sin, dim=0), t, t_mod,
+            seq_valid)
+
+
+def unshard_tokens(x, seq_valid: Optional[int]):
+    """Every rank's rows of the head's output, gathered and unpadded."""
+    x = gather_seq(x)
+    return x if seq_valid is None else x[:, :seq_valid]
 
 
 def unpatchify(x, grid: Tuple[int, int, int], patch_size: Tuple[int, int, int],
@@ -459,7 +536,8 @@ def wan_dit_forward_with_residual(model: WanDiT, x, timestep, context,
                                   reference_latents=None, t_mod_add=None,
                                   animate=None):
     """`wan_dit_forward`, also returning the block stack's residual
-    (tokens out - tokens in, (B, S, dim)) that TeaCache replays.
+    (tokens out - tokens in, (B, S, dim); under sp this rank's rows of the
+    padded sequence) that TeaCache replays.
 
     control_camera: (B, 24, F, H, W) packed Plücker latents for the camera
     adapter; reference_latents: (B, z, 1, H, W), one more leading RoPE
@@ -468,39 +546,44 @@ def wan_dit_forward_with_residual(model: WanDiT, x, timestep, context,
     latents (B, 16, F - 1, H, W), face crops (B, 3, T, size, size)): the
     pose tokens added after the VACE hints are taken, a face block after
     every 5th layer."""
-    cfg = model.cfg
-    t, t_mod = time_embed(model, timestep)
-    if t_mod_add is not None:
-        t_mod = t_mod + t_mod_add.to(t_mod.dtype)
-    x, context = image_inputs(model, x, text_embed(model, context), clip_feature, y)
-    tokens_in, (f, h, w), n_ref = assemble_tokens(model, x, control_camera,
-                                                  reference_latents)
-    cos, sin = assemble_freqs_grid(cfg.head_dim, f + (1 if n_ref else 0), h, w,
-                                   rope_indices, device=tokens_in.device)
-    hints = None
-    if vace is not None and vace_context is not None:
-        from .wan_vace import vace_forward
-        hints = vace_forward(vace, tokens_in, vace_context, context, t_mod,
-                             cos, sin, remat=remat)
-    segments = {}
-    if animate is not None:
-        adapter, pose_latents, face_values = animate
-        tokens_in, motion_vec = A.animate_after_patch_embedding(
-            adapter, tokens_in, (f, h, w), pose_latents, face_values)
+    with gathered(model):
+        cfg = model.cfg
+        t, t_mod = time_embed(model, timestep)
+        if t_mod_add is not None:
+            t_mod = t_mod + t_mod_add.to(t_mod.dtype)
+        x, context = image_inputs(model, x, text_embed(model, context), clip_feature, y)
+        tokens_in, (f, h, w), n_ref = assemble_tokens(model, x, control_camera,
+                                                      reference_latents)
+        cos, sin = assemble_freqs_grid(cfg.head_dim, f + (1 if n_ref else 0), h, w,
+                                       rope_indices, device=tokens_in.device)
+        if animate is not None and axis_size("sp") > 1:
+            raise NotImplementedError("Animate is not yet under a mesh with sp > 1 "
+                                      "(ROADMAP item 8): its hooks need the whole token grid")
+        tokens_in, cos, sin, t, t_mod, seq_valid = shard_tokens(tokens_in, cos, sin, t, t_mod)
+        hints = None
+        if vace is not None and vace_context is not None:
+            from .wan_vace import vace_forward
+            hints = vace_forward(vace, tokens_in, vace_context, context, t_mod,
+                                 cos, sin, remat=remat, seq_valid=seq_valid)
+        segments = {}
+        if animate is not None:
+            adapter, pose_latents, face_values = animate
+            tokens_in, motion_vec = A.animate_after_patch_embedding(
+                adapter, tokens_in, (f, h, w), pose_latents, face_values)
 
-        def after_block(j, x):
-            return A.animate_after_transformer_block(adapter, 5 * j, x, motion_vec,
-                                                     cfg.num_heads)
-        segments = dict(segment_layers=tuple(range(0, cfg.num_layers, 5)),
-                        segment_callback=after_block)
-    tokens = run_blocks(model.blocks, tokens_in, context, t_mod, cos, sin, cfg,
-                        vace_hints=hints,
-                        vace_layers=None if hints is None else vace.cfg.vace_layers,
-                        vace_scale=vace_scale, remat=remat, layer_gate=layer_gate,
-                        **segments)
-    out = head(model, tokens, t)[:, n_ref:]
-    out = unpatchify(out, (f, h, w), cfg.patch_size, cfg.out_dim)
-    return out, tokens - tokens_in
+            def after_block(j, x):
+                return A.animate_after_transformer_block(adapter, 5 * j, x, motion_vec,
+                                                         cfg.num_heads)
+            segments = dict(segment_layers=tuple(range(0, cfg.num_layers, 5)),
+                            segment_callback=after_block)
+        tokens = run_blocks(model.blocks, tokens_in, context, t_mod, cos, sin, cfg,
+                            vace_hints=hints,
+                            vace_layers=None if hints is None else vace.cfg.vace_layers,
+                            vace_scale=vace_scale, remat=remat, layer_gate=layer_gate,
+                            seq_valid=seq_valid, **segments)
+        out = unshard_tokens(head(model, tokens, t), seq_valid)[:, n_ref:]
+        out = unpatchify(out, (f, h, w), cfg.patch_size, cfg.out_dim)
+        return out, tokens - tokens_in
 
 
 def wan_dit_forward(model: WanDiT, x, timestep, context, rope_indices=None,

@@ -10,9 +10,10 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import List, Tuple
 
-import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.context import axis_size, pad_rows, split_seq
+from ..parallel.fsdp import gathered
 from .wan_dit import DiTBlock, Linear, WanDiTConfig, block_fn, patchify
 
 
@@ -58,22 +59,24 @@ class WanVace(nn.Module):
 
 
 def vace_forward(model: WanVace, x_tokens, vace_context, context, t_mod,
-                 cos, sin, remat: bool = False) -> List:
+                 cos, sin, remat: bool = False, seq_valid=None) -> List:
     """Per-mapped-layer hints, each (B, S, D).
 
     x_tokens: trunk tokens after patchify (B, S, D); vace_context:
     (B, vace_in_dim, F, H, W). The context tokens are zero-padded to the
     trunk length when shorter. remat: recompute each block in the backward
-    (`models.wan_dit.block_fn`)."""
+    (`models.wan_dit.block_fn`). Under sp, x_tokens, cos and sin are this
+    rank's rows of the mesh-padded sequence, and so is each hint (the
+    context tokens are padded to the whole padded length and split alike);
+    seq_valid is the real token count (`wan_dit.self_attention`)."""
     bcfg = model.cfg.block_cfg()
-    c, _ = patchify(model.patch_embedding, vace_context, model.cfg.patch_size)
-    s_x, s_c = x_tokens.shape[1], c.shape[1]
-    if s_c < s_x:
-        c = F.pad(c, (0, 0, 0, s_x - s_c))
-    c = model.before_proj(c) + x_tokens
-    hints = []
-    body = block_fn(remat)
-    for blk, after in zip(model.blocks, model.after_proj):
-        c = body(blk, c, context, t_mod, cos, sin, bcfg)
-        hints.append(after(c))
+    with gathered(model):
+        c, _ = patchify(model.patch_embedding, vace_context, model.cfg.patch_size)
+        c = split_seq(pad_rows(c, x_tokens.shape[1] * axis_size("sp")))
+        c = model.before_proj(c) + x_tokens
+        hints = []
+        body = block_fn(remat)
+        for blk, after in zip(model.blocks, model.after_proj):
+            c = body(blk, c, context, t_mod, cos, sin, bcfg, seq_valid)
+            hints.append(after(c))
     return hints

@@ -36,6 +36,10 @@ Wan2.2 expert as kind `dit2`, read by `utils.ckpt`), from
 `convert.from_jax_params`, or
 from `from_configs` (random weights).
 
+Multi-GPU (`sharding_ctx`, `from_configs(mesh=...)`): the DiT and VACE
+run sequence-parallel and FSDP-sharded over a (dp, fsdp, sp) mesh
+(`parallel/`); every rank runs the text encoder and the VAE whole.
+
 Runs on `cuda` unless constructed with `device="cpu"`. Each stage's wall
 time (synchronised with the card) is kept in `stage_times`; on the card,
 `stage_peak_bytes` holds `torch.cuda.max_memory_allocated` as each stage
@@ -43,6 +47,7 @@ ends (a running maximum: the caller resets it).
 """
 from __future__ import annotations
 
+import copy
 import time
 from contextlib import contextmanager
 from typing import Callable, List, Optional, Tuple
@@ -61,9 +66,13 @@ from ..models.wan_controllers import (MotionController, convert_motion_controlle
                                       motion_controller_forward, pack_camera_latents,
                                       process_camera_coordinates)
 from ..models.wan_dit import (CLIP_DIM, CLIP_TOKENS, WanDiT, WanDiTConfig, assemble_tokens,
-                              head, image_inputs, init_weights_, time_embed, unpatchify,
+                              head, image_inputs, init_weights_, mesh_padded_length,
+                              time_embed, unpatchify, unshard_tokens,
                               wan_dit_forward_with_residual)
 from ..models.wan_vace import VaceConfig, WanVace
+from ..parallel.context import (ShardingContext, axis_size, current_sharding, pad_rows,
+                                split_seq, use_sharding)
+from ..parallel.fsdp import gathered, materialize_sharded_, shard_params_fsdp
 from ..prompters.wan_prompter import WanPrompter
 from ..schedulers.flow_match import FlowMatchScheduler
 from ..utils import ckpt as C
@@ -170,6 +179,9 @@ class WanVideoPipeline:
         self.t5_cfg: T5Config = UMT5_XXL
         self.vae_cfg: V.WanVAEConfig = V.WAN21_VAE
         self._lora_stacks = {}
+        # the mesh the DiT runs under (`parallel.ShardingContext`): each
+        # forward enters it, unless the caller has entered one already
+        self.sharding_ctx = None
         self.stage_times: List[Tuple[str, float]] = []
         self.stage_peak_bytes: List[Tuple[str, int]] = []
 
@@ -178,11 +190,17 @@ class WanVideoPipeline:
                      t5_cfg: T5Config, vae_cfg, tokenizer: Callable,
                      text_len: int = 512, seed: int = 0, device=None,
                      dtype=torch.bfloat16,
-                     clip_cfg: Optional[CV.ClipVitConfig] = None) -> "WanVideoPipeline":
+                     clip_cfg: Optional[CV.ClipVitConfig] = None,
+                     mesh=None) -> "WanVideoPipeline":
         """Random weights drawn on the device from one seeded generator, with
         the JAX init's std; the DiT (none with `dit_cfg` None), VACE, T5
         and CLIP tower (with `clip_cfg`) in `dtype`, the VAE (a
-        `WanVAE38Config` builds the Wan2.2 one) in fp32."""
+        `WanVAE38Config` builds the Wan2.2 one) in fp32.
+
+        mesh (`parallel.make_mesh`): the pipeline runs under it; with fsdp >
+        1 the DiT and VACE are FSDP-sharded as they are drawn, each rank
+        keeping its shards of the same values (`parallel.fsdp.
+        materialize_sharded_`), so no rank holds a whole copy."""
         pipe = cls(device=device, dtype=dtype)
         pipe.t5_cfg, pipe.vae_cfg = t5_cfg, vae_cfg
         dev = pipe.device
@@ -194,10 +212,18 @@ class WanVideoPipeline:
             t5 = T5Encoder(t5_cfg, dtype=dtype)
             vae = vae_cls(vae_cfg, dtype=torch.float32)
             clip = None if clip_cfg is None else CV.ClipVit(clip_cfg, dtype=dtype)
-        if dit is not None:
-            pipe.dit = init_weights_(dit.to_empty(device=dev), gen).eval()
-        if vace is not None:
-            pipe.vace = init_weights_(vace.to_empty(device=dev), gen).eval()
+        if mesh is not None:
+            pipe.sharding_ctx = ShardingContext(mesh)
+        for name, module in (("dit", dit), ("vace", vace)):
+            if module is None:
+                continue
+            if mesh is None or pipe.sharding_ctx.axis_size("fsdp") == 1:
+                module = init_weights_(module.to_empty(device=dev), gen)
+            else:
+                template = copy.deepcopy(module)
+                module = materialize_sharded_(shard_params_fsdp(module, mesh), template,
+                                              init_weights_, gen, dev)
+            setattr(pipe, name, module.eval())
         t5 = init_t5_(t5.to_empty(device=dev), gen).eval()
         pipe.vae = V.init_wan_vae_(vae.to_empty(device=dev), gen).eval()
         if clip is not None:
@@ -370,6 +396,17 @@ class WanVideoPipeline:
         if quantize_attention:
             from ..ops.attention import set_quantized_attention
             set_quantized_attention(True)
+
+    def shard(self, mesh, ulysses: bool = True) -> "WanVideoPipeline":
+        """Run under `mesh` (`parallel.make_mesh`): the DiT(s) and VACE
+        branch(es) FSDP-sharded over its fsdp dim (after any LoRA merge),
+        the sequence split over sp (Ulysses, or the ring with ulysses
+        False). umT5, CLIP and the VAE stay whole on every rank."""
+        for name in ("dit", "dit2", "vace", "vace2"):
+            if getattr(self, name) is not None:
+                shard_params_fsdp(getattr(self, name), mesh)
+        self.sharding_ctx = ShardingContext(mesh, ulysses=ulysses)
+        return self
 
     @contextmanager
     def _stage(self, name: str):
@@ -570,14 +607,20 @@ class WanVideoPipeline:
         """TeaCache replay: the tokens as the full forward assembles them
         (the latents with y, the camera features, the reference frame's
         tokens in front) + the cached residual + head, the reference's rows
-        dropped."""
+        dropped. Under sp the residual is this rank's rows of the padded
+        sequence: the tokens are padded and split alike, and the head's rows
+        gathered and unpadded, as the full forward does."""
         dit = self._expert(which)
         cfg = dit.cfg
         t, _ = time_embed(dit, timestep)
         latents, _ = image_inputs(dit, latents, None, y=y)
         tokens, grid, n_ref = assemble_tokens(dit, latents, control_camera,
                                               reference_latents)
-        out = head(dit, tokens + residual, t)[:, n_ref:]
+        s = tokens.shape[1]
+        tokens = split_seq(pad_rows(tokens, mesh_padded_length(s)))
+        if t.dim() == 3:
+            t = split_seq(pad_rows(t, tokens.shape[1] * axis_size("sp")))
+        out = unshard_tokens(head(dit, tokens + residual, t), s)[:, n_ref:]
         return unpatchify(out, grid, cfg.patch_size, cfg.out_dim)
 
     def _branch_forward(self, which, vace, latents, timestep, context,
@@ -589,30 +632,35 @@ class WanVideoPipeline:
         replay of its last residual. The Animate inputs exclude the Fun
         reference and camera (a ValueError, as in the JAX pipeline); the
         replay, like the JAX pipeline's, takes neither the pose tokens nor
-        the speed term."""
+        the speed term. It runs under `self.sharding_ctx` unless the caller
+        entered a context (`parallel.use_sharding`); under one with sp > 1
+        the forward and the replay pad, split and unpad the sequence as
+        `models.wan_dit` says, each rank caching its own residual rows."""
         if animate_inputs is not None and (reference_latents is not None
                                            or control_camera is not None):
             raise ValueError("animate conditioning cannot combine with "
                              "FunReference/FunCameraControl")
+        ctx = self.sharding_ctx if current_sharding() is None else current_sharding()
         dit = self._expert(which)
-        if tea_cache is not None:
-            _, t_mod = time_embed(dit, timestep)
-            if tea_cache.check(t_mod) and tea_cache.previous_residual is not None:
-                return self._skip(which, latents, timestep, tea_cache.previous_residual, y,
-                                  control_camera, reference_latents)
-        t_mod_add = None
-        if motion_bucket_id is not None:
-            mc = motion_controller_forward(self.motion_controller, motion_bucket_id)
-            t_mod_add = mc.reshape(mc.shape[0], 6, dit.cfg.dim)
-        animate = None if animate_inputs is None else (self.animate,) + tuple(animate_inputs)
-        v, residual = wan_dit_forward_with_residual(
-            dit, latents, timestep, context, rope_indices=rope_indices, vace=vace,
-            vace_context=vace_context, vace_scale=vace_scale, layer_gate=layer_gate,
-            clip_feature=clip_feature, y=y, control_camera=control_camera,
-            reference_latents=reference_latents, t_mod_add=t_mod_add, animate=animate)
-        if tea_cache is not None:
-            tea_cache.store(residual)
-        return v
+        with use_sharding(ctx), gathered(dit):
+            if tea_cache is not None:
+                _, t_mod = time_embed(dit, timestep)
+                if tea_cache.check(t_mod) and tea_cache.previous_residual is not None:
+                    return self._skip(which, latents, timestep, tea_cache.previous_residual,
+                                      y, control_camera, reference_latents)
+            t_mod_add = None
+            if motion_bucket_id is not None:
+                mc = motion_controller_forward(self.motion_controller, motion_bucket_id)
+                t_mod_add = mc.reshape(mc.shape[0], 6, dit.cfg.dim)
+            animate = None if animate_inputs is None else (self.animate,) + tuple(animate_inputs)
+            v, residual = wan_dit_forward_with_residual(
+                dit, latents, timestep, context, rope_indices=rope_indices, vace=vace,
+                vace_context=vace_context, vace_scale=vace_scale, layer_gate=layer_gate,
+                clip_feature=clip_feature, y=y, control_camera=control_camera,
+                reference_latents=reference_latents, t_mod_add=t_mod_add, animate=animate)
+            if tea_cache is not None:
+                tea_cache.store(residual)
+            return v
 
     def _forward_all_branches(self, which, vace, latents, timestep, ctx_posi,
                               ctx_nega, vace_context, vace_scale, cfg_scale,
@@ -731,6 +779,10 @@ class WanVideoPipeline:
         frames (they do when num_frames is a multiple of 4), and
         `motion_latents` reaches a forward that drops them (the
         reference's default): ROADMAP Queue 3."""
+        if axis_size("sp") > 1 or (self.sharding_ctx is not None
+                                   and self.sharding_ctx.axis_size("sp") > 1):
+            raise NotImplementedError("s2v is not yet under a mesh with sp > 1 (ROADMAP "
+                                      "item 8): its blocks need the whole token grid")
         if self.s2v_model is None:
             raise RuntimeError("no S2V model attached")
         self.stage_times = []
