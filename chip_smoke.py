@@ -119,6 +119,11 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
              image-quality metrics at their tiny configs) on 4 frames of
              64x64, card vs CPU on the same weights, stage by stage, and
              the share of NNF entries that differ
+  streaming_reference  the smoke VACE pipeline after
+             enable_block_streaming("int8", resident_blocks=1) (one trunk
+             block resident, the other and both VACE blocks through the
+             copy stream and the slot ring), card vs CPU; then the card's
+             serial walk (overlap=False), bit-equal to its overlapped one
   s2v_reference  the Wan2.2-S2V smoke recipe (a tiny S2V model and
              wav2vec2 tower, a synthetic waveform through
              `extract_audio_features` on each device, 12 frames with a pose
@@ -185,6 +190,31 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
              FastBlend batch profiled (`postprocess_profile`); one pyramid
              estimate with use_pairwise_patch_error, counted for F3
              (`postprocess_pairwise`)
+  streaming  on a free card, the e2e edit's models at full width again
+             (random bf16 WAN_T2V_14B + VACE_14B from seed 0, umT5-XXL
+             parked on the host between encodes, the Wan2.1 VAE),
+             quantize("int8") without int8 attention, the --frames
+             request resident (--steps steps, CFG 5 two-pass, latents);
+             then enable_block_streaming("int8", 13.5 GB, depth 3) on the
+             same int8 weights: the plan (resident blocks, resident GB,
+             streamed GB a pass), the host store's build and pin seconds,
+             its pinned bytes and the host's counters around it, the
+             host-to-device rate from pinned memory alone, GB streamed a
+             step, step seconds overlapped and
+             resident and (1 step) serial, the denoise loop's peak (reset
+             at its first forward) against the budget plus the VAE (umT5's
+             bytes printed apart: on the host during the loop), latents
+             against the resident int8 run, K1/K4/K5 launches (384/192/192
+             at 2 steps), one forward each way on the same inputs
+             bit-equal, then each traced (torch.profiler): the copies'
+             device time and the share of it spent under a kernel
+  workflow_smokes  `run_comfyui_workflow --smoke` (a graph of the
+             reference workflow's node types: fp8 model (int8 here),
+             block swap (every block streamed), UniPC, cfg 1.2, VACE
+             0.975, SLG) and `video_editing_with_agent --smoke` (the step1
+             agent with the mock image provider on a synthetic clip, then
+             the editor) on the card: seconds, frames, launches, the
+             workflow's streaming plan and blocks copied
   usp_kernels  (with the kernel rows) one rank's work of the multi-GPU path
              at Wan2.1-14B width over the Ditto clip's 29,640 tokens, in
              this process: K1 on a Ulysses share (20 and 10 heads over the
@@ -2880,6 +2910,310 @@ def run_postprocess(torch, kernels):
     return launches
 
 
+# ---------------------------------------------------------------- streaming
+
+STREAM_BUDGET_GB = 13.5      # the JAX package's defaults (models/wan_streaming.py)
+STREAM_DEPTH = 3
+
+
+def check_streaming_reference(torch):
+    """The smoke VACE pipeline streamed (`enable_block_streaming("int8",
+    resident_blocks=1)`: one trunk block resident, the other and both VACE
+    blocks through the ring) on the card against the same on the CPU; then
+    the card's serial walk (overlap=False), bit-equal to its overlapped one."""
+    from video_styler_tpu_torch.infer_ditto import build_smoke_pipeline, smoke_frames
+    from video_styler_tpu_torch.pipelines.wan_video import WanVideoPipeline
+    cpu = build_smoke_pipeline(device="cpu", seed=0)
+    gpu = card_copy(torch, cpu, WanVideoPipeline)
+    plans = [p.enable_block_streaming("int8", resident_blocks=1) for p in (cpu, gpu)]
+    kw = dict(prompt="a watercolor city at dusk", vace_video=smoke_frames(9, 32, 32),
+              num_frames=9, height=32, width=32, seed=42, cfg_scale=5.0,
+              num_inference_steps=2, tiled=True, return_latents=True)
+    res, ok = check_card_against_cpu(torch, "streaming_reference", cpu, gpu,
+                                     lambda pipe: pipe(**kw), plan=plans[1],
+                                     steps=2, cfg="two-pass 5.0")
+    streamer = gpu._streamers["dit"]
+    overlapped = gpu(**kw)
+    streamer.overlap = False
+    try:
+        serial = gpu(**kw)
+    finally:
+        streamer.overlap = True
+    res.update(serial_bit_equal_to_overlapped=bool(torch.equal(serial, overlapped)),
+               ring_copies=streamer.ring.copies)
+    emit(res)
+    if not (ok and res["serial_bit_equal_to_overlapped"]):
+        raise AssertionError(f"streamed smoke pipeline: {res}")
+
+
+def h2d_rate(torch, nbytes: int, reps: int = 5) -> dict:
+    """Seconds to pin a host buffer of `nbytes` (`pinned_empty`), and the
+    host-to-device rate from it alone (median of CUDA-event timed copies)."""
+    from video_styler_tpu_torch.parallel.streaming import pinned_empty
+    t0 = time.perf_counter()
+    host = pinned_empty(nbytes)
+    pin_s = time.perf_counter() - t0
+    host.fill_(1)
+    dev = torch.empty(nbytes, dtype=torch.uint8, device="cuda")
+    times = []
+    for _ in range(reps + 1):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        dev.copy_(host, non_blocking=True)
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / 1e3)
+    del host, dev
+    return dict(pin_s=pin_s, gb_per_s=nbytes / statistics.median(times[1:]) / 1e9)
+
+
+def hidden_share(copies, kernels) -> float:
+    """The share of the copies' device time (start, end) intervals that
+    falls inside the union of the kernels' intervals."""
+    merged = []
+    for start, end in sorted(kernels):
+        if merged and start <= merged[-1][1]:
+            merged[-1][1] = max(merged[-1][1], end)
+        else:
+            merged.append([start, end])
+    total = sum(end - start for start, end in copies)
+    inside = sum(max(0, min(end, b) - max(start, a))
+                 for start, end in copies for a, b in merged)
+    return inside / total if total else 0.0
+
+
+def copy_overlap(torch, run) -> dict:
+    """`run()` under torch.profiler: the host-to-device copies' device time,
+    the kernels' (their union), and the share of the copies' time spent
+    while a kernel ran (the copy stream hidden under the compute)."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    copies, kernels = [], []
+    for evt in prof.events():
+        if evt.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        span = (evt.time_range.start, evt.time_range.end)
+        (copies if evt.name.startswith("Memcpy HtoD") else kernels).append(span)
+    return dict(copies=len(copies),
+                copy_ms=sum(e - s for s, e in copies) / 1e3,
+                kernel_ms=sum(e - s for s, e in kernels) / 1e3,
+                copy_hidden_share=hidden_share(copies, kernels))
+
+
+def loop_peak(torch, pipe) -> dict:
+    """Resets the peak memory at the denoise loop's first forward (after
+    the encodes) for each request; the caller reads it after the request."""
+    box = {}
+    forward = pipe._forward_all_branches
+
+    def first_forward_resets(*args, **kwargs):
+        if not box.get("reset"):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            box["reset"] = True
+        return forward(*args, **kwargs)
+    pipe._forward_all_branches = first_forward_resets
+    return box
+
+
+def run_streaming(torch, kernels, frames: int, steps: int, smi: str):
+    """`streaming`: the e2e edit's models at full width (WAN_T2V_14B +
+    VACE_14B, umT5-XXL parked on the host between encodes, the Wan2.1
+    VAE), quantize("int8") (linears only), the request resident, then
+    enable_block_streaming("int8", 13.5 GB, depth 3) on the same int8
+    weights and the request streamed (overlapped, --steps steps, counted),
+    then 1 step serial; one forward each way on the same inputs, bit-equal.
+    Returns the overlapped run's launches."""
+    import numpy as np
+    pipe, init_s = build_pipeline(torch)
+    park_text_encoder(pipe)
+    t0 = time.perf_counter()
+    pipe.quantize("int8")
+    torch.cuda.synchronize()
+    gc.collect()
+    torch.cuda.empty_cache()
+    quantize_s = time.perf_counter() - t0
+    request = dict(edit_request(frames, steps), return_latents=True)
+    box = loop_peak(torch, pipe)
+    lat_res = pipe(**request)
+    resident = dict(step_s=step_times(pipe),
+                    loop_peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                    weights_gb=sum(t.numel() * t.element_size() for m in (pipe.dit, pipe.vace)
+                                   for t in list(m.parameters()) + list(m.buffers())) / 1e9)
+    vae_bytes = sum(t.numel() * t.element_size() for t in pipe.vae.parameters())
+    t5_bytes = sum(t.numel() * t.element_size()
+                   for t in pipe.prompter.text_encoder.parameters())
+
+    from video_styler_tpu_torch.probe_pinning import counters_delta, host_counters
+    host_before = host_counters()
+    t0 = time.perf_counter()
+    plan = pipe.enable_block_streaming("int8", hbm_budget_gb=STREAM_BUDGET_GB,
+                                       prefetch_depth=STREAM_DEPTH)
+    enable_s = time.perf_counter() - t0
+    host_delta = counters_delta(host_counters(), host_before)
+    streamer = pipe._streamers["dit"]
+    store = streamer.streamed_host + (streamer.vace_streamed_host or [])
+    pinned_bytes = sum(b.buf.numel() for b in store)
+    block_bytes = streamer.streamed_host[0].buf.numel()
+    link = h2d_rate(torch, block_bytes)
+    allocated_gb = torch.cuda.memory_allocated() / 1e9
+
+    for kern in kernels.values():
+        kern.launches = 0
+    copied0 = streamer.ring.bytes_copied
+    box.clear()
+    lat_st = pipe(**request)
+    launches = {name: kern.launches for name, kern in kernels.items()}
+    loop_peak_bytes = torch.cuda.max_memory_allocated()
+    streamed_gb_per_step = (streamer.ring.bytes_copied - copied0) / 1e9 / steps
+    overlapped_step_s = step_times(pipe)
+
+    streamer.overlap = False
+    try:
+        pipe(**dict(request, num_inference_steps=1))
+        serial_step_s = step_times(pipe)
+        # one forward each way on the same inputs
+        gen = torch.Generator("cuda").manual_seed(3)
+        f_lat = (frames - 1) // 4 + 1
+        inputs = (torch.randn((1, 16, f_lat, 60, 104), generator=gen, device="cuda"
+                              ).to(torch.bfloat16),
+                  torch.tensor([900.0], device="cuda"),
+                  torch.randn((1, TEXT_LEN, 4096), generator=gen, device="cuda"
+                              ).to(torch.bfloat16),
+                  torch.randn((1, 96, f_lat, 60, 104), generator=gen, device="cuda"
+                              ).to(torch.bfloat16))
+        forward_s = {}
+        outs = {}
+        for name, overlap in (("serial", False), ("overlapped", True)):
+            streamer.overlap = overlap
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            outs[name] = streamer.forward(*inputs)[0]
+            torch.cuda.synchronize()
+            forward_s[name] = time.perf_counter() - t0
+        # the same forwards traced: how much of the copy ran under compute
+        overlap_trace = {}
+        for name, overlap in (("serial", False), ("overlapped", True)):
+            streamer.overlap = overlap
+            overlap_trace[name] = copy_overlap(torch, lambda: streamer.forward(*inputs))
+    finally:
+        streamer.overlap = True
+        del pipe._forward_all_branches
+
+    diff = (lat_st.float() - lat_res.float())
+    rel = (diff.norm() / lat_res.float().norm()).item()
+    from video_styler_tpu_torch.models.wan_dit import WAN_T2V_14B
+    from video_styler_tpu_torch.models.wan_vace import VACE_14B
+    layers = WAN_T2V_14B.num_layers + len(VACE_14B.vace_layers)
+    expected = {"K1": 2 * layers * 2 * steps, "K4": layers * 2 * steps,
+                "K5": layers * 2 * steps}
+    outside = dict(vae=vae_bytes, umt5_parked_on_host_during_the_loop=t5_bytes)
+    res = dict(phase="streaming", card=smi, frames=frames,
+               tokens=int(np.prod(token_grid(frames))), steps=steps, cfg="two-pass 5.0",
+               mode="int8", hbm_budget_gb=STREAM_BUDGET_GB, prefetch_depth=STREAM_DEPTH,
+               plan=plan, init_s=init_s, quantize_s=quantize_s,
+               enable_streaming_s=enable_s, store_seconds=streamer.store_seconds,
+               streamed_block_bytes=block_bytes, h2d_pinned=link,
+               store_pinned_bytes=pinned_bytes, store_tensor_bytes=sum(b.nbytes for b in store),
+               host_counters_delta_over_enable=host_delta,
+               memory_allocated_after_enable_gb=allocated_gb,
+               streamed_gb_per_step=streamed_gb_per_step,
+               step_s=dict(overlapped=overlapped_step_s, serial=serial_step_s,
+                           resident_int8=resident["step_s"]),
+               forward_s=forward_s, copy_overlap=overlap_trace,
+               loop_peak_gib=dict(streamed=loop_peak_bytes / 2**30,
+                                  resident_int8=resident["loop_peak_gib"]),
+               resident_int8_weights_gb=resident["weights_gb"],
+               outside_budget_bytes=outside,
+               latents_bit_equal_to_resident_int8=bool(torch.equal(lat_st, lat_res)),
+               latents_max_abs_diff=diff.abs().max().item(), latents_rel_l2=rel,
+               latents_tol=5e-2,
+               serial_forward_bit_equal_to_overlapped=bool(torch.equal(outs["serial"],
+                                                                       outs["overlapped"])),
+               launches=launches, expected_launches=expected)
+    emit(res)
+    del pipe, streamer, outs, inputs
+    gc.collect()
+    torch.cuda.empty_cache()
+    check_launches(launches, expected, "streaming")
+    failures = []
+    if loop_peak_bytes > STREAM_BUDGET_GB * 1e9 + vae_bytes:
+        failures.append(f"loop peak {loop_peak_bytes} B over the budget + the VAE")
+    if not rel <= 5e-2:
+        failures.append(f"latents {rel} from the resident int8 run")
+    if not res["serial_forward_bit_equal_to_overlapped"]:
+        failures.append("serial and overlapped forwards differ")
+    if failures:
+        raise AssertionError("streaming: " + "; ".join(failures))
+    return launches
+
+
+WORKFLOW_GRAPH = {"nodes": [  # the node types of the reference's Ditto workflow
+    {"type": "WanVideoSampler", "widgets_values": [4, 1.2, 2.0, 7, "randomize", True, "unipc"]},
+    {"type": "WanVideoTextEncode", "widgets_values": ["Make it a Pixel Art video.", "bad"]},
+    {"type": "WanVideoVACEEncode", "widgets_values": [832, 480, 33, 0.975, 0, 1, False]},
+    {"type": "WanVideoModelLoader", "widgets_values": [
+        "Wan2_1-T2V-14B_fp8_e4m3fn.safetensors", "fp16", "disabled", "offload_device", "sdpa"]},
+    {"type": "WanVideoBlockSwap", "widgets_values": [20, False, False]},
+    {"type": "WanVideoDecode", "widgets_values": [False, 272, 272, 144, 128, "default"]},
+    {"type": "WanVideoSLG", "widgets_values": ["1", 0.2, 0.7]},
+]}
+
+
+def run_workflow_smokes(torch, kernels):
+    """`workflow_smokes`: `run_comfyui_workflow --smoke` (a graph of the
+    reference workflow's node types) and `video_editing_with_agent --smoke`
+    (the mock image provider, a synthetic clip) on the card. The workflow's
+    block swap must stream: its plan and the blocks its ring copied."""
+    import numpy as np
+    from video_styler_tpu_torch import run_comfyui_workflow, video_editing_with_agent
+    from video_styler_tpu_torch.pipelines.wan_video import WanVideoPipeline
+    out_dir = tempfile.mkdtemp(prefix="workflows-")
+    enable = WanVideoPipeline.enable_block_streaming
+    streamers = []
+
+    def recorded(pipe, *args, **kwargs):
+        plan = enable(pipe, *args, **kwargs)
+        streamers.append((plan, pipe._streamers["dit"]))
+        return plan
+    WanVideoPipeline.enable_block_streaming = recorded
+    try:
+        graph = os.path.join(out_dir, "workflow.json")
+        with open(graph, "w") as f:
+            json.dump(WORKFLOW_GRAPH, f)
+        res = dict(phase="workflow_smokes")
+        for name, run in (
+                ("run_comfyui_workflow", lambda: run_comfyui_workflow.main(
+                    ["--workflow", graph, "--smoke",
+                     "--output_path", os.path.join(out_dir, "wf.mp4")])),
+                ("video_editing_with_agent", lambda: video_editing_with_agent.main(
+                    ["--smoke", "--style", "pixel art", "--max_frames", "3",
+                     "--output_dir", os.path.join(out_dir, "agent"),
+                     "--output_path", os.path.join(out_dir, "agent.mp4")]))):
+            for kern in kernels.values():
+                kern.launches = 0
+            t0 = time.perf_counter()
+            frames = np.asarray(run())
+            res[name] = dict(seconds=time.perf_counter() - t0, frames_shape=list(frames.shape),
+                             launches={k: v.launches for k, v in kernels.items()
+                                       if v.launches})
+            if name == "run_comfyui_workflow":
+                res[name]["block_streaming"] = [dict(plan=plan, blocks_copied=st.ring.copies)
+                                                for plan, st in streamers]
+        emit(res)
+        for name in ("run_comfyui_workflow", "video_editing_with_agent"):
+            if not res[name]["launches"].get("K1"):
+                raise AssertionError(f"{name} --smoke launched no attention kernel: {res}")
+        swap = res["run_comfyui_workflow"]["block_streaming"]
+        if len(swap) != 1 or not swap[0]["blocks_copied"]:
+            raise AssertionError(f"the workflow's block swap streamed nothing: {res}")
+    finally:
+        WanVideoPipeline.enable_block_streaming = enable
+        shutil.rmtree(out_dir, ignore_errors=True)
+
+
 KERNEL_CATEGORIES = (  # (category, substrings of the device kernel's name)
     ("K1", ("flash_fwd_capped_kernel",)),
     ("K2", ("flash_fwd_online_kernel",)),
@@ -3305,6 +3639,7 @@ def main(argv=None):
     check_fun_references(torch)
     check_s2v_reference(torch)
     check_postprocess_reference(torch)
+    check_streaming_reference(torch)
     pipe, init_s = build_pipeline(torch)
     e2e_frames = []
     run_edit(torch, pipe, kernels, args.steps, args.frames, "e2e", {"K1": 1.0},
@@ -3368,6 +3703,9 @@ def main(argv=None):
     gc.collect()
     torch.cuda.empty_cache()
     launches.update(run_postprocess(torch, kernels))
+    # block streaming at 14B width on a free card, then the workflow CLIs
+    path_launches["streaming"] = run_streaming(torch, kernels, args.frames, args.steps, smi)
+    run_workflow_smokes(torch, kernels)
     # the multi-GPU path: ranks sharing the free card
     path_launches["usp"] = run_usp(torch, args.frames, args.steps, usp_reference, smi)
 

@@ -750,3 +750,131 @@ def test_fastblend_kernels_refuse_and_count(gen):
     # per iteration: 1 remap, 2 errors for the start, 2 for each of 4 + 3 updates
     assert fk.REMAP_KERNEL.launches - counts[0] == 2 + 1
     assert fk.PATCH_ERROR_KERNEL.launches - counts[1] == 2 * 16
+
+
+# --------------------------------------------------------------------------
+# Block streaming: the copy stream, the slot ring and the pinned store
+# --------------------------------------------------------------------------
+
+def _streamed_models(gen, layers=6):
+    """A bf16 DiT of 2 heads of 128 (so K1/K4/K5 run) and a 2-block VACE
+    branch on the card, from the seed."""
+    from video_styler_tpu_torch.models import wan_dit as TD
+    from video_styler_tpu_torch.models import wan_vace as TV
+    cfg = TD.WanDiTConfig(dim=256, in_dim=4, ffn_dim=512, out_dim=4, num_heads=2,
+                          num_layers=layers, text_dim=64, freq_dim=32)
+    vcfg = TV.VaceConfig(vace_layers=(0, 3), vace_in_dim=72, dim=256, num_heads=2,
+                         ffn_dim=512)
+    dit = TD.init_weights_(TD.WanDiT(cfg, device="cuda", dtype=torch.bfloat16), gen)
+    vace = TD.init_weights_(TV.WanVace(vcfg, device="cuda", dtype=torch.bfloat16), gen)
+    inputs = (_randn(gen, 1, 4, 5, 32, 32), torch.tensor([700.0], device="cuda"),
+              _randn(gen, 1, 16, 64), _randn(gen, 1, 72, 5, 32, 32))
+    return dit, vace, inputs
+
+
+def test_streaming_serial_walk_equals_overlapped_with_slots_reused(gen):
+    """5 streamed trunk blocks and 2 VACE blocks through a ring of 3 slots
+    (depth 2), two forwards in a row each way: bit-equal. A slot written
+    while the compute still read it would show here."""
+    from video_styler_tpu_torch.models.wan_streaming import WanBlockStreamer
+    dit, vace, inputs = _streamed_models(gen)
+    st = WanBlockStreamer(dit, vace=vace, mode="int8", resident_blocks=1, prefetch_depth=2)
+    assert len(st.ring.slots) == 3 and len(st.streamed_host) == 5
+    outs = {}
+    for overlap in (True, False):
+        st.overlap = overlap
+        outs[overlap] = [st.forward(*inputs, vace_scale=0.9)[0] for _ in range(2)]
+    torch.cuda.synchronize()
+    assert st.ring.copies == 4 * 7
+    for a, b in zip(outs[True], outs[False]):
+        assert torch.equal(a, b)
+    assert torch.equal(outs[True][0], outs[True][1])
+
+
+def test_streamed_forward_waits_for_no_host(gen):
+    """The overlapped forward under sync debug mode "error": no host wait
+    (the copies, the RoPE tables and the VACE scale go without one)."""
+    from video_styler_tpu_torch.models.wan_streaming import WanBlockStreamer
+    dit, vace, inputs = _streamed_models(gen)
+    st = WanBlockStreamer(dit, vace=vace, mode="int8", resident_blocks=2, prefetch_depth=2)
+    st.forward(*inputs)                     # builds the kernels and the shells
+    torch.cuda.synchronize()
+    before = fa.KERNEL.launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = st.forward(*inputs, vace_scale=0.9)[0]
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert fa.KERNEL.launches == before + 2 * (6 + 2)
+    assert torch.isfinite(out).all()
+
+
+def test_streamed_slg_gate_equals_resident_forward(gen):
+    """Skip-layer guidance's per-row gate in the streamed walk (bf16, 2 of
+    6 trunk blocks resident, the VACE blocks streamed; row 1 skips blocks
+    1 and 4) against the resident forward with the same gate: bit-equal,
+    and no host wait under sync debug mode "error"."""
+    from video_styler_tpu_torch.models import wan_dit as TD
+    from video_styler_tpu_torch.models.wan_streaming import WanBlockStreamer
+    dit, vace, (lat, ts, ctx, vc) = _streamed_models(gen)
+    lat, ctx, vc = (torch.cat([t, t]) for t in (lat, ctx, vc))
+    gate = torch.ones((6, 2), device="cuda")
+    gate[[1, 4], 1] = 0.0
+    with torch.no_grad():
+        want = TD.wan_dit_forward_with_residual(dit, lat, ts, ctx, vace=vace, vace_context=vc,
+                                                vace_scale=0.9, layer_gate=gate)[0]
+    st = WanBlockStreamer(dit, vace=vace, mode="bf16", resident_blocks=2, prefetch_depth=2)
+    st.forward(lat, ts, ctx, vc, 0.9, layer_gate=gate)      # builds the shells
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = st.forward(lat, ts, ctx, vc, 0.9, layer_gate=gate)[0]
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert torch.equal(got, want)
+    assert not torch.equal(got[0], got[1])
+
+
+def test_pinned_store_views_match_the_host_tree(gen):
+    """A packed block (int8 column-major weights, fp32 scales, bf16 biases
+    and modulation) in pinned memory, copied through a slot twice: its
+    views hold the tree's values, shapes and layouts; a buffer from
+    `pinned_empty` copies its bytes."""
+    from video_styler_tpu_torch.parallel.streaming import (PrefetchQueue, SlotRing,
+                                                           pack_host_block, pinned_empty)
+    w = torch.randint(-127, 128, (640, 384), dtype=torch.int8, device="cuda")
+    tree = {"q.w_q": w.t(),                                   # (384, 640) column-major
+            "q.w_scale": torch.rand((1, 640), generator=gen, device="cuda"),
+            "q.b": _randn(gen, 640), "modulation": _randn(gen, 1, 6, 384),
+            "norm.scale": _randn(gen, 7)}
+    packed = pack_host_block(tree, pin=True)
+    assert packed.buf.is_pinned() and packed.buf.device.type == "cpu"
+    ring = SlotRing(2, packed.buf.numel(), "cuda")
+    queue = PrefetchQueue([packed, packed], ring, depth=1)
+    for _ in range(2):
+        slot, views = queue.pop()
+        for name, t in tree.items():
+            got = views[name]
+            assert got.shape == t.shape and got.dtype == t.dtype and got.stride() == t.stride()
+            assert torch.equal(got, t), name
+            assert got.data_ptr() % 512 == 0
+        queue.done(slot)
+    host = pinned_empty(1 << 20)
+    host.copy_(torch.randint(0, 256, (1 << 20,), dtype=torch.uint8))
+    assert host.is_pinned() and torch.equal(host.to("cuda", non_blocking=True).cpu(), host)
+
+
+def test_card_quantizers_equal_the_host_quantizers(gen):
+    """Quantising a block on the card gives the host quantiser's values: the
+    streamer may quantise where the weights lie, then copy to its store."""
+    from video_styler_tpu_torch.parallel.streaming import host_quantize_int4, host_quantize_int8
+    tree = {"ffn.fc1.weight": _randn(gen, 13824, 5120, scale=0.02),
+            "ffn.fc1.bias": _randn(gen, 13824), "self_attn.o.weight": _randn(gen, 512, 256),
+            "self_attn.o.bias": _randn(gen, 512), "norm3.scale": _randn(gen, 256)}
+    host = {k: v.cpu() for k, v in tree.items()}
+    for quant in (host_quantize_int8, host_quantize_int4):
+        card = quant(tree, stack=40)
+        want = quant(host, stack=40)
+        assert card.keys() == want.keys()
+        for k in want:
+            assert torch.equal(card[k].cpu(), want[k]), (quant.__name__, k)

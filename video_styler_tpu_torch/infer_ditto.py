@@ -4,8 +4,7 @@
     python -m video_styler_tpu_torch.infer_ditto --input_video in.mp4 \
         --prompt "make it a watercolor" --dit_path ...
 
-Same flags as inference/infer_ditto.py, without --streaming, plus
---device (default cuda). --mesh dp,fsdp,sp runs one rank of a multi-GPU
+Same flags as inference/infer_ditto.py, plus --device (default cuda). --mesh dp,fsdp,sp runs one rank of a multi-GPU
 edit: launch `torchrun --nproc_per_node N -m video_styler_tpu_torch.infer_ditto
 --mesh dp,fsdp,sp ...` with N = dp*fsdp*sp (`parallel.initialize` reads
 torchrun's variables; each rank takes cuda:LOCAL_RANK, or the CPU with
@@ -18,7 +17,11 @@ and VACE), --vae_path, --t5_path and --tokenizer_path go through
 `models_t5_umt5-xxl-enc-bf16.pth`, the `google/umt5-xxl` tokenizer, found
 beside the checkpoints when --tokenizer_path is not given). --quantize
 int8|fp8 quantizes the DiT and VACE linears after any LoRA merge
-(`WanVideoPipeline.quantize`). --smoke runs the same pipeline code on tiny
+(`WanVideoPipeline.quantize`). --streaming int4|int8|bf16|f32 then keeps
+as many DiT blocks on the card as fit --streaming_budget_gb (default
+13.5) and streams the rest and the VACE blocks from pinned host memory
+(`WanVideoPipeline.enable_block_streaming`); it prints the plan, and
+does not combine with --mesh. --smoke runs the same pipeline code on tiny
 random models (head dim 128, so the CUDA kernels run too). --lora_path
 merges a LoRA (e.g. one that `python -m video_styler_tpu_torch.train`
 saved) into the VACE branch before the loop.
@@ -106,6 +109,13 @@ def parse_args(argv=None):
     p.add_argument("--quantize", type=str, default=None, choices=["int8", "fp8"],
                    help="quantize the DiT linears (the analogue of the "
                         "reference's fp8 baseline)")
+    p.add_argument("--streaming", type=str, default=None,
+                   choices=["int4", "int8", "bf16", "f32"],
+                   help="host-resident block streaming: run a DiT bigger than the "
+                        "card's budget (int4/int8 keep more blocks resident, bf16 "
+                        "casts an f32 checkpoint, f32 streams the tensors as they "
+                        "are); --streaming_budget_gb sizes the residency")
+    p.add_argument("--streaming_budget_gb", type=float, default=13.5)
     p.add_argument("--cfg_merge", action="store_true",
                    help="batch posi+nega in one DiT pass")
     p.add_argument("--mesh", type=str, default=None,
@@ -125,6 +135,8 @@ def main(argv=None):
         sizes = parse_mesh(args.mesh)
         if args.quantize and sizes[1] > 1:
             p.error("--quantize with fsdp > 1 is not supported yet (ROADMAP item 8)")
+        if args.streaming:
+            p.error("--streaming does not combine with --mesh")
         args.device = initialize(device=args.device)
         mesh = make_mesh(*sizes, device_type=args.device.type)
     if args.smoke:
@@ -141,6 +153,10 @@ def main(argv=None):
                        path=args.lora_path, alpha=args.lora_alpha)
     if args.quantize:
         pipe.quantize(mode=args.quantize)
+    if args.streaming:
+        plan = pipe.enable_block_streaming(mode=args.streaming,
+                                           hbm_budget_gb=args.streaming_budget_gb)
+        print(f"block streaming: {plan}")
     if mesh is not None:
         pipe.shard(mesh)
 

@@ -55,7 +55,7 @@ class WanEnhancerPipeline(WanVideoPipeline):
 
         for i, t in enumerate(scheduler.timesteps[-skip_backward_step:]):
             t_item = int(t)
-            if t_item >= boundary_t and self.dit2 is not None:
+            if t_item >= boundary_t and self._expert_cfg("dit2") is not None:
                 which, scale = "dit2", guide_scale[1]
             else:
                 which, scale = "dit", guide_scale[0]

@@ -39,6 +39,9 @@ from `from_configs` (random weights).
 Multi-GPU (`sharding_ctx`, `from_configs(mesh=...)`): the DiT and VACE
 run sequence-parallel and FSDP-sharded over a (dp, fsdp, sp) mesh
 (`parallel/`); every rank runs the text encoder and the VAE whole.
+`enable_block_streaming` instead runs an expert within a device memory
+budget, its other blocks streamed from pinned host memory
+(`models.wan_streaming`).
 
 Runs on `cuda` unless constructed with `device="cpu"`. Each stage's wall
 time (synchronised with the card) is kept in `stage_times`; on the card,
@@ -179,6 +182,8 @@ class WanVideoPipeline:
         self.t5_cfg: T5Config = UMT5_XXL
         self.vae_cfg: V.WanVAEConfig = V.WAN21_VAE
         self._lora_stacks = {}
+        # block streamers by expert ("dit", "dit2"): `enable_block_streaming`
+        self._streamers = {}
         # the mesh the DiT runs under (`parallel.ShardingContext`): each
         # forward enters it, unless the caller has entered one already
         self.sharding_ctx = None
@@ -402,11 +407,63 @@ class WanVideoPipeline:
         branch(es) FSDP-sharded over its fsdp dim (after any LoRA merge),
         the sequence split over sp (Ulysses, or the ring with ulysses
         False). umT5, CLIP and the VAE stay whole on every rank."""
+        if self._streamers:
+            raise NotImplementedError("a block-streamed pipeline cannot be sharded over a "
+                                      "mesh (the JAX package defines no such run)")
         for name in ("dit", "dit2", "vace", "vace2"):
             if getattr(self, name) is not None:
                 shard_params_fsdp(getattr(self, name), mesh)
         self.sharding_ctx = ShardingContext(mesh, ulysses=ulysses)
         return self
+
+    def enable_block_streaming(self, mode: str = "int8", hbm_budget_gb: float = 13.5,
+                               target: str = "dit", **kw) -> dict:
+        """Run a DiT bigger than the card's memory budget, as the JAX
+        pipeline's `enable_block_streaming` does: as many of the expert's
+        blocks as fit `hbm_budget_gb` stay resident (int8 by default), the
+        rest and the VACE branch that the expert runs (`_expert_vace`) wait
+        in pinned host memory and are copied per forward on a side stream
+        (`models.wan_streaming.WanBlockStreamer`; **kw: its
+        `resident_blocks`, `prefetch_depth`, `overlap`, ...). Must run after
+        any LoRA merge (a hotload stack of the target is dropped) and after
+        `quantize`, whose int8 leaves pass through. The resident modules
+        are released, but for a VACE that a resident expert still runs: a
+        resident `dit2` without a `vace2` keeps the shared `vace` (as
+        `vace2`). Returns the streamer's `plan_summary()`.
+
+        Animate, the Fun camera and reference and the speed controller need
+        the resident path (ValueError); a mesh cannot be combined with
+        streaming (NotImplementedError)."""
+        import gc
+        from ..models.wan_streaming import WanBlockStreamer
+        if self.sharding_ctx is not None:
+            raise NotImplementedError("block streaming under a mesh is not defined (the "
+                                      "JAX package streams to one device only)")
+        if target not in ("dit", "dit2"):
+            raise ValueError(f"unknown streaming target {target!r}")
+        model = getattr(self, target)
+        if model is None:
+            raise ValueError(f"no params loaded for target {target!r}")
+        vace = self._expert_vace(target)
+        streamer = WanBlockStreamer(model, vace, mode=mode,
+                                    hbm_budget_gb=hbm_budget_gb, device=self.device, **kw)
+        self._streamers[target] = streamer
+        # the resident copies go: the modules and any pristine weights a
+        # hotload stack keeps of them
+        setattr(self, target, None)
+        self._lora_stacks.pop(target, None)
+        if target == "dit":
+            if self.dit2 is not None and self.vace2 is None:
+                self.vace2 = self.vace      # the resident dit2's VACE stays
+            self.vace = None
+            self._lora_stacks.pop("vace", None)
+        else:
+            self.vace2 = None               # the shared `vace` stays with `dit`
+        del model, vace
+        gc.collect()
+        if self.device.type == "cuda":
+            torch.cuda.empty_cache()
+        return streamer.plan_summary()
 
     @contextmanager
     def _stage(self, name: str):
@@ -501,7 +558,7 @@ class WanVideoPipeline:
         mask | the VAE latent of the clip that holds the image(s) and zeros].
         (None, None) without an input image or for a DiT without image
         input; each part only where the DiT takes it."""
-        cfg = None if self.dit is None else self.dit.cfg
+        cfg = self._expert_cfg("dit")
         if input_image is None or cfg is None or not cfg.has_image_input:
             return None, None
         img_np = _preprocess_images([_image_array(input_image, width, height)])[:, :, 0]
@@ -545,7 +602,7 @@ class WanVideoPipeline:
         with self._stage("vae_encode_control"):
             control = self.encode_video(_preprocess_images(control_video), **tiler)
         up = self.vae.cfg.upsampling_factor
-        y_dim = self.dit.cfg.in_dim - control.shape[1] - self.vae.cfg.z_dim
+        y_dim = self._expert_cfg("dit").in_dim - control.shape[1] - self.vae.cfg.z_dim
         if clip_feature is None or y is None:
             clip_feature = torch.zeros((1, CLIP_TOKENS, CLIP_DIM), dtype=self.dtype,
                                        device=self.device)
@@ -563,7 +620,7 @@ class WanVideoPipeline:
         with self._stage("vae_encode_reference"):
             reference_latents = self.encode_video(ref_np, tiled=False)
         clip_feature = None
-        if self.image_encoder is not None and self.dit.cfg.require_clip_embedding:
+        if self.image_encoder is not None and self._expert_cfg("dit").require_clip_embedding:
             with self._stage("clip_encode_reference"):
                 clip_feature = self.encode_clip(ref_np[:, :, 0])
         return reference_latents, clip_feature
@@ -584,7 +641,7 @@ class WanVideoPipeline:
             img_np = _preprocess_images([_image_array(input_image, width, height)])
             y = torch.zeros(latents_shape, dtype=self.dtype, device=self.device)
             y[:, :, :1] = self.encode_video(img_np, tiled=False)
-            if y.shape[1] != self.dit.cfg.in_dim - self.vae.cfg.z_dim:
+            if y.shape[1] != self._expert_cfg("dit").in_dim - self.vae.cfg.z_dim:
                 y = self._image_y(img_np[:, :, 0], None, num_frames, height, width, **tiler)
         return control_camera, y
 
@@ -601,6 +658,26 @@ class WanVideoPipeline:
 
     def _expert(self, which: str) -> WanDiT:
         return self.dit if which == "dit" else self.dit2
+
+    def _expert_vace(self, which: str) -> Optional[WanVace]:
+        """The resident VACE branch expert `which` runs: `vace` for "dit";
+        `vace2` for "dit2", else the shared `vace`."""
+        if which == "dit" or self.vace2 is None:
+            return self.vace
+        return self.vace2
+
+    def _has_vace(self, which: str) -> bool:
+        """Whether expert `which`, resident or streamed, runs a VACE branch."""
+        streamer = self._streamers.get(which)
+        if streamer is not None:
+            return streamer.vace_cfg is not None
+        return self._expert_vace(which) is not None
+
+    def _expert_cfg(self, which: str) -> Optional[WanDiTConfig]:
+        """Expert `which`'s config, resident or block-streamed; None where
+        the pipeline holds no such expert."""
+        model = self._streamers.get(which) or (self.dit if which == "dit" else self.dit2)
+        return None if model is None else model.cfg
 
     def _skip(self, which, latents, timestep, residual, y=None, control_camera=None,
               reference_latents=None):
@@ -640,6 +717,12 @@ class WanVideoPipeline:
                                            or control_camera is not None):
             raise ValueError("animate conditioning cannot combine with "
                              "FunReference/FunCameraControl")
+        streamer = self._streamers.get(which)
+        if streamer is not None:
+            return self._streamed_forward(streamer, latents, timestep, context, vace_context,
+                                          vace_scale, tea_cache, rope_indices, layer_gate,
+                                          clip_feature, y, animate_inputs, motion_bucket_id,
+                                          control_camera, reference_latents)
         ctx = self.sharding_ctx if current_sharding() is None else current_sharding()
         dit = self._expert(which)
         with use_sharding(ctx), gathered(dit):
@@ -661,6 +744,33 @@ class WanVideoPipeline:
             if tea_cache is not None:
                 tea_cache.store(residual)
             return v
+
+    @staticmethod
+    def _streamed_forward(streamer, latents, timestep, context, vace_context, vace_scale,
+                          tea_cache, rope_indices, layer_gate, clip_feature, y,
+                          animate_inputs, motion_bucket_id, control_camera,
+                          reference_latents):
+        """`_branch_forward` through a block streamer, with the JAX
+        pipeline's refusals and its TeaCache check and replay. Skip-layer
+        guidance's gate runs in the streamed walk (the JAX pipeline refuses
+        it under streaming)."""
+        if (animate_inputs is not None or motion_bucket_id is not None
+                or control_camera is not None or reference_latents is not None):
+            raise ValueError("block streaming supports the T2V/VACE/I2V/editor paths; "
+                             "per-layer adapter conditioning needs the resident path")
+        if tea_cache is not None:
+            t_mod = streamer.t_mod_only(timestep)
+            if tea_cache.check(t_mod) and tea_cache.previous_residual is not None:
+                return streamer.skip_forward(latents, timestep, context,
+                                             tea_cache.previous_residual, y)
+        v, _, residual = streamer.forward(latents, timestep, context, vace_context,
+                                          vace_scale, clip_feature, y,
+                                          rope_indices=rope_indices,
+                                          want_residual=tea_cache is not None,
+                                          layer_gate=layer_gate)
+        if tea_cache is not None:
+            tea_cache.store(residual)
+        return v
 
     def _forward_all_branches(self, which, vace, latents, timestep, ctx_posi,
                               ctx_nega, vace_context, vace_scale, cfg_scale,
@@ -752,7 +862,7 @@ class WanVideoPipeline:
         stack are ignored."""
         if not slg_blocks or not slg_start <= i / n_steps < slg_end:
             return None
-        n_layers = self._expert(which).cfg.num_layers
+        n_layers = self._expert_cfg(which).num_layers
         g = np.ones((n_layers,), np.float32)
         g[[b for b in slg_blocks if b < n_layers]] = 0.0
         return torch.from_numpy(g).to(self.device)
@@ -904,7 +1014,8 @@ class WanVideoPipeline:
             vace_context = self.build_vace_context(
                 vace_video, vace_video_mask, vace_reference_image, height,
                 width, num_frames, **tiler)
-        if vace_context is not None and self.vace is None:
+        if vace_context is not None and not all(
+                self._has_vace(w) for w in ("dit", "dit2") if self._expert_cfg(w) is not None):
             raise ValueError("VACE inputs were given but the pipeline has no "
                              "VACE model")
         clip_feature, y = self.build_image_conditioning(
@@ -933,7 +1044,7 @@ class WanVideoPipeline:
         # pinned after every step (each token still gets the one (1,)
         # timestep, as in the JAX pipeline: ROADMAP Queue 3)
         first_frame_latents = None
-        if input_image is not None and self.dit.cfg.fuse_vae_embedding_in_latents:
+        if input_image is not None and self._expert_cfg("dit").fuse_vae_embedding_in_latents:
             with self._stage("vae_encode_image"):
                 img_np = _preprocess_images([_image_array(input_image, width, height)])
                 first_frame_latents = self.encode_video(img_np, **tiler)
@@ -950,15 +1061,15 @@ class WanVideoPipeline:
             tc_posi = TeaCache(num_inference_steps, tea_cache_l1_thresh, tea_cache_model_id)
             tc_nega = TeaCache(num_inference_steps, tea_cache_l1_thresh, tea_cache_model_id)
 
-        which, vace = "dit", self.vace
+        which, vace = "dit", self._expert_vace("dit")
         n_steps = len(self.scheduler.timesteps)
         for i in range(n_steps):
             with self._stage(f"denoise_step_{i}"):
                 t_host = float(self.scheduler.timesteps[i])
-                if (which == "dit" and self.dit2 is not None and t_host
+                if (which == "dit" and self._expert_cfg("dit2") is not None and t_host
                         < switch_DiT_boundary * self.scheduler.num_train_timesteps):
                     which = "dit2"
-                    vace = self.vace2 if self.vace2 is not None else self.vace
+                    vace = self._expert_vace("dit2")
                 timestep = torch.tensor([t_host], dtype=torch.float32,
                                         device=self.device)
                 slg_gate = self._slg_gate(which, slg_blocks, slg_start, slg_end,

@@ -1,7 +1,8 @@
 """Prompt encoding for the Wan pipeline.
 
-Counterpart of `video_styler_tpu/prompters/wan_prompter.py`: clean the
-prompt, tokenize to `text_len` with padding, run the umT5 encoder, and zero
+Counterpart of `video_styler_tpu/prompters/wan_prompter.py`: pass the
+prompt through the refiner chain (`refiners`, `prompt_extend`), clean it,
+tokenize to `text_len` with padding, run the umT5 encoder, and zero
 the embeddings past the sequence length. The tokenizer is any callable with
 the Hugging Face call signature; `transformers` (and `ftfy`, for cleaning)
 are imported only when a tokenizer path is given or a prompt is cleaned.
@@ -59,6 +60,13 @@ class WanPrompter:
         self.tokenizer = tokenizer
         self.text_len = text_len
         self.text_encoder = text_encoder
+        # refiner hooks, as the JAX prompter's: each prompt passes through
+        # the chain (`prompt_extend`: template, LLM-driven refiners) first
+        from .prompt_extend import PromptRefinerChain
+        self.refiners = PromptRefinerChain()
+
+    def process_prompt(self, prompt: str, positive: bool = True) -> str:
+        return self.refiners(prompt, positive=positive)
 
     def fetch_tokenizer(self, tokenizer_path: str):
         from transformers import AutoTokenizer
@@ -99,11 +107,13 @@ class WanPrompter:
                 np.asarray(enc["attention_mask"]).astype(np.int32))
 
     @torch.no_grad()
-    def encode_prompt(self, prompt: str, dtype=torch.bfloat16) -> torch.Tensor:
-        """-> (1, text_len, dim) embeddings, zeroed past the sequence length."""
+    def encode_prompt(self, prompt: str, positive: bool = True,
+                      dtype=torch.bfloat16) -> torch.Tensor:
+        """The prompt through the refiners, then -> (1, text_len, dim)
+        embeddings, zeroed past the sequence length."""
         if self.tokenizer is None or self.text_encoder is None:
             raise RuntimeError("prompter needs a tokenizer and a text encoder")
-        ids, mask = self.tokenize(prompt)
+        ids, mask = self.tokenize(self.process_prompt(prompt, positive=positive))
         dev = self.text_encoder.token_embedding.device
         emb = t5_encode(self.text_encoder, torch.from_numpy(ids).to(dev),
                         torch.from_numpy(mask).to(dev))
