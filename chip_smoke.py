@@ -215,6 +215,23 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
              agent with the mock image provider on a synthetic clip, then
              the editor) on the card: seconds, frames, launches, the
              workflow's streaming plan and blocks copied
+  flux_kernels  (with the kernel rows) K1 at the FLUX DiT's joint
+             self-attention: 24 heads of 128 over [512 text | image] tokens
+             at 1024x1024 (4,608) and 512x512 (1,536)
+  flux_reference  a small FLUX pipeline (head dim 128: dim 256, 2 heads, 2 +
+             2 blocks; tiny CLIP-L and T5 v1.1, the release-width VAE) at
+             256x256, 2 steps, CFG 1 and CFG 2 two-pass, card vs CPU on the
+             same weights; the fp32 decode of the same latents on both
+  flux       on a free card, FLUX.1-dev at full width and depth (dim 3072,
+             24 heads, 19 + 38 blocks, T5 v1.1-XXL, CLIP-L, the FLUX VAE;
+             random bf16 weights from seed 0, the VAE fp32): one 1024x1024
+             request (4,608 tokens), --steps steps at the recipe's embedded
+             guidance 3.5 and CFG 1, then the decode: weights, stage times
+             (clip_encode, t5_encode, each step, vae_decode), peak memory,
+             K1 launches against 57 a step; one DiT step profiled by
+             category (`flux_profile`: K1, GEMM, elementwise, other); then
+             the recipe's whole request, 30 steps (`flux_image`: seconds
+             per image, stage times)
   usp_kernels  (with the kernel rows) one rank's work of the multi-GPU path
              at Wan2.1-14B width over the Ditto clip's 29,640 tokens, in
              this process: K1 on a Ulysses share (20 and 10 heads over the
@@ -3234,6 +3251,183 @@ KERNEL_CATEGORIES = (  # (category, substrings of the device kernel's name)
 
 
 # ---------------------------------------------------------------------------
+# FLUX.1-dev text-to-image
+# ---------------------------------------------------------------------------
+
+FLUX_TEXT = 512             # T5 tokens of a request (t5_sequence_length)
+FLUX_HEADS = 24             # FLUX.1: 24 heads of 128
+FLUX_PROMPT = "a lighthouse on a cliff at dawn, oil painting"
+FLUX_RECIPE_STEPS = 30      # the image CLI's default for FLUX.1-dev
+FLUX_REF_SIZE = 256         # flux_reference: 256x256 (256 image tokens)
+FLUX_CATEGORIES = (  # one DiT step's device time, by category
+    ("K1", ("flash_fwd_capped_kernel",)),
+    ("gemm", ("gemm", "nvjet", "xmma", "cutlass", "sm90_")),
+    ("elementwise", ("elementwise", "reduce_kernel", "CatArrayBatchedCopy", "layer_norm",
+                     "copy_kernel", "index", "fill", "softmax")),
+)
+
+
+def flux_tokens(size: int) -> int:
+    """[text | image] tokens of a size x size request: 512 + (size / 16)^2."""
+    return FLUX_TEXT + (size // 16) ** 2
+
+
+def check_flux_kernels(torch):
+    """`flux_kernels`: K1 at the FLUX DiT's joint self-attention, 24 heads
+    of 128 over [512 text | image] tokens at 1024x1024 (4,608) and 512x512
+    (1,536), held against its plain version (two bf16 ULPs)."""
+    rows = []
+    for size in (1024, 512):
+        rows += check_kernels(torch, (1, 1, flux_tokens(size)), f"flux-{size}px",
+                              heads=FLUX_HEADS, cross_lens=(), norms=False)
+    return rows
+
+
+def flux_reference_configs():
+    """A small FLUX with head dim 128 (dim 256, 2 heads, FLUX's RoPE axes,
+    2 + 2 blocks), tiny CLIP-L and T5 v1.1 towers, the release-width VAE."""
+    import dataclasses
+    from video_styler_tpu_torch.models.flux_dit import FLUX_DIT_TINY
+    from video_styler_tpu_torch.models.sd3_text_encoder import CLIP_L_TINY
+    from video_styler_tpu_torch.models.sd3_vae import FLUX_VAE
+    from video_styler_tpu_torch.models.t5 import T5_V11_TINY
+    dit = dataclasses.replace(FLUX_DIT_TINY, dim=256, num_heads=2, axes_dim=(16, 56, 56),
+                              context_dim=T5_V11_TINY.dim, pooled_dim=CLIP_L_TINY.dim)
+    return dit, CLIP_L_TINY, T5_V11_TINY, FLUX_VAE
+
+
+def flux_pipeline(torch, configs, device: str, seed: int = 0):
+    from video_styler_tpu_torch.pipelines.flux_image import FluxImagePipeline
+    from video_styler_tpu_torch.prompters.flux_prompter import (StubClipTokenizer,
+                                                                StubT5Tokenizer)
+    dit, clip, t5, vae = configs
+    return FluxImagePipeline.from_configs(dit, clip, t5, vae, StubClipTokenizer(clip.vocab),
+                                          StubT5Tokenizer(t5.vocab), seed=seed,
+                                          device=device, dtype=torch.bfloat16)
+
+
+def check_flux_reference(torch):
+    """`flux_reference`: the small FLUX pipeline of `flux_reference_configs`
+    on the card (K1) against the same weights on the CPU (plain versions):
+    256x256, 2 steps, CFG 1 and CFG 2 two-pass, latents within 5% relative
+    L2; the fp32 decode of the CPU's CFG-1 latents on both devices within 2
+    levels."""
+    import numpy as np
+    cpu = flux_pipeline(torch, flux_reference_configs(), "cpu")
+    gpu = copy.copy(cpu)
+    gpu.device = torch.device("cuda")
+    gpu.prompter = copy.copy(cpu.prompter)
+    gpu.dit, gpu.vae_encoder, gpu.vae_decoder, gpu.prompter.clip, gpu.prompter.t5 = (
+        copy.deepcopy(m).to("cuda") for m in (cpu.dit, cpu.vae_encoder, cpu.vae_decoder,
+                                              cpu.prompter.clip, cpu.prompter.t5))
+    res = dict(phase="flux_reference", size=FLUX_REF_SIZE, steps=2,
+               dit_dim=cpu.dit_cfg.dim, dit_heads=cpu.dit_cfg.num_heads,
+               tokens=flux_tokens(FLUX_REF_SIZE), latents_rel_l2={}, latents_tol=5e-2)
+    lat_cpu = None
+    for cfg_scale in (1.0, 2.0):
+        kw = dict(prompt=FLUX_PROMPT, negative_prompt="blurry", cfg_scale=cfg_scale,
+                  height=FLUX_REF_SIZE, width=FLUX_REF_SIZE, seed=42,
+                  num_inference_steps=2, return_latents=True)
+        lat_c = cpu(**kw).float()
+        lat_g = gpu(**kw).float().cpu()
+        res["latents_rel_l2"][f"cfg {cfg_scale}"] = ((lat_g - lat_c).norm()
+                                                      / lat_c.norm()).item()
+        if lat_cpu is None:
+            lat_cpu = lat_c
+    img_c = np.asarray(cpu.vae_output_to_image(cpu.decode_image(lat_cpu)), np.int16)
+    img_g = np.asarray(gpu.vae_output_to_image(gpu.decode_image(lat_cpu.cuda())), np.int16)
+    res.update(image_max_abs_diff=float(np.abs(img_g - img_c).max()), image_tol=2.0)
+    emit(res)
+    if not (all(v <= 5e-2 for v in res["latents_rel_l2"].values())
+            and res["image_max_abs_diff"] <= 2.0):
+        raise AssertionError(f"FLUX, card vs CPU disagree: {res}")
+
+
+def run_flux(torch, kernels, steps: int):
+    """`flux`: FLUX.1-dev at full width and depth on a free card (dim 3072,
+    24 heads, 19 + 38 blocks, T5 v1.1-XXL, CLIP-L, the FLUX VAE; random
+    weights from seed 0, bf16, the VAE fp32): a 1024x1024 request through
+    `FluxImagePipeline` at the recipe's embedded guidance 3.5 and CFG 1,
+    --steps steps, then the decode: stage times, peak memory, K1's launches
+    against 57 a step; then one DiT step profiled by category; then the
+    recipe's 30-step request, timed whole."""
+    from video_styler_tpu_torch.models.flux_dit import FLUX_DEV
+    from video_styler_tpu_torch.models.sd3_text_encoder import CLIP_L
+    from video_styler_tpu_torch.models.sd3_vae import FLUX_VAE
+    from video_styler_tpu_torch.models.t5 import T5_V11_XXL
+    from video_styler_tpu_torch.pipelines.wan_video import generate_noise
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    pipe = flux_pipeline(torch, (FLUX_DEV, CLIP_L, T5_V11_XXL, FLUX_VAE), "cuda")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    cfg = pipe.dit_cfg
+    try:
+        weights = {"dit": gib([pipe.dit]), "t5": gib([pipe.prompter.t5]),
+                   "clip": gib([pipe.prompter.clip]),
+                   "vae": gib([pipe.vae_encoder, pipe.vae_decoder])}
+        request = dict(prompt=FLUX_PROMPT, height=1024, width=1024, seed=42,
+                       embedded_guidance=3.5, num_inference_steps=steps)
+        for kern in kernels.values():
+            kern.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        image = pipe(**request)
+        total_s = time.perf_counter() - t0
+        launches = {name: kern.launches for name, kern in kernels.items()}
+        blocks = cfg.num_joint_blocks + cfg.num_single_blocks
+        expected = {"K1": blocks * steps}
+        res = dict(phase="flux", model="FLUX.1-dev", dit_dim=cfg.dim, dit_heads=cfg.num_heads,
+                   joint_blocks=cfg.num_joint_blocks, single_blocks=cfg.num_single_blocks,
+                   size=1024, tokens=flux_tokens(1024), steps=steps, cfg="1 (embedded 3.5)",
+                   build_s=build_s, weights_gib=weights, total_s=total_s,
+                   stages=dict(pipe.stage_times), step_s=step_times(pipe),
+                   stage_peak_gib={k: v / 2**30 for k, v in pipe.stage_peak_bytes},
+                   max_memory_allocated_gib=torch.cuda.max_memory_allocated() / 2**30,
+                   image_size=list(image.size), launches=launches,
+                   expected_launches=expected,
+                   k1_launches_per_30_step_request=blocks * 30, **CARD)
+        emit(res)
+        check_launches(launches, expected, "flux")
+        if image.size != (1024, 1024):
+            raise AssertionError(f"flux: image {image.size}")
+        # one DiT step (CFG 1: one forward) under the profiler, on this
+        # request's inputs; its idle share against the unprofiled step
+        emb, pooled, _ = pipe.encode_prompt(FLUX_PROMPT)
+        latents = generate_noise((1, 16, 128, 128), seed=42).to("cuda", torch.bfloat16)
+        t = torch.tensor([float(pipe.scheduler.timesteps[0])], device="cuda")
+        g = torch.tensor([3.5], device="cuda")
+        with torch.no_grad():
+            def one_step():
+                return pipe._branch(latents, t, emb, pooled, g, None, None)
+            prof = profile_request(torch, one_step, min(step_times(pipe)),
+                                   categories=FLUX_CATEGORIES)
+        emit({"phase": "flux_profile", "forwards": 1, **prof, **CARD})
+        # the recipe's request: seconds per image
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        image = pipe(**{**request, "num_inference_steps": FLUX_RECIPE_STEPS})
+        image_s = time.perf_counter() - t0
+        steps_30 = step_times(pipe)
+        emit(dict(phase="flux_image", steps=FLUX_RECIPE_STEPS, size=1024,
+                  cfg="1 (embedded 3.5)", image_s=image_s,
+                  stages={k: v for k, v in pipe.stage_times
+                          if not k.startswith("denoise_step_")},
+                  step_s_first=steps_30[0],
+                  step_s_rest_mean=sum(steps_30[1:]) / (len(steps_30) - 1),
+                  step_s_min=min(steps_30), step_s_max=max(steps_30),
+                  image_size=list(image.size), **CARD))
+        if len(steps_30) != FLUX_RECIPE_STEPS or image.size != (1024, 1024):
+            raise AssertionError(f"flux_image: {len(steps_30)} steps, image {image.size}")
+        return launches
+    finally:
+        del pipe
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
 # Multi-GPU: one rank's kernels in this process, then ranks sharing the card
 # ---------------------------------------------------------------------------
 
@@ -3490,10 +3684,11 @@ def run_usp(torch, frames: int, steps: int, vace_reference, smi: str):
 
 
 
-def profile_request(torch, run, unprofiled_s: float):
-    """Device time by kernel category over one more identical request,
-    under torch.profiler. idle_share compares the summed kernel time with
-    the unprofiled request's wall time (the profiler slows the host)."""
+def profile_request(torch, run, unprofiled_s: float, categories=None):
+    """Device time by kernel category (KERNEL_CATEGORIES unless given) over
+    one more identical request, under torch.profiler. idle_share compares
+    the summed kernel time with the unprofiled request's wall time (the
+    profiler slows the host)."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         run()
@@ -3503,7 +3698,7 @@ def profile_request(torch, run, unprofiled_s: float):
         if evt.device_type != torch.autograd.DeviceType.CUDA:
             continue
         us = evt.time_range.elapsed_us()
-        cat = next((c for c, keys in KERNEL_CATEGORIES
+        cat = next((c for c, keys in categories or KERNEL_CATEGORIES
                     if any(k in evt.name for k in keys)), "other")
         totals[cat] = totals.get(cat, 0.0) + us / 1e3
         per_kernel[evt.name[:90]] = per_kernel.get(evt.name[:90], 0.0) + us / 1e3
@@ -3706,6 +3901,12 @@ def main(argv=None):
     # block streaming at 14B width on a free card, then the workflow CLIs
     path_launches["streaming"] = run_streaming(torch, kernels, args.frames, args.steps, smi)
     run_workflow_smokes(torch, kernels)
+    # FLUX.1-dev on the free card: K1 at its shapes, the small pipeline
+    # card vs CPU, then the full-width request
+    rows += check_flux_kernels(torch)
+    torch.cuda.empty_cache()
+    check_flux_reference(torch)
+    path_launches["flux"] = run_flux(torch, kernels, args.steps)
     # the multi-GPU path: ranks sharing the free card
     path_launches["usp"] = run_usp(torch, args.frames, args.steps, usp_reference, smi)
 

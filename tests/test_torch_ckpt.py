@@ -500,25 +500,29 @@ def test_vace_prefix_quirk_is_mirrored(tmp_path, monkeypatch):
 
 
 def test_unported_kinds_raise(tmp_path, monkeypatch):
-    """flux_dit and motion_modules raise with their Queue 1 item; `s2v` and
-    `wav2vec` are ported and attach as in the JAX pipeline: `s2v` builds
-    the default (14B) config whatever the file, `wav2vec` raises the JAX
-    pipeline's ValueError (ROADMAP Queue 3)."""
+    """flux_controlnet and motion_modules raise with their Queue 1 item;
+    `s2v` and `wav2vec` are ported and attach as in the JAX pipeline: `s2v`
+    builds the default (14B) config whatever the file, `wav2vec` raises the
+    JAX pipeline's ValueError (ROADMAP Queue 3). `flux_dit` is ported
+    (`load_model` and the FLUX pipeline build it) and, as in the JAX
+    package, is no kind of the Wan pipeline."""
     import video_styler_tpu_torch.models.wan_s2v as TS
-    path = str(tmp_path / "flux.safetensors")
-    safetensors_io.save_file({"double_blocks.0.img_attn.qkv.weight": torch.zeros(4, 4)},
-                             path)
+    path = str(tmp_path / "flux_controlnet.safetensors")
+    safetensors_io.save_file({"controlnet_x_embedder.weight": torch.zeros(4, 4)}, path)
     with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
         TC.load_model(path, device="cpu")
     tp = TW.WanVideoPipeline(device="cpu")
-    for kind in ("flux_dit", "motion_modules"):
+    for kind in ("flux_controlnet", "motion_modules"):
         with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
             tp._attach(kind, {})
-    assert not {"animate", "motion_controller", "s2v", "wav2vec"} & set(TC.UNPORTED_KINDS)
+    assert not {"animate", "motion_controller", "s2v", "wav2vec",
+                "flux_dit"} & set(TC.UNPORTED_KINDS)
     jp = JW.WanVideoPipeline(dtype=jnp.float32)
     for pipe in (jp, tp):
         with pytest.raises(ValueError, match="unknown model kind wav2vec"):
             pipe._attach("wav2vec", {})
+        with pytest.raises(ValueError, match="unknown model kind flux_dit"):
+            pipe._attach("flux_dit", {})
         with pytest.raises(ValueError, match="unknown model kind"):
             pipe._attach("not-a-kind", {})
     built = []

@@ -23,6 +23,11 @@ and returns the port's module for `kind`:
   "cross_model" -> models.clip_dual.CrossModel (cfg: None, the widths come
             from the tree)
   "blip_reward" -> models.blip_reward.BlipReward (cfg: BlipRewardConfig)
+  "flux_dit" -> models.flux_dit.FluxDiT   (cfg: FluxDiTConfig)
+  "sd3_vae_encoder" / "sd3_vae_decoder" -> models.sd3_vae.SD3VAEEncoder /
+            SD3VAEDecoder (cfg: SD3VAEConfig)
+  "clip_l_text" -> models.sd3_text_encoder.ClipTextEncoder (cfg: ClipTextConfig)
+  ("t5" takes T5 v1.1 too: with `shared_pos` only layer 0 has `pos_emb`)
 
 A Fun DiT's tree carries `ref_conv` ({"w", "b"}, as the patch embedding)
 and `control_adapter` (torch layout), which a config with `has_ref_conv`
@@ -35,8 +40,8 @@ blocks) into the port's per-block factors in torch layout.
 The layouts that differ: JAX linears store `w` as (in, out) and
 `nn.Linear` stores `weight` as (out, in) (a convolution's `w`, 3-D and up,
 is already in the torch layout and only takes the name `weight`); the
-stacked `blocks` (and VACE `after_proj`) trees of the DiT, VACE and S2V
-carry a leading layer axis that becomes the index of an `nn.ModuleList`
+stacked `blocks` (and VACE `after_proj`, FLUX `single_blocks`) trees of
+the DiT, VACE, S2V and FLUX DiT carry a leading layer axis that becomes the index of an `nn.ModuleList`
 (the CLIP tower's `blocks` are a dict keyed by index, the wav2vec and
 XLM-R towers' a list: the same names). VAE conv weights are already OIDHW
 and keep their names.
@@ -58,6 +63,9 @@ from .device import resolve_device
 from .models.blip_reward import BlipReward
 from .models.clip_dual import ClipDual, CrossModel, cross_model_config
 from .models.clip_vit import ClipVit, XlmRoberta
+from .models.flux_dit import FluxDiT
+from .models.sd3_text_encoder import ClipTextEncoder
+from .models.sd3_vae import SD3VAEDecoder, SD3VAEEncoder
 from .models.t5 import T5Encoder
 from .models.wan_animate import WanAnimateAdapter, animate_head_dim
 from .models.wan_controllers import MotionController, SimpleAdapter
@@ -85,11 +93,13 @@ def _simple_adapter(cfg, sd):
 
 _MODULES = {"dit": WanDiT, "vace": WanVace, "t5": T5Encoder, "vae": WanVAE,
             "clip": ClipVit, "s2v": WanS2V, "wav2vec": Wav2Vec2, "xlm_roberta": XlmRoberta,
-            "clip_dual": ClipDual, "blip_reward": BlipReward}
+            "clip_dual": ClipDual, "blip_reward": BlipReward, "flux_dit": FluxDiT,
+            "sd3_vae_encoder": SD3VAEEncoder, "sd3_vae_decoder": SD3VAEDecoder,
+            "clip_l_text": ClipTextEncoder}
 _BUILDERS = {"animate": _animate, "motion_controller": _motion_controller,
              "control_adapter": _simple_adapter,
              "cross_model": lambda cfg, sd: CrossModel(cross_model_config(sd))}
-_STACKED = ("blocks", "after_proj")
+_STACKED = ("blocks", "after_proj", "single_blocks")
 
 
 def _to_tensor(a) -> torch.Tensor:
@@ -113,8 +123,8 @@ def _flatten(node, prefix: str, out: Dict[str, np.ndarray]):
 
 
 def jax_tree_to_state_dict(tree, stacked: bool) -> Dict[str, torch.Tensor]:
-    """Dotted torch names -> tensors. stacked: the `blocks`/`after_proj`
-    subtrees carry a leading layer axis (DiT, VACE)."""
+    """Dotted torch names -> tensors. stacked: the `blocks`/`after_proj`/
+    `single_blocks` subtrees carry a leading layer axis (DiT, VACE, FLUX)."""
     flat: Dict[str, np.ndarray] = {}
     _flatten(tree, "", flat)
     quantized = {name.rsplit(".", 1)[0] for name in flat
@@ -156,7 +166,7 @@ def from_jax_params(kind: str, tree, cfg, device=None) -> torch.nn.Module:
     if kind not in _MODULES and kind not in _BUILDERS:
         raise ValueError(f"unknown model kind {kind!r}; one of "
                          f"{sorted(_MODULES) + sorted(_BUILDERS)}")
-    sd = jax_tree_to_state_dict(tree, stacked=kind in ("dit", "vace", "s2v"))
+    sd = jax_tree_to_state_dict(tree, stacked=kind in ("dit", "vace", "s2v", "flux_dit"))
     with torch.device("meta"):
         if kind in _BUILDERS:
             module = _BUILDERS[kind](cfg, sd)

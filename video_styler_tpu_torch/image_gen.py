@@ -1,0 +1,113 @@
+"""Text-to-image with the PyTorch/CUDA port, by family.
+
+    python -m video_styler_tpu_torch.image_gen --family flux --prompt "a cat" \
+        --dit_path flux1-dev.safetensors --vae_path vae.safetensors \
+        --clip_path clip_l.safetensors --t5_path "t5-1.safetensors|t5-2.safetensors" \
+        --tokenizer_path tokenizer --tokenizer_2_path tokenizer_2 --output out.png
+    python -m video_styler_tpu_torch.image_gen --family flux --smoke --device cpu
+
+The counterpart of the JAX package's `examples/image_gen.py`, for the
+families the port runs: `flux` (FLUX.1-dev, or schnell where the DiT file
+has no guidance embedder; embedded guidance 3.5, CFG 1, --steps steps,
+--lora_path merged at alpha 1). Checkpoints come from local files only:
+--dit_path (DiffSynth or BFL layout; shards `|`-separated), --vae_path (the
+encoder's and decoder's state dicts under `encoder.` / `decoder.`),
+--clip_path (CLIP-L), --t5_path (T5 v1.1-XXL, HF names; shards
+`|`-separated), --tokenizer_path (the CLIP tokenizer) and
+--tokenizer_2_path (the T5 tokenizer; the JAX runner passes none, and its
+prompter then has no T5 tokenizer). --smoke runs a tiny random model
+(FLUX_DIT_TINY, CLIP-L and T5 v1.1 at tiny widths with stand-in
+tokenizers, the FLUX VAE) at 64x64 for 2 steps. The other families of the
+JAX runner (sd, sdxl, sd3, qwen, hunyuan_image, omnigen) raise
+`NotImplementedError`: ROADMAP Queue 1 item 11 ports them. Runs on the card
+unless --device cpu.
+"""
+from __future__ import annotations
+
+import argparse
+
+SMOKE_SIZE = 64
+SMOKE_STEPS = 2
+
+
+def build_smoke_pipeline(device=None, seed: int = 0):
+    """A FLUX pipeline of tiny random models (weights from `seed`), fp32."""
+    import torch
+    from .models.flux_dit import FLUX_DIT_TINY
+    from .models.sd3_text_encoder import CLIP_L_TINY
+    from .models.sd3_vae import FLUX_VAE
+    from .models.t5 import T5_V11_TINY
+    from .pipelines.flux_image import FluxImagePipeline
+    from .prompters.flux_prompter import StubClipTokenizer, StubT5Tokenizer
+    return FluxImagePipeline.from_configs(
+        FLUX_DIT_TINY, CLIP_L_TINY, T5_V11_TINY, FLUX_VAE,
+        StubClipTokenizer(CLIP_L_TINY.vocab), StubT5Tokenizer(T5_V11_TINY.vocab),
+        seed=seed, device=device, dtype=torch.float32)
+
+
+def run_flux(a):
+    from .pipelines.flux_image import FluxImagePipeline
+    if a.smoke:
+        pipe = build_smoke_pipeline(device=a.device, seed=a.seed)
+    else:
+        pipe = FluxImagePipeline.from_pretrained(
+            dit_path=a.dit_path.split("|"), vae_path=a.vae_path, clip_path=a.clip_path,
+            t5_paths=a.t5_path.split("|") if a.t5_path else None,
+            tokenizer_1_path=a.tokenizer_path, tokenizer_2_path=a.tokenizer_2_path,
+            device=a.device)
+    if a.lora_path:
+        pipe.load_lora(a.lora_path, alpha=1.0)
+    return pipe(a.prompt, embedded_guidance=3.5, num_inference_steps=a.steps,
+                height=a.height, width=a.width, seed=a.seed)
+
+
+def _unported(family: str):
+    def run(a):
+        raise NotImplementedError(f"image family {family!r} is not ported yet "
+                                  "(ROADMAP Queue 1 item 11)")
+    return run
+
+
+RUNNERS = {"flux": run_flux,
+           **{f: _unported(f) for f in ("sd", "sdxl", "sd3", "qwen", "hunyuan_image",
+                                        "omnigen")}}
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    p.add_argument("--family", required=True, choices=sorted(RUNNERS))
+    p.add_argument("--prompt", default="a lighthouse on a cliff at dawn")
+    p.add_argument("--dit_path")
+    p.add_argument("--vae_path")
+    p.add_argument("--clip_path")
+    p.add_argument("--t5_path")
+    p.add_argument("--lora_path")
+    p.add_argument("--tokenizer_path")
+    p.add_argument("--tokenizer_2_path")
+    p.add_argument("--steps", type=int)
+    p.add_argument("--height", type=int)
+    p.add_argument("--width", type=int)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--output", default="out.png")
+    p.add_argument("--smoke", action="store_true",
+                   help="tiny random models at 64x64, 2 steps")
+    p.add_argument("--device", default=None, help="cuda (default) or cpu")
+    a = p.parse_args(argv)
+    if not a.smoke and not a.dit_path:
+        p.error("--dit_path is required (or use --smoke)")
+    a.steps = a.steps or (SMOKE_STEPS if a.smoke else 30)
+    a.height = a.height or (SMOKE_SIZE if a.smoke else 1024)
+    a.width = a.width or (SMOKE_SIZE if a.smoke else 1024)
+    return a
+
+
+def main(argv=None):
+    a = parse_args(argv)
+    image = RUNNERS[a.family](a)
+    image.save(a.output)
+    print(f"saved {a.output}")
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

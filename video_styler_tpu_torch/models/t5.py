@@ -1,10 +1,12 @@
-"""umT5-xxl encoder (the Wan text encoder) in PyTorch.
+"""umT5-xxl encoder (the Wan text encoder) and T5 v1.1-XXL (the FLUX and
+SD3 text encoder) in PyTorch.
 
 Counterpart of `video_styler_tpu/models/t5.py`: per-layer relative position
 bias (buckets computed with numpy), unscaled attention with an fp32 softmax
 and a `finfo(float32).min` padding mask, gated-GELU FFN, T5 RMS layernorm.
-This attention is no Pallas kernel in the JAX package either; its products
-go to `torch.matmul`.
+With `shared_pos` (T5 v1.1, the HF `T5EncoderModel`) one bias table, held
+by layer 0 only, serves every layer. This attention is no Pallas kernel in
+the JAX package either; its products go to `torch.matmul`.
 """
 from __future__ import annotations
 
@@ -29,9 +31,14 @@ class T5Config:
     num_heads: int = 64
     num_layers: int = 24
     num_buckets: int = 32
+    shared_pos: bool = False
 
 
 UMT5_XXL = T5Config()
+# google/t5-v1_1-xxl: the FLUX text encoder 2 / SD3 text encoder 3
+T5_V11_XXL = T5Config(vocab=32128, shared_pos=True)
+T5_V11_TINY = T5Config(vocab=128, dim=64, dim_attn=64, dim_ffn=128,
+                       num_heads=4, num_layers=2, shared_pos=True)
 
 
 @lru_cache(maxsize=16)
@@ -93,14 +100,15 @@ class T5FFN(nn.Module):
 
 
 class T5Block(nn.Module):
-    def __init__(self, cfg: T5Config, device=None, dtype=None):
+    def __init__(self, cfg: T5Config, has_pos: bool = True, device=None, dtype=None):
         super().__init__()
         kw = dict(device=device, dtype=dtype)
         self.norm1 = Scale(cfg.dim, **kw)
         self.norm2 = Scale(cfg.dim, **kw)
         self.attn = T5Attention(cfg, **kw)
         self.ffn = T5FFN(cfg, **kw)
-        self.pos_emb = nn.Parameter(torch.empty(cfg.num_buckets, cfg.num_heads, **kw))
+        if has_pos:
+            self.pos_emb = nn.Parameter(torch.empty(cfg.num_buckets, cfg.num_heads, **kw))
 
 
 class T5Encoder(nn.Module):
@@ -109,7 +117,8 @@ class T5Encoder(nn.Module):
         kw = dict(device=device, dtype=dtype)
         self.cfg = cfg
         self.token_embedding = nn.Parameter(torch.empty(cfg.vocab, cfg.dim, **kw))
-        self.blocks = nn.ModuleList(T5Block(cfg, **kw) for _ in range(cfg.num_layers))
+        self.blocks = nn.ModuleList(T5Block(cfg, not cfg.shared_pos or i == 0, **kw)
+                                    for i in range(cfg.num_layers))
         self.norm = Scale(cfg.dim, **kw)
 
 
@@ -123,7 +132,7 @@ def init_t5_(model: T5Encoder, generator: torch.Generator) -> T5Encoder:
             m.weight.normal_(0.0, 1.0 / math.sqrt(m.in_features), generator=generator)
         elif isinstance(m, Scale):
             m.scale.fill_(1.0)
-        elif isinstance(m, T5Block):
+        elif isinstance(m, T5Block) and hasattr(m, "pos_emb"):
             m.pos_emb.normal_(0.0, (2 * cfg.num_buckets * cfg.num_heads) ** -0.5,
                               generator=generator)
     model.token_embedding.normal_(0.0, 1.0, generator=generator)
@@ -152,8 +161,9 @@ def _pos_bias(table, length: int, num_buckets: int):
     return table[idx].permute(2, 0, 1)[None].float()  # (1, H, lq, lk)
 
 
-def t5_block(p: T5Block, x, mask, cfg: T5Config):
-    pos_bias = _pos_bias(p.pos_emb, x.shape[1], cfg.num_buckets)
+def t5_block(p: T5Block, x, mask, cfg: T5Config, pos_bias=None):
+    if pos_bias is None:
+        pos_bias = _pos_bias(p.pos_emb, x.shape[1], cfg.num_buckets)
     x = x + t5_attention(p.attn, t5_layer_norm(x, p.norm1.scale), pos_bias,
                          mask, cfg.num_heads)
     return x + p.ffn(t5_layer_norm(x, p.norm2.scale))
@@ -161,9 +171,12 @@ def t5_block(p: T5Block, x, mask, cfg: T5Config):
 
 def t5_encode(model: T5Encoder, ids, mask=None):
     """ids (B, L) integer -> embeddings (B, L, dim)."""
+    cfg = model.cfg
     x = model.token_embedding[ids.long()]
+    shared = (_pos_bias(model.blocks[0].pos_emb, x.shape[1], cfg.num_buckets)
+              if cfg.shared_pos else None)
     for blk in model.blocks:
-        x = t5_block(blk, x, mask, model.cfg)
+        x = t5_block(blk, x, mask, cfg, pos_bias=shared)
     return t5_layer_norm(x, model.norm.scale)
 
 
@@ -184,4 +197,27 @@ def convert_t5(sd, cfg: T5Config):
         out[f"{pre}.ffn.fc1.weight"] = sd[f"{pre}.ffn.fc1.weight"]
         out[f"{pre}.ffn.fc2.weight"] = sd[f"{pre}.ffn.fc2.weight"]
         out[f"{pre}.pos_emb"] = sd[f"{pre}.pos_embedding.embedding.weight"]
+    return out
+
+
+def convert_hf_t5(sd, cfg: T5Config):
+    """HF transformers `T5EncoderModel` state dict (the FLUX / SD3 T5
+    checkpoints) -> `T5Encoder` state dict (the JAX package's
+    `convert_hf_t5`): `encoder.block.{i}.layer.0` holds the attention and
+    its norm, `layer.1` the gated FFN (`wi_0` the GELU gate, `wi_1` the
+    linear branch, `wo`), and layer 0 alone the relative bias table.
+    Values pass through."""
+    out = {"token_embedding": sd["shared.weight"],
+           "norm.scale": sd["encoder.final_layer_norm.weight"]}
+    for i in range(cfg.num_layers):
+        src, dst = f"encoder.block.{i}.layer", f"blocks.{i}"
+        out[f"{dst}.norm1.scale"] = sd[f"{src}.0.layer_norm.weight"]
+        out[f"{dst}.norm2.scale"] = sd[f"{src}.1.layer_norm.weight"]
+        for name in ("q", "k", "v", "o"):
+            out[f"{dst}.attn.{name}.weight"] = sd[f"{src}.0.SelfAttention.{name}.weight"]
+        for name, hf in (("gate", "wi_0"), ("fc1", "wi_1"), ("fc2", "wo")):
+            out[f"{dst}.ffn.{name}.weight"] = sd[f"{src}.1.DenseReluDense.{hf}.weight"]
+        bias = f"{src}.0.SelfAttention.relative_attention_bias.weight"
+        if bias in sd:
+            out[f"{dst}.pos_emb"] = sd[bias]
     return out

@@ -1,0 +1,380 @@
+"""FLUX.1 text-to-image (and img2img, Kontext) pipeline in PyTorch.
+
+Counterpart of `video_styler_tpu/pipelines/flux_image.py`
+(`FluxImagePipeline.__call__` :358-637): the CLIP-L pooled embedding and
+the T5 v1.1 sequence embedding of the prompt, noise of (1, 16, H/8, W/8)
+from `generate_noise`, the flow-match Euler loop (shift 3) with the
+embedded guidance through the DiT's guidance embedder (CFG 1 is the
+distilled default; `cfg_scale != 1` runs a second pass on the negative
+prompt), the Euler update in fp32, and the 16-channel VAE decode. Options
+of the base pipeline: img2img (`input_image`, `denoising_strength`: the
+VAE encoder and the scheduler's noising), Kontext reference images (extra
+tokens with f_id = 1), FLUX TeaCache (`tea_cache_l1_thresh`) and a merged
+FLUX LoRA (`load_lora`).
+
+The adapters (ControlNet, IP-Adapter, InfiniteYou, value controllers, the
+LoRA encoder, EliGen, Nexus-Gen, Step1x, flex) wait for their slice: their
+loaders and `__call__` arguments raise `NotImplementedError`; their scalar
+settings are taken at the JAX defaults (`ADAPTER_SETTINGS`) and raise at
+any other value.
+
+Runs on `cuda` unless constructed with `device="cpu"`. Each stage's wall
+time (synchronised with the card) is kept in `stage_times`, and on the card
+the running peak of `torch.cuda.max_memory_allocated` in `stage_peak_bytes`.
+"""
+from __future__ import annotations
+
+import time
+from contextlib import contextmanager
+from typing import Callable, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..device import resolve_device
+from ..flux_lora import convert_flux_lora
+from ..lora import merge_lora
+from ..models import flux_dit as F
+from ..models import sd3_vae as V
+from ..models.sd3_text_encoder import (CLIP_L, ClipTextConfig, ClipTextEncoder,
+                                       convert_sd3_text_encoder_1, init_clip_text_)
+from ..models.t5 import T5_V11_XXL, T5Config, T5Encoder, convert_hf_t5, init_t5_
+from ..prompters.flux_prompter import FluxPrompter
+from ..schedulers.flow_match import FlowMatchScheduler
+from ..utils import ckpt as C
+from .wan_video import _image_array, _preprocess_images, generate_noise
+
+# the JAX `__call__`'s defaults for the adapters' scalar settings
+ADAPTER_SETTINGS = dict(flex_control_stop_timestep=0.0, controlnet_scale=1.0,
+                        controlnet_processor_id=None, ipadapter_scale=1.0,
+                        infinityou_guidance=1.0, lora_encoder_scale=1.0)
+
+
+class FluxTeaCache:
+    """FLUX TeaCache: a fixed poly(4) rescale of the relative L1 change of
+    block 0's modulated input, accumulated until it passes the threshold.
+    The change is reduced on the device; one number reaches the host."""
+
+    COEFFS = [4.98651651e+02, -2.83781631e+02, 5.58554382e+01,
+              -3.82021401e+00, 2.64230861e-01]
+
+    def __init__(self, num_inference_steps: int, rel_l1_thresh: float):
+        self.num_inference_steps = num_inference_steps
+        self.rel_l1_thresh = rel_l1_thresh
+        self.step = 0
+        self.accumulated = 0.0
+        self.previous_modulated = None
+        self.previous_residual = None
+
+    def check(self, modulated) -> bool:
+        """True -> skip the trunk this step and reuse the stored residual."""
+        modulated = modulated.float()
+        if self.step == 0 or self.step == self.num_inference_steps - 1:
+            should_calc = True
+            self.accumulated = 0.0
+        else:
+            prev = self.previous_modulated
+            rel = ((modulated - prev).abs().mean() / prev.abs().mean()).item()
+            self.accumulated += float(np.polyval(self.COEFFS, rel))
+            should_calc = self.accumulated >= self.rel_l1_thresh
+            if should_calc:
+                self.accumulated = 0.0
+        self.previous_modulated = modulated
+        self.step = (self.step + 1) % self.num_inference_steps
+        return not should_calc
+
+    def store(self, residual):
+        self.previous_residual = residual
+
+
+def _pending(what: str):
+    return NotImplementedError(f"{what} {F.ADAPTERS_PENDING}")
+
+
+class FluxImagePipeline:
+
+    def __init__(self, device=None, dtype=torch.bfloat16):
+        self.device = resolve_device(device)
+        self.dtype = dtype
+        self.scheduler = FlowMatchScheduler(shift=3.0)
+        self.prompter = FluxPrompter()
+        self.dit: Optional[F.FluxDiT] = None
+        self.dit_cfg: F.FluxDiTConfig = F.FLUX_DEV
+        self.vae_encoder: Optional[V.SD3VAEEncoder] = None
+        self.vae_decoder: Optional[V.SD3VAEDecoder] = None
+        self.vae_cfg: V.SD3VAEConfig = V.FLUX_VAE
+        self.t5_cfg: T5Config = T5_V11_XXL
+        self.stage_times: List[Tuple[str, float]] = []
+        self.stage_peak_bytes: List[Tuple[str, int]] = []
+
+    # ---------------- loading ----------------
+
+    @classmethod
+    def from_configs(cls, dit_cfg: F.FluxDiTConfig, clip_cfg: ClipTextConfig,
+                     t5_cfg: T5Config, vae_cfg: V.SD3VAEConfig, tokenizer_1: Callable,
+                     tokenizer_2: Callable, seed: int = 0, device=None,
+                     dtype=torch.bfloat16) -> "FluxImagePipeline":
+        """Random weights drawn on the device from one seeded generator: the
+        DiT, CLIP-L and T5 in `dtype`, the VAE in fp32."""
+        pipe = cls(device=device, dtype=dtype)
+        pipe.dit_cfg, pipe.t5_cfg, pipe.vae_cfg = dit_cfg, t5_cfg, vae_cfg
+        dev = pipe.device
+        gen = torch.Generator(dev).manual_seed(seed)
+
+        def draw(module, init):
+            return init(module.to_empty(device=dev), gen).eval()
+
+        with torch.device("meta"):
+            dit = F.FluxDiT(dit_cfg, dtype=dtype)
+            clip = ClipTextEncoder(clip_cfg, dtype=dtype)
+            t5 = T5Encoder(t5_cfg, dtype=dtype)
+            enc = V.SD3VAEEncoder(vae_cfg, dtype=torch.float32)
+            dec = V.SD3VAEDecoder(vae_cfg, dtype=torch.float32)
+        pipe.dit = draw(dit, F.init_flux_dit_)
+        pipe.prompter = FluxPrompter(tokenizer_1, tokenizer_2, draw(clip, init_clip_text_),
+                                     draw(t5, init_t5_))
+        pipe.vae_encoder = draw(enc, V.init_sd3_vae_)
+        pipe.vae_decoder = draw(dec, V.init_sd3_vae_)
+        return pipe
+
+    @classmethod
+    def from_pretrained(cls, dit_path=None, vae_path=None, clip_path=None, t5_paths=None,
+                        tokenizer_1_path=None, tokenizer_2_path=None, device=None,
+                        dtype=torch.bfloat16) -> "FluxImagePipeline":
+        """Build from checkpoint files: the DiT (DiffSynth or BFL layout;
+        FLUX.1-schnell where the file has no guidance embedder), the VAE
+        (the encoder's and decoder's module state dicts under `encoder.` and
+        `decoder.`), CLIP-L (the reference's SD3TextEncoder1 names) and the
+        T5 v1.1 shards (HF `T5EncoderModel` names). Tensors go from the
+        files to `device` in their stored dtype and are cast there."""
+        pipe = cls(device=device, dtype=dtype)
+        dev = pipe.device
+        if dit_path:
+            sd = C.load_state_dict_files(dit_path if isinstance(dit_path, list) else [dit_path],
+                                         lazy=True)
+            pipe.dit_cfg = F.flux_config_for(sd)
+            pipe.dit = C.build_module(F.FluxDiT, pipe.dit_cfg,
+                                      F.convert_flux_dit(sd, pipe.dit_cfg), dev, dtype)
+        if vae_path:
+            enc, dec = V.split_vae_state_dict(C.load_state_dict(vae_path, lazy=True))
+            pipe.vae_encoder = C.build_module(V.SD3VAEEncoder, pipe.vae_cfg,
+                                              V.convert_sd3_vae(enc), dev, torch.float32)
+            pipe.vae_decoder = C.build_module(V.SD3VAEDecoder, pipe.vae_cfg,
+                                              V.convert_sd3_vae(dec), dev, torch.float32)
+        if clip_path:
+            pipe.prompter.clip = C.build_module(
+                ClipTextEncoder, CLIP_L,
+                convert_sd3_text_encoder_1(C.load_state_dict(clip_path, lazy=True)), dev, dtype)
+        if t5_paths:
+            sd = C.load_state_dict_files(t5_paths if isinstance(t5_paths, list) else [t5_paths],
+                                         lazy=True)
+            pipe.prompter.t5 = C.build_module(T5Encoder, pipe.t5_cfg,
+                                              convert_hf_t5(sd, pipe.t5_cfg), dev, dtype)
+        pipe.prompter.fetch_tokenizers(tokenizer_1_path, tokenizer_2_path)
+        return pipe
+
+    def load_lora(self, path=None, state_dict=None, alpha: float = 1.0):
+        """Merge a FLUX LoRA (any public key layout, `flux_lora`) into the
+        DiT's weights."""
+        sd = state_dict if state_dict is not None else C.load_state_dict(path)
+        merge_lora(self.dit, convert_flux_lora(sd), alpha=alpha)
+
+    def fetch_qwenvl(self, *args, **kwargs):
+        raise _pending("the Step1x Qwen2.5-VL embedder")
+
+    def load_controlnet(self, *args, **kwargs):
+        raise _pending("the FLUX ControlNet")
+
+    def load_ipadapter(self, *args, **kwargs):
+        raise _pending("the FLUX IP-Adapter")
+
+    def load_infiniteyou(self, *args, **kwargs):
+        raise _pending("the InfiniteYou projector")
+
+    def load_value_controllers(self, *args, **kwargs):
+        raise _pending("the value controllers")
+
+    def load_lora_encoder(self, *args, **kwargs):
+        raise _pending("the FLUX LoRA encoder")
+
+    # ---------------- helpers ----------------
+
+    @contextmanager
+    def _stage(self, name: str):
+        t0 = time.perf_counter()
+        yield
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+            self.stage_peak_bytes.append((name, torch.cuda.max_memory_allocated(self.device)))
+        self.stage_times.append((name, time.perf_counter() - t0))
+
+    @staticmethod
+    def check_resize(height: int, width: int):
+        return (height + 15) // 16 * 16, (width + 15) // 16 * 16
+
+    def encode_prompt(self, prompt: str, t5_sequence_length: int = 512):
+        """-> (prompt_emb, pooled, text_ids), timed as `clip_encode` and
+        `t5_encode`."""
+        return self.prompter.encode_prompt(prompt, t5_sequence_length, dtype=self.dtype,
+                                           stage=self._stage)
+
+    @torch.no_grad()
+    def encode_image(self, image_np: np.ndarray):
+        z = V.sd3_vae_encoder_forward(
+            self.vae_encoder, torch.from_numpy(image_np).to(self.device, torch.float32),
+            self.vae_cfg)
+        return z.to(self.dtype)
+
+    @torch.no_grad()
+    def decode_image(self, latents):
+        return V.sd3_vae_decoder_forward(self.vae_decoder, latents.float(), self.vae_cfg)
+
+    def _image(self, image, width: int, height: int) -> np.ndarray:
+        """A PIL image or uint8 (H, W, 3) array -> (1, 3, height, width) in
+        [-1, 1]."""
+        return _preprocess_images(_image_array(image, width, height)[None])[:, :, 0]
+
+    def _branch(self, latents, timestep, prompt_emb, pooled, guidance, kontext, tea_cache):
+        kl, ki = kontext if kontext is not None else (None, None)
+        x, ctx, temb, cos, sin, n_img = F.flux_embed(
+            self.dit, latents, timestep, prompt_emb, pooled, guidance,
+            kontext_latents=kl, kontext_ids=ki)
+        height, width = latents.shape[-2:]
+        if tea_cache is not None:
+            skip = tea_cache.check(F.flux_modulated_input(self.dit, x, temb))
+            if skip and tea_cache.previous_residual is not None:
+                h = x + tea_cache.previous_residual
+                return F.flux_head(self.dit, h[:, :n_img], temb, height, width)
+        h = F.flux_trunk(self.dit, x, ctx, temb, cos, sin)
+        if tea_cache is not None:
+            tea_cache.store(h - x)
+        return F.flux_head(self.dit, h[:, :n_img], temb, height, width)
+
+    # ---------------- main call ----------------
+
+    @torch.no_grad()
+    def __call__(
+        self,
+        prompt: str,
+        negative_prompt: str = "",
+        cfg_scale: float = 1.0,
+        embedded_guidance: float = 3.5,
+        t5_sequence_length: int = 512,
+        input_image=None,
+        denoising_strength: float = 1.0,
+        height: int = 1024,
+        width: int = 1024,
+        seed: Optional[int] = None,
+        sigma_shift: Optional[float] = None,
+        num_inference_steps: int = 30,
+        kontext_images=None,
+        eligen_entity_prompts=None,
+        eligen_entity_masks=None,
+        nexus_gen_reference_image=None,
+        step1x_reference_image=None,
+        flex_condition=None,
+        flex_uncondition=None,
+        flex_control_stop_timestep: float = 0.0,
+        controlnet_image=None,
+        controlnet_scale: float = 1.0,
+        controlnet_processor_id: Optional[int] = None,
+        ipadapter_images=None,
+        ipadapter_scale: float = 1.0,
+        infinityou_id_image=None,
+        infinityou_id_emb=None,
+        infinityou_guidance: float = 1.0,
+        value_controller_inputs=None,
+        lora_encoder_inputs=None,
+        lora_encoder_scale: float = 1.0,
+        tea_cache_l1_thresh: Optional[float] = None,
+        progress_bar_cmd=None,
+        return_latents: bool = False,
+    ):
+        F.require_no_adapters(
+            eligen_entity_prompts=eligen_entity_prompts,
+            eligen_entity_masks=eligen_entity_masks,
+            nexus_gen_reference_image=nexus_gen_reference_image,
+            step1x_reference_image=step1x_reference_image, flex_condition=flex_condition,
+            flex_uncondition=flex_uncondition, controlnet_image=controlnet_image,
+            ipadapter_images=ipadapter_images, infinityou_id_image=infinityou_id_image,
+            infinityou_id_emb=infinityou_id_emb,
+            value_controller_inputs=value_controller_inputs,
+            lora_encoder_inputs=lora_encoder_inputs,
+            **{k: v for k, v in dict(
+                flex_control_stop_timestep=flex_control_stop_timestep,
+                controlnet_scale=controlnet_scale,
+                controlnet_processor_id=controlnet_processor_id,
+                ipadapter_scale=ipadapter_scale, infinityou_guidance=infinityou_guidance,
+                lora_encoder_scale=lora_encoder_scale).items()
+               if v != ADAPTER_SETTINGS[k]})
+        self.stage_times = []
+        self.stage_peak_bytes = []
+        dev, dtype = self.device, self.dtype
+        height, width = self.check_resize(height, width)
+        self.scheduler.set_timesteps(num_inference_steps, denoising_strength=denoising_strength,
+                                     shift=sigma_shift)
+
+        noise = generate_noise((1, 16, height // 8, width // 8), seed=seed).to(dev, dtype)
+        if input_image is not None:
+            with self._stage("vae_encode"):
+                input_latents = self.encode_image(self._image(input_image, width, height))
+            latents = self.scheduler.add_noise(input_latents.float(), noise.float(),
+                                               self.scheduler.timesteps[0]).to(dtype)
+        else:
+            latents = noise
+
+        prompt_emb, pooled, _ = self.encode_prompt(prompt, t5_sequence_length)
+        nega = None
+        if cfg_scale != 1.0:
+            nega = self.encode_prompt(negative_prompt, t5_sequence_length)
+        guidance = torch.tensor([embedded_guidance], dtype=torch.float32, device=dev)
+
+        kontext = None
+        if kontext_images is not None:
+            if not isinstance(kontext_images, list):
+                kontext_images = [kontext_images]
+            k_lats, k_ids = [], []
+            with self._stage("vae_encode_kontext"):
+                for im in kontext_images:
+                    w0, h0 = ((im.width, im.height) if hasattr(im, "width")
+                              else (im.shape[1], im.shape[0]))
+                    z = self.encode_image(self._image(im, w0 // 16 * 16, h0 // 16 * 16))
+                    k_ids.append(F.prepare_image_ids(1, z.shape[2] // 2, z.shape[3] // 2))
+                    k_lats.append(F.patchify(z))
+            kontext = (torch.cat(k_lats, dim=1), np.concatenate(k_ids, axis=0))
+
+        tea_cache = None
+        if tea_cache_l1_thresh is not None:
+            tea_cache = FluxTeaCache(num_inference_steps, tea_cache_l1_thresh)
+
+        steps = range(len(self.scheduler.timesteps))
+        if progress_bar_cmd is not None:
+            steps = progress_bar_cmd(steps)
+        for i in steps:
+            timestep = torch.tensor([float(self.scheduler.timesteps[i])], dtype=torch.float32,
+                                    device=dev)
+            with self._stage(f"denoise_step_{i}"):
+                v = self._branch(latents, timestep, prompt_emb, pooled, guidance, kontext,
+                                 tea_cache)
+                if cfg_scale != 1.0:
+                    v_nega = self._branch(latents, timestep, nega[0], nega[1], guidance,
+                                          kontext, None)
+                    v = v_nega + cfg_scale * (v - v_nega)
+                sigma, sigma_next = self.scheduler.sigma_pair(i)
+                latents = (latents.float() + v.float() * (sigma_next - sigma)).to(dtype)
+
+        if return_latents:
+            return latents
+        with self._stage("vae_decode"):
+            image = self.decode_image(latents)
+        return self.vae_output_to_image(image)
+
+    @staticmethod
+    def vae_output_to_image(image):
+        """(1, 3, H, W) in [-1, 1] -> a PIL image. Raises on a non-finite
+        value rather than writing it out as black pixels."""
+        from PIL import Image
+        if not bool(torch.isfinite(image).all()):
+            raise FloatingPointError("decoded image holds non-finite values")
+        arr = image[0].float().cpu().numpy().transpose(1, 2, 0)
+        return Image.fromarray(np.clip((arr + 1) * 127.5, 0, 255).astype(np.uint8))

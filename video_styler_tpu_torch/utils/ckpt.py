@@ -23,9 +23,10 @@ Detection (`detect_model_kind`, `detect_wan_dit_config`,
 `detect_vace_config`) reads keys and shapes only. `load_model` builds the
 kinds the port has modules for: `dit` (T2V, I2V, FLF2V, TI2V), `vace`,
 `dit+vace`, the Wan2.1 and Wan2.2 `vae`, `t5`, the CLIP image encoder
-(`clip`), the Wan2.2-Animate adapter and the wav2vec2 tower (`wav2vec`);
-every other kind raises `NotImplementedError`, naming the ROADMAP item
-that ports it where one does (the S2V model, like the JAX loader's, is
+(`clip`), the Wan2.2-Animate adapter, the wav2vec2 tower (`wav2vec`) and
+the FLUX DiT (`flux_dit`, detected by its BFL layout); every other kind
+raises `NotImplementedError`, naming the ROADMAP item that ports it where
+one does (the S2V model, like the JAX loader's, is
 built by the pipeline's `from_pretrained` only).
 """
 from __future__ import annotations
@@ -316,7 +317,7 @@ def detect_vace_config(sd: Dict) -> Optional[VaceConfig]:
 # kinds `detect_model_kind` knows that the port cannot build yet, and the
 # ROADMAP Queue 1 item that ports each
 UNPORTED_KINDS = {
-    "motion_modules": 11, "flux_dit": 11, "flux_controlnet": 11,
+    "motion_modules": 11, "flux_controlnet": 11,
     "flux_ipadapter": 11, "ipadapter": 11, "flux_lora_encoder": 11,
     "flux_value_encoder": 11, "flux_infiniteyou_projector": 11,
     "qwen_image_dit": 11, "qwen_image_blockwise_controlnet": 11,
@@ -346,8 +347,9 @@ def load_model(path, device=None, dtype: torch.dtype = torch.bfloat16):
     models)`, the JAX `load_model`'s analogue: {"dit", "dit_cfg"} and/or
     {"vace", "vace_cfg"}; {"vae", "vae_cfg"} (fp32; the Wan2.1 or the
     Wan2.2 VAE); the T5 encoder (umT5-XXL); the CLIP ViT-H/14 tower; the
-    Wan2.2-Animate adapter; or the wav2vec2-XLSR-53 tower
-    (`models.wav2vec.WAV2VEC2_XLSR_53`, read when called).
+    Wan2.2-Animate adapter; the wav2vec2-XLSR-53 tower
+    (`models.wav2vec.WAV2VEC2_XLSR_53`, read when called); or the FLUX DiT
+    (FLUX.1-dev where the file has a guidance embedder, else schnell).
     Modules are built on `device` (the card unless "cpu")."""
     from ..device import resolve_device
     from ..models import clip_vit as CV
@@ -391,6 +393,10 @@ def load_model(path, device=None, dtype: torch.dtype = torch.bfloat16):
         cfg = W.WAV2VEC2_XLSR_53
         return kind, build_module(W.Wav2Vec2, cfg, W.convert_wav2vec(sd, cfg), device,
                                   dtype)
+    if kind == "flux_dit":
+        from ..models import flux_dit as F
+        cfg = F.flux_config_for(sd)
+        return kind, build_module(F.FluxDiT, cfg, F.convert_flux_dit(sd, cfg), device, dtype)
     if kind in UNPORTED_KINDS:
         raise unported(kind)
     raise NotImplementedError(f"detected '{kind}' — use its family pipeline/converter "
