@@ -232,6 +232,38 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
              category (`flux_profile`: K1, GEMM, elementwise, other); then
              the recipe's whole request, 30 steps (`flux_image`: seconds
              per image, stage times)
+  card       the card's name and power limit again (nvidia-smi), ahead of
+             the adapters' and SD3's phases
+  flux_adapter_kernels  (with the kernel rows) K1 at the FLUX adapters'
+             shapes, 24 heads of 128: the IP-Adapter cross from 4,096 and
+             4,608 query rows to 128 and 256 keys, and every
+             self-attention length the adapters' requests give it (the
+             union ControlNet's and the LoRA encoder's 4,609,
+             InfiniteYou's 4,105, the value encoder's 4,612, Kontext's
+             8,704)
+  flux_adapters_reference  each FLUX adapter (union ControlNet, also
+             under two-pass CFG; IP-Adapter; EliGen; InfiniteYou; a value
+             encoder; the LoRA encoder; Flex) on the small FLUX of
+             `flux_reference`, 256x256, 2 steps, card vs CPU
+  sd3_reference  a small SD3 (a dual block, RMS q/k norm, tiny CLIP-L and
+             CLIP-G) at 256x256, 2 steps, CFG 4 two-pass, t2i and a local
+             prompt, card vs CPU
+  flux_adapters  on the resident FLUX.1-dev after `flux`, at 1024x1024,
+             --steps steps, each adapter at its published width with
+             random weights from a seed (the union ControlNet, 5 + 10
+             blocks, CFG 1 and two-pass; InfiniteYou on its branch; the
+             IP-Adapter, 57 k/v pairs of 128 tokens, a seeded SigLIP
+             stand-in; EliGen with two entity masks; a value encoder; the
+             LoRA encoder on a rank-16 LoRA; Flex), then img2img, Kontext,
+             TeaCache, 512x512, schnell's path and a merged LoRA: step
+             seconds, peak, K1 launches against the count from the code
+             (`flux_adapters_summary`: adapter GiB, launches by case)
+  sd3        SD3.5-Large at full width and depth (dim 2432, 38 heads of
+             64, 38 layers) with CLIP-G drawn from a seed and FLUX's
+             CLIP-L, T5 v1.1-XXL and VAE modules, 1024x1024, CFG 7.5
+             two-pass, --steps steps: stage times, peak, no K1 launch;
+             one step profiled by category and one exact `sdpa` call
+             timed (`sd3_profile`); then the 20-step request (`sd3_image`)
   usp_kernels  (with the kernel rows) one rank's work of the multi-GPU path
              at Wan2.1-14B width over the Ditto clip's 29,640 tokens, in
              this process: K1 on a Ulysses share (20 and 10 heads over the
@@ -3350,7 +3382,9 @@ def run_flux(torch, kernels, steps: int):
     `FluxImagePipeline` at the recipe's embedded guidance 3.5 and CFG 1,
     --steps steps, then the decode: stage times, peak memory, K1's launches
     against 57 a step; then one DiT step profiled by category; then the
-    recipe's 30-step request, timed whole."""
+    recipe's 30-step request, timed whole; then the `flux_adapters` phase
+    on the same resident model. Returns the launches,
+    the adapters' launches and the modules the sd3 phase shares."""
     from video_styler_tpu_torch.models.flux_dit import FLUX_DEV
     from video_styler_tpu_torch.models.sd3_text_encoder import CLIP_L
     from video_styler_tpu_torch.models.sd3_vae import FLUX_VAE
@@ -3420,7 +3454,552 @@ def run_flux(torch, kernels, steps: int):
                   image_size=list(image.size), **CARD))
         if len(steps_30) != FLUX_RECIPE_STEPS or image.size != (1024, 1024):
             raise AssertionError(f"flux_image: {len(steps_30)} steps, image {image.size}")
-        return launches
+        adapter_launches = run_flux_adapters(torch, pipe, kernels, steps)
+        # what the sd3 phase shares: CLIP-L, T5 v1.1-XXL and the VAE's modules
+        shared = (pipe.prompter.clip, pipe.prompter.t5, pipe.vae_encoder, pipe.vae_decoder)
+        return launches, adapter_launches, shared
+    finally:
+        del pipe
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# FLUX's adapters and the SD3 family
+# ---------------------------------------------------------------------------
+
+FLUX_IP_TOKENS = 128        # IP-Adapter tokens a picture (InstantX FLUX.1-dev-IP-Adapter)
+FLUX_UNION_MODES = 10       # the union ControlNet's mode table (FLUX.1-dev-Controlnet-Union)
+FLEX_CHANNELS = 33          # Flex.2's extra latent channels: 16 inpaint + 1 mask + 16 control
+SIGLIP_DIM = 1152           # SigLIP so400m's pooled width
+FLUX_VALUE_TOKENS = 4       # a value encoder's tokens (the JAX init's widths)
+SD3_T5_LEN = 77             # the SD3 prompter's T5 rows (the JAX default)
+SD3_CFG = 7.5
+SD3_RECIPE_STEPS = 20       # the JAX pipeline's default
+SD3_CATEGORIES = (  # one two-pass SD3 step's device time, by category
+    ("attention fp32 GEMM", ("f32f32_f32f32", "sgemm", "simt", "gemm_f32")),
+    ("softmax", ("SoftMax", "softmax")),
+    ("gemm", ("gemm", "nvjet", "xmma", "cutlass", "sm90_")),
+    ("elementwise", ("elementwise", "reduce_kernel", "CatArrayBatchedCopy", "layer_norm",
+                     "copy_kernel", "index", "fill")),
+)
+
+
+def flux_adapter_self_lens(size: int) -> dict:
+    """K1's self-attention lengths on `flux_adapters`' requests beyond the
+    DiT's own [text | image] (`flux_kernels`): the union ControlNet's trunk
+    (its mode token ahead of the text; the LoRA encoder's one token after
+    the text gives the DiT the same length), InfiniteYou's trunk (its id
+    tokens and the mode token in place of the text), the value encoder's
+    tokens after the text, and Kontext's reference image after the image."""
+    from video_styler_tpu_torch.models.flux_adapters import FLUX_LORA_ENCODER, INFINITEYOU
+    img = (size // 16) ** 2
+    return {"controlnet": FLUX_TEXT + 1 + img,
+            "lora_encoder": FLUX_TEXT + FLUX_LORA_ENCODER.num_special_embeds + img,
+            "infiniteyou": INFINITEYOU.num_queries + 1 + img,
+            "value": FLUX_TEXT + FLUX_VALUE_TOKENS + img,
+            "kontext": FLUX_TEXT + 2 * img}
+
+
+def check_flux_adapter_kernels(torch):
+    """`flux_adapter_kernels`: K1 at the adapters' new shapes, 24 heads of
+    128, against its plain version (two bf16 ULPs): the IP-Adapter's cross
+    from the joint blocks' 4,096 image rows and the single blocks' 4,608
+    [text | image] rows to 128 and 256 keys (one and two pictures: one and
+    two key tiles), and every self-attention length of
+    `flux_adapter_self_lens` (4,609, 4,105, 4,612 and 8,704: the first
+    three no multiple of 8)."""
+    rows = []
+    for s in (flux_tokens(1024) - FLUX_TEXT, flux_tokens(1024)):
+        rows += check_kernels(torch, (1, 1, s), f"flux-ip-{s}q", heads=FLUX_HEADS,
+                              cross_lens=(FLUX_IP_TOKENS, 2 * FLUX_IP_TOKENS),
+                              self_attn=False, norms=False)
+    for s in sorted(set(flux_adapter_self_lens(1024).values())):
+        rows += check_kernels(torch, (1, 1, s), f"flux-adapter-{s}", heads=FLUX_HEADS,
+                              cross_lens=(), norms=False)
+    return rows
+
+
+def siglip_standin(images):
+    """A seeded stand-in for the SigLIP tower the caller passes: (B, 1152)
+    from each picture's mean colour through a fixed random projection."""
+    import numpy as np
+    arr = np.stack([np.asarray(im, np.float32).reshape(-1, 3).mean(axis=0) for im in images])
+    w = np.random.default_rng(31).standard_normal((3, SIGLIP_DIM)).astype(np.float32)
+    return (arr / 255.0 - 0.5) @ w
+
+
+def synthetic_image(seed: int, size: int):
+    import numpy as np
+    from PIL import Image
+    y, x = np.mgrid[0:size, 0:size].astype(np.float32) / size
+    rgb = np.stack([np.sin(6 * x + seed), np.cos(5 * y - seed), np.sin(4 * (x + y))], -1)
+    return Image.fromarray(((rgb + 1) * 127.5).astype(np.uint8))
+
+
+def entity_mask(size: int, top: float, left: float, bottom: float, right: float):
+    import numpy as np
+    from PIL import Image
+    arr = np.zeros((size, size, 3), np.uint8)
+    arr[int(top * size):int(bottom * size), int(left * size):int(right * size)] = 255
+    return Image.fromarray(arr)
+
+
+def random_flux_lora(rank: int, seed: int):
+    """A FLUX LoRA over every projection the LoRA encoder probes (native
+    names, numpy), rank `rank`, factors N(0, 0.02^2)."""
+    import numpy as np
+    from video_styler_tpu_torch.models.flux_adapters import default_lora_patterns
+    rng = np.random.default_rng(seed)
+    lora = {}
+    for pat in default_lora_patterns():
+        din, dout = pat["dim"]
+        lora[pat["name"] + ".lora_A.weight"] = (
+            0.02 * rng.standard_normal((rank, din), dtype=np.float32))
+        lora[pat["name"] + ".lora_B.weight"] = (
+            0.02 * rng.standard_normal((dout, rank), dtype=np.float32))
+    return lora
+
+
+def attach_adapter(torch, pipe, name: str, seed: int, full: bool):
+    """A random adapter drawn on the pipeline's device in its dtype, at the
+    published checkpoints' widths for `pipe.dit_cfg` (`full`: the union
+    ControlNet's 5 + 10 blocks; else 2 + 2)."""
+    import dataclasses
+    from video_styler_tpu_torch.models import flux_adapters as FA
+    from video_styler_tpu_torch.models import flux_controlnet as FC
+    d = pipe.dit_cfg
+    gen = torch.Generator(pipe.device).manual_seed(seed)
+
+    def draw(make, init):
+        with torch.device("meta"):
+            module = make()
+        return init(module.to_empty(device=pipe.device), gen).eval()
+
+    if name == "controlnet":
+        cfg = FC.FluxControlNetConfig(dit=d, num_joint_blocks=5 if full else 2,
+                                      num_single_blocks=10 if full else 2,
+                                      num_mode=FLUX_UNION_MODES)
+        pipe.controlnet = draw(lambda: FC.FluxControlNet(cfg, dtype=pipe.dtype),
+                               FC.init_flux_controlnet_)
+        return pipe.controlnet
+    if name == "ipadapter":
+        cfg = FC.FluxIpAdapterConfig(dit=d, image_dim=SIGLIP_DIM, num_tokens=FLUX_IP_TOKENS,
+                                     num_blocks=d.num_joint_blocks + d.num_single_blocks)
+        pipe.ipadapter = draw(lambda: FC.FluxIpAdapter(cfg, dtype=pipe.dtype),
+                              FC.init_flux_ipadapter_)
+        pipe.ipadapter_image_encoder = siglip_standin
+        return pipe.ipadapter
+    if name == "infiniteyou":
+        cfg = FA.InfiniteYouConfig(output_dim=d.context_dim)
+        pipe.infiniteyou_projector = draw(lambda: FA.InfiniteYouProjector(cfg, dtype=pipe.dtype),
+                                          FA.init_infiniteyou_projector_)
+        return pipe.infiniteyou_projector
+    if name == "value":
+        # the JAX init's widths (16 in, 4 tokens) to the DiT's text width
+        cfg = FA.ValueEncoderConfig(16, d.context_dim, FLUX_VALUE_TOKENS)
+        pipe.value_controllers = [draw(lambda: FA.SingleValueEncoder(cfg, dtype=pipe.dtype),
+                                       FA.init_value_encoder_)]
+        return pipe.value_controllers[0]
+    if name == "lora_encoder":
+        cfg = dataclasses.replace(FA.FLUX_LORA_ENCODER, embed_dim=d.context_dim,
+                                  intermediate_dim=2 * d.context_dim)
+        pipe.lora_encoder = draw(lambda: FA.FluxLoRAEncoder(cfg, dtype=pipe.dtype),
+                                 FA.init_flux_lora_encoder_)
+        return pipe.lora_encoder
+    raise ValueError(name)
+
+
+def flux_adapter_requests(size: int, lora_rank: int):
+    """name -> (the adapters it needs, its request beyond the base one, K1
+    launches a step: 57 DiT blocks, + 15 (or the reference's 4) ControlNet
+    blocks per branch, + 57 IP-Adapter crosses; none under EliGen's bias)."""
+    import numpy as np
+    rng = np.random.default_rng(32)
+    lat = size // 8
+    cond = rng.standard_normal((1, FLEX_CHANNELS, lat, lat)).astype(np.float32)
+    return {
+        "controlnet": (("controlnet",), dict(controlnet_image=synthetic_image(1, size),
+                                             controlnet_processor_id=2)),
+        "controlnet_cfg": (("controlnet",), dict(controlnet_image=synthetic_image(1, size),
+                                                 controlnet_processor_id=2, cfg_scale=2.0,
+                                                 negative_prompt="blurry, dark")),
+        "ipadapter": (("ipadapter",), dict(ipadapter_images=[synthetic_image(2, size)])),
+        "eligen": ((), dict(eligen_entity_prompts=["a red lighthouse", "a stormy sea"],
+                            eligen_entity_masks=[entity_mask(size, 0.0, 0.3, 0.7, 0.7),
+                                                 entity_mask(size, 0.6, 0.0, 1.0, 1.0)])),
+        "infiniteyou": (("controlnet", "infiniteyou"), dict(
+            controlnet_image=synthetic_image(3, size), controlnet_processor_id=5,
+            infinityou_id_emb=rng.standard_normal((1, 512)).astype(np.float32),
+            infinityou_guidance=1.5)),
+        "value": (("value",), dict(value_controller_inputs=[0.7])),
+        "lora_encoder": (("lora_encoder",), dict(
+            lora_encoder_inputs=[random_flux_lora(lora_rank, 33)], lora_encoder_scale=0.8)),
+        "flex": (("flex",), dict(flex_condition=cond, flex_uncondition=np.zeros_like(cond),
+                                 flex_control_stop_timestep=500.0)),
+    }
+
+
+def expected_flux_k1(pipe, name: str, request: dict, steps: int) -> dict:
+    d = pipe.dit_cfg
+    per_forward = d.num_joint_blocks + d.num_single_blocks
+    if request.get("eligen_entity_prompts"):
+        return {}
+    if request.get("ipadapter_images") is not None:
+        per_forward *= 2
+    if request.get("controlnet_image") is not None:
+        cn = pipe.controlnet.cfg
+        per_forward += cn.num_joint_blocks + cn.num_single_blocks
+    branches = 2 if request.get("cfg_scale", 1.0) != 1.0 else 1
+    return {"K1": per_forward * branches * steps}
+
+
+def flux_flex_dit(torch, pipe, seed: int):
+    """The pipeline's DiT with an `x_embedder` of 16 + 33 latent channels
+    drawn from a seed (Flex.2's input); every other weight shared."""
+    import dataclasses
+    from video_styler_tpu_torch.models import flux_dit as F
+    from video_styler_tpu_torch.models.wan_dit import Linear
+    d = pipe.dit_cfg
+    flex = copy.copy(pipe.dit)
+    flex._modules = dict(pipe.dit._modules)
+    flex.cfg = dataclasses.replace(d, in_dim=(16 + FLEX_CHANNELS) * 4)
+    gen = torch.Generator(pipe.device).manual_seed(seed)
+    emb = Linear(flex.cfg.in_dim, d.dim, device=pipe.device, dtype=pipe.dtype)
+    with torch.no_grad():
+        emb.weight.normal_(0.0, flex.cfg.in_dim ** -0.5, generator=gen)
+        emb.bias.zero_()
+    flex._modules["x_embedder"] = emb
+    return flex
+
+
+def check_flux_adapters_reference(torch):
+    """`flux_adapters_reference`: each adapter on the small FLUX of
+    `flux_reference_configs` (head dim 128), random weights from seeds:
+    the union ControlNet at 2 + 2 blocks (with and without two-pass CFG),
+    the IP-Adapter (128 tokens from a 1152-wide embedding, 4 blocks),
+    EliGen (two entities), InfiniteYou (on the ControlNet's branch), a
+    value encoder, the LoRA encoder (64 wide) on a rank-2 LoRA, Flex (a DiT
+    taking 16 + 33 channels); 256x256, 2 steps, card (K1) against the CPU
+    (plain versions): latents within 5% relative L2."""
+    cpu = flux_pipeline(torch, flux_reference_configs(), "cpu")
+    requests = flux_adapter_requests(FLUX_REF_SIZE, lora_rank=2)
+    for i, name in enumerate(("controlnet", "ipadapter", "infiniteyou", "value",
+                              "lora_encoder")):
+        attach_adapter(torch, cpu, name, seed=40 + i, full=False)
+    flex_cpu = flux_flex_dit(torch, cpu, 46)
+    gpu = copy.copy(cpu)
+    gpu.device = torch.device("cuda")
+    gpu.prompter = copy.copy(cpu.prompter)
+    (gpu.dit, gpu.vae_encoder, gpu.vae_decoder, gpu.prompter.clip, gpu.prompter.t5,
+     gpu.controlnet, gpu.ipadapter, gpu.infiniteyou_projector, gpu.lora_encoder, flex_gpu) = (
+        copy.deepcopy(m).to("cuda") for m in (
+            cpu.dit, cpu.vae_encoder, cpu.vae_decoder, cpu.prompter.clip, cpu.prompter.t5,
+            cpu.controlnet, cpu.ipadapter, cpu.infiniteyou_projector, cpu.lora_encoder,
+            flex_cpu))
+    gpu.value_controllers = [copy.deepcopy(m).to("cuda") for m in cpu.value_controllers]
+    res = dict(phase="flux_adapters_reference", size=FLUX_REF_SIZE, steps=2,
+               dit_dim=cpu.dit_cfg.dim, dit_heads=cpu.dit_cfg.num_heads, latents_rel_l2={},
+               latents_tol=5e-2, **CARD)
+    base = dict(prompt=FLUX_PROMPT, height=FLUX_REF_SIZE, width=FLUX_REF_SIZE, seed=42,
+                num_inference_steps=2, return_latents=True)
+    for name, (_, request) in requests.items():
+        pairs = ((cpu, flex_cpu), (gpu, flex_gpu))
+        lats = []
+        for pipe, flex in pairs:
+            dit = pipe.dit
+            if name == "flex":
+                pipe.dit = flex
+            try:
+                lats.append(pipe(**base, **request).float().cpu())
+            finally:
+                pipe.dit = dit
+        res["latents_rel_l2"][name] = ((lats[1] - lats[0]).norm() / lats[0].norm()).item()
+    emit(res)
+    if not all(v <= 5e-2 for v in res["latents_rel_l2"].values()):
+        raise AssertionError(f"FLUX adapters, card vs CPU disagree: {res}")
+
+
+def run_flux_case(torch, pipe, kernels, name: str, request: dict, steps: int,
+                  expected: dict, **extra):
+    """One request on the resident FLUX.1-dev with every launch count set
+    to 0 just before and read just after: step seconds, peak, launches
+    against `expected`, finite latents of the request's shape."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for kern in kernels.values():
+        kern.launches = 0
+    t0 = time.perf_counter()
+    lat = pipe(return_latents=True, **request)
+    total_s = time.perf_counter() - t0
+    launches = {k: v.launches for k, v in kernels.items()}
+    size = request["height"]
+    res = dict(phase="flux_adapters", case=name, size=size, steps=steps, total_s=total_s,
+               step_s=step_times(pipe),
+               stages={k: v for k, v in pipe.stage_times if not k.startswith("denoise_step_")},
+               max_memory_allocated_gib=torch.cuda.max_memory_allocated() / 2**30,
+               launches={k: v for k, v in launches.items() if v}, expected_launches=expected,
+               **extra, **CARD)
+    emit(res)
+    check_launches(launches, expected, f"flux_adapters {name}")
+    if tuple(lat.shape) != (1, 16, size // 8, size // 8) or not bool(torch.isfinite(lat).all()):
+        raise AssertionError(f"flux_adapters {name}: latents {tuple(lat.shape)}, not finite")
+    return launches
+
+
+def run_flux_adapters(torch, pipe, kernels, steps: int, size: int = 1024):
+    """`flux_adapters`: on the resident FLUX.1-dev (after `flux`), each
+    adapter at its published width with random weights from a seed,
+    1024x1024, --steps steps (K1's launches against the count from the
+    code): the union ControlNet (5 + 10 blocks, 10 modes) with a
+    `processor_id`, also under two-pass CFG, then InfiniteYou (1280 wide,
+    4 layers, 4096 out) on its branch; the IP-Adapter (SigLIP 1152 -> 128
+    tokens, 57 k/v pairs) with the seeded SigLIP stand-in; EliGen with two
+    entity masks; a value encoder (16 in, 4 tokens of 4096); the LoRA
+    encoder (4096 wide, 304 probes of 16 tokens) on a rank-16 LoRA, its
+    encode timed once; Flex (an x_embedder of 16 + 33 channels); then the
+    base pipeline's options: img2img, Kontext (a 1024x1024
+    reference, 8,704 tokens), TeaCache (4 steps, the middle two skipped at
+    a threshold no step reaches), 512x512, schnell (no guidance embedding)
+    and a merged rank-16 LoRA (last: it changes the DiT's weights).
+    `size`: the requests' height and width."""
+    import dataclasses
+    import numpy as np
+    from video_styler_tpu_torch.pipelines.flux_image import FluxTeaCache
+    d = pipe.dit_cfg
+    blocks = d.num_joint_blocks + d.num_single_blocks
+    base = dict(prompt=FLUX_PROMPT, height=size, width=size, seed=42,
+                embedded_guidance=3.5, num_inference_steps=steps)
+    requests = flux_adapter_requests(size, lora_rank=16)
+    launches = {}
+    weights = {}
+
+    def run(name, request, expected=None, n=steps, **extra):
+        req = {**base, "num_inference_steps": n, **request}
+        if expected is None:
+            expected = expected_flux_k1(pipe, name, req, n)
+        launches[name] = run_flux_case(torch, pipe, kernels, name, req, n, expected, **extra)
+
+    def drop(*names):
+        for attr in names:
+            setattr(pipe, attr, None)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    weights["controlnet"] = gib([attach_adapter(torch, pipe, "controlnet", 50, full=True)])
+    run("controlnet", requests["controlnet"][1], weights_gib=weights["controlnet"])
+    run("controlnet_cfg", requests["controlnet_cfg"][1])
+    weights["infiniteyou"] = gib([attach_adapter(torch, pipe, "infiniteyou", 51, full=True)])
+    run("infiniteyou", requests["infiniteyou"][1], weights_gib=weights["infiniteyou"])
+    drop("controlnet", "infiniteyou_projector")
+    weights["ipadapter"] = gib([attach_adapter(torch, pipe, "ipadapter", 52, full=True)])
+    run("ipadapter", requests["ipadapter"][1], weights_gib=weights["ipadapter"])
+    drop("ipadapter")
+    run("eligen", requests["eligen"][1], tokens=3 * FLUX_TEXT + flux_tokens(size) - FLUX_TEXT)
+    weights["value"] = gib([attach_adapter(torch, pipe, "value", 53, full=True)])
+    run("value", requests["value"][1])
+    drop("value_controllers")
+    weights["lora_encoder"] = gib([attach_adapter(torch, pipe, "lora_encoder", 54, full=True)])
+    run("lora_encoder", requests["lora_encoder"][1], weights_gib=weights["lora_encoder"])
+    drop("lora_encoder")
+    dit = pipe.dit
+    pipe.dit = flux_flex_dit(torch, pipe, 55)
+    try:
+        run("flex", requests["flex"][1])
+    finally:
+        pipe.dit = dit
+    # the base pipeline's options, at full width
+    run("img2img", dict(input_image=synthetic_image(6, size), denoising_strength=0.6))
+    run("kontext", dict(kontext_images=[synthetic_image(7, size)]),
+        tokens=flux_adapter_self_lens(size)["kontext"])
+    skips = []
+    check = FluxTeaCache.check
+
+    def counted(self, modulated):
+        skip = check(self, modulated)
+        skips.append(skip)
+        return skip
+    FluxTeaCache.check = counted
+    try:
+        run("teacache", dict(tea_cache_l1_thresh=1e9), n=4, expected={"K1": 2 * blocks})
+    finally:
+        FluxTeaCache.check = check
+    if skips != [False, True, True, False]:
+        raise AssertionError(f"teacache: skip decisions {skips}")
+    run("half_size", dict(height=size // 2, width=size // 2), tokens=flux_tokens(size // 2))
+    schnell = dataclasses.replace(pipe.dit.cfg, guidance_embed=False)
+    dev_cfg, pipe.dit.cfg = pipe.dit.cfg, schnell
+    try:
+        run("schnell", {})
+    finally:
+        pipe.dit.cfg = dev_cfg
+    rng = np.random.default_rng(56)
+    lora = {}
+    for i in range(d.num_joint_blocks):
+        lora[f"lora_unet_double_blocks_{i}_img_attn_qkv.lora_down.weight"] = (
+            0.01 * rng.standard_normal((16, d.dim), dtype=np.float32))
+        lora[f"lora_unet_double_blocks_{i}_img_attn_qkv.lora_up.weight"] = (
+            0.01 * rng.standard_normal((3 * d.dim, 16), dtype=np.float32))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pipe.load_lora(state_dict={k: torch.from_numpy(v) for k, v in lora.items()}, alpha=1.0)
+    torch.cuda.synchronize()
+    run("lora", {}, lora_merge_s=time.perf_counter() - t0)
+    emit(dict(phase="flux_adapters_summary", steps=steps, adapter_weights_gib=weights,
+              k1_launches={k: v.get("K1", 0) for k, v in launches.items()}, **CARD))
+    return {"K1": sum(v.get("K1", 0) for v in launches.values())}
+
+
+def sd3_configs(full: bool):
+    """(DiT, CLIP-L, CLIP-G, T5, VAE): SD3.5-Large at its published widths
+    and depth with T5 v1.1-XXL, or a small SD3 with a dual block (2 heads
+    of 64, 3 layers) on tiny towers and no T5; the SD3 VAE either way."""
+    import dataclasses
+    from video_styler_tpu_torch.models.sd3_dit import SD35_LARGE, SD3_DIT_TINY
+    from video_styler_tpu_torch.models.sd3_text_encoder import CLIP_L, CLIP_L_TINY
+    from video_styler_tpu_torch.models.sd3_vae import SD3_VAE
+    from video_styler_tpu_torch.models.sdxl import CLIP_G, CLIP_G_TINY
+    from video_styler_tpu_torch.models.t5 import T5_V11_XXL
+    if full:
+        return SD35_LARGE, CLIP_L, CLIP_G, T5_V11_XXL, SD3_VAE
+    dit = dataclasses.replace(SD3_DIT_TINY, context_dim=4096,
+                              pooled_dim=CLIP_L_TINY.dim + CLIP_G_TINY.dim)
+    return dit, CLIP_L_TINY, CLIP_G_TINY, None, SD3_VAE
+
+
+def sd3_pipeline(torch, configs, device: str, seed: int = 0):
+    from video_styler_tpu_torch.pipelines.sd3_image import SD3ImagePipeline
+    from video_styler_tpu_torch.prompters.flux_prompter import (StubClipTokenizer,
+                                                                StubT5Tokenizer)
+    dit, clip_l, clip_g, t5, vae = configs
+    toks = (StubClipTokenizer(clip_l.vocab), StubClipTokenizer(clip_g.vocab),
+            None if t5 is None else StubT5Tokenizer(t5.vocab))
+    return SD3ImagePipeline.from_configs(dit, clip_l, clip_g, t5, vae, toks, seed=seed,
+                                         device=device, dtype=torch.bfloat16)
+
+
+def check_sd3_reference(torch):
+    """`sd3_reference`: the small SD3 of `sd3_configs(False)` (a dual
+    block, RMS q/k norm) on the card against the same weights on the CPU:
+    256x256, 2 steps, CFG 4 two-pass, t2i and a local prompt, latents
+    within 5% relative L2 (both devices run the exact `sdpa`)."""
+    cpu = sd3_pipeline(torch, sd3_configs(False), "cpu")
+    gpu = copy.copy(cpu)
+    gpu.device = torch.device("cuda")
+    gpu.prompter = copy.copy(cpu.prompter)
+    gpu.dit, gpu.vae_encoder, gpu.vae_decoder, gpu.prompter.te1, gpu.prompter.te2 = (
+        copy.deepcopy(m).to("cuda") for m in (cpu.dit, cpu.vae_encoder, cpu.vae_decoder,
+                                              cpu.prompter.te1, cpu.prompter.te2))
+    res = dict(phase="sd3_reference", size=FLUX_REF_SIZE, steps=2, dit_dim=cpu.dit_cfg.dim,
+               dit_heads=cpu.dit_cfg.num_heads, dual_blocks=cpu.dit_cfg.num_dual_blocks,
+               latents_rel_l2={}, latents_tol=5e-2, **CARD)
+    base = dict(prompt=FLUX_PROMPT, negative_prompt="blurry", cfg_scale=4.0,
+                height=FLUX_REF_SIZE, width=FLUX_REF_SIZE, seed=42, num_inference_steps=2,
+                return_latents=True)
+    local = dict(local_prompts=["a red roof"], masks=[entity_mask(FLUX_REF_SIZE, 0, 0, 0.5, 1)],
+                 mask_scales=[1.0])
+    for name, request in (("t2i", {}), ("local_prompts", local)):
+        lat_c = cpu(**base, **request).float()
+        lat_g = gpu(**base, **request).float().cpu()
+        res["latents_rel_l2"][name] = ((lat_g - lat_c).norm() / lat_c.norm()).item()
+    emit(res)
+    if not all(v <= 5e-2 for v in res["latents_rel_l2"].values()):
+        raise AssertionError(f"SD3, card vs CPU disagree: {res}")
+
+
+def run_sd3(torch, kernels, steps: int, shared):
+    """`sd3`: SD3.5-Large at its published widths and depth (dim 2432, 38
+    heads of 64, 38 layers, RMS q/k norm) with CLIP-L, CLIP-G, T5
+    v1.1-XXL and the SD3 VAE, random bf16 weights (the VAE fp32) from a
+    seed; `shared` (the FLUX phase's CLIP-L and T5 v1.1-XXL towers and
+    its VAE's modules, the same shapes: (clip, t5, encoder, decoder))
+    stands in for drawing those again. One
+    1024x1024 request (4,096 image + 154 text tokens), CFG 7.5 two-pass,
+    --steps steps: stage times, peak, no K1 launch (every attention is the
+    exact `sdpa`); one step profiled by category (`sd3_profile`); then the
+    JAX default's 20-step request, timed whole (`sd3_image`)."""
+    from video_styler_tpu_torch.models import sd3_dit as D
+    from video_styler_tpu_torch.models.sd3_text_encoder import init_clip_text_
+    from video_styler_tpu_torch.models.sdxl import SDXLTextEncoder2
+    from video_styler_tpu_torch.pipelines.sd3_image import SD3ImagePipeline
+    from video_styler_tpu_torch.prompters.flux_prompter import StubClipTokenizer, StubT5Tokenizer
+    from video_styler_tpu_torch.prompters.sd3_prompter import SD3Prompter
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dit, clip_l, clip_g, t5, _ = sd3_configs(True)
+    # draw the DiT and CLIP-G; CLIP-L, T5 and the VAE's modules are FLUX's
+    pipe = SD3ImagePipeline(device="cuda", dtype=torch.bfloat16)
+    pipe.dit_cfg = dit
+    pipe.dit = random_module(torch, D.SD3DiT, dit, D.init_sd3_dit_, 60, torch.bfloat16)
+    te2 = random_module(torch, SDXLTextEncoder2, clip_g, init_clip_text_, 61, torch.bfloat16)
+    clip, t5_model, pipe.vae_encoder, pipe.vae_decoder = shared
+    pipe.prompter = SD3Prompter(StubClipTokenizer(clip_l.vocab), StubClipTokenizer(clip_g.vocab),
+                                StubT5Tokenizer(t5.vocab), te1=clip, te2=te2, t5=t5_model)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    try:
+        weights = {"dit": gib([pipe.dit]), "clip_l": gib([pipe.prompter.te1]),
+                   "clip_g": gib([pipe.prompter.te2]), "t5": gib([pipe.prompter.t5]),
+                   "vae": gib([pipe.vae_encoder, pipe.vae_decoder])}
+        request = dict(prompt=FLUX_PROMPT, negative_prompt="blurry, dark", cfg_scale=SD3_CFG,
+                       height=1024, width=1024, seed=42, num_inference_steps=steps,
+                       t5_sequence_length=SD3_T5_LEN)
+        for kern in kernels.values():
+            kern.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        image = pipe(**request)
+        total_s = time.perf_counter() - t0
+        launches = {name: kern.launches for name, kern in kernels.items()}
+        res = dict(phase="sd3", model="SD3.5-Large", dit_dim=dit.dim, dit_heads=dit.num_heads,
+                   layers=dit.num_layers, size=1024, tokens=(1024 // 16) ** 2 + 77 + SD3_T5_LEN,
+                   steps=steps, cfg=f"two-pass {SD3_CFG}", build_s=build_s,
+                   weights_gib=weights, total_s=total_s, stages=dict(pipe.stage_times),
+                   step_s=step_times(pipe),
+                   stage_peak_gib={k: v / 2**30 for k, v in pipe.stage_peak_bytes},
+                   max_memory_allocated_gib=torch.cuda.max_memory_allocated() / 2**30,
+                   image_size=list(image.size), launches={k: v for k, v in launches.items() if v},
+                   expected_launches={}, **CARD)
+        emit(res)
+        check_launches(launches, {}, "sd3")
+        measured = {k: launches[k] for k in ("K1", "K4", "K5")}
+        if image.size != (1024, 1024):
+            raise AssertionError(f"sd3: image {image.size}")
+        # one two-pass DiT step under the profiler, on this request's inputs
+        from video_styler_tpu_torch.ops.attention import sdpa
+        from video_styler_tpu_torch.pipelines.wan_video import generate_noise
+        posi = pipe.encode_prompt(FLUX_PROMPT, SD3_T5_LEN)
+        nega = pipe.encode_prompt("blurry, dark", SD3_T5_LEN)
+        latents = generate_noise((1, 16, 128, 128), seed=42).to("cuda", torch.bfloat16)
+        t = torch.tensor([float(pipe.scheduler.timesteps[0])], device="cuda")
+        with torch.no_grad():
+            def one_step():
+                v_p = D.sd3_dit_forward(pipe.dit, latents, t, *posi)
+                v_n = D.sd3_dit_forward(pipe.dit, latents, t, *nega)
+                return v_n + SD3_CFG * (v_p - v_n)
+            prof = profile_request(torch, one_step, min(step_times(pipe)),
+                                   categories=SD3_CATEGORIES)
+            q = torch.randn(1, res["tokens"], dit.num_heads, 64, device="cuda",
+                            dtype=torch.bfloat16)
+            sdpa_ms = time_ms(torch, lambda: sdpa(q, q, q), reps=5)
+        emit({"phase": "sd3_profile", "forwards": 2, "sdpa_call_ms": sdpa_ms,
+              "sdpa_calls_a_step": 2 * dit.num_layers, **prof, **CARD})
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        image = pipe(**{**request, "num_inference_steps": SD3_RECIPE_STEPS})
+        image_s = time.perf_counter() - t0
+        steps_20 = step_times(pipe)
+        emit(dict(phase="sd3_image", steps=SD3_RECIPE_STEPS, size=1024,
+                  cfg=f"two-pass {SD3_CFG}", image_s=image_s,
+                  stages={k: v for k, v in pipe.stage_times
+                          if not k.startswith("denoise_step_")},
+                  step_s_first=steps_20[0],
+                  step_s_rest_mean=sum(steps_20[1:]) / (len(steps_20) - 1),
+                  step_s_min=min(steps_20), step_s_max=max(steps_20),
+                  image_size=list(image.size), **CARD))
+        if len(steps_20) != SD3_RECIPE_STEPS or image.size != (1024, 1024):
+            raise AssertionError(f"sd3_image: {len(steps_20)} steps, image {image.size}")
+        return measured
     finally:
         del pipe
         gc.collect()
@@ -3901,12 +4480,26 @@ def main(argv=None):
     # block streaming at 14B width on a free card, then the workflow CLIs
     path_launches["streaming"] = run_streaming(torch, kernels, args.frames, args.steps, smi)
     run_workflow_smokes(torch, kernels)
-    # FLUX.1-dev on the free card: K1 at its shapes, the small pipeline
-    # card vs CPU, then the full-width request
+    # FLUX.1-dev on the free card: K1 at its shapes (and its adapters'),
+    # the small pipelines card vs CPU, then the full-width requests; then
+    # SD3.5-Large on FLUX's text towers and VAE
     rows += check_flux_kernels(torch)
+    emit(dict(phase="card", nvidia_smi=subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True).stdout.strip()))
+    rows += check_flux_adapter_kernels(torch)
     torch.cuda.empty_cache()
     check_flux_reference(torch)
-    path_launches["flux"] = run_flux(torch, kernels, args.steps)
+    check_flux_adapters_reference(torch)
+    check_sd3_reference(torch)
+    path_launches["flux"], path_launches["flux_adapters"], shared = run_flux(
+        torch, kernels, args.steps)
+    gc.collect()
+    torch.cuda.empty_cache()
+    path_launches["sd3"] = run_sd3(torch, kernels, args.steps, shared)
+    del shared
+    gc.collect()
+    torch.cuda.empty_cache()
     # the multi-GPU path: ranks sharing the free card
     path_launches["usp"] = run_usp(torch, args.frames, args.steps, usp_reference, smi)
 

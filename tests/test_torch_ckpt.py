@@ -500,23 +500,25 @@ def test_vace_prefix_quirk_is_mirrored(tmp_path, monkeypatch):
 
 
 def test_unported_kinds_raise(tmp_path, monkeypatch):
-    """flux_controlnet and motion_modules raise with their Queue 1 item;
+    """hunyuan_video_dit and motion_modules raise with their Queue 1 item;
     `s2v` and `wav2vec` are ported and attach as in the JAX pipeline: `s2v`
     builds the default (14B) config whatever the file, `wav2vec` raises the
     JAX pipeline's ValueError (ROADMAP Queue 3). `flux_dit` is ported
     (`load_model` and the FLUX pipeline build it) and, as in the JAX
     package, is no kind of the Wan pipeline."""
     import video_styler_tpu_torch.models.wan_s2v as TS
-    path = str(tmp_path / "flux_controlnet.safetensors")
-    safetensors_io.save_file({"controlnet_x_embedder.weight": torch.zeros(4, 4)}, path)
+    path = str(tmp_path / "hunyuan_video_dit.safetensors")
+    safetensors_io.save_file({"single_blocks.0.linear1.weight": torch.zeros(4, 4)}, path)
     with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
         TC.load_model(path, device="cpu")
     tp = TW.WanVideoPipeline(device="cpu")
-    for kind in ("flux_controlnet", "motion_modules"):
+    for kind in ("hunyuan_video_dit", "motion_modules"):
         with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
             tp._attach(kind, {})
-    assert not {"animate", "motion_controller", "s2v", "wav2vec",
-                "flux_dit"} & set(TC.UNPORTED_KINDS)
+    assert not {"animate", "motion_controller", "s2v", "wav2vec", "flux_dit",
+                "flux_controlnet", "flux_ipadapter", "flux_infiniteyou_projector",
+                "flux_value_encoder", "flux_lora_encoder", "sd3_dit"} & set(TC.UNPORTED_KINDS)
+    assert len(TC.UNPORTED_KINDS) == 12
     jp = JW.WanVideoPipeline(dtype=jnp.float32)
     for pipe in (jp, tp):
         with pytest.raises(ValueError, match="unknown model kind wav2vec"):

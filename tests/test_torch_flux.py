@@ -6,7 +6,9 @@ and `rename_civitai_flux` from one synthetic BFL / civitai / DiffSynth
 state dict, `convert_flux_lora` and the merge in the four layouts of the
 JAX package's own LoRA tests, `FluxImagePipeline` (t2i, img2img, two-pass
 CFG, embedded guidance, Kontext, TeaCache) on the same weights, the
-adapters that raise, and the `image_gen` CLI.
+adapters that still raise (Nexus-Gen, Step1x; the others are held in
+`test_torch_flux_adapters.py`), the prompter without a T5 tokenizer, and
+the `image_gen` CLI.
 
 Weights: the DiT from the JAX init (`init_flux_dit`) with its biases and
 norm weights perturbed from a numpy seed; the pipeline's CLIP-L and VAE
@@ -19,6 +21,7 @@ On the CPU the port's attention is K1's plain version (the capped softmax)
 and the JAX DiT takes the exact `sdpa`: fp32 within 2e-5 relative L2; bf16
 within the bounds stated at each test.
 """
+import copy
 import dataclasses
 import functools
 
@@ -452,19 +455,15 @@ def test_teacache_matches_jax(pipes, monkeypatch, thresh):
     assert _rel(got, want) < TOL_F32, _rel(got, want)
 
 
-ADAPTER_ARGS = ["eligen_entity_prompts", "eligen_entity_masks", "nexus_gen_reference_image",
-                "step1x_reference_image", "flex_condition", "flex_uncondition",
-                "controlnet_image", "ipadapter_images", "infinityou_id_image",
-                "infinityou_id_emb", "value_controller_inputs", "lora_encoder_inputs",
-                # scalar settings: raise off the JAX defaults
-                "flex_control_stop_timestep", "controlnet_scale", "controlnet_processor_id",
-                "ipadapter_scale", "infinityou_guidance", "lora_encoder_scale"]
+ADAPTER_ARGS = ["nexus_gen_reference_image", "step1x_reference_image"]
 
 
 @pytest.mark.parametrize("arg", ADAPTER_ARGS)
 def test_adapter_arguments_raise(pipes, arg):
+    """Nexus-Gen and Step1x wait for the Qwen2.5-VL stack; every other
+    adapter runs (`test_torch_flux_adapters.py`)."""
     _, tp = pipes
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(NotImplementedError, match="items 11d and 11e"):
         tp(return_latents=True, **BASE, **{arg: [object()]})
 
 
@@ -481,15 +480,11 @@ def test_adapter_settings_at_jax_defaults(pipes):
                                tp(return_latents=True, **BASE), rtol=0, atol=0)
 
 
-@pytest.mark.parametrize("loader", ["load_controlnet", "load_ipadapter", "load_infiniteyou",
-                                    "load_value_controllers", "load_lora_encoder",
-                                    "fetch_qwenvl"])
+@pytest.mark.parametrize("loader", ["fetch_qwenvl"])
 def test_adapter_loaders_raise(loader):
     pipe = TPipe(device="cpu")
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(NotImplementedError, match="items 11d and 11e"):
         getattr(pipe, loader)("adapter.safetensors")
-    with pytest.raises(NotImplementedError, match="item 11"):
-        TF.flux_dit_forward(None, None, None, None, None, attn_bias=np.zeros(1))
 
 
 def test_pipeline_load_lora_matches_jax(pipes):
@@ -575,4 +570,33 @@ def test_image_gen_cli_refuses(tmp_path):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         image_gen.main(["--family", "flux", "--smoke", "--output", str(tmp_path / "x.png")])
     with pytest.raises(NotImplementedError, match="item 11"):
-        image_gen.main(["--family", "sd3", "--smoke", "--device", "cpu"])
+        image_gen.main(["--family", "sd", "--smoke", "--device", "cpu"])
+
+
+def test_prompter_without_t5_tokenizer_raises(pipes):
+    """The JAX runner passes no T5 tokenizer (`examples/image_gen.py:50-60`),
+    so its prompter calls None; the port's names what it lacks
+    (ROADMAP: where the port departs from JAX on purpose)."""
+    _, tp = pipes
+    prompter = copy.copy(tp.prompter)
+    prompter.tokenizer_2 = None
+    with pytest.raises(RuntimeError, match="the FLUX prompter has no tokenizer_2"):
+        prompter.encode_prompt("a fox", T5_LEN)
+
+
+def test_image_gen_passes_tokenizer_2_path(monkeypatch, tmp_path):
+    """`--tokenizer_2_path` reaches `from_pretrained` as the T5 tokenizer's
+    path (the JAX runner has no such option)."""
+    seen = {}
+
+    def from_pretrained(**kw):
+        seen.update(kw)
+        raise StopIteration
+    monkeypatch.setattr(TPipe, "from_pretrained", staticmethod(from_pretrained))
+    with pytest.raises(StopIteration):
+        image_gen.main(["--family", "flux", "--dit_path", "a.safetensors|b.safetensors",
+                        "--tokenizer_path", "clip_tok", "--tokenizer_2_path", "t5_tok",
+                        "--device", "cpu", "--output", str(tmp_path / "x.png")])
+    assert seen["tokenizer_1_path"] == "clip_tok"
+    assert seen["tokenizer_2_path"] == "t5_tok"
+    assert seen["dit_path"] == ["a.safetensors", "b.safetensors"]

@@ -133,6 +133,43 @@ def test_k1_image_cross_lengths(gen, sq, sk):
     _assert_close(out[:, rows], fa.flash_attention_plain(q[:, rows], k, v))
 
 
+@pytest.mark.parametrize("sq", [4096, 4608])
+@pytest.mark.parametrize("sk", [128, 256])
+def test_k1_flux_ipadapter_cross(gen, sq, sk):
+    """K1 on the FLUX IP-Adapter's cross-attention: the joint blocks'
+    4,096 image rows and the single blocks' 4,608 [text | image] rows, 24
+    heads, against one picture's 128 keys (one key tile) or two pictures'
+    256; the keys and values are one block's slice of the (57, 1, T, N, D)
+    stacks."""
+    q = _randn(gen, 1, sq, 24, 128)
+    ks, vs = _randn(gen, 3, 1, sk, 24, 128), _randn(gen, 3, 1, sk, 24, 128)
+    k, v = ks[1], vs[1]
+    before = fa.KERNEL.launches
+    out = fa.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert fa.KERNEL.launches == before + 1
+    rows = torch.cat([torch.arange(0, 1024), torch.arange(sq - 1024, sq)]).cuda()
+    _assert_close(out[:, rows], fa.flash_attention_plain(q[:, rows], k, v))
+
+
+@pytest.mark.parametrize("s", [4609, 4105, 4612, 8704])
+def test_k1_flux_adapter_self_lengths(gen, s):
+    """K1 at the FLUX adapters' self-attention lengths, 24 heads, v a chunk
+    of the single blocks' fused qkv: the union ControlNet's 4,609 (its mode
+    token ahead of 512 text and 4,096 image tokens), InfiniteYou's 4,105 (8
+    id tokens and the mode token in place of the text), the value
+    encoder's 4,612 (4 tokens after the text) and Kontext's 8,704 (a
+    reference image's 4,096 tokens after the image)."""
+    q, k = _randn(gen, 1, s, 24, 128), _randn(gen, 1, s, 24, 128)
+    v = _randn(gen, 1, s, 72, 128).chunk(3, dim=2)[2]
+    before = fa.KERNEL.launches
+    out = fa.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert fa.KERNEL.launches == before + 1
+    rows = torch.cat([torch.arange(0, 1024), torch.arange(s - 1024, s)]).cuda()
+    _assert_close(out[:, rows], fa.flash_attention_plain(q[:, rows], k, v))
+
+
 def test_k1_k4_k5_ti2v_width(gen):
     """TI2V-5B's width: 24 heads of 128 (Dm 3072: 12 chunks of 16 bytes a
     lane, K5's 16-chunk instantiation) over its 5,070 tokens (13 x 15 x 26,

@@ -27,6 +27,15 @@ and returns the port's module for `kind`:
   "sd3_vae_encoder" / "sd3_vae_decoder" -> models.sd3_vae.SD3VAEEncoder /
             SD3VAEDecoder (cfg: SD3VAEConfig)
   "clip_l_text" -> models.sd3_text_encoder.ClipTextEncoder (cfg: ClipTextConfig)
+  "clip_g_text" -> models.sdxl.SDXLTextEncoder2 (cfg: ClipTextConfig)
+  "flux_controlnet" -> models.flux_controlnet.FluxControlNet (cfg: FluxControlNetConfig)
+  "flux_ipadapter" -> models.flux_controlnet.FluxIpAdapter (cfg: FluxIpAdapterConfig;
+            the tree's stacked `modules` become `blocks`)
+  "infiniteyou" -> models.flux_adapters.InfiniteYouProjector (cfg: InfiniteYouConfig)
+  "value_encoder" -> models.flux_adapters.SingleValueEncoder (cfg: None, the widths
+            come from the tree)
+  "lora_encoder" -> models.flux_adapters.FluxLoRAEncoder (cfg: FluxLoRAEncoderConfig)
+  "sd3_dit" -> models.sd3_dit.SD3DiT (cfg: SD3DiTConfig)
   ("t5" takes T5 v1.1 too: with `shared_pos` only layer 0 has `pos_emb`)
 
 A Fun DiT's tree carries `ref_conv` ({"w", "b"}, as the patch embedding)
@@ -40,8 +49,10 @@ blocks) into the port's per-block factors in torch layout.
 The layouts that differ: JAX linears store `w` as (in, out) and
 `nn.Linear` stores `weight` as (out, in) (a convolution's `w`, 3-D and up,
 is already in the torch layout and only takes the name `weight`); the
-stacked `blocks` (and VACE `after_proj`, FLUX `single_blocks`) trees of
-the DiT, VACE, S2V and FLUX DiT carry a leading layer axis that becomes the index of an `nn.ModuleList`
+stacked `blocks` (and VACE `after_proj`, FLUX `single_blocks`, the
+ControlNet's `controlnet_blocks` / `controlnet_single_blocks`, SD3's
+`dual_blocks`) trees of the DiT, VACE, S2V, FLUX DiT, FLUX ControlNet,
+IP-Adapter and SD3 DiT carry a leading layer axis that becomes the index of an `nn.ModuleList`
 (the CLIP tower's `blocks` are a dict keyed by index, the wav2vec and
 XLM-R towers' a list: the same names). VAE conv weights are already OIDHW
 and keep their names.
@@ -63,9 +74,14 @@ from .device import resolve_device
 from .models.blip_reward import BlipReward
 from .models.clip_dual import ClipDual, CrossModel, cross_model_config
 from .models.clip_vit import ClipVit, XlmRoberta
+from .models.flux_adapters import (FluxLoRAEncoder, InfiniteYouProjector, SingleValueEncoder,
+                                   ValueEncoderConfig)
+from .models.flux_controlnet import FluxControlNet, FluxIpAdapter
 from .models.flux_dit import FluxDiT
+from .models.sd3_dit import SD3DiT
 from .models.sd3_text_encoder import ClipTextEncoder
 from .models.sd3_vae import SD3VAEDecoder, SD3VAEEncoder
+from .models.sdxl import SDXLTextEncoder2
 from .models.t5 import T5Encoder
 from .models.wan_animate import WanAnimateAdapter, animate_head_dim
 from .models.wan_controllers import MotionController, SimpleAdapter
@@ -95,11 +111,19 @@ _MODULES = {"dit": WanDiT, "vace": WanVace, "t5": T5Encoder, "vae": WanVAE,
             "clip": ClipVit, "s2v": WanS2V, "wav2vec": Wav2Vec2, "xlm_roberta": XlmRoberta,
             "clip_dual": ClipDual, "blip_reward": BlipReward, "flux_dit": FluxDiT,
             "sd3_vae_encoder": SD3VAEEncoder, "sd3_vae_decoder": SD3VAEDecoder,
-            "clip_l_text": ClipTextEncoder}
+            "clip_l_text": ClipTextEncoder, "clip_g_text": SDXLTextEncoder2,
+            "flux_controlnet": FluxControlNet, "flux_ipadapter": FluxIpAdapter,
+            "infiniteyou": InfiniteYouProjector, "lora_encoder": FluxLoRAEncoder,
+            "sd3_dit": SD3DiT}
 _BUILDERS = {"animate": _animate, "motion_controller": _motion_controller,
              "control_adapter": _simple_adapter,
-             "cross_model": lambda cfg, sd: CrossModel(cross_model_config(sd))}
-_STACKED = ("blocks", "after_proj", "single_blocks")
+             "cross_model": lambda cfg, sd: CrossModel(cross_model_config(sd)),
+             "value_encoder": lambda cfg, sd: SingleValueEncoder(ValueEncoderConfig(
+                 sd["fc1.weight"].shape[1], sd["fc1.weight"].shape[0], sd["pos"].shape[0]))}
+_STACKED = ("blocks", "after_proj", "single_blocks", "controlnet_blocks",
+            "controlnet_single_blocks", "dual_blocks")
+_STACKED_KINDS = ("dit", "vace", "s2v", "flux_dit", "flux_controlnet", "flux_ipadapter",
+                  "sd3_dit")
 
 
 def _to_tensor(a) -> torch.Tensor:
@@ -166,7 +190,9 @@ def from_jax_params(kind: str, tree, cfg, device=None) -> torch.nn.Module:
     if kind not in _MODULES and kind not in _BUILDERS:
         raise ValueError(f"unknown model kind {kind!r}; one of "
                          f"{sorted(_MODULES) + sorted(_BUILDERS)}")
-    sd = jax_tree_to_state_dict(tree, stacked=kind in ("dit", "vace", "s2v", "flux_dit"))
+    if kind == "flux_ipadapter":
+        tree = {("blocks" if k == "modules" else k): v for k, v in tree.items()}
+    sd = jax_tree_to_state_dict(tree, stacked=kind in _STACKED_KINDS)
     with torch.device("meta"):
         if kind in _BUILDERS:
             module = _BUILDERS[kind](cfg, sd)

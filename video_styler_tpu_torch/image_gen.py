@@ -5,22 +5,30 @@
         --clip_path clip_l.safetensors --t5_path "t5-1.safetensors|t5-2.safetensors" \
         --tokenizer_path tokenizer --tokenizer_2_path tokenizer_2 --output out.png
     python -m video_styler_tpu_torch.image_gen --family flux --smoke --device cpu
+    python -m video_styler_tpu_torch.image_gen --family sd3 --prompt "a cat" \
+        --dit_path sd3.5_large.safetensors --vae_path vae.safetensors
+    python -m video_styler_tpu_torch.image_gen --family sd3 --smoke --device cpu
 
 The counterpart of the JAX package's `examples/image_gen.py`, for the
 families the port runs: `flux` (FLUX.1-dev, or schnell where the DiT file
 has no guidance embedder; embedded guidance 3.5, CFG 1, --steps steps,
---lora_path merged at alpha 1). Checkpoints come from local files only:
+--lora_path merged at alpha 1) and `sd3` (SD3 / SD3.5, the config inferred
+from the DiT file; --cfg_scale, default 7.5, with --negative_prompt; the
+JAX runner's `from_pretrained` loads the DiT and the VAE only, so without
+--smoke the prompter has no text encoder and the request raises, as the
+JAX runner's does). Checkpoints come from local files only:
 --dit_path (DiffSynth or BFL layout; shards `|`-separated), --vae_path (the
 encoder's and decoder's state dicts under `encoder.` / `decoder.`),
 --clip_path (CLIP-L), --t5_path (T5 v1.1-XXL, HF names; shards
 `|`-separated), --tokenizer_path (the CLIP tokenizer) and
 --tokenizer_2_path (the T5 tokenizer; the JAX runner passes none, and its
 prompter then has no T5 tokenizer). --smoke runs a tiny random model
-(FLUX_DIT_TINY, CLIP-L and T5 v1.1 at tiny widths with stand-in
-tokenizers, the FLUX VAE) at 64x64 for 2 steps. The other families of the
-JAX runner (sd, sdxl, sd3, qwen, hunyuan_image, omnigen) raise
-`NotImplementedError`: ROADMAP Queue 1 item 11 ports them. Runs on the card
-unless --device cpu.
+(flux: FLUX_DIT_TINY, CLIP-L and T5 v1.1 at tiny widths with stand-in
+tokenizers, the FLUX VAE; sd3: SD3_DIT_TINY with a 4096-wide context,
+CLIP-L and CLIP-G at tiny widths, no T5, the SD3 VAE) at 64x64 for 2
+steps. The other families of the JAX runner (sd, sdxl, qwen,
+hunyuan_image, omnigen) raise `NotImplementedError`: ROADMAP Queue 1 item
+11 ports them. Runs on the card unless --device cpu.
 """
 from __future__ import annotations
 
@@ -61,6 +69,36 @@ def run_flux(a):
                 height=a.height, width=a.width, seed=a.seed)
 
 
+def build_sd3_smoke_pipeline(device=None, seed: int = 0):
+    """An SD3 pipeline of tiny random models (weights from `seed`), fp32:
+    the prompter's 4096-wide context and pooled CLIP-L + CLIP-G width."""
+    import dataclasses
+    import torch
+    from .models.sd3_dit import SD3_DIT_TINY
+    from .models.sd3_text_encoder import CLIP_L_TINY
+    from .models.sd3_vae import SD3_VAE
+    from .models.sdxl import CLIP_G_TINY
+    from .pipelines.sd3_image import SD3ImagePipeline
+    from .prompters.flux_prompter import StubClipTokenizer
+    dit = dataclasses.replace(SD3_DIT_TINY, context_dim=4096,
+                              pooled_dim=CLIP_L_TINY.dim + CLIP_G_TINY.dim)
+    return SD3ImagePipeline.from_configs(
+        dit, CLIP_L_TINY, CLIP_G_TINY, None, SD3_VAE,
+        (StubClipTokenizer(CLIP_L_TINY.vocab), StubClipTokenizer(CLIP_G_TINY.vocab), None),
+        seed=seed, device=device, dtype=torch.float32)
+
+
+def run_sd3(a):
+    from .pipelines.sd3_image import SD3ImagePipeline
+    if a.smoke:
+        pipe = build_sd3_smoke_pipeline(device=a.device, seed=a.seed)
+    else:
+        pipe = SD3ImagePipeline.from_pretrained(dit_path=a.dit_path.split("|"),
+                                                vae_path=a.vae_path, device=a.device)
+    return pipe(a.prompt, negative_prompt=a.negative_prompt, cfg_scale=a.cfg_scale,
+                num_inference_steps=a.steps, height=a.height, width=a.width, seed=a.seed)
+
+
 def _unported(family: str):
     def run(a):
         raise NotImplementedError(f"image family {family!r} is not ported yet "
@@ -68,15 +106,16 @@ def _unported(family: str):
     return run
 
 
-RUNNERS = {"flux": run_flux,
-           **{f: _unported(f) for f in ("sd", "sdxl", "sd3", "qwen", "hunyuan_image",
-                                        "omnigen")}}
+RUNNERS = {"flux": run_flux, "sd3": run_sd3,
+           **{f: _unported(f) for f in ("sd", "sdxl", "qwen", "hunyuan_image", "omnigen")}}
 
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--family", required=True, choices=sorted(RUNNERS))
     p.add_argument("--prompt", default="a lighthouse on a cliff at dawn")
+    p.add_argument("--negative_prompt", default="")
+    p.add_argument("--cfg_scale", type=float, default=7.5, help="sd3 only")
     p.add_argument("--dit_path")
     p.add_argument("--vae_path")
     p.add_argument("--clip_path")

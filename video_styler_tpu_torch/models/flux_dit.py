@@ -22,8 +22,21 @@ Where the numbers can drift from the JAX DiT:
     then multiplies by the weight;
   - the guidance embedder takes guidance x 1000.
 
-The EliGen attention bias, IP-Adapter keys and ControlNet residuals wait
-for the FLUX adapters' slice (ROADMAP Queue 1 item 11).
+The adapters' hooks, as in the JAX DiT (`flux_dit.py:216-432, 597-638`):
+  - IP-Adapter keys and values (`ip_kv`, stacked over the 57 blocks) add
+    `ip_scale * attention(q, ip_k, ip_v)` to each block's attention output:
+    the joint block queries with the image stream's pre-RoPE normed q, the
+    single block with the post-RoPE q over [text | image] (so the text rows
+    get it too). That cross-attention is K1 on the card (128 keys an
+    image);
+  - an EliGen attention bias (`attn_bias`, from
+    `build_entity_attention_bias`) sends both self-attentions through the
+    exact `ops.attention.sdpa(..., bias=)`, as the JAX DiT calls its exact
+    `_sdpa` there: K1 takes no bias;
+  - ControlNet residuals (`controlnet_res`, `controlnet_single_res`, one per
+    block) are zero-padded to the image (and Kontext) length, added to the
+    image stream after each joint block and to the rows past the text after
+    each single block.
 """
 from __future__ import annotations
 
@@ -36,11 +49,9 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..ops.attention import attention
+from ..ops.attention import attention, sdpa
 from ..ops.basic import gelu_tanh, layer_norm, silu
 from .wan_dit import Linear
-
-ADAPTERS_PENDING = "waits for the FLUX adapters' slice (ROADMAP Queue 1 item 11)"
 
 
 @dataclass(frozen=True)
@@ -251,22 +262,43 @@ def _modulate(x, shift, scale, eps: float):
     return layer_norm(x, eps=eps) * (1 + scale) + shift
 
 
-def joint_block(p: JointBlock, x_a, x_b, temb, cos, sin, cfg: FluxDiTConfig):
+def _self_attention(q, k, v, attn_bias):
+    """K1 (or its plain version), or under an EliGen bias the exact `sdpa`."""
+    if attn_bias is None:
+        return attention(q, k, v)
+    return sdpa(q, k, v, bias=attn_bias)
+
+
+def _interact_ipadapter(out, q, ip_k, ip_v, scale: float):
+    """out += scale * attention(q, ip_k, ip_v), out (B, S, dim)."""
+    b, s = out.shape[:2]
+    ip = attention(q, ip_k.to(q.dtype), ip_v.to(q.dtype))
+    return out + scale * ip.reshape(b, s, -1).to(out.dtype)
+
+
+def joint_block(p: JointBlock, x_a, x_b, temb, cos, sin, cfg: FluxDiTConfig,
+                ip_k=None, ip_v=None, ip_scale: float = 1.0, attn_bias=None):
     """Image stream x_a, text stream x_b; the RoPE rows cover [text | image]
-    and the joint attention runs on that order."""
+    and the joint attention runs on that order. ip_k/ip_v (B, T, N, D) add
+    IP-Adapter attention on the image stream, queried with the pre-RoPE
+    normed q_a."""
     sh_a, sc_a, g_a, shm_a, scm_a, gm_a = _ada_mod(p.norm1_a, temb, 6)
     sh_b, sc_b, g_b, shm_b, scm_b, gm_b = _ada_mod(p.norm1_b, temb, 6)
     ap = p.attn
     n = cfg.num_heads
     q_a, k_a, v_a = _heads(ap.a_to_qkv(_modulate(x_a, sh_a, sc_a, cfg.eps)), 3 * n).chunk(3, 2)
     q_b, k_b, v_b = _heads(ap.b_to_qkv(_modulate(x_b, sh_b, sc_b, cfg.eps)), 3 * n).chunk(3, 2)
-    q = torch.cat([_rms(ap.norm_q_b, q_b, cfg.eps), _rms(ap.norm_q_a, q_a, cfg.eps)], dim=1)
+    q_a = _rms(ap.norm_q_a, q_a, cfg.eps)
+    q = torch.cat([_rms(ap.norm_q_b, q_b, cfg.eps), q_a], dim=1)
     k = torch.cat([_rms(ap.norm_k_b, k_b, cfg.eps), _rms(ap.norm_k_a, k_a, cfg.eps)], dim=1)
     v = torch.cat([v_b, v_a], dim=1)
-    out = attention(rope_apply_interleaved(q, cos, sin), rope_apply_interleaved(k, cos, sin), v)
+    out = _self_attention(rope_apply_interleaved(q, cos, sin),
+                          rope_apply_interleaved(k, cos, sin), v, attn_bias)
     out = out.reshape(out.shape[0], out.shape[1], cfg.dim)
     s_b = x_b.shape[1]
     out_b, out_a = out[:, :s_b], out[:, s_b:]
+    if ip_k is not None:
+        out_a = _interact_ipadapter(out_a, q_a, ip_k, ip_v, ip_scale)
 
     x_a = x_a + g_a * ap.a_to_out(out_a)
     h = _modulate(x_a, shm_a, scm_a, cfg.eps)
@@ -278,14 +310,19 @@ def joint_block(p: JointBlock, x_a, x_b, temb, cos, sin, cfg: FluxDiTConfig):
     return x_a, x_b
 
 
-def single_block(p: SingleBlock, x, temb, cos, sin, cfg: FluxDiTConfig):
+def single_block(p: SingleBlock, x, temb, cos, sin, cfg: FluxDiTConfig,
+                 ip_k=None, ip_v=None, ip_scale: float = 1.0, attn_bias=None):
+    """The IP-Adapter query here is the post-RoPE q over the whole
+    [text | image] sequence."""
     sh, sc, gate = _ada_mod(p.norm, temb, 3)
     proj = p.to_qkv_mlp(_modulate(x, sh, sc, cfg.eps))
     qkv, mlp = proj[..., :3 * cfg.dim], proj[..., 3 * cfg.dim:]
     q, k, v = _heads(qkv, 3 * cfg.num_heads).chunk(3, 2)
     q = rope_apply_interleaved(_rms(p.norm_q_a, q, cfg.eps), cos, sin)
     k = rope_apply_interleaved(_rms(p.norm_k_a, k, cfg.eps), cos, sin)
-    out = attention(q, k, v).reshape(x.shape[0], x.shape[1], cfg.dim)
+    out = _self_attention(q, k, v, attn_bias).reshape(x.shape[0], x.shape[1], cfg.dim)
+    if ip_k is not None:
+        out = _interact_ipadapter(out, q, ip_k, ip_v, ip_scale)
     return x + gate * p.proj_out(torch.cat([out, gelu_tanh(mlp)], dim=-1))
 
 
@@ -303,29 +340,23 @@ def unpatchify(x, height: int, width: int):
         b, c, height, width)
 
 
-def require_no_adapters(**inputs):
-    """Raise NotImplementedError naming the adapter inputs that were given."""
-    given = sorted(k for k, v in inputs.items() if v is not None)
-    if given:
-        raise NotImplementedError(f"{', '.join(given)}: {ADAPTERS_PENDING}")
-
-
 def flux_dit_forward(model: FluxDiT, hidden_states, timestep, prompt_emb,
                      pooled_prompt_emb, guidance=None, image_ids=None, text_ids=None,
                      kontext_latents=None, kontext_ids=None, controlnet_res=None,
-                     controlnet_single_res=None, ip_kv=None, attn_bias=None):
+                     controlnet_single_res=None, ip_kv=None, ip_scale: float = 1.0,
+                     attn_bias=None):
     """hidden_states (B, 16, H, W) latents; prompt_emb (B, L, context_dim);
     pooled_prompt_emb (B, pooled_dim); guidance (B,) embedded guidance (dev
     models); image_ids/text_ids: optional (S, 3) position ids.
     kontext_latents: patchified reference tokens appended after the image
-    tokens with their own ids (f_id = 1), dropped from the output."""
-    require_no_adapters(controlnet_res=controlnet_res,
-                        controlnet_single_res=controlnet_single_res, ip_kv=ip_kv,
-                        attn_bias=attn_bias)
+    tokens with their own ids (f_id = 1), dropped from the output. The
+    adapters' inputs as `flux_trunk` takes them."""
     x, ctx, temb, cos, sin, n_img = flux_embed(
         model, hidden_states, timestep, prompt_emb, pooled_prompt_emb, guidance,
         image_ids, text_ids, kontext_latents, kontext_ids)
-    h = flux_trunk(model, x, ctx, temb, cos, sin)
+    h = flux_trunk(model, x, ctx, temb, cos, sin, controlnet_res=controlnet_res,
+                   controlnet_single_res=controlnet_single_res, ip_kv=ip_kv,
+                   ip_scale=ip_scale, attn_bias=attn_bias)
     height, width = hidden_states.shape[-2:]
     return flux_head(model, h[:, :n_img], temb, height, width)
 
@@ -365,16 +396,42 @@ def flux_embed(model: FluxDiT, hidden_states, timestep, prompt_emb, pooled_promp
     return x, ctx, temb, cos, sin, n_img
 
 
-def flux_trunk(model: FluxDiT, x, ctx, temb, cos, sin):
+def flux_trunk(model: FluxDiT, x, ctx, temb, cos, sin, controlnet_res=None,
+               controlnet_single_res=None, ip_kv=None, ip_scale: float = 1.0,
+               attn_bias=None):
     """The joint then single block stacks -> the image (and Kontext)
-    tokens after the trunk."""
+    tokens after the trunk.
+
+    controlnet_res: (num_joint, B, n_img, D) residuals added to the image
+    stream after each joint block, zero-padded to the image and Kontext
+    length; controlnet_single_res: (num_single, B, n_img, D) added to the
+    rows past the text after each single block. ip_kv: (ip_k, ip_v), each
+    (num_joint + num_single, B, T, N, D). attn_bias: (B, 1, S, S) fp32
+    additive bias of both self-attentions."""
     cfg = model.cfg
-    for p in model.blocks:
-        x, ctx = joint_block(p, x, ctx, temb, cos, sin, cfg)
+    if controlnet_res is not None and controlnet_res.shape[2] < x.shape[1]:
+        controlnet_res = torch.nn.functional.pad(
+            controlnet_res, (0, 0, 0, x.shape[1] - controlnet_res.shape[2]))
+    ip_k, ip_v = ip_kv if ip_kv is not None else (None, None)
+    nj = cfg.num_joint_blocks
+    for i, p in enumerate(model.blocks):
+        x, ctx = joint_block(p, x, ctx, temb, cos, sin, cfg,
+                             ip_k=None if ip_k is None else ip_k[i],
+                             ip_v=None if ip_v is None else ip_v[i],
+                             ip_scale=ip_scale, attn_bias=attn_bias)
+        if controlnet_res is not None:
+            x = x + controlnet_res[i].to(x.dtype)
     s_ctx = ctx.shape[1]
     h = torch.cat([ctx, x], dim=1)
-    for p in model.single_blocks:
-        h = single_block(p, h, temb, cos, sin, cfg)
+    for i, p in enumerate(model.single_blocks):
+        h = single_block(p, h, temb, cos, sin, cfg,
+                         ip_k=None if ip_k is None else ip_k[nj + i],
+                         ip_v=None if ip_v is None else ip_v[nj + i],
+                         ip_scale=ip_scale, attn_bias=attn_bias)
+        if controlnet_single_res is not None:
+            res = controlnet_single_res[i]
+            h = torch.cat([h[:, :s_ctx], h[:, s_ctx:s_ctx + res.shape[1]] + res.to(h.dtype),
+                           h[:, s_ctx + res.shape[1]:]], dim=1)
     return h[:, s_ctx:]
 
 
@@ -494,3 +551,38 @@ def flux_config_for(sd: Dict) -> FluxDiTConfig:
     """FLUX.1-dev where the file has a guidance embedder, else schnell (the
     JAX loader's rule)."""
     return FLUX_DEV if any("guidance" in k for k in sd) else FLUX_SCHNELL
+
+
+def build_entity_attention_bias(entity_masks: np.ndarray, prompt_len: int,
+                                n_img: int) -> np.ndarray:
+    """The EliGen attention bias, host numpy (the JAX function, bit for bit).
+
+    entity_masks: (B, N, 1, H_lat, W_lat) {0, 1} at the latent resolution.
+    The sequence is [entity_1 text | ... | entity_N text | global text |
+    image]: each entity's text and its own image region see each other,
+    entity texts see neither each other nor the global text, the global
+    text and image-image attention stay dense. -> (B, 1, S, S) float32,
+    0 / -inf."""
+    b, n_ent = entity_masks.shape[:2]
+    total = (n_ent + 1) * prompt_len + n_img
+    bias = np.zeros((b, total, total), np.float32)
+    img0 = (n_ent + 1) * prompt_len
+    m = entity_masks[:, :, 0]
+    hh, ww = m.shape[-2:]
+    # one bool per image token: any hit in its 2x2 patch
+    patched = m.reshape(b, n_ent, hh // 2, 2, ww // 2, 2).max(axis=(3, 5))
+    patched = patched.reshape(b, n_ent, -1) > 0
+    neg = np.float32(-np.inf)
+    for i in range(n_ent):
+        t0, t1 = i * prompt_len, (i + 1) * prompt_len
+        blocked = ~patched[:, i]
+        bias[:, t0:t1, img0:img0 + n_img] = np.where(blocked[:, None, :], neg, 0.0)
+        bias[:, img0:img0 + n_img, t0:t1] = np.where(blocked[:, :, None], neg, 0.0)
+    for i in range(n_ent + 1):
+        for j in range(n_ent):
+            if i != j:
+                bias[:, i * prompt_len:(i + 1) * prompt_len,
+                     j * prompt_len:(j + 1) * prompt_len] = neg
+    for i in range(n_ent):
+        bias[:, i * prompt_len:(i + 1) * prompt_len, n_ent * prompt_len:img0] = neg
+    return bias[:, None]

@@ -2,7 +2,9 @@
 PyTorch.
 
 Counterpart of `video_styler_tpu/models/sd3_text_encoder.py`
-(`sd3_text_encoder_1_forward` :21-49): a causal mask, quickGELU MLPs,
+(`sd3_text_encoder_1_forward` :21-49): a causal mask, quickGELU MLPs
+(`clip_layer`, the JAX `sdxl._clip_layer`, which CLIP-G and the FLUX LoRA
+encoder run too),
 `hidden` taken `clip_skip` layers before the end (no final norm) and
 `pooled`, the final-norm embedding at the position of the largest input id
 (CLIP's EOS, whose id is the vocabulary's largest). The T5 v1.1 tower is
@@ -65,20 +67,35 @@ class ClipTextEncoder(nn.Module):
         self.final_layer_norm = Affine(cfg.dim, **kw)
 
 
+def clip_layer(p: ClipTextLayer, x, mask, num_heads: int, quick_gelu: bool):
+    """One CLIP encoder layer (the JAX `sdxl._clip_layer`): pre-norm
+    attention through the exact `sdpa` (mask (L, L) added to the fp32
+    logits, or None), then the MLP with quickGELU or the exact GELU in
+    fp32."""
+    x = x + attn(p.attn, layer_norm(x, p.layer_norm1.scale, p.layer_norm1.bias, 1e-5),
+                 num_heads=num_heads, mask=mask)
+    h = p.fc1(layer_norm(x, p.layer_norm2.scale, p.layer_norm2.bias, 1e-5))
+    if quick_gelu:
+        h = h * torch.sigmoid(1.702 * h)
+    else:
+        h = torch.nn.functional.gelu(h.float()).to(h.dtype)
+    return x + p.fc2(h)
+
+
+def causal_mask(length: int, device) -> torch.Tensor:
+    return torch.full((length, length), float("-inf"), device=device).triu(1)
+
+
 def sd3_text_encoder_1_forward(model: ClipTextEncoder, input_ids, clip_skip: int = 2):
     """input_ids (B, L) -> (pooled (B, D), hidden (B, L, D))."""
     cfg = model.cfg
     ids = input_ids.long()
     x = model.token_embedding.weight[ids]
     x = x + model.position_embeds.to(x.dtype)
-    length = x.shape[1]
-    mask = torch.full((length, length), float("-inf"), device=x.device).triu(1)
+    mask = causal_mask(x.shape[1], x.device)
     hidden = None
     for i, p in enumerate(model.encoders):
-        x = x + attn(p.attn, layer_norm(x, p.layer_norm1.scale, p.layer_norm1.bias, 1e-5),
-                     num_heads=cfg.num_heads, mask=mask)
-        h = p.fc1(layer_norm(x, p.layer_norm2.scale, p.layer_norm2.bias, 1e-5))
-        x = x + p.fc2(h * torch.sigmoid(1.702 * h))          # quickGELU
+        x = clip_layer(p, x, mask, cfg.num_heads, quick_gelu=True)
         if i + clip_skip == cfg.num_layers:
             hidden = x
     embeds = layer_norm(x, model.final_layer_norm.scale, model.final_layer_norm.bias, 1e-5)
@@ -99,7 +116,8 @@ def init_clip_text_(model: ClipTextEncoder, generator: torch.Generator) -> ClipT
     for m in model.modules():
         if isinstance(m, nn.Linear):
             m.weight.normal_(0.0, 1.0 / math.sqrt(m.in_features), generator=generator)
-            m.bias.zero_()
+            if m.bias is not None:
+                m.bias.zero_()
         elif isinstance(m, Affine):
             m.scale.fill_(1.0)
             m.bias.zero_()

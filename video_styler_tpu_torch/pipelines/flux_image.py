@@ -12,11 +12,29 @@ VAE encoder and the scheduler's noising), Kontext reference images (extra
 tokens with f_id = 1), FLUX TeaCache (`tea_cache_l1_thresh`) and a merged
 FLUX LoRA (`load_lora`).
 
-The adapters (ControlNet, IP-Adapter, InfiniteYou, value controllers, the
-LoRA encoder, EliGen, Nexus-Gen, Step1x, flex) wait for their slice: their
-loaders and `__call__` arguments raise `NotImplementedError`; their scalar
-settings are taken at the JAX defaults (`ADAPTER_SETTINGS`) and raise at
-any other value.
+The adapters, in the JAX `__call__`'s order (:418-629), each with its
+loader (:157-217):
+  - value control (`load_value_controllers`): tokens appended to the text
+    of both CFG branches;
+  - the LoRA encoder (`load_lora_encoder`): a LoRA's tokens, times
+    `lora_encoder_scale`, appended to the positive branch's text;
+  - InfiniteYou (`load_infiniteyou`): the projected ArcFace identity
+    (`infinityou_id_emb`, or `infiniteyou_face_embedder` applied to
+    `infinityou_id_image`) replaces the ControlNet branch's prompt tokens,
+    `infinityou_guidance` its guidance;
+  - EliGen (`eligen_entity_prompts`, `eligen_entity_masks`): the entities'
+    prompts ahead of the prompt and an attention bias on the positive
+    branch (the exact `sdpa`);
+  - the ControlNet (`load_controlnet`, `controlnet_image`, plain or union
+    with `controlnet_processor_id`): the VAE-encoded control image through
+    the ControlNet trunk per CFG branch, residuals times `controlnet_scale`;
+  - the IP-Adapter (`load_ipadapter`, `ipadapter_images`): keys and values
+    of the `ipadapter_image_encoder` embedding (the SigLIP tower is the
+    caller's callable, as in JAX), zeros' for the negative branch;
+  - Flex (`flex_condition`, `flex_uncondition`): channels concatenated to
+    the latents, the uncondition from `flex_control_stop_timestep` down.
+Nexus-Gen and Step1x wait for the Qwen2.5-VL stack (ROADMAP Queue 1 items
+11d and 11e) and raise `NotImplementedError`.
 
 Runs on `cuda` unless constructed with `device="cpu"`. Each stage's wall
 time (synchronised with the card) is kept in `stage_times`, and on the card
@@ -34,6 +52,8 @@ import torch
 from ..device import resolve_device
 from ..flux_lora import convert_flux_lora
 from ..lora import merge_lora
+from ..models import flux_adapters as FA
+from ..models import flux_controlnet as FC
 from ..models import flux_dit as F
 from ..models import sd3_vae as V
 from ..models.sd3_text_encoder import (CLIP_L, ClipTextConfig, ClipTextEncoder,
@@ -48,6 +68,7 @@ from .wan_video import _image_array, _preprocess_images, generate_noise
 ADAPTER_SETTINGS = dict(flex_control_stop_timestep=0.0, controlnet_scale=1.0,
                         controlnet_processor_id=None, ipadapter_scale=1.0,
                         infinityou_guidance=1.0, lora_encoder_scale=1.0)
+QWENVL_PENDING = "waits for the Qwen2.5-VL stack (ROADMAP Queue 1 items 11d and 11e)"
 
 
 class FluxTeaCache:
@@ -87,10 +108,6 @@ class FluxTeaCache:
         self.previous_residual = residual
 
 
-def _pending(what: str):
-    return NotImplementedError(f"{what} {F.ADAPTERS_PENDING}")
-
-
 class FluxImagePipeline:
 
     def __init__(self, device=None, dtype=torch.bfloat16):
@@ -104,6 +121,15 @@ class FluxImagePipeline:
         self.vae_decoder: Optional[V.SD3VAEDecoder] = None
         self.vae_cfg: V.SD3VAEConfig = V.FLUX_VAE
         self.t5_cfg: T5Config = T5_V11_XXL
+        self.controlnet: Optional[FC.FluxControlNet] = None
+        self.ipadapter: Optional[FC.FluxIpAdapter] = None
+        # callable(list of 384x384 PIL images) -> (B, 1152) SigLIP embedding
+        self.ipadapter_image_encoder: Optional[Callable] = None
+        self.infiniteyou_projector: Optional[FA.InfiniteYouProjector] = None
+        # callable(PIL image) -> (n, 512) ArcFace embedding
+        self.infiniteyou_face_embedder: Optional[Callable] = None
+        self.value_controllers: Optional[List[FA.SingleValueEncoder]] = None
+        self.lora_encoder: Optional[FA.FluxLoRAEncoder] = None
         self.stage_times: List[Tuple[str, float]] = []
         self.stage_peak_bytes: List[Tuple[str, int]] = []
 
@@ -180,22 +206,39 @@ class FluxImagePipeline:
         merge_lora(self.dit, convert_flux_lora(sd), alpha=alpha)
 
     def fetch_qwenvl(self, *args, **kwargs):
-        raise _pending("the Step1x Qwen2.5-VL embedder")
+        raise NotImplementedError(f"the Step1x Qwen2.5-VL embedder {QWENVL_PENDING}")
 
-    def load_controlnet(self, *args, **kwargs):
-        raise _pending("the FLUX ControlNet")
+    def _load(self, kind, path, state_dict, cfg=None):
+        sd = state_dict if state_dict is not None else C.load_state_dict(path, lazy=True)
+        return C.build_image_module(kind, sd, self.dit_cfg, self.device, self.dtype, cfg)
 
-    def load_ipadapter(self, *args, **kwargs):
-        raise _pending("the FLUX IP-Adapter")
+    def load_controlnet(self, path=None, state_dict=None, cfg=None):
+        """A FLUX ControlNet in the DiffSynth layout; its block counts, union
+        mode table and conditioning width from the file."""
+        self.controlnet = self._load("flux_controlnet", path, state_dict, cfg)
 
-    def load_infiniteyou(self, *args, **kwargs):
-        raise _pending("the InfiniteYou projector")
+    def load_ipadapter(self, path=None, state_dict=None, image_encoder=None):
+        """A FLUX IP-Adapter (DiffSynth or InstantX layout), one k/v pair for
+        each DiT block; `image_encoder` the SigLIP callable."""
+        self.ipadapter = self._load("flux_ipadapter", path, state_dict)
+        if image_encoder is not None:
+            self.ipadapter_image_encoder = image_encoder
 
-    def load_value_controllers(self, *args, **kwargs):
-        raise _pending("the value controllers")
+    def load_infiniteyou(self, path=None, state_dict=None):
+        """The InfiniteYou image projector: the published bundle
+        ({"image_proj": {...}}) or a flat projector state dict."""
+        self.infiniteyou_projector = self._load("flux_infiniteyou_projector", path, state_dict)
 
-    def load_lora_encoder(self, *args, **kwargs):
-        raise _pending("the FLUX LoRA encoder")
+    def load_value_controllers(self, paths=None, state_dicts=None):
+        """SingleValueEncoders, one for each controlled value."""
+        if state_dicts is None:
+            state_dicts = [C.load_state_dict(p, lazy=True) for p in paths]
+        self.value_controllers = [self._load("flux_value_encoder", None, sd)
+                                  for sd in state_dicts]
+
+    def load_lora_encoder(self, path=None, state_dict=None):
+        """The FLUX LoRA encoder (conditioning on a LoRA itself)."""
+        self.lora_encoder = self._load("flux_lora_encoder", path, state_dict)
 
     # ---------------- helpers ----------------
 
@@ -234,7 +277,20 @@ class FluxImagePipeline:
         [-1, 1]."""
         return _preprocess_images(_image_array(image, width, height)[None])[:, :, 0]
 
-    def _branch(self, latents, timestep, prompt_emb, pooled, guidance, kontext, tea_cache):
+    def _controlnet_res(self, latents, cn_cond, timestep, prompt_emb, pooled, guidance,
+                        processor_id, scale: float):
+        """The ControlNet trunk's residual stacks, aligned to the DiT's block
+        counts and scaled."""
+        res, single = FC.flux_controlnet_forward(self.controlnet, latents, cn_cond, timestep,
+                                                 prompt_emb, pooled, guidance,
+                                                 processor_id=processor_id)
+        res = FC.align_res_stack(res, self.dit_cfg.num_joint_blocks)
+        single = FC.align_res_stack(single, self.dit_cfg.num_single_blocks)
+        return (None if res is None else res * scale,
+                None if single is None else single * scale)
+
+    def _branch(self, latents, timestep, prompt_emb, pooled, guidance, kontext, tea_cache,
+                cn=None, ip_kv=None, ip_scale: float = 1.0, attn_bias=None):
         kl, ki = kontext if kontext is not None else (None, None)
         x, ctx, temb, cos, sin, n_img = F.flux_embed(
             self.dit, latents, timestep, prompt_emb, pooled, guidance,
@@ -245,10 +301,21 @@ class FluxImagePipeline:
             if skip and tea_cache.previous_residual is not None:
                 h = x + tea_cache.previous_residual
                 return F.flux_head(self.dit, h[:, :n_img], temb, height, width)
-        h = F.flux_trunk(self.dit, x, ctx, temb, cos, sin)
+        cn_res, cn_single = cn if cn is not None else (None, None)
+        h = F.flux_trunk(self.dit, x, ctx, temb, cos, sin, controlnet_res=cn_res,
+                         controlnet_single_res=cn_single, ip_kv=ip_kv, ip_scale=ip_scale,
+                         attn_bias=attn_bias)
         if tea_cache is not None:
             tea_cache.store(h - x)
         return F.flux_head(self.dit, h[:, :n_img], temb, height, width)
+
+    def _encode_masks(self, masks, width: int, height: int) -> np.ndarray:
+        """EliGen's entity masks -> (1, N, 1, H/8, W/8) {0, 1} float32 (L,
+        NEAREST resize, > 127)."""
+        from PIL import Image
+        arrs = [(np.asarray(m.convert("L").resize((width // 8, height // 8), Image.NEAREST),
+                            np.float32) > 127).astype(np.float32) for m in masks]
+        return np.stack(arrs)[None, :, None]
 
     # ---------------- main call ----------------
 
@@ -290,23 +357,10 @@ class FluxImagePipeline:
         progress_bar_cmd=None,
         return_latents: bool = False,
     ):
-        F.require_no_adapters(
-            eligen_entity_prompts=eligen_entity_prompts,
-            eligen_entity_masks=eligen_entity_masks,
-            nexus_gen_reference_image=nexus_gen_reference_image,
-            step1x_reference_image=step1x_reference_image, flex_condition=flex_condition,
-            flex_uncondition=flex_uncondition, controlnet_image=controlnet_image,
-            ipadapter_images=ipadapter_images, infinityou_id_image=infinityou_id_image,
-            infinityou_id_emb=infinityou_id_emb,
-            value_controller_inputs=value_controller_inputs,
-            lora_encoder_inputs=lora_encoder_inputs,
-            **{k: v for k, v in dict(
-                flex_control_stop_timestep=flex_control_stop_timestep,
-                controlnet_scale=controlnet_scale,
-                controlnet_processor_id=controlnet_processor_id,
-                ipadapter_scale=ipadapter_scale, infinityou_guidance=infinityou_guidance,
-                lora_encoder_scale=lora_encoder_scale).items()
-               if v != ADAPTER_SETTINGS[k]})
+        for name, arg in (("nexus_gen_reference_image", nexus_gen_reference_image),
+                          ("step1x_reference_image", step1x_reference_image)):
+            if arg is not None:
+                raise NotImplementedError(f"{name}: {QWENVL_PENDING}")
         self.stage_times = []
         self.stage_peak_bytes = []
         dev, dtype = self.device, self.dtype
@@ -327,6 +381,59 @@ class FluxImagePipeline:
         nega = None
         if cfg_scale != 1.0:
             nega = self.encode_prompt(negative_prompt, t5_sequence_length)
+
+        # value control: token blocks appended to both CFG branches' text
+        if value_controller_inputs is not None and self.value_controllers is not None:
+            if not isinstance(value_controller_inputs, list):
+                value_controller_inputs = [value_controller_inputs]
+            with self._stage("value_encode"):
+                value_emb = FA.multi_value_encoder_forward(
+                    self.value_controllers, value_controller_inputs)[None].to(dtype)
+            prompt_emb = torch.cat([prompt_emb, value_emb], dim=1)
+            if nega is not None:
+                nega = (torch.cat([nega[0], value_emb], dim=1),) + tuple(nega[1:])
+
+        # the LoRA encoder: a LoRA's tokens on the positive branch only
+        if lora_encoder_inputs is not None and self.lora_encoder is not None:
+            if not isinstance(lora_encoder_inputs, list):
+                lora_encoder_inputs = [lora_encoder_inputs]
+            with self._stage("lora_encode"):
+                embs = [FA.flux_lora_encoder_forward(
+                    self.lora_encoder, convert_flux_lora(
+                        item if isinstance(item, dict) else C.load_state_dict(item)))
+                        for item in lora_encoder_inputs]
+                lora_emb = torch.cat(embs, dim=1) * lora_encoder_scale
+            prompt_emb = torch.cat([prompt_emb, lora_emb.to(dtype)], dim=1)
+
+        # InfiniteYou: the projected identity replaces the ControlNet
+        # branch's prompt tokens and guidance
+        iy = None
+        if self.infiniteyou_projector is not None and (
+                infinityou_id_image is not None or infinityou_id_emb is not None):
+            if infinityou_id_emb is None:
+                if self.infiniteyou_face_embedder is None:
+                    raise ValueError("infinityou_id_image needs a face embedder "
+                                     "(insightface/arcface); pass infinityou_id_emb "
+                                     "instead for a precomputed identity")
+                infinityou_id_emb = self.infiniteyou_face_embedder(infinityou_id_image)
+            with self._stage("infiniteyou_encode"):
+                id_emb = FA.infiniteyou_projector_forward(
+                    self.infiniteyou_projector,
+                    torch.as_tensor(np.asarray(infinityou_id_emb, np.float32)).to(
+                        dev, dtype).reshape(1, -1, 512))
+            iy = (id_emb, torch.tensor([infinityou_guidance], dtype=torch.float32, device=dev))
+
+        # EliGen: [entity prompts | prompt | image], each entity's text tied
+        # to its mask's region
+        attn_bias = None
+        if eligen_entity_prompts and eligen_entity_masks:
+            embs = [self.encode_prompt(p, t5_sequence_length)[0] for p in eligen_entity_prompts]
+            prompt_emb = torch.cat(embs + [prompt_emb], dim=1)
+            n_img = (height // 16) * (width // 16)
+            attn_bias = torch.from_numpy(F.build_entity_attention_bias(
+                self._encode_masks(eligen_entity_masks, width, height), embs[0].shape[1],
+                n_img)).to(dev)
+
         guidance = torch.tensor([embedded_guidance], dtype=torch.float32, device=dev)
 
         kontext = None
@@ -343,6 +450,26 @@ class FluxImagePipeline:
                     k_lats.append(F.patchify(z))
             kontext = (torch.cat(k_lats, dim=1), np.concatenate(k_ids, axis=0))
 
+        # the ControlNet's conditioning: the VAE-encoded control image
+        cn_cond = None
+        if controlnet_image is not None and self.controlnet is not None:
+            with self._stage("vae_encode_controlnet"):
+                cn_cond = self.encode_image(self._image(controlnet_image, width, height))
+
+        # IP-Adapter keys and values: the positive branch from the pictures'
+        # embedding, the negative from zeros
+        ip_posi = ip_nega = None
+        if ipadapter_images is not None and self.ipadapter is not None:
+            if not isinstance(ipadapter_images, list):
+                ipadapter_images = [ipadapter_images]
+            with self._stage("ipadapter_encode"):
+                emb = torch.as_tensor(np.asarray(self.ipadapter_image_encoder(
+                    [im.convert("RGB").resize((384, 384)) for im in ipadapter_images]),
+                    np.float32)).to(dev, dtype)
+                ip_posi = FC.flux_ipadapter_kv(self.ipadapter, emb)
+                if cfg_scale != 1.0:
+                    ip_nega = FC.flux_ipadapter_kv(self.ipadapter, torch.zeros_like(emb))
+
         tea_cache = None
         if tea_cache_l1_thresh is not None:
             tea_cache = FluxTeaCache(num_inference_steps, tea_cache_l1_thresh)
@@ -351,14 +478,32 @@ class FluxImagePipeline:
         if progress_bar_cmd is not None:
             steps = progress_bar_cmd(steps)
         for i in steps:
-            timestep = torch.tensor([float(self.scheduler.timesteps[i])], dtype=torch.float32,
-                                    device=dev)
+            t_host = float(self.scheduler.timesteps[i])
+            timestep = torch.tensor([t_host], dtype=torch.float32, device=dev)
             with self._stage(f"denoise_step_{i}"):
-                v = self._branch(latents, timestep, prompt_emb, pooled, guidance, kontext,
-                                 tea_cache)
+                lat_in = latents
+                if flex_condition is not None:
+                    flex = (flex_condition if t_host >= flex_control_stop_timestep
+                            else flex_uncondition)
+                    lat_in = torch.cat([latents, torch.as_tensor(flex).to(dev, dtype)], dim=1)
+                cn = None
+                if cn_cond is not None:
+                    cn = self._controlnet_res(lat_in, cn_cond, timestep,
+                                              prompt_emb if iy is None else iy[0], pooled,
+                                              guidance if iy is None else iy[1],
+                                              controlnet_processor_id, controlnet_scale)
+                v = self._branch(lat_in, timestep, prompt_emb, pooled, guidance, kontext,
+                                 tea_cache, cn=cn, ip_kv=ip_posi, ip_scale=ipadapter_scale,
+                                 attn_bias=attn_bias)
                 if cfg_scale != 1.0:
-                    v_nega = self._branch(latents, timestep, nega[0], nega[1], guidance,
-                                          kontext, None)
+                    cn_n = None
+                    if cn_cond is not None:
+                        cn_n = self._controlnet_res(lat_in, cn_cond, timestep,
+                                                    nega[0] if iy is None else iy[0], nega[1],
+                                                    guidance if iy is None else iy[1],
+                                                    controlnet_processor_id, controlnet_scale)
+                    v_nega = self._branch(lat_in, timestep, nega[0], nega[1], guidance,
+                                          kontext, None, cn=cn_n, ip_kv=ip_nega)
                     v = v_nega + cfg_scale * (v - v_nega)
                 sigma, sigma_next = self.scheduler.sigma_pair(i)
                 latents = (latents.float() + v.float() * (sigma_next - sigma)).to(dtype)

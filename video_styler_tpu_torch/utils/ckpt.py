@@ -23,9 +23,11 @@ Detection (`detect_model_kind`, `detect_wan_dit_config`,
 `detect_vace_config`) reads keys and shapes only. `load_model` builds the
 kinds the port has modules for: `dit` (T2V, I2V, FLF2V, TI2V), `vace`,
 `dit+vace`, the Wan2.1 and Wan2.2 `vae`, `t5`, the CLIP image encoder
-(`clip`), the Wan2.2-Animate adapter, the wav2vec2 tower (`wav2vec`) and
-the FLUX DiT (`flux_dit`, detected by its BFL layout); every other kind
-raises `NotImplementedError`, naming the ROADMAP item that ports it where
+(`clip`), the Wan2.2-Animate adapter, the wav2vec2 tower (`wav2vec`),
+the FLUX DiT (`flux_dit`, detected by its BFL layout), FLUX's adapters
+(`flux_controlnet`, `flux_ipadapter`, `flux_infiniteyou_projector`,
+`flux_value_encoder`, `flux_lora_encoder`) and the SD3 DiT (`sd3_dit`);
+every other kind raises `NotImplementedError`, naming the ROADMAP item that ports it where
 one does (the S2V model, like the JAX loader's, is
 built by the pipeline's `from_pretrained` only).
 """
@@ -317,11 +319,9 @@ def detect_vace_config(sd: Dict) -> Optional[VaceConfig]:
 # kinds `detect_model_kind` knows that the port cannot build yet, and the
 # ROADMAP Queue 1 item that ports each
 UNPORTED_KINDS = {
-    "motion_modules": 11, "flux_controlnet": 11,
-    "flux_ipadapter": 11, "ipadapter": 11, "flux_lora_encoder": 11,
-    "flux_value_encoder": 11, "flux_infiniteyou_projector": 11,
+    "motion_modules": 11, "ipadapter": 11,
     "qwen_image_dit": 11, "qwen_image_blockwise_controlnet": 11,
-    "sd3_dit": 11, "sd_unet": 11, "svd_unet": 11, "svd_unet_exvideo": 11,
+    "sd_unet": 11, "svd_unet": 11, "svd_unet_exvideo": 11,
     "hunyuan_video_dit": 11, "hunyuan_dit": 11, "omnigen": 11,
     "kolors_text_encoder": 11, "stepvideo_text_encoder": 11,
 }
@@ -348,8 +348,12 @@ def load_model(path, device=None, dtype: torch.dtype = torch.bfloat16):
     {"vace", "vace_cfg"}; {"vae", "vae_cfg"} (fp32; the Wan2.1 or the
     Wan2.2 VAE); the T5 encoder (umT5-XXL); the CLIP ViT-H/14 tower; the
     Wan2.2-Animate adapter; the wav2vec2-XLSR-53 tower
-    (`models.wav2vec.WAV2VEC2_XLSR_53`, read when called); or the FLUX DiT
-    (FLUX.1-dev where the file has a guidance embedder, else schnell).
+    (`models.wav2vec.WAV2VEC2_XLSR_53`, read when called); the FLUX DiT
+    (FLUX.1-dev where the file has a guidance embedder, else schnell); a
+    FLUX ControlNet or IP-Adapter (for FLUX.1-dev's widths), the
+    InfiniteYou projector (its `image_proj` bundle unwrapped), a value
+    encoder or the LoRA encoder; or the SD3 DiT (its config inferred; the
+    mmdit layout with or without the `model.diffusion_model.` prefix).
     Modules are built on `device` (the card unless "cpu")."""
     from ..device import resolve_device
     from ..models import clip_vit as CV
@@ -397,10 +401,58 @@ def load_model(path, device=None, dtype: torch.dtype = torch.bfloat16):
         from ..models import flux_dit as F
         cfg = F.flux_config_for(sd)
         return kind, build_module(F.FluxDiT, cfg, F.convert_flux_dit(sd, cfg), device, dtype)
+    if kind in IMAGE_KINDS:
+        from ..models.flux_dit import FLUX_DEV
+        return kind, build_image_module(kind, sd, FLUX_DEV, device, dtype)
     if kind in UNPORTED_KINDS:
         raise unported(kind)
     raise NotImplementedError(f"detected '{kind}' — use its family pipeline/converter "
                               "directly")
+
+
+# the FLUX adapters' and the SD3 DiT's kinds: `build_image_module` builds them
+IMAGE_KINDS = ("flux_controlnet", "flux_ipadapter", "flux_infiniteyou_projector",
+               "flux_value_encoder", "flux_lora_encoder", "sd3_dit")
+
+
+def build_image_module(kind: str, sd: Dict, dit_cfg, device, dtype: torch.dtype, cfg=None):
+    """One of `IMAGE_KINDS` from its state dict, on `device` in `dtype`: a
+    FLUX adapter for the DiT of `dit_cfg` (its own config read from the
+    file unless `cfg` is given; the InfiniteYou bundle's `image_proj`
+    unwrapped), or the SD3 DiT (`dit_cfg` unused; its config inferred; the
+    mmdit names with or without the `model.diffusion_model.` prefix)."""
+    from ..models import flux_adapters as FA
+    from ..models import flux_controlnet as FC
+    from ..models import sd3_dit as D
+    if kind == "flux_controlnet":
+        cfg = cfg or FC.controlnet_config_for(sd, dit_cfg)
+        return build_module(FC.FluxControlNet, cfg, FC.convert_flux_controlnet(sd, cfg),
+                            device, dtype)
+    if kind == "flux_ipadapter":
+        cfg = cfg or FC.ipadapter_config_for(sd, dit_cfg)
+        return build_module(FC.FluxIpAdapter, cfg,
+                            FC.convert_flux_ipadapter(sd, cfg.num_blocks), device, dtype)
+    if kind == "flux_infiniteyou_projector":
+        if "image_proj" in sd and not hasattr(sd["image_proj"], "shape"):
+            sd = sd["image_proj"]
+        return build_module(FA.InfiniteYouProjector, cfg or FA.infiniteyou_config_for(sd),
+                            FA.convert_infiniteyou_projector(sd), device, dtype)
+    if kind == "flux_value_encoder":
+        return build_module(FA.SingleValueEncoder, cfg or FA.value_encoder_config_for(sd),
+                            FA.convert_value_encoder(sd), device, dtype)
+    if kind == "flux_lora_encoder":
+        return build_module(FA.FluxLoRAEncoder, cfg or FA.lora_encoder_config_for(sd),
+                            FA.convert_flux_lora_encoder(sd), device, dtype)
+    if kind == "sd3_dit":
+        if any(k.startswith("joint_blocks.") for k in sd):
+            # the detector's bare mmdit names: the JAX converter reads only
+            # the prefixed ones and fails on these
+            sd = {D.CIVITAI_PREFIX + k: v for k, v in sd.items()}
+        if any(k.startswith(D.CIVITAI_PREFIX + "joint_blocks.") for k in sd):
+            sd = D.rename_civitai_sd3(sd)
+        cfg = cfg or D.infer_sd3_config(sd)
+        return build_module(D.SD3DiT, cfg, D.convert_sd3_dit(sd, cfg), device, dtype)
+    raise ValueError(f"not an image kind: {kind!r} (one of {IMAGE_KINDS})")
 
 
 def detect_model_kind(sd: Dict) -> str:
