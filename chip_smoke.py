@@ -264,6 +264,33 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
              two-pass, --steps steps: stage times, peak, no K1 launch;
              one step profiled by category and one exact `sdpa` call
              timed (`sd3_profile`); then the 20-step request (`sd3_image`)
+  sd_reference, sdxl_reference, sd_video_reference  the tiny SD 1.5 (t2i,
+             a local prompt), SDXL (t2i; Kolors on a tiny ChatGLM) and
+             AnimateDiff (6 frames, two overlapping windows) pipelines on
+             the card against the same fp32 weights on the CPU, 128x128, 2
+             steps, CFG 5 two-pass, latents within 5%
+  sd         SD 1.5 at its published widths (the 860 M UNet, FLUX's CLIP-L
+             tower, the SD VAE drawn), 512x512, CFG 7.5 two-pass, DDIM,
+             --steps steps: stage and step seconds, peak, K1/K4/K5 launches
+             (0: the exact `sdpa` is the route, as in JAX); one step by
+             category with one `sdpa` call timed (`sd_profile`); the
+             20-step request (`sd_image`); a canny ControlNet and the
+             IP-Adapter through CLIP-H (`sd_adapters`)
+  sd_video   AnimateDiff (21 motion modules) on `sd`'s modules: 16 frames of
+             512x512, one window, decoded; one window step profiled
+             (`sd_video_profile`); 24 frames, two windows blended
+             (`sd_video_long`); the Diffutoon runner on a JSON config, 8
+             frames, the tile ControlNet (`diffutoon`)
+  sdxl       SDXL base (2.57 B UNet, CLIP-L; `sd3`'s CLIP-G, `sd`'s VAE),
+             1024x1024, CFG 7.5 two-pass, --steps steps, a profiled step
+             (`sdxl_profile`), 20 steps (`sdxl_image`), the union
+             ControlNet (`sdxl_controlnet`), the IP-Adapter's 70 sites from
+             image embeds (`sdxl_ipadapter`)
+  sdxl_video SDXL AnimateDiff (15 motion modules), 16 frames of 1024x1024,
+             one window, decoded; a window step profiled
+             (`sdxl_video_profile`); again under InstantStyle
+             (`sdxl_video_ipadapter`, latents)
+  kolors     ChatGLM3-6B and the Kolors UNet, 1024x1024, --steps steps
   usp_kernels  (with the kernel rows) one rank's work of the multi-GPU path
              at Wan2.1-14B width over the Ditto clip's 29,640 tokens, in
              this process: K1 on a Ulysses share (20 and 10 heads over the
@@ -3917,7 +3944,8 @@ def run_sd3(torch, kernels, steps: int, shared):
     1024x1024 request (4,096 image + 154 text tokens), CFG 7.5 two-pass,
     --steps steps: stage times, peak, no K1 launch (every attention is the
     exact `sdpa`); one step profiled by category (`sd3_profile`); then the
-    JAX default's 20-step request, timed whole (`sd3_image`)."""
+    JAX default's 20-step request, timed whole (`sd3_image`). -> (the
+    launches, CLIP-G for the SDXL phases)."""
     from video_styler_tpu_torch.models import sd3_dit as D
     from video_styler_tpu_torch.models.sd3_text_encoder import init_clip_text_
     from video_styler_tpu_torch.models.sdxl import SDXLTextEncoder2
@@ -3999,11 +4027,504 @@ def run_sd3(torch, kernels, steps: int, shared):
                   image_size=list(image.size), **CARD))
         if len(steps_20) != SD3_RECIPE_STEPS or image.size != (1024, 1024):
             raise AssertionError(f"sd3_image: {len(steps_20)} steps, image {image.size}")
-        return measured
+        return measured, te2
     finally:
         del pipe
         gc.collect()
         torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# SD 1.5 and SDXL (and Kolors), images and video
+# ---------------------------------------------------------------------------
+
+SD_PROMPT = "a lighthouse on a cliff at dawn, oil painting"
+SD_NEGATIVE = "blurry, dark"
+SD_CFG = 7.5
+SD_RECIPE_STEPS = 20        # the JAX pipelines' default
+SD_REF_SIZE = 128           # the references: 16x16 latents
+SD_VIDEO_FRAMES = 16        # one AnimateDiff window
+SD_VIDEO_LONG = 24          # two windows of 16 every 8: the triangle blend runs
+DIFFUTOON_FRAMES = 8
+SD_CATEGORIES = (  # one two-pass UNet step's device time, by category
+    ("attention fp32 GEMM", ("f32f32_f32f32", "sgemm", "simt", "gemm_f32")),
+    ("softmax", ("SoftMax", "softmax")),
+    ("conv", ("fprop", "dgrad", "wgrad", "cudnn", "convolve", "conv2d", "implicit")),
+    ("gemm", ("gemm", "nvjet", "xmma", "cutlass", "sm90_")),
+    ("elementwise", ("elementwise", "reduce_kernel", "CatArrayBatchedCopy", "layer_norm",
+                     "group_norm", "copy_kernel", "index", "fill")),
+)
+
+
+def sd_attention_calls(torch, program, cfg, passes: int) -> int:
+    """Exact-attention calls of `passes` UNet passes: a self and a cross
+    attention per transformer of each attention block."""
+    from video_styler_tpu_torch.models.sd import unet_blocks
+    with torch.device("meta"):
+        blocks = unet_blocks(program, cfg)
+    return passes * sum(2 * len(b.transformer_blocks) for (kind, _), b in zip(program, blocks)
+                        if kind == "attn")
+
+
+def run_counted(torch, kernels, fn):
+    """fn() with every launch count set to 0 just before and read just
+    after; the peak memory of the run. -> (result, seconds, launches,
+    peak GiB)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for kern in kernels.values():
+        kern.launches = 0
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {name: kern.launches for name, kern in kernels.items()}
+    return out, seconds, launches, torch.cuda.max_memory_allocated() / 2**30
+
+
+def sd_result(phase: str, pipe, seconds: float, launches: dict, peak: float, **extra) -> dict:
+    """A phase's line: stage seconds, step seconds, peaks, K1/K4/K5
+    launches (0: the exact `sdpa` is the route, as in JAX)."""
+    res = dict(phase=phase, total_s=seconds, stages={k: v for k, v in pipe.stage_times
+                                                     if not k.startswith("denoise_step_")},
+               step_s=step_times(pipe), max_memory_allocated_gib=peak,
+               stage_peak_gib=max((v for _, v in pipe.stage_peak_bytes), default=0) / 2**30,
+               launches_k1_k4_k5={k: launches[k] for k in ("K1", "K4", "K5")},
+               launches={k: v for k, v in launches.items() if v}, **extra, **CARD)
+    emit(res)
+    check_launches(launches, {}, phase)
+    return res
+
+
+def sd_profile(torch, phase: str, step, unprofiled_s: float, q_shape, calls: int):
+    """One two-pass UNet step under the profiler by category, and one
+    exact `sdpa` call at the largest attention's shape."""
+    from video_styler_tpu_torch.ops.attention import sdpa
+    with torch.no_grad():
+        prof = profile_request(torch, step, unprofiled_s, categories=SD_CATEGORIES)
+        q = torch.randn(*q_shape, device="cuda", dtype=torch.bfloat16)
+        sdpa_ms = time_ms(torch, lambda: sdpa(q, q, q), reps=5)
+    cats = prof["device_ms_by_category"]
+    attn = cats.get("attention fp32 GEMM", 0.0) + cats.get("softmax", 0.0)
+    emit({"phase": phase, "forwards": 2, "sdpa_call_ms": sdpa_ms, "sdpa_call_shape": q_shape,
+          "sdpa_calls_a_step": calls,
+          "exact_attention_share": attn / prof["device_busy_ms"] if prof["device_busy_ms"]
+          else None, **prof, **CARD})
+
+
+def video_profile(torch, pipe, phase: str, shape, unet, q_shape, calls: int):
+    """One two-pass window step of a video pipeline under the profiler (the
+    motion modules in the UNet), as `sd_profile` does for an image."""
+    from video_styler_tpu_torch.pipelines.wan_video import generate_noise
+    posi = pipe.encode_prompt(SD_PROMPT)
+    nega = pipe.encode_prompt(SD_NEGATIVE)
+    latents = generate_noise(shape, seed=42).to("cuda", torch.bfloat16)
+    t = torch.tensor([999.0], device="cuda")
+
+    def one_step():
+        e_p, e_n = unet(latents, t, posi), unet(latents, t, nega)
+        return e_n + SD_CFG * (e_p - e_n)
+    sd_profile(torch, phase, one_step, min(step_times(pipe)), q_shape, calls)
+
+
+def sd_reference_pipes(torch, kind: str):
+    """(CPU, card) pipelines of the tiny SD / SDXL / AnimateDiff / Kolors
+    configs on the same fp32 weights."""
+    from video_styler_tpu_torch.models import kolors_text_encoder as K
+    from video_styler_tpu_torch.models import motion as M
+    from video_styler_tpu_torch.models import sd as S
+    from video_styler_tpu_torch.models import sdxl as X
+    from video_styler_tpu_torch.pipelines.sd_image import SDImagePipeline
+    from video_styler_tpu_torch.pipelines.sd_video import SDVideoPipeline
+    from video_styler_tpu_torch.pipelines.sdxl_image import SDXLImagePipeline
+    from video_styler_tpu_torch.prompters.flux_prompter import StubClipTokenizer
+    f32 = torch.float32
+    if kind == "sdxl":
+        cpu = SDXLImagePipeline.from_configs(X.SDXL_UNET_TINY, X.CLIP_L_TINY_12, X.CLIP_G_TINY,
+                                             seed=80, device="cpu", dtype=f32)
+        names = ("unet", "te1", "te2", "vae_encoder", "vae_decoder")
+    elif kind == "kolors":
+        import dataclasses
+        cfg = dataclasses.replace(X.SDXL_UNET_TINY, add_embed_dim=32 + 6 * 256,
+                                  text_proj_dim=K.CHATGLM_TINY.hidden_size)
+        cpu = SDXLImagePipeline.from_configs(cfg, X.CLIP_L_TINY_12, X.CLIP_G_TINY, seed=81,
+                                             device="cpu", dtype=f32)
+        cpu.fetch_kolors_text_encoder(K.init_chatglm_(
+            K.ChatGLM(K.CHATGLM_TINY, dtype=f32), torch.Generator().manual_seed(82)).eval())
+        names = ("unet", "vae_encoder", "vae_decoder", "kolors")
+    else:
+        cls = SDVideoPipeline if kind == "sd_video" else SDImagePipeline
+        cpu = cls.from_configs(S.SD_UNET_TINY, X.CLIP_L_TINY_12,
+                               StubClipTokenizer(X.CLIP_L_TINY_12.vocab), seed=83,
+                               device="cpu", dtype=f32)
+        names = ("unet", "text_encoder", "vae_encoder", "vae_decoder")
+        if kind == "sd_video":
+            with torch.device("meta"):
+                mm = M.sd_motion_model(S.SD_UNET_TINY, dtype=f32)
+            cpu.motion_modules = S.init_sd_module_(mm.to_empty(device="cpu"),
+                                                   torch.Generator().manual_seed(84)).eval()
+            names += ("motion_modules",)
+    gpu = copy.copy(cpu)
+    gpu.device = torch.device("cuda")
+    for name in names:
+        setattr(gpu, name, copy.deepcopy(getattr(cpu, name)).to("cuda"))
+    return cpu, gpu
+
+
+def check_sd_references(torch):
+    """`sd_reference`, `sdxl_reference`, `sd_video_reference`: the tiny SD
+    1.5 (t2i, a local prompt), SDXL (t2i, Kolors on a tiny ChatGLM) and
+    AnimateDiff (6 frames in windows of 4 every 2: two overlapping) on the
+    card against the same weights on the CPU, 128x128, 2 steps, CFG 5
+    two-pass: latents within 5% relative L2 (both run the exact `sdpa`).
+    In fp32 (the port keeps TF32 off): in bf16 the two devices' roundings
+    through a tiny random UNet's 49-67 blocks, amplified by CFG, reach
+    4.5-5.5% on an H100, a random walk and not a fault."""
+    base = dict(prompt=SD_PROMPT, negative_prompt=SD_NEGATIVE, cfg_scale=5.0,
+                height=SD_REF_SIZE, width=SD_REF_SIZE, seed=42, num_inference_steps=2,
+                return_latents=True)
+    cases = {"sd_reference": [("sd", "t2i", {}),
+                              ("sd", "local_prompts", dict(
+                                  local_prompts=["a red roof"], mask_scales=[1.0],
+                                  masks=[entity_mask(SD_REF_SIZE, 0, 0, 0.5, 1)]))],
+             "sdxl_reference": [("sdxl", "t2i", {}), ("kolors", "kolors", {})],
+             "sd_video_reference": [("sd_video", "two_windows", dict(
+                 num_frames=6, animatediff_batch_size=4, animatediff_stride=2))]}
+    for phase, runs in cases.items():
+        t0 = time.perf_counter()
+        res = dict(phase=phase, size=SD_REF_SIZE, steps=2, latents_rel_l2={},
+                   latents_tol=5e-2, **CARD)
+        for kind, name, request in runs:
+            cpu, gpu = sd_reference_pipes(torch, kind)
+            lat_c = cpu(**base, **request).float()
+            lat_g = gpu(**base, **request).float().cpu()
+            res["latents_rel_l2"][name] = ((lat_g - lat_c).norm() / lat_c.norm()).item()
+        res["seconds"] = time.perf_counter() - t0
+        emit(res)
+        if not all(v <= 5e-2 for v in res["latents_rel_l2"].values()):
+            raise AssertionError(f"{phase}: card vs CPU disagree: {res}")
+
+
+def run_sd(torch, kernels, steps: int, clip_l):
+    """`sd`: SD 1.5 at its published widths (the 860 M UNet; CLIP-L, here
+    the FLUX phase's tower, the same 12 layers; the SD VAE), random bf16
+    weights (the VAE fp32) from a seed. 512x512, CFG 7.5 two-pass, DDIM:
+    --steps steps (stage and step seconds, peak, K1/K4/K5 launches: 0),
+    one step profiled (`sd_profile`), the 20-step request (`sd_image`),
+    and one request with a canny ControlNet unit and the IP-Adapter from a
+    picture through the CLIP-H image encoder (`sd_adapters`). -> (the
+    launches, the pipeline for `run_sd_video`)."""
+    from video_styler_tpu_torch.controlnets import Annotator, ControlNetUnit
+    from video_styler_tpu_torch.models import ipadapter as I
+    from video_styler_tpu_torch.models import sd as S
+    from video_styler_tpu_torch.models import svd as SV
+    from video_styler_tpu_torch.models.controlnet import ControlNet, ControlNetConfig
+    from video_styler_tpu_torch.pipelines.sd_image import SDImagePipeline
+    from video_styler_tpu_torch.pipelines.wan_video import generate_noise
+    bf16 = torch.bfloat16
+    t0 = time.perf_counter()
+    pipe = SDImagePipeline(device="cuda", dtype=bf16)
+    pipe.unet = random_module(torch, S.SDUNet, S.SD_UNET, S.init_sd_module_, 70, bf16)
+    pipe.text_encoder = clip_l
+    pipe.vae_encoder = random_module(torch, S.SDVAEEncoder, None, S.init_sd_module_, 71,
+                                     torch.float32)
+    pipe.vae_decoder = random_module(torch, S.SDVAEDecoder, None, S.init_sd_module_, 72,
+                                     torch.float32)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    request = dict(prompt=SD_PROMPT, negative_prompt=SD_NEGATIVE, cfg_scale=SD_CFG,
+                   height=512, width=512, seed=42, num_inference_steps=steps)
+    image, seconds, launches, peak = run_counted(torch, kernels, lambda: pipe(**request))
+    sd_result("sd", pipe, seconds, launches, peak, model="SD 1.5", size=512, steps=steps,
+              cfg=f"two-pass {SD_CFG}", build_s=build_s,
+              weights_gib={"unet": gib([pipe.unet]), "clip_l": gib([clip_l]),
+                           "vae": gib([pipe.vae_encoder, pipe.vae_decoder])},
+              image_size=list(image.size))
+    if image.size != (512, 512):
+        raise AssertionError(f"sd: image {image.size}")
+    posi = pipe.encode_prompt(SD_PROMPT)
+    nega = pipe.encode_prompt(SD_NEGATIVE)
+    latents = generate_noise((1, 4, 64, 64), seed=42).to("cuda", bf16)
+    t = torch.tensor([999.0], device="cuda")
+
+    def one_step():
+        e_p = S.sd_unet_forward(pipe.unet, latents, t, posi)
+        e_n = S.sd_unet_forward(pipe.unet, latents, t, nega)
+        return e_n + SD_CFG * (e_p - e_n)
+    sd_profile(torch, "sd_profile", one_step, min(step_times(pipe)), (1, 4096, 8, 40),
+               sd_attention_calls(torch, S.SD_UNET_PROGRAM, S.SD_UNET, 2))
+    image, seconds, _, _ = run_counted(
+        torch, kernels, lambda: pipe(**{**request, "num_inference_steps": SD_RECIPE_STEPS}))
+    steps_20 = step_times(pipe)
+    emit(dict(phase="sd_image", steps=SD_RECIPE_STEPS, size=512, image_s=seconds,
+              step_s_first=steps_20[0], step_s_rest_mean=sum(steps_20[1:]) / (len(steps_20) - 1),
+              step_s_min=min(steps_20), step_s_max=max(steps_20), **CARD))
+    if len(steps_20) != SD_RECIPE_STEPS:
+        raise AssertionError(f"sd_image: {len(steps_20)} steps")
+    cn = random_module(torch, ControlNet, ControlNetConfig(), S.init_sd_module_, 73, bf16)
+    ip = random_module(torch, I.IpAdapter, I.ipadapter_config(False), S.init_sd_module_, 74, bf16)
+    pipe.image_encoder = random_module(torch, SV.SVDImageEncoder, SV.SVD_IMAGE_ENCODER,
+                                       S.init_sd_module_, 75, bf16)
+    adapters = dict(controlnet_image=synthetic_image(3, 512),
+                    controlnet_units=[ControlNetUnit(Annotator("canny"), cn, 1.0)],
+                    ipadapter_images=[synthetic_image(4, 512)], ipadapter_params=ip,
+                    ipadapter_scale=0.6)
+    image, seconds, launches, peak = run_counted(torch, kernels,
+                                                 lambda: pipe(**request, **adapters))
+    sd_result("sd_adapters", pipe, seconds, launches, peak, steps=steps,
+              units=["canny ControlNet (361 M)", "IP-Adapter (22 M) + CLIP-H (632 M)"],
+              weights_gib={"controlnet": gib([cn]), "ipadapter": gib([ip]),
+                           "image_encoder": gib([pipe.image_encoder])})
+    pipe.image_encoder = None
+    del cn, ip
+    return {k: launches[k] for k in ("K1", "K4", "K5")}, pipe
+
+
+def write_frames(folder: str, frames):
+    os.makedirs(folder, exist_ok=True)
+    for i, f in enumerate(frames):
+        f.save(os.path.join(folder, f"{i:03d}.png"))
+
+
+def run_sd_video(torch, kernels, steps: int, sd_pipe):
+    """`sd_video`: AnimateDiff on the `sd` phase's SD 1.5 (mm_sd_v15_v2's 21
+    motion modules, 454 M, drawn from a seed): 16 frames at 512x512 in one
+    window, CFG 7.5 two-pass, --steps steps, decoded; 24 frames, two
+    windows of 16 every 8 blended (`sd_video_long`, latents); the Diffutoon
+    runner on a JSON config (8 frames of 512x512 from an image folder,
+    a tile ControlNet, denoising 0.7, a contrast pass at the end;
+    `diffutoon`)."""
+    from video_styler_tpu_torch.controlnets import (Annotator, ControlNetUnit,
+                                                    MultiControlNetManager)
+    from video_styler_tpu_torch.models import motion as M
+    from video_styler_tpu_torch.models import sd as S
+    from video_styler_tpu_torch.models.controlnet import ControlNet, ControlNetConfig
+    from video_styler_tpu_torch.pipelines.pipeline_runner import SDVideoPipelineRunner
+    from video_styler_tpu_torch.pipelines.sd_video import SDVideoPipeline
+    from video_styler_tpu_torch.prompters.flux_prompter import StubClipTokenizer
+    bf16 = torch.bfloat16
+    pipe = SDVideoPipeline(device="cuda", dtype=bf16)
+    for name in ("unet", "text_encoder", "vae_encoder", "vae_decoder"):
+        setattr(pipe, name, getattr(sd_pipe, name))
+    pipe.tokenizer = StubClipTokenizer(pipe.text_encoder.cfg.vocab)
+    pipe.motion_modules = random_module(torch, lambda cfg, dtype: M.sd_motion_model(
+        cfg, dtype=dtype), S.SD_UNET, S.init_sd_module_, 76, bf16)
+    request = dict(prompt=SD_PROMPT, negative_prompt=SD_NEGATIVE, cfg_scale=SD_CFG,
+                   height=512, width=512, seed=42, num_inference_steps=steps,
+                   num_frames=SD_VIDEO_FRAMES)
+    frames, seconds, launches, peak = run_counted(torch, kernels, lambda: pipe(**request))
+    sd_result("sd_video", pipe, seconds, launches, peak, frames=SD_VIDEO_FRAMES, size=512,
+              steps=steps, windows=1, cfg=f"two-pass {SD_CFG}",
+              weights_gib={"motion_modules": gib([pipe.motion_modules])},
+              frame_shape=list(frames[0].shape))
+    if len(frames) != SD_VIDEO_FRAMES or frames[0].shape != (512, 512, 3):
+        raise AssertionError(f"sd_video: {len(frames)} frames of {frames[0].shape}")
+    video_profile(torch, pipe, "sd_video_profile", (SD_VIDEO_FRAMES, 4, 64, 64),
+                  lambda lat, t, ctx: S.sd_unet_forward(
+                      pipe.unet, lat, t, ctx, motion=(pipe.motion_modules,
+                                                      M.SD_MOTION_CALL_BLOCK_ID)),
+                  (SD_VIDEO_FRAMES, 4096, 8, 40),
+                  sd_attention_calls(torch, S.SD_UNET_PROGRAM, S.SD_UNET, 2))
+    lat, seconds, launches, peak = run_counted(torch, kernels, lambda: pipe(
+        **{**request, "num_frames": SD_VIDEO_LONG}, return_latents=True))
+    sd_result("sd_video_long", pipe, seconds, launches, peak, frames=SD_VIDEO_LONG,
+              windows=2, overlap=8, finite=bool(torch.isfinite(lat).all()))
+    if not torch.isfinite(lat).all():
+        raise AssertionError("sd_video_long: non-finite latents")
+    cn = random_module(torch, ControlNet, ControlNetConfig(), S.init_sd_module_, 77, bf16)
+    pipe.controlnet_manager = MultiControlNetManager([ControlNetUnit(Annotator("tile"), cn,
+                                                                     1.0)])
+    work = tempfile.mkdtemp(prefix="diffutoon_")
+    try:
+        src = os.path.join(work, "input")
+        write_frames(src, [synthetic_image(10 + i, 512) for i in range(DIFFUTOON_FRAMES)])
+        config = {"models": {"model_list": []},
+                  "data": {"input_frames": {"image_folder": src, "height": 512, "width": 512},
+                           "controlnet_frames": [{"image_folder": src, "height": 512,
+                                                  "width": 512}],
+                           "output_folder": os.path.join(work, "out"), "fps": 8},
+                  "smoother_configs": [{"processor_type": "contrast", "rate": 1.2}],
+                  "pipeline": {"seed": 0, "pipeline_inputs": {
+                      "prompt": "a toon fox, flat colours", "negative_prompt": SD_NEGATIVE,
+                      "cfg_scale": 7.0, "denoising_strength": 0.7, "num_inference_steps": steps,
+                      "animatediff_batch_size": 16, "animatediff_stride": 8,
+                      "smoother_progress_ids": [-1]}}}
+        frames, seconds, launches, peak = run_counted(
+            torch, kernels, lambda: SDVideoPipelineRunner(device="cuda").run(config, pipe=pipe))
+        written = sorted(os.listdir(os.path.join(work, "out", "frames")))
+        sd_result("diffutoon", pipe, seconds, launches, peak, frames=DIFFUTOON_FRAMES,
+                  size=512, controlnet="tile (361 M)", frames_written=len(written),
+                  video_bytes=os.path.getsize(os.path.join(work, "out", "video.mp4")))
+        if len(written) != DIFFUTOON_FRAMES:
+            raise AssertionError(f"diffutoon: {len(written)} frames written")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return {k: launches[k] for k in ("K1", "K4", "K5")}
+
+
+def run_sdxl(torch, kernels, steps: int, vae, clip_g):
+    """`sdxl`: SDXL base at its published widths (the 2.57 B UNet, CLIP-L
+    of 11 layers; `clip_g`: the `sd3` phase's CLIP-G; `vae`: the `sd`
+    phase's SD VAE modules), random bf16 weights from a seed; 1024x1024, CFG 7.5 two-pass, --steps steps,
+    one step profiled (`sdxl_profile`), the 20-step request
+    (`sdxl_image`); the union ControlNet (`sdxl_controlnet`) and the
+    IP-Adapter's full 70-site map from image embeds (`sdxl_ipadapter`).
+    -> (the launches, the pipeline for `run_sdxl_video`)."""
+    from video_styler_tpu_torch.controlnets import Annotator, ControlNetUnit
+    from video_styler_tpu_torch.models import ipadapter as I
+    from video_styler_tpu_torch.models import sd as S
+    from video_styler_tpu_torch.models import sdxl as X
+    from video_styler_tpu_torch.models.controlnet import ControlNet, ControlNetConfig
+    from video_styler_tpu_torch.pipelines.sdxl_image import SDXLImagePipeline
+    from video_styler_tpu_torch.pipelines.wan_video import generate_noise
+    bf16 = torch.bfloat16
+    t0 = time.perf_counter()
+    pipe = SDXLImagePipeline(device="cuda", dtype=bf16)
+    pipe.unet = random_module(torch, X.SDXLUNet, X.SDXL_UNET, S.init_sd_module_, 90, bf16)
+    pipe.te1 = random_module(torch, X.SDXLTextEncoder, X.SDXL_CLIP_L, S.init_sd_module_, 91, bf16)
+    pipe.te2 = clip_g
+    pipe.vae_encoder, pipe.vae_decoder = vae
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    request = dict(prompt=SD_PROMPT, negative_prompt=SD_NEGATIVE, cfg_scale=SD_CFG,
+                   height=1024, width=1024, seed=42, num_inference_steps=steps)
+    image, seconds, launches, peak = run_counted(torch, kernels, lambda: pipe(**request))
+    sd_result("sdxl", pipe, seconds, launches, peak, model="SDXL base", size=1024, steps=steps,
+              cfg=f"two-pass {SD_CFG}", build_s=build_s,
+              weights_gib={"unet": gib([pipe.unet]), "clip_l": gib([pipe.te1]),
+                           "clip_g": gib([pipe.te2])}, image_size=list(image.size))
+    if image.size != (1024, 1024):
+        raise AssertionError(f"sdxl: image {image.size}")
+    posi, pooled_p = pipe.encode_prompt(SD_PROMPT)
+    nega, pooled_n = pipe.encode_prompt(SD_NEGATIVE)
+    latents = generate_noise((1, 4, 128, 128), seed=42).to("cuda", bf16)
+    t = torch.tensor([999.0], device="cuda")
+    add_time = pipe.add_time_id(1024, 1024)
+
+    def one_step():
+        e_p = X.sdxl_unet_forward(pipe.unet, latents, t, posi, add_time, pooled_p)
+        e_n = X.sdxl_unet_forward(pipe.unet, latents, t, nega, add_time, pooled_n)
+        return e_n + SD_CFG * (e_p - e_n)
+    sd_profile(torch, "sdxl_profile", one_step, min(step_times(pipe)), (1, 4096, 10, 64),
+               sd_attention_calls(torch, X.SDXL_UNET_PROGRAM, X.SDXL_UNET, 2))
+    image, seconds, _, _ = run_counted(
+        torch, kernels, lambda: pipe(**{**request, "num_inference_steps": SD_RECIPE_STEPS}))
+    steps_20 = step_times(pipe)
+    emit(dict(phase="sdxl_image", steps=SD_RECIPE_STEPS, size=1024, image_s=seconds,
+              step_s_first=steps_20[0], step_s_rest_mean=sum(steps_20[1:]) / (len(steps_20) - 1),
+              step_s_min=min(steps_20), step_s_max=max(steps_20), **CARD))
+    cn = random_module(torch, ControlNet, ControlNetConfig(X.SDXL_UNET, union=True),
+                       S.init_sd_module_, 93, bf16)
+    image, seconds, launches, peak = run_counted(torch, kernels, lambda: pipe(
+        **request, controlnet_image=synthetic_image(5, 1024),
+        controlnet_units=[ControlNetUnit(Annotator("canny"), cn, 1.0, xl=True)]))
+    sd_result("sdxl_controlnet", pipe, seconds, launches, peak, steps=steps,
+              controlnet="union, canny (1.26 B)", weights_gib={"controlnet": gib([cn])})
+    del cn
+    ip = random_module(torch, I.IpAdapter, I.ipadapter_config(True, X.SDXL_UNET, clip_dim=1280),
+                       S.init_sd_module_, 94, bf16)
+    embeds = torch.randn(1, 1280, generator=torch.Generator().manual_seed(95))
+    image, seconds, launches, peak = run_counted(torch, kernels, lambda: pipe(
+        **request, ipadapter_params=ip, ipadapter_image_embeds=embeds, ipadapter_scale=0.6))
+    sd_result("sdxl_ipadapter", pipe, seconds, launches, peak, steps=steps, sites=70,
+              weights_gib={"ipadapter": gib([ip])})
+    return {k: launches[k] for k in ("K1", "K4", "K5")}, pipe, ip
+
+
+def run_sdxl_video(torch, kernels, steps: int, xl_pipe, ip):
+    """`sdxl_video`: SDXL AnimateDiff on the `sdxl` phase's modules (the
+    SDXL motion model's 15 modules, 237 M, drawn from a seed): 16 frames at
+    1024x1024 in one window, CFG 7.5 two-pass, --steps steps, decoded; once
+    more with the IP-Adapter under InstantStyle (`sdxl_video_ipadapter`,
+    latents)."""
+    from video_styler_tpu_torch.models import motion as M
+    from video_styler_tpu_torch.models import sd as S
+    from video_styler_tpu_torch.models import sdxl as X
+    from video_styler_tpu_torch.pipelines.sdxl_video import SDXLVideoPipeline
+    bf16 = torch.bfloat16
+    pipe = SDXLVideoPipeline(device="cuda", dtype=bf16)
+    for name in ("unet", "te1", "te2", "vae_encoder", "vae_decoder"):
+        setattr(pipe, name, getattr(xl_pipe, name))
+    pipe.motion_modules = random_module(torch, lambda cfg, dtype: M.sdxl_motion_model(
+        cfg, dtype=dtype), X.SDXL_UNET, S.init_sd_module_, 96, bf16)
+    request = dict(prompt=SD_PROMPT, negative_prompt=SD_NEGATIVE, cfg_scale=SD_CFG,
+                   height=1024, width=1024, seed=42, num_inference_steps=steps,
+                   num_frames=SD_VIDEO_FRAMES)
+    frames, seconds, launches, peak = run_counted(torch, kernels, lambda: pipe(**request))
+    sd_result("sdxl_video", pipe, seconds, launches, peak, frames=SD_VIDEO_FRAMES, size=1024,
+              steps=steps, windows=1, weights_gib={"motion_modules": gib([pipe.motion_modules])},
+              frame_shape=list(frames[0].shape))
+    if len(frames) != SD_VIDEO_FRAMES or frames[0].shape != (1024, 1024, 3):
+        raise AssertionError(f"sdxl_video: {len(frames)} frames of {frames[0].shape}")
+    add_time = pipe.add_time_id(1024, 1024)
+    video_profile(torch, pipe, "sdxl_video_profile", (SD_VIDEO_FRAMES, 4, 128, 128),
+                  lambda lat, t, ctx: X.sdxl_unet_forward(
+                      pipe.unet, lat, t, ctx[0], add_time, ctx[1],
+                      motion=(pipe.motion_modules, M.SDXL_MOTION_CALL_BLOCK_ID)),
+                  (SD_VIDEO_FRAMES, 4096, 10, 64),
+                  sd_attention_calls(torch, X.SDXL_UNET_PROGRAM, X.SDXL_UNET, 2))
+    pipe.ipadapter = ip
+    embeds = torch.randn(1, 1280, generator=torch.Generator().manual_seed(97))
+    lat, seconds, launches, peak = run_counted(torch, kernels, lambda: pipe(
+        **request, ipadapter_image_embeds=embeds, ipadapter_use_instant_style=True,
+        return_latents=True))
+    sd_result("sdxl_video_ipadapter", pipe, seconds, launches, peak, instant_style_sites=10,
+              finite=bool(torch.isfinite(lat).all()))
+    if not torch.isfinite(lat).all():
+        raise AssertionError("sdxl_video_ipadapter: non-finite latents")
+    return {k: launches[k] for k in ("K1", "K4", "K5")}
+
+
+def run_kolors(torch, kernels, steps: int, xl_pipe):
+    """`kolors`: Kolors on the card: ChatGLM3-6B (28 layers of 4096, drawn
+    from a seed) in place of the CLIP towers and the Kolors UNet (SDXL's
+    with the 5632-wide add embedding and the 4096 -> 2048 text
+    projection), 1024x1024, CFG 7.5 two-pass, --steps steps."""
+    from video_styler_tpu_torch.models import kolors_text_encoder as K
+    from video_styler_tpu_torch.models import sd as S
+    from video_styler_tpu_torch.models import sdxl as X
+    from video_styler_tpu_torch.pipelines.sdxl_image import SDXLImagePipeline
+    bf16 = torch.bfloat16
+    t0 = time.perf_counter()
+    pipe = SDXLImagePipeline(device="cuda", dtype=bf16)
+    pipe.vae_encoder, pipe.vae_decoder = xl_pipe.vae_encoder, xl_pipe.vae_decoder
+    pipe.unet = random_module(torch, X.SDXLUNet, X.KOLORS_UNET, S.init_sd_module_, 98, bf16)
+    pipe.fetch_kolors_text_encoder(random_module(torch, K.ChatGLM, K.CHATGLM3_6B,
+                                                 K.init_chatglm_, 99, bf16))
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    request = dict(prompt=SD_PROMPT, negative_prompt=SD_NEGATIVE, cfg_scale=SD_CFG,
+                   height=1024, width=1024, seed=42, num_inference_steps=steps)
+    image, seconds, launches, peak = run_counted(torch, kernels, lambda: pipe(**request))
+    sd_result("kolors", pipe, seconds, launches, peak, steps=steps, build_s=build_s,
+              weights_gib={"unet": gib([pipe.unet]), "chatglm3_6b": gib([pipe.kolors])},
+              image_size=list(image.size))
+    return {k: launches[k] for k in ("K1", "K4", "K5")}
+
+
+def run_sd_family(torch, kernels, steps: int, clip_l, clip_g) -> dict:
+    """The SD family's references and phases, on a card free of the other
+    families' models (`clip_l`: the FLUX phase's CLIP-L, `clip_g`: the SD3
+    phase's CLIP-G). -> launches by path."""
+    check_sd_references(torch)
+    out = {}
+    out["sd"], sd_pipe = run_sd(torch, kernels, steps, clip_l)
+    out["sd_video"] = run_sd_video(torch, kernels, steps, sd_pipe)
+    vae = (sd_pipe.vae_encoder, sd_pipe.vae_decoder)
+    del sd_pipe
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["sdxl"], xl_pipe, ip = run_sdxl(torch, kernels, steps, vae, clip_g)
+    out["sdxl_video"] = run_sdxl_video(torch, kernels, steps, xl_pipe, ip)
+    del ip
+    xl_pipe.unet = xl_pipe.te1 = xl_pipe.te2 = None
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["kolors"] = run_kolors(torch, kernels, steps, xl_pipe)
+    del xl_pipe, vae
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -4496,8 +5017,15 @@ def main(argv=None):
         torch, kernels, args.steps)
     gc.collect()
     torch.cuda.empty_cache()
-    path_launches["sd3"] = run_sd3(torch, kernels, args.steps, shared)
+    path_launches["sd3"], clip_g = run_sd3(torch, kernels, args.steps, shared)
+    clip_l = shared[0]
     del shared
+    gc.collect()
+    torch.cuda.empty_cache()
+    # SD 1.5, SDXL and Kolors, images and video, on FLUX's CLIP-L and SD3's
+    # CLIP-G
+    path_launches.update(run_sd_family(torch, kernels, args.steps, clip_l, clip_g))
+    del clip_l, clip_g
     gc.collect()
     torch.cuda.empty_cache()
     # the multi-GPU path: ranks sharing the free card

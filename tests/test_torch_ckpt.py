@@ -500,29 +500,31 @@ def test_vace_prefix_quirk_is_mirrored(tmp_path, monkeypatch):
 
 
 def test_unported_kinds_raise(tmp_path, monkeypatch):
-    """hunyuan_video_dit and motion_modules raise with their Queue 1 item;
-    `s2v` and `wav2vec` are ported and attach as in the JAX pipeline: `s2v`
-    builds the default (14B) config whatever the file, `wav2vec` raises the
-    JAX pipeline's ValueError (ROADMAP Queue 3). `flux_dit` is ported
-    (`load_model` and the FLUX pipeline build it) and, as in the JAX
-    package, is no kind of the Wan pipeline."""
+    """hunyuan_video_dit raises with its Queue 1 item; `s2v` and `wav2vec`
+    are ported and attach as in the JAX pipeline: `s2v` builds the default
+    (14B) config whatever the file, `wav2vec` raises the JAX pipeline's
+    ValueError (ROADMAP Queue 3). `flux_dit` and `motion_modules` are ported
+    (`load_model` builds them) and, as in the JAX package, are no kind of
+    the Wan pipeline."""
     import video_styler_tpu_torch.models.wan_s2v as TS
     path = str(tmp_path / "hunyuan_video_dit.safetensors")
     safetensors_io.save_file({"single_blocks.0.linear1.weight": torch.zeros(4, 4)}, path)
     with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
         TC.load_model(path, device="cpu")
     tp = TW.WanVideoPipeline(device="cpu")
-    for kind in ("hunyuan_video_dit", "motion_modules"):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-            tp._attach(kind, {})
+    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
+        tp._attach("hunyuan_video_dit", {})
     assert not {"animate", "motion_controller", "s2v", "wav2vec", "flux_dit",
                 "flux_controlnet", "flux_ipadapter", "flux_infiniteyou_projector",
-                "flux_value_encoder", "flux_lora_encoder", "sd3_dit"} & set(TC.UNPORTED_KINDS)
-    assert len(TC.UNPORTED_KINDS) == 12
+                "flux_value_encoder", "flux_lora_encoder", "sd3_dit", "sd_unet",
+                "motion_modules", "ipadapter", "kolors_text_encoder"} & set(TC.UNPORTED_KINDS)
+    assert len(TC.UNPORTED_KINDS) == 8
     jp = JW.WanVideoPipeline(dtype=jnp.float32)
     for pipe in (jp, tp):
         with pytest.raises(ValueError, match="unknown model kind wav2vec"):
             pipe._attach("wav2vec", {})
+        with pytest.raises(ValueError, match="unknown model kind motion_modules"):
+            pipe._attach("motion_modules", {})
         with pytest.raises(ValueError, match="unknown model kind flux_dit"):
             pipe._attach("flux_dit", {})
         with pytest.raises(ValueError, match="unknown model kind"):

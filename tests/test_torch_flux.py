@@ -570,7 +570,7 @@ def test_image_gen_cli_refuses(tmp_path):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         image_gen.main(["--family", "flux", "--smoke", "--output", str(tmp_path / "x.png")])
     with pytest.raises(NotImplementedError, match="item 11"):
-        image_gen.main(["--family", "sd", "--smoke", "--device", "cpu"])
+        image_gen.main(["--family", "qwen", "--smoke", "--device", "cpu"])
 
 
 def test_prompter_without_t5_tokenizer_raises(pipes):

@@ -7,28 +7,37 @@
     python -m video_styler_tpu_torch.image_gen --family flux --smoke --device cpu
     python -m video_styler_tpu_torch.image_gen --family sd3 --prompt "a cat" \
         --dit_path sd3.5_large.safetensors --vae_path vae.safetensors
-    python -m video_styler_tpu_torch.image_gen --family sd3 --smoke --device cpu
+    python -m video_styler_tpu_torch.image_gen --family sd --prompt "a cat" \
+        --dit_path v1-5-pruned-emaonly.safetensors --tokenizer_path clip_tokenizer \
+        --height 512 --width 512
+    python -m video_styler_tpu_torch.image_gen --family sdxl --smoke --device cpu
 
 The counterpart of the JAX package's `examples/image_gen.py`, for the
 families the port runs: `flux` (FLUX.1-dev, or schnell where the DiT file
 has no guidance embedder; embedded guidance 3.5, CFG 1, --steps steps,
---lora_path merged at alpha 1) and `sd3` (SD3 / SD3.5, the config inferred
+--lora_path merged at alpha 1), `sd3` (SD3 / SD3.5, the config inferred
 from the DiT file; --cfg_scale, default 7.5, with --negative_prompt; the
 JAX runner's `from_pretrained` loads the DiT and the VAE only, so without
 --smoke the prompter has no text encoder and the request raises, as the
-JAX runner's does). Checkpoints come from local files only:
---dit_path (DiffSynth or BFL layout; shards `|`-separated), --vae_path (the
-encoder's and decoder's state dicts under `encoder.` / `decoder.`),
---clip_path (CLIP-L), --t5_path (T5 v1.1-XXL, HF names; shards
-`|`-separated), --tokenizer_path (the CLIP tokenizer) and
+JAX runner's does), `sd` (SD 1.5 from a civitai single file: UNet, CLIP-L
+and VAE; DDIM, --cfg_scale) and `sdxl` (SDXL from a civitai single file:
+the UNet, CLIP-L, CLIP-G and the VAE; the JAX runner passes the UNet
+alone, under LDM names its converter does not rename, and no text tower or
+VAE, so its request cannot run). Checkpoints come from local files only:
+--dit_path (DiffSynth or BFL layout; shards `|`-separated; sd / sdxl: the
+civitai file), --vae_path (the encoder's and decoder's state dicts under
+`encoder.` / `decoder.`), --clip_path (CLIP-L), --t5_path (T5 v1.1-XXL, HF
+names; shards `|`-separated), --tokenizer_path (the CLIP tokenizer; sd /
+sdxl without one take the JAX pipelines' stand-in ids) and
 --tokenizer_2_path (the T5 tokenizer; the JAX runner passes none, and its
 prompter then has no T5 tokenizer). --smoke runs a tiny random model
 (flux: FLUX_DIT_TINY, CLIP-L and T5 v1.1 at tiny widths with stand-in
 tokenizers, the FLUX VAE; sd3: SD3_DIT_TINY with a 4096-wide context,
-CLIP-L and CLIP-G at tiny widths, no T5, the SD3 VAE) at 64x64 for 2
-steps. The other families of the JAX runner (sd, sdxl, qwen,
-hunyuan_image, omnigen) raise `NotImplementedError`: ROADMAP Queue 1 item
-11 ports them. Runs on the card unless --device cpu.
+CLIP-L and CLIP-G at tiny widths, no T5, the SD3 VAE; sd / sdxl: the tiny
+UNets and CLIP towers, the SD VAE) at 64x64 for 2 steps. The other
+families of the JAX runner (qwen, hunyuan_image, omnigen) raise
+`NotImplementedError` naming their ROADMAP Queue 1 item. Runs on the card
+unless --device cpu.
 """
 from __future__ import annotations
 
@@ -99,15 +108,55 @@ def run_sd3(a):
                 num_inference_steps=a.steps, height=a.height, width=a.width, seed=a.seed)
 
 
-def _unported(family: str):
+def build_sd_smoke_pipeline(xl: bool, device=None, seed: int = 0):
+    """An SD 1.5 (or, xl, SDXL) pipeline of tiny random models (weights
+    from `seed`), fp32, with the JAX pipelines' stand-in ids."""
+    import torch
+    from .models import sd as SD
+    from .models import sdxl as XL
+    if xl:
+        from .pipelines.sdxl_image import SDXLImagePipeline
+        return SDXLImagePipeline.from_configs(XL.SDXL_UNET_TINY, XL.CLIP_L_TINY_12,
+                                              XL.CLIP_G_TINY, seed=seed, device=device,
+                                              dtype=torch.float32)
+    from .pipelines.sd_image import SDImagePipeline
+    return SDImagePipeline.from_configs(SD.SD_UNET_TINY, XL.CLIP_L_TINY_12, seed=seed,
+                                        device=device, dtype=torch.float32)
+
+
+def _run_sd_family(a, xl: bool):
+    if a.smoke:
+        pipe = build_sd_smoke_pipeline(xl, device=a.device, seed=a.seed)
+    elif xl:
+        from .pipelines.sdxl_image import SDXLImagePipeline
+        pipe = SDXLImagePipeline.from_civitai_file(a.dit_path, tokenizer_path=a.tokenizer_path,
+                                                   device=a.device)
+    else:
+        from .pipelines.sd_image import SDImagePipeline
+        pipe = SDImagePipeline.from_civitai_file(a.dit_path, tokenizer_path=a.tokenizer_path,
+                                                 device=a.device)
+    return pipe(a.prompt, negative_prompt=a.negative_prompt, cfg_scale=a.cfg_scale,
+                num_inference_steps=a.steps, height=a.height, width=a.width, seed=a.seed)
+
+
+def run_sd(a):
+    return _run_sd_family(a, xl=False)
+
+
+def run_sdxl(a):
+    return _run_sd_family(a, xl=True)
+
+
+def _unported(family: str, item: str):
     def run(a):
         raise NotImplementedError(f"image family {family!r} is not ported yet "
-                                  "(ROADMAP Queue 1 item 11)")
+                                  f"(ROADMAP Queue 1 item {item})")
     return run
 
 
-RUNNERS = {"flux": run_flux, "sd3": run_sd3,
-           **{f: _unported(f) for f in ("sd", "sdxl", "qwen", "hunyuan_image", "omnigen")}}
+RUNNERS = {"flux": run_flux, "sd3": run_sd3, "sd": run_sd, "sdxl": run_sdxl,
+           "qwen": _unported("qwen", "11d"), "hunyuan_image": _unported("hunyuan_image", "11f"),
+           "omnigen": _unported("omnigen", "11f")}
 
 
 def parse_args(argv=None):
@@ -115,7 +164,7 @@ def parse_args(argv=None):
     p.add_argument("--family", required=True, choices=sorted(RUNNERS))
     p.add_argument("--prompt", default="a lighthouse on a cliff at dawn")
     p.add_argument("--negative_prompt", default="")
-    p.add_argument("--cfg_scale", type=float, default=7.5, help="sd3 only")
+    p.add_argument("--cfg_scale", type=float, default=7.5, help="sd3, sd and sdxl")
     p.add_argument("--dit_path")
     p.add_argument("--vae_path")
     p.add_argument("--clip_path")

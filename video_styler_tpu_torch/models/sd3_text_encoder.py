@@ -67,6 +67,18 @@ class ClipTextEncoder(nn.Module):
         self.final_layer_norm = Affine(cfg.dim, **kw)
 
 
+def detect_clip_text_config(sd: Dict, num_heads: int) -> ClipTextConfig:
+    """A CLIP text tower's config from its state dict (the head count is not
+    in the tensors)."""
+    n = 0
+    while f"encoders.{n}.fc1.weight" in sd:
+        n += 1
+    vocab, dim = sd["token_embedding.weight"].shape
+    return ClipTextConfig(vocab=vocab, dim=dim, ffn_dim=sd["encoders.0.fc1.weight"].shape[0],
+                          num_layers=n, num_heads=num_heads,
+                          max_len=sd["position_embeds"].shape[-2])
+
+
 def clip_layer(p: ClipTextLayer, x, mask, num_heads: int, quick_gelu: bool):
     """One CLIP encoder layer (the JAX `sdxl._clip_layer`): pre-norm
     attention through the exact `sdpa` (mask (L, L) added to the fp32

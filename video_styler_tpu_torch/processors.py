@@ -4,8 +4,8 @@ Counterpart of `video_styler_tpu/processors.py`: a chain of processors
 applied to rendered frames, each taking and returning a list of frames.
 `from_config` builds FastBlend (`extensions.fastblend.FastBlendSmoother`,
 on the card unless its config says `device="cpu"`) and PIL's contrast and
-sharpness enhancers (PIL imported when they run, as in JAX); RIFE and
-ESRGAN join a chain as callables (`extensions.rife.RIFESmoother`,
+sharpness enhancers (PIL imported when they run, as in JAX; uint8 arrays
+in, arrays out); RIFE and ESRGAN join a chain as callables (`extensions.rife.RIFESmoother`,
 `extensions.esrgan.ESRGANUpscaler`).
 """
 from __future__ import annotations
@@ -13,13 +13,24 @@ from __future__ import annotations
 from typing import List
 
 
+def _enhance(kind: str, frames: List, rate: float) -> List:
+    """PIL's enhancer on each frame; uint8 arrays come back as arrays."""
+    import numpy as np
+    from PIL import Image, ImageEnhance
+    out = []
+    for f in frames:
+        image = Image.fromarray(f) if isinstance(f, np.ndarray) else f
+        image = getattr(ImageEnhance, kind)(image).enhance(rate)
+        out.append(np.asarray(image) if isinstance(f, np.ndarray) else image)
+    return out
+
+
 class ContrastProcessor:
     def __init__(self, rate: float = 1.5):
         self.rate = rate
 
     def __call__(self, rendered_frames: List, **kwargs):
-        from PIL import ImageEnhance
-        return [ImageEnhance.Contrast(f).enhance(self.rate) for f in rendered_frames]
+        return _enhance("Contrast", rendered_frames, self.rate)
 
 
 class SharpnessProcessor:
@@ -27,8 +38,7 @@ class SharpnessProcessor:
         self.rate = rate
 
     def __call__(self, rendered_frames: List, **kwargs):
-        from PIL import ImageEnhance
-        return [ImageEnhance.Sharpness(f).enhance(self.rate) for f in rendered_frames]
+        return _enhance("Sharpness", rendered_frames, self.rate)
 
 
 class SequencialProcessor:

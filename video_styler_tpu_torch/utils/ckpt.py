@@ -41,6 +41,7 @@ import zipfile
 from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, List, Optional
 
+import numpy as np
 import torch
 
 from ..models.wan_dit import WanDiTConfig
@@ -161,7 +162,8 @@ class _Reader:
 
 def read_tensors(sd: Dict, device, dtype: Optional[torch.dtype] = None) -> Dict:
     """Every LazyTensor of `sd` read onto `device` once, floating ones cast
-    to `dtype` there (when given); other values are passed through."""
+    to `dtype` there (when given); numpy arrays become tensors there, other
+    values are passed through."""
     device = torch.device(device)
     out = {}
     reader = _Reader(device, _READ_WORKERS)
@@ -170,6 +172,8 @@ def read_tensors(sd: Dict, device, dtype: Optional[torch.dtype] = None) -> Dict:
             if isinstance(v, LazyTensor):
                 out[name] = torch.empty(v.shape, dtype=v.dtype, device=device)
                 reader.add(v, out[name])
+            elif isinstance(v, np.ndarray):
+                out[name] = torch.from_numpy(np.ascontiguousarray(v)).to(device)
             else:
                 out[name] = v.to(device) if isinstance(v, torch.Tensor) else v
     finally:
@@ -319,11 +323,10 @@ def detect_vace_config(sd: Dict) -> Optional[VaceConfig]:
 # kinds `detect_model_kind` knows that the port cannot build yet, and the
 # ROADMAP Queue 1 item that ports each
 UNPORTED_KINDS = {
-    "motion_modules": 11, "ipadapter": 11,
-    "qwen_image_dit": 11, "qwen_image_blockwise_controlnet": 11,
-    "sd_unet": 11, "svd_unet": 11, "svd_unet_exvideo": 11,
-    "hunyuan_video_dit": 11, "hunyuan_dit": 11, "omnigen": 11,
-    "kolors_text_encoder": 11, "stepvideo_text_encoder": 11,
+    "qwen_image_dit": "11d", "qwen_image_blockwise_controlnet": "11d",
+    "hunyuan_video_dit": "11e", "hunyuan_dit": "11e", "omnigen": "11e",
+    "stepvideo_text_encoder": "11e",
+    "svd_unet": "11f", "svd_unet_exvideo": "11f",
 }
 
 
@@ -404,6 +407,8 @@ def load_model(path, device=None, dtype: torch.dtype = torch.bfloat16):
     if kind in IMAGE_KINDS:
         from ..models.flux_dit import FLUX_DEV
         return kind, build_image_module(kind, sd, FLUX_DEV, device, dtype)
+    if kind in SD_KINDS:
+        return kind, build_sd_module(kind, sd, device, dtype)
     if kind in UNPORTED_KINDS:
         raise unported(kind)
     raise NotImplementedError(f"detected '{kind}' — use its family pipeline/converter "
@@ -455,6 +460,44 @@ def build_image_module(kind: str, sd: Dict, dit_cfg, device, dtype: torch.dtype,
     raise ValueError(f"not an image kind: {kind!r} (one of {IMAGE_KINDS})")
 
 
+# the SD family's kinds: `build_sd_module` builds them
+SD_KINDS = ("sd_unet", "motion_modules", "ipadapter", "kolors_text_encoder")
+
+
+def build_sd_module(kind: str, sd: Dict, device, dtype: torch.dtype):
+    """One of `SD_KINDS` from its state dict, on `device` in `dtype`, its
+    widths read from the tensors: the SD 1.5 or (with `label_emb`) SDXL
+    UNet of an LDM file, bare or under `model.diffusion_model.` (the JAX
+    loader keeps the LDM names, which its UNet cannot read; here they are
+    renamed by `utils.sd_civitai`); a motion model; an SD / SDXL
+    IP-Adapter; ChatGLM3-6B (`models.kolors_text_encoder.CHATGLM3_6B`, read
+    when called)."""
+    from ..models import sd as S
+    if kind == "sd_unet":
+        from ..models import sdxl as X
+        from ..utils import sd_civitai as SC
+        prefix = "model.diffusion_model."
+        if not any(k.startswith(prefix) for k in sd):
+            sd = {prefix + k: v for k, v in sd.items()}
+        xl = any(k.startswith(prefix + "label_emb.") for k in sd)
+        program, cls = (X.SDXL_UNET_PROGRAM, X.SDXLUNet) if xl else (S.SD_UNET_PROGRAM, S.SDUNet)
+        usd = S.convert_sd_module(SC.convert_ldm_unet(sd, xl))
+        return build_module(cls, S.detect_unet_config(usd, program), usd, device, dtype)
+    if kind == "motion_modules":
+        from ..models.motion import convert_motion_model, detect_motion_model
+        msd = convert_motion_model(sd)
+        return build_module(lambda cfg, dtype: detect_motion_model(msd, dtype=dtype), None, msd,
+                            device, dtype)
+    if kind == "ipadapter":
+        from ..models import ipadapter as I
+        isd = I.convert_ipadapter(sd)
+        return build_module(I.IpAdapter, I.detect_ipadapter_config(isd), isd, device, dtype)
+    if kind == "kolors_text_encoder":
+        from ..models import kolors_text_encoder as K
+        return build_module(K.ChatGLM, K.CHATGLM3_6B, K.convert_chatglm(sd), device, dtype)
+    raise ValueError(f"not an SD kind: {kind!r} (one of {SD_KINDS})")
+
+
 def detect_model_kind(sd: Dict) -> str:
     """Structural architecture detection, keyed on the state dict's keys
     (the JAX package's `detect_model_kind`, every family it knows)."""
@@ -482,6 +525,11 @@ def detect_model_kind(sd: Dict) -> str:
         return "flux_controlnet"
     if any(k.startswith("ipadapter_modules.") or k.startswith("ip_adapter.")
            for k in keys) and any("to_k_ip" in k for k in keys):
+        # an SD / SDXL adapter's projection is one linear (`image_proj.proj.
+        # weight`); the JAX detector's "image_proj.proj" also matches it and
+        # calls it FLUX's
+        if "image_proj.proj.weight" in sd:
+            return "ipadapter"
         return "flux_ipadapter" if any("norm_added_k" in k or
                                        "image_proj.proj" in k for k in keys) \
             else "ipadapter"
