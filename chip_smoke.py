@@ -291,6 +291,28 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
              (`sdxl_video_profile`); again under InstantStyle
              (`sdxl_video_ipadapter`, latents)
   kolors     ChatGLM3-6B and the Kolors UNet, 1024x1024, --steps steps
+  qwen_kernels  (with the kernel rows) K1 at the Qwen-Image DiT's joint
+             attention, 24 heads of 128 over every [text | image] length the
+             qwen, qwen_edit and qwen_adapters requests give it, positive and
+             negative prompt (6,918 and 6,896 at 1328x1328; 4,125 and 4,103
+             at 1024x1024; the edit's 9,434 and 9,430), held against its
+             plain version (two bf16 ULPs)
+  qwen_reference  a small Qwen-Image (head dim 128, 2 blocks; Qwen2.5-VL
+             towers of 2 and 4 layers; the Wan2.1 VAE) on the card (K1)
+             against the same weights on the CPU: 256x256, 2 steps, t2i at
+             CFG 1 and 4, an edit, EliGen and the block-wise ControlNet;
+             latents within 5%, the decode within 2 levels, K1's launches
+             against blocks x passes x steps
+  qwen       on a free card: the 20.4 B Qwen-Image DiT, Qwen2.5-VL-7B (text
+             and vision towers) and the Wan2.1 VAE, random weights from a
+             seed, 1328x1328, CFG 4 two-pass, --steps steps and the decode:
+             stages, peak, K1 launches against 60 a pass; a two-pass step
+             profiled (`qwen_profile`); the 30-step image composed
+             (`qwen_image_composed`); then on the resident model
+             `qwen_edit` (a 1024x1024 edit image through the vision tower
+             and as an extra latent) and `qwen_adapters` (EliGen: K1 on the
+             negative pass only; a 60-block block-wise ControlNet; inpaint;
+             img2img), 1024x1024
   usp_kernels  (with the kernel rows) one rank's work of the multi-GPU path
              at Wan2.1-14B width over the Ditto clip's 29,640 tokens, in
              this process: K1 on a Ulysses share (20 and 10 heads over the
@@ -303,10 +325,10 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
              cuda:0 over gloo (NCCL refuses two ranks on one device). (a)
              Wan2.1-T2V-1.3B at full width on meshes (1, 1, 2) and (1, 2, 2)
              (--frames, --steps, CFG 5 two-pass); (b) the e2e edit at
-             Wan2.1-VACE-14B width on (1, 2, 1), FSDP over 2 ranks, one
-             step (its host-staged all-gathers take ~80 s a step), each
-             rank drawing only its shards of the e2e weights, umT5 parked
-             on the host between encodes; per rank:
+             Wan2.1-VACE-14B width cut to 8 of its 40 DiT blocks (the VACE
+             layers 0 and 5) on (1, 2, 1), FSDP over 2 ranks, one step,
+             each rank drawing only its shards, umT5 parked on the host
+             between encodes; per rank:
              latents against the same weights in one process (5%), peak
              memory, DiT+VACE shard GiB, K1/K4/K5 launches against the
              one-process count, step times (a card shared by the ranks, not
@@ -4528,6 +4550,353 @@ def run_sd_family(torch, kernels, steps: int, clip_l, clip_g) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Qwen-Image: the Qwen2.5-VL towers, the 20B DiT, its VAE and adapters
+# ---------------------------------------------------------------------------
+
+QWEN_HEADS = 24             # Qwen-Image: 24 heads of 128
+QWEN_SIZE = 1328            # the pipeline's default: 83 x 83 = 6,889 image tokens
+QWEN_ADAPTER_SIZE = 1024    # the edit and adapter requests
+QWEN_REF_SIZE = 256         # qwen_reference: 16 x 16 image tokens
+QWEN_CFG = 4.0              # the pipeline's default, two-pass
+QWEN_RECIPE_STEPS = 30      # the pipeline's default step count
+QWEN_PROMPT = ("a lighthouse on a cliff at dawn, waves breaking on the rocks below, "
+               "seagulls over the water, oil painting with thick brush strokes")
+QWEN_NEGATIVE = "blurry, low quality"
+QWEN_EDIT_PROMPT = "turn it into a watercolor painting at dusk"
+QWEN_CATEGORIES = (  # one two-pass DiT step's device time, by category
+    ("K1", ("flash_fwd_capped_kernel",)),
+    ("gemm", ("gemm", "nvjet", "xmma", "cutlass", "sm90_")),
+    ("elementwise", ("elementwise", "reduce_kernel", "CatArrayBatchedCopy", "layer_norm",
+                     "copy_kernel", "index", "fill", "softmax")),
+)
+
+
+def qwen_edit_merged_tokens(size: int) -> int:
+    """Merged vision tokens of a size x size edit image (the processor's
+    smart resize at its default pixel budget)."""
+    from video_styler_tpu_torch.models.qwen_vl_vision import smart_resize
+    h, w = smart_resize(size, size, 28, 56 * 56, 28 * 28 * 1280)
+    return (h // 28) * (w // 28)
+
+
+_QWEN_LENS = {}
+
+
+def qwen_joint_lens() -> dict:
+    """Every [text | image] length that K1 gets on the qwen, qwen_edit and
+    qwen_adapters requests, for the positive and the negative prompt: the
+    rows of the pipeline's own `encode_prompt` / `encode_prompt_edit` plus
+    the image tokens (and the edit image's extra latent). The stand-in
+    tokenizer's rows do not depend on the towers' widths, so the small CPU
+    towers of `qwen_reference_configs` give them; `run_qwen` holds the
+    full-width encoder's rows to this table. EliGen's positive pass is the
+    exact `sdpa`, its negative pass the 1024 negative length."""
+    if not _QWEN_LENS:
+        import torch
+        from video_styler_tpu_torch.pipelines.qwen_image import QwenImagePipeline
+        _, text, vision, _ = qwen_reference_configs()
+        pipe = QwenImagePipeline(device="cpu")
+        pipe.use_text_encoder(qwen_vl(torch, text, vision, "cpu"))
+        edit = [qwen_adapter_requests(QWEN_ADAPTER_SIZE)["edit"]["edit_image"]]
+        with torch.no_grad():
+            _, _, cache = pipe.encode_prompt_edit(QWEN_EDIT_PROMPT, edit)
+            for tag, size, rows in (
+                    ("t2i", QWEN_SIZE, lambda p: pipe.encode_prompt(p)[0]),
+                    ("1024", QWEN_ADAPTER_SIZE, lambda p: pipe.encode_prompt(p)[0]),
+                    ("edit", QWEN_ADAPTER_SIZE,
+                     lambda p: pipe.encode_prompt_edit(p, edit, _cache=cache)[0])):
+                image = (size // 16) ** 2 * (2 if tag == "edit" else 1)
+                prompt = QWEN_EDIT_PROMPT if tag == "edit" else QWEN_PROMPT
+                _QWEN_LENS[tag] = rows(prompt).shape[1] + image
+                _QWEN_LENS[f"{tag}-negative"] = rows(QWEN_NEGATIVE).shape[1] + image
+    return dict(_QWEN_LENS)
+
+
+def check_qwen_kernels(torch):
+    """`qwen_kernels`: K1 at the Qwen-Image DiT's joint attention, 24 heads of
+    128 over every [text | image] length of `qwen_joint_lens` (the t2i
+    request at 1328x1328, the adapters' at 1024x1024 and the edit's with
+    its extra latent, each for the positive and the negative prompt), held
+    against its plain version (two bf16 ULPs)."""
+    rows = []
+    for tag, s in qwen_joint_lens().items():
+        rows += check_kernels(torch, (1, 1, s), f"qwen-{tag}", heads=QWEN_HEADS, cross_lens=(),
+                              norms=False)
+    return rows
+
+
+def qwen_reference_configs():
+    """A small Qwen-Image with head dim 128 (dim 256, 2 heads, the release's
+    RoPE axes, 2 blocks), a Qwen2.5-VL text tower of 2 layers (2 heads of
+    128, one k/v head) and a vision tower of 4 blocks (2 heads of 80), a
+    2-block ControlNet, the release-width Wan2.1 VAE."""
+    import dataclasses
+    from video_styler_tpu_torch.models.llm_decoder import QWEN25_VL_7B_TEXT
+    from video_styler_tpu_torch.models.qwen_image_controlnet import QwenBlockwiseCNConfig
+    from video_styler_tpu_torch.models.qwen_image_dit import QWEN_IMAGE
+    from video_styler_tpu_torch.models.qwen_vl_vision import QWEN25_VL_7B_VISION
+    text = dataclasses.replace(QWEN25_VL_7B_TEXT, vocab_size=2048, hidden=256, num_layers=2,
+                               num_heads=2, num_kv_heads=1, ffn=512)
+    vision = dataclasses.replace(QWEN25_VL_7B_VISION, depth=4, hidden=160, num_heads=2,
+                                 intermediate=256, out_hidden=256, fullatt=(3,))
+    dit = dataclasses.replace(QWEN_IMAGE, dim=256, num_heads=2, num_layers=2, text_dim=256)
+    cn = QwenBlockwiseCNConfig(num_layers=2, dim=256)
+    return dit, text, vision, cn
+
+
+def qwen_vl(torch, text_cfg, vision_cfg, device: str, seed: int = 1):
+    """Qwen2.5-VL towers of random bf16 weights from a seed, with the
+    stand-in tokenizer."""
+    from video_styler_tpu_torch.models.qwen_vl_embedder import QwenVL, StubQwenTokenizer
+    tok = StubQwenTokenizer(text_cfg.vocab_size)
+    s = tok.special_ids
+    return QwenVL.from_configs(text_cfg, vision_cfg, tok, seed=seed, device=device,
+                               dtype=torch.bfloat16, image_token_id=s["<|image_pad|>"],
+                               video_token_id=s["<|video_pad|>"],
+                               vision_end_token_id=s["<|vision_end|>"])
+
+
+def qwen_pipeline(torch, dit_cfg, text_cfg, vision_cfg, device: str, seed: int = 0):
+    """A Qwen-Image pipeline of random bf16 weights (the VAE fp32) from a
+    seed, with the stand-in tokenizer."""
+    from video_styler_tpu_torch.pipelines.qwen_image import QwenImagePipeline
+    return QwenImagePipeline.from_configs(
+        dit_cfg, qwen_vl(torch, text_cfg, vision_cfg, device, seed + 1), seed=seed,
+        device=device, dtype=torch.bfloat16)
+
+
+def random_blockwise_cn(torch, cfg, device: str, seed: int):
+    from video_styler_tpu_torch.models import qwen_image_controlnet as QC
+    from video_styler_tpu_torch.models.flux_dit import init_flux_dit_
+    gen = torch.Generator(device).manual_seed(seed)
+    with torch.device("meta"):
+        cn = QC.QwenBlockwiseControlNet(cfg, dtype=torch.bfloat16)
+    return init_flux_dit_(cn.to_empty(device=device), gen).eval()
+
+
+def qwen_adapter_requests(size: int) -> dict:
+    """The reference's and the qwen_adapters phase's requests beyond t2i:
+    an edit, EliGen with two entities, the block-wise ControlNet (active the
+    first half), inpaint and img2img; CFG 4 two-pass."""
+    from video_styler_tpu_torch.pipelines.qwen_image import ControlNetInput
+    img = synthetic_image(5, size)
+    return {
+        "edit": dict(edit_image=synthetic_image(6, size), prompt=QWEN_EDIT_PROMPT),
+        "eligen": dict(eligen_entity_prompts=["a red lighthouse", "a purple sky"],
+                       eligen_entity_masks=[entity_mask(size, 0.1, 0.3, 0.9, 0.7),
+                                            entity_mask(size, 0.0, 0.0, 0.4, 1.0)]),
+        "controlnet": dict(blockwise_controlnet_inputs=[ControlNetInput(
+            controlnet_id=0, scale=0.8, start=1.0, end=0.5, image=synthetic_image(7, size))]),
+        "inpaint": dict(input_image=img, inpaint_mask=entity_mask(size, 0.25, 0.25, 0.75, 0.75),
+                        denoising_strength=0.9),
+        "img2img": dict(input_image=img, denoising_strength=0.6),
+    }
+
+
+def check_qwen_reference(torch, kernels):
+    """`qwen_reference`: the small pipeline of `qwen_reference_configs` on
+    the card (K1) against the same weights on the CPU (plain versions),
+    bf16: 256x256, 2 steps, t2i at CFG 1 and CFG 4, an edit (the vision
+    tower and one extra latent), EliGen and the block-wise ControlNet at
+    CFG 4; latents within 5% relative L2, the fp32 decode of the CPU's
+    CFG-1 latents on both devices within 2 levels; K1's launches on the card
+    against blocks x passes x steps (one pass at CFG 1 and under EliGen,
+    whose positive pass is the exact `sdpa`)."""
+    import numpy as np
+    from video_styler_tpu_torch.models.qwen_vl_embedder import QwenVL
+    dit, text, vision, cn_cfg = qwen_reference_configs()
+    cpu = qwen_pipeline(torch, dit, text, vision, "cpu")
+    cpu.blockwise_controlnets = [random_blockwise_cn(torch, cn_cfg, "cpu", 3)]
+    gpu = copy.copy(cpu)
+    gpu.device = torch.device("cuda")
+    gpu.dit, gpu.vae = (copy.deepcopy(m).to("cuda") for m in (cpu.dit, cpu.vae))
+    gpu.blockwise_controlnets = [copy.deepcopy(cpu.blockwise_controlnets[0]).to("cuda")]
+    vl = cpu._vl
+    gpu.use_text_encoder(QwenVL(copy.deepcopy(vl.text).to("cuda"),
+                                copy.deepcopy(vl.vision).to("cuda"), vl.tokenizer,
+                                image_token_id=vl.image_token_id,
+                                video_token_id=vl.video_token_id,
+                                vision_end_token_id=vl.vision_end_token_id))
+    res = dict(phase="qwen_reference", size=QWEN_REF_SIZE, steps=2, dit_dim=dit.dim,
+               dit_heads=dit.num_heads, latents_rel_l2={}, latents_tol=5e-2,
+               k1_launches={}, k1_expected={})
+    base = dict(prompt=QWEN_PROMPT, negative_prompt=QWEN_NEGATIVE, height=QWEN_REF_SIZE,
+                width=QWEN_REF_SIZE, seed=42, num_inference_steps=2, return_latents=True)
+    cases = {"cfg 1": dict(cfg_scale=1.0), "cfg 4": dict(cfg_scale=QWEN_CFG)}
+    cases.update({name: dict(cfg_scale=QWEN_CFG, **req) for name, req in
+                  qwen_adapter_requests(QWEN_REF_SIZE).items()
+                  if name in ("edit", "eligen", "controlnet")})
+    lat_cpu, launches = None, {}
+    for name, req in cases.items():
+        kw = {**base, **req}
+        lat_c = cpu(**kw).float()
+        lat_g, _, launches[name], _ = run_counted(torch, kernels, lambda: gpu(**kw))
+        lat_g = lat_g.float().cpu()
+        passes = 1 if name in ("cfg 1", "eligen") else 2
+        res["k1_expected"][name] = dit.num_layers * passes * base["num_inference_steps"]
+        res["k1_launches"][name] = launches[name]["K1"]
+        res["latents_rel_l2"][name] = ((lat_g - lat_c).norm() / lat_c.norm()).item()
+        if lat_cpu is None:
+            lat_cpu = lat_c
+    img_c = np.asarray(cpu.decode_image(lat_cpu).clamp(-1, 1).add(1).mul(127.5).round(), np.int16)
+    img_g = np.asarray(gpu.decode_image(lat_cpu.cuda()).clamp(-1, 1).add(1).mul(127.5).round()
+                       .cpu(), np.int16)
+    res.update(image_max_abs_diff=float(np.abs(img_g - img_c).max()), image_tol=2.0)
+    emit(res)
+    if not (all(v <= 5e-2 for v in res["latents_rel_l2"].values())
+            and res["image_max_abs_diff"] <= 2.0):
+        raise AssertionError(f"Qwen-Image, card vs CPU disagree: {res}")
+    for name, count in launches.items():
+        check_launches(count, {"K1": res["k1_expected"][name]}, f"qwen_reference {name}")
+
+
+def qwen_result(phase: str, pipe, seconds: float, launches: dict, peak: float, expected: dict,
+                **extra) -> dict:
+    """A Qwen phase's line: stages, steps, peaks, launches against the
+    derived K1 count."""
+    res = dict(phase=phase, total_s=seconds,
+               stages={k: v for k, v in pipe.stage_times if not k.startswith("denoise_step_")},
+               step_s=step_times(pipe), max_memory_allocated_gib=peak,
+               launches={k: v for k, v in launches.items() if v}, expected_launches=expected,
+               **extra, **CARD)
+    emit(res)
+    check_launches(launches, expected, phase)
+    return res
+
+
+def run_qwen(torch, kernels, steps: int) -> dict:
+    """`qwen`: Qwen-Image at full width and depth on a free card (the 20.4 B
+    DiT: dim 3072, 24 heads of 128, 60 blocks; Qwen2.5-VL-7B's text tower,
+    28 layers, and its vision tower, 32 blocks; the fp32 Wan2.1 VAE; random
+    weights from a seed, bf16): a 1328x1328 request at CFG 4 two-pass,
+    --steps steps, then the decode: stage times, the peak, K1's launches
+    against 60 a pass; then one two-pass step profiled by category
+    (`qwen_profile`); then `qwen_edit` and `qwen_adapters` on the resident
+    model. Returns each phase's launches."""
+    from video_styler_tpu_torch.models import qwen_image_dit as QD
+    from video_styler_tpu_torch.models.llm_decoder import QWEN25_VL_7B_TEXT
+    from video_styler_tpu_torch.models.qwen_image_controlnet import QWEN_BLOCKWISE_CN
+    from video_styler_tpu_torch.models.qwen_vl_vision import QWEN25_VL_7B_VISION
+    from video_styler_tpu_torch.pipelines.wan_video import generate_noise
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    pipe = qwen_pipeline(torch, QD.QWEN_IMAGE, QWEN25_VL_7B_TEXT, QWEN25_VL_7B_VISION, "cuda")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    cfg = pipe.dit_cfg
+    out = {}
+    try:
+        weights = {"dit": gib([pipe.dit]), "text": gib([pipe._vl.text]),
+                   "vision": gib([pipe._vl.vision]), "vae": gib([pipe.vae])}
+        params = {"dit": sum(p.numel() for p in pipe.dit.parameters()),
+                  "text": sum(p.numel() for p in pipe._vl.text.parameters()),
+                  "vision": sum(p.numel() for p in pipe._vl.vision.parameters())}
+        per_pass = cfg.num_layers
+        lens = qwen_joint_lens()
+        request = dict(prompt=QWEN_PROMPT, negative_prompt=QWEN_NEGATIVE, cfg_scale=QWEN_CFG,
+                       height=QWEN_SIZE, width=QWEN_SIZE, seed=42, num_inference_steps=steps)
+        image, seconds, launches, peak = run_counted(torch, kernels, lambda: pipe(**request))
+        expected = {"K1": 2 * per_pass * steps}
+        res = qwen_result("qwen", pipe, seconds, launches, peak, expected, model="Qwen-Image",
+                          dit_dim=cfg.dim, dit_heads=cfg.num_heads, dit_blocks=cfg.num_layers,
+                          params=params, weights_gib=weights, build_s=build_s, size=QWEN_SIZE,
+                          joint_tokens=[lens["t2i"], lens["t2i-negative"]], steps=steps,
+                          cfg=f"two-pass {QWEN_CFG}", image_size=list(image.size),
+                          k1_launches_per_30_step_request=2 * per_pass * QWEN_RECIPE_STEPS)
+        out["qwen"] = launches
+        if image.size != (QWEN_SIZE, QWEN_SIZE):
+            raise AssertionError(f"qwen: image {image.size}")
+        step_s = min(res["step_s"])
+        emit(dict(phase="qwen_image_composed", steps=QWEN_RECIPE_STEPS,
+                  note="composed from this run's stages and its fastest step, not run",
+                  image_s=sum(res["stages"].values()) + QWEN_RECIPE_STEPS * step_s, **CARD))
+        # one two-pass step under the profiler, on this request's inputs
+        posi, _ = pipe.encode_prompt(QWEN_PROMPT)
+        nega, _ = pipe.encode_prompt(QWEN_NEGATIVE)
+        image_tokens = (QWEN_SIZE // 16) ** 2
+        if [posi.shape[1] + image_tokens, nega.shape[1] + image_tokens] != res["joint_tokens"]:
+            raise AssertionError(f"qwen: the request's joint lengths are not those K1 was "
+                                 f"checked at: {posi.shape[1]}, {nega.shape[1]} text rows")
+        lat = generate_noise((1, 16, QWEN_SIZE // 8, QWEN_SIZE // 8), seed=42).to(
+            "cuda", torch.bfloat16)
+        t = torch.tensor([float(pipe.scheduler.timesteps[0]) / 1000.0], device="cuda")
+        with torch.no_grad():
+            def one_step():
+                v = QD.qwen_image_dit_forward(pipe.dit, lat, t, posi)
+                vn = QD.qwen_image_dit_forward(pipe.dit, lat, t, nega)
+                return vn + QWEN_CFG * (v - vn)
+            prof = profile_request(torch, one_step, step_s, categories=QWEN_CATEGORIES)
+        emit({"phase": "qwen_profile", "forwards": 2, **prof, **CARD})
+        del posi, nega, lat, image
+        out["qwen_edit"] = run_qwen_edit(torch, pipe, kernels, steps)
+        pipe.blockwise_controlnets = [random_blockwise_cn(torch, QWEN_BLOCKWISE_CN, "cuda", 3)]
+        out.update(run_qwen_adapters(torch, pipe, kernels, steps))
+        return out
+    finally:
+        del pipe
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def run_qwen_edit(torch, pipe, kernels, steps: int) -> dict:
+    """`qwen_edit`: Qwen-Image-Edit on the resident model: a 1024x1024 edit
+    image through the vision tower (into the prompt's embedding) and as an
+    extra latent, CFG 4 two-pass: the vision and text stages apart, step
+    seconds, K1 120 a step."""
+    req = qwen_adapter_requests(QWEN_ADAPTER_SIZE)["edit"]
+    request = dict(req, negative_prompt=QWEN_NEGATIVE, cfg_scale=QWEN_CFG,
+                   height=QWEN_ADAPTER_SIZE, width=QWEN_ADAPTER_SIZE, seed=42,
+                   num_inference_steps=steps)
+    image, seconds, launches, peak = run_counted(torch, kernels, lambda: pipe(**request))
+    cfg = pipe.dit_cfg
+    qwen_result("qwen_edit", pipe, seconds, launches, peak,
+                {"K1": 2 * cfg.num_layers * steps}, size=QWEN_ADAPTER_SIZE,
+                vision_merged_tokens=qwen_edit_merged_tokens(QWEN_ADAPTER_SIZE),
+                vision_patches=4 * qwen_edit_merged_tokens(QWEN_ADAPTER_SIZE),
+                joint_tokens=[qwen_joint_lens()[k] for k in ("edit", "edit-negative")],
+                steps=steps,
+                cfg=f"two-pass {QWEN_CFG}", image_size=list(image.size))
+    return launches
+
+
+def run_qwen_adapters(torch, pipe, kernels, steps: int) -> dict:
+    """`qwen_adapters`: on the resident model, 1024x1024, CFG 4, --steps
+    each: EliGen with two entities (K1 on the negative pass only: 60 a step;
+    the positive pass is the exact `sdpa` under the bias), a random 60-block
+    block-wise ControlNet active the first half (no attention of its own:
+    120 a step), inpaint and img2img (120 a step)."""
+    out = {}
+    cfg = pipe.dit_cfg
+    for name, req in qwen_adapter_requests(QWEN_ADAPTER_SIZE).items():
+        if name == "edit":
+            continue
+        request = dict(prompt=QWEN_PROMPT, negative_prompt=QWEN_NEGATIVE, cfg_scale=QWEN_CFG,
+                       height=QWEN_ADAPTER_SIZE, width=QWEN_ADAPTER_SIZE, seed=42,
+                       num_inference_steps=steps, return_latents=True, **req)
+        lat, seconds, launches, peak = run_counted(torch, kernels, lambda: pipe(**request))
+        passes = 1 if name == "eligen" else 2
+        qwen_result("qwen_adapters", pipe, seconds, launches, peak,
+                    {"K1": passes * cfg.num_layers * steps}, adapter=name,
+                    size=QWEN_ADAPTER_SIZE, steps=steps, cfg=f"two-pass {QWEN_CFG}",
+                    latents_finite=bool(torch.isfinite(lat).all()))
+        if not bool(torch.isfinite(lat).all()):
+            raise AssertionError(f"qwen_adapters {name}: non-finite latents")
+        out[f"qwen_{name}"] = launches
+    return out
+
+
+def run_qwen_phases(torch, kernels, steps: int) -> dict:
+    """`qwen_reference`, then `qwen` (with `qwen_edit` and `qwen_adapters`),
+    leaving the card free. Returns each path's launches."""
+    check_qwen_reference(torch, kernels)
+    out = run_qwen(torch, kernels, steps)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
 # Multi-GPU: one rank's kernels in this process, then ranks sharing the card
 # ---------------------------------------------------------------------------
 
@@ -4537,10 +4906,13 @@ RING_BLOCKS = 4         # sp = 4 over the Ditto clip's 29,640 tokens: 7,410 a ra
 # four bf16-rounded partial outputs (each within two ULPs of its own
 # magnitude) with fp32 weights, against K1's one rounding over all keys
 TOL_RING = 2.0 ** -6
-# steps of the usp phase's 14B FSDP edit: each of its steps gathers ~33.6 GB
-# a rank through host memory over gloo (75-88 s a step on one H100), so one
-# step keeps the script well inside its time limit
+# the usp phase's FSDP edit: Wan2.1-VACE-14B's width and mesh at a cut
+# depth, 8 of the DiT's 40 blocks with the VACE blocks mapped into them
+# (layers 0 and 5), for one step. At full depth each step gathered ~33.6 GB
+# a rank through host memory over gloo (75-88 s a step on one H100); at 8
+# blocks it gathers a fifth of that
 USP_VACE_STEPS = 1
+USP_VACE_LAYERS = 8
 
 
 def check_ring_body(torch, rows: int, blocks: int):
@@ -4607,18 +4979,29 @@ def check_usp_kernels(torch):
     return rows
 
 
-def usp_pipeline(torch, model: str, mesh=None):
-    """The usp phase's pipeline from seed 0, on the card: Wan2.1-T2V-1.3B
-    ("t2v-1.3B") or the e2e phase's Wan2.1-VACE-14B ("vace-14B", the same
-    weights as `build_pipeline`), with umT5-XXL and the Wan2.1 VAE; under
-    `mesh`, its DiT and VACE drawn FSDP-sharded."""
-    from video_styler_tpu_torch.models.t5 import UMT5_XXL
+def usp_configs(model: str):
+    """(DiT config, VACE config or None) of a usp model: Wan2.1-T2V-1.3B
+    ("t2v-1.3B"), or Wan2.1-VACE-14B at USP_VACE_LAYERS blocks ("vace-14B":
+    the release's widths, the VACE layers below the cut)."""
+    import dataclasses
     from video_styler_tpu_torch.models.wan_dit import WAN_T2V_14B, WAN_T2V_1_3B
     from video_styler_tpu_torch.models.wan_vace import VACE_14B
+    if model == "t2v-1.3B":
+        return WAN_T2V_1_3B, None
+    return (dataclasses.replace(WAN_T2V_14B, num_layers=USP_VACE_LAYERS),
+            dataclasses.replace(VACE_14B, vace_layers=tuple(
+                i for i in VACE_14B.vace_layers if i < USP_VACE_LAYERS)))
+
+
+def usp_pipeline(torch, model: str, mesh=None):
+    """The usp phase's pipeline from seed 0, on the card (`usp_configs`),
+    with umT5-XXL and the Wan2.1 VAE; under `mesh`, its DiT and VACE drawn
+    FSDP-sharded."""
+    from video_styler_tpu_torch.models.t5 import UMT5_XXL
     from video_styler_tpu_torch.models.wan_vae import WAN21_VAE
     from video_styler_tpu_torch.pipelines.wan_video import WanVideoPipeline
     from video_styler_tpu_torch.prompters.wan_prompter import StubTokenizer
-    dit, vace = {"t2v-1.3B": (WAN_T2V_1_3B, None), "vace-14B": (WAN_T2V_14B, VACE_14B)}[model]
+    dit, vace = usp_configs(model)
     return WanVideoPipeline.from_configs(dit, vace, UMT5_XXL, WAN21_VAE,
                                          StubTokenizer(TEXT_LEN), TEXT_LEN, seed=0,
                                          device="cuda", mesh=mesh)
@@ -4707,36 +5090,36 @@ def ditto_mesh_rank(out_dir: str) -> dict:
 def expected_usp_launches(model: str, steps: int) -> dict:
     """K1/K4/K5 launches of one rank: those of one process (two K1 and one
     K4 and K5 per block, DiT and VACE, and forward; two forwards a step)."""
-    from video_styler_tpu_torch.models.wan_dit import WAN_T2V_14B, WAN_T2V_1_3B
-    from video_styler_tpu_torch.models.wan_vace import VACE_14B
-    layers = (WAN_T2V_1_3B.num_layers if model == "t2v-1.3B"
-              else WAN_T2V_14B.num_layers + len(VACE_14B.vace_layers))
+    dit, vace = usp_configs(model)
+    layers = dit.num_layers + (0 if vace is None else len(vace.vace_layers))
     forwards = 2 * steps
     return {"K1": 2 * layers * forwards, "K4": layers * forwards, "K5": layers * forwards}
 
 
-def run_usp(torch, frames: int, steps: int, vace_reference, smi: str):
+def run_usp(torch, frames: int, steps: int, smi: str):
     """`usp` (last, on a free card): ranks spawned by `parallel.run_local`
     on cuda:0 with gloo named (NCCL refuses two ranks on one device).
     (a) Wan2.1-T2V-1.3B at full width on meshes (1, 1, 2) and (1, 2, 2),
     against the same weights in this process; (b) the e2e edit at
-    Wan2.1-VACE-14B width on (1, 2, 1), FSDP over 2 ranks, for
-    USP_VACE_STEPS steps, against the e2e request's latents in one process
-    (`vace_reference`); (c) `ditto_mesh_rank` on a one-rank
+    Wan2.1-VACE-14B width cut to USP_VACE_LAYERS blocks on (1, 2, 1), FSDP
+    over 2 ranks, for USP_VACE_STEPS steps, against the same model and
+    request in this process; (c) `ditto_mesh_rank` on a one-rank
     NCCL group. Returns rank 0's launches summed over (a) and (b)."""
     import numpy as np
     from video_styler_tpu_torch.parallel import run_local
     store_dir = tempfile.mkdtemp(prefix="usp-")
-    pipe = usp_pipeline(torch, "t2v-1.3B")
-    t2v_reference = pipe(**usp_request("t2v-1.3B", frames, steps)).float().cpu().numpy()
-    del pipe
-    gc.collect()
-    torch.cuda.empty_cache()
+    references = {}
+    for model, n_steps in (("t2v-1.3B", steps), ("vace-14B", USP_VACE_STEPS)):
+        pipe = usp_pipeline(torch, model)
+        references[model] = pipe(**usp_request(model, frames, n_steps)).float().cpu().numpy()
+        del pipe
+        gc.collect()
+        torch.cuda.empty_cache()
     total, failures = {}, []
-    runs = [("t2v-1.3B", (1, 1, 2), steps, t2v_reference, False),
-            ("t2v-1.3B", (1, 2, 2), steps, t2v_reference, False),
-            ("vace-14B", (1, 2, 1), USP_VACE_STEPS, vace_reference, True)]
-    for model, mesh, n_steps, reference, park in runs:
+    runs = [("t2v-1.3B", (1, 1, 2), steps, False), ("t2v-1.3B", (1, 2, 2), steps, False),
+            ("vace-14B", (1, 2, 1), USP_VACE_STEPS, True)]
+    for model, mesh, n_steps, park in runs:
+        reference = references[model]
         world = math.prod(mesh)
         spec = dict(model=model, mesh=mesh, frames=frames, steps=n_steps, park_t5=park)
         t0 = time.perf_counter()
@@ -4817,6 +5200,11 @@ def main(argv=None):
                     help="frames (4k+1) of the 480x832 end-to-end request")
     ap.add_argument("--train-frames", type=int, default=RUN_FRAMES,
                     help="frames (4k+1) of the 480x832 clip of the LoRA steps")
+    ap.add_argument("--only", nargs="+", choices=("qwen", "usp"), default=None,
+                    help="build the kernels and run only these phases (qwen: "
+                         "qwen_kernels to qwen_adapters; usp), then the kernels "
+                         "line of their rows: for iterating on them (with no "
+                         "arguments every phase runs)")
     ap.add_argument("--ckpt-dir", default=None,
                     help="where the load phase writes its ~47 GB of checkpoint "
                          "files (in a new folder it removes; default: the "
@@ -4854,6 +5242,15 @@ def main(argv=None):
                "K6": fa.INT8_CAPPED_KERNEL, "K6o": fa.INT8_ONLINE_KERNEL,
                "K7": fa.INT8_3D_KERNEL, "F1": fk.REMAP_KERNEL,
                "F2": fk.PATCH_ERROR_KERNEL, "F3": fk.PAIRWISE_KERNEL}
+    if args.only:
+        rows, path_launches = [], {}
+        if "qwen" in args.only:
+            rows += check_qwen_kernels(torch)
+            path_launches.update(run_qwen_phases(torch, kernels, args.steps))
+        if "usp" in args.only:
+            path_launches["usp"] = run_usp(torch, args.frames, args.steps, smi)
+        launches = {"K1": sum(c.get("K1", 0) for c in path_launches.values())}
+        return finish(torch, smi, rows, launches, path_launches, [], {})
     ditto, run = token_grid(DITTO_FRAMES), token_grid(args.frames)
     rows = check_kernels(torch, ditto, f"ditto-{DITTO_FRAMES}f")
     if args.frames != DITTO_FRAMES:
@@ -4939,9 +5336,6 @@ def main(argv=None):
     e2e_frames = []
     run_edit(torch, pipe, kernels, args.steps, args.frames, "e2e", {"K1": 1.0},
              outputs=e2e_frames, init_s=init_s)
-    # the e2e request's latents in one process, for the usp phase's FSDP ranks
-    usp_reference = pipe(**usp_request("vace-14B", args.frames, USP_VACE_STEPS)
-                         ).float().cpu().numpy()
     # from here on every phase runs on the pipeline loaded from the files,
     # and the kernels line counts its launches
     holder = [pipe]
@@ -5028,16 +5422,27 @@ def main(argv=None):
     del clip_l, clip_g
     gc.collect()
     torch.cuda.empty_cache()
+    # Qwen-Image on the free card: K1 at its joint lengths, the small
+    # pipeline card vs CPU, then the 20B DiT and Qwen2.5-VL-7B at full width
+    rows += check_qwen_kernels(torch)
+    path_launches.update(run_qwen_phases(torch, kernels, args.steps))
     # the multi-GPU path: ranks sharing the free card
-    path_launches["usp"] = run_usp(torch, args.frames, args.steps, usp_reference, smi)
+    path_launches["usp"] = run_usp(torch, args.frames, args.steps, smi)
+    return finish(torch, smi, rows + new_rows, launches, path_launches, train_rows,
+                  train_launches)
 
+
+def finish(torch, smi, rows, launches, path_launches, train_rows, train_launches):
+    """The kernels line (each row with its launches on the main path), the
+    nvidia-smi line and the last line; fails if a kernel of the
+    rows was never launched."""
     keys = ("name", "route", "source", "replaces", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     by_path = {name: {path: counts[name] for path, counts in path_launches.items()
                       if name in counts} for name in ("K1", "K4", "K5")}
     line = ([{**{k: r[k] for k in keys}, "launches": launches[r["kernel"]],
               **({"launches_by_path": by_path[r["kernel"]]} if r["kernel"] in by_path else {})}
-             for r in rows + new_rows]
+             for r in rows]
             + [{**{k: r[k] for k in keys}, "launches": train_launches[
                 "K1" if r["kernel"] == "K1s" else r["kernel"]]} for r in train_rows])
     unlaunched = sorted({r["name"].split()[0] for r in line if r["launches"] == 0})

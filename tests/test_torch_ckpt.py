@@ -517,8 +517,9 @@ def test_unported_kinds_raise(tmp_path, monkeypatch):
     assert not {"animate", "motion_controller", "s2v", "wav2vec", "flux_dit",
                 "flux_controlnet", "flux_ipadapter", "flux_infiniteyou_projector",
                 "flux_value_encoder", "flux_lora_encoder", "sd3_dit", "sd_unet",
-                "motion_modules", "ipadapter", "kolors_text_encoder"} & set(TC.UNPORTED_KINDS)
-    assert len(TC.UNPORTED_KINDS) == 8
+                "motion_modules", "ipadapter", "kolors_text_encoder", "qwen_image_dit",
+                "qwen_image_blockwise_controlnet"} & set(TC.UNPORTED_KINDS)
+    assert len(TC.UNPORTED_KINDS) == 6
     jp = JW.WanVideoPipeline(dtype=jnp.float32)
     for pipe in (jp, tp):
         with pytest.raises(ValueError, match="unknown model kind wav2vec"):

@@ -460,10 +460,10 @@ ADAPTER_ARGS = ["nexus_gen_reference_image", "step1x_reference_image"]
 
 @pytest.mark.parametrize("arg", ADAPTER_ARGS)
 def test_adapter_arguments_raise(pipes, arg):
-    """Nexus-Gen and Step1x wait for the Qwen2.5-VL stack; every other
-    adapter runs (`test_torch_flux_adapters.py`)."""
+    """Nexus-Gen and Step1x wait for HunyuanVideo's token refiner (item
+    11e); every other adapter runs (`test_torch_flux_adapters.py`)."""
     _, tp = pipes
-    with pytest.raises(NotImplementedError, match="items 11d and 11e"):
+    with pytest.raises(NotImplementedError, match="item 11e"):
         tp(return_latents=True, **BASE, **{arg: [object()]})
 
 
@@ -481,10 +481,21 @@ def test_adapter_settings_at_jax_defaults(pipes):
 
 
 @pytest.mark.parametrize("loader", ["fetch_qwenvl"])
-def test_adapter_loaders_raise(loader):
-    pipe = TPipe(device="cpu")
-    with pytest.raises(NotImplementedError, match="items 11d and 11e"):
-        getattr(pipe, loader)("adapter.safetensors")
+def test_adapter_loaders_raise(loader, tmp_path):
+    """`fetch_qwenvl` builds Step1x's Qwen2.5-VL embedder (the JAX
+    pipeline's `fetch_qwenvl`) from a checkpoint and a tokenizer; a missing
+    file raises."""
+    from test_torch_qwen_vl import stub_tokenizer, torch_sd, vl_state_dict
+    from video_styler_tpu_torch import safetensors_io
+    from video_styler_tpu_torch.models.qwen_vl_embedder import QwenVLStep1xEmbedder
+    pipe = TPipe(device="cpu", dtype=torch.float32)
+    with pytest.raises(FileNotFoundError):
+        getattr(pipe, loader)(str(tmp_path / "missing.safetensors"), stub_tokenizer())
+    path = str(tmp_path / "qwen_vl.safetensors")
+    safetensors_io.save_file(torch_sd(vl_state_dict()), path)
+    getattr(pipe, loader)(path, stub_tokenizer())
+    assert isinstance(pipe.qwenvl, QwenVLStep1xEmbedder)
+    assert pipe.qwenvl.vl.vision is not None and pipe.qwenvl.vl.text_cfg.hidden == 256
 
 
 def test_pipeline_load_lora_matches_jax(pipes):
@@ -569,8 +580,8 @@ def test_image_gen_cli_refuses(tmp_path):
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         image_gen.main(["--family", "flux", "--smoke", "--output", str(tmp_path / "x.png")])
-    with pytest.raises(NotImplementedError, match="item 11"):
-        image_gen.main(["--family", "qwen", "--smoke", "--device", "cpu"])
+    with pytest.raises(NotImplementedError, match="item 11f"):
+        image_gen.main(["--family", "hunyuan_image", "--smoke", "--device", "cpu"])
 
 
 def test_prompter_without_t5_tokenizer_raises(pipes):

@@ -11,6 +11,10 @@
         --dit_path v1-5-pruned-emaonly.safetensors --tokenizer_path clip_tokenizer \
         --height 512 --width 512
     python -m video_styler_tpu_torch.image_gen --family sdxl --smoke --device cpu
+    python -m video_styler_tpu_torch.image_gen --family qwen --prompt "a cat" \
+        --dit_path "dit-1.safetensors|dit-2.safetensors" --vae_path vae.safetensors \
+        --text_encoder_path "te-1.safetensors|te-2.safetensors" --tokenizer_path tokenizer \
+        --cfg_scale 4 --height 1328 --width 1328
 
 The counterpart of the JAX package's `examples/image_gen.py`, for the
 families the port runs: `flux` (FLUX.1-dev, or schnell where the DiT file
@@ -23,7 +27,11 @@ JAX runner's does), `sd` (SD 1.5 from a civitai single file: UNet, CLIP-L
 and VAE; DDIM, --cfg_scale) and `sdxl` (SDXL from a civitai single file:
 the UNet, CLIP-L, CLIP-G and the VAE; the JAX runner passes the UNet
 alone, under LDM names its converter does not rename, and no text tower or
-VAE, so its request cannot run). Checkpoints come from local files only:
+VAE, so its request cannot run) and `qwen` (Qwen-Image: the DiT, the VAE
+and, from --text_encoder_path with --tokenizer_path, the Qwen2.5-VL text
+tower; --cfg_scale two-pass; the JAX runner fetches no text encoder, so its
+request calls None; here a request without one raises a RuntimeError
+naming what it lacks). Checkpoints come from local files only:
 --dit_path (DiffSynth or BFL layout; shards `|`-separated; sd / sdxl: the
 civitai file), --vae_path (the encoder's and decoder's state dicts under
 `encoder.` / `decoder.`), --clip_path (CLIP-L), --t5_path (T5 v1.1-XXL, HF
@@ -34,8 +42,10 @@ prompter then has no T5 tokenizer). --smoke runs a tiny random model
 (flux: FLUX_DIT_TINY, CLIP-L and T5 v1.1 at tiny widths with stand-in
 tokenizers, the FLUX VAE; sd3: SD3_DIT_TINY with a 4096-wide context,
 CLIP-L and CLIP-G at tiny widths, no T5, the SD3 VAE; sd / sdxl: the tiny
-UNets and CLIP towers, the SD VAE) at 64x64 for 2 steps. The other
-families of the JAX runner (qwen, hunyuan_image, omnigen) raise
+UNets and CLIP towers, the SD VAE; qwen: QWEN_IMAGE_TINY, a tiny
+Qwen2.5-VL text tower with a stand-in tokenizer, the Wan2.1 VAE, CFG 1) at
+64x64 for 2 steps. The other families of the JAX runner (hunyuan_image,
+omnigen) raise
 `NotImplementedError` naming their ROADMAP Queue 1 item. Runs on the card
 unless --device cpu.
 """
@@ -147,6 +157,43 @@ def run_sdxl(a):
     return _run_sd_family(a, xl=True)
 
 
+# the qwen smoke's text tower: DECODER_LM_TINY (heads of 16) under a
+# multimodal RoPE split of its 8 frequencies
+QWEN_SMOKE_MROPE = (2, 3, 3)
+
+
+def build_qwen_smoke_pipeline(device=None, seed: int = 0):
+    """A Qwen-Image pipeline of tiny random models (weights from `seed`),
+    fp32: QWEN_IMAGE_TINY, DECODER_LM_TINY as the text tower (no vision
+    tower) with `StubQwenTokenizer`, the Wan2.1 VAE at its release widths."""
+    import torch
+    from .models.llm_decoder import DECODER_LM_TINY
+    from .models.qwen_image_dit import QWEN_IMAGE_TINY
+    from .models.qwen_vl_embedder import QwenVL, StubQwenTokenizer
+    from .pipelines.qwen_image import QwenImagePipeline
+    vl = QwenVL.from_configs(DECODER_LM_TINY, None, StubQwenTokenizer(DECODER_LM_TINY.vocab_size),
+                             seed=seed + 1, device=device, dtype=torch.float32,
+                             mrope_section=QWEN_SMOKE_MROPE)
+    return QwenImagePipeline.from_configs(QWEN_IMAGE_TINY, vl, seed=seed, device=device,
+                                          dtype=torch.float32)
+
+
+def run_qwen(a):
+    from .pipelines.qwen_image import QwenImagePipeline
+    if a.smoke:
+        pipe, cfg_scale = build_qwen_smoke_pipeline(device=a.device, seed=a.seed), 1.0
+    else:
+        pipe, cfg_scale = QwenImagePipeline.from_pretrained(
+            dit_paths=a.dit_path.split("|"), vae_path=a.vae_path, device=a.device), a.cfg_scale
+        if a.text_encoder_path:
+            if not a.tokenizer_path:
+                raise RuntimeError("--text_encoder_path needs --tokenizer_path (the "
+                                   "Qwen2.5-VL tokenizer)")
+            pipe.fetch_text_encoder(a.text_encoder_path.split("|"), a.tokenizer_path)
+    return pipe(a.prompt, negative_prompt=a.negative_prompt, cfg_scale=cfg_scale,
+                num_inference_steps=a.steps, height=a.height, width=a.width, seed=a.seed)
+
+
 def _unported(family: str, item: str):
     def run(a):
         raise NotImplementedError(f"image family {family!r} is not ported yet "
@@ -155,7 +202,7 @@ def _unported(family: str, item: str):
 
 
 RUNNERS = {"flux": run_flux, "sd3": run_sd3, "sd": run_sd, "sdxl": run_sdxl,
-           "qwen": _unported("qwen", "11d"), "hunyuan_image": _unported("hunyuan_image", "11f"),
+           "qwen": run_qwen, "hunyuan_image": _unported("hunyuan_image", "11f"),
            "omnigen": _unported("omnigen", "11f")}
 
 
@@ -164,7 +211,7 @@ def parse_args(argv=None):
     p.add_argument("--family", required=True, choices=sorted(RUNNERS))
     p.add_argument("--prompt", default="a lighthouse on a cliff at dawn")
     p.add_argument("--negative_prompt", default="")
-    p.add_argument("--cfg_scale", type=float, default=7.5, help="sd3, sd and sdxl")
+    p.add_argument("--cfg_scale", type=float, default=7.5, help="sd3, sd, sdxl and qwen")
     p.add_argument("--dit_path")
     p.add_argument("--vae_path")
     p.add_argument("--clip_path")
@@ -172,6 +219,8 @@ def parse_args(argv=None):
     p.add_argument("--lora_path")
     p.add_argument("--tokenizer_path")
     p.add_argument("--tokenizer_2_path")
+    p.add_argument("--text_encoder_path",
+                   help="qwen: the Qwen2.5-VL checkpoint (shards `|`-separated)")
     p.add_argument("--steps", type=int)
     p.add_argument("--height", type=int)
     p.add_argument("--width", type=int)

@@ -33,8 +33,10 @@ loader (:157-217):
     caller's callable, as in JAX), zeros' for the negative branch;
   - Flex (`flex_condition`, `flex_uncondition`): channels concatenated to
     the latents, the uncondition from `flex_control_stop_timestep` down.
-Nexus-Gen and Step1x wait for the Qwen2.5-VL stack (ROADMAP Queue 1 items
-11d and 11e) and raise `NotImplementedError`.
+`fetch_qwenvl` builds Step1x's Qwen2.5-VL embedder (`models.qwen_vl_embedder.
+QwenVLStep1xEmbedder`, ported with the Qwen2.5-VL stack); Nexus-Gen and
+Step1x themselves wait for ROADMAP Queue 1 item 11e and raise
+`NotImplementedError`.
 
 Runs on `cuda` unless constructed with `device="cpu"`. Each stage's wall
 time (synchronised with the card) is kept in `stage_times`, and on the card
@@ -68,7 +70,7 @@ from .wan_video import _image_array, _preprocess_images, generate_noise
 ADAPTER_SETTINGS = dict(flex_control_stop_timestep=0.0, controlnet_scale=1.0,
                         controlnet_processor_id=None, ipadapter_scale=1.0,
                         infinityou_guidance=1.0, lora_encoder_scale=1.0)
-QWENVL_PENDING = "waits for the Qwen2.5-VL stack (ROADMAP Queue 1 items 11d and 11e)"
+QWENVL_PENDING = "waits for HunyuanVideo's token refiner (ROADMAP Queue 1 item 11e)"
 
 
 class FluxTeaCache:
@@ -130,6 +132,8 @@ class FluxImagePipeline:
         self.infiniteyou_face_embedder: Optional[Callable] = None
         self.value_controllers: Optional[List[FA.SingleValueEncoder]] = None
         self.lora_encoder: Optional[FA.FluxLoRAEncoder] = None
+        # Step1x's embedder: callable(captions, ref_images) -> (embs, masks)
+        self.qwenvl = None
         self.stage_times: List[Tuple[str, float]] = []
         self.stage_peak_bytes: List[Tuple[str, int]] = []
 
@@ -205,8 +209,13 @@ class FluxImagePipeline:
         sd = state_dict if state_dict is not None else C.load_state_dict(path)
         merge_lora(self.dit, convert_flux_lora(sd), alpha=alpha)
 
-    def fetch_qwenvl(self, *args, **kwargs):
-        raise NotImplementedError(f"the Step1x Qwen2.5-VL embedder {QWENVL_PENDING}")
+    def fetch_qwenvl(self, model_paths, tokenizer):
+        """Step1x's Qwen2.5-VL embedder (text and vision towers) from a
+        checkpoint (a file or list of shards, HF names), with `tokenizer` a
+        callable or a tokenizer directory (read through `transformers`)."""
+        from ..models.qwen_vl_embedder import QwenVL, QwenVLStep1xEmbedder
+        self.qwenvl = QwenVLStep1xEmbedder(QwenVL.from_files(model_paths, tokenizer,
+                                                             self.device, self.dtype))
 
     def _load(self, kind, path, state_dict, cfg=None):
         sd = state_dict if state_dict is not None else C.load_state_dict(path, lazy=True)

@@ -7,9 +7,14 @@ Wan pipeline drives:
   add_noise = (1-sigma)*x + sigma*eps
 With training=True, set_timesteps also builds the bell-shaped per-timestep
 loss weights of the 1000-entry training tables (`linear_timesteps_weights`).
+Qwen-Image's settings: an exponential shift
+(sigmas = e^mu / (e^mu + 1/s - 1)) whose mu is given, or follows the image's
+token count (`dynamic_shift_len`, `calculate_shift`), and a terminal-shift
+rescale (1 - sigma scaled so that the last sigma is `shift_terminal`).
 """
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import numpy as np
@@ -20,17 +25,24 @@ class FlowMatchScheduler:
     def __init__(self, num_inference_steps: int = 100,
                  num_train_timesteps: int = 1000, shift: float = 3.0,
                  sigma_max: float = 1.0, sigma_min: float = 0.003 / 1.002,
-                 extra_one_step: bool = False):
+                 extra_one_step: bool = False, exponential_shift: bool = False,
+                 exponential_shift_mu: Optional[float] = None,
+                 shift_terminal: Optional[float] = None):
         self.num_train_timesteps = num_train_timesteps
         self.shift = shift
         self.sigma_max = sigma_max
         self.sigma_min = sigma_min
         self.extra_one_step = extra_one_step
+        self.exponential_shift = exponential_shift
+        self.exponential_shift_mu = exponential_shift_mu
+        self.shift_terminal = shift_terminal
         self.set_timesteps(num_inference_steps)
 
     def set_timesteps(self, num_inference_steps: int = 100,
                       denoising_strength: float = 1.0,
-                      shift: Optional[float] = None, training: bool = False):
+                      shift: Optional[float] = None, training: bool = False,
+                      dynamic_shift_len: Optional[int] = None,
+                      exponential_shift_mu: Optional[float] = None):
         if shift is not None:
             self.shift = shift
         sigma_start = self.sigma_min + (self.sigma_max - self.sigma_min) * denoising_strength
@@ -40,7 +52,19 @@ class FlowMatchScheduler:
         else:
             sigmas = np.linspace(sigma_start, self.sigma_min, num_inference_steps,
                                  dtype=np.float64)
-        sigmas = self.shift * sigmas / (1 + (self.shift - 1) * sigmas)
+        if self.exponential_shift:
+            if exponential_shift_mu is not None:
+                mu = exponential_shift_mu
+            elif dynamic_shift_len is not None:
+                mu = self.calculate_shift(dynamic_shift_len)
+            else:
+                mu = self.exponential_shift_mu
+            sigmas = math.exp(mu) / (math.exp(mu) + (1.0 / sigmas - 1.0))
+        else:
+            sigmas = self.shift * sigmas / (1 + (self.shift - 1) * sigmas)
+        if self.shift_terminal is not None:
+            one_minus_z = 1 - sigmas
+            sigmas = 1 - one_minus_z / (one_minus_z[-1] / (1 - self.shift_terminal))
         self.sigmas = sigmas.astype(np.float32)
         self.timesteps = (sigmas * self.num_train_timesteps).astype(np.float32)
         self.training = training
@@ -74,3 +98,12 @@ class FlowMatchScheduler:
 
     def training_weight(self, timestep) -> float:
         return float(self.linear_timesteps_weights[self._timestep_id(timestep)])
+
+    @staticmethod
+    def calculate_shift(image_seq_len: int, base_seq_len: int = 256,
+                        max_seq_len: int = 8192, base_shift: float = 0.5,
+                        max_shift: float = 0.9) -> float:
+        """mu of the exponential shift, linear in the image's token count."""
+        m = (max_shift - base_shift) / (max_seq_len - base_seq_len)
+        b = base_shift - m * base_seq_len
+        return image_seq_len * m + b

@@ -26,7 +26,10 @@ kinds the port has modules for: `dit` (T2V, I2V, FLF2V, TI2V), `vace`,
 (`clip`), the Wan2.2-Animate adapter, the wav2vec2 tower (`wav2vec`),
 the FLUX DiT (`flux_dit`, detected by its BFL layout), FLUX's adapters
 (`flux_controlnet`, `flux_ipadapter`, `flux_infiniteyou_projector`,
-`flux_value_encoder`, `flux_lora_encoder`) and the SD3 DiT (`sd3_dit`);
+`flux_value_encoder`, `flux_lora_encoder`), the SD3 DiT (`sd3_dit`), the SD
+family's kinds, the Qwen-Image DiT (`qwen_image_dit`, the QWEN_IMAGE
+config; detected by its `txt_norm` and dual-stream blocks, which the JAX
+detector calls `flux_dit`) and its block-wise ControlNet;
 every other kind raises `NotImplementedError`, naming the ROADMAP item that ports it where
 one does (the S2V model, like the JAX loader's, is
 built by the pipeline's `from_pretrained` only).
@@ -323,7 +326,6 @@ def detect_vace_config(sd: Dict) -> Optional[VaceConfig]:
 # kinds `detect_model_kind` knows that the port cannot build yet, and the
 # ROADMAP Queue 1 item that ports each
 UNPORTED_KINDS = {
-    "qwen_image_dit": "11d", "qwen_image_blockwise_controlnet": "11d",
     "hunyuan_video_dit": "11e", "hunyuan_dit": "11e", "omnigen": "11e",
     "stepvideo_text_encoder": "11e",
     "svd_unet": "11f", "svd_unet_exvideo": "11f",
@@ -355,8 +357,10 @@ def load_model(path, device=None, dtype: torch.dtype = torch.bfloat16):
     (FLUX.1-dev where the file has a guidance embedder, else schnell); a
     FLUX ControlNet or IP-Adapter (for FLUX.1-dev's widths), the
     InfiniteYou projector (its `image_proj` bundle unwrapped), a value
-    encoder or the LoRA encoder; or the SD3 DiT (its config inferred; the
-    mmdit layout with or without the `model.diffusion_model.` prefix).
+    encoder or the LoRA encoder; the SD3 DiT (its config inferred; the
+    mmdit layout with or without the `model.diffusion_model.` prefix); the
+    Qwen-Image DiT (`models.qwen_image_dit.QWEN_IMAGE`) or a block-wise
+    ControlNet (its block count and widths from the file).
     Modules are built on `device` (the card unless "cpu")."""
     from ..device import resolve_device
     from ..models import clip_vit as CV
@@ -409,6 +413,15 @@ def load_model(path, device=None, dtype: torch.dtype = torch.bfloat16):
         return kind, build_image_module(kind, sd, FLUX_DEV, device, dtype)
     if kind in SD_KINDS:
         return kind, build_sd_module(kind, sd, device, dtype)
+    if kind == "qwen_image_dit":
+        from ..models import qwen_image_dit as Q
+        return kind, build_module(Q.QwenImageDiT, Q.QWEN_IMAGE,
+                                  Q.convert_qwen_image_dit(sd, Q.QWEN_IMAGE), device, dtype)
+    if kind == "qwen_image_blockwise_controlnet":
+        from ..models import qwen_image_controlnet as QC
+        cfg = QC.blockwise_cn_config_for(sd)
+        return kind, build_module(QC.QwenBlockwiseControlNet, cfg,
+                                  QC.convert_qwen_blockwise_controlnet(sd, cfg), device, dtype)
     if kind in UNPORTED_KINDS:
         raise unported(kind)
     raise NotImplementedError(f"detected '{kind}' — use its family pipeline/converter "
@@ -518,6 +531,10 @@ def detect_model_kind(sd: Dict) -> str:
     if any(k.startswith("motion_modules.") and "transformer_blocks" in k
            for k in keys):
         return "motion_modules"
+    if "txt_norm.weight" in sd and "transformer_blocks.0.attn.add_q_proj.weight" in sd:
+        # a Qwen-Image DiT file: the JAX detector takes its `img_in` for
+        # FLUX's BFL layout
+        return "qwen_image_dit"
     if any(k.startswith("double_blocks.") for k in keys) or \
             "img_in.weight" in sd:
         return "flux_dit"                      # BFL layout
