@@ -229,9 +229,9 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
              guidance 3.5 and CFG 1, then the decode: weights, stage times
              (clip_encode, t5_encode, each step, vae_decode), peak memory,
              K1 launches against 57 a step; one DiT step profiled by
-             category (`flux_profile`: K1, GEMM, elementwise, other); then
-             the recipe's whole request, 30 steps (`flux_image`: seconds
-             per image, stage times)
+             category (`flux_profile`: K1, GEMM, elementwise, other); the
+             recipe's 30-step request composed from the stages and the
+             fastest step (`flux_image`)
   card       the card's name and power limit again (nvidia-smi), ahead of
              the adapters' and SD3's phases
   flux_adapter_kernels  (with the kernel rows) K1 at the FLUX adapters'
@@ -263,7 +263,8 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
              CLIP-L, T5 v1.1-XXL and VAE modules, 1024x1024, CFG 7.5
              two-pass, --steps steps: stage times, peak, no K1 launch;
              one step profiled by category and one exact `sdpa` call
-             timed (`sd3_profile`); then the 20-step request (`sd3_image`)
+             timed (`sd3_profile`); the 20-step request composed
+             (`sd3_image`)
   sd_reference, sdxl_reference, sd_video_reference  the tiny SD 1.5 (t2i,
              a local prompt), SDXL (t2i; Kolors on a tiny ChatGLM) and
              AnimateDiff (6 frames, two overlapping windows) pipelines on
@@ -283,7 +284,7 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
              frames, the tile ControlNet (`diffutoon`)
   sdxl       SDXL base (2.57 B UNet, CLIP-L; `sd3`'s CLIP-G, `sd`'s VAE),
              1024x1024, CFG 7.5 two-pass, --steps steps, a profiled step
-             (`sdxl_profile`), 20 steps (`sdxl_image`), the union
+             (`sdxl_profile`), 20 steps composed (`sdxl_image`), the union
              ControlNet (`sdxl_controlnet`), the IP-Adapter's 70 sites from
              image embeds (`sdxl_ipadapter`)
   sdxl_video SDXL AnimateDiff (15 motion modules), 16 frames of 1024x1024,
@@ -313,6 +314,41 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
              and as an extra latent) and `qwen_adapters` (EliGen: K1 on the
              negative pass only; a 60-block block-wise ControlNet; inpaint;
              img2img), 1024x1024
+  step1x_nexus_kernels  (with the kernel rows) K1 at FLUX's joint attention,
+             24 heads of 128, over the step1x_nexus requests' lengths at
+             1024x1024: Step1x's 8,832 (640 embedder rows, the image, the
+             reference on the Kontext tokens), Nexus-Gen's generation 4,177
+             (81 predicted embeddings) and edit 5,402 (and the reference's
+             1,225 vision tokens), held against its plain version
+  step1x_nexus_reference  the small FLUX of flux_reference with the small
+             Qwen2.5-VL towers of qwen_reference, a Step1x connector, a
+             Nexus-Gen adapter, merger and AR head of their widths, card (K1)
+             against CPU: 256x256, 2 steps, CFG 1, a Step1x edit, a Nexus-Gen
+             generation and edit, latents within 5%, K1 4 blocks a step
+  step1x_nexus  FLUX.1-dev at full width (T5 v1.1-XXL, CLIP-L, the FLUX VAE)
+             beside the qwen phase's Qwen2.5-VL-7B towers, the Step1x
+             connector and the Nexus-Gen adapter, merger and AR model's
+             vision head and prefill embeds at full width, random weights
+             from a seed: a Step1x edit, a Nexus-Gen generation and edit,
+             1024x1024, CFG 1, --steps steps each: stages, step seconds,
+             peak, K1 launches against 57 a step
+  hunyuan_kernels  (with the kernel rows) K1 at the HunyuanVideo DiT's two
+             attentions a block, 24 heads of 128: [image | 71 text rows]
+             at 720x1280x9 (10,871) and the 185-row text tail, then the
+             published 720x1280x129 length (118,871: 2 heads held against
+             the plain version on every row, all 24 timed)
+  hunyuan_reference  a small HunyuanVideo (head dim 128, 2 + 2 blocks, a
+             4-layer LLaMA, tiny CLIP-L, a 16-channel VAE) on the card (K1)
+             against the same weights on the CPU: 128x128, 9 frames, 2
+             steps, t2v at CFG 1 and 2, v2v (tiled encode) and i2v; latents
+             within 5%, the tiled decode within 2 levels, K1 launches
+  hunyuan    on a free card: the 12.8 B HunyuanVideo DiT, LLaMA-3-8B's text
+             tower, CLIP-L and the fp32 causal VAE, random weights from a
+             seed, 720x1280, 9 frames (10,800 image tokens), CFG 1 at
+             embedded guidance 6, --steps steps and the tiled decode: stage
+             times (llm_encode, clip_encode, each step, vae_decode), peak,
+             K1 launches against 120 a step; one step profiled by category
+             (`hunyuan_profile`)
   usp_kernels  (with the kernel rows) one rank's work of the multi-GPU path
              at Wan2.1-14B width over the Ditto clip's 29,640 tokens, in
              this process: K1 on a Ulysses share (20 and 10 heads over the
@@ -323,8 +359,9 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
              key sequence within four bf16 ULPs), as kernel rows
   usp        last, on a free card: ranks spawned by `parallel.run_local` on
              cuda:0 over gloo (NCCL refuses two ranks on one device). (a)
-             Wan2.1-T2V-1.3B at full width on meshes (1, 1, 2) and (1, 2, 2)
-             (--frames, --steps, CFG 5 two-pass); (b) the e2e edit at
+             Wan2.1-T2V-1.3B at full width cut to 10 of its 30 blocks on
+             the mesh (1, 2, 2) (FSDP and Ulysses over 4 ranks; --frames,
+             --steps, CFG 5 two-pass); (b) the e2e edit at
              Wan2.1-VACE-14B width cut to 8 of its 40 DiT blocks (the VACE
              layers 0 and 5) on (1, 2, 1), FSDP over 2 ranks, one step,
              each rank drawing only its shards, umT5 parked on the host
@@ -379,7 +416,14 @@ def token_grid(frames: int):
     return ((frames - 1) // 4 + 1, 30, 52)
 
 
+START = time.perf_counter()
+
+
 def emit(obj):
+    """One JSON line; a phase's line also carries the script's seconds so far
+    (`script_s`), from which each phase's share of the time limit reads."""
+    if "phase" in obj:
+        obj = {**obj, "script_s": time.perf_counter() - START}
     print(json.dumps(obj), flush=True)
 
 
@@ -3430,8 +3474,8 @@ def run_flux(torch, kernels, steps: int):
     weights from seed 0, bf16, the VAE fp32): a 1024x1024 request through
     `FluxImagePipeline` at the recipe's embedded guidance 3.5 and CFG 1,
     --steps steps, then the decode: stage times, peak memory, K1's launches
-    against 57 a step; then one DiT step profiled by category; then the
-    recipe's 30-step request, timed whole; then the `flux_adapters` phase
+    against 57 a step; then one DiT step profiled by category; the
+    recipe's 30-step request composed; then the `flux_adapters` phase
     on the same resident model. Returns the launches,
     the adapters' launches and the modules the sd3 phase shares."""
     from video_styler_tpu_torch.models.flux_dit import FLUX_DEV
@@ -3487,22 +3531,8 @@ def run_flux(torch, kernels, steps: int):
             prof = profile_request(torch, one_step, min(step_times(pipe)),
                                    categories=FLUX_CATEGORIES)
         emit({"phase": "flux_profile", "forwards": 1, **prof, **CARD})
-        # the recipe's request: seconds per image
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        image = pipe(**{**request, "num_inference_steps": FLUX_RECIPE_STEPS})
-        image_s = time.perf_counter() - t0
-        steps_30 = step_times(pipe)
-        emit(dict(phase="flux_image", steps=FLUX_RECIPE_STEPS, size=1024,
-                  cfg="1 (embedded 3.5)", image_s=image_s,
-                  stages={k: v for k, v in pipe.stage_times
-                          if not k.startswith("denoise_step_")},
-                  step_s_first=steps_30[0],
-                  step_s_rest_mean=sum(steps_30[1:]) / (len(steps_30) - 1),
-                  step_s_min=min(steps_30), step_s_max=max(steps_30),
-                  image_size=list(image.size), **CARD))
-        if len(steps_30) != FLUX_RECIPE_STEPS or image.size != (1024, 1024):
-            raise AssertionError(f"flux_image: {len(steps_30)} steps, image {image.size}")
+        composed_request("flux_image", res["stages"], res["step_s"], FLUX_RECIPE_STEPS,
+                         size=1024, cfg="1 (embedded 3.5)")
         adapter_launches = run_flux_adapters(torch, pipe, kernels, steps)
         # what the sd3 phase shares: CLIP-L, T5 v1.1-XXL and the VAE's modules
         shared = (pipe.prompter.clip, pipe.prompter.t5, pipe.vae_encoder, pipe.vae_decoder)
@@ -3965,8 +3995,8 @@ def run_sd3(torch, kernels, steps: int, shared):
     stands in for drawing those again. One
     1024x1024 request (4,096 image + 154 text tokens), CFG 7.5 two-pass,
     --steps steps: stage times, peak, no K1 launch (every attention is the
-    exact `sdpa`); one step profiled by category (`sd3_profile`); then the
-    JAX default's 20-step request, timed whole (`sd3_image`). -> (the
+    exact `sdpa`); one step profiled by category (`sd3_profile`); the JAX
+    default's 20-step request composed (`sd3_image`). -> (the
     launches, CLIP-G for the SDXL phases)."""
     from video_styler_tpu_torch.models import sd3_dit as D
     from video_styler_tpu_torch.models.sd3_text_encoder import init_clip_text_
@@ -4034,21 +4064,8 @@ def run_sd3(torch, kernels, steps: int, shared):
             sdpa_ms = time_ms(torch, lambda: sdpa(q, q, q), reps=5)
         emit({"phase": "sd3_profile", "forwards": 2, "sdpa_call_ms": sdpa_ms,
               "sdpa_calls_a_step": 2 * dit.num_layers, **prof, **CARD})
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        image = pipe(**{**request, "num_inference_steps": SD3_RECIPE_STEPS})
-        image_s = time.perf_counter() - t0
-        steps_20 = step_times(pipe)
-        emit(dict(phase="sd3_image", steps=SD3_RECIPE_STEPS, size=1024,
-                  cfg=f"two-pass {SD3_CFG}", image_s=image_s,
-                  stages={k: v for k, v in pipe.stage_times
-                          if not k.startswith("denoise_step_")},
-                  step_s_first=steps_20[0],
-                  step_s_rest_mean=sum(steps_20[1:]) / (len(steps_20) - 1),
-                  step_s_min=min(steps_20), step_s_max=max(steps_20),
-                  image_size=list(image.size), **CARD))
-        if len(steps_20) != SD3_RECIPE_STEPS or image.size != (1024, 1024):
-            raise AssertionError(f"sd3_image: {len(steps_20)} steps, image {image.size}")
+        composed_request("sd3_image", res["stages"], res["step_s"], SD3_RECIPE_STEPS,
+                         size=1024, cfg=f"two-pass {SD3_CFG}")
         return measured, te2
     finally:
         del pipe
@@ -4388,7 +4405,7 @@ def run_sdxl(torch, kernels, steps: int, vae, clip_g):
     """`sdxl`: SDXL base at its published widths (the 2.57 B UNet, CLIP-L
     of 11 layers; `clip_g`: the `sd3` phase's CLIP-G; `vae`: the `sd`
     phase's SD VAE modules), random bf16 weights from a seed; 1024x1024, CFG 7.5 two-pass, --steps steps,
-    one step profiled (`sdxl_profile`), the 20-step request
+    one step profiled (`sdxl_profile`), the 20-step request composed
     (`sdxl_image`); the union ControlNet (`sdxl_controlnet`) and the
     IP-Adapter's full 70-site map from image embeds (`sdxl_ipadapter`).
     -> (the launches, the pipeline for `run_sdxl_video`)."""
@@ -4411,10 +4428,10 @@ def run_sdxl(torch, kernels, steps: int, vae, clip_g):
     request = dict(prompt=SD_PROMPT, negative_prompt=SD_NEGATIVE, cfg_scale=SD_CFG,
                    height=1024, width=1024, seed=42, num_inference_steps=steps)
     image, seconds, launches, peak = run_counted(torch, kernels, lambda: pipe(**request))
-    sd_result("sdxl", pipe, seconds, launches, peak, model="SDXL base", size=1024, steps=steps,
-              cfg=f"two-pass {SD_CFG}", build_s=build_s,
-              weights_gib={"unet": gib([pipe.unet]), "clip_l": gib([pipe.te1]),
-                           "clip_g": gib([pipe.te2])}, image_size=list(image.size))
+    res = sd_result("sdxl", pipe, seconds, launches, peak, model="SDXL base", size=1024,
+                    steps=steps, cfg=f"two-pass {SD_CFG}", build_s=build_s,
+                    weights_gib={"unet": gib([pipe.unet]), "clip_l": gib([pipe.te1]),
+                                 "clip_g": gib([pipe.te2])}, image_size=list(image.size))
     if image.size != (1024, 1024):
         raise AssertionError(f"sdxl: image {image.size}")
     posi, pooled_p = pipe.encode_prompt(SD_PROMPT)
@@ -4429,12 +4446,8 @@ def run_sdxl(torch, kernels, steps: int, vae, clip_g):
         return e_n + SD_CFG * (e_p - e_n)
     sd_profile(torch, "sdxl_profile", one_step, min(step_times(pipe)), (1, 4096, 10, 64),
                sd_attention_calls(torch, X.SDXL_UNET_PROGRAM, X.SDXL_UNET, 2))
-    image, seconds, _, _ = run_counted(
-        torch, kernels, lambda: pipe(**{**request, "num_inference_steps": SD_RECIPE_STEPS}))
-    steps_20 = step_times(pipe)
-    emit(dict(phase="sdxl_image", steps=SD_RECIPE_STEPS, size=1024, image_s=seconds,
-              step_s_first=steps_20[0], step_s_rest_mean=sum(steps_20[1:]) / (len(steps_20) - 1),
-              step_s_min=min(steps_20), step_s_max=max(steps_20), **CARD))
+    composed_request("sdxl_image", res["stages"], res["step_s"], SD_RECIPE_STEPS, size=1024,
+                     cfg=f"two-pass {SD_CFG}")
     cn = random_module(torch, ControlNet, ControlNetConfig(X.SDXL_UNET, union=True),
                        S.init_sd_module_, 93, bf16)
     image, seconds, launches, peak = run_counted(torch, kernels, lambda: pipe(
@@ -4772,7 +4785,8 @@ def run_qwen(torch, kernels, steps: int) -> dict:
     --steps steps, then the decode: stage times, the peak, K1's launches
     against 60 a pass; then one two-pass step profiled by category
     (`qwen_profile`); then `qwen_edit` and `qwen_adapters` on the resident
-    model. Returns each phase's launches."""
+    model. Returns each phase's launches and the Qwen2.5-VL towers (the
+    DiT, the VAE and the ControlNet freed)."""
     from video_styler_tpu_torch.models import qwen_image_dit as QD
     from video_styler_tpu_torch.models.llm_decoder import QWEN25_VL_7B_TEXT
     from video_styler_tpu_torch.models.qwen_image_controlnet import QWEN_BLOCKWISE_CN
@@ -4832,7 +4846,7 @@ def run_qwen(torch, kernels, steps: int) -> dict:
         out["qwen_edit"] = run_qwen_edit(torch, pipe, kernels, steps)
         pipe.blockwise_controlnets = [random_blockwise_cn(torch, QWEN_BLOCKWISE_CN, "cuda", 3)]
         out.update(run_qwen_adapters(torch, pipe, kernels, steps))
-        return out
+        return out, pipe._vl
     finally:
         del pipe
         gc.collect()
@@ -4886,14 +4900,447 @@ def run_qwen_adapters(torch, pipe, kernels, steps: int) -> dict:
     return out
 
 
-def run_qwen_phases(torch, kernels, steps: int) -> dict:
+def run_qwen_phases(torch, kernels, steps: int):
     """`qwen_reference`, then `qwen` (with `qwen_edit` and `qwen_adapters`),
-    leaving the card free. Returns each path's launches."""
+    leaving the Qwen2.5-VL-7B towers on the card for `step1x_nexus`.
+    Returns each path's launches and the towers."""
     check_qwen_reference(torch, kernels)
-    out = run_qwen(torch, kernels, steps)
+    out, vl = run_qwen(torch, kernels, steps)
     gc.collect()
     torch.cuda.empty_cache()
-    return out
+    return out, vl
+
+
+# ---------------------------------------------------------------------------
+# Step1x and Nexus-Gen on FLUX, then HunyuanVideo text-to-video
+# ---------------------------------------------------------------------------
+
+HUNYUAN_HEADS = 24           # HunyuanVideo: 24 heads of 128
+HUNYUAN_SIZE = (720, 1280)   # the pipeline's default
+HUNYUAN_FRAMES = 9           # 3 latent frames: 10,800 image tokens
+HUNYUAN_RECIPE_FRAMES = 129  # the published clip: 33 latent frames, 118,800 image tokens
+HUNYUAN_RECIPE_STEPS = 30    # the pipeline's default step count
+HUNYUAN_GUIDANCE = 6.0       # the pipeline's default embedded guidance, CFG 1
+HUNYUAN_CHECK_HEADS = 2      # K1 at the published length: 2 heads held against plain
+HUNYUAN_PROMPT = "a red fox running through deep snow at dawn, cinematic lighting"
+HUNYUAN_REF_SIZE = 128       # hunyuan_reference: 128x128, 9 frames
+HUNYUAN_REF_TILES = dict(tile_size=(17, 12, 12), tile_stride=(12, 8, 8))   # 2 x 2 tiles
+STEP1X_SIZE = 1024
+STEP1X_PROMPT = "turn it into a watercolor painting at dusk"
+NEXUS_PROMPT = "a lighthouse on a cliff at dawn, oil painting"
+STEP1X_REF_SIZE = 256        # step1x_nexus_reference: 16 x 16 image tokens
+
+
+def hunyuan_joint_lens() -> dict:
+    """K1's lengths in the HunyuanVideo DiT at 720x1280: [image | the first
+    `split_token` text rows] at this run's 9 frames and the published 129,
+    and the text tail (`txt_len - split_token` rows) every block attends
+    apart."""
+    from video_styler_tpu_torch.models.hunyuan_video_dit import HUNYUAN_VIDEO as H
+    h, w = HUNYUAN_SIZE
+    image = {f: ((f - 1) // 4 + 1) * (h // 16) * (w // 16)
+             for f in (HUNYUAN_FRAMES, HUNYUAN_RECIPE_FRAMES)}
+    return {f"joint-{HUNYUAN_FRAMES}f": image[HUNYUAN_FRAMES] + H.split_token,
+            "tail": H.txt_len - H.split_token,
+            f"joint-{HUNYUAN_RECIPE_FRAMES}f": image[HUNYUAN_RECIPE_FRAMES] + H.split_token}
+
+
+def check_long_k1(torch, s: int, heads: int, check_heads: int, tag: str):
+    """K1 self over s tokens: `check_heads` heads held against the plain
+    version on every row, all `heads` timed (K1, the plain version once,
+    SDPA)."""
+    import torch.nn.functional as F
+    from video_styler_tpu_torch.ops import flash_attention as fa
+    d = 128
+    gen = torch.Generator("cuda").manual_seed(0)
+    q, k, v = (torch.randn((1, s, heads, d), generator=gen, device="cuda").to(torch.bfloat16)
+               for _ in range(3))
+    out = fa.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    sub = slice(0, check_heads)
+    want = fa.flash_attention_plain(q[:, :, sub], k[:, :, sub], v[:, :, sub])
+    err, scale = max_err(torch, out[:, :, sub], want)
+    del out, want
+    flops = 4.0 * heads * s * s * d
+    b_ms, b_by = bound(flops, 2.0 * 4 * s * heads * d)
+    ms = time_ms(torch, lambda: fa.flash_attention(q, k, v), reps=5)
+    plain_ms = time_ms(torch, lambda: fa.flash_attention_plain(q, k, v), reps=1, warmup=0)
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(qt, kt, vt), reps=5)
+    return emit_rows([dict(
+        name=f"K1 flash_attention self S={s} Sk={s} N={heads} D={d} [{tag}]", kernel="K1",
+        route="cuda", source="video_styler_tpu_torch/csrc/flash_attention.cu",
+        replaces="video_styler_tpu/ops/flash_attention.py:213", max_abs_err=err,
+        max_rel_err=err / scale, tol=TOL_ULPS * scale, checked_heads=check_heads,
+        checked_rows=s, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+        library_ms=lib_ms, ratio_to_library=ms / lib_ms, tflops=flops / ms / 1e9,
+        ptxas=kernel_usage("flash_fwd_capped_kernel"), clocks=gpu_clocks())])
+
+
+def check_hunyuan_kernels(torch):
+    """`hunyuan_kernels`: K1 at the HunyuanVideo DiT's two attentions a
+    block, 24 heads of 128: [image | 71 text rows] at 720x1280x9 (10,871)
+    and the 185-row text tail (one key tile), held against the plain
+    version (two bf16 ULPs); then the published 720x1280x129 length
+    (118,871), 2 heads held on every row and all 24 timed."""
+    lens = hunyuan_joint_lens()
+    rows = []
+    for tag in (f"joint-{HUNYUAN_FRAMES}f", "tail"):
+        rows += check_kernels(torch, (1, 1, lens[tag]), f"hunyuan-{tag}", heads=HUNYUAN_HEADS,
+                              cross_lens=(), norms=False)
+    torch.cuda.empty_cache()
+    rows += check_long_k1(torch, lens[f"joint-{HUNYUAN_RECIPE_FRAMES}f"], HUNYUAN_HEADS,
+                          HUNYUAN_CHECK_HEADS, f"hunyuan-joint-{HUNYUAN_RECIPE_FRAMES}f")
+    torch.cuda.empty_cache()
+    return rows
+
+
+def hunyuan_reference_configs():
+    """A small HunyuanVideo with head dim 128 (dim 256, 2 heads, the
+    release's RoPE bands, 2 + 2 blocks, 32 text rows split at 12), CLIP-L's
+    tiny widths, a 4-layer LLaMA of 256 (2 heads of 128), a 16-channel VAE
+    of widths (32, 64, 64, 64)."""
+    import dataclasses
+    from video_styler_tpu_torch.models.hunyuan_video_dit import HUNYUAN_VIDEO
+    from video_styler_tpu_torch.models.hunyuan_video_vae import HUNYUAN_VAE
+    from video_styler_tpu_torch.models.llm_decoder import LLAMA3_8B
+    from video_styler_tpu_torch.models.sd3_text_encoder import CLIP_L_TINY
+    llm = dataclasses.replace(LLAMA3_8B, vocab_size=2048, hidden=256, num_layers=4,
+                              num_heads=2, num_kv_heads=1, ffn=512)
+    dit = dataclasses.replace(HUNYUAN_VIDEO, hidden_size=256, num_heads=2, num_double_blocks=2,
+                              num_single_blocks=2, text_dim=llm.hidden,
+                              pooled_dim=CLIP_L_TINY.dim, txt_len=32, split_token=12)
+    vae = dataclasses.replace(HUNYUAN_VAE, block_out_channels=(32, 64, 64, 64),
+                              layers_per_block=1, num_groups=8)
+    return dit, CLIP_L_TINY, llm, vae
+
+
+def hunyuan_pipeline(torch, configs, device: str, seed: int = 0):
+    """A HunyuanVideo pipeline of random bf16 weights (the VAE fp32) from a
+    seed, with the stand-in tokenizers."""
+    from video_styler_tpu_torch.pipelines.hunyuan_video import (HunyuanVideoPipeline,
+                                                                StubLlamaTokenizer)
+    from video_styler_tpu_torch.prompters.flux_prompter import StubClipTokenizer
+    dit, clip, llm, vae = configs
+    return HunyuanVideoPipeline.from_configs(dit, clip, llm, vae, StubClipTokenizer(clip.vocab),
+                                             StubLlamaTokenizer(llm.vocab_size), seed=seed,
+                                             device=device, dtype=torch.bfloat16)
+
+
+def check_hunyuan_reference(torch, kernels):
+    """`hunyuan_reference`: the small pipeline of `hunyuan_reference_configs`
+    on the card (K1) against the same weights on the CPU (plain versions),
+    bf16: 128x128, 9 frames, 2 steps, t2v at CFG 1 (embedded 6) and CFG 2,
+    v2v (the tiled encode, 2 x 2 tiles) and i2v; latents within 5% relative
+    L2; the tiled fp32 decode (2 x 2 tiles) of the CPU's t2v latents on
+    both devices within 2 levels; K1's launches against 2 a block, pass and
+    step."""
+    import numpy as np
+    cpu = hunyuan_pipeline(torch, hunyuan_reference_configs(), "cpu")
+    gpu = copy.copy(cpu)
+    gpu.device = torch.device("cuda")
+    gpu.dit, gpu.clip, gpu.vae_encoder, gpu.vae_decoder = (
+        copy.deepcopy(m).to("cuda") for m in (cpu.dit, cpu.clip, cpu.vae_encoder,
+                                              cpu.vae_decoder))
+    gpu.use_llm(copy.deepcopy(cpu.llm_model).to("cuda"), cpu.llm_tokenizer)
+    cfg = cpu.dit_cfg
+    clip = synthetic_clip(9, HUNYUAN_REF_SIZE, HUNYUAN_REF_SIZE)
+    base = dict(prompt=HUNYUAN_PROMPT, negative_prompt="blurry", height=HUNYUAN_REF_SIZE,
+                width=HUNYUAN_REF_SIZE, num_frames=9, seed=42, num_inference_steps=2,
+                return_latents=True, **HUNYUAN_REF_TILES)
+    cases = {"t2v cfg 1": {}, "t2v cfg 2": dict(cfg_scale=2.0),
+             "v2v": dict(input_video=clip, denoising_strength=0.8),
+             "i2v": dict(input_images=[clip[0]])}
+    blocks = cfg.num_double_blocks + cfg.num_single_blocks
+    res = dict(phase="hunyuan_reference", size=HUNYUAN_REF_SIZE, frames=9, steps=2,
+               dit_dim=cfg.hidden_size, dit_heads=cfg.num_heads, latents_rel_l2={},
+               latents_tol=5e-2, k1_launches={}, k1_expected={})
+    lat_t2v, launches = None, {}
+    for name, req in cases.items():
+        kw = {**base, **req}
+        lat_c = cpu(**kw).float()
+        lat_g, _, launches[name], _ = run_counted(torch, kernels, lambda: gpu(**kw))
+        lat_g = lat_g.float().cpu()
+        res["latents_rel_l2"][name] = ((lat_g - lat_c).norm() / lat_c.norm()).item()
+        res["k1_launches"][name] = launches[name]["K1"]
+        res["k1_expected"][name] = 2 * blocks * (2 if "cfg 2" in name else 1) * 2
+        if lat_t2v is None:
+            lat_t2v = lat_c
+    tiles = {k: v for k, v in HUNYUAN_REF_TILES.items()}
+    vid_c = np.asarray(cpu.decode_video(lat_t2v, **tiles).clamp(-1, 1).add(1).mul(127.5)
+                       .round(), np.int16)
+    vid_g = np.asarray(gpu.decode_video(lat_t2v.cuda(), **tiles).clamp(-1, 1).add(1)
+                       .mul(127.5).round().cpu(), np.int16)
+    res.update(decode_shape=list(vid_g.shape), frames_max_abs_diff=float(np.abs(vid_g - vid_c)
+                                                                         .max()), frames_tol=2.0,
+               **CARD)
+    emit(res)
+    if not (all(v <= 5e-2 for v in res["latents_rel_l2"].values())
+            and res["frames_max_abs_diff"] <= 2.0):
+        raise AssertionError(f"HunyuanVideo, card vs CPU disagree: {res}")
+    for name, count in launches.items():
+        check_launches(count, {"K1": res["k1_expected"][name]}, f"hunyuan_reference {name}")
+
+
+def run_hunyuan(torch, kernels, steps: int) -> dict:
+    """`hunyuan`: HunyuanVideo at full width and depth on a free card (the
+    12.8 B DiT: dim 3072, 24 heads of 128, 20 double + 40 single blocks;
+    LLaMA-3-8B's text tower, 32 layers, 30 run; CLIP-L; the fp32 causal VAE;
+    random weights from a seed, bf16): a 720x1280 request of 9 frames at CFG
+    1 (embedded guidance 6), --steps steps, then the tiled decode: stage
+    times, the peak, K1's launches against 2 a block and step (120); then
+    one step profiled by category (`hunyuan_profile`)."""
+    from video_styler_tpu_torch.models.hunyuan_video_dit import HUNYUAN_VIDEO
+    from video_styler_tpu_torch.models.hunyuan_video_vae import HUNYUAN_VAE
+    from video_styler_tpu_torch.models.llm_decoder import LLAMA3_8B
+    from video_styler_tpu_torch.models.sd3_text_encoder import CLIP_L
+    from video_styler_tpu_torch.pipelines.wan_video import generate_noise
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    pipe = hunyuan_pipeline(torch, (HUNYUAN_VIDEO, CLIP_L, LLAMA3_8B, HUNYUAN_VAE), "cuda")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    cfg = pipe.dit_cfg
+    h, w = HUNYUAN_SIZE
+    try:
+        weights = {"dit": gib([pipe.dit]), "llm": gib([pipe.llm_model]), "clip": gib([pipe.clip]),
+                   "vae": gib([pipe.vae_encoder, pipe.vae_decoder])}
+        params = {"dit": sum(p.numel() for p in pipe.dit.parameters()),
+                  "llm": sum(p.numel() for p in pipe.llm_model.parameters())}
+        per_step = 2 * (cfg.num_double_blocks + cfg.num_single_blocks)
+        request = dict(prompt=HUNYUAN_PROMPT, height=h, width=w, num_frames=HUNYUAN_FRAMES,
+                       seed=42, embedded_guidance=HUNYUAN_GUIDANCE, num_inference_steps=steps)
+        video, seconds, launches, peak = run_counted(torch, kernels, lambda: pipe(**request))
+        expected = {"K1": per_step * steps}
+        lens = hunyuan_joint_lens()
+        res = dict(phase="hunyuan", model="HunyuanVideo", dit_dim=cfg.hidden_size,
+                   dit_heads=cfg.num_heads, double_blocks=cfg.num_double_blocks,
+                   single_blocks=cfg.num_single_blocks, params=params, weights_gib=weights,
+                   build_s=build_s, size=[h, w], frames=HUNYUAN_FRAMES,
+                   joint_tokens=lens[f"joint-{HUNYUAN_FRAMES}f"], tail_tokens=lens["tail"],
+                   steps=steps, cfg=f"1 (embedded {HUNYUAN_GUIDANCE})", total_s=seconds,
+                   stages={k: v for k, v in pipe.stage_times
+                           if not k.startswith("denoise_step_")},
+                   step_s=step_times(pipe), max_memory_allocated_gib=peak,
+                   stage_peak_gib={k: v / 2**30 for k, v in pipe.stage_peak_bytes},
+                   video_shape=list(video.shape), launches={k: v for k, v in launches.items() if v},
+                   expected_launches=expected,
+                   k1_launches_per_30_step_request=per_step * HUNYUAN_RECIPE_STEPS, **CARD)
+        emit(res)
+        check_launches(launches, expected, "hunyuan")
+        if list(video.shape) != [HUNYUAN_FRAMES, h, w, 3]:
+            raise AssertionError(f"hunyuan: video {video.shape}")
+        # one step (CFG 1: one forward) under the profiler, on this request's inputs
+        cond = pipe.encode_prompt(HUNYUAN_PROMPT)
+        lat = generate_noise((1, 16, (HUNYUAN_FRAMES - 1) // 4 + 1, h // 8, w // 8),
+                             seed=42).to("cuda", torch.bfloat16)
+        t = torch.tensor([float(pipe.scheduler.timesteps[0])], device="cuda")
+        g = torch.tensor([HUNYUAN_GUIDANCE], device="cuda")
+        with torch.no_grad():
+            prof = profile_request(torch, lambda: pipe._branch(lat, t, cond, g, None),
+                                   min(res["step_s"]), categories=FLUX_CATEGORIES)
+        emit({"phase": "hunyuan_profile", "forwards": 1, **prof, **CARD})
+        return launches
+    finally:
+        del pipe
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def nexus_reference_tokens(size: int) -> int:
+    """Merged vision tokens of a size x size Nexus-Gen reference image at the
+    processor's default pixel budget."""
+    from video_styler_tpu_torch.models.qwen_vl_vision import smart_resize
+    hh, ww = smart_resize(size, size, 28, 56 * 56, 28 * 28 * 1280)
+    return (hh // 28) * (ww // 28)
+
+
+def step1x_nexus_lens(size: int = STEP1X_SIZE) -> dict:
+    """K1's [text | image (| reference)] lengths in FLUX's 57 blocks: Step1x
+    (the embedder's 640 rows, the image and the reference on the Kontext
+    tokens), Nexus-Gen's generation (81 predicted embeddings) and edit (81
+    and the reference image's merged vision tokens)."""
+    from video_styler_tpu_torch.models.nexus_gen import NUM_IMG_TOKENS
+    image = (size // 16) ** 2
+    return {"step1x": 640 + 2 * image, "nexus_gen": NUM_IMG_TOKENS + image,
+            "nexus_gen_edit": NUM_IMG_TOKENS + nexus_reference_tokens(size) + image}
+
+
+def check_step1x_nexus_kernels(torch):
+    """`step1x_nexus_kernels`: K1 at FLUX's joint attention, 24 heads of 128,
+    over the lengths of `step1x_nexus_lens` at 1024x1024, held against the
+    plain version (two bf16 ULPs)."""
+    rows = []
+    for tag, s in step1x_nexus_lens().items():
+        rows += check_kernels(torch, (1, 1, s), tag, heads=FLUX_HEADS, cross_lens=(),
+                              norms=False)
+    return rows
+
+
+def step1x_nexus_modules(torch, flux_cfg, vl, device: str, seed: int = 11):
+    """The Step1x connector, the Nexus-Gen adapter and merger and the AR
+    model's vision head and prefill embeds for a FLUX DiT of `flux_cfg` over
+    the Qwen2.5-VL towers `vl`, random bf16 weights from a seed:
+    (connector, adapter, merger, NexusGenARModel)."""
+    from video_styler_tpu_torch.models import nexus_gen as NG
+    from video_styler_tpu_torch.models import step1x as S1
+    from video_styler_tpu_torch.models.hunyuan_video_dit import init_hunyuan_video_dit_
+    from video_styler_tpu_torch.models.wan_dit import Linear
+    hidden, vis = vl.text_cfg.hidden, vl.vision_cfg.out_hidden
+    full = hidden == S1.STEP1X_CONNECTOR.in_channels
+    ccfg = S1.STEP1X_CONNECTOR if full else S1.Step1xConnectorConfig(
+        in_channels=hidden, hidden_size=flux_cfg.context_dim, num_heads=2,
+        pooled_dim=flux_cfg.pooled_dim)
+    mcfg = NG.NEXUS_GEN_MERGER if full else NG.NexusGenMergerConfig(
+        hidden_size=hidden, num_heads=vl.text_cfg.num_heads,
+        num_kv_heads=vl.text_cfg.num_kv_heads, intermediate_size=2 * hidden,
+        out_channel=flux_cfg.context_dim)
+    gen = torch.Generator(device).manual_seed(seed)
+
+    def draw(make, init):
+        with torch.device("meta"):
+            module = make(torch.bfloat16)
+        return init(module.to_empty(device=device), gen).eval()
+    connector = draw(lambda dt: S1.Step1xConnector(ccfg, dtype=dt), S1.init_step1x_connector_)
+    adapter = draw(lambda dt: NG.NexusGenAdapter(vis, flux_cfg.context_dim, dtype=dt),
+                   init_hunyuan_video_dit_)
+    merger = draw(lambda dt: NG.NexusGenMerger(mcfg, dtype=dt), init_hunyuan_video_dit_)
+    head = draw(lambda dt: Linear(hidden, vis, dtype=dt), init_hunyuan_video_dit_)
+    prefill = (0.02 * torch.randn((NG.NUM_IMG_TOKENS, hidden), generator=gen, device=device)
+               ).to(torch.bfloat16)
+    return connector, adapter, merger, NG.NexusGenARModel(vl, head, prefill)
+
+
+def attach_step1x_nexus(pipe, modules, vl):
+    """Step1x's connector and embedder and Nexus-Gen's adapter and merger on a
+    FLUX pipeline; its AR model goes in per request (`run_step1x_nexus_case`)."""
+    from video_styler_tpu_torch.models.qwen_vl_embedder import QwenVLStep1xEmbedder
+    connector, adapter, merger, _ = modules
+    pipe.step1x_connector, pipe.qwenvl = connector, QwenVLStep1xEmbedder(vl)
+    pipe.nexus_gen_generation_adapter, pipe.nexus_gen_editing_adapter = adapter, merger
+
+
+def step1x_nexus_requests(size: int) -> dict:
+    """Step1x's edit, Nexus-Gen's generation and edit at CFG 1."""
+    return {"step1x": dict(prompt=STEP1X_PROMPT,
+                           step1x_reference_image=synthetic_image(21, size)),
+            "nexus_gen": dict(prompt=NEXUS_PROMPT),
+            "nexus_gen_edit": dict(prompt=STEP1X_PROMPT,
+                                   nexus_gen_reference_image=synthetic_image(22, size))}
+
+
+def run_step1x_nexus_case(pipe, ar, name: str, request: dict, **kw):
+    """One request; the Nexus-Gen AR model `ar` is attached for its cases
+    only (a FLUX pipeline with `nexus_gen` set replaces every prompt)."""
+    pipe.nexus_gen = ar if name.startswith("nexus") else None
+    return pipe(**request, **kw)
+
+
+def check_step1x_nexus_reference(torch, kernels):
+    """`step1x_nexus_reference`: the small FLUX of `flux_reference` with the
+    small Qwen2.5-VL towers of `qwen_reference`, a connector, an adapter, a
+    merger and an AR head of their widths, on the card (K1) against the same
+    weights on the CPU, bf16: 256x256, 2 steps, CFG 1, Step1x's edit and
+    Nexus-Gen's generation and edit; latents within 5% relative L2, K1's
+    launches against the FLUX blocks a step."""
+    from video_styler_tpu_torch.models.nexus_gen import NexusGenARModel
+    from video_styler_tpu_torch.models.qwen_vl_embedder import QwenVL
+    configs = flux_reference_configs()
+    _, text, vision, _ = qwen_reference_configs()
+    cpu = flux_pipeline(torch, configs, "cpu")
+    vl_c = qwen_vl(torch, text, vision, "cpu")
+    mods_c = step1x_nexus_modules(torch, cpu.dit_cfg, vl_c, "cpu")
+    attach_step1x_nexus(cpu, mods_c, vl_c)
+    gpu = copy.copy(cpu)
+    gpu.device = torch.device("cuda")
+    gpu.prompter = copy.copy(cpu.prompter)
+    gpu.dit, gpu.vae_encoder, gpu.vae_decoder, gpu.prompter.clip, gpu.prompter.t5 = (
+        copy.deepcopy(m).to("cuda") for m in (cpu.dit, cpu.vae_encoder, cpu.vae_decoder,
+                                              cpu.prompter.clip, cpu.prompter.t5))
+    vl_g = QwenVL(copy.deepcopy(vl_c.text).to("cuda"), copy.deepcopy(vl_c.vision).to("cuda"),
+                  vl_c.tokenizer, image_token_id=vl_c.image_token_id,
+                  video_token_id=vl_c.video_token_id,
+                  vision_end_token_id=vl_c.vision_end_token_id)
+    connector, adapter, merger, head = (copy.deepcopy(m).to("cuda") for m in (
+        mods_c[0], mods_c[1], mods_c[2], mods_c[3].vision_head))
+    mods_g = (connector, adapter, merger,
+              NexusGenARModel(vl_g, head, mods_c[3].prefill_embeds.to("cuda")))
+    attach_step1x_nexus(gpu, mods_g, vl_g)
+    blocks = cpu.dit_cfg.num_joint_blocks + cpu.dit_cfg.num_single_blocks
+    res = dict(phase="step1x_nexus_reference", size=STEP1X_REF_SIZE, steps=2, cfg=1,
+               latents_rel_l2={}, latents_tol=5e-2, k1_launches={}, k1_expected=2 * blocks)
+    for name, req in step1x_nexus_requests(STEP1X_REF_SIZE).items():
+        kw = dict(height=STEP1X_REF_SIZE, width=STEP1X_REF_SIZE, seed=42, num_inference_steps=2,
+                  return_latents=True)
+        lat_c = run_step1x_nexus_case(cpu, mods_c[3], name, req, **kw).float()
+        lat_g, _, launches, _ = run_counted(
+            torch, kernels, lambda: run_step1x_nexus_case(gpu, mods_g[3], name, req, **kw))
+        lat_g = lat_g.float().cpu()
+        res["latents_rel_l2"][name] = ((lat_g - lat_c).norm() / lat_c.norm()).item()
+        res["k1_launches"][name] = launches["K1"]
+        check_launches(launches, {"K1": 2 * blocks}, f"step1x_nexus_reference {name}")
+    emit({**res, **CARD})
+    if not all(v <= 5e-2 for v in res["latents_rel_l2"].values()):
+        raise AssertionError(f"Step1x / Nexus-Gen, card vs CPU disagree: {res}")
+
+
+def run_step1x_nexus(torch, kernels, steps: int, vl=None) -> dict:
+    """`step1x_nexus`: FLUX.1-dev at full width drawn from a seed (with T5
+    v1.1-XXL, CLIP-L and the FLUX VAE) beside the Qwen2.5-VL-7B towers `vl`
+    (the qwen phase's, or drawn here), the Step1x connector (2 blocks of
+    4096, 32 heads of 128), the Nexus-Gen adapter, merger and AR model's
+    vision head and prefill embeds, random bf16 weights: a Step1x edit, a
+    Nexus-Gen generation and a Nexus-Gen edit at 1024x1024, CFG 1
+    (embedded 3.5), --steps steps each: stage and step seconds, the peak,
+    K1's launches against 57 a step. Returns each case's launches."""
+    from video_styler_tpu_torch.models.flux_dit import FLUX_DEV
+    from video_styler_tpu_torch.models.llm_decoder import QWEN25_VL_7B_TEXT
+    from video_styler_tpu_torch.models.qwen_vl_vision import QWEN25_VL_7B_VISION
+    from video_styler_tpu_torch.models.sd3_text_encoder import CLIP_L
+    from video_styler_tpu_torch.models.sd3_vae import FLUX_VAE
+    from video_styler_tpu_torch.models.t5 import T5_V11_XXL
+    check_step1x_nexus_reference(torch, kernels)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    if vl is None:
+        vl = qwen_vl(torch, QWEN25_VL_7B_TEXT, QWEN25_VL_7B_VISION, "cuda")
+    pipe = flux_pipeline(torch, (FLUX_DEV, CLIP_L, T5_V11_XXL, FLUX_VAE), "cuda")
+    mods = step1x_nexus_modules(torch, pipe.dit_cfg, vl, "cuda")
+    attach_step1x_nexus(pipe, mods, vl)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    out = {}
+    try:
+        weights = {"flux_dit": gib([pipe.dit]), "t5": gib([pipe.prompter.t5]),
+                   "qwen_text": gib([vl.text]), "qwen_vision": gib([vl.vision]),
+                   "connector": gib([mods[0]]), "adapter": gib([mods[1]]),
+                   "merger": gib([mods[2]]), "vision_head": gib([mods[3].vision_head])}
+        lens = step1x_nexus_lens()
+        blocks = pipe.dit_cfg.num_joint_blocks + pipe.dit_cfg.num_single_blocks
+        for name, req in step1x_nexus_requests(STEP1X_SIZE).items():
+            kw = dict(height=STEP1X_SIZE, width=STEP1X_SIZE, seed=42, num_inference_steps=steps)
+            image, seconds, launches, peak = run_counted(
+                torch, kernels, lambda: run_step1x_nexus_case(pipe, mods[3], name, req, **kw))
+            expected = {"K1": blocks * steps}
+            emit(dict(phase="step1x_nexus", case=name, size=STEP1X_SIZE, steps=steps,
+                      cfg="1 (embedded 3.5)", joint_tokens=lens[name], build_s=build_s,
+                      weights_gib=weights, total_s=seconds,
+                      stages={k: v for k, v in pipe.stage_times
+                              if not k.startswith("denoise_step_")},
+                      step_s=step_times(pipe), max_memory_allocated_gib=peak,
+                      image_size=list(image.size),
+                      launches={k: v for k, v in launches.items() if v},
+                      expected_launches=expected, **CARD))
+            check_launches(launches, expected, f"step1x_nexus {name}")
+            if image.size != (STEP1X_SIZE, STEP1X_SIZE):
+                raise AssertionError(f"step1x_nexus {name}: image {image.size}")
+            out[name] = launches
+        return out
+    finally:
+        del pipe, mods
+        gc.collect()
+        torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
@@ -4913,6 +5360,11 @@ TOL_RING = 2.0 ** -6
 # blocks it gathers a fifth of that
 USP_VACE_STEPS = 1
 USP_VACE_LAYERS = 8
+# the usp phase's Wan2.1-T2V-1.3B at its width, cut to 10 of its 30 blocks
+# (its one-process reference at the same depth), on the (1, 2, 2) mesh alone:
+# four ranks share the card over gloo, and a run's cost is mostly the ranks'
+# start and their umT5-XXL, not the blocks
+USP_T2V_LAYERS = 10
 
 
 def check_ring_body(torch, rows: int, blocks: int):
@@ -4980,14 +5432,15 @@ def check_usp_kernels(torch):
 
 
 def usp_configs(model: str):
-    """(DiT config, VACE config or None) of a usp model: Wan2.1-T2V-1.3B
-    ("t2v-1.3B"), or Wan2.1-VACE-14B at USP_VACE_LAYERS blocks ("vace-14B":
-    the release's widths, the VACE layers below the cut)."""
+    """(DiT config, VACE config or None) of a usp model: Wan2.1-T2V-1.3B at
+    USP_T2V_LAYERS blocks ("t2v-1.3B"), or Wan2.1-VACE-14B at USP_VACE_LAYERS
+    blocks ("vace-14B": the release's widths, the VACE layers below the
+    cut)."""
     import dataclasses
     from video_styler_tpu_torch.models.wan_dit import WAN_T2V_14B, WAN_T2V_1_3B
     from video_styler_tpu_torch.models.wan_vace import VACE_14B
     if model == "t2v-1.3B":
-        return WAN_T2V_1_3B, None
+        return dataclasses.replace(WAN_T2V_1_3B, num_layers=USP_T2V_LAYERS), None
     return (dataclasses.replace(WAN_T2V_14B, num_layers=USP_VACE_LAYERS),
             dataclasses.replace(VACE_14B, vace_layers=tuple(
                 i for i in VACE_14B.vace_layers if i < USP_VACE_LAYERS)))
@@ -5099,8 +5552,8 @@ def expected_usp_launches(model: str, steps: int) -> dict:
 def run_usp(torch, frames: int, steps: int, smi: str):
     """`usp` (last, on a free card): ranks spawned by `parallel.run_local`
     on cuda:0 with gloo named (NCCL refuses two ranks on one device).
-    (a) Wan2.1-T2V-1.3B at full width on meshes (1, 1, 2) and (1, 2, 2),
-    against the same weights in this process; (b) the e2e edit at
+    (a) Wan2.1-T2V-1.3B at full width cut to USP_T2V_LAYERS blocks on the
+    mesh (1, 2, 2), against the same model in this process; (b) the e2e edit at
     Wan2.1-VACE-14B width cut to USP_VACE_LAYERS blocks on (1, 2, 1), FSDP
     over 2 ranks, for USP_VACE_STEPS steps, against the same model and
     request in this process; (c) `ditto_mesh_rank` on a one-rank
@@ -5116,8 +5569,7 @@ def run_usp(torch, frames: int, steps: int, smi: str):
         gc.collect()
         torch.cuda.empty_cache()
     total, failures = {}, []
-    runs = [("t2v-1.3B", (1, 1, 2), steps, False), ("t2v-1.3B", (1, 2, 2), steps, False),
-            ("vace-14B", (1, 2, 1), USP_VACE_STEPS, True)]
+    runs = [("t2v-1.3B", (1, 2, 2), steps, False), ("vace-14B", (1, 2, 1), USP_VACE_STEPS, True)]
     for model, mesh, n_steps, park in runs:
         reference = references[model]
         world = math.prod(mesh)
@@ -5167,13 +5619,24 @@ def run_usp(torch, frames: int, steps: int, smi: str):
 
 
 
+def composed_request(phase: str, stages: dict, step_s, steps: int, **extra):
+    """A recipe's request of `steps` steps composed from a measured request's
+    stages other than its steps and its fastest step (not run)."""
+    stages = {k: v for k, v in stages.items() if not k.startswith("denoise_step_")}
+    emit(dict(phase=phase, steps=steps, note="composed from this run's stages and its "
+              "fastest step, not run", image_s=sum(stages.values()) + steps * min(step_s),
+              stages=stages, step_s_min=min(step_s), **extra, **CARD))
+
+
 def profile_request(torch, run, unprofiled_s: float, categories=None):
     """Device time by kernel category (KERNEL_CATEGORIES unless given) over
-    one more identical request, under torch.profiler. idle_share compares
-    the summed kernel time with the unprofiled request's wall time (the
+    one more identical request, under torch.profiler tracing the card alone
+    (the host's operators are not recorded: the same kernels and device
+    times at about half the profiled run's cost). idle_share compares the
+    summed kernel time with the unprofiled request's wall time (the
     profiler slows the host)."""
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         run()
         torch.cuda.synchronize()
     totals, per_kernel = {}, {}
@@ -5186,6 +5649,8 @@ def profile_request(torch, run, unprofiled_s: float, categories=None):
         totals[cat] = totals.get(cat, 0.0) + us / 1e3
         per_kernel[evt.name[:90]] = per_kernel.get(evt.name[:90], 0.0) + us / 1e3
     busy_ms = sum(totals.values())
+    if not busy_ms:
+        raise AssertionError("the profiler recorded no kernel on the card")
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:10]
     return dict(device_ms_by_category=totals, device_busy_ms=busy_ms,
                 unprofiled_wall_ms=unprofiled_s * 1e3,
@@ -5200,11 +5665,14 @@ def main(argv=None):
                     help="frames (4k+1) of the 480x832 end-to-end request")
     ap.add_argument("--train-frames", type=int, default=RUN_FRAMES,
                     help="frames (4k+1) of the 480x832 clip of the LoRA steps")
-    ap.add_argument("--only", nargs="+", choices=("qwen", "usp"), default=None,
+    ap.add_argument("--only", nargs="+", choices=("qwen", "step1x", "hunyuan", "usp"),
+                    default=None,
                     help="build the kernels and run only these phases (qwen: "
-                         "qwen_kernels to qwen_adapters; usp), then the kernels "
-                         "line of their rows: for iterating on them (with no "
-                         "arguments every phase runs)")
+                         "qwen_kernels to qwen_adapters; step1x: step1x_nexus_kernels "
+                         "to step1x_nexus, on the qwen phase's towers when it runs too; "
+                         "hunyuan: hunyuan_kernels to hunyuan; usp), then the kernels "
+                         "line of their rows: for iterating on them (with no arguments "
+                         "every phase runs)")
     ap.add_argument("--ckpt-dir", default=None,
                     help="where the load phase writes its ~47 GB of checkpoint "
                          "files (in a new folder it removes; default: the "
@@ -5243,10 +5711,21 @@ def main(argv=None):
                "K7": fa.INT8_3D_KERNEL, "F1": fk.REMAP_KERNEL,
                "F2": fk.PATCH_ERROR_KERNEL, "F3": fk.PAIRWISE_KERNEL}
     if args.only:
-        rows, path_launches = [], {}
+        rows, path_launches, vl = [], {}, None
         if "qwen" in args.only:
             rows += check_qwen_kernels(torch)
-            path_launches.update(run_qwen_phases(torch, kernels, args.steps))
+            qwen_launches, vl = run_qwen_phases(torch, kernels, args.steps)
+            path_launches.update(qwen_launches)
+        if "step1x" in args.only:
+            rows += check_step1x_nexus_kernels(torch)
+            path_launches.update(run_step1x_nexus(torch, kernels, args.steps, vl))
+        del vl
+        gc.collect()
+        torch.cuda.empty_cache()
+        if "hunyuan" in args.only:
+            rows += check_hunyuan_kernels(torch)
+            check_hunyuan_reference(torch, kernels)
+            path_launches["hunyuan"] = run_hunyuan(torch, kernels, args.steps)
         if "usp" in args.only:
             path_launches["usp"] = run_usp(torch, args.frames, args.steps, smi)
         launches = {"K1": sum(c.get("K1", 0) for c in path_launches.values())}
@@ -5425,7 +5904,18 @@ def main(argv=None):
     # Qwen-Image on the free card: K1 at its joint lengths, the small
     # pipeline card vs CPU, then the 20B DiT and Qwen2.5-VL-7B at full width
     rows += check_qwen_kernels(torch)
-    path_launches.update(run_qwen_phases(torch, kernels, args.steps))
+    qwen_launches, vl = run_qwen_phases(torch, kernels, args.steps)
+    path_launches.update(qwen_launches)
+    # Step1x and Nexus-Gen on FLUX.1-dev beside the Qwen phase's towers, then
+    # HunyuanVideo on the free card
+    rows += check_step1x_nexus_kernels(torch)
+    path_launches.update(run_step1x_nexus(torch, kernels, args.steps, vl))
+    del vl
+    gc.collect()
+    torch.cuda.empty_cache()
+    rows += check_hunyuan_kernels(torch)
+    check_hunyuan_reference(torch, kernels)
+    path_launches["hunyuan"] = run_hunyuan(torch, kernels, args.steps)
     # the multi-GPU path: ranks sharing the free card
     path_launches["usp"] = run_usp(torch, args.frames, args.steps, smi)
     return finish(torch, smi, rows + new_rows, launches, path_launches, train_rows,

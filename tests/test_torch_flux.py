@@ -460,11 +460,19 @@ ADAPTER_ARGS = ["nexus_gen_reference_image", "step1x_reference_image"]
 
 @pytest.mark.parametrize("arg", ADAPTER_ARGS)
 def test_adapter_arguments_raise(pipes, arg):
-    """Nexus-Gen and Step1x wait for HunyuanVideo's token refiner (item
-    11e); every other adapter runs (`test_torch_flux_adapters.py`)."""
-    _, tp = pipes
-    with pytest.raises(NotImplementedError, match="item 11e"):
-        tp(return_latents=True, **BASE, **{arg: [object()]})
+    """Nexus-Gen's and Step1x's reference image raised until item 11e ported
+    them; now each runs, with its embedder and adapters attached (the JAX
+    tests' stand-ins), and gives the JAX pipeline's latents
+    (`test_torch_step1x_nexus.py` holds the rest of both paths). Without
+    them attached the argument is ignored, as in JAX."""
+    from test_torch_step1x_nexus import _image, with_step1x_and_nexus
+    jp, tp = with_step1x_and_nexus(*pipes, nexus=arg.startswith("nexus"))
+    kw = {**BASE, arg: _image(3)}
+    want = np.asarray(jp(return_latents=True, **kw), np.float32)
+    got = tp(return_latents=True, **kw).numpy()
+    assert _rel(got, want) < TOL_F32, _rel(got, want)
+    torch.testing.assert_close(pipes[1](return_latents=True, **kw),
+                               pipes[1](return_latents=True, **BASE), rtol=0, atol=0)
 
 
 def test_adapter_settings_at_jax_defaults(pipes):

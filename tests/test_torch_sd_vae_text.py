@@ -236,13 +236,14 @@ def test_load_model_builds_flux_dit(tmp_path, monkeypatch, guidance):
 
 
 @pytest.mark.parametrize("keys,kind", [
-    (["single_blocks.0.linear1.weight"], "hunyuan_video_dit"),
+    (["blocks.0.attn1.Wqkv.weight"], "hunyuan_dit"),
     (["llm.layers.0.mlp.weight"], "omnigen"),
     (["down_blocks.0.resnets.0.mix_factor"], "svd_unet")])
 def test_load_model_other_kinds_still_raise(tmp_path, keys, kind):
     """Kinds the port does not build yet (FLUX's adapters and SD3 load:
     `test_torch_flux_adapters.py`, `test_torch_sd3.py`; the SD family's
-    kinds: `test_torch_sd.py`)."""
+    kinds: `test_torch_sd.py`; the HunyuanVideo DiT:
+    `test_torch_hunyuan_video.py`)."""
     path = str(tmp_path / "m.safetensors")
     save_file({k: torch.zeros(2, 2) for k in keys}, path)
     assert TC.detect_model_kind(TC.load_state_dict(path)) == kind

@@ -418,8 +418,8 @@ def test_video_gen_smoke_cli(tmp_path, capsys):
     assert video_gen.main(["--family", "sd_animatediff", "--smoke", "--device", "cpu",
                            "--output", str(out)]) == 0
     assert out.stat().st_size > 0 and f"saved {out}" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11e"):
-        video_gen.main(["--family", "hunyuan_video", "--dit_path", "x", "--device", "cpu"])
+    with pytest.raises(NotImplementedError, match="Queue 1 item 11f"):
+        video_gen.main(["--family", "cog_video", "--dit_path", "x", "--device", "cpu"])
 
 
 def test_video_gen_wan_t2v_loads_three_files(monkeypatch, tmp_path):

@@ -32,11 +32,21 @@ loader (:157-217):
     of the `ipadapter_image_encoder` embedding (the SigLIP tower is the
     caller's callable, as in JAX), zeros' for the negative branch;
   - Flex (`flex_condition`, `flex_uncondition`): channels concatenated to
-    the latents, the uncondition from `flex_control_stop_timestep` down.
+    the latents, the uncondition from `flex_control_stop_timestep` down;
+  - Nexus-Gen (`nexus_gen`, a callable(prompt, ref_image=None) -> (embed,
+    ref_embed, grids), such as `models.nexus_gen.NexusGenARModel`): the
+    predicted image embedding through the generation adapter
+    (`nexus_gen_generation_adapter`) or, with `nexus_gen_reference_image`,
+    with the reference's through the editing merger
+    (`nexus_gen_editing_adapter`) replaces the positive branch's prompt
+    tokens, with zero text ids or the editing grids' ids;
+  - Step1x (`step1x_reference_image`, with `fetch_qwenvl`'s embedder and a
+    `step1x_connector`): the Qwen2.5-VL embedding of the prompt and the
+    image goes through the connector every step, at timestep / 1000, for
+    the positive branch's prompt tokens (zero text ids) and pooled vector;
+    the reference image's latent rides the Kontext tokens with f_id 0.
 `fetch_qwenvl` builds Step1x's Qwen2.5-VL embedder (`models.qwen_vl_embedder.
-QwenVLStep1xEmbedder`, ported with the Qwen2.5-VL stack); Nexus-Gen and
-Step1x themselves wait for ROADMAP Queue 1 item 11e and raise
-`NotImplementedError`.
+QwenVLStep1xEmbedder`).
 
 Runs on `cuda` unless constructed with `device="cpu"`. Each stage's wall
 time (synchronised with the card) is kept in `stage_times`, and on the card
@@ -57,7 +67,9 @@ from ..lora import merge_lora
 from ..models import flux_adapters as FA
 from ..models import flux_controlnet as FC
 from ..models import flux_dit as F
+from ..models import nexus_gen as NG
 from ..models import sd3_vae as V
+from ..models import step1x as S1
 from ..models.sd3_text_encoder import (CLIP_L, ClipTextConfig, ClipTextEncoder,
                                        convert_sd3_text_encoder_1, init_clip_text_)
 from ..models.t5 import T5_V11_XXL, T5Config, T5Encoder, convert_hf_t5, init_t5_
@@ -70,7 +82,6 @@ from .wan_video import _image_array, _preprocess_images, generate_noise
 ADAPTER_SETTINGS = dict(flex_control_stop_timestep=0.0, controlnet_scale=1.0,
                         controlnet_processor_id=None, ipadapter_scale=1.0,
                         infinityou_guidance=1.0, lora_encoder_scale=1.0)
-QWENVL_PENDING = "waits for HunyuanVideo's token refiner (ROADMAP Queue 1 item 11e)"
 
 
 class FluxTeaCache:
@@ -134,6 +145,11 @@ class FluxImagePipeline:
         self.lora_encoder: Optional[FA.FluxLoRAEncoder] = None
         # Step1x's embedder: callable(captions, ref_images) -> (embs, masks)
         self.qwenvl = None
+        self.step1x_connector: Optional[S1.Step1xConnector] = None
+        # Nexus-Gen: callable(prompt, ref_image=None) -> (embed, ref_embed, grids)
+        self.nexus_gen: Optional[Callable] = None
+        self.nexus_gen_generation_adapter: Optional[NG.NexusGenAdapter] = None
+        self.nexus_gen_editing_adapter: Optional[NG.NexusGenMerger] = None
         self.stage_times: List[Tuple[str, float]] = []
         self.stage_peak_bytes: List[Tuple[str, int]] = []
 
@@ -299,10 +315,10 @@ class FluxImagePipeline:
                 None if single is None else single * scale)
 
     def _branch(self, latents, timestep, prompt_emb, pooled, guidance, kontext, tea_cache,
-                cn=None, ip_kv=None, ip_scale: float = 1.0, attn_bias=None):
+                cn=None, ip_kv=None, ip_scale: float = 1.0, attn_bias=None, text_ids=None):
         kl, ki = kontext if kontext is not None else (None, None)
         x, ctx, temb, cos, sin, n_img = F.flux_embed(
-            self.dit, latents, timestep, prompt_emb, pooled, guidance,
+            self.dit, latents, timestep, prompt_emb, pooled, guidance, text_ids=text_ids,
             kontext_latents=kl, kontext_ids=ki)
         height, width = latents.shape[-2:]
         if tea_cache is not None:
@@ -317,6 +333,26 @@ class FluxImagePipeline:
         if tea_cache is not None:
             tea_cache.store(h - x)
         return F.flux_head(self.dit, h[:, :n_img], temb, height, width)
+
+    @staticmethod
+    def _nexus_gen_editing_text_ids(lat_h: int, lat_w: int, embed_grid, ref_grid):
+        """Per-embedding position grids scaled to the latent resolution; the
+        reference grid's f_id is 1."""
+        def ids(grid, f_id):
+            h, w = int(grid[1]), int(grid[2])
+            out = np.zeros((h // 2, w // 2, 3), np.float64)
+            out[..., 0] = f_id
+            out[..., 1] = np.arange(h // 2)[:, None] * (lat_h / h)
+            out[..., 2] = np.arange(w // 2)[None, :] * (lat_w / w)
+            return out.reshape(-1, 3)
+
+        return np.concatenate([ids(embed_grid, 0), ids(ref_grid, 1)], axis=0)
+
+    def _tensor(self, x):
+        """A host array or a tensor -> a tensor on the device in `dtype`."""
+        if not isinstance(x, torch.Tensor):
+            x = torch.as_tensor(np.asarray(x, np.float32))
+        return x.to(self.device, self.dtype)
 
     def _encode_masks(self, masks, width: int, height: int) -> np.ndarray:
         """EliGen's entity masks -> (1, N, 1, H/8, W/8) {0, 1} float32 (L,
@@ -366,10 +402,6 @@ class FluxImagePipeline:
         progress_bar_cmd=None,
         return_latents: bool = False,
     ):
-        for name, arg in (("nexus_gen_reference_image", nexus_gen_reference_image),
-                          ("step1x_reference_image", step1x_reference_image)):
-            if arg is not None:
-                raise NotImplementedError(f"{name}: {QWENVL_PENDING}")
         self.stage_times = []
         self.stage_peak_bytes = []
         dev, dtype = self.device, self.dtype
@@ -443,6 +475,24 @@ class FluxImagePipeline:
                 self._encode_masks(eligen_entity_masks, width, height), embs[0].shape[1],
                 n_img)).to(dev)
 
+        # Nexus-Gen: the predicted image embedding replaces the prompt tokens
+        text_ids = None
+        if self.nexus_gen is not None:
+            with self._stage("nexus_gen_encode"):
+                if nexus_gen_reference_image is None:
+                    embed, _, _ = self.nexus_gen(prompt)
+                    prompt_emb = NG.nexus_gen_adapter_forward(
+                        self.nexus_gen_generation_adapter, self._tensor(embed)[None])
+                    text_ids = np.zeros((prompt_emb.shape[1], 3), np.float64)
+                else:
+                    embed, ref_embed, grids = self.nexus_gen(prompt, nexus_gen_reference_image)
+                    grids = np.asarray(grids)
+                    prompt_emb = NG.nexus_gen_merger_forward(
+                        self.nexus_gen_editing_adapter, self._tensor(embed)[None], grids[1:2],
+                        self._tensor(ref_embed)[None], grids[0:1])
+                    text_ids = self._nexus_gen_editing_text_ids(height // 8, width // 8,
+                                                                grids[1], grids[0])
+
         guidance = torch.tensor([embedded_guidance], dtype=torch.float32, device=dev)
 
         kontext = None
@@ -479,6 +529,23 @@ class FluxImagePipeline:
                 if cfg_scale != 1.0:
                     ip_nega = FC.flux_ipadapter_kv(self.ipadapter, torch.zeros_like(emb))
 
+        # Step1x: the Qwen2.5-VL embedding of the prompt and the image, through
+        # the connector every step; the image's latent rides the Kontext
+        # tokens with f_id 0
+        step1x = None
+        if step1x_reference_image is not None and self.qwenvl is not None:
+            with self._stage("qwenvl_encode"):
+                embs, masks = self.qwenvl([prompt], [step1x_reference_image])
+            with self._stage("vae_encode_step1x"):
+                ref_z = self.encode_image(self._image(step1x_reference_image, width, height))
+            ref_tok = F.patchify(ref_z)
+            ref_ids = F.prepare_image_ids(0, ref_z.shape[2] // 2, ref_z.shape[3] // 2)
+            kontext = (ref_tok, ref_ids) if kontext is None else (
+                torch.cat([kontext[0], ref_tok], dim=1),
+                np.concatenate([kontext[1], ref_ids], axis=0))
+            step1x = (self._tensor(embs[0:1]),
+                      torch.as_tensor(np.asarray(masks[0:1])).to(dev))
+
         tea_cache = None
         if tea_cache_l1_thresh is not None:
             tea_cache = FluxTeaCache(num_inference_steps, tea_cache_l1_thresh)
@@ -490,6 +557,10 @@ class FluxImagePipeline:
             t_host = float(self.scheduler.timesteps[i])
             timestep = torch.tensor([t_host], dtype=torch.float32, device=dev)
             with self._stage(f"denoise_step_{i}"):
+                if step1x is not None:
+                    prompt_emb, pooled = S1.step1x_connector_forward(
+                        self.step1x_connector, step1x[0], timestep / 1000.0, step1x[1])
+                    text_ids = np.zeros((prompt_emb.shape[1], 3), np.float64)
                 lat_in = latents
                 if flex_condition is not None:
                     flex = (flex_condition if t_host >= flex_control_stop_timestep
@@ -503,7 +574,7 @@ class FluxImagePipeline:
                                               controlnet_processor_id, controlnet_scale)
                 v = self._branch(lat_in, timestep, prompt_emb, pooled, guidance, kontext,
                                  tea_cache, cn=cn, ip_kv=ip_posi, ip_scale=ipadapter_scale,
-                                 attn_bias=attn_bias)
+                                 attn_bias=attn_bias, text_ids=text_ids)
                 if cfg_scale != 1.0:
                     cn_n = None
                     if cn_cond is not None:

@@ -326,8 +326,7 @@ def detect_vace_config(sd: Dict) -> Optional[VaceConfig]:
 # kinds `detect_model_kind` knows that the port cannot build yet, and the
 # ROADMAP Queue 1 item that ports each
 UNPORTED_KINDS = {
-    "hunyuan_video_dit": "11e", "hunyuan_dit": "11e", "omnigen": "11e",
-    "stepvideo_text_encoder": "11e",
+    "hunyuan_dit": "11f", "omnigen": "11f", "stepvideo_text_encoder": "11f",
     "svd_unet": "11f", "svd_unet_exvideo": "11f",
 }
 
@@ -360,7 +359,9 @@ def load_model(path, device=None, dtype: torch.dtype = torch.bfloat16):
     encoder or the LoRA encoder; the SD3 DiT (its config inferred; the
     mmdit layout with or without the `model.diffusion_model.` prefix); the
     Qwen-Image DiT (`models.qwen_image_dit.QWEN_IMAGE`) or a block-wise
-    ControlNet (its block count and widths from the file).
+    ControlNet (its block count and widths from the file); the HunyuanVideo
+    DiT (`models.hunyuan_video_dit.HUNYUAN_VIDEO`, DiffSynth or civitai
+    layout).
     Modules are built on `device` (the card unless "cpu")."""
     from ..device import resolve_device
     from ..models import clip_vit as CV
@@ -417,6 +418,10 @@ def load_model(path, device=None, dtype: torch.dtype = torch.bfloat16):
         from ..models import qwen_image_dit as Q
         return kind, build_module(Q.QwenImageDiT, Q.QWEN_IMAGE,
                                   Q.convert_qwen_image_dit(sd, Q.QWEN_IMAGE), device, dtype)
+    if kind == "hunyuan_video_dit":
+        from ..models import hunyuan_video_dit as H
+        return kind, build_module(H.HunyuanVideoDiT, H.HUNYUAN_VIDEO,
+                                  H.convert_hunyuan_video_dit(sd, H.HUNYUAN_VIDEO), device, dtype)
     if kind == "qwen_image_blockwise_controlnet":
         from ..models import qwen_image_controlnet as QC
         cfg = QC.blockwise_cn_config_for(sd)
@@ -535,6 +540,11 @@ def detect_model_kind(sd: Dict) -> str:
         # a Qwen-Image DiT file: the JAX detector takes its `img_in` for
         # FLUX's BFL layout
         return "qwen_image_dit"
+    if any(k.startswith("txt_in.individual_token_refiner.") or k.startswith("txt_in.blocks.")
+           for k in keys):
+        # a HunyuanVideo DiT, civitai or DiffSynth layout: the JAX detector
+        # takes its `double_blocks.` for FLUX's BFL layout
+        return "hunyuan_video_dit"
     if any(k.startswith("double_blocks.") for k in keys) or \
             "img_in.weight" in sd:
         return "flux_dit"                      # BFL layout

@@ -5,6 +5,11 @@
         --motion_path mm_sd_v15_v2.safetensors --tokenizer_path clip_tokenizer \\
         --num_frames 16 --height 512 --width 512 --output out.mp4
     python -m video_styler_tpu_torch.video_gen --family sd_animatediff --smoke --device cpu
+    python -m video_styler_tpu_torch.video_gen --family hunyuan_video --prompt "a red fox" \\
+        --dit_path hunyuan_video_t2v_720p_bf16.pt --vae_path hunyuan_video_vae_bf16.pt \\
+        --clip_path clip_l.safetensors --clip_tokenizer_path clip_tokenizer \\
+        --llm_path llava_llama3_8b --tokenizer_path llava_llama3_tokenizer
+    python -m video_styler_tpu_torch.video_gen --family hunyuan_video --smoke --device cpu
     python -m video_styler_tpu_torch.video_gen --family wan_t2v --prompt "a red fox" \\
         --dit_path wan_t2v_1.3b.safetensors --vae_path Wan2.1_VAE.pth \\
         --t5_path models_t5_umt5-xxl-enc-bf16.pth --tokenizer_path umt5_tokenizer
@@ -15,10 +20,15 @@ SD 1.5 file, the motion modules of --motion_path (kind `motion_modules`),
 --cfg_scale two-pass CFG over windows of 16 frames, DDIM) and `wan_t2v`
 (`WanVideoPipeline.from_pretrained` on the three files, tiled VAE). SD
 video needs a CLIP tokenizer (--tokenizer_path), as the JAX pipeline does.
---smoke runs sd_animatediff on tiny random models (UNet, motion modules,
-CLIP-L) with the SD VAE and a stand-in tokenizer: 8 frames at 64x64, 2
-steps. hunyuan_video, cog_video, step_video and svd raise
-`NotImplementedError` naming their ROADMAP Queue 1 item. The Ditto edit,
+`hunyuan_video` (`HunyuanVideoPipeline`: the DiT, the VAE decoder, CLIP-L
+and its tokenizer, the LLaMA tower of --llm_path and its tokenizer; 720x1280,
+129 frames, CFG 1 at embedded guidance 6 by default; without one of them
+it raises a RuntimeError naming it). --smoke runs sd_animatediff on tiny
+random models (UNet, motion modules, CLIP-L) with the SD VAE and a
+stand-in tokenizer, 8 frames at 64x64, 2 steps, or hunyuan_video on tiny
+random models (DiT, VAE, CLIP-L, LLaMA) with stand-in tokenizers, 9
+frames. cog_video, step_video and svd raise `NotImplementedError` naming
+their ROADMAP Queue 1 item. The Ditto edit,
 the other Wan recipes, the editor and the enhancer have their own CLIs
 (`infer_ditto`, `wan_video_gen`, `step2_video_editing`, `enhance_video`);
 the Diffutoon runner is `diffutoon`. Runs on the card unless --device cpu.
@@ -26,9 +36,10 @@ the Diffutoon runner is `diffutoon`. Runs on the card unless --device cpu.
 from __future__ import annotations
 
 import argparse
+import os
 
 SMOKE_SIZE = 64
-SMOKE_FRAMES = 8
+SMOKE_FRAMES = {"sd_animatediff": 8, "hunyuan_video": 9}
 SMOKE_STEPS = 2
 
 
@@ -79,6 +90,52 @@ def run_wan_t2v(a):
                 num_inference_steps=a.steps, seed=a.seed, tiled=True)
 
 
+def build_hunyuan_video_smoke_pipeline(device=None, seed: int = 0):
+    """A HunyuanVideo pipeline of tiny random models (weights from `seed`),
+    fp32: `HUNYUAN_VIDEO_TINY`, a 16-channel VAE of width 8, CLIP-L's and
+    a 4-layer LLaMA's tiny widths, with stand-in tokenizers."""
+    import dataclasses
+    import torch
+    from .models.hunyuan_video_dit import HUNYUAN_VIDEO_TINY
+    from .models.hunyuan_video_vae import HUNYUAN_VAE_TINY
+    from .models.llm_decoder import DECODER_LM_TINY
+    from .models.sd3_text_encoder import CLIP_L_TINY
+    from .pipelines.hunyuan_video import HunyuanVideoPipeline, StubLlamaTokenizer
+    from .prompters.flux_prompter import StubClipTokenizer
+    llm = dataclasses.replace(DECODER_LM_TINY, num_layers=4, qkv_bias=False, rope_theta=500000.0)
+    dit = dataclasses.replace(HUNYUAN_VIDEO_TINY, text_dim=llm.hidden, pooled_dim=CLIP_L_TINY.dim)
+    vae = dataclasses.replace(HUNYUAN_VAE_TINY, z_dim=16)
+    return HunyuanVideoPipeline.from_configs(dit, CLIP_L_TINY, llm, vae,
+                                             StubClipTokenizer(CLIP_L_TINY.vocab),
+                                             StubLlamaTokenizer(llm.vocab_size), seed=seed,
+                                             device=device, dtype=torch.float32)
+
+
+def run_hunyuan_video(a):
+    """HunyuanVideo t2v: the DiT, the VAE decoder, CLIP-L and its tokenizer,
+    the LLaMA tower and its tokenizer. The JAX runner loads the DiT alone
+    and its request calls None at the prompt; here a missing file raises
+    first, naming it."""
+    from .pipelines.hunyuan_video import HunyuanVideoPipeline
+    if a.smoke:
+        pipe = build_hunyuan_video_smoke_pipeline(device=a.device, seed=a.seed)
+    else:
+        need = {"--dit_path": a.dit_path, "--vae_path": a.vae_path, "--clip_path": a.clip_path,
+                "--clip_tokenizer_path": a.clip_tokenizer_path, "--llm_path": a.llm_path}
+        missing = [flag for flag, v in need.items() if not v]
+        if missing:
+            raise RuntimeError(f"hunyuan_video needs {', '.join(missing)} (the DiT, the VAE "
+                               "decoder, CLIP-L and its tokenizer, the LLaMA text tower)")
+        pipe = HunyuanVideoPipeline.from_pretrained(
+            dit_path=a.dit_path, vae_decoder_path=a.vae_path, clip_path=a.clip_path,
+            clip_tokenizer_path=a.clip_tokenizer_path, device=a.device)
+        shards = a.llm_path.split("|")
+        pipe.fetch_llm(shards, a.tokenizer_path or os.path.dirname(os.path.abspath(shards[0])))
+    return pipe(prompt=a.prompt, negative_prompt=a.negative_prompt, num_frames=a.num_frames,
+                height=a.height, width=a.width, cfg_scale=a.cfg_scale,
+                num_inference_steps=a.steps, seed=a.seed)
+
+
 def _unported(family: str, item: str):
     def run(a):
         raise NotImplementedError(f"video family {family!r} is not ported yet "
@@ -87,7 +144,7 @@ def _unported(family: str, item: str):
 
 
 RUNNERS = {"sd_animatediff": run_sd_animatediff, "wan_t2v": run_wan_t2v,
-           "hunyuan_video": _unported("hunyuan_video", "11e"),
+           "hunyuan_video": run_hunyuan_video,
            "cog_video": _unported("cog_video", "11f"),
            "step_video": _unported("step_video", "11f"), "svd": _unported("svd", "11f")}
 
@@ -101,8 +158,14 @@ def parse_args(argv=None):
     p.add_argument("--vae_path")
     p.add_argument("--t5_path")
     p.add_argument("--motion_path")
-    p.add_argument("--tokenizer_path")
-    p.add_argument("--cfg_scale", type=float, default=5.0)
+    p.add_argument("--clip_path", help="hunyuan_video: CLIP-L")
+    p.add_argument("--llm_path", help="hunyuan_video: the LLaMA text tower (a file, or "
+                                      "shards separated by '|')")
+    p.add_argument("--tokenizer_path", help="the CLIP tokenizer (sd_animatediff), umT5's "
+                                            "(wan_t2v), LLaMA's (hunyuan_video; default: the "
+                                            "folder of --llm_path)")
+    p.add_argument("--clip_tokenizer_path", help="hunyuan_video: the CLIP tokenizer")
+    p.add_argument("--cfg_scale", type=float)
     p.add_argument("--steps", type=int)
     p.add_argument("--num_frames", type=int)
     p.add_argument("--height", type=int)
@@ -111,17 +174,22 @@ def parse_args(argv=None):
     p.add_argument("--output", default="out.mp4")
     p.add_argument("--fps", type=int, default=15)
     p.add_argument("--smoke", action="store_true",
-                   help="sd_animatediff on tiny random models: 8 frames at 64x64, 2 steps")
+                   help="sd_animatediff or hunyuan_video on tiny random models: 8 (9) "
+                        "frames at 64x64, 2 steps")
     p.add_argument("--device", default=None, help="cuda (default) or cpu")
     a = p.parse_args(argv)
     if not a.smoke and not a.dit_path:
         p.error("--dit_path is required (or use --smoke)")
-    if a.smoke and a.family != "sd_animatediff":
-        p.error("--smoke runs the sd_animatediff family")
+    if a.smoke and a.family not in SMOKE_FRAMES:
+        p.error(f"--smoke runs the {' and '.join(SMOKE_FRAMES)} families")
+    hunyuan = a.family == "hunyuan_video"
     a.steps = a.steps or (SMOKE_STEPS if a.smoke else 30)
-    a.num_frames = a.num_frames or (SMOKE_FRAMES if a.smoke else 81)
-    a.height = a.height or (SMOKE_SIZE if a.smoke else 480)
-    a.width = a.width or (SMOKE_SIZE if a.smoke else 832)
+    a.num_frames = a.num_frames or (SMOKE_FRAMES[a.family] if a.smoke else
+                                    129 if hunyuan else 81)
+    a.height = a.height or (SMOKE_SIZE if a.smoke else 720 if hunyuan else 480)
+    a.width = a.width or (SMOKE_SIZE if a.smoke else 1280 if hunyuan else 832)
+    # HunyuanVideo's default is CFG 1 (embedded guidance 6)
+    a.cfg_scale = a.cfg_scale if a.cfg_scale is not None else 1.0 if hunyuan else 5.0
     return a
 
 
