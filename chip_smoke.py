@@ -349,6 +349,33 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
              times (llm_encode, clip_encode, each step, vae_decode), peak,
              K1 launches against 120 a step; one step profiled by category
              (`hunyuan_profile`)
+  step_video_kernels  (with the kernel rows) K1 at the StepVideo DiT's
+             self-attention, 48 heads of 128: 544x992x17 (6,324 tokens),
+             then the published 204 frames (75,888: 2 heads held against
+             the plain version on every row, all 48 timed)
+  step_video_reference  a small StepVideo (heads of 128, 2 blocks, a
+             2-layer Step-1 LLM and BERT) on the card (K1) against the CPU:
+             64x64x17, 2 steps at CFG 1 and 9; latents within 5%, K1
+             launches against one a block, pass and step
+  step_video on a free card: the Step-1 LLM (48 layers of 6144) and the
+             CLIP-BERT encode and go, then the 30 B DiT (48 blocks of 6144)
+             at 544x992x17, CFG 9 two-pass, --steps steps, then goes before
+             the fp32 VAE decode: stage times, peaks, K1 launches against
+             96 a step; one DiT forward profiled (`step_video_profile`)
+  cog_video_reference, hunyuan_image_reference, svd_reference,
+  omnigen_reference  each family's tiny pipeline on the card against the
+             CPU (bf16): latents within 5%, K1 never launched (the exact
+             `sdpa`, as in JAX)
+  cog_video  CogVideoX-5B (42 blocks of 3072, 48 heads of 64), T5
+             v1.1-XXL and the VAE: 480x720x13 (5,626 tokens), CFG 7, --steps
+             steps, the chunked decode; one DiT forward profiled
+  hunyuan_image  HunyuanDiT (1.5 B), the CLIP-BERT, mT5-XL and the SDXL
+             VAE: 1024x1024, CFG 7.5, --steps steps and the decode
+  svd        SVD's 1.5 B UNet, CLIP-H and the temporal VAE: 576x1024x14,
+             the CFG ramp, --steps steps and the decode
+  omnigen    OmniGen (Phi-3, 32 layers of 3072) and the SDXL VAE:
+             1024x1024, text CFG 2, --steps steps and the decode (each of
+             the last four with one forward profiled, `<family>_profile`)
   usp_kernels  (with the kernel rows) one rank's work of the multi-GPU path
              at Wan2.1-14B width over the Ditto clip's 29,640 tokens, in
              this process: K1 on a Ulysses share (20 and 10 heads over the
@@ -5344,6 +5371,559 @@ def run_step1x_nexus(torch, kernels, steps: int, vl=None) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# The last families: StepVideo (K1), CogVideoX, HunyuanDiT, SVD, OmniGen
+# ---------------------------------------------------------------------------
+
+STEP_HEADS = 48              # StepVideo: 48 heads of 128
+STEP_SIZE = (544, 992)       # the pipeline's default
+STEP_FRAMES = 17             # 3 latent frames: 3 x 34 x 62 = 6,324 tokens
+STEP_RECIPE_FRAMES = 204     # the published clip: 36 latent frames, 75,888 tokens
+STEP_CFG = 9.0
+STEP_CHECK_HEADS = 2         # K1 at the published length: 2 heads held against plain
+STEP_PROMPT = "a red fox running through deep snow at dawn, cinematic lighting"
+STEP_NEGATIVE = "blurry, low quality"
+COG_SIZE = (480, 720)
+COG_FRAMES = 13              # 4 latent frames: 5,400 video + 226 text tokens
+COG_CFG = 7.0
+HUNYUAN_IMAGE_CFG = 7.5
+SVD_SIZE = (576, 1024)
+SVD_FRAMES = 14
+OMNIGEN_CFG = 2.0
+FAMILY_SIZE = 1024           # hunyuan_image and omnigen: 1024 x 1024
+FAMILY_REF_STEPS = 2
+FAMILY_PHASES = ("step_video", "cog_video", "hunyuan_image", "svd", "omnigen")
+
+
+def step_video_tokens(frames: int) -> int:
+    h, w = STEP_SIZE
+    return max(frames // 17 * 3, 1) * (h // 16) * (w // 16)
+
+
+def check_step_video_kernels(torch):
+    """`step_video_kernels`: K1 at the StepVideo DiT's self-attention, 48
+    heads of 128, over this run's 544x992x17 tokens (6,324) held against
+    the plain version (two bf16 ULPs), then the published 204 frames
+    (75,888: 2 heads held on every row, all 48 timed)."""
+    rows = check_kernels(torch, (1, 1, step_video_tokens(STEP_FRAMES)),
+                         f"step_video-{STEP_FRAMES}f", heads=STEP_HEADS, cross_lens=(),
+                         norms=False)
+    torch.cuda.empty_cache()
+    rows += check_long_k1(torch, step_video_tokens(STEP_RECIPE_FRAMES), STEP_HEADS,
+                          STEP_CHECK_HEADS, f"step_video-{STEP_RECIPE_FRAMES}f")
+    torch.cuda.empty_cache()
+    return rows
+
+
+def to_card(pipe, *attrs):
+    """A copy of `pipe` on the card holding copies of its `attrs` models."""
+    import torch
+    gpu = copy.copy(pipe)
+    gpu.device = torch.device("cuda")
+    for name in attrs:
+        m = getattr(pipe, name)
+        setattr(gpu, name, None if m is None else copy.deepcopy(m).to("cuda"))
+    return gpu
+
+
+def card_vs_cpu(torch, kernels, phase: str, cpu, gpu, requests: dict, k1_per_request=None,
+                **extra):
+    """Each request's latents on the CPU pipeline and its card copy within
+    5% relative L2; every kernel's launches in each card run against
+    k1_per_request(name) for K1 (0 where the family takes the exact
+    `sdpa`, as in JAX)."""
+    res = dict(phase=phase, latents_rel_l2={}, latents_tol=5e-2, launches={}, **extra)
+    launches = {}
+    for name, kw in requests.items():
+        lat_c = cpu(**kw, return_latents=True).float()
+        lat_g, _, launches[name], _ = run_counted(torch, kernels,
+                                                  lambda: gpu(**kw, return_latents=True))
+        if not lat_g.is_cuda:
+            raise AssertionError(f"{phase} {name}: the card copy ran off the card")
+        lat_g = lat_g.float().cpu()
+        res["latents_rel_l2"][name] = ((lat_g - lat_c).norm() / lat_c.norm()).item()
+        res["launches"][name] = {k: v for k, v in launches[name].items() if v}
+        res["latents_shape"] = list(lat_g.shape)
+    emit({**res, **CARD})
+    if not all(v <= 5e-2 for v in res["latents_rel_l2"].values()):
+        raise AssertionError(f"{phase}: card vs CPU disagree: {res}")
+    for name, count in launches.items():
+        expected = {"K1": k1_per_request(name)} if k1_per_request else {}
+        check_launches(count, expected, f"{phase} {name}")
+
+
+def step_video_reference_configs():
+    """A small StepVideo with heads of 128 (2 heads, 2 blocks, the
+    release's RoPE split), a 2-layer Step-1 LLM of 256, a 2-layer BERT of
+    64, the VAE at its release widths (one resnet a level)."""
+    import dataclasses
+    from video_styler_tpu_torch.models.hunyuan_image_dit import HunyuanBertConfig
+    from video_styler_tpu_torch.models.stepvideo_dit import STEP_VIDEO
+    from video_styler_tpu_torch.models.stepvideo_llm import Step1LLMConfig
+    from video_styler_tpu_torch.models.stepvideo_vae import STEP_VAE_TINY
+    llm = Step1LLMConfig(hidden_size=256, num_heads=2, num_groups=1, ffn_hidden=512,
+                         num_layers=2, vocab_size=2048)
+    bert = HunyuanBertConfig(vocab=2048, dim=64, num_layers=2, num_heads=2, ffn_dim=128,
+                             max_positions=80)
+    dit = dataclasses.replace(STEP_VIDEO, num_heads=2, num_layers=2, caption_dim=llm.hidden_size,
+                              clip_dim=bert.dim)
+    vae = dataclasses.replace(STEP_VAE_TINY, z_channels=dit.in_channels)
+    return dit, llm, bert, vae
+
+
+def step_video_towers(torch, llm_cfg, bert_cfg, device: str, seed: int, dtype):
+    """The Step-1 LLM and the bilingual CLIP-BERT, random from a seed."""
+    from video_styler_tpu_torch.models import hunyuan_image_dit as H
+    from video_styler_tpu_torch.models import stepvideo_llm as L
+    gen = torch.Generator(device).manual_seed(seed)
+    with torch.device("meta"):
+        llm = L.Step1LLM(llm_cfg, dtype=dtype)
+        bert = H.HunyuanBert(bert_cfg, dtype=dtype)
+    return (L.init_step1_llm_(llm.to_empty(device=device), gen).eval(),
+            H.init_hunyuan_image_dit_(bert.to_empty(device=device), gen).eval())
+
+
+def check_step_video_reference(torch, kernels):
+    """`step_video_reference`: the small StepVideo of
+    `step_video_reference_configs` on the card (K1, heads of 128) against
+    the same weights on the CPU (plain versions), bf16: 64x64, 17 frames
+    (48 tokens), 2 steps at CFG 1 and 9; latents within 5%; K1 launches
+    against one a block, pass and step."""
+    from video_styler_tpu_torch.models.stepvideo_llm import stub_stepchat_tokenize
+    from video_styler_tpu_torch.pipelines.hunyuan_image import StubBertTokenizer
+    from video_styler_tpu_torch.pipelines.step_video import StepVideoPipeline
+    dit, llm_cfg, bert_cfg, vae = step_video_reference_configs()
+    cpu = StepVideoPipeline.from_configs(dit, vae, seed=0, device="cpu", dtype=torch.bfloat16,
+                                         vae=False)
+    llm, bert = step_video_towers(torch, llm_cfg, bert_cfg, "cpu", 1, torch.bfloat16)
+    tok, tokenize = StubBertTokenizer(bert_cfg.vocab), stub_stepchat_tokenize(llm_cfg.vocab_size)
+    cpu.fetch_text_encoders(bert, tok, llm, tokenize)
+    gpu = to_card(cpu, "dit")
+    gpu.fetch_text_encoders(copy.deepcopy(bert).to("cuda"), tok, copy.deepcopy(llm).to("cuda"),
+                            tokenize)
+    base = dict(prompt=STEP_PROMPT, negative_prompt=STEP_NEGATIVE, height=64, width=64,
+                num_frames=17, seed=42, num_inference_steps=FAMILY_REF_STEPS)
+    requests = {"cfg 1": dict(base, cfg_scale=1.0), "cfg 9": dict(base, cfg_scale=STEP_CFG)}
+    card_vs_cpu(torch, kernels, "step_video_reference", cpu, gpu, requests,
+                lambda name: dit.num_layers * (2 if name == "cfg 9" else 1) * FAMILY_REF_STEPS,
+                dit_dim=dit.dim, dit_heads=dit.num_heads, tokens=3 * 4 * 4)
+
+
+def family_result(phase: str, pipe, seconds: float, launches: dict, peak: float,
+                  expected: dict, **extra) -> dict:
+    res = dict(phase=phase, total_s=seconds, stages={k: v for k, v in pipe.stage_times
+                                                     if not k.startswith("denoise_step_")},
+               step_s=step_times(pipe), max_memory_allocated_gib=peak,
+               stage_peak_gib={k: v / 2**30 for k, v in pipe.stage_peak_bytes},
+               launches={k: v for k, v in launches.items() if v},
+               expected_launches=expected, script_s=time.perf_counter() - START,
+               **extra, **CARD)
+    emit(res)
+    check_launches(launches, expected, phase)
+    return res
+
+
+def free_card(torch):
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def run_step_video(torch, kernels, steps: int) -> dict:
+    """`step_video`: StepVideo at full width and depth on a free card,
+    random bf16 weights from a seed: the Step-1 LLM (48 layers of 6144) and
+    the CLIP-BERT encode the prompt and the negative prompt, and go; the
+    30 B DiT (48 blocks of 6144, 48 heads of 128) runs 544x992x17 (6,324
+    tokens) at CFG 9 two-pass for --steps steps and goes; then the fp32
+    VAE decodes the latents. Stage times, peaks, K1 launches against 48 a
+    pass (192 at 2 steps); one DiT forward profiled by category
+    (`step_video_profile`)."""
+    from video_styler_tpu_torch.models import hunyuan_image_dit as H
+    from video_styler_tpu_torch.models import stepvideo_llm as L
+    from video_styler_tpu_torch.models import stepvideo_vae as V
+    from video_styler_tpu_torch.models.stepvideo_dit import STEP_VIDEO, step_video_dit_forward
+    from video_styler_tpu_torch.pipelines.hunyuan_image import StubBertTokenizer
+    from video_styler_tpu_torch.pipelines.step_video import StepVideoPipeline
+    from video_styler_tpu_torch.pipelines.wan_video import generate_noise
+    free_card(torch)
+    h, w = STEP_SIZE
+    pipe = StepVideoPipeline.from_configs(STEP_VIDEO, V.STEP_VAE, seed=0, device="cuda",
+                                          dit=False)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    llm, bert = step_video_towers(torch, L.STEP1_LLM, H.HUNYUAN_BERT, "cuda", 1, torch.bfloat16)
+    torch.cuda.synchronize()
+    towers = dict(build_s=time.perf_counter() - t0, llm_gib=gib([llm]), bert_gib=gib([bert]),
+                  llm_params=sum(p.numel() for p in llm.parameters()))
+    pipe.fetch_text_encoders(bert, StubBertTokenizer(H.HUNYUAN_BERT.vocab), llm,
+                             L.stub_stepchat_tokenize(L.STEP1_LLM.vocab_size))
+    t0 = time.perf_counter()
+    cond = {p: pipe.text_encoder(p) for p in (STEP_PROMPT, STEP_NEGATIVE)}
+    torch.cuda.synchronize()
+    towers.update(encode_s=time.perf_counter() - t0,
+                  encode_stages={k: v for k, v in pipe.stage_times},
+                  peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    # the LLM goes before the DiT comes: both do not fit in 80 GB
+    del llm, bert
+    pipe.llm = pipe.clip = None
+    pipe.text_encoder = cond.__getitem__
+    free_card(torch)
+    t0 = time.perf_counter()
+    pipe.build_dit(2)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    cfg = pipe.dit_cfg
+    try:
+        request = dict(prompt=STEP_PROMPT, negative_prompt=STEP_NEGATIVE, cfg_scale=STEP_CFG,
+                       height=h, width=w, num_frames=STEP_FRAMES, num_inference_steps=steps,
+                       seed=42, return_latents=True)
+        latents, seconds, launches, peak = run_counted(torch, kernels, lambda: pipe(**request))
+        expected = {"K1": cfg.num_layers * 2 * steps}
+        step_stages = list(pipe.stage_times)
+        lat = generate_noise(tuple(latents.shape), seed=42).to("cuda", torch.bfloat16)
+        t = torch.tensor([float(pipe.scheduler.timesteps[0])], device="cuda")
+        with torch.no_grad():
+            prof = profile_request(torch, lambda: step_video_dit_forward(
+                pipe.dit, lat, t, *cond[STEP_PROMPT]), min(step_times(pipe)) / 2,
+                categories=FLUX_CATEGORIES)
+        dit_gib = gib([pipe.dit])
+        pipe.dit = None
+        free_card(torch)
+        torch.cuda.reset_peak_memory_stats()
+        video, decode_s, _, decode_peak = run_counted(torch, kernels,
+                                                      lambda: pipe.decode_video(latents))
+        pipe.stage_times = step_stages + [("vae_decode", decode_s)]
+        family_result("step_video", pipe, seconds + decode_s, launches, peak, expected,
+                      model="StepVideo (Step-Video-T2V)", dit_dim=cfg.dim, dit_heads=cfg.num_heads,
+                      dit_layers=cfg.num_layers, dit_gib=dit_gib, dit_build_s=build_s,
+                      towers=towers, vae_gib=gib([pipe.vae]), size=[h, w], frames=STEP_FRAMES,
+                      tokens=step_video_tokens(STEP_FRAMES), steps=steps, cfg=STEP_CFG,
+                      decode_peak_gib=decode_peak, video_shape=list(video.shape),
+                      k1_launches_per_30_step_request=cfg.num_layers * 2 * 30)
+        emit({"phase": "step_video_profile", "forwards": 1, **prof, **CARD})
+        if list(video.shape) != [STEP_FRAMES, h, w, 3]:
+            raise AssertionError(f"step_video: video {video.shape}")
+        return launches
+    finally:
+        del pipe
+        free_card(torch)
+
+
+def check_cog_video_reference(torch, kernels):
+    """`cog_video_reference`: COG_DIT_TINY (heads of 48: the exact `sdpa`,
+    as in JAX) and a tiny T5 v1.1 on the card against the CPU, bf16: 32x32,
+    9 frames, 2 steps at CFG 1 and 7; latents within 5%; K1 never
+    launched."""
+    from video_styler_tpu_torch.models.cog_video import COG_DIT_TINY
+    from video_styler_tpu_torch.models.t5 import T5_V11_TINY, T5Encoder, init_t5_
+    from video_styler_tpu_torch.pipelines.cog_video import CogVideoPipeline
+    from video_styler_tpu_torch.prompters.flux_prompter import StubT5Tokenizer
+    cpu = CogVideoPipeline.from_configs(COG_DIT_TINY, seed=0, device="cpu", dtype=torch.bfloat16,
+                                        vae=False)
+    with torch.device("meta"):
+        t5 = T5Encoder(T5_V11_TINY, dtype=torch.bfloat16)
+    t5 = init_t5_(t5.to_empty(device="cpu"), torch.Generator().manual_seed(1)).eval()
+    tok = StubT5Tokenizer(T5_V11_TINY.vocab)
+    cpu.fetch_text_encoder(t5, tok)
+    gpu = to_card(cpu, "dit")
+    gpu.fetch_text_encoder(copy.deepcopy(t5).to("cuda"), tok)
+    base = dict(prompt=STEP_PROMPT, negative_prompt=STEP_NEGATIVE, height=32, width=32,
+                num_frames=9, seed=42, num_inference_steps=FAMILY_REF_STEPS)
+    card_vs_cpu(torch, kernels, "cog_video_reference", cpu, gpu,
+                {"cfg 1": dict(base, cfg_scale=1.0), "cfg 7": dict(base, cfg_scale=COG_CFG)})
+
+
+def run_cog_video(torch, kernels, steps: int) -> dict:
+    """`cog_video`: CogVideoX-5B at full width and depth on a free card (the
+    5.6 B DiT: 42 blocks of 3072, 48 heads of 64; T5 v1.1-XXL; the fp32
+    VAE; random weights from a seed, bf16): 480x720x13 (5,400 video + 226
+    text tokens, 48 x 5,626^2 fp32 logits a call) at CFG 7 two-pass for
+    --steps steps, then the chunked decode; K1 never launched (the exact
+    `sdpa`, as in JAX); one DiT forward profiled (`cog_video_profile`)."""
+    from video_styler_tpu_torch.models.cog_video import COG_VIDEO_X, cog_dit_forward
+    from video_styler_tpu_torch.models.t5 import T5_V11_XXL, T5Encoder, init_t5_
+    from video_styler_tpu_torch.pipelines.cog_video import CogVideoPipeline
+    from video_styler_tpu_torch.pipelines.wan_video import generate_noise
+    from video_styler_tpu_torch.prompters.flux_prompter import StubT5Tokenizer
+    free_card(torch)
+    h, w = COG_SIZE
+    t0 = time.perf_counter()
+    pipe = CogVideoPipeline.from_configs(COG_VIDEO_X, seed=0, device="cuda")
+    t5 = random_module(torch, T5Encoder, T5_V11_XXL, init_t5_, 1, torch.bfloat16)
+    pipe.fetch_text_encoder(t5, StubT5Tokenizer(T5_V11_XXL.vocab))
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    cfg = pipe.dit_cfg
+    try:
+        request = dict(prompt=STEP_PROMPT, negative_prompt=STEP_NEGATIVE, cfg_scale=COG_CFG,
+                       height=h, width=w, num_frames=COG_FRAMES, num_inference_steps=steps,
+                       seed=42, return_latents=True)
+        latents, seconds, launches, peak = run_counted(torch, kernels, lambda: pipe(**request))
+        step_stages = list(pipe.stage_times)
+        ctx = pipe.text_encoder(STEP_PROMPT)
+        lat = generate_noise(tuple(latents.shape), seed=42).to("cuda", torch.bfloat16)
+        t = torch.tensor([float(pipe.scheduler.timesteps[0])], device="cuda")
+        with torch.no_grad():
+            prof = profile_request(torch, lambda: cog_dit_forward(pipe.dit, lat, t, ctx),
+                                   min(step_times(pipe)) / 2, categories=FLUX_CATEGORIES)
+        video, decode_s, _, decode_peak = run_counted(torch, kernels,
+                                                      lambda: pipe.decode_video(latents))
+        pipe.stage_times = step_stages + [("vae_decode", decode_s)]
+        tokens = latents.shape[2] * (h // 16) * (w // 16)
+        family_result("cog_video", pipe, seconds + decode_s, launches, peak, {},
+                      model="CogVideoX-5B", dit_dim=cfg.dim, dit_heads=cfg.num_heads,
+                      dit_layers=cfg.num_layers, weights_gib={"dit": gib([pipe.dit]),
+                                                              "t5": gib([t5]),
+                                                              "vae": gib([pipe.vae_decoder])},
+                      build_s=build_s, size=[h, w], frames=COG_FRAMES, video_tokens=tokens,
+                      text_tokens=226, steps=steps, cfg=COG_CFG, decode_peak_gib=decode_peak,
+                      logits_gib_per_call=cfg.num_heads * (tokens + 226) ** 2 * 4 / 2**30,
+                      video_shape=list(video.shape))
+        emit({"phase": "cog_video_profile", "forwards": 1, **prof, **CARD})
+        return launches
+    finally:
+        del pipe, t5
+        free_card(torch)
+
+
+def hunyuan_image_tiny(torch, device: str, dtype, vae: bool = True):
+    """HunyuanDiT's smoke models (the tiny DiT, BERT and mT5, the SDXL VAE),
+    random from a seed."""
+    from video_styler_tpu_torch.image_gen import MT5_SMOKE
+    from video_styler_tpu_torch.models.hunyuan_image_dit import (HUNYUAN_BERT_TINY,
+                                                                 HUNYUAN_DIT_TINY)
+    from video_styler_tpu_torch.models.t5 import T5Config
+    from video_styler_tpu_torch.pipelines.hunyuan_image import (HunyuanImagePipeline,
+                                                                StubBertTokenizer,
+                                                                StubMT5Tokenizer)
+    t5 = T5Config(**MT5_SMOKE)
+    return HunyuanImagePipeline.from_configs(
+        HUNYUAN_DIT_TINY, HUNYUAN_BERT_TINY, t5, StubBertTokenizer(HUNYUAN_BERT_TINY.vocab),
+        StubMT5Tokenizer(t5.vocab), seed=0, device=device, dtype=dtype, vae=vae)
+
+
+def check_hunyuan_image_reference(torch, kernels):
+    """`hunyuan_image_reference`: the tiny HunyuanDiT (heads of 16, the
+    exact `sdpa`) with its BERT and mT5 on the card against the CPU, bf16:
+    64x64, 2 steps at CFG 1 and 7.5; latents within 5%; K1 never launched."""
+    cpu = hunyuan_image_tiny(torch, "cpu", torch.bfloat16, vae=False)
+    gpu = to_card(cpu, "dit", "bert", "t5")
+    base = dict(prompt=STEP_PROMPT, negative_prompt=STEP_NEGATIVE, height=64, width=64,
+                seed=42, num_inference_steps=FAMILY_REF_STEPS)
+    card_vs_cpu(torch, kernels, "hunyuan_image_reference", cpu, gpu,
+                {"cfg 1": dict(base, cfg_scale=1.0),
+                 "cfg 7.5": dict(base, cfg_scale=HUNYUAN_IMAGE_CFG)})
+
+
+def run_hunyuan_image(torch, kernels, steps: int) -> dict:
+    """`hunyuan_image`: HunyuanDiT at full width and depth (1.5 B: 40 blocks
+    of 1408, 16 heads of 88), the CLIP-BERT (24 x 1024), mT5-XL and the
+    SDXL VAE, random weights from a seed, bf16 (the VAE fp32): 1024x1024
+    (4,096 image tokens) at CFG 7.5 two-pass for --steps steps and the
+    decode; K1 never launched; one DiT forward profiled."""
+    from video_styler_tpu_torch.models import hunyuan_image_dit as H
+    from video_styler_tpu_torch.models.t5 import MT5_XL
+    from video_styler_tpu_torch.pipelines.hunyuan_image import (HunyuanImagePipeline,
+                                                                StubBertTokenizer,
+                                                                StubMT5Tokenizer)
+    from video_styler_tpu_torch.pipelines.wan_video import generate_noise
+    free_card(torch)
+    t0 = time.perf_counter()
+    pipe = HunyuanImagePipeline.from_configs(
+        H.HUNYUAN_DIT, H.HUNYUAN_BERT, MT5_XL, StubBertTokenizer(H.HUNYUAN_BERT.vocab),
+        StubMT5Tokenizer(MT5_XL.vocab), seed=0, device="cuda")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    cfg = pipe.dit_cfg
+    try:
+        request = dict(prompt=STEP_PROMPT, negative_prompt=STEP_NEGATIVE,
+                       cfg_scale=HUNYUAN_IMAGE_CFG, height=FAMILY_SIZE, width=FAMILY_SIZE,
+                       num_inference_steps=steps, seed=42)
+        image, seconds, launches, peak = run_counted(torch, kernels, lambda: pipe(**request))
+        res = family_result("hunyuan_image", pipe, seconds, launches, peak, {},
+                            model="HunyuanDiT", dit_dim=cfg.hidden_dim,
+                            dit_heads=cfg.num_heads,
+                            dit_blocks=cfg.num_layers_down + cfg.num_layers_up,
+                            weights_gib={"dit": gib([pipe.dit]), "bert": gib([pipe.bert]),
+                                         "mt5": gib([pipe.t5]),
+                                         "vae": gib([pipe.vae_encoder, pipe.vae_decoder])},
+                            build_s=build_s, size=FAMILY_SIZE,
+                            image_tokens=(FAMILY_SIZE // 16) ** 2, steps=steps,
+                            cfg=HUNYUAN_IMAGE_CFG, image_size=list(image.size))
+        cond = pipe.encode_prompt(STEP_PROMPT)
+        lat = generate_noise((1, 4, FAMILY_SIZE // 8, FAMILY_SIZE // 8), seed=42).to(
+            "cuda", torch.bfloat16)
+        t = torch.tensor([999.0], device="cuda")
+        size = torch.tensor([[FAMILY_SIZE, FAMILY_SIZE, FAMILY_SIZE, FAMILY_SIZE, 0, 0]],
+                            dtype=torch.float32, device="cuda")
+        cos, sin = H._rope_on(cfg, FAMILY_SIZE // 8, FAMILY_SIZE // 8, torch.device("cuda"))
+        with torch.no_grad():
+            prof = profile_request(torch, lambda: pipe._forward(lat, t, cond, size, cos, sin),
+                                   min(res["step_s"]) / 2, categories=FLUX_CATEGORIES)
+        emit({"phase": "hunyuan_image_profile", "forwards": 1, **prof, **CARD})
+        return launches
+    finally:
+        del pipe
+        free_card(torch)
+
+
+def svd_tiny(torch, device: str, dtype):
+    from video_styler_tpu_torch.models import svd as S
+    from video_styler_tpu_torch.pipelines.svd_video import SVDVideoPipeline
+    return SVDVideoPipeline.from_configs(S.SVD_UNET_TINY, S.SVD_IMAGE_ENCODER_TINY_224, seed=0,
+                                         device=device, dtype=dtype)
+
+
+def check_svd_reference(torch, kernels):
+    """`svd_reference`: SVD_UNET_TINY (160 wide), a tiny CLIP-H tower and
+    the SD VAE encoder on the card against the CPU, the UNet bf16: 3 frames
+    of 64x64, 2 steps, the CFG ramp 1 to 3; latents within 5%; K1 never
+    launched."""
+    cpu = svd_tiny(torch, "cpu", torch.bfloat16)
+    gpu = to_card(cpu, "unet", "image_encoder", "vae_encoder")
+    image = synthetic_clip(1, 64, 64)[0]
+    card_vs_cpu(torch, kernels, "svd_reference", cpu, gpu,
+                {"i2v": dict(input_image=image, num_frames=3, height=64, width=64, seed=42,
+                             num_inference_steps=FAMILY_REF_STEPS)})
+
+
+def run_svd(torch, kernels, steps: int) -> dict:
+    """`svd`: Stable Video Diffusion at full width (the 1.5 B UNet, bf16;
+    the CLIP-H image tower; the SD VAE encoder and the temporal decoder,
+    fp32), random weights from a seed: 576x1024, 14 frames, --steps steps
+    of the two-pass CFG ramp, then the decode; the spatial attention's fp32
+    logits (5 heads x 9,216^2 a frame) run 2 frames at a time; K1 never
+    launched; one step's two UNet passes profiled."""
+    from video_styler_tpu_torch.models import svd as S
+    from video_styler_tpu_torch.pipelines.svd_video import SVDVideoPipeline
+    free_card(torch)
+    h, w = SVD_SIZE
+    t0 = time.perf_counter()
+    pipe = SVDVideoPipeline.from_configs(S.SVD_UNET, S.SVD_IMAGE_ENCODER, seed=0, device="cuda",
+                                         dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    image = synthetic_clip(1, h, w)[0]
+    try:
+        request = dict(input_image=image, num_frames=SVD_FRAMES, height=h, width=w, seed=42,
+                       num_inference_steps=steps)
+        frames, seconds, launches, peak = run_counted(torch, kernels, lambda: pipe(**request))
+        res = family_result("svd", pipe, seconds, launches, peak, {}, model="SVD (img2vid)",
+                            weights_gib={"unet": gib([pipe.unet]),
+                                         "image_encoder": gib([pipe.image_encoder]),
+                                         "vae": gib([pipe.vae_encoder, pipe.vae_decoder])},
+                            unet_params=sum(p.numel() for p in pipe.unet.parameters()),
+                            build_s=build_s, size=[h, w], frames=SVD_FRAMES, steps=steps,
+                            video_frames=len(frames), frame_size=list(frames[0].size),
+                            spatial_logits_gib_per_pass=SVD_FRAMES * 5 * (h * w // 64) ** 2 * 4
+                            / 2**30)
+        x = torch.randn((SVD_FRAMES, 8, h // 8, w // 8), generator=torch.Generator(
+            "cuda").manual_seed(3), device="cuda").to(torch.bfloat16)
+        emb = torch.zeros((1, 1, 1024), device="cuda", dtype=torch.bfloat16)
+        ids = [6, 127, 0.02]
+        with torch.no_grad():
+            prof = profile_request(torch, lambda: [S.svd_unet_forward(pipe.unet, x, 1.0, emb, ids)
+                                                   for _ in range(2)], min(res["step_s"]),
+                                   categories=FLUX_CATEGORIES)
+        emit({"phase": "svd_profile", "forwards": 2, **prof, **CARD})
+        if len(frames) != SVD_FRAMES or frames[0].size != (w, h):
+            raise AssertionError(f"svd: {len(frames)} frames of {frames[0].size}")
+        return launches
+    finally:
+        del pipe
+        free_card(torch)
+
+
+def omnigen_tiny(torch, device: str, dtype):
+    from video_styler_tpu_torch.models.omnigen import OMNIGEN_TINY
+    from video_styler_tpu_torch.pipelines.omnigen_image import OmnigenImagePipeline
+    from video_styler_tpu_torch.prompters.omnigen_prompter import StubPhi3Tokenizer
+    return OmnigenImagePipeline.from_configs(OMNIGEN_TINY, StubPhi3Tokenizer(
+        OMNIGEN_TINY.vocab_size), seed=0, device=device, dtype=dtype, su_factor=None)
+
+
+def check_omnigen_reference(torch, kernels):
+    """`omnigen_reference`: OMNIGEN_TINY (heads of 8, the exact `sdpa`) on
+    the card against the CPU, bf16: 32x32, 2 steps of text CFG 2, and with
+    a reference image (image CFG: 3 branches); latents within 5%; K1 never
+    launched."""
+    from PIL import Image
+    cpu = omnigen_tiny(torch, "cpu", torch.bfloat16)
+    gpu = to_card(cpu, "transformer", "vae_encoder")
+    base = dict(height=32, width=32, seed=42, num_inference_steps=FAMILY_REF_STEPS)
+    ref = Image.fromarray(synthetic_clip(1, 32, 32)[0])
+    card_vs_cpu(torch, kernels, "omnigen_reference", cpu, gpu,
+                {"text cfg": dict(base, prompt=STEP_PROMPT),
+                 "image cfg": dict(base, prompt="the picture <img><|image_1|></img> at dusk",
+                                   reference_images=[ref])})
+
+
+def run_omnigen(torch, kernels, steps: int) -> dict:
+    """`omnigen`: OmniGen at full width (Phi-3: 32 layers of 3072, 32 heads
+    of 96, Phi-3's su factors) and the SDXL VAE, random weights from a
+    seed, bf16 (the VAE fp32): 1024x1024 (4,096 image tokens after the
+    prompt) at text CFG 2 for --steps steps and the decode; K1 never
+    launched; one transformer forward profiled."""
+    from video_styler_tpu_torch.models import omnigen as O
+    from video_styler_tpu_torch.pipelines.omnigen_image import OmnigenImagePipeline
+    from video_styler_tpu_torch.prompters.omnigen_prompter import StubPhi3Tokenizer
+    free_card(torch)
+    t0 = time.perf_counter()
+    pipe = OmnigenImagePipeline.from_configs(O.OMNIGEN, StubPhi3Tokenizer(O.OMNIGEN.vocab_size),
+                                             seed=0, device="cuda")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    cfg = pipe.cfg
+    try:
+        request = dict(prompt=STEP_PROMPT, cfg_scale=OMNIGEN_CFG, height=FAMILY_SIZE,
+                       width=FAMILY_SIZE, num_inference_steps=steps, seed=42)
+        image, seconds, launches, peak = run_counted(torch, kernels, lambda: pipe(**request))
+        branches = pipe.prompter(STEP_PROMPT, [], FAMILY_SIZE, FAMILY_SIZE)
+        lens = [b["input_ids"].shape[1] + 1 + (FAMILY_SIZE // 16) ** 2 for b in branches]
+        res = family_result("omnigen", pipe, seconds, launches, peak, {}, model="OmniGen",
+                            hidden=cfg.hidden_size, heads=cfg.num_heads, layers=cfg.num_layers,
+                            weights_gib={"transformer": gib([pipe.transformer]),
+                                         "vae": gib([pipe.vae_encoder, pipe.vae_decoder])},
+                            build_s=build_s, size=FAMILY_SIZE, sequence_lengths=lens,
+                            steps=steps, cfg=OMNIGEN_CFG, image_size=list(image.size))
+        br = branches[0]
+        cos, sin = (torch.from_numpy(a).cuda() for a in O.longrope_tables(
+            cfg, br["position_ids"], pipe.su_factor))
+        lat = torch.randn((1, 4, FAMILY_SIZE // 8, FAMILY_SIZE // 8), device="cuda",
+                          dtype=torch.bfloat16)
+        ids = torch.from_numpy(br["input_ids"]).cuda()
+        mask = torch.from_numpy(br["attention_mask"]).cuda()
+        t = torch.tensor([0.5], device="cuda")
+        with torch.no_grad():
+            prof = profile_request(torch, lambda: O.omnigen_forward(
+                pipe.transformer, lat, t, ids, [], {}, mask, cos=cos, sin=sin),
+                min(res["step_s"]) / 2, categories=FLUX_CATEGORIES)
+        emit({"phase": "omnigen_profile", "forwards": 1, **prof, **CARD})
+        return launches
+    finally:
+        del pipe
+        free_card(torch)
+
+
+def run_family_phases(torch, kernels, steps: int, only=FAMILY_PHASES):
+    """The last families' kernel rows, references and full-width phases, in
+    order (StepVideo first: its LLM and DiT each want most of the card).
+    -> (kernel rows, launches by path)."""
+    rows, paths = [], {}
+    if "step_video" in only:
+        rows += check_step_video_kernels(torch)
+        check_step_video_reference(torch, kernels)
+        paths["step_video"] = run_step_video(torch, kernels, steps)
+    for name, check, run in (("cog_video", check_cog_video_reference, run_cog_video),
+                             ("hunyuan_image", check_hunyuan_image_reference, run_hunyuan_image),
+                             ("svd", check_svd_reference, run_svd),
+                             ("omnigen", check_omnigen_reference, run_omnigen)):
+        if name in only:
+            check(torch, kernels)
+            paths[name] = run(torch, kernels, steps)
+    return rows, paths
+
+
+# ---------------------------------------------------------------------------
 # Multi-GPU: one rank's kernels in this process, then ranks sharing the card
 # ---------------------------------------------------------------------------
 
@@ -5665,14 +6245,17 @@ def main(argv=None):
                     help="frames (4k+1) of the 480x832 end-to-end request")
     ap.add_argument("--train-frames", type=int, default=RUN_FRAMES,
                     help="frames (4k+1) of the 480x832 clip of the LoRA steps")
-    ap.add_argument("--only", nargs="+", choices=("qwen", "step1x", "hunyuan", "usp"),
+    ap.add_argument("--only", nargs="+",
+                    choices=("qwen", "step1x", "hunyuan") + FAMILY_PHASES + ("usp",),
                     default=None,
                     help="build the kernels and run only these phases (qwen: "
                          "qwen_kernels to qwen_adapters; step1x: step1x_nexus_kernels "
                          "to step1x_nexus, on the qwen phase's towers when it runs too; "
-                         "hunyuan: hunyuan_kernels to hunyuan; usp), then the kernels "
-                         "line of their rows: for iterating on them (with no arguments "
-                         "every phase runs)")
+                         "hunyuan: hunyuan_kernels to hunyuan; step_video: "
+                         "step_video_kernels to step_video; cog_video, hunyuan_image, svd, "
+                         "omnigen: each family's reference and full-width phase; usp), "
+                         "then the kernels line of their rows: for iterating on them "
+                         "(with no arguments every phase runs)")
     ap.add_argument("--ckpt-dir", default=None,
                     help="where the load phase writes its ~47 GB of checkpoint "
                          "files (in a new folder it removes; default: the "
@@ -5726,6 +6309,11 @@ def main(argv=None):
             rows += check_hunyuan_kernels(torch)
             check_hunyuan_reference(torch, kernels)
             path_launches["hunyuan"] = run_hunyuan(torch, kernels, args.steps)
+        if set(FAMILY_PHASES) & set(args.only):
+            family_rows, family_paths = run_family_phases(torch, kernels, args.steps,
+                                                          args.only)
+            rows += family_rows
+            path_launches.update(family_paths)
         if "usp" in args.only:
             path_launches["usp"] = run_usp(torch, args.frames, args.steps, smi)
         launches = {"K1": sum(c.get("K1", 0) for c in path_launches.values())}
@@ -5916,6 +6504,11 @@ def main(argv=None):
     rows += check_hunyuan_kernels(torch)
     check_hunyuan_reference(torch, kernels)
     path_launches["hunyuan"] = run_hunyuan(torch, kernels, args.steps)
+    # StepVideo (K1 at its shapes, the 30 B DiT after the Step-1 LLM), then
+    # CogVideoX, HunyuanDiT, SVD and OmniGen, each on the free card
+    family_rows, family_paths = run_family_phases(torch, kernels, args.steps)
+    rows += family_rows
+    path_launches.update(family_paths)
     # the multi-GPU path: ranks sharing the free card
     path_launches["usp"] = run_usp(torch, args.frames, args.steps, smi)
     return finish(torch, smi, rows + new_rows, launches, path_launches, train_rows,

@@ -500,28 +500,25 @@ def test_vace_prefix_quirk_is_mirrored(tmp_path, monkeypatch):
 
 
 def test_unported_kinds_raise(tmp_path, monkeypatch):
-    """hunyuan_dit raises with its Queue 1 item; `s2v` and `wav2vec`
-    are ported and attach as in the JAX pipeline: `s2v` builds the default
-    (14B) config whatever the file, `wav2vec` raises the JAX pipeline's
+    """No kind is left unported (item 11f built the last ones): a file of
+    hunyuan_dit keys goes to `build_family_module`, which names the key it
+    lacks, and the Wan pipeline refuses the kind as the JAX one does. `s2v` and
+    `wav2vec` attach as in the JAX pipeline: `s2v` builds the default (14B)
+    config whatever the file, `wav2vec` raises the JAX pipeline's
     ValueError (ROADMAP Queue 3). `flux_dit` and `motion_modules` are ported
     (`load_model` builds them) and, as in the JAX package, are no kind of
     the Wan pipeline; so is `hunyuan_video_dit` (ported with item 11e)."""
     import video_styler_tpu_torch.models.wan_s2v as TS
     path = str(tmp_path / "hunyuan_dit.safetensors")
-    safetensors_io.save_file({"blocks.0.attn1.Wqkv.weight": torch.zeros(4, 4)}, path)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
+    safetensors_io.save_file({"blocks.0.attn1.Wqkv.weight": torch.zeros(12, 4)}, path)
+    with pytest.raises(KeyError, match="text_emb_padding"):
         TC.load_model(path, device="cpu")
     tp = TW.WanVideoPipeline(device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-        tp._attach("hunyuan_dit", {})
-    assert not {"animate", "motion_controller", "s2v", "wav2vec", "flux_dit",
-                "flux_controlnet", "flux_ipadapter", "flux_infiniteyou_projector",
-                "flux_value_encoder", "flux_lora_encoder", "sd3_dit", "sd_unet",
-                "motion_modules", "ipadapter", "kolors_text_encoder", "qwen_image_dit",
-                "qwen_image_blockwise_controlnet", "hunyuan_video_dit"} & set(TC.UNPORTED_KINDS)
-    assert len(TC.UNPORTED_KINDS) == 5
+    assert TC.UNPORTED_KINDS == {}
     jp = JW.WanVideoPipeline(dtype=jnp.float32)
     for pipe in (jp, tp):
+        with pytest.raises(ValueError, match="unknown model kind hunyuan_dit"):
+            pipe._attach("hunyuan_dit", {})
         with pytest.raises(ValueError, match="unknown model kind wav2vec"):
             pipe._attach("wav2vec", {})
         with pytest.raises(ValueError, match="unknown model kind motion_modules"):

@@ -588,8 +588,9 @@ def test_image_gen_cli_refuses(tmp_path):
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         image_gen.main(["--family", "flux", "--smoke", "--output", str(tmp_path / "x.png")])
-    with pytest.raises(NotImplementedError, match="item 11f"):
-        image_gen.main(["--family", "hunyuan_image", "--smoke", "--device", "cpu"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        image_gen.main(["--family", "hunyuan_image", "--smoke", "--output",
+                        str(tmp_path / "h.png")])
 
 
 def test_prompter_without_t5_tokenizer_raises(pipes):

@@ -512,11 +512,12 @@ def test_detection_fault_and_load_model(tmp_path, monkeypatch):
 
 
 def test_unported_kinds_name_item_11f():
-    """Every kind the port cannot build yet waits for ROADMAP Queue 1 item
-    11f (HunyuanDiT, OmniGen, StepVideo, SVD)."""
-    assert TCK.UNPORTED_KINDS and set(TCK.UNPORTED_KINDS.values()) == {"11f"}
-    for kind in TCK.UNPORTED_KINDS:
-        assert "item 11f" in str(TCK.unported(kind))
+    """Item 11f (HunyuanDiT, OmniGen, StepVideo, SVD) built the last kinds:
+    none is left unported, and `load_model` builds each of them."""
+    assert TCK.UNPORTED_KINDS == {}
+    assert set(TCK.FAMILY_KINDS) == {"hunyuan_dit", "omnigen", "stepvideo_text_encoder",
+                                     "svd_unet", "svd_unet_exvideo"}
+    assert "item 11f" not in str(TCK.unported("svd_unet"))
 
 
 def _jax_video_gen():

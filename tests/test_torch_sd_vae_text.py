@@ -3,7 +3,7 @@
 at the largest id, `hidden` at `clip_skip`), T5 v1.1 (one bias table in
 layer 0) and `convert_hf_t5` from a synthetic HF state dict, umT5's configs
 unchanged by `shared_pos`, and `load_model` on synthetic FLUX DiT files
-(the other unported kinds still raise).
+(the kinds of item 11f go to `build_family_module`).
 
 The JAX package has no init for the VAE or CLIP-L: the port draws them
 (torch seed; biases and norms off their defaults) and both converters read
@@ -240,12 +240,13 @@ def test_load_model_builds_flux_dit(tmp_path, monkeypatch, guidance):
     (["llm.layers.0.mlp.weight"], "omnigen"),
     (["down_blocks.0.resnets.0.mix_factor"], "svd_unet")])
 def test_load_model_other_kinds_still_raise(tmp_path, keys, kind):
-    """Kinds the port does not build yet (FLUX's adapters and SD3 load:
-    `test_torch_flux_adapters.py`, `test_torch_sd3.py`; the SD family's
-    kinds: `test_torch_sd.py`; the HunyuanVideo DiT:
-    `test_torch_hunyuan_video.py`)."""
+    """Kinds of item 11f (built since: `test_torch_hunyuan_image.py`,
+    `test_torch_omnigen.py`, `test_torch_svd.py`) are detected as the JAX
+    detector detects them, and a file holding a lone key of one raises
+    naming what `build_family_module` misses (a KeyError, or the strict
+    load's missing keys)."""
     path = str(tmp_path / "m.safetensors")
     save_file({k: torch.zeros(2, 2) for k in keys}, path)
     assert TC.detect_model_kind(TC.load_state_dict(path)) == kind
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
+    with pytest.raises((KeyError, RuntimeError), match="Missing key|embed_tokens|text_emb_padding"):
         TC.load_model(path, device="cpu")

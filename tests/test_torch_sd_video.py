@@ -418,7 +418,7 @@ def test_video_gen_smoke_cli(tmp_path, capsys):
     assert video_gen.main(["--family", "sd_animatediff", "--smoke", "--device", "cpu",
                            "--output", str(out)]) == 0
     assert out.stat().st_size > 0 and f"saved {out}" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11f"):
+    with pytest.raises(RuntimeError, match="cog_video needs --vae_path"):
         video_gen.main(["--family", "cog_video", "--dit_path", "x", "--device", "cpu"])
 
 

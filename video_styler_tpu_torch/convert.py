@@ -37,6 +37,24 @@ and returns the port's module for `kind`:
   "lora_encoder" -> models.flux_adapters.FluxLoRAEncoder (cfg: FluxLoRAEncoderConfig)
   "sd3_dit" -> models.sd3_dit.SD3DiT (cfg: SD3DiTConfig)
   ("t5" takes T5 v1.1 too: with `shared_pos` only layer 0 has `pos_emb`)
+  "hunyuan_dit" -> models.hunyuan_image_dit.HunyuanImageDiT (cfg:
+            HunyuanImageDiTConfig; `down_blocks` then `up_blocks` become
+            `blocks`)
+  "hunyuan_bert" -> models.hunyuan_image_dit.HunyuanBert (cfg: HunyuanBertConfig)
+  "step1_llm" -> models.stepvideo_llm.Step1LLM (cfg: Step1LLMConfig)
+  "step_video_dit" -> models.stepvideo_dit.StepVideoDiT (cfg: StepVideoDiTConfig)
+  "step_vae" -> models.stepvideo_vae.StepVideoVAE (cfg: StepVAEConfig)
+  "cog_dit" -> models.cog_video.CogDiT (cfg: CogDiTConfig)
+  "cog_vae_encoder" / "cog_vae_decoder" -> models.cog_video.CogVAEEncoder /
+            CogVAEDecoder (cfg: None)
+  "svd_unet" -> models.svd.SVDUNet (cfg: SDUNetConfig; ExVideo's where the
+            tree has positional convolutions)
+  "svd_vae_decoder" -> models.svd.SVDVAEDecoder (cfg: None)
+  "svd_image_encoder" -> models.svd.SVDImageEncoder (cfg: SVDImageEncoderConfig)
+  "omnigen" -> models.omnigen.OmniGen (cfg: OmniGenConfig)
+  (in these trees a LayerNorm's or RMSNorm's `scale` becomes the port's
+  `weight` and the other names follow the port's modules; the SVD and VAE
+  trees already carry the port's names)
 
 A Fun DiT's tree carries `ref_conv` ({"w", "b"}, as the patch embedding)
 and `control_adapter` (torch layout), which a config with `has_ref_conv`
@@ -74,14 +92,21 @@ from .device import resolve_device
 from .models.blip_reward import BlipReward
 from .models.clip_dual import ClipDual, CrossModel, cross_model_config
 from .models.clip_vit import ClipVit, XlmRoberta
+from .models.cog_video import CogDiT, CogVAEDecoder, CogVAEEncoder
 from .models.flux_adapters import (FluxLoRAEncoder, InfiniteYouProjector, SingleValueEncoder,
                                    ValueEncoderConfig)
 from .models.flux_controlnet import FluxControlNet, FluxIpAdapter
 from .models.flux_dit import FluxDiT
+from .models.hunyuan_image_dit import HunyuanBert, HunyuanImageDiT
+from .models.omnigen import OmniGen
 from .models.sd3_dit import SD3DiT
 from .models.sd3_text_encoder import ClipTextEncoder
 from .models.sd3_vae import SD3VAEDecoder, SD3VAEEncoder
 from .models.sdxl import SDXLTextEncoder2
+from .models.stepvideo_dit import StepVideoDiT
+from .models.stepvideo_llm import Step1LLM
+from .models.stepvideo_vae import StepVideoVAE
+from .models.svd import SVDImageEncoder, SVDUNet, SVDVAEDecoder
 from .models.t5 import T5Encoder
 from .models.wan_animate import WanAnimateAdapter, animate_head_dim
 from .models.wan_controllers import MotionController, SimpleAdapter
@@ -114,16 +139,123 @@ _MODULES = {"dit": WanDiT, "vace": WanVace, "t5": T5Encoder, "vae": WanVAE,
             "clip_l_text": ClipTextEncoder, "clip_g_text": SDXLTextEncoder2,
             "flux_controlnet": FluxControlNet, "flux_ipadapter": FluxIpAdapter,
             "infiniteyou": InfiniteYouProjector, "lora_encoder": FluxLoRAEncoder,
-            "sd3_dit": SD3DiT}
+            "sd3_dit": SD3DiT, "hunyuan_dit": HunyuanImageDiT, "hunyuan_bert": HunyuanBert,
+            "step1_llm": Step1LLM, "step_video_dit": StepVideoDiT, "step_vae": StepVideoVAE,
+            "cog_dit": CogDiT, "cog_vae_encoder": CogVAEEncoder,
+            "cog_vae_decoder": CogVAEDecoder, "svd_vae_decoder": SVDVAEDecoder,
+            "svd_image_encoder": SVDImageEncoder, "omnigen": OmniGen}
 _BUILDERS = {"animate": _animate, "motion_controller": _motion_controller,
              "control_adapter": _simple_adapter,
              "cross_model": lambda cfg, sd: CrossModel(cross_model_config(sd)),
              "value_encoder": lambda cfg, sd: SingleValueEncoder(ValueEncoderConfig(
-                 sd["fc1.weight"].shape[1], sd["fc1.weight"].shape[0], sd["pos"].shape[0]))}
+                 sd["fc1.weight"].shape[1], sd["fc1.weight"].shape[0], sd["pos"].shape[0])),
+             "svd_unet": lambda cfg, sd: SVDUNet(cfg, exvideo=any(
+                 ".positional_conv." in k for k in sd))}
 _STACKED = ("blocks", "after_proj", "single_blocks", "controlnet_blocks",
-            "controlnet_single_blocks", "dual_blocks")
+            "controlnet_single_blocks", "dual_blocks", "down_blocks", "up_blocks",
+            "transformer_blocks")
 _STACKED_KINDS = ("dit", "vace", "s2v", "flux_dit", "flux_controlnet", "flux_ipadapter",
-                  "sd3_dit")
+                  "sd3_dit", "hunyuan_dit", "step1_llm", "step_video_dit", "cog_dit",
+                  "omnigen")
+
+
+def _sub(rules):
+    """A renamer applying `(old, new)` prefix rules, first match only."""
+    def rename(name: str) -> str:
+        for old, new in rules:
+            if name.startswith(old):
+                return new + name[len(old):]
+        return name
+    return rename
+
+
+def _norm_weight(name: str) -> str:
+    return name[:-len(".scale")] + ".weight" if name.endswith(".scale") else name
+
+
+_HUNYUAN_BLOCK = _sub([("attn1_q.", "attn1.to_q."), ("attn1_k.", "attn1.to_k."),
+                       ("attn1_v.", "attn1.to_v."), ("attn1_o.", "attn1.to_out."),
+                       ("attn2_q.", "attn2.to_q."), ("attn2_k.", "attn2.to_k."),
+                       ("attn2_v.", "attn2.to_v."), ("attn2_o.", "attn2.to_out."),
+                       ("q_norm1.", "rota1.q_norm."), ("k_norm1.", "rota1.k_norm."),
+                       ("q_norm2.", "rota2.q_norm."), ("k_norm2.", "rota2.k_norm."),
+                       ("modulation.", "modulation.1."), ("mlp_fc1.", "mlp.0."),
+                       ("mlp_fc2.", "mlp.2.")])
+_HUNYUAN_TOP = _sub([("patch_embedder.", "patch_embedder.proj."),
+                     ("timestep_embedder.fc1.", "timestep_embedder.mlp.0."),
+                     ("timestep_embedder.fc2.", "timestep_embedder.mlp.2."),
+                     ("final_adaln.", "final_layer.adaLN_modulation.1."),
+                     ("final_linear.", "final_layer.linear.")])
+
+
+def _hunyuan_dit_name(name: str, cfg) -> str:
+    parts = name.split(".")
+    if parts[0] in ("down_blocks", "up_blocks"):
+        i = int(parts[1]) + (cfg.num_layers_down if parts[0] == "up_blocks" else 0)
+        return f"blocks.{i}." + _norm_weight(_HUNYUAN_BLOCK(".".join(parts[2:])))
+    return _HUNYUAN_TOP(name)
+
+
+_BERT_LAYER = _sub([("q.", "attention.self.query."), ("k.", "attention.self.key."),
+                    ("v.", "attention.self.value."), ("o.", "attention.output.dense."),
+                    ("attn_ln.", "attention.output.LayerNorm."),
+                    ("fc1.", "intermediate.dense."), ("fc2.", "output.dense."),
+                    ("out_ln.", "output.LayerNorm.")])
+_BERT_TOP = _sub([("tok_emb", "embeddings.word_embeddings.weight"),
+                  ("pos_emb", "embeddings.position_embeddings.weight"),
+                  ("type_emb", "embeddings.token_type_embeddings.weight"),
+                  ("emb_ln.", "embeddings.LayerNorm.")])
+
+
+def _bert_name(name: str, cfg) -> str:
+    parts = name.split(".")
+    if parts[0] == "blocks":
+        return f"encoder.layer.{parts[1]}." + _norm_weight(_BERT_LAYER(".".join(parts[2:])))
+    return _norm_weight(_BERT_TOP(name))
+
+
+_STEP1_LAYER = _sub([("wqkv.", "attention.wqkv."), ("wo.", "attention.wo."),
+                     ("w1.", "feed_forward.w1."), ("w2.", "feed_forward.w2.")])
+
+
+def _step1_name(name: str, cfg) -> str:
+    parts = name.split(".")
+    if parts[0] == "blocks":
+        return (f"transformer.layers.{parts[1]}."
+                + _norm_weight(_STEP1_LAYER(".".join(parts[2:]))))
+    return "tok_embeddings.word_embeddings.weight"
+
+
+_COG_TOP = _sub([("time_embedder.fc1.", "time_embedder.timestep_embedder.0."),
+                 ("time_embedder.fc2.", "time_embedder.timestep_embedder.2.")])
+_OMNIGEN_LAYER = _sub([("ln1.", "input_layernorm."), ("qkv.", "self_attn.qkv_proj."),
+                       ("o.", "self_attn.o_proj."), ("ln2.", "post_attention_layernorm."),
+                       ("gate_up.", "mlp.gate_up_proj."), ("down.", "mlp.down_proj.")])
+_OMNIGEN_TOP = _sub([("embed_tokens", "llm.embed_tokens.weight"),
+                     ("x_embedder.", "x_embedder.proj."),
+                     ("input_x_embedder.", "input_x_embedder.proj."),
+                     ("time_token.fc1.", "time_token.mlp.0."),
+                     ("time_token.fc2.", "time_token.mlp.2."),
+                     ("t_embedder.fc1.", "t_embedder.mlp.0."),
+                     ("t_embedder.fc2.", "t_embedder.mlp.2."),
+                     ("final_norm.", "llm.norm."),
+                     ("final_adaln.", "final_layer.adaLN_modulation.1."),
+                     ("final_linear.", "final_layer.linear.")])
+
+
+def _omnigen_name(name: str, cfg) -> str:
+    parts = name.split(".")
+    if parts[0] == "blocks":
+        return f"llm.layers.{parts[1]}." + _norm_weight(_OMNIGEN_LAYER(".".join(parts[2:])))
+    return _norm_weight(_OMNIGEN_TOP(name))
+
+
+# kinds whose JAX tree names differ from the port's: tree name -> port name
+_RENAMES = {"hunyuan_dit": _hunyuan_dit_name, "hunyuan_bert": _bert_name,
+            "step1_llm": _step1_name,
+            "step_video_dit": lambda n, cfg: _norm_weight(n),
+            "cog_dit": lambda n, cfg: _norm_weight(_COG_TOP(n)),
+            "omnigen": _omnigen_name}
 
 
 def _to_tensor(a) -> torch.Tensor:
@@ -193,6 +325,8 @@ def from_jax_params(kind: str, tree, cfg, device=None) -> torch.nn.Module:
     if kind == "flux_ipadapter":
         tree = {("blocks" if k == "modules" else k): v for k, v in tree.items()}
     sd = jax_tree_to_state_dict(tree, stacked=kind in _STACKED_KINDS)
+    if kind in _RENAMES:
+        sd = {_RENAMES[kind](k, cfg): v for k, v in sd.items()}
     with torch.device("meta"):
         if kind in _BUILDERS:
             module = _BUILDERS[kind](cfg, sd)

@@ -11,6 +11,8 @@
         --dit_path v1-5-pruned-emaonly.safetensors --tokenizer_path clip_tokenizer \
         --height 512 --width 512
     python -m video_styler_tpu_torch.image_gen --family sdxl --smoke --device cpu
+    python -m video_styler_tpu_torch.image_gen --family hunyuan_image --smoke --device cpu
+    python -m video_styler_tpu_torch.image_gen --family omnigen --smoke --device cpu
     python -m video_styler_tpu_torch.image_gen --family qwen --prompt "a cat" \
         --dit_path "dit-1.safetensors|dit-2.safetensors" --vae_path vae.safetensors \
         --text_encoder_path "te-1.safetensors|te-2.safetensors" --tokenizer_path tokenizer \
@@ -31,7 +33,13 @@ VAE, so its request cannot run) and `qwen` (Qwen-Image: the DiT, the VAE
 and, from --text_encoder_path with --tokenizer_path, the Qwen2.5-VL text
 tower; --cfg_scale two-pass; the JAX runner fetches no text encoder, so its
 request calls None; here a request without one raises a RuntimeError
-naming what it lacks). Checkpoints come from local files only:
+naming what it lacks), `hunyuan_image` (HunyuanDiT: the DiT, the SDXL VAE,
+the CLIP-BERT of --clip_path and mT5-XL of --t5_path with their tokenizers
+--tokenizer_path and --tokenizer_2_path; --cfg_scale two-pass) and
+`omnigen` (OmniGen: the transformer, the SDXL VAE and the Phi-3 tokenizer
+of --tokenizer_path; text CFG at --cfg_scale); where the JAX runner loads
+too little to run (it calls None at the prompt), a missing file raises a
+RuntimeError naming it. Checkpoints come from local files only:
 --dit_path (DiffSynth or BFL layout; shards `|`-separated; sd / sdxl: the
 civitai file), --vae_path (the encoder's and decoder's state dicts under
 `encoder.` / `decoder.`), --clip_path (CLIP-L), --t5_path (T5 v1.1-XXL, HF
@@ -43,11 +51,12 @@ prompter then has no T5 tokenizer). --smoke runs a tiny random model
 tokenizers, the FLUX VAE; sd3: SD3_DIT_TINY with a 4096-wide context,
 CLIP-L and CLIP-G at tiny widths, no T5, the SD3 VAE; sd / sdxl: the tiny
 UNets and CLIP towers, the SD VAE; qwen: QWEN_IMAGE_TINY, a tiny
-Qwen2.5-VL text tower with a stand-in tokenizer, the Wan2.1 VAE, CFG 1) at
-64x64 for 2 steps. The other families of the JAX runner (hunyuan_image,
-omnigen) raise
-`NotImplementedError` naming their ROADMAP Queue 1 item. Runs on the card
-unless --device cpu.
+Qwen2.5-VL text tower with a stand-in tokenizer, the Wan2.1 VAE, CFG 1;
+hunyuan_image: HUNYUAN_DIT_TINY, a tiny BERT and mT5 with stand-in
+tokenizers; omnigen: OMNIGEN_TINY with a stand-in tokenizer; both on the
+SDXL VAE) at 64x64 for 2 steps. The VAE files of hunyuan_image and omnigen
+hold the encoder's and decoder's state dicts under `encoder.` / `decoder.`.
+Runs on the card unless --device cpu.
 """
 from __future__ import annotations
 
@@ -194,16 +203,84 @@ def run_qwen(a):
                 num_inference_steps=a.steps, height=a.height, width=a.width, seed=a.seed)
 
 
-def _unported(family: str, item: str):
-    def run(a):
-        raise NotImplementedError(f"image family {family!r} is not ported yet "
-                                  f"(ROADMAP Queue 1 item {item})")
-    return run
+# the hunyuan_image smoke's mT5: the tiny DiT's 32-wide T5 input
+MT5_SMOKE = dict(vocab=128, dim=32, dim_attn=32, dim_ffn=64, num_heads=4, num_layers=2,
+                 shared_pos=True)
+
+
+def build_hunyuan_image_smoke_pipeline(device=None, seed: int = 0):
+    """A HunyuanDiT pipeline of tiny random models (weights from `seed`),
+    fp32: HUNYUAN_DIT_TINY, the tiny BERT and a 32-wide mT5 with stand-in
+    tokenizers, the SDXL VAE at its release widths."""
+    import torch
+    from .models.hunyuan_image_dit import HUNYUAN_BERT_TINY, HUNYUAN_DIT_TINY
+    from .models.t5 import T5Config
+    from .pipelines.hunyuan_image import (HunyuanImagePipeline, StubBertTokenizer,
+                                          StubMT5Tokenizer)
+    t5 = T5Config(**MT5_SMOKE)
+    return HunyuanImagePipeline.from_configs(
+        HUNYUAN_DIT_TINY, HUNYUAN_BERT_TINY, t5, StubBertTokenizer(HUNYUAN_BERT_TINY.vocab),
+        StubMT5Tokenizer(t5.vocab), seed=seed, device=device, dtype=torch.float32)
+
+
+def run_hunyuan_image(a):
+    """HunyuanDiT: the DiT, the SDXL VAE, the CLIP-BERT (--clip_path) and
+    mT5-XL (--t5_path) with their tokenizers. The JAX runner loads the DiT
+    and the VAE alone and its request calls None at the prompt; here a
+    missing file raises first, naming it."""
+    from .pipelines.hunyuan_image import HunyuanImagePipeline
+    if a.smoke:
+        pipe = build_hunyuan_image_smoke_pipeline(device=a.device, seed=a.seed)
+    else:
+        _require("hunyuan_image", {"--vae_path": a.vae_path, "--clip_path": a.clip_path,
+                                   "--t5_path": a.t5_path, "--tokenizer_path": a.tokenizer_path,
+                                   "--tokenizer_2_path": a.tokenizer_2_path},
+                 "the DiT, the SDXL VAE, the CLIP-BERT and mT5-XL and their tokenizers")
+        pipe = HunyuanImagePipeline.from_pretrained(
+            dit_path=a.dit_path.split("|"), vae_path=a.vae_path, bert_path=a.clip_path,
+            t5_paths=a.t5_path.split("|"), tokenizer_path=a.tokenizer_path,
+            tokenizer_t5_path=a.tokenizer_2_path, device=a.device)
+    return pipe(a.prompt, negative_prompt=a.negative_prompt, cfg_scale=a.cfg_scale,
+                num_inference_steps=a.steps, height=a.height, width=a.width, seed=a.seed)
+
+
+def build_omnigen_smoke_pipeline(device=None, seed: int = 0):
+    """An OmniGen pipeline of tiny random models (weights from `seed`),
+    fp32: OMNIGEN_TINY (no su factors: its heads are 8 wide) with the
+    stand-in Phi-3 tokenizer, the SDXL VAE at its release widths."""
+    import torch
+    from .models.omnigen import OMNIGEN_TINY
+    from .pipelines.omnigen_image import OmnigenImagePipeline
+    from .prompters.omnigen_prompter import StubPhi3Tokenizer
+    return OmnigenImagePipeline.from_configs(OMNIGEN_TINY, StubPhi3Tokenizer(
+        OMNIGEN_TINY.vocab_size), seed=seed, device=device, dtype=torch.float32, su_factor=None)
+
+
+def run_omnigen(a):
+    """OmniGen: the transformer, the SDXL VAE and Phi-3's tokenizer
+    (--tokenizer_path); the JAX runner loads no tokenizer and its prompter
+    calls None. Text CFG at --cfg_scale."""
+    from .pipelines.omnigen_image import OmnigenImagePipeline
+    if a.smoke:
+        pipe = build_omnigen_smoke_pipeline(device=a.device, seed=a.seed)
+    else:
+        _require("omnigen", {"--vae_path": a.vae_path, "--tokenizer_path": a.tokenizer_path},
+                 "the transformer, the SDXL VAE and the Phi-3 tokenizer")
+        pipe = OmnigenImagePipeline.from_pretrained(
+            transformer_path=a.dit_path, vae_path=a.vae_path, tokenizer_path=a.tokenizer_path,
+            device=a.device)
+    return pipe(a.prompt, cfg_scale=a.cfg_scale, num_inference_steps=a.steps,
+                height=a.height, width=a.width, seed=a.seed)
+
+
+def _require(family: str, need: dict, what: str):
+    missing = [flag for flag, v in need.items() if not v]
+    if missing:
+        raise RuntimeError(f"{family} needs {', '.join(missing)} ({what})")
 
 
 RUNNERS = {"flux": run_flux, "sd3": run_sd3, "sd": run_sd, "sdxl": run_sdxl,
-           "qwen": run_qwen, "hunyuan_image": _unported("hunyuan_image", "11f"),
-           "omnigen": _unported("omnigen", "11f")}
+           "qwen": run_qwen, "hunyuan_image": run_hunyuan_image, "omnigen": run_omnigen}
 
 
 def parse_args(argv=None):
@@ -211,7 +288,9 @@ def parse_args(argv=None):
     p.add_argument("--family", required=True, choices=sorted(RUNNERS))
     p.add_argument("--prompt", default="a lighthouse on a cliff at dawn")
     p.add_argument("--negative_prompt", default="")
-    p.add_argument("--cfg_scale", type=float, default=7.5, help="sd3, sd, sdxl and qwen")
+    p.add_argument("--cfg_scale", type=float,
+                   help="sd3, sd, sdxl, qwen, hunyuan_image (default 7.5) and omnigen "
+                        "(default 2)")
     p.add_argument("--dit_path")
     p.add_argument("--vae_path")
     p.add_argument("--clip_path")
@@ -232,6 +311,8 @@ def parse_args(argv=None):
     a = p.parse_args(argv)
     if not a.smoke and not a.dit_path:
         p.error("--dit_path is required (or use --smoke)")
+    if a.cfg_scale is None:
+        a.cfg_scale = 2.0 if a.family == "omnigen" else 7.5
     a.steps = a.steps or (SMOKE_STEPS if a.smoke else 30)
     a.height = a.height or (SMOKE_SIZE if a.smoke else 1024)
     a.width = a.width or (SMOKE_SIZE if a.smoke else 1024)

@@ -75,11 +75,12 @@ class Attention(nn.Module):
 
 
 def attn(p: Attention, x, num_heads: int = 8, mask: Optional[torch.Tensor] = None,
-         context=None, ip_kv=None):
+         context=None, ip_kv=None, split_bytes: Optional[int] = None):
     """Attention (b, s, c) -> (b, s, c) through the exact `sdpa`, over
     `context` (b, sk, c_kv) or x itself; mask (s, sk) is added to the fp32
     logits. ip_kv = (ip_k, ip_v, scale) adds the IP-Adapter's
-    `scale * sdpa(q, ip_k, ip_v)` before `to_out`."""
+    `scale * sdpa(q, ip_k, ip_v)` before `to_out`. split_bytes: `sdpa`'s,
+    the size of the fp32 logits above which it runs in pieces."""
     context = x if context is None else context
     b, s, _ = x.shape
     sk = context.shape[1]
@@ -87,7 +88,8 @@ def attn(p: Attention, x, num_heads: int = 8, mask: Optional[torch.Tensor] = Non
     d = q.shape[-1] // num_heads
     bias = None if mask is None else mask[None, None].float()
     qh = q.view(b, s, num_heads, d)
-    out = sdpa(qh, k.view(b, sk, num_heads, d), v.view(b, sk, num_heads, d), bias=bias)
+    out = sdpa(qh, k.view(b, sk, num_heads, d), v.view(b, sk, num_heads, d), bias=bias,
+               split_bytes=split_bytes)
     if ip_kv is not None:
         ip_k, ip_v, scale = ip_kv
         lk = ip_k.shape[1]
@@ -190,10 +192,10 @@ def resnet_block(p: ResnetBlock, x, eps: float = 1e-5, time_emb=None):
 
 
 def basic_transformer_block(p: BasicTransformerBlock, x, text_emb, num_heads: int,
-                            ip_kv=None):
-    x = x + attn(p.attn1, _ln(p.norm1, x), num_heads=num_heads)
+                            ip_kv=None, split_bytes: Optional[int] = None):
+    x = x + attn(p.attn1, _ln(p.norm1, x), num_heads=num_heads, split_bytes=split_bytes)
     x = x + attn(p.attn2, _ln(p.norm2, x), num_heads=num_heads, context=text_emb,
-                 ip_kv=ip_kv)
+                 ip_kv=ip_kv, split_bytes=split_bytes)
     return x + p.ff(geglu(p.act_fn, _ln(p.norm3, x)))
 
 

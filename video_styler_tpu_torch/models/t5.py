@@ -37,6 +37,9 @@ class T5Config:
 UMT5_XXL = T5Config()
 # google/t5-v1_1-xxl: the FLUX text encoder 2 / SD3 text encoder 3
 T5_V11_XXL = T5Config(vocab=32128, shared_pos=True)
+# the HunyuanDiT mT5-XL text encoder
+MT5_XL = T5Config(vocab=250112, dim=2048, dim_attn=2048, dim_ffn=5120,
+                  num_heads=32, num_layers=24, shared_pos=True)
 T5_V11_TINY = T5Config(vocab=128, dim=64, dim_attn=64, dim_ffn=128,
                        num_heads=4, num_layers=2, shared_pos=True)
 

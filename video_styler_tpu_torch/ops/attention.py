@@ -32,11 +32,30 @@ def set_quantized_attention(enabled: bool):
     _QUANTIZED_ATTENTION = bool(enabled)
 
 
-def sdpa(q, k, v, scale: Optional[float] = None, bias=None) -> torch.Tensor:
+def sdpa(q, k, v, scale: Optional[float] = None, bias=None,
+         split_bytes: Optional[int] = None) -> torch.Tensor:
     """q: (B, Sq, N, D), k/v: (B, Sk, N, D) -> (B, Sq, N, D); fp32 softmax.
-    bias: added to the scaled fp32 logits (B or 1, N or 1, Sq or 1, Sk)."""
+    bias: added to the scaled fp32 logits (B or 1, N or 1, Sq or 1, Sk).
+    split_bytes: when the fp32 logits would pass this size, the call runs
+    by batch rows, then by heads, in pieces under it: each row and head is
+    the same arithmetic, and the whole logits never exist at once."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
+    b, sq, n, _ = q.shape
+    per_head = 4 * sq * k.shape[1]
+    if split_bytes is not None and b * n * per_head > split_bytes:
+        rows = max(1, split_bytes // (n * per_head))
+        heads = n if rows > 1 or n * per_head <= split_bytes else max(
+            1, split_bytes // per_head)
+        out = torch.empty_like(q, dtype=v.dtype)
+        for b0 in range(0, b, rows):
+            for h0 in range(0, n, heads):
+                bs, hs = slice(b0, b0 + rows), slice(h0, h0 + heads)
+                piece = None if bias is None else bias[
+                    bs if bias.shape[0] > 1 else slice(None),
+                    hs if bias.shape[1] > 1 else slice(None)]
+                out[bs, :, hs] = sdpa(q[bs, :, hs], k[bs, :, hs], v[bs, :, hs], scale, piece)
+        return out
     logits = torch.einsum("bqnd,bknd->bnqk", q.float(), k.float()) * scale
     if bias is not None:
         logits = logits + bias

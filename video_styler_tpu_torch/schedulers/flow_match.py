@@ -10,7 +10,10 @@ loss weights of the 1000-entry training tables (`linear_timesteps_weights`).
 Qwen-Image's settings: an exponential shift
 (sigmas = e^mu / (e^mu + 1/s - 1)) whose mu is given, or follows the image's
 token count (`dynamic_shift_len`, `calculate_shift`), and a terminal-shift
-rescale (1 - sigma scaled so that the last sigma is `shift_terminal`).
+rescale (1 - sigma scaled so that the last sigma is `shift_terminal`). StepVideo's
+`reverse_sigmas` (sigma -> 1 - sigma after the shift) and OmniGen's
+`inverse_timesteps` (the linspace run backwards before the shift): both
+step towards sigma 1 on the final step.
 """
 from __future__ import annotations
 
@@ -27,7 +30,10 @@ class FlowMatchScheduler:
                  sigma_max: float = 1.0, sigma_min: float = 0.003 / 1.002,
                  extra_one_step: bool = False, exponential_shift: bool = False,
                  exponential_shift_mu: Optional[float] = None,
-                 shift_terminal: Optional[float] = None):
+                 shift_terminal: Optional[float] = None,
+                 inverse_timesteps: bool = False, reverse_sigmas: bool = False):
+        self.inverse_timesteps = inverse_timesteps
+        self.reverse_sigmas = reverse_sigmas
         self.num_train_timesteps = num_train_timesteps
         self.shift = shift
         self.sigma_max = sigma_max
@@ -52,6 +58,8 @@ class FlowMatchScheduler:
         else:
             sigmas = np.linspace(sigma_start, self.sigma_min, num_inference_steps,
                                  dtype=np.float64)
+        if self.inverse_timesteps:
+            sigmas = sigmas[::-1].copy()
         if self.exponential_shift:
             if exponential_shift_mu is not None:
                 mu = exponential_shift_mu
@@ -65,6 +73,8 @@ class FlowMatchScheduler:
         if self.shift_terminal is not None:
             one_minus_z = 1 - sigmas
             sigmas = 1 - one_minus_z / (one_minus_z[-1] / (1 - self.shift_terminal))
+        if self.reverse_sigmas:
+            sigmas = 1 - sigmas
         self.sigmas = sigmas.astype(np.float32)
         self.timesteps = (sigmas * self.num_train_timesteps).astype(np.float32)
         self.training = training
@@ -82,7 +92,7 @@ class FlowMatchScheduler:
         """(sigma, sigma_next) of a step index, as Python floats."""
         sigma = float(self.sigmas[timestep_id])
         if to_final or timestep_id + 1 >= len(self.timesteps):
-            return sigma, 0.0
+            return sigma, 1.0 if (self.inverse_timesteps or self.reverse_sigmas) else 0.0
         return sigma, float(self.sigmas[timestep_id + 1])
 
     def step(self, model_output, timestep, sample, to_final: bool = False):

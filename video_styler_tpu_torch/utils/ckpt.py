@@ -324,11 +324,8 @@ def detect_vace_config(sd: Dict) -> Optional[VaceConfig]:
 
 
 # kinds `detect_model_kind` knows that the port cannot build yet, and the
-# ROADMAP Queue 1 item that ports each
-UNPORTED_KINDS = {
-    "hunyuan_dit": "11f", "omnigen": "11f", "stepvideo_text_encoder": "11f",
-    "svd_unet": "11f", "svd_unet_exvideo": "11f",
-}
+# ROADMAP Queue 1 item that ports each (none: every kind builds)
+UNPORTED_KINDS: Dict[str, str] = {}
 
 
 def unported(kind: str) -> NotImplementedError:
@@ -361,7 +358,8 @@ def load_model(path, device=None, dtype: torch.dtype = torch.bfloat16):
     Qwen-Image DiT (`models.qwen_image_dit.QWEN_IMAGE`) or a block-wise
     ControlNet (its block count and widths from the file); the HunyuanVideo
     DiT (`models.hunyuan_video_dit.HUNYUAN_VIDEO`, DiffSynth or civitai
-    layout).
+    layout); the HunyuanDiT DiT, OmniGen, the Step-1 LLM or an SVD UNet
+    (`build_family_module`).
     Modules are built on `device` (the card unless "cpu")."""
     from ..device import resolve_device
     from ..models import clip_vit as CV
@@ -427,10 +425,47 @@ def load_model(path, device=None, dtype: torch.dtype = torch.bfloat16):
         cfg = QC.blockwise_cn_config_for(sd)
         return kind, build_module(QC.QwenBlockwiseControlNet, cfg,
                                   QC.convert_qwen_blockwise_controlnet(sd, cfg), device, dtype)
+    if kind in FAMILY_KINDS:
+        return kind, build_family_module(kind, sd, device, dtype)
     if kind in UNPORTED_KINDS:
         raise unported(kind)
     raise NotImplementedError(f"detected '{kind}' — use its family pipeline/converter "
                               "directly")
+
+
+# the kinds of the last families (HunyuanDiT, OmniGen, StepVideo's LLM, the
+# SVD UNets): `build_family_module` builds them
+FAMILY_KINDS = ("hunyuan_dit", "omnigen", "stepvideo_text_encoder", "svd_unet",
+                "svd_unet_exvideo")
+
+
+def build_family_module(kind: str, sd: Dict, device, dtype: torch.dtype):
+    """One of `FAMILY_KINDS` at its release config, on `device` in `dtype`:
+    the HunyuanDiT DiT (`HUNYUAN_DIT`, DiffSynth or raw names), OmniGen
+    (`OMNIGEN`), the Step-1 LLM (`STEP1_LLM`, its depth from the file as in
+    JAX), the SVD UNet or ExVideo's (its positional convolutions). The JAX
+    loader nests the SVD file through its SD converter (`utils/ckpt.py:
+    208-210`), which is the tree its `svd_unet_forward` reads."""
+    if kind == "hunyuan_dit":
+        from ..models import hunyuan_image_dit as H
+        return build_module(H.HunyuanImageDiT, H.HUNYUAN_DIT,
+                            H.convert_hunyuan_image_dit(sd, H.HUNYUAN_DIT), device, dtype)
+    if kind == "omnigen":
+        from ..models import omnigen as O
+        return build_module(O.OmniGen, O.OMNIGEN, O.convert_omnigen(sd, O.OMNIGEN), device,
+                            dtype)
+    if kind == "stepvideo_text_encoder":
+        import dataclasses
+        from ..models import stepvideo_llm as L
+        n = 1 + max(int(k.split(".")[2]) for k in sd if k.startswith("transformer.layers."))
+        cfg = dataclasses.replace(L.STEP1_LLM, num_layers=n)
+        return build_module(L.Step1LLM, cfg, L.convert_step1_llm(sd, cfg), device, dtype)
+    if kind in ("svd_unet", "svd_unet_exvideo"):
+        from ..models import svd as S
+        ex = kind == "svd_unet_exvideo"
+        return build_module(lambda cfg, dtype: S.SVDUNet(cfg, dtype=dtype, exvideo=ex),
+                            S.SVD_UNET, S.convert_svd_module(sd), device, dtype)
+    raise ValueError(f"not a family kind: {kind!r} (one of {FAMILY_KINDS})")
 
 
 # the FLUX adapters' and the SD3 DiT's kinds: `build_image_module` builds them
