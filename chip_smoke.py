@@ -124,6 +124,22 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
              block resident, the other and both VACE blocks through the
              copy stream and the slot ring), card vs CPU; then the card's
              serial walk (overlap=False), bit-equal to its overlapped one
+  streaming_train_reference  the smoke DiT and VACE streamed from an int8
+             store (one trunk block resident): one streamed VACE-LoRA
+             gradient (trainers/streaming_train.py) in "device" mode
+             (2-item segments) and in "host" mode, card vs CPU: loss,
+             gradients, and K1/K3/K3q/K4/K5 launches on the card against
+             the derived counts
+  image_lora_reference  one LoRA step of each image family's tiny model
+             (train_lora.smoke_pack: FLUX and Qwen-Image at heads of 128,
+             remat on the card; SD3; the real tiny SD UNet in fp32), card
+             vs CPU on the same weights, LoRA, tid and noise: loss and
+             gradients, and K1/K3 launches against the derived counts
+  transformers_backends  the two `transformers` backends (Qwen2.5-VL for
+             Qwen-Image, LLaMA for HunyuanVideo) on tiny models built from
+             configs and written by `save_pretrained`, against the native
+             paths on the same files, fp32, on the card: the library's
+             version, the key names written, relative L2
   s2v_reference  the Wan2.2-S2V smoke recipe (a tiny S2V model and
              wav2vec2 tower, a synthetic waveform through
              `extract_audio_features` on each device, 12 frames with a pose
@@ -208,6 +224,13 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
              at 2 steps), one forward each way on the same inputs
              bit-equal, then each traced (torch.profiler): the copies'
              device time and the share of it spent under a kernel
+  streaming_train  on that int8 store, the Ditto recipe's VACE LoRA (rank
+             128, fp32) through the streamed trainer: one step in "host"
+             mode and one in "device" mode (k = 7; then an AdamW update),
+             sub_remat on: step seconds, the loop's peak against the budget
+             plus what lies outside it, GB the ring copied, the two modes'
+             gradients against each other, K1/K3/K3q/K4/K5 launches against
+             the derived counts
   workflow_smokes  `run_comfyui_workflow --smoke` (a graph of the
              reference workflow's node types: fp8 model (int8 here),
              block swap (every block streamed), UniPC, cfg 1.2, VACE
@@ -232,6 +255,10 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
              category (`flux_profile`: K1, GEMM, elementwise, other); the
              recipe's 30-step request composed from the stages and the
              fastest step (`flux_image`)
+  flux_lora_kernels  (with the kernel rows) K1 with its stats output and K3
+             at the FLUX LoRA step's attention, 24 heads of 128 over 4,608
+             tokens, against their plain versions, SDPA's forward and
+             backward beside them; their launches are `flux_lora`'s
   card       the card's name and power limit again (nvidia-smi), ahead of
              the adapters' and SD3's phases
   flux_adapter_kernels  (with the kernel rows) K1 at the FLUX adapters'
@@ -258,6 +285,11 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
              TeaCache, 512x512, schnell's path and a merged LoRA: step
              seconds, peak, K1 launches against the count from the code
              (`flux_adapters_summary`: adapter GiB, launches by case)
+  flux_lora  on the resident FLUX.1-dev after `flux_adapters`: the JAX
+             family recipe's LoRA (rank 4 on every linear, fp32, Adam) at
+             1024x1024, bf16, remat, --steps steps of
+             trainers/image_training.py: step seconds, peak, losses, K1 /
+             K3 / K3q launches against 2 x 57 / 57 / 0 a step
   sd3        SD3.5-Large at full width and depth (dim 2432, 38 heads of
              64, 38 layers) with CLIP-G drawn from a seed and FLUX's
              CLIP-L, T5 v1.1-XXL and VAE modules, 1024x1024, CFG 7.5
@@ -1189,18 +1221,20 @@ def time_sdpa_bwd(torch, q, k, v, g, reps: int = 5):
     return statistics.median(times)
 
 
-def check_attention_training(torch, s, sk, tag, kind, mag=1.0, check_heads=None):
-    """K1 with its stats output and K3 at 40 heads of 128, through
-    `flash_attention` on tensors that require grad (the autograd Function
-    of the training path: K1 with stats forward, K3 backward): q (1, s, 40,
-    128) scaled by `mag`, k/v (1, sk, 40, 128). The plain check covers every
+def check_attention_training(torch, s, sk, tag, kind, mag=1.0, check_heads=None,
+                             heads: int = 40):
+    """K1 with its stats output and K3 at `heads` heads of 128 (40 unless
+    given), through `flash_attention` on tensors that require grad (the
+    autograd Function of the training path: K1 with stats forward, K3
+    backward): q (1, s, heads, 128) scaled by `mag`, k/v (1, sk, heads,
+    128). The plain check covers every
     row of the first `check_heads` heads (a head-sliced view: for dK/dV
     every query row contributes), all heads when None. K3's dq-only twin
     (no dK/dV wanted) is checked and timed on the same inputs."""
     import torch.nn.functional as F
     from video_styler_tpu_torch.ops import flash_attention as fa
 
-    n, d = 40, 128
+    n, d = heads, 128
     scale = d ** -0.5
     gen = torch.Generator("cuda").manual_seed(1)
 
@@ -3193,8 +3227,9 @@ def run_streaming(torch, kernels, frames: int, steps: int, smi: str):
     VAE), quantize("int8") (linears only), the request resident, then
     enable_block_streaming("int8", 13.5 GB, depth 3) on the same int8
     weights and the request streamed (overlapped, --steps steps, counted),
-    then 1 step serial; one forward each way on the same inputs, bit-equal.
-    Returns the overlapped run's launches."""
+    then 1 step serial; one forward each way on the same inputs, bit-equal;
+    then `streaming_train` on the same store. Returns the overlapped run's
+    launches and the streamed LoRA step's."""
     import numpy as np
     pipe, init_s = build_pipeline(torch)
     park_text_encoder(pipe)
@@ -3303,7 +3338,12 @@ def run_streaming(torch, kernels, frames: int, steps: int, smi: str):
                                                                        outs["overlapped"])),
                launches=launches, expected_launches=expected)
     emit(res)
-    del pipe, streamer, outs, inputs
+    del outs, inputs
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the streamed LoRA step on the same int8 store
+    train_launches = run_streaming_train(torch, kernels, pipe, frames, smi)
+    del pipe, streamer
     gc.collect()
     torch.cuda.empty_cache()
     check_launches(launches, expected, "streaming")
@@ -3316,7 +3356,7 @@ def run_streaming(torch, kernels, frames: int, steps: int, smi: str):
         failures.append("serial and overlapped forwards differ")
     if failures:
         raise AssertionError("streaming: " + "; ".join(failures))
-    return launches
+    return launches, train_launches
 
 
 WORKFLOW_GRAPH = {"nodes": [  # the node types of the reference's Ditto workflow
@@ -3502,9 +3542,10 @@ def run_flux(torch, kernels, steps: int):
     `FluxImagePipeline` at the recipe's embedded guidance 3.5 and CFG 1,
     --steps steps, then the decode: stage times, peak memory, K1's launches
     against 57 a step; then one DiT step profiled by category; the
-    recipe's 30-step request composed; then the `flux_adapters` phase
-    on the same resident model. Returns the launches,
-    the adapters' launches and the modules the sd3 phase shares."""
+    recipe's 30-step request composed; then the `flux_adapters` and
+    `flux_lora` phases on the same resident model. Returns the launches,
+    the adapters' and the LoRA steps' launches and the modules the sd3
+    phase shares."""
     from video_styler_tpu_torch.models.flux_dit import FLUX_DEV
     from video_styler_tpu_torch.models.sd3_text_encoder import CLIP_L
     from video_styler_tpu_torch.models.sd3_vae import FLUX_VAE
@@ -3561,9 +3602,11 @@ def run_flux(torch, kernels, steps: int):
         composed_request("flux_image", res["stages"], res["step_s"], FLUX_RECIPE_STEPS,
                          size=1024, cfg="1 (embedded 3.5)")
         adapter_launches = run_flux_adapters(torch, pipe, kernels, steps)
+        # the LoRA steps on the same DiT (last: they put a LoRA on its linears)
+        lora_launches = run_flux_lora(torch, pipe, kernels, steps)
         # what the sd3 phase shares: CLIP-L, T5 v1.1-XXL and the VAE's modules
         shared = (pipe.prompter.clip, pipe.prompter.t5, pipe.vae_encoder, pipe.vae_decoder)
-        return launches, adapter_launches, shared
+        return launches, adapter_launches, lora_launches, shared
     finally:
         del pipe
         gc.collect()
@@ -6238,6 +6281,471 @@ def profile_request(torch, run, unprofiled_s: float, categories=None):
                 top_kernels_ms=dict(top))
 
 
+# ---------------------------------------------------------------------------
+# Image-family and streamed LoRA training
+# ---------------------------------------------------------------------------
+
+FLUX_LORA_RANK = 4          # the JAX family recipe's default rank, on every linear
+FLUX_LORA_SIZE = 1024
+STREAM_TRAIN_RANK = 128     # the Ditto recipe's VACE LoRA
+HF_VOCAB = 128              # the tiny `transformers` models' vocabulary
+
+
+def check_flux_lora_kernels(torch):
+    """`flux_lora_kernels`: K1 with its stats output and K3 at the FLUX
+    LoRA step's attention, 24 heads of 128 over 4,608 [text | image]
+    tokens (every row and head checked), with SDPA's forward and backward
+    as the library times. K3's dq-only twin is checked too, but its row is
+    left out of the kernels line: no FLUX attention takes it (q, k and v all
+    come from LoRA'd linears)."""
+    s = flux_tokens(FLUX_LORA_SIZE)
+    rows = check_attention_training(torch, s, s, f"flux-lora-{FLUX_LORA_SIZE}px", "self",
+                                    heads=FLUX_HEADS)
+    return [r for r in rows if r["kernel"] != "K3q"]
+
+
+def expected_flux_lora_launches(cfg, steps: int) -> dict:
+    """K1 with stats runs each block's joint attention in the forward and
+    again in its remat recompute; K3 (dq, dk, dv) once a block in the
+    backward: q, k and v all come from LoRA'd linears."""
+    blocks = cfg.num_joint_blocks + cfg.num_single_blocks
+    return {"K1": 2 * blocks * steps, "K3": blocks * steps}
+
+
+def run_flux_lora(torch, pipe, kernels, steps: int) -> dict:
+    """`flux_lora`: the JAX family recipe's LoRA (rank 4 on every linear,
+    fp32, Adam at 1e-4) on the resident FLUX.1-dev DiT at full width and
+    depth, bf16 weights, `remat=True`: --steps steps at 1024x1024 through
+    `trainers.image_training` (flow match, shift 3, the bell weights) on
+    seeded latents and the phase's T5 and CLIP encode of a prompt (made
+    once, before the steps; the text towers stay resident: they fit).
+    Step seconds, peak memory, the loss of each step, and K1 / K3 / K3q
+    launches against `expected_flux_lora_launches`."""
+    from video_styler_tpu_torch.models.flux_dit import flux_dit_forward
+    from video_styler_tpu_torch.pipelines.wan_video import generate_noise
+    from video_styler_tpu_torch.trainers.image_training import make_image_lora_train_step
+    from video_styler_tpu_torch.trainers.lora_train import (apply_lora, init_lora,
+                                                            lora_parameters)
+    cfg = pipe.dit_cfg
+    with torch.no_grad():
+        emb, pooled, _ = pipe.encode_prompt(FLUX_PROMPT)
+    latents = (0.5 * generate_noise((1, 16, FLUX_LORA_SIZE // 8, FLUX_LORA_SIZE // 8),
+                                    seed=7)).to("cuda", torch.bfloat16)
+    lora = init_lora(pipe.dit, rank=FLUX_LORA_RANK, targets=("*",),
+                     generator=torch.Generator().manual_seed(1))
+    apply_lora(pipe.dit, lora)
+    params = lora_parameters(lora)
+
+    def forward(x, t, c):
+        return flux_dit_forward(pipe.dit, x, t, c[0], c[1], remat=True)
+    step = make_image_lora_train_step(forward, torch.optim.Adam(params, lr=1e-4))
+    gen = torch.Generator().manual_seed(10)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    for kern in kernels.values():
+        kern.launches = 0
+    losses, step_s = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        loss = step(latents, (emb, pooled), generator=gen)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        losses.append(float(loss))
+    launches = {name: kern.launches for name, kern in kernels.items()}
+    expected = expected_flux_lora_launches(cfg, steps)
+    res = dict(phase="flux_lora", model="FLUX.1-dev", dit_dim=cfg.dim,
+               dit_heads=cfg.num_heads, joint_blocks=cfg.num_joint_blocks,
+               single_blocks=cfg.num_single_blocks, size=FLUX_LORA_SIZE,
+               tokens=flux_tokens(FLUX_LORA_SIZE), steps=steps, lora_rank=FLUX_LORA_RANK,
+               lora_targets='every linear ("*")', lora_linears=len(lora),
+               lora_params=sum(p.numel() for p in params), optimizer="Adam 1e-4",
+               remat=True, dtype="bf16 weights and activations, fp32 LoRA",
+               losses=losses, step_s=step_s,
+               memory_allocated_before_gib=before / 2**30,
+               max_memory_allocated_gib=torch.cuda.max_memory_allocated() / 2**30,
+               dit_weights_gib=gib([pipe.dit]), launches=launches,
+               expected_launches=expected, **CARD)
+    emit(res)
+    if not all(map(math.isfinite, losses)):
+        raise AssertionError(f"flux_lora: non-finite loss {losses}")
+    check_launches(launches, expected, "flux_lora")
+    return launches
+
+
+def run_flux_lora_alone(torch, kernels, steps: int) -> dict:
+    """`flux_lora` on a FLUX.1-dev pipeline of its own (for --only)."""
+    from video_styler_tpu_torch.models.flux_dit import FLUX_DEV
+    from video_styler_tpu_torch.models.sd3_text_encoder import CLIP_L
+    from video_styler_tpu_torch.models.sd3_vae import FLUX_VAE
+    from video_styler_tpu_torch.models.t5 import T5_V11_XXL
+    pipe = flux_pipeline(torch, (FLUX_DEV, CLIP_L, T5_V11_XXL, FLUX_VAE), "cuda")
+    try:
+        return run_flux_lora(torch, pipe, kernels, steps)
+    finally:
+        del pipe
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def _flat(torch, grads) -> "torch.Tensor":
+    """A LoRA's A and B gradients ({name: {"A", "B"}}) as one fp32 CPU
+    vector."""
+    return torch.cat([g[k].detach().float().reshape(-1).cpu() for g in grads.values()
+                      for k in ("A", "B")])
+
+
+def _grads_of(torch, lora) -> dict:
+    """{name: {"A", "B"}} of each LoRA factor's `.grad`, zeros where a
+    linear got none (the forward never reached it)."""
+    return {n: {k: ab[k].grad if ab[k].grad is not None else torch.zeros_like(ab[k])
+                for k in ("A", "B")} for n, ab in lora.items()}
+
+
+def check_image_lora_reference(torch, kernels):
+    """`image_lora_reference`: one LoRA step of each family's tiny model on
+    the card and on the CPU from the same weights, LoRA, inputs, tid and
+    noise (`train_lora.smoke_pack`): FLUX and Qwen-Image at heads of 128
+    (K1 forward, K3 backward; bf16, remat), SD3 (heads of 64: the exact
+    `sdpa`; bf16), and the real tiny SD UNet (fp32; the exact `sdpa`) with
+    the UNet LoRA's targets through `trainers.sd_training`. Loss and LoRA
+    gradients within 5% relative L2."""
+    from video_styler_tpu_torch import train_lora
+    from video_styler_tpu_torch.models import sd as SDM
+    from video_styler_tpu_torch.trainers.lora_train import apply_lora, init_lora, lora_parameters
+    from video_styler_tpu_torch.trainers.sd_training import (init_sd_lora,
+                                                             make_sd_lora_train_step)
+    res = dict(phase="image_lora_reference", loss_rel={}, grads_rel_l2={}, k1={}, k3={},
+               tol=5e-2)
+    for family in ("flux", "qwen_image", "sd3", "sd_unet"):
+        out = []
+        for dev in ("cpu", "cuda"):
+            if family == "sd_unet":
+                gen = torch.Generator().manual_seed(1)
+                unet = SDM.init_sd_module_(SDM.SDUNet(SDM.SD_UNET_TINY), gen).eval()
+                unet = unet.to(dev).requires_grad_(False)
+                lat = torch.randn((1, 4, 16, 16), generator=gen).to(dev)
+                ctx = torch.randn((1, 77, SDM.SD_UNET_TINY.text_dim), generator=gen).to(dev)
+                lora = init_sd_lora(unet, rank=4, generator=torch.Generator().manual_seed(2))
+                apply_lora(unet, lora)
+
+                def fwd(s, t, c, unet=unet):
+                    return SDM.sd_unet_forward(unet, s, t, c)
+                step = make_sd_lora_train_step(
+                    fwd, torch.optim.SGD(lora_parameters(lora), lr=0.0))
+            else:
+                model, fwd, lat, ctx = train_lora.smoke_pack(
+                    family, dev, torch.bfloat16, card_widths=True, remat=dev == "cuda")
+                lora = train_lora.lora_setup(family, model, rank=4)
+                step = train_lora.make_step(family, fwd,
+                                            torch.optim.SGD(lora_parameters(lora), lr=0.0))
+            for kern in kernels.values():
+                kern.launches = 0
+            loss = step(lat, ctx, generator=torch.Generator().manual_seed(3))
+            out.append((float(loss), _flat(torch, _grads_of(torch, lora))))
+            if dev == "cuda":
+                res["k1"][family] = kernels["K1"].launches
+                res["k3"][family] = kernels["K3"].launches
+        (lc, gc_), (lg, gg) = out
+        res["loss_rel"][family] = abs(lg - lc) / abs(lc)
+        res["grads_rel_l2"][family] = ((gg - gc_).norm() / gc_.norm()).item()
+    emit(res)
+    bad = [f for f in res["loss_rel"] if not (res["loss_rel"][f] <= 5e-2
+                                              and res["grads_rel_l2"][f] <= 5e-2)]
+    # the tiny FLUX (2 + 2 blocks) and Qwen-Image (2 blocks): K1 in the
+    # forward and the remat recompute, K3 in the backward, a block each
+    want = {"flux": (8, 4), "qwen_image": (4, 2), "sd3": (0, 0), "sd_unet": (0, 0)}
+    bad += [f for f, (k1, k3) in want.items() if (res["k1"][f], res["k3"][f]) != (k1, k3)]
+    if bad:
+        raise AssertionError(f"image LoRA steps, card vs CPU: {bad}: {res}")
+
+
+def hf_tiny_models(torch, root: str) -> dict:
+    """A tiny Qwen2.5-VL (2 text layers, 2 heads of 128, one k/v head, a
+    2-block vision tower of 2 heads of 80) and a tiny LLaMA (3 layers, the
+    same heads) over a 128-token vocabulary, built from configs with
+    seeded weights (norm weights off 1) and written by `save_pretrained`
+    under `root`. -> {"qwen": dir, "llama": dir}."""
+    from transformers import (LlamaConfig, LlamaModel, Qwen2_5_VLConfig,
+                              Qwen2_5_VLForConditionalGeneration)
+    from video_styler_tpu_torch.models.qwen_vl_embedder import StubQwenTokenizer
+    ids = StubQwenTokenizer(HF_VOCAB).special_ids
+
+    def text(layers, theta, eps):
+        return dict(vocab_size=HF_VOCAB, hidden_size=256, num_hidden_layers=layers,
+                    num_attention_heads=2, num_key_value_heads=1, intermediate_size=128,
+                    rope_theta=theta, rms_norm_eps=eps)
+    qcfg = Qwen2_5_VLConfig(
+        text_config=dict(text(2, 1e6, 1e-6),
+                         rope_scaling={"type": "mrope", "mrope_section": [16, 24, 24]}),
+        vocab_size=HF_VOCAB, hidden_size=256,
+        vision_config=dict(depth=2, hidden_size=160, num_heads=2, intermediate_size=96,
+                           out_hidden_size=256, patch_size=14, temporal_patch_size=2,
+                           spatial_merge_size=2, window_size=112, fullatt_block_indexes=[1]),
+        image_token_id=ids["<|image_pad|>"], video_token_id=ids["<|video_pad|>"],
+        vision_start_token_id=ids["<|vision_start|>"])
+    out = {}
+    for name, build in (("qwen", lambda: Qwen2_5_VLForConditionalGeneration(qcfg)),
+                        ("llama", lambda: LlamaModel(LlamaConfig(**text(3, 5e5, 1e-5))))):
+        torch.manual_seed(0)
+        model = build()
+        with torch.no_grad():
+            for pname, p in model.named_parameters():
+                if pname.endswith("norm.weight") or "layernorm" in pname:
+                    p.add_(0.1 * torch.randn(p.shape))
+        out[name] = os.path.join(root, name)
+        model.save_pretrained(out[name])
+    return out
+
+
+def check_transformers_backends(torch):
+    """`transformers_backends`: the two `transformers` backends on the card
+    (`QwenImagePipeline.fetch_text_encoder(backend="transformers")`, HF's
+    Qwen2.5-VL; `HunyuanVideoPipeline.fetch_llm(backend="transformers")`,
+    HF's LlamaModel at the native path's layer) against the port's native
+    paths on the same `save_pretrained` files, fp32, two prompts: the
+    card's `transformers` version, the key names it wrote, and the
+    embeddings' relative L2 (within 1e-4)."""
+    import transformers
+    from safetensors import safe_open
+    from video_styler_tpu_torch.models.qwen_vl_embedder import StubQwenTokenizer
+    from video_styler_tpu_torch.pipelines import hunyuan_video as HV
+    from video_styler_tpu_torch.pipelines import qwen_image as QI
+    root = tempfile.mkdtemp(prefix="chip_smoke_hf_")
+    try:
+        dirs = hf_tiny_models(torch, root)
+        names = {}
+        for name, d in dirs.items():
+            with safe_open(os.path.join(d, "model.safetensors"), "pt") as f:
+                keys = sorted(f.keys())
+            names[name] = [k for k in keys if ".0." in k][:3]
+        prompts = ("a red fox running through deep snow at dawn", "")
+        res = dict(phase="transformers_backends", transformers=transformers.__version__,
+                   saved_names=names, rel_l2={}, tol=1e-4)
+        qtok = StubQwenTokenizer(HF_VOCAB)
+        pipes = {}
+        for backend, path in (("native", os.path.join(dirs["qwen"], "model.safetensors")),
+                              ("transformers", dirs["qwen"])):
+            pipes[backend] = QI.QwenImagePipeline(device="cuda", dtype=torch.float32)
+            pipes[backend].fetch_text_encoder(path, qtok, backend=backend)
+        res["rel_l2"]["qwen"] = [_rel_l2(pipes["transformers"].encode_prompt(p)[0].cpu(),
+                                         pipes["native"].encode_prompt(p)[0].cpu())
+                                 for p in prompts]
+        ltok = HV.StubLlamaTokenizer(HF_VOCAB)
+        for backend, path in (("native", os.path.join(dirs["llama"], "model.safetensors")),
+                              ("transformers", dirs["llama"])):
+            pipes[backend] = HV.HunyuanVideoPipeline(device="cuda", dtype=torch.float32)
+            pipes[backend].fetch_llm(path, ltok, backend=backend)
+        res["rel_l2"]["llama"] = [_rel_l2(pipes["transformers"].llm(p)[0].cpu(),
+                                          pipes["native"].llm(p)[0].cpu()) for p in prompts]
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    emit(res)
+    if not all(v <= 1e-4 for vs in res["rel_l2"].values() for v in vs):
+        raise AssertionError(f"transformers backends against the native paths: {res}")
+
+
+def expected_streaming_train_launches(n_trunk: int, vace_layers, mode: str, seg_k: int,
+                                      cross_kv: bool) -> dict:
+    """K1 / K4 / K5 / K3 / K3q launches of one streamed VACE-LoRA step with
+    sub_remat, from the configuration. The walk's schedule: trunk block j,
+    then VACE block i after trunk layer vace_layers[i]. Trunk blocks before
+    the first VACE block need no backward. Every block forward runs K1
+    twice (self, cross), K4 and K5 once; a block's backward runs the
+    block's three checkpointed stages forward, then again in its backward
+    (K1 4, K4 2, K5 2), K3 for self-attention, and for cross-attention K3
+    where its k / v carry the LoRA (the VACE blocks' with `cross_kv`), K3q
+    where they come from the frozen text (the trunk's). "device" mode
+    recomputes, segment by segment, the inputs of all but a segment's last
+    item that trains."""
+    schedule = []
+    for j in range(n_trunk):
+        schedule.append("trunk")
+        if j in vace_layers:
+            schedule.append("vace")
+    first = schedule.index("vace")
+    bwd = [si for si in range(len(schedule)) if si >= first]
+    forwards = len(schedule)
+    if mode == "device":
+        for s0 in range(0, len(schedule), seg_k):
+            seg = [si for si in bwd if s0 <= si < s0 + seg_k]
+            if seg:
+                forwards += seg[-1] - s0
+    n_vace = schedule.count("vace")
+    n_trunk_bwd = len(bwd) - n_vace
+    return {"K1": 2 * forwards + 4 * len(bwd), "K4": forwards + 2 * len(bwd),
+            "K5": forwards + 2 * len(bwd),
+            "K3": len(bwd) + (n_vace if cross_kv else 0),
+            "K3q": n_trunk_bwd + (0 if cross_kv else n_vace)}
+
+
+def streaming_lora(torch, vace_cfg, device, rank: int, seed: int, scale_b: float = 1e-3):
+    """A per-block LoRA on every VACE block's q, k, v, o (self and cross),
+    ffn.0 and ffn.2 (the Ditto recipe's targets), fp32 on `device`, B off
+    zero (so that A's gradients are not zero by construction), in the
+    port's layout (`blocks.{i}.self_attn.q`, ..., `blocks.{i}.ffn.fc2`)."""
+    from torch import nn
+    gen = torch.Generator().manual_seed(seed)
+    dim, ffn = vace_cfg.dim, vace_cfg.ffn_dim
+    shapes = {f"{a}.{n}": (dim, dim) for a in ("self_attn", "cross_attn") for n in "qkvo"}
+    shapes.update({"ffn.fc1": (dim, ffn), "ffn.fc2": (ffn, dim)})
+    lora = {}
+    for i in range(len(vace_cfg.vace_layers)):
+        for name, (in_f, out_f) in shapes.items():
+            a = torch.randn((rank, in_f), generator=gen) / rank
+            b = torch.randn((out_f, rank), generator=gen) * scale_b
+            lora[f"blocks.{i}.{name}"] = {"A": nn.Parameter(a.to(device)),
+                                          "B": nn.Parameter(b.to(device))}
+    return lora
+
+
+def check_streaming_train_reference(torch, kernels):
+    """`streaming_train_reference`: the smoke VACE pipeline's DiT and VACE
+    streamed from an int8 store (one trunk block resident, the rest through
+    the ring), one streamed VACE-LoRA gradient on the card against the same
+    on the CPU (same weights, LoRA and inputs), "device" mode with 2-item
+    segments and "host" mode; loss and gradients within 5% relative L2, and
+    K1 / K3 / K3q launches on the card against the derived counts."""
+    from video_styler_tpu_torch.infer_ditto import build_smoke_pipeline
+    from video_styler_tpu_torch.models.wan_streaming import WanBlockStreamer
+    from video_styler_tpu_torch.trainers.streaming_train import StreamingTrainer
+    cpu = build_smoke_pipeline(device="cpu", seed=0)
+    gen = torch.Generator().manual_seed(4)
+    f_lat, h, w = 3, 8, 8
+    inputs = [torch.randn((1, cpu.dit.cfg.in_dim, f_lat, h, w), generator=gen),
+              torch.tensor([600.0]),
+              torch.randn((1, 16, cpu.dit.cfg.text_dim), generator=gen),
+              torch.randn((1, cpu.dit.cfg.out_dim, f_lat, h, w), generator=gen),
+              torch.randn((1, cpu.vace.cfg.vace_in_dim, f_lat, h, w), generator=gen)]
+    res = dict(phase="streaming_train_reference", store="int8", resident_blocks=1,
+               loss_rel={}, grads_rel_l2={}, launches={}, expected_launches={}, tol=5e-2)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        dit = copy.deepcopy(cpu.dit).to(dev)
+        vace = copy.deepcopy(cpu.vace).to(dev)
+        streamer = WanBlockStreamer(dit, vace, mode="int8", resident_blocks=1,
+                                    prefetch_depth=2)
+        lora = streaming_lora(torch, vace.cfg, dev, rank=8, seed=5, scale_b=0.05)
+        for ckpt in ("device", "host"):
+            trainer = StreamingTrainer(streamer, activation_ckpt=ckpt, segment=2)
+            for kern in kernels.values():
+                kern.launches = 0
+            x, t, ctx, target, vctx = (a.to(dev) for a in inputs)
+            loss, _, grads = trainer.loss_and_grads(
+                x.to(torch.bfloat16), t, ctx.to(torch.bfloat16), target,
+                vace_context=vctx.to(torch.bfloat16), vace_scale=0.8, vace_lora=lora)
+            out[(dev, ckpt)] = (float(loss), _flat(torch, grads))
+            if dev == "cuda":
+                res["launches"][ckpt] = {k: kernels[k].launches
+                                         for k in ("K1", "K3", "K3q", "K4", "K5")}
+                res["expected_launches"][ckpt] = expected_streaming_train_launches(
+                    dit.cfg.num_layers, vace.cfg.vace_layers, ckpt, 2, cross_kv=True)
+    for ckpt in ("device", "host"):
+        (lc, gcpu), (lg, ggpu) = out[("cpu", ckpt)], out[("cuda", ckpt)]
+        res["loss_rel"][ckpt] = abs(lg - lc) / abs(lc)
+        res["grads_rel_l2"][ckpt] = ((ggpu - gcpu).norm() / gcpu.norm()).item()
+    emit(res)
+    ok = all(v <= 5e-2 for v in list(res["loss_rel"].values())
+             + list(res["grads_rel_l2"].values()))
+    if not ok or res["launches"] != res["expected_launches"]:
+        raise AssertionError(f"streamed LoRA gradients, card vs CPU: {res}")
+
+
+def run_streaming_train(torch, kernels, pipe, frames: int, smi: str) -> dict:
+    """`streaming_train`: on the `streaming` phase's int8 store (13.5 GB
+    budget, depth 3) at full width, the Ditto recipe's VACE LoRA (rank 128
+    on q, k, v, o, ffn.0, ffn.2 of the 8 VACE blocks, fp32), one streamed
+    step on the --frames request (9: 4,680 tokens): "host" mode (its
+    gradients kept), then "device" mode (k = ceil(sqrt(48)) = 7) with an
+    AdamW update; sub_remat on. Step seconds, the loop's peak against the
+    budget plus what lies outside it (the VAE; umT5 parked on the host),
+    the GB the ring copied, the two modes' gradients against each other,
+    and K1 / K3 / K3q / K4 / K5 launches against the derived counts.
+    Returns the device-mode step's launches."""
+    from video_styler_tpu_torch.trainers.lora_train import lora_parameters
+    from video_styler_tpu_torch.trainers.streaming_train import StreamingTrainer
+    from video_styler_tpu_torch.trainers.training import adamw
+    streamer = pipe._streamers["dit"]
+    lora = streaming_lora(torch, streamer.vace_cfg, "cuda", rank=STREAM_TRAIN_RANK, seed=7)
+    params = lora_parameters(lora)
+    opt = adamw(params, 1e-4)
+    gen = torch.Generator("cuda").manual_seed(5)
+    f_lat = (frames - 1) // 4 + 1
+    lat = torch.randn((1, 16, f_lat, 60, 104), generator=gen, device="cuda")
+    noise = torch.randn(lat.shape, generator=gen, device="cuda")
+    sigma = 0.6
+    noisy = ((1 - sigma) * lat + sigma * noise).to(torch.bfloat16)
+    ctx = torch.randn((1, TEXT_LEN, 4096), generator=gen, device="cuda").to(torch.bfloat16)
+    vctx = torch.randn((1, 96, f_lat, 60, 104), generator=gen, device="cuda"
+                       ).to(torch.bfloat16)
+    args = (noisy, torch.tensor([600.0], device="cuda"), ctx, noise - lat)
+    kw = dict(vace_context=vctx, vace_scale=1.0, vace_lora=lora)
+    vae_bytes = sum(t.numel() * t.element_size() for t in pipe.vae.parameters())
+    allocated_before = torch.cuda.memory_allocated()
+    res = dict(phase="streaming_train", card=smi, frames=frames,
+               tokens=int(math.prod(token_grid(frames))), store="int8",
+               hbm_budget_gb=STREAM_BUDGET_GB, prefetch_depth=STREAM_DEPTH,
+               resident_blocks=streamer.resident_blocks, lora_rank=STREAM_TRAIN_RANK,
+               lora_linears=len(lora), lora_params=sum(p.numel() for p in params),
+               sub_remat=True, memory_allocated_before_gb=allocated_before / 1e9,
+               outside_budget_bytes=dict(vae=vae_bytes, lora_and_adamw=None),
+               modes={})
+    grads = {}
+    launches = {}
+    for ckpt in ("host", "device"):
+        trainer = StreamingTrainer(streamer, activation_ckpt=ckpt)
+        for kern in kernels.values():
+            kern.launches = 0
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        loss, _, g = trainer.loss_and_grads(*args, **kw)
+        if ckpt == "device":
+            for name, ab in lora.items():
+                for k in ("A", "B"):
+                    ab[k].grad = g[name][k]
+            opt.step()
+        torch.cuda.synchronize()
+        step_s = time.perf_counter() - t0
+        launches[ckpt] = {name: kern.launches for name, kern in kernels.items()}
+        expected = expected_streaming_train_launches(
+            streamer.cfg.num_layers, streamer.vace_cfg.vace_layers, ckpt,
+            trainer.last_ckpt[1], cross_kv=True)
+        grads[ckpt] = _flat(torch, g)
+        res["modes"][ckpt] = dict(
+            loss=float(loss), step_s=step_s, segment=trainer.last_ckpt[1],
+            loop_peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+            streamed_gb=trainer.bytes_copied / 1e9, pin_s=trainer.pin_seconds,
+            launches=launches[ckpt],
+            expected_launches=expected)
+    res["outside_budget_bytes"]["lora_and_adamw"] = 4 * sum(p.numel() for p in params) * 4
+    res["grads_rel_l2_host_vs_device"] = ((grads["host"] - grads["device"]).norm()
+                                          / grads["device"].norm()).item()
+    res["grads_tol"] = 1e-2
+    emit(res)
+    failures = []
+    for ckpt, mode in res["modes"].items():
+        if not math.isfinite(mode["loss"]):
+            failures.append(f"{ckpt}: non-finite loss")
+        try:
+            check_launches(mode["launches"], mode["expected_launches"],
+                           f"streaming_train ({ckpt})")
+        except AssertionError as e:
+            failures.append(str(e))
+        budget = STREAM_BUDGET_GB * 1e9 + vae_bytes + 8e9
+        if mode["loop_peak_gib"] * 2**30 > budget:
+            failures.append(f"{ckpt}: loop peak {mode['loop_peak_gib']:.2f} GiB over the "
+                            f"budget + the VAE + the 8 GB stash budget")
+    if not res["grads_rel_l2_host_vs_device"] <= 1e-2:
+        failures.append("host and device gradients differ")
+    if failures:
+        raise AssertionError("streaming_train: " + "; ".join(failures))
+    return launches["device"]
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--steps", type=int, default=2)
@@ -6246,14 +6754,19 @@ def main(argv=None):
     ap.add_argument("--train-frames", type=int, default=RUN_FRAMES,
                     help="frames (4k+1) of the 480x832 clip of the LoRA steps")
     ap.add_argument("--only", nargs="+",
-                    choices=("qwen", "step1x", "hunyuan") + FAMILY_PHASES + ("usp",),
+                    choices=("qwen", "step1x", "hunyuan") + FAMILY_PHASES
+                    + ("usp", "flux_lora", "streaming_train", "transformers"),
                     default=None,
                     help="build the kernels and run only these phases (qwen: "
                          "qwen_kernels to qwen_adapters; step1x: step1x_nexus_kernels "
                          "to step1x_nexus, on the qwen phase's towers when it runs too; "
                          "hunyuan: hunyuan_kernels to hunyuan; step_video: "
                          "step_video_kernels to step_video; cog_video, hunyuan_image, svd, "
-                         "omnigen: each family's reference and full-width phase; usp), "
+                         "omnigen: each family's reference and full-width phase; usp; "
+                         "flux_lora: flux_lora_kernels, image_lora_reference and "
+                         "flux_lora on a FLUX.1-dev of its own; streaming_train: "
+                         "streaming_train_reference, streaming and streaming_train; "
+                         "transformers: transformers_backends), "
                          "then the kernels line of their rows: for iterating on them "
                          "(with no arguments every phase runs)")
     ap.add_argument("--ckpt-dir", default=None,
@@ -6316,8 +6829,20 @@ def main(argv=None):
             path_launches.update(family_paths)
         if "usp" in args.only:
             path_launches["usp"] = run_usp(torch, args.frames, args.steps, smi)
+        own_rows = []
+        if "transformers" in args.only:
+            check_transformers_backends(torch)
+        if "flux_lora" in args.only:
+            own_rows = check_flux_lora_kernels(torch)
+            check_image_lora_reference(torch, kernels)
+            path_launches["flux_lora"] = run_flux_lora_alone(torch, kernels, args.steps)
+        if "streaming_train" in args.only:
+            check_streaming_train_reference(torch, kernels)
+            path_launches["streaming"], path_launches["streaming_train"] = run_streaming(
+                torch, kernels, args.frames, args.steps, smi)
         launches = {"K1": sum(c.get("K1", 0) for c in path_launches.values())}
-        return finish(torch, smi, rows, launches, path_launches, [], {})
+        return finish(torch, smi, rows, launches, path_launches, [], {},
+                      own_rows=flux_lora_rows(own_rows, path_launches.get("flux_lora")))
     ditto, run = token_grid(DITTO_FRAMES), token_grid(args.frames)
     rows = check_kernels(torch, ditto, f"ditto-{DITTO_FRAMES}f")
     if args.frames != DITTO_FRAMES:
@@ -6399,6 +6924,9 @@ def main(argv=None):
     check_s2v_reference(torch)
     check_postprocess_reference(torch)
     check_streaming_reference(torch)
+    check_streaming_train_reference(torch, kernels)
+    check_image_lora_reference(torch, kernels)
+    check_transformers_backends(torch)
     pipe, init_s = build_pipeline(torch)
     e2e_frames = []
     run_edit(torch, pipe, kernels, args.steps, args.frames, "e2e", {"K1": 1.0},
@@ -6460,7 +6988,8 @@ def main(argv=None):
     torch.cuda.empty_cache()
     launches.update(run_postprocess(torch, kernels))
     # block streaming at 14B width on a free card, then the workflow CLIs
-    path_launches["streaming"] = run_streaming(torch, kernels, args.frames, args.steps, smi)
+    path_launches["streaming"], path_launches["streaming_train"] = run_streaming(
+        torch, kernels, args.frames, args.steps, smi)
     run_workflow_smokes(torch, kernels)
     # FLUX.1-dev on the free card: K1 at its shapes (and its adapters'),
     # the small pipelines card vs CPU, then the full-width requests; then
@@ -6470,12 +6999,13 @@ def main(argv=None):
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True).stdout.strip()))
     rows += check_flux_adapter_kernels(torch)
+    lora_rows = check_flux_lora_kernels(torch)
     torch.cuda.empty_cache()
     check_flux_reference(torch)
     check_flux_adapters_reference(torch)
     check_sd3_reference(torch)
-    path_launches["flux"], path_launches["flux_adapters"], shared = run_flux(
-        torch, kernels, args.steps)
+    (path_launches["flux"], path_launches["flux_adapters"], path_launches["flux_lora"],
+     shared) = run_flux(torch, kernels, args.steps)
     gc.collect()
     torch.cuda.empty_cache()
     path_launches["sd3"], clip_g = run_sd3(torch, kernels, args.steps, shared)
@@ -6512,13 +7042,22 @@ def main(argv=None):
     # the multi-GPU path: ranks sharing the free card
     path_launches["usp"] = run_usp(torch, args.frames, args.steps, smi)
     return finish(torch, smi, rows + new_rows, launches, path_launches, train_rows,
-                  train_launches)
+                  train_launches, own_rows=flux_lora_rows(lora_rows,
+                                                          path_launches["flux_lora"]))
 
 
-def finish(torch, smi, rows, launches, path_launches, train_rows, train_launches):
-    """The kernels line (each row with its launches on the main path), the
-    nvidia-smi line and the last line; fails if a kernel of the
-    rows was never launched."""
+def flux_lora_rows(rows, launches):
+    """The FLUX LoRA shape's K1-with-stats and K3 rows with their launches
+    in the `flux_lora` steps."""
+    return [dict(r, launches=launches["K1" if r["kernel"] == "K1s" else r["kernel"]])
+            for r in rows]
+
+
+def finish(torch, smi, rows, launches, path_launches, train_rows, train_launches,
+           own_rows=()):
+    """The kernels line (each row with its launches on the main path; an
+    own row carries the launches of its path's run), the nvidia-smi line
+    and the last line; fails if a kernel of the rows was never launched."""
     keys = ("name", "route", "source", "replaces", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     by_path = {name: {path: counts[name] for path, counts in path_launches.items()
@@ -6527,7 +7066,8 @@ def finish(torch, smi, rows, launches, path_launches, train_rows, train_launches
               **({"launches_by_path": by_path[r["kernel"]]} if r["kernel"] in by_path else {})}
              for r in rows]
             + [{**{k: r[k] for k in keys}, "launches": train_launches[
-                "K1" if r["kernel"] == "K1s" else r["kernel"]]} for r in train_rows])
+                "K1" if r["kernel"] == "K1s" else r["kernel"]]} for r in train_rows]
+            + [{**{k: r[k] for k in keys}, "launches": r["launches"]} for r in own_rows])
     unlaunched = sorted({r["name"].split()[0] for r in line if r["launches"] == 0})
     if unlaunched:
         raise AssertionError(f"kernels never launched on their main-path runs: {unlaunched}")

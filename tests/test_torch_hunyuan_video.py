@@ -466,8 +466,8 @@ def test_prompt_path_matches_jax(tmp_path, monkeypatch):
         np.testing.assert_array_equal(t_mask.numpy(), np.asarray(j_mask))
         assert _rel(t_emb, j_emb) < TOL_F32 and _rel(t_pooled, j_pooled) < TOL_F32
     assert [s for s, _ in tp.stage_times] == ["llm_encode", "clip_encode"] * 2
-    with pytest.raises(NotImplementedError, match="11d's remainder"):
-        tp.fetch_llm(llm_path, llm_tok, backend="transformers")
+    with pytest.raises(ValueError, match="unknown LLM backend"):
+        tp.fetch_llm(llm_path, llm_tok, backend="jax")
     tp.clip = None
     with pytest.raises(RuntimeError, match="no clip"):
         tp.encode_prompt("a fox")

@@ -414,9 +414,15 @@ def test_scheduler_matches_jax():
 
 
 def test_transformers_backend_raises():
-    with pytest.raises(NotImplementedError, match="item 11d"):
-        TP.QwenImagePipeline(device="cpu").fetch_text_encoder("te.safetensors", "tok",
-                                                              backend="transformers")
+    """An unknown backend is refused; the transformers backend (held against
+    the native path in test_torch_transformers_backends.py) raises on a
+    model directory that is not there."""
+    pipe = TP.QwenImagePipeline(device="cpu")
+    with pytest.raises(ValueError, match="unknown text-encoder backend"):
+        pipe.fetch_text_encoder("te.safetensors", "tok", backend="jax")
+    with pytest.raises(OSError):
+        pipe.fetch_text_encoder("no_such_model_dir", lambda *a, **k: None,
+                                backend="transformers")
 
 
 # ------------------------------------------------------------ files

@@ -52,6 +52,8 @@ and returns the port's module for `kind`:
   "svd_vae_decoder" -> models.svd.SVDVAEDecoder (cfg: None)
   "svd_image_encoder" -> models.svd.SVDImageEncoder (cfg: SVDImageEncoderConfig)
   "omnigen" -> models.omnigen.OmniGen (cfg: OmniGenConfig)
+  "qwen_image_dit" -> models.qwen_image_dit.QwenImageDiT (cfg: QwenImageDiTConfig;
+            the tree's stacked `transformer_blocks` become the module list)
   (in these trees a LayerNorm's or RMSNorm's `scale` becomes the port's
   `weight` and the other names follow the port's modules; the SVD and VAE
   trees already carry the port's names)
@@ -62,7 +64,11 @@ and `has_control_adapter` takes.
 
 `from_jax_lora(lora)` turns a JAX LoRA pytree (`trainers.lora_train
 .init_lora`: {path: {"A": (L, in, r), "B": (L, r, out)}}, stacked over
-blocks) into the port's per-block factors in torch layout.
+blocks, or (in, r) / (r, out) on an unstacked linear) into the port's
+per-block factors in torch layout. Every tree of the trainers maps one JAX
+`{"w"}` node to one port linear of the same path: the Wan DiT and VACE,
+the FLUX, SD3 and Qwen-Image DiTs (any `*blocks` stack: `blocks.`,
+`single_blocks.`, `transformer_blocks.`) and the SD/SDXL UNets.
 
 The layouts that differ: JAX linears store `w` as (in, out) and
 `nn.Linear` stores `weight` as (out, in) (a convolution's `w`, 3-D and up,
@@ -99,6 +105,7 @@ from .models.flux_controlnet import FluxControlNet, FluxIpAdapter
 from .models.flux_dit import FluxDiT
 from .models.hunyuan_image_dit import HunyuanBert, HunyuanImageDiT
 from .models.omnigen import OmniGen
+from .models.qwen_image_dit import QwenImageDiT
 from .models.sd3_dit import SD3DiT
 from .models.sd3_text_encoder import ClipTextEncoder
 from .models.sd3_vae import SD3VAEDecoder, SD3VAEEncoder
@@ -143,7 +150,8 @@ _MODULES = {"dit": WanDiT, "vace": WanVace, "t5": T5Encoder, "vae": WanVAE,
             "step1_llm": Step1LLM, "step_video_dit": StepVideoDiT, "step_vae": StepVideoVAE,
             "cog_dit": CogDiT, "cog_vae_encoder": CogVAEEncoder,
             "cog_vae_decoder": CogVAEDecoder, "svd_vae_decoder": SVDVAEDecoder,
-            "svd_image_encoder": SVDImageEncoder, "omnigen": OmniGen}
+            "svd_image_encoder": SVDImageEncoder, "omnigen": OmniGen,
+            "qwen_image_dit": QwenImageDiT}
 _BUILDERS = {"animate": _animate, "motion_controller": _motion_controller,
              "control_adapter": _simple_adapter,
              "cross_model": lambda cfg, sd: CrossModel(cross_model_config(sd)),
@@ -156,7 +164,7 @@ _STACKED = ("blocks", "after_proj", "single_blocks", "controlnet_blocks",
             "transformer_blocks")
 _STACKED_KINDS = ("dit", "vace", "s2v", "flux_dit", "flux_controlnet", "flux_ipadapter",
                   "sd3_dit", "hunyuan_dit", "step1_llm", "step_video_dit", "cog_dit",
-                  "omnigen")
+                  "omnigen", "qwen_image_dit")
 
 
 def _sub(rules):

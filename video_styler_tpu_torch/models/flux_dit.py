@@ -48,6 +48,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention import attention, sdpa
 from ..ops.basic import gelu_tanh, layer_norm, silu
@@ -344,19 +345,19 @@ def flux_dit_forward(model: FluxDiT, hidden_states, timestep, prompt_emb,
                      pooled_prompt_emb, guidance=None, image_ids=None, text_ids=None,
                      kontext_latents=None, kontext_ids=None, controlnet_res=None,
                      controlnet_single_res=None, ip_kv=None, ip_scale: float = 1.0,
-                     attn_bias=None):
+                     attn_bias=None, remat: bool = False):
     """hidden_states (B, 16, H, W) latents; prompt_emb (B, L, context_dim);
     pooled_prompt_emb (B, pooled_dim); guidance (B,) embedded guidance (dev
     models); image_ids/text_ids: optional (S, 3) position ids.
     kontext_latents: patchified reference tokens appended after the image
     tokens with their own ids (f_id = 1), dropped from the output. The
-    adapters' inputs as `flux_trunk` takes them."""
+    adapters' inputs and `remat` as `flux_trunk` takes them."""
     x, ctx, temb, cos, sin, n_img = flux_embed(
         model, hidden_states, timestep, prompt_emb, pooled_prompt_emb, guidance,
         image_ids, text_ids, kontext_latents, kontext_ids)
     h = flux_trunk(model, x, ctx, temb, cos, sin, controlnet_res=controlnet_res,
                    controlnet_single_res=controlnet_single_res, ip_kv=ip_kv,
-                   ip_scale=ip_scale, attn_bias=attn_bias)
+                   ip_scale=ip_scale, attn_bias=attn_bias, remat=remat)
     height, width = hidden_states.shape[-2:]
     return flux_head(model, h[:, :n_img], temb, height, width)
 
@@ -398,7 +399,7 @@ def flux_embed(model: FluxDiT, hidden_states, timestep, prompt_emb, pooled_promp
 
 def flux_trunk(model: FluxDiT, x, ctx, temb, cos, sin, controlnet_res=None,
                controlnet_single_res=None, ip_kv=None, ip_scale: float = 1.0,
-               attn_bias=None):
+               attn_bias=None, remat: bool = False):
     """The joint then single block stacks -> the image (and Kontext)
     tokens after the trunk.
 
@@ -407,15 +408,24 @@ def flux_trunk(model: FluxDiT, x, ctx, temb, cos, sin, controlnet_res=None,
     length; controlnet_single_res: (num_single, B, n_img, D) added to the
     rows past the text after each single block. ip_kv: (ip_k, ip_v), each
     (num_joint + num_single, B, T, N, D). attn_bias: (B, 1, S, S) fp32
-    additive bias of both self-attentions."""
+    additive bias of both self-attentions. remat: each block under
+    `torch.utils.checkpoint` (non-reentrant), its activations recomputed in
+    the backward; the same values."""
     cfg = model.cfg
+    joint, single = joint_block, single_block
+    if remat:
+        def joint(*args, **kw):
+            return checkpoint(joint_block, *args, use_reentrant=False, **kw)
+
+        def single(*args, **kw):
+            return checkpoint(single_block, *args, use_reentrant=False, **kw)
     if controlnet_res is not None and controlnet_res.shape[2] < x.shape[1]:
         controlnet_res = torch.nn.functional.pad(
             controlnet_res, (0, 0, 0, x.shape[1] - controlnet_res.shape[2]))
     ip_k, ip_v = ip_kv if ip_kv is not None else (None, None)
     nj = cfg.num_joint_blocks
     for i, p in enumerate(model.blocks):
-        x, ctx = joint_block(p, x, ctx, temb, cos, sin, cfg,
+        x, ctx = joint(p, x, ctx, temb, cos, sin, cfg,
                              ip_k=None if ip_k is None else ip_k[i],
                              ip_v=None if ip_v is None else ip_v[i],
                              ip_scale=ip_scale, attn_bias=attn_bias)
@@ -424,7 +434,7 @@ def flux_trunk(model: FluxDiT, x, ctx, temb, cos, sin, controlnet_res=None,
     s_ctx = ctx.shape[1]
     h = torch.cat([ctx, x], dim=1)
     for i, p in enumerate(model.single_blocks):
-        h = single_block(p, h, temb, cos, sin, cfg,
+        h = single(p, h, temb, cos, sin, cfg,
                          ip_k=None if ip_k is None else ip_k[nj + i],
                          ip_v=None if ip_v is None else ip_v[nj + i],
                          ip_scale=ip_scale, attn_bias=attn_bias)

@@ -30,6 +30,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention import attention, sdpa
 from ..ops.basic import layer_norm, silu
@@ -219,7 +220,7 @@ def qwen_block(p: QwenBlock, img, txt, temb, img_cs, txt_cs, cfg: QwenImageDiTCo
 def qwen_image_dit_forward(model: QwenImageDiT, latents, timestep, prompt_emb,
                            txt_seq_len: Optional[int] = None,
                            extra_latents: Optional[Sequence] = None, attn_bias=None,
-                           blockwise_cn=None):
+                           blockwise_cn=None, remat: bool = False):
     """latents (B, 16, H, W); timestep (B,) already divided by 1000;
     prompt_emb (B, L, text_dim). extra_latents: (B, 16, h, w) edit or
     context images appended as more RoPE frames and dropped from the
@@ -227,7 +228,9 @@ def qwen_image_dit_forward(model: QwenImageDiT, latents, timestep, prompt_emb,
     attention (EliGen). blockwise_cn: list of (QwenBlockwiseControlNet,
     control tokens (B, n_img, dim), scale): each layer's residual, times
     its scale (rounded to the activations' dtype), is added to the image
-    rows after that layer; a scale of 0 skips the ControlNet's layer."""
+    rows after that layer; a scale of 0 skips the ControlNet's layer.
+    remat: each block under `torch.utils.checkpoint` (non-reentrant), as
+    the JAX forward checkpoints its scan; the same values."""
     cfg = model.cfg
     dtype = latents.dtype
     H, W = latents.shape[-2:]
@@ -251,7 +254,9 @@ def qwen_image_dit_forward(model: QwenImageDiT, latents, timestep, prompt_emb,
         txt_seq_len = prompt_emb.shape[1]
     ic, isin, tc, tsin = _rope_on(cfg, tuple(img_shapes), txt_seq_len, img.device)
     for i, bp in enumerate(model.transformer_blocks):
-        img, txt = qwen_block(bp, img, txt, temb, (ic, isin), (tc, tsin), cfg, attn_bias)
+        args = (bp, img, txt, temb, (ic, isin), (tc, tsin), cfg, attn_bias)
+        img, txt = (checkpoint(qwen_block, *args, use_reentrant=False) if remat
+                    else qwen_block(*args))
         active = [(cn, cond, scale) for cn, cond, scale in blockwise_cn or () if scale != 0]
         if active:
             sl = img[:, :n_img]

@@ -23,6 +23,7 @@ from typing import Dict
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention import sdpa
 from ..ops.basic import gelu_tanh, layer_norm
@@ -201,9 +202,17 @@ def cropped_pos_embed(table, height: int, width: int, patch: int = 2):
     return table[:, top:top + h, left:left + w].reshape(1, h * w, -1)
 
 
-def sd3_dit_forward(model: SD3DiT, hidden_states, timestep, prompt_emb, pooled_prompt_emb):
+def sd3_dit_forward(model: SD3DiT, hidden_states, timestep, prompt_emb, pooled_prompt_emb,
+                    remat: bool = False):
     """hidden_states (B, 16, H, W) latents; prompt_emb (B, L, context_dim);
-    pooled_prompt_emb (B, pooled_dim) -> the velocity (B, 16, H, W)."""
+    pooled_prompt_emb (B, pooled_dim) -> the velocity (B, 16, H, W).
+    remat: each dual and joint block under `torch.utils.checkpoint`
+    (non-reentrant), as the JAX forward checkpoints its scans; the same
+    values."""
+    block = joint_block
+    if remat:
+        def block(*args, **kw):
+            return checkpoint(joint_block, *args, use_reentrant=False, **kw)
     cfg = model.cfg
     dtype = hidden_states.dtype
     temb = F._mlp_embed(model.time_embedder,
@@ -214,9 +223,9 @@ def sd3_dit_forward(model: SD3DiT, hidden_states, timestep, prompt_emb, pooled_p
     x = model.pos_embedder.proj(F.patchify(hidden_states))
     x = x + cropped_pos_embed(model.pos_embedder.pos_embed, height, width).to(x.dtype)
     for p in model.dual_blocks:
-        x, ctx = joint_block(p, x, ctx, temb, cfg, dual=True)
+        x, ctx = block(p, x, ctx, temb, cfg, dual=True)
     for p in model.blocks:
-        x, ctx = joint_block(p, x, ctx, temb, cfg)
+        x, ctx = block(p, x, ctx, temb, cfg)
     x = final_block(model.final_block, x, ctx, temb, cfg)
     sc, sh = F._ada_mod(model.norm_out, temb, 2)
     x = model.proj_out(F._modulate(x, sh, sc, cfg.eps))

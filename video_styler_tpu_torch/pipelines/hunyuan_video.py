@@ -59,8 +59,7 @@ PROMPT_TEMPLATE = (
     "\n\n{}<|eot_id|>")
 CROP_START = 95
 CLIP_LENGTH = 77
-TRANSFORMERS_PENDING = ("the transformers LLM backend is not ported (ROADMAP Queue 1, item "
-                        "11d's remainder); use backend='native'")
+BACKENDS = ("native", "transformers")
 
 
 class StubLlamaTokenizer:
@@ -182,23 +181,42 @@ class HunyuanVideoPipeline:
                   backend: str = "native"):
         """The LLaMA text tower from `model_path` (a file or a list of shards,
         HF names; its config from the shapes), with `tokenizer` a callable or
-        a tokenizer directory."""
-        if backend != "native":
-            raise NotImplementedError(TRANSFORMERS_PENDING)
+        a tokenizer directory.
+
+        backend="transformers": HF's `LlamaModel` from the model directory
+        `model_path`, on the pipeline's device and dtype, taking the native
+        path's layer: `hidden_states[-3]`, the output of layer n - 2 without
+        the final norm."""
+        if backend not in BACKENDS:
+            raise ValueError(f"unknown LLM backend {backend!r}; one of {BACKENDS}")
+        if isinstance(tokenizer, str):
+            from transformers import AutoTokenizer
+            tokenizer = AutoTokenizer.from_pretrained(tokenizer)
+        if backend == "transformers":
+            from transformers import LlamaModel
+            model = LlamaModel.from_pretrained(model_path, dtype=self.dtype).to(
+                self.device).eval()
+            self._use_encoder(model, tokenizer, template,
+                              lambda ids, mask: model(input_ids=ids, attention_mask=mask,
+                                                      output_hidden_states=True
+                                                      ).hidden_states[-3])
+            return
         sd = C.load_state_dict_files(model_path if isinstance(model_path, list)
                                      else [model_path], lazy=True)
         cfg = detect_decoder_lm_config(sd, family="llama")
         model = C.build_module(DecoderLM, cfg, convert_decoder_lm(sd, cfg), self.device,
                                self.dtype)
-        if isinstance(tokenizer, str):
-            from transformers import AutoTokenizer
-            tokenizer = AutoTokenizer.from_pretrained(tokenizer)
         self.use_llm(model, tokenizer, template)
 
     def use_llm(self, model: DecoderLM, tokenizer: Callable, template: Optional[str] = None):
         """Encode prompts with `model`: the template, `CROP_START` rows
         dropped, the hidden states two layers from the top without the
         final norm, the DiT's `txt_len` rows and their mask."""
+        self._use_encoder(model, tokenizer, template, lambda ids, mask: decoder_lm_forward(
+            model, ids, mask, stop_skip_layers=2, final_norm=False))
+
+    def _use_encoder(self, model, tokenizer: Callable, template: Optional[str],
+                     hidden_fn: Callable):
         template = template or PROMPT_TEMPLATE
         self.llm_model, self.llm_tokenizer = model, tokenizer
 
@@ -208,10 +226,10 @@ class HunyuanVideoPipeline:
             max_length = max_length or self.dit_cfg.txt_len
             out = tokenizer(template.format(prompt), return_tensors="np", padding="max_length",
                             max_length=max_length + CROP_START, truncation=True)
-            dev = model.embed.device
+            dev = next(model.parameters()).device
             ids = torch.from_numpy(np.asarray(out["input_ids"], np.int64)).to(dev)
             mask = torch.from_numpy(np.asarray(out["attention_mask"], np.int64)).to(dev)
-            hidden = decoder_lm_forward(model, ids, mask, stop_skip_layers=2, final_norm=False)
+            hidden = hidden_fn(ids, mask)
             return hidden[:, CROP_START:].to(self.dtype), mask[:, CROP_START:].to(torch.int32)
 
         self.llm = encode

@@ -72,8 +72,7 @@ EDIT_TEMPLATE_MULTI = (
     "<|im_start|>user\n{}<|im_end|>\n<|im_start|>assistant\n")
 EDIT_IMG_BLOCK = "Picture {}: <|vision_start|><|image_pad|><|vision_end|>"
 EDIT_DROP_IDX = 64
-TRANSFORMERS_PENDING = ("the transformers text-encoder backend is not ported "
-                        "(ROADMAP Queue 1, item 11d's remainder); use backend='native'")
+BACKENDS = ("native", "transformers")
 
 
 @dataclass
@@ -163,11 +162,41 @@ class QwenImagePipeline:
     def fetch_text_encoder(self, model_path, tokenizer, backend: str = "native"):
         """The Qwen2.5-VL towers from `model_path` (a file or list of shards,
         HF names; the vision tower where the file has `visual.*` weights),
-        with `tokenizer` a callable or a tokenizer directory."""
-        if backend != "native":
-            raise NotImplementedError(TRANSFORMERS_PENDING)
+        with `tokenizer` a callable or a tokenizer directory.
+
+        backend="transformers": HF's `Qwen2_5_VLForConditionalGeneration`
+        from the model directory `model_path`, on the pipeline's device and
+        dtype; a prompt's embedding is `hidden_states[-1]` (the final norm
+        applied) without its first T2I_DROP_IDX rows, as the native path
+        computes it. Text prompts only: the edit's vision path is native."""
+        if backend not in BACKENDS:
+            raise ValueError(f"unknown text-encoder backend {backend!r}; one of {BACKENDS}")
+        if backend == "transformers":
+            self._use_transformers_encoder(model_path, tokenizer)
+            return
         self.use_text_encoder(QwenVL.from_files(model_path, tokenizer, self.device,
                                                 self.dtype))
+
+    def _use_transformers_encoder(self, model_dir: str, tokenizer):
+        from transformers import AutoTokenizer, Qwen2_5_VLForConditionalGeneration
+        if isinstance(tokenizer, str):
+            tokenizer = AutoTokenizer.from_pretrained(tokenizer)
+        model = Qwen2_5_VLForConditionalGeneration.from_pretrained(
+            model_dir, dtype=self.dtype).to(self.device).eval()
+        self._vl = None
+
+        @torch.no_grad()
+        def encode(prompt: str):
+            out = tokenizer([T2I_TEMPLATE.format(prompt)], max_length=4096 + T2I_DROP_IDX,
+                            padding=True, truncation=True, return_tensors="np")
+            ids, mask = (torch.from_numpy(np.asarray(out[k], np.int64)).to(self.device)
+                         for k in ("input_ids", "attention_mask"))
+            hidden = model(input_ids=ids, attention_mask=mask,
+                           output_hidden_states=True).hidden_states[-1]
+            return (hidden[:, T2I_DROP_IDX:].to(self.dtype),
+                    mask[:, T2I_DROP_IDX:].to(torch.int32))
+
+        self.text_encoder = encode
 
     def use_text_encoder(self, vl: QwenVL):
         """Encode prompts with `vl` (the T2I template, 34 rows dropped)."""
@@ -208,6 +237,9 @@ class QwenImagePipeline:
         tower into the prompt's embedding (64 rows dropped). -> (emb, mask,
         vision cache); the cache serves the negative prompt's call."""
         vl = self._vl
+        if vl is None:
+            raise RuntimeError("the edit prompt needs the native Qwen2.5-VL towers "
+                               "(fetch_text_encoder(..., backend='native'))")
         if len(edit_images) == 1:
             txt = EDIT_TEMPLATE.format(prompt)
             imgs = list(edit_images)
