@@ -428,7 +428,20 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
              latents against the same weights in one process (5%), peak
              memory, DiT+VACE shard GiB, K1/K4/K5 launches against the
              one-process count, step times (a card shared by the ranks, not
-             a multi-card speed); (c) `infer_ditto --smoke --mesh 1,1,1` on
+             a multi-card speed); (e) in (b)'s ranks after its request, the
+             sharded pipeline quantised to int8 with int8 attention (each
+             rank quantising its own rows) and the request again: latents
+             against the same in one process (5%), the int8 DiT+VACE GiB a
+             rank against the whole, K6 launches against the derived count;
+             (d) on the mesh (1, 1, 2), two ranks: Wan2.2-Animate-14B on the
+             I2V trunk cut to 2 blocks (its face block after block 0) on the
+             `animate` phase's --frames 480x832 request, and
+             Wan2.2-S2V-14B cut to 2 blocks (its audio injector after block
+             0) on the `s2v` phase's 12-frame 448x832 request, one step
+             each, the VAE stages split on the frame width; per rank the
+             latents and decoded frames against one process (5%), the VAE
+             stages' peaks against one process's, K1/K4/K5 launches against
+             the derived count; (c) `infer_ditto --smoke --mesh 1,1,1` on
              a one-rank NCCL group: frames and latents bit-equal to the run
              without a mesh
 Then the `kernels` summary line, the nvidia-smi line, and last
@@ -452,6 +465,9 @@ import tempfile
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
+# no phase fetches anything: a weight or tokenizer that is not on disk
+# raises instead of reaching for the network (`utils.model_config`)
+os.environ.setdefault("VIDEO_STYLER_OFFLINE", "1")
 
 # H100 SXM data-sheet peaks (dense): bf16 tensor cores and HBM3
 PEAK_BF16_FLOPS = 989e12
@@ -5988,6 +6004,13 @@ USP_VACE_LAYERS = 8
 # four ranks share the card over gloo, and a run's cost is mostly the ranks'
 # start and their umT5-XXL, not the blocks
 USP_T2V_LAYERS = 10
+# the usp phase's (d): Wan2.2-Animate-14B on the I2V trunk and Wan2.2-S2V-14B
+# at their widths on the (1, 1, 2) mesh, cut to the blocks that reach each
+# adapter: the I2V trunk's first 2 blocks (a face block after block 0) and
+# S2V's first 2 (its audio injector after block 0); one step each
+USP_ANIMATE_LAYERS = 2
+USP_S2V_LAYERS = 2
+USP_FAMILY_STEPS = 1
 
 
 def check_ring_body(torch, rows: int, blocks: int):
@@ -6121,21 +6144,277 @@ def usp_rank(spec: dict) -> dict:
         park_text_encoder(pipe)
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
-    shard_gib = sum((p.to_local() if hasattr(p, "to_local") else p).numel() * p.element_size()
-                    for m in (pipe.dit, pipe.vace) if m is not None
-                    for p in m.parameters()) / 2**30
-    kernels = {"K1": fa.KERNEL, "K4": fnr.ROPE_KERNEL, "K5": fnr.RMS_KERNEL}
+    shard_gib = dit_vace_gib(pipe)
+    kernels = {"K1": fa.KERNEL, "K4": fnr.ROPE_KERNEL, "K5": fnr.RMS_KERNEL,
+               "K6": fa.INT8_CAPPED_KERNEL}
     for kern in kernels.values():
         kern.launches = 0
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    latents = pipe(**usp_request(spec["model"], spec["frames"], spec["steps"]))
+    request = usp_request(spec["model"], spec["frames"], spec["steps"])
+    latents = pipe(**request)
     total_s = time.perf_counter() - t0
-    return dict(rank=process_index(), latents=latents.float().cpu().numpy(),
-                launches={name: kern.launches for name, kern in kernels.items()},
-                peak_gib=torch.cuda.max_memory_allocated() / 2**30, dit_vace_gib=shard_gib,
-                build_s=build_s, total_s=total_s, step_s=step_times(pipe),
-                stages=dict(pipe.stage_times))
+    out = dict(rank=process_index(), latents=latents.float().cpu().numpy(),
+               launches={name: kern.launches for name, kern in kernels.items()},
+               peak_gib=torch.cuda.max_memory_allocated() / 2**30, dit_vace_gib=shard_gib,
+               build_s=build_s, total_s=total_s, step_s=step_times(pipe),
+               stages=dict(pipe.stage_times))
+    if spec.get("quantize"):
+        # (e): the sharded pipeline quantised (each rank its own rows), the
+        # same request again with int8 attention
+        from video_styler_tpu_torch.ops.attention import set_quantized_attention
+        t0 = time.perf_counter()
+        pipe.quantize("int8", quantize_attention=True)
+        torch.cuda.synchronize()
+        quantize_s = time.perf_counter() - t0
+        try:
+            for kern in kernels.values():
+                kern.launches = 0
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            latents = pipe(**request)
+            out["quant"] = dict(latents=latents.float().cpu().numpy(),
+                                launches={n: k.launches for n, k in kernels.items()},
+                                dit_vace_gib=dit_vace_gib(pipe), quantize_s=quantize_s,
+                                total_s=time.perf_counter() - t0, step_s=step_times(pipe),
+                                peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+        finally:
+            set_quantized_attention(False)
+    return out
+
+
+def dit_vace_gib(pipe) -> float:
+    """The GiB of the DiT and VACE that this process holds (its shards on a
+    mesh with fsdp > 1, quantised buffers included)."""
+    from video_styler_tpu_torch.parallel.fsdp import local_bytes
+    return sum(local_bytes(m) for m in (pipe.dit, pipe.vace) if m is not None) / 2**30
+
+
+def usp_family_pipeline(torch, family: str, frames: int, audio=None):
+    """(pipeline, request) of a usp (d) run, from seeds on cuda:0, in any
+    process: "animate", Wan2.2-Animate-14B on the I2V trunk (a random
+    `WAN_I2V_14B` cut to USP_ANIMATE_LAYERS blocks, CLIP ViT-H/14, the
+    `WAN_ANIMATE_14B` adapter) on the `animate` phase's request (the
+    `frames`-frame 480x832 clip's first frame, its last 4k - 3 frames as
+    the pose video and at 512x512 as the face video, CFG 5); or "s2v",
+    `WAN_S2V_14B` cut to USP_S2V_LAYERS blocks (its injector after block 0)
+    on the `s2v` phase's 12-frame 448x832 request with `audio` (CFG 4.5);
+    both with umT5-XXL and the Wan2.1 VAE, USP_FAMILY_STEPS steps, for
+    latents."""
+    import dataclasses
+    from video_styler_tpu_torch import wan_video_gen as G
+    from video_styler_tpu_torch.models import wan_animate as A
+    from video_styler_tpu_torch.models import wan_s2v as S
+    from video_styler_tpu_torch.models.clip_vit import CLIP_VIT_H_14
+    from video_styler_tpu_torch.models.t5 import UMT5_XXL
+    from video_styler_tpu_torch.models.wan_dit import WAN_I2V_14B
+    from video_styler_tpu_torch.models.wan_vae import WAN21_VAE
+    from video_styler_tpu_torch.pipelines.wan_video import WanVideoPipeline
+    from video_styler_tpu_torch.prompters.wan_prompter import StubTokenizer
+    if family == "animate":
+        pipe = WanVideoPipeline.from_configs(
+            dataclasses.replace(WAN_I2V_14B, num_layers=USP_ANIMATE_LAYERS), None, UMT5_XXL,
+            WAN21_VAE, StubTokenizer(TEXT_LEN), TEXT_LEN, seed=0, device="cuda",
+            clip_cfg=CLIP_VIT_H_14)
+        pipe.animate = random_module(torch, A.WanAnimateAdapter, A.WAN_ANIMATE_14B,
+                                     A.init_wan_animate_, 10, torch.bfloat16)
+        video = synthetic_clip(frames)
+        request = dict(prompt="the camera slowly pushes in as the light changes",
+                       negative_prompt="blurry, static", height=480, width=832,
+                       num_frames=frames, seed=42, cfg_scale=5.0,
+                       num_inference_steps=USP_FAMILY_STEPS, tiled=True,
+                       input_image=video[0], animate_pose_video=G.animate_clip(video),
+                       animate_face_video=G.animate_clip(synthetic_clip(frames, 512, 512)),
+                       return_latents=True)
+        return pipe, request
+    pipe = WanVideoPipeline.from_configs(None, None, UMT5_XXL, WAN21_VAE,
+                                         StubTokenizer(TEXT_LEN), TEXT_LEN, seed=0,
+                                         device="cuda")
+    pipe.s2v_model = random_module(torch, S.WanS2V, usp_s2v_config(), S.init_wan_s2v_, 20,
+                                   torch.bfloat16)
+    request = dict(prompt="a woman sings on a rooftop at dusk",
+                   ref_image=synthetic_clip(S2V_RUN_FRAMES, 448, 832)[0],
+                   negative_prompt="blurry, static", num_frames=S2V_RUN_FRAMES, height=448,
+                   width=832, seed=42, cfg_scale=4.5, num_inference_steps=USP_FAMILY_STEPS,
+                   tiled=True, audio_input=audio, return_latents=True)
+    return pipe, request
+
+
+def usp_s2v_config():
+    import dataclasses
+    from video_styler_tpu_torch.models import wan_s2v as S
+    return dataclasses.replace(S.WAN_S2V_14B, num_layers=USP_S2V_LAYERS,
+                               audio_inject_layers=(0,))
+
+
+def expected_family_launches(family: str) -> dict:
+    """K1/K4/K5 launches of one (d) run, a rank's or one process's: the I2V
+    trunk's three attention calls a block (self, text, image) and S2V's
+    (`run_s2v`'s per-step count) over two CFG passes a step."""
+    if family == "animate":
+        n = USP_ANIMATE_LAYERS * 2 * USP_FAMILY_STEPS
+        return {"K1": 3 * n, "K4": n, "K5": n}
+    cfg = usp_s2v_config()
+    inj = len(cfg.audio_inject_layers)
+    return {"K1": 2 * (2 * cfg.num_layers + inj) * USP_FAMILY_STEPS,
+            "K4": 2 * cfg.num_layers * USP_FAMILY_STEPS,
+            "K5": 2 * (cfg.num_layers + inj) * USP_FAMILY_STEPS}
+
+
+def run_usp_family(torch, family: str, frames: int, audio=None, mesh=None) -> dict:
+    """One (d) run (`usp_family_pipeline`), under `mesh` or in one process:
+    the request's latents with its K1/K4/K5 launches counted from 0 and its
+    stage peaks, then the latents decoded (width-sharded under the mesh)
+    with the decode's peak above what was resident before it."""
+    import numpy as np
+    from video_styler_tpu_torch.ops import flash_attention as fa
+    from video_styler_tpu_torch.ops import fused_norm_rope as fnr
+    pipe, request = usp_family_pipeline(torch, family, frames, audio)
+    encode_check = {}
+    if mesh is not None:
+        pipe.shard(mesh)
+        encode_check = usp_encode_check(torch, pipe, request)
+    kernels = {"K1": fa.KERNEL, "K4": fnr.ROPE_KERNEL, "K5": fnr.RMS_KERNEL}
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for kern in kernels.values():
+            kern.launches = 0
+        t0 = time.perf_counter()
+        latents = (pipe.s2v if family == "s2v" else pipe)(**request)
+        torch.cuda.synchronize()
+        total_s = time.perf_counter() - t0
+        launches = {name: kern.launches for name, kern in kernels.items()}
+        stage_peaks = {k: v / 2**30 for k, v in pipe.stage_peak_bytes}
+        stages = dict(pipe.stage_times)
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        video = pipe.decode_video(latents)
+        torch.cuda.synchronize()
+        decode_s = time.perf_counter() - t0
+        decode_peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+        frames_out = pipe.vae_output_to_video(video)
+    finally:
+        del pipe
+        gc.collect()
+        torch.cuda.empty_cache()
+    return dict(latents=latents.float().cpu().numpy(), frames=frames_out, launches=launches,
+                stage_peak_gib=stage_peaks, stages=stages, total_s=total_s,
+                decode_s=decode_s, decode_peak_above_resident_gib=decode_peak,
+                finite=bool(np.isfinite(frames_out).all()), encode_check=encode_check)
+
+
+def usp_encode_check(torch, pipe, request) -> dict:
+    """The request's image (`input_image` or `ref_image`) encoded by the
+    pipeline's VAE in fp32, width-sharded under its mesh and whole in this
+    process: their relative L2 distance, and the share of latents whose
+    bf16 rounding (the pipeline's dtype) differs."""
+    from video_styler_tpu_torch.models import wan_vae as V
+    from video_styler_tpu_torch.parallel import use_sharding
+    from video_styler_tpu_torch.pipelines.wan_video import _image_array, _preprocess_images
+    image = request.get("input_image", request.get("ref_image"))
+    clip = torch.from_numpy(_preprocess_images([_image_array(
+        image, request["width"], request["height"])])).cuda()
+    with torch.no_grad():
+        with use_sharding(pipe.sharding_ctx):
+            shared = V.encode(pipe.vae, clip, tiled=True)
+        whole = V.encode(pipe.vae, clip, tiled=True)
+    flips = (shared.to(torch.bfloat16) != whole.to(torch.bfloat16)).float().mean().item()
+    return dict(encode_fp32_rel_l2=((shared - whole).norm() / whole.norm()).item(),
+                encode_fp32_max_abs=(shared - whole).abs().max().item(),
+                bf16_flip_share=flips)
+
+
+def usp_family_rank(spec: dict) -> dict:
+    """`usp` (d), one rank of the (1, 1, 2) mesh: Animate, then S2V."""
+    import torch
+    from video_styler_tpu_torch.parallel import make_mesh, process_index
+    mesh = make_mesh(1, 1, 2, device_type="cuda")
+    out = dict(rank=process_index())
+    for family in ("animate", "s2v"):
+        out[family] = run_usp_family(torch, family, spec["frames"], spec["audio"], mesh)
+    return out
+
+
+def usp_s2v_audio(torch):
+    """The (d) S2V request's audio: 5 s of synthetic audio through a random
+    `WAV2VEC2_XLSR_53` tower (seed 21, fp32), as in the `s2v` phase."""
+    from video_styler_tpu_torch import wan_video_gen as G
+    from video_styler_tpu_torch.models import wav2vec as W
+    from video_styler_tpu_torch.models.audio_features import extract_audio_features
+    w2v = random_module(torch, W.Wav2Vec2, W.WAV2VEC2_XLSR_53, W.init_wav2vec_, 21,
+                        torch.float32)
+    audio = extract_audio_features(G.smoke_waveform(64), num_frames=S2V_RUN_FRAMES, model=w2v)
+    del w2v
+    gc.collect()
+    torch.cuda.empty_cache()
+    return audio
+
+
+def run_usp_families(torch, frames: int, store_dir: str, smi: str, failures: list) -> dict:
+    """`usp` (d): the Animate and S2V runs in this process, then on two
+    ranks of the (1, 1, 2) mesh on cuda:0 over gloo; per rank the latents
+    and frames against this process's (5%), the VAE peaks against this
+    process's and the launches against the derived count. Returns rank 0's
+    launches summed over both runs."""
+    import numpy as np
+    from video_styler_tpu_torch.parallel import run_local
+    audio = usp_s2v_audio(torch)
+    one = {family: run_usp_family(torch, family, frames, audio)
+           for family in ("animate", "s2v")}
+    t0 = time.perf_counter()
+    ranks = run_local(usp_family_rank, 2, "gloo", os.path.join(store_dir, "families"),
+                      dict(frames=frames, audio=audio), device="cuda:0", timeout_s=900)
+    wall_s = time.perf_counter() - t0
+    total = {}
+
+    def rel(a, b):
+        a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+        return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+    for family, layers in (("animate", USP_ANIMATE_LAYERS), ("s2v", USP_S2V_LAYERS)):
+        ref = one[family]
+        expected = expected_family_launches(family)
+        res = dict(phase=f"usp_{family}", mesh=dict(dp=1, fsdp=1, sp=2), backend="gloo",
+                   card=smi, note="2 ranks share one card over gloo: times are not a "
+                                  "multi-card speed",
+                   recipe="Wan2.2-Animate-14B" if family == "animate" else "Wan2.2-S2V-14B",
+                   layers=layers, steps=USP_FAMILY_STEPS,
+                   latents_rel_l2=[rel(r[family]["latents"], ref["latents"]) for r in ranks],
+                   frames_rel_l2=[rel(r[family]["frames"], ref["frames"]) for r in ranks],
+                   frames_mean_abs_diff=[float(np.abs(r[family]["frames"].astype(np.int16)
+                                                      - ref["frames"]).mean())
+                                         for r in ranks],
+                   tol=5e-2,
+                   ranks_bit_equal=bool(np.array_equal(ranks[0][family]["latents"],
+                                                       ranks[1][family]["latents"])),
+                   launches=[r[family]["launches"] for r in ranks],
+                   one_process_launches=ref["launches"], expected_launches=expected,
+                   stage_peak_gib=[r[family]["stage_peak_gib"] for r in ranks],
+                   one_process_stage_peak_gib=ref["stage_peak_gib"],
+                   decode_peak_above_resident_gib=[r[family]["decode_peak_above_resident_gib"]
+                                                   for r in ranks],
+                   one_process_decode_peak_above_resident_gib=ref[
+                       "decode_peak_above_resident_gib"],
+                   stages=[r[family]["stages"] for r in ranks],
+                   one_process_stages=ref["stages"],
+                   decode_s=[r[family]["decode_s"] for r in ranks],
+                   one_process_decode_s=ref["decode_s"],
+                   total_s=[r[family]["total_s"] for r in ranks],
+                   one_process_total_s=ref["total_s"], wall_s=wall_s,
+                   encode_check=[r[family]["encode_check"] for r in ranks],
+                   frames_shape=list(ref["frames"].shape))
+        emit(res)
+        if any(r[family]["launches"] != expected for r in ranks) \
+                or ref["launches"] != expected:
+            failures.append(f"{family} mesh (1, 1, 2): launches {res['launches']}, "
+                            f"one process {ref['launches']}, expected {expected}")
+        worst = max(res["latents_rel_l2"] + res["frames_rel_l2"])
+        if not (worst <= 5e-2 and all(r[family]["finite"] for r in ranks)):
+            failures.append(f"{family} mesh (1, 1, 2): latents {res['latents_rel_l2']}, "
+                            f"frames {res['frames_rel_l2']} from one process")
+        _summed(total, ranks[0][family]["launches"])
+    return total
 
 
 def ditto_mesh_rank(out_dir: str) -> dict:
@@ -6165,11 +6444,13 @@ def ditto_mesh_rank(out_dir: str) -> dict:
 
 def expected_usp_launches(model: str, steps: int) -> dict:
     """K1/K4/K5 launches of one rank: those of one process (two K1 and one
-    K4 and K5 per block, DiT and VACE, and forward; two forwards a step)."""
+    K4 and K5 per block, DiT and VACE, and forward; two forwards a step);
+    no K6 before (e) quantises."""
     dit, vace = usp_configs(model)
     layers = dit.num_layers + (0 if vace is None else len(vace.vace_layers))
     forwards = 2 * steps
-    return {"K1": 2 * layers * forwards, "K4": layers * forwards, "K5": layers * forwards}
+    return {"K1": 2 * layers * forwards, "K4": layers * forwards, "K5": layers * forwards,
+            "K6": 0}
 
 
 def run_usp(torch, frames: int, steps: int, smi: str):
@@ -6179,15 +6460,28 @@ def run_usp(torch, frames: int, steps: int, smi: str):
     mesh (1, 2, 2), against the same model in this process; (b) the e2e edit at
     Wan2.1-VACE-14B width cut to USP_VACE_LAYERS blocks on (1, 2, 1), FSDP
     over 2 ranks, for USP_VACE_STEPS steps, against the same model and
-    request in this process; (c) `ditto_mesh_rank` on a one-rank
-    NCCL group. Returns rank 0's launches summed over (a) and (b)."""
+    request in this process; (e) in (b)'s ranks, the sharded pipeline
+    quantised to int8 with int8 attention and the request again, against
+    the same in this process; (d) Animate and S2V on (1, 1, 2)
+    (`run_usp_families`); (c) `ditto_mesh_rank` on a one-rank NCCL group.
+    Returns rank 0's launches summed over (a), (b), (e) and (d)."""
     import numpy as np
     from video_styler_tpu_torch.parallel import run_local
+    from video_styler_tpu_torch.ops.attention import set_quantized_attention
     store_dir = tempfile.mkdtemp(prefix="usp-")
-    references = {}
+    references, quantized = {}, {}
     for model, n_steps in (("t2v-1.3B", steps), ("vace-14B", USP_VACE_STEPS)):
         pipe = usp_pipeline(torch, model)
-        references[model] = pipe(**usp_request(model, frames, n_steps)).float().cpu().numpy()
+        request = usp_request(model, frames, n_steps)
+        references[model] = pipe(**request).float().cpu().numpy()
+        if model == "vace-14B":
+            # (e)'s reference: the same model quantised in one process
+            pipe.quantize("int8", quantize_attention=True)
+            try:
+                quantized = dict(latents=pipe(**request).float().cpu().numpy(),
+                                 dit_vace_gib=dit_vace_gib(pipe))
+            finally:
+                set_quantized_attention(False)
         del pipe
         gc.collect()
         torch.cuda.empty_cache()
@@ -6196,7 +6490,8 @@ def run_usp(torch, frames: int, steps: int, smi: str):
     for model, mesh, n_steps, park in runs:
         reference = references[model]
         world = math.prod(mesh)
-        spec = dict(model=model, mesh=mesh, frames=frames, steps=n_steps, park_t5=park)
+        spec = dict(model=model, mesh=mesh, frames=frames, steps=n_steps, park_t5=park,
+                    quantize=model == "vace-14B")
         t0 = time.perf_counter()
         ranks = run_local(usp_rank, world, "gloo",
                           os.path.join(store_dir, f"{model}-{world}-{mesh[1]}"), spec,
@@ -6229,6 +6524,37 @@ def run_usp(torch, frames: int, steps: int, smi: str):
             failures.append(f"{model} mesh {mesh}: latents {rel} from one process")
         for name, count in ranks[0]["launches"].items():
             total[name] = total.get(name, 0) + count
+        if spec["quantize"]:
+            # (e): K6 takes every attention call K1 took
+            q_expected = {"K6": expected["K1"], "K4": expected["K4"], "K5": expected["K5"]}
+            q_rel = [float(np.linalg.norm(r["quant"]["latents"] - quantized["latents"])
+                           / np.linalg.norm(quantized["latents"])) for r in ranks]
+            emit(dict(phase="usp_quant", model=model,
+                      mesh=dict(zip(("dp", "fsdp", "sp"), mesh)), backend="gloo", card=smi,
+                      mode="int8 linears + int8 attention (K6)", steps=n_steps,
+                      latents_rel_l2=q_rel, latents_tol=5e-2,
+                      ranks_bit_equal=bool(np.array_equal(ranks[0]["quant"]["latents"],
+                                                          ranks[1]["quant"]["latents"])),
+                      dit_vace_gib=[r["quant"]["dit_vace_gib"] for r in ranks],
+                      one_process_dit_vace_gib=quantized["dit_vace_gib"],
+                      bf16_dit_vace_gib=[r["dit_vace_gib"] for r in ranks],
+                      launches=[r["quant"]["launches"] for r in ranks],
+                      expected_launches=q_expected,
+                      quantize_s=[r["quant"]["quantize_s"] for r in ranks],
+                      step_s=[r["quant"]["step_s"] for r in ranks],
+                      total_s=[r["quant"]["total_s"] for r in ranks],
+                      peak_gib=[r["quant"]["peak_gib"] for r in ranks]))
+            if any({k: v for k, v in r["quant"]["launches"].items() if v} != q_expected
+                   for r in ranks):
+                failures.append(f"{model} quantised on {mesh}: launches "
+                                f"{[r['quant']['launches'] for r in ranks]}, expected "
+                                f"{q_expected} a rank")
+            if not max(q_rel) <= 5e-2:
+                failures.append(f"{model} quantised on {mesh}: latents {q_rel} from one "
+                                f"process")
+            for name, count in ranks[0]["quant"]["launches"].items():
+                total[name] = total.get(name, 0) + count
+    _summed(total, run_usp_families(torch, frames, store_dir, smi, failures))
     res = run_local(ditto_mesh_rank, 1, "nccl", os.path.join(store_dir, "nccl"), store_dir,
                     timeout_s=300)[0]
     emit(dict(phase="usp_nccl_mesh_1_1_1", **res))

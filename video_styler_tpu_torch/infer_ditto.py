@@ -8,9 +8,10 @@ Same flags as inference/infer_ditto.py, plus --device (default cuda). --mesh dp,
 edit: launch `torchrun --nproc_per_node N -m video_styler_tpu_torch.infer_ditto
 --mesh dp,fsdp,sp ...` with N = dp*fsdp*sp (`parallel.initialize` reads
 torchrun's variables; each rank takes cuda:LOCAL_RANK, or the CPU with
---device cpu over gloo). The DiT and VACE are FSDP-sharded over fsdp and
-run sequence-parallel over sp; every rank runs umT5 and the VAE whole, and
-only rank 0 writes the mp4. --dit_path ('|'-separated shards of the DiT
+--device cpu over gloo). The DiT and VACE are FSDP-sharded over fsdp (with
+--quantize, quantised first and their int8 or fp8 pieces sharded) and
+run sequence-parallel over sp, the VAE split on the frame width over sp;
+every rank runs umT5 whole, and only rank 0 writes the mp4. --dit_path ('|'-separated shards of the DiT
 and VACE), --vae_path, --t5_path and --tokenizer_path go through
 `WanVideoPipeline.from_pretrained` (the official Wan2.1-VACE-14B files:
 `diffusion_pytorch_model-0000{1..7}-of-00007.safetensors`, `Wan2.1_VAE.pth`,
@@ -133,8 +134,6 @@ def main(argv=None):
     if args.mesh:
         from .parallel import initialize, make_mesh, parse_mesh
         sizes = parse_mesh(args.mesh)
-        if args.quantize and sizes[1] > 1:
-            p.error("--quantize with fsdp > 1 is not supported yet (ROADMAP item 8)")
         if args.streaming:
             p.error("--streaming does not combine with --mesh")
         args.device = initialize(device=args.device)

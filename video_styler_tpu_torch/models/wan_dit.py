@@ -556,9 +556,11 @@ def wan_dit_forward_with_residual(model: WanDiT, x, timestep, context,
                                                       reference_latents)
         cos, sin = assemble_freqs_grid(cfg.head_dim, f + (1 if n_ref else 0), h, w,
                                        rope_indices, device=tokens_in.device)
-        if animate is not None and axis_size("sp") > 1:
-            raise NotImplementedError("Animate is not yet under a mesh with sp > 1 "
-                                      "(ROADMAP item 8): its hooks need the whole token grid")
+        posed = None
+        if animate is not None:
+            adapter, pose_latents, face_values = animate
+            posed, motion_vec = A.animate_after_patch_embedding(
+                adapter, tokens_in, (f, h, w), pose_latents, face_values)
         tokens_in, cos, sin, t, t_mod, seq_valid = shard_tokens(tokens_in, cos, sin, t, t_mod)
         hints = None
         if vace is not None and vace_context is not None:
@@ -567,13 +569,18 @@ def wan_dit_forward_with_residual(model: WanDiT, x, timestep, context,
                                  cos, sin, remat=remat, seq_valid=seq_valid)
         segments = {}
         if animate is not None:
-            adapter, pose_latents, face_values = animate
-            tokens_in, motion_vec = A.animate_after_patch_embedding(
-                adapter, tokens_in, (f, h, w), pose_latents, face_values)
+            # the pose tokens are added on the whole grid, after the VACE
+            # hints took the tokens before them; under sp each face block
+            # runs on the gathered, unpadded rows (the JAX pipeline's
+            # _unpad / _repad), then each rank takes its rows again
+            s_real, padded = posed.shape[1], mesh_padded_length(posed.shape[1])
+            tokens_in = split_seq(pad_rows(posed, padded))
 
             def after_block(j, x):
-                return A.animate_after_transformer_block(adapter, 5 * j, x, motion_vec,
-                                                         cfg.num_heads)
+                x = gather_seq(x)[:, :s_real]
+                x = A.animate_after_transformer_block(adapter, 5 * j, x, motion_vec,
+                                                      cfg.num_heads)
+                return split_seq(pad_rows(x, padded))
             segments = dict(segment_layers=tuple(range(0, cfg.num_layers, 5)),
                             segment_callback=after_block)
         tokens = run_blocks(model.blocks, tokens_in, context, t_mod, cos, sin, cfg,

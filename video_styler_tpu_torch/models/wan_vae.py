@@ -17,6 +17,21 @@ and the streaming `vae38_encode_stream`/`vae38_decode_stream` run it, and
 `encode`/`decode` dispatch on the model's config as the JAX package does
 (streaming, or the whole clip: it has no spatial tiling).
 
+Under a sharding context with sp > 1 (`parallel.use_sharding`) every
+entry point runs width-sharded, as the JAX package shards its VAE on W
+over sp: the input is split on W (`parallel.context.split_w`), each
+convolution with a spatial kernel takes one column a side from its
+neighbours first (`halo_exchange_w`; the frame's edges get the zero
+padding), the stride-2 downsampling takes one column on its right only
+(its ZeroPad2d((0,1,0,1))), the nearest 2x upsample exchanges after the
+repeat, the mid attention block gathers W for its whole-frame attention
+and splits again, the norms, SiLU, time convs, shortcuts and the Wan2.2
+patchify, `avg_down3d` and `dup_up3d` are local, the streamed paths' caches
+hold each rank's own columns, and the output is gathered once at the
+end. Each share must stay even at every stride-2 stage (the encoder's
+width must split into multiples of `upsampling_factor`); a width that
+does not runs whole, warned and counted (`w_shardable`).
+
 The public contract is (B, C, T, H, W), and so is the internal layout here.
 Parameters follow the JAX tree of `init_wan_vae` (torch names: `weight`,
 `bias`, `gamma`; numbered children as in the checkpoints). The three
@@ -28,7 +43,10 @@ places where the causal design bites:
 """
 from __future__ import annotations
 
+import functools
 import math
+import threading
+from contextlib import contextmanager
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Tuple
 
@@ -36,6 +54,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ..parallel.context import gather_w, halo_exchange_w, split_w, w_shardable
 
 WAN21_LATENT_MEAN = (
     -0.7571, -0.7089, -0.9113, 0.1075, -0.1745, 0.9653, -0.1517, 1.5508,
@@ -219,21 +239,69 @@ def conv3d(p: Conv, x, stride=(1, 1, 1), padding=(0, 0, 0)):
     return F.conv3d(x, w, p.bias.to(x.dtype), stride=stride, padding=padding)
 
 
+_shards = threading.local()
+
+
+def _w_sharded() -> bool:
+    """Whether the VAE is running on this rank's share of the width."""
+    return getattr(_shards, "on", False)
+
+
+@contextmanager
+def _on_w_shares():
+    _shards.on = True
+    try:
+        yield
+    finally:
+        _shards.on = False
+
+
+def _width_sharded(multiple: str = ""):
+    """Run a VAE entry point fn(model, x, ...) on this rank's share of x's
+    width under a context with sp > 1, and gather its output: x must split
+    into shares of a multiple of `model.cfg.<multiple>` columns (every
+    share even at each stride-2 stage), else it runs whole (`w_shardable`
+    warns and counts). Nested entry points (a tile of `tiled_encode`, the
+    one inside the streamed forms) run as they are called."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def run(model, x, *args, **kwargs):
+            m = getattr(model.cfg, multiple) if multiple else 1
+            if _w_sharded() or not w_shardable(x.shape[-1], m):
+                return fn(model, x, *args, **kwargs)
+            with _on_w_shares():
+                out = fn(model, split_w(x), *args, **kwargs)
+            return gather_w(out)
+        return run
+    return wrap
+
+
+def _conv(p: Conv, x, stride=(1, 1, 1), padding=(0, 0, 0)):
+    """conv3d with a symmetric zero padding; on width shares the W padding
+    is the neighbours' edge columns (`halo_exchange_w`)."""
+    pt, ph, pw = padding
+    if pw and _w_sharded():
+        x, pw = halo_exchange_w(x, pw, pw), 0
+    return conv3d(p, x, stride=stride, padding=(pt, ph, pw))
+
+
 def causal_conv3d(p: Conv, x, stride=(1, 1, 1)):
     """Zero left-pad of 2*pad_t frames in time, symmetric spatial pad."""
     kt, kh, kw = p.weight.shape[2:]
     pt, ph, pw = (kt - 1) // 2, (kh - 1) // 2, (kw - 1) // 2
     if pt:
         x = F.pad(x, (0, 0, 0, 0, 2 * pt, 0))
-    return conv3d(p, x, stride=stride, padding=(0, ph, pw))
+    return _conv(p, x, stride=stride, padding=(0, ph, pw))
 
 
 def conv2d_on_frames(p: Conv, x, stride: int = 1, pad_br: bool = False,
                      padding: int = 0):
-    """Per-frame 2-D conv. pad_br: the ZeroPad2d((0,1,0,1)) of downsampling."""
+    """Per-frame 2-D conv. pad_br: the ZeroPad2d((0,1,0,1)) of downsampling
+    (on width shares: the next rank's first column on the right)."""
     if pad_br:
-        x = F.pad(x, (0, 1, 0, 1))
-    return conv3d(p, x, stride=(1, stride, stride), padding=(0, padding, padding))
+        x = F.pad(halo_exchange_w(x, 0, 1) if _w_sharded() else F.pad(x, (0, 1)),
+                  (0, 0, 0, 1))
+    return _conv(p, x, stride=(1, stride, stride), padding=(0, padding, padding))
 
 
 def _channel_norm(xf):
@@ -288,7 +356,14 @@ def residual_block(p, x):
 
 
 def attention_block(p, x):
-    """Single-head per-frame spatial attention."""
+    """Single-head per-frame spatial attention; on width shares the frame
+    is gathered for it and split again after."""
+    if _w_sharded():
+        return split_w(_attention_block(p, gather_w(x)))
+    return _attention_block(p, x)
+
+
+def _attention_block(p, x):
     b, c, t, h, w = x.shape
     identity = x
     y = rms_norm_spatial(p["norm"], x)
@@ -367,6 +442,7 @@ def _denormalize(z, cfg):
     return z * std + mean
 
 
+@_width_sharded("upsampling_factor")
 def vae_encode(model: WanVAE, video):
     """video (B, 3, T, H, W) in [-1, 1] -> normalized latents
     (B, z, 1+(T-1)/4, H/8, W/8)."""
@@ -376,6 +452,7 @@ def vae_encode(model: WanVAE, video):
     return _normalize(moments[:, :cfg.z_dim], cfg)
 
 
+@_width_sharded()
 def vae_decode(model: WanVAE, z, clamp: bool = True):
     """normalized latents -> video (B, 3, T, H, W)."""
     cfg = model.cfg
@@ -415,11 +492,11 @@ def _causal_conv3d_io(p: Conv, x, io: _CacheIO, stride=(1, 1, 1)):
     kt, kh, kw = p.weight.shape[2:]
     pt, ph, pw = (kt - 1) // 2, (kh - 1) // 2, (kw - 1) // 2
     if pt == 0:
-        return conv3d(p, x, stride=stride, padding=(0, ph, pw))
+        return _conv(p, x, stride=stride, padding=(0, ph, pw))
     b, c, _, h, w = x.shape
     cache = io.get(lambda: x.new_zeros((b, c, 2 * pt, h, w)))
     xin = torch.cat([cache, x], dim=2)
-    y = conv3d(p, xin, stride=stride, padding=(0, ph, pw))
+    y = _conv(p, xin, stride=stride, padding=(0, ph, pw))
     io.put(xin[:, :, -2 * pt:])
     return y
 
@@ -504,6 +581,7 @@ def _encode_stream_step(model: WanVAE, chunk, caches, first: bool):
     return _normalize(moments[:, :cfg.z_dim], cfg), io.out
 
 
+@_width_sharded("upsampling_factor")
 def vae_encode_stream(model: WanVAE, video):
     """Temporal-chunked encode with the 1+4k chunk schedule (frame 0, then
     4-frame chunks); exact against `vae_encode`, O(chunk) activations."""
@@ -519,6 +597,7 @@ def vae_encode_stream(model: WanVAE, video):
     return torch.cat(outs, dim=2)
 
 
+@_width_sharded()
 def vae_decode_stream(model: WanVAE, z, chunk_size: int = 4, clamp: bool = True):
     """Temporal-chunked decode: latent frame 0 first, then `chunk_size`-frame
     chunks, caches carried between steps; exact against `vae_decode`."""
@@ -875,6 +954,7 @@ def _decoder38(p, x, cfg: WanVAE38Config, first: bool, io=None):
     return cc(p["head"]["2"], x)
 
 
+@_width_sharded("upsampling_factor")
 def vae38_encode(model: WanVAE38, video):
     """video (B, 3, T, H, W) in [-1, 1] -> normalized latents
     (B, 48, 1+(T-1)/4, H/16, W/16)."""
@@ -884,6 +964,7 @@ def vae38_encode(model: WanVAE38, video):
     return _normalize(moments[:, :cfg.z_dim], cfg)
 
 
+@_width_sharded()
 def vae38_decode(model: WanVAE38, z, clamp: bool = True):
     """normalized latents -> video (B, 3, T, H, W)."""
     cfg = model.cfg
@@ -907,6 +988,7 @@ def _decode38_stream_step(model: WanVAE38, z_chunk, caches, first: bool):
     return pixel_unpatchify(_decoder38(model.decoder, x, cfg, first, io)), io.out
 
 
+@_width_sharded("upsampling_factor")
 def vae38_encode_stream(model: WanVAE38, video):
     """`vae_encode_stream`'s 1+4k chunk schedule on the Wan2.2 VAE: the
     shortcuts' averaging needs no cache (its zero left-pad covers exactly
@@ -923,6 +1005,7 @@ def vae38_encode_stream(model: WanVAE38, video):
     return torch.cat(outs, dim=2)
 
 
+@_width_sharded()
 def vae38_decode_stream(model: WanVAE38, z, chunk_size: int = 4, clamp: bool = True):
     """`vae_decode_stream` on the Wan2.2 VAE: the duplicating shortcuts
     drop their leading frames on the first chunk only."""

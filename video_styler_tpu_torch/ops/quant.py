@@ -319,8 +319,18 @@ def quantize_params(module: nn.Module, mode: str = "int8",
     times the list's length.
 
     Modes: "int8" (w8a8), "fp8" (e4m3 storage), "int4" (w4a8 per column,
-    0.5 byte/param), "int4_g128" (w4a16 group scales)."""
+    0.5 byte/param), "int4_g128" (w4a16 group scales).
+
+    A module that `parallel.shard_params_fsdp` wrapped is not changed in
+    place: the quantised, sharded module is returned
+    (`parallel.fsdp.quantize_sharded`; each rank quantises its own rows).
+    Quantising first and sharding after gives the same pieces."""
     quant = _quantizer(mode)
+    from ..parallel.fsdp import is_sharded, quantize_sharded
+    if is_sharded(module):
+        return quantize_sharded(
+            module, lambda twin: quantize_params(twin, mode, predicate, min_size, min_dim),
+            quant)
 
     def swap(path, layer, stack):
         if not isinstance(layer, nn.Linear):

@@ -5,7 +5,11 @@ declares shardings (`constrain`) and GSPMD inserts the collectives. Eager
 PyTorch has no such pass, so the sequence split is explicit: the DiT pads
 its tokens to a multiple of sp (`seq_pad_amount`), each rank keeps its rows
 (`split_seq`), self-attention exchanges them (`ulysses`, `ring`) and the
-head's rows are gathered back (`gather_seq`). With no active context every
+head's rows are gathered back (`gather_seq`). The VAE is split on the
+frame width instead (`split_w`, `gather_w`): each convolution takes its
+neighbours' edge columns first (`halo_exchange_w`). A width that does not
+split is run whole, warned once and counted (`drop_count`), as JAX's
+`constrain` drops a sharding it cannot apply. With no active context every
 function here is the identity, so the single-GPU path runs exactly what it
 ran before.
 """
@@ -13,6 +17,7 @@ from __future__ import annotations
 
 import contextlib
 import threading
+import warnings
 from typing import Optional
 
 import torch
@@ -109,3 +114,80 @@ def gather_seq(x: torch.Tensor, dim: int = 1) -> torch.Tensor:
     getattr(dist, "all_gather_single", dist.all_gather_into_tensor)(
         out, rows, group=ctx.group("sp"))
     return out.movedim(0, dim)
+
+
+_warned_drops = set()
+_drop_count = 0
+
+
+def drop_count() -> int:
+    """Tensors run whole since the last reset because their width did not
+    split over sp (JAX's `constrain` counts its ragged drops the same way)."""
+    return _drop_count
+
+
+def reset_drop_count() -> None:
+    global _drop_count
+    _drop_count = 0
+    _warned_drops.clear()
+
+
+def w_shardable(width: int, multiple: int = 1) -> bool:
+    """Whether a width of `width` columns splits over the active sp axis
+    into shares that are multiples of `multiple`. False without sp; where
+    it does not split, also warned once per (sp, width, multiple) and
+    counted: the tensor then runs whole on every rank."""
+    global _drop_count
+    sp = axis_size("sp")
+    if sp == 1:
+        return False
+    if width % (sp * multiple) == 0:
+        return True
+    _drop_count += 1
+    key = (sp, width, multiple)
+    if key not in _warned_drops:
+        _warned_drops.add(key)
+        warnings.warn(f"width {width} does not split over sp={sp} into shares of a "
+                      f"multiple of {multiple} columns: that tensor runs whole on every "
+                      f"rank", stacklevel=2)
+    return False
+
+
+def split_w(x: torch.Tensor) -> torch.Tensor:
+    """Rank r's share [r*W/sp, (r+1)*W/sp) of the last (width) dim of a
+    (B, C, T, H, W) tensor; the identity without sp."""
+    return split_seq(x, dim=x.dim() - 1)
+
+
+def gather_w(x: torch.Tensor) -> torch.Tensor:
+    """The whole width from every rank's share (all-gather over sp)."""
+    return gather_seq(x, dim=x.dim() - 1)
+
+
+def halo_exchange_w(x: torch.Tensor, left: int = 1, right: int = 1) -> torch.Tensor:
+    """This rank's (..., W/sp) columns -> (..., left + W/sp + right): the
+    last `left` columns of the rank before it and the first `right` of the
+    rank after it, zeros past the frame's edges (a convolution's own zero
+    padding). One all-gather of every rank's edge columns: gloo takes no
+    CUDA tensor for send/recv, and this collective is the one that Ulysses
+    and the FSDP gathers already run there. Without sp, the zero padding
+    alone."""
+    sp = axis_size("sp")
+    if sp == 1:
+        return F.pad(x, (left, right))
+    w = x.shape[-1]
+    if w < max(left, right):
+        raise ValueError(f"a share of {w} columns is narrower than its halo "
+                         f"({left}, {right})")
+    edges = torch.cat([x[..., :right], x[..., w - left:]], dim=-1)
+    every = gather_seq(edges, dim=edges.dim() - 1)       # rank j: [first right | last left]
+    rank, span = current_sharding().local_rank("sp"), left + right
+    parts = []
+    if left:
+        parts.append(every[..., (rank - 1) * span + right:rank * span] if rank > 0
+                     else x.new_zeros(x.shape[:-1] + (left,)))
+    parts.append(x)
+    if right:
+        parts.append(every[..., (rank + 1) * span:(rank + 1) * span + right]
+                     if rank < sp - 1 else x.new_zeros(x.shape[:-1] + (right,)))
+    return torch.cat(parts, dim=-1)

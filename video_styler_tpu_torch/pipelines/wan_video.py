@@ -38,13 +38,17 @@ from `from_configs` (random weights).
 
 Multi-GPU (`sharding_ctx`, `from_configs(mesh=...)`): the DiT and VACE
 run sequence-parallel and FSDP-sharded over a (dp, fsdp, sp) mesh
-(`parallel/`); every rank runs the text encoder and the VAE whole.
+(`parallel/`), the VAE stages width-sharded over sp (`models.wan_vae`);
+every rank runs the text and image encoders whole, and S2V's model whole
+on the whole token grid (as the JAX pipeline's `s2v` does).
 `enable_block_streaming` instead runs an expert within a device memory
 budget, its other blocks streamed from pinned host memory
 (`models.wan_streaming`).
 
 Runs on `cuda` unless constructed with `device="cpu"`. Each stage's wall
-time (synchronised with the card) is kept in `stage_times`; on the card,
+time (synchronised with the card) is kept in `stage_times`; with
+VIDEO_STYLER_STEP_TIMING=1 the denoise loop also prints its step-time
+summary (`utils.profiling.make_step_timer`), as the JAX pipeline does; on the card,
 `stage_peak_bytes` holds `torch.cuda.max_memory_allocated` as each stage
 ends (a running maximum: the caller resets it).
 """
@@ -52,7 +56,7 @@ from __future__ import annotations
 
 import copy
 import time
-from contextlib import contextmanager
+from contextlib import contextmanager, nullcontext
 from typing import Callable, List, Optional, Tuple
 
 import numpy as np
@@ -81,6 +85,7 @@ from ..schedulers.flow_match import FlowMatchScheduler
 from ..utils import ckpt as C
 from ..utils.convert import convert_vace, convert_wan_dit
 from ..utils.model_config import ModelConfig
+from ..utils.profiling import make_step_timer
 
 
 def _preprocess_images(images) -> np.ndarray:
@@ -374,9 +379,11 @@ class WanVideoPipeline:
 
     def quantize(self, mode: str = "int8", targets: tuple = ("dit", "dit2", "vace"),
                  quantize_attention: bool = False):
-        """Quantize the DiT, `dit2` and VACE linear weights in place (the
-        JAX pipeline's `quantize`; the analogue of the reference's fp8
-        path). Must run after any LoRA merge or hotload, for every expert:
+        """Quantize the DiT, `dit2` and VACE linear weights (the JAX
+        pipeline's `quantize`; the analogue of the reference's fp8 path),
+        before or after `shard`: a sharded model is rebuilt with each
+        rank's pieces, quantised from its own rows. Must run after any LoRA
+        merge or hotload, for every expert:
         a hotload stack keeps its target's pristine weights, which a later
         re-apply would copy back over the quantised layers. The output
         head, the modulation tables and the time embedding stay in high
@@ -397,16 +404,19 @@ class WanVideoPipeline:
         for t in targets:
             model = getattr(self, t, None)
             if model is not None:
-                quantize_params(model, mode=mode, predicate=pred)
+                # a sharded model comes back rebuilt (`quantize_params`)
+                setattr(self, t, quantize_params(model, mode=mode, predicate=pred))
         if quantize_attention:
             from ..ops.attention import set_quantized_attention
             set_quantized_attention(True)
 
     def shard(self, mesh, ulysses: bool = True) -> "WanVideoPipeline":
         """Run under `mesh` (`parallel.make_mesh`): the DiT(s) and VACE
-        branch(es) FSDP-sharded over its fsdp dim (after any LoRA merge),
-        the sequence split over sp (Ulysses, or the ring with ulysses
-        False). umT5, CLIP and the VAE stay whole on every rank."""
+        branch(es) FSDP-sharded over its fsdp dim (after any LoRA merge;
+        before or after `quantize`), the sequence split over sp (Ulysses,
+        or the ring with ulysses False), the VAE stages split on the frame
+        width over sp. umT5, CLIP and the S2V model stay whole on every
+        rank."""
         if self._streamers:
             raise NotImplementedError("a block-streamed pipeline cannot be sharded over a "
                                       "mesh (the JAX package defines no such run)")
@@ -465,12 +475,17 @@ class WanVideoPipeline:
             torch.cuda.empty_cache()
         return streamer.plan_summary()
 
+    def _sync(self):
+        """Wait for the card's queued work (nothing on the CPU)."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
     @contextmanager
     def _stage(self, name: str):
         t0 = time.perf_counter()
         yield
+        self._sync()
         if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
             self.stage_peak_bytes.append(
                 (name, torch.cuda.max_memory_allocated(self.device)))
         self.stage_times.append((name, time.perf_counter() - t0))
@@ -491,18 +506,29 @@ class WanVideoPipeline:
     def encode_prompt(self, prompt: str) -> torch.Tensor:
         return self.prompter.encode_prompt(prompt, dtype=self.dtype)
 
+    def _mesh(self):
+        """The sharding context to run under: the caller's
+        (`parallel.use_sharding`), else the pipeline's."""
+        ctx = current_sharding()
+        return self.sharding_ctx if ctx is None else ctx
+
     @torch.no_grad()
     def encode_video(self, video_np: np.ndarray, tiled: bool = True,
                      tile_size=(30, 52), tile_stride=(15, 26)) -> torch.Tensor:
+        """Frames -> latents; under a mesh with sp > 1 width-sharded."""
         video = torch.from_numpy(np.ascontiguousarray(video_np, np.float32))
-        return V.encode(self.vae, video.to(self.device), tiled=tiled,
-                        tile_size=tile_size, tile_stride=tile_stride).to(self.dtype)
+        with use_sharding(self._mesh()):
+            return V.encode(self.vae, video.to(self.device), tiled=tiled,
+                            tile_size=tile_size, tile_stride=tile_stride).to(self.dtype)
 
     @torch.no_grad()
     def decode_video(self, latents: torch.Tensor, tiled: bool = True,
                      tile_size=(30, 52), tile_stride=(15, 26)) -> torch.Tensor:
-        return V.decode(self.vae, latents.float(), tiled=tiled,
-                        tile_size=tile_size, tile_stride=tile_stride)
+        """Latents -> frames in [-1, 1]; under a mesh with sp > 1
+        width-sharded."""
+        with use_sharding(self._mesh()):
+            return V.decode(self.vae, latents.float(), tiled=tiled,
+                            tile_size=tile_size, tile_stride=tile_stride)
 
     def build_vace_context(self, vace_video, vace_video_mask,
                            vace_reference_image, height, width, num_frames,
@@ -723,9 +749,8 @@ class WanVideoPipeline:
                                           vace_scale, tea_cache, rope_indices, layer_gate,
                                           clip_feature, y, animate_inputs, motion_bucket_id,
                                           control_camera, reference_latents)
-        ctx = self.sharding_ctx if current_sharding() is None else current_sharding()
         dit = self._expert(which)
-        with use_sharding(ctx), gathered(dit):
+        with use_sharding(self._mesh()), gathered(dit):
             if tea_cache is not None:
                 _, t_mod = time_embed(dit, timestep)
                 if tea_cache.check(t_mod) and tea_cache.previous_residual is not None:
@@ -888,11 +913,13 @@ class WanVideoPipeline:
         JAX pipeline nothing checks that its audio frames equal the latent
         frames (they do when num_frames is a multiple of 4), and
         `motion_latents` reaches a forward that drops them (the
-        reference's default): ROADMAP Queue 3."""
-        if axis_size("sp") > 1 or (self.sharding_ctx is not None
-                                   and self.sharding_ctx.axis_size("sp") > 1):
-            raise NotImplementedError("s2v is not yet under a mesh with sp > 1 (ROADMAP "
-                                      "item 8): its blocks need the whole token grid")
+        reference's default): ROADMAP Queue 3.
+
+        Under a mesh every rank runs the S2V model whole on the whole token
+        grid, as the JAX pipeline jits `wan_s2v_forward` with no sharding
+        constraint: its blocks run with no sharding context, so that no
+        attention takes the Ulysses route on an unsplit sequence. Its VAE
+        stages are width-sharded like the others."""
         if self.s2v_model is None:
             raise RuntimeError("no S2V model attached")
         self.stage_times = []
@@ -917,8 +944,9 @@ class WanVideoPipeline:
         audio = torch.as_tensor(audio_input).to(self.device, self.dtype)
 
         def fwd(timestep, ctx):
-            return S.wan_s2v_forward(self.s2v_model, latents, timestep, ctx, audio,
-                                     motion_latents=motion_latents, pose_cond=pose_cond)
+            with use_sharding(None):
+                return S.wan_s2v_forward(self.s2v_model, latents, timestep, ctx, audio,
+                                         motion_latents=motion_latents, pose_cond=pose_cond)
         for i in range(len(self.scheduler.timesteps)):
             with self._stage(f"denoise_step_{i}"):
                 timestep = torch.tensor([float(self.scheduler.timesteps[i])],
@@ -1063,8 +1091,10 @@ class WanVideoPipeline:
 
         which, vace = "dit", self._expert_vace("dit")
         n_steps = len(self.scheduler.timesteps)
+        timer = make_step_timer("wan_denoise_step", sync=self._sync)
         for i in range(n_steps):
-            with self._stage(f"denoise_step_{i}"):
+            with self._stage(f"denoise_step_{i}"), (
+                    timer.step() if timer is not None else nullcontext()):
                 t_host = float(self.scheduler.timesteps[i])
                 if (which == "dit" and self._expert_cfg("dit2") is not None and t_host
                         < switch_DiT_boundary * self.scheduler.num_train_timesteps):
@@ -1104,6 +1134,8 @@ class WanVideoPipeline:
                                                   latents.float()).to(self.dtype)
                 if first_frame_latents is not None:
                     latents[:, :, 0:1] = first_frame_latents
+        if timer is not None:
+            timer.report()
         if ref_count:
             latents = latents[:, :, ref_count:]
         if return_latents:

@@ -76,8 +76,10 @@ class WanPrompter:
         """Find the umT5 tokenizer beside the loaded checkpoints, as the JAX
         prompter does: in each checkpoint's directory and its parent, the
         directory itself or its `google/umt5-xxl`, `umt5-xxl` or
-        `tokenizer` folder, wherever tokenizer files lie. True when one
-        loads; the port downloads nothing, so False when none is there."""
+        `tokenizer` folder, wherever tokenizer files lie; else, unless
+        VIDEO_STYLER_OFFLINE=1, the umT5 tokenizer fetched into the model
+        directory (`utils.downloader.download_tokenizer`). True when one
+        loads."""
         roots = []
         for p in checkpoint_paths or []:
             d = os.path.dirname(os.path.abspath(p))
@@ -97,6 +99,13 @@ class WanPrompter:
                         return True
                     except Exception:
                         continue
+        from ..utils import downloader
+        if not downloader.offline():
+            try:
+                self.fetch_tokenizer(downloader.download_tokenizer())
+                return True
+            except Exception:
+                pass
         return False
 
     def tokenize(self, prompt: str):

@@ -13,7 +13,8 @@
 Counterpart of examples/train.py, with its flags. The models come from
 checkpoint files: --dit_path ('|'-separated shards), --vae_path, --t5_path,
 --tokenizer_path, or --model_id_with_origin_paths "id:pattern,..." found
-under $VIDEO_STYLER_MODEL_DIR (nothing is downloaded). Samples come from
+under $VIDEO_STYLER_MODEL_DIR (fetched there when missing, unless
+VIDEO_STYLER_OFFLINE=1: `utils.model_config`). Samples come from
 CSV/JSON/JSONL metadata through `UnifiedDataset`: the `video` column and
 the --extra_inputs columns are loaded as frames, the rows repeated
 --dataset_repeat times. The same units as inference prepare each sample
@@ -54,7 +55,7 @@ def parse_args(argv=None):
     p.add_argument("--dit_path", type=str, default=None)
     p.add_argument("--model_id_with_origin_paths", type=str, default=None,
                    help='"id:pattern,id:pattern", resolved under '
-                        '$VIDEO_STYLER_MODEL_DIR (local files only)')
+                        '$VIDEO_STYLER_MODEL_DIR, fetched when missing')
     p.add_argument("--vae_path", type=str, default=None)
     p.add_argument("--t5_path", type=str, default=None)
     p.add_argument("--tokenizer_path", type=str, default=None)

@@ -9,8 +9,8 @@ a recipe of `wan_video_gen` on a dp x fsdp x sp mesh, one process per rank,
         --model Wan2.1-T2V-1.3B --sp 4 --dit_path ... --vae_path ... --t5_path ...
 
 (`--device cpu` runs the ranks on the CPU over gloo). The DiT and VACE are
-FSDP-sharded over fsdp, the sequence split over sp (Ulysses); every rank
-runs umT5, CLIP and the VAE whole. --smoke runs the recipe's tiny random
+FSDP-sharded over fsdp, the sequence split over sp (Ulysses), the VAE
+split on the frame width over sp; every rank runs umT5 and CLIP whole. --smoke runs the recipe's tiny random
 models on a 5-frame 32x32 request with 2 steps and no CFG and prints the
 mesh, as the JAX example does; otherwise rank 0 writes video_usp.mp4.
 """
