@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py                          # all phases, one card
     python3 chip_smoke.py --frames 73 --steps 1    # the full Ditto clip size
-    python3 chip_smoke.py --train-frames 73        # LoRA steps at 29,640 tokens
+    python3 chip_smoke.py --train-frames 41        # fp32 LoRA steps at 17,160 tokens
 
 Phases, each printing one JSON line (any failure raises and exits non-zero):
   device     nvidia-smi name and power limit, torch/CUDA versions, the
@@ -16,7 +16,12 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
              dual, self and cross; K2 also with stats, on its 3-D entry,
              under a q x24 stress and feeding K3), K6 (int8 Q K^T, capped and online;
              beside the bf16 kernel of the same body on the same inputs) and
-             K7 (its 3-D twin), held against their plain PyTorch versions
+             K7 (its 3-D twin), the float32 instantiations K1f (with and
+             without stats), K3f, K3q-f, K4f and K5f (the Ditto recipe's fp32
+             activations; within 2^-17 / 2^-20 of the plain versions, and
+             each of them and the plain versions against the float64
+             function on the heads checked), held
+             against their plain PyTorch versions
              on the card
              at the Ditto shapes of a 73-frame 480x832 edit (29,640 tokens)
              and of this run's requests (--frames and --train-frames,
@@ -64,7 +69,9 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
              on the loaded pipeline; the files are removed at the end
   train      2 steps of the Ditto LoRA recipe (rank 128 on the VACE q, k, v,
              o, ffn.0, ffn.2; AdamW) on the loaded 14B-width pipeline, on the
-             --train-frames request (default 9: 4,680 tokens), through the
+             --train-frames request (default 9: 4,680 tokens), at the
+             recipe's fp32 activations on the bf16 weights (K1f, K3f, K3q-f,
+             K4f, K5f; no bf16 kernel), through the
              training CLI's data path (video_styler_tpu_torch/train.py): its
              `preprocess` with umT5 parked on the host between encodes,
              `launch_data_process_task` writing the clip's encodes,
@@ -76,11 +83,11 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
              configuration; then one more step under torch.profiler
   e2e_online one step of the same edit on the online-softmax route
              (FLASH_CAPPED=0: K2), then one with FLASH_DUAL=1 (K8)
-  train_precision  one LoRA loss and gradient on the train clip with bf16
-             activations (the kernels) and with the recipe's fp32
-             activations (bf16 weights, the plain versions): how far the
-             loss and the LoRA gradients move, and the fp32 run's peak memory
-             (up to 9 train frames: beyond, the fp32 run does not fit)
+  train_precision  one LoRA loss and gradient on the train clip at the
+             recipe's fp32 activations through the float32 kernels and
+             through the plain versions: loss within 1e-5 relative, LoRA
+             gradients within 1e-3 relative L2; each run's peak memory (an
+             OOM fails the phase; `--only train` reports the plain run's)
   editor_reference  the smoke-size keyframe-guided editor (9 frames of
              32x32, keyframes at frames 0 and 8, CFG 5 two-pass, 2 steps) on
              the card against the same weights on the CPU
@@ -132,9 +139,11 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
              the derived counts
   image_lora_reference  one LoRA step of each image family's tiny model
              (train_lora.smoke_pack: FLUX and Qwen-Image at heads of 128,
-             remat on the card; SD3; the real tiny SD UNet in fp32), card
-             vs CPU on the same weights, LoRA, tid and noise: loss and
-             gradients, and K1/K3 launches against the derived counts
+             remat on the card; SD3; in bf16 and again in fp32, as
+             `train_lora --smoke` runs them; the real tiny SD UNet in fp32),
+             card vs CPU on the same weights, LoRA, tid and noise: loss and
+             gradients, and K1/K3 (K1f/K3f) launches against the derived
+             counts
   transformers_backends  the two `transformers` backends (Qwen2.5-VL for
              Qwen-Image, LLaMA for HunyuanVideo) on tiny models built from
              configs and written by `save_pretrained`, against the native
@@ -474,6 +483,9 @@ PEAK_BF16_FLOPS = 989e12
 PEAK_INT8_OPS = 1979e12
 PEAK_BYTES = 3.35e12
 PEAK_FP32_FLOPS = 67e12      # fp32 outside the tensor cores (FastBlend's F1-F3)
+# an fp32-accurate product on the tensor cores: TF32's 495 TFLOP/s over the
+# three passes (hi*hi + hi*lo + lo*hi) of K1f and K3f
+PEAK_TF32X3_FLOPS = 495e12 / 3
 
 # DiT token grids (latent frames, H/16, W/16) after the (1, 2, 2) patchify
 DITTO_FRAMES = 73            # 73 frames 480x832 -> 29,640 tokens
@@ -508,15 +520,31 @@ def bound(flops: float, nbytes: float):
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
+# a timed run at least this long is not repeated (time_ms, time_sdpa_bwd)
+LONG_RUN_MS = 250.0
+
+
 def time_ms(torch, fn, reps: int, warmup: int = 2):
     """Median CUDA-event time of fn, with L2 flushed before each run. After
     the flush the card spins for ~100 us before the start event, while the
     host enqueues fn's launches, so the time is the device's: a wrapper's
     host time per launch (17 us for K5's, 14 us for F.rms_norm's on the
-    H100's host) would otherwise land inside a kernel of tens of us."""
+    H100's host) would otherwise land inside a kernel of tens of us.
+
+    The first timed run of LONG_RUN_MS or more is the time: the plain
+    versions at 29,640 tokens and the float32 kernels there take 0.3-2.4 s
+    a call, and their repeats would cost the script's time limit tens of
+    seconds. The warm-up runs are never the time: a library's first call
+    at a new shape took 0.7-1.0 s more than its next on the H100 (SDPA's,
+    in a run that timed them). A warm-up of LONG_RUN_MS or more is the
+    last one."""
     flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
     for _ in range(warmup):
+        t0 = time.perf_counter()
         fn()
+        torch.cuda.synchronize()
+        if (time.perf_counter() - t0) * 1e3 >= LONG_RUN_MS:
+            break
     times = []
     for _ in range(reps):
         flush.zero_()
@@ -528,6 +556,8 @@ def time_ms(torch, fn, reps: int, warmup: int = 2):
         end.record()
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
+        if times[-1] >= LONG_RUN_MS:
+            break
     return statistics.median(times)
 
 
@@ -1216,7 +1246,9 @@ def run_load(torch, holder: list, kernels, frames: int, steps: int, e2e_frames: 
 
 def time_sdpa_bwd(torch, q, k, v, g, reps: int = 5):
     """Median time of PyTorch's SDPA backward alone: torch.autograd.grad after
-    an untimed forward, L2 flushed before each (the K3 yardstick)."""
+    an untimed forward, L2 flushed before each (the K3 yardstick); the
+    first timed backward of LONG_RUN_MS or more is the time (as in
+    time_ms)."""
     import torch.nn.functional as F
     qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
     gt = g.transpose(1, 2)
@@ -1231,9 +1263,11 @@ def time_sdpa_bwd(torch, q, k, v, g, reps: int = 5):
         torch.autograd.grad(out, (qt, kt, vt), gt)
         end.record()
         torch.cuda.synchronize()
+        del out
         if i:  # the first is warm-up
             times.append(start.elapsed_time(end))
-        del out
+            if times[-1] >= LONG_RUN_MS:
+                break
     return statistics.median(times)
 
 
@@ -1355,6 +1389,228 @@ def check_attention_training(torch, s, sk, tag, kind, mag=1.0, check_heads=None,
     if failed:
         raise AssertionError(f"{label}: {failed} beyond tolerance")
     return rows
+
+
+# K1f and K3f against the float64 function: 2^-19 of its largest magnitude
+# (three-pass TF32 products and compensated sums along the sequence keep
+# them 2^-20 to 2^-21 from it at 4,680 and 29,640 tokens). Against their
+# plain versions: 2^-17 of the output's largest magnitude (the two sum in
+# other orders), plus the plain version's own largest distance from the
+# float64 function, measured in the same call: the plain version's fp32
+# GEMM sums each output over all the keys in one chain, which put it
+# 2^-16.7 (o) and 2^-17.0 (dq) from float64 at 29,640 tokens on the heads
+# held, where the kernels lie 2^-20.8 and 2^-20.4 from it. K4f and K5f:
+# 2^-20 (fp64 and fp32 sums of squares put r a few fp32 ULPs apart)
+TOL_ATTN_F32 = 2.0 ** -17
+TOL_ATTN_F64 = 2.0 ** -19
+TOL_NORM_F32 = 2.0 ** -20
+F32_SRC = "video_styler_tpu_torch/csrc/flash_attention_f32.cu"
+
+
+def f32_bound(flops: float, nbytes: float):
+    t_ops = flops / PEAK_TF32X3_FLOPS * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def attention_f64(torch, q, k, v, g, scale: float):
+    """K1f's and K3f's function in float64 from float32 q, k, v (1, S, n,
+    128) and the cotangent g: (o, dq, dk, dv), the capped softmax taken
+    exactly (its m2 cancels), query rows in chunks of at most 2^27 logits.
+    The yardstick that the kernels and the plain versions are each
+    measured against."""
+    q64, k64, v64, g64 = (t.double().permute(0, 2, 1, 3) for t in (q, k, v, g))
+    o, dq = torch.empty_like(q64), torch.empty_like(q64)
+    dk, dv = torch.zeros_like(k64), torch.zeros_like(v64)
+    kt, vt = k64.transpose(-1, -2), v64.transpose(-1, -2)
+    rows = max(1, (1 << 27) // (q64.shape[1] * k64.shape[2]))
+    for i0 in range(0, q64.shape[2], rows):
+        qc, gc = q64[:, :, i0:i0 + rows], g64[:, :, i0:i0 + rows]
+        p = torch.softmax(qc @ kt * scale, dim=-1)
+        oc = p @ v64
+        o[:, :, i0:i0 + rows] = oc
+        ds = p * (gc @ vt - (gc * oc).sum(-1, keepdim=True)) * scale
+        dv += p.transpose(-1, -2) @ gc
+        dk += ds.transpose(-1, -2) @ qc
+        dq[:, :, i0:i0 + rows] = ds @ k64
+        del p, ds
+    return tuple(t.permute(0, 2, 1, 3) for t in (o, dq, dk, dv))
+
+
+def f64_distance(got, ref):
+    """(max |got - ref|, max |ref|) against the float64 `ref`."""
+    return (got.double() - ref).abs().max().item(), ref.abs().max().item()
+
+
+def f64_report(kernel, plain):
+    """A kernel's and its plain version's f64_distance as log2 of the
+    relative distance, with the kernel's gate."""
+    return dict(kernel=math.log2(max(kernel[0], 1e-300) / kernel[1]),
+                plain=math.log2(max(plain[0], 1e-300) / plain[1]),
+                kernel_within_tol=kernel[0] <= TOL_ATTN_F64 * kernel[1])
+
+
+def check_f32_attention(torch, s, sk, tag, kind, check_heads=None, heads: int = 40):
+    """K1f (without and with stats), K3f and K3q-f, the float32 instantiations
+    the Ditto recipe's fp32 activations run (examples/train.py:281), at
+    `heads` heads of 128 on q (1, s, heads, 128) and k/v (1, sk, heads, 128).
+    The plain check covers every row of the first `check_heads` heads (all
+    when None), and on those heads the kernels and the plain versions are
+    each measured against the float64 function (`f64_log2`: log2 of max
+    |x - f64| over max |f64|; the kernel within TOL_ATTN_F64, and within
+    TOL_ATTN_F32 of the plain version plus the plain version's distance
+    from float64). The library calls are SDPA on fp32 with TF32 off
+    (forward, and its backward for K3f/K3q-f)."""
+    import torch.nn.functional as F
+    from video_styler_tpu_torch.ops import flash_attention as fa
+
+    n, d = heads, 128
+    scale = d ** -0.5
+    gen = torch.Generator("cuda").manual_seed(2)
+    q, k, v, g = (torch.randn(shape, generator=gen, device="cuda")
+                  for shape in ((1, s, n, d), (1, sk, n, d), (1, sk, n, d), (1, s, n, d)))
+    hs = slice(0, check_heads or n)
+    label = f"{kind} S={s} Sk={sk} N={n} D={d} fp32 [{tag}]"
+    o, l2 = fa._flash_cuda(q, k, v, scale, with_stats=True)
+    o_nostats = fa._flash_cuda(q, k, v, scale)
+    po, pl2 = fa.flash_attention_plain(q[:, :, hs], k[:, :, hs], v[:, :, hs], scale,
+                                       return_stats=True)
+    ref = attention_f64(torch, q[:, :, hs], k[:, :, hs], v[:, :, hs], g[:, :, hs], scale)
+    f64_o = dict(plain=f64_distance(po, ref[0]), K1f=f64_distance(o_nostats[:, :, hs], ref[0]),
+                 K1fs=f64_distance(o[:, :, hs], ref[0]))
+    tol_o = TOL_ATTN_F32 * po.abs().max().item() + f64_o["plain"][0]
+    err_o, scale_o = max_err(torch, o[:, :, hs], po)
+    err_ns, _ = max_err(torch, o_nostats[:, :, hs], po)
+    err_l2 = (l2[:, hs] - pl2).abs().max().item()
+    tol_l2 = 1e-5 * max(1.0, pl2.abs().max().item())
+    del po, pl2, o_nostats
+    flops = 4.0 * n * s * sk * d
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(qt, kt, vt), 2,
+                     warmup=1)
+    plain_ms = time_ms(torch, lambda: fa.flash_attention_plain(q, k, v, scale, return_stats=True),
+                       reps=2, warmup=1)
+    rows = []
+    for name, with_stats, err in (("K1f", False, err_ns), ("K1fs", True, err_o)):
+        b_ms, b_by = f32_bound(flops, 4.0 * n * d * (2 * s + 2 * sk)
+                               + (4.0 * n * s if with_stats else 0.0))
+        # warm: the same call ran above
+        ms = time_ms(torch, lambda: fa._flash_cuda(q, k, v, scale, with_stats=with_stats),
+                     5, warmup=0)
+        rows.append(dict(
+            name=f"{name} flash_attention{' with stats' if with_stats else ''} {label}",
+            kernel=name, route="cuda", source=F32_SRC,
+            replaces="video_styler_tpu/ops/flash_attention.py:213",
+            max_abs_err=err, max_rel_err=err / scale_o, tol=tol_o,
+            l2_max_abs_err=err_l2 if with_stats else None, l2_tol=tol_l2,
+            checked_heads=check_heads or n,
+            f64_log2=f64_report(f64_o[name], f64_o["plain"]),
+            ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+            bound_by=b_by, library_ms=lib_ms, ratio_to_library=ms / lib_ms,
+            tflops=flops / ms / 1e9, ptxas=kernel_usage("flash_fwd_f32_kernel"),
+            clocks=gpu_clocks()))
+
+    want = fa.flash_attention_bwd_plain(q[:, :, hs], k[:, :, hs], v[:, :, hs], o[:, :, hs],
+                                        l2[:, hs].contiguous(), g[:, :, hs], scale)
+    f64_plain = {nm: f64_distance(w, r) for nm, w, r in zip(("dq", "dk", "dv"), want, ref[1:])}
+    work = 2.0 * n * s * sk * d
+    in_bytes = 4.0 * n * d * (3 * s + 2 * sk) + 4.0 * n * s
+    plain_bwd_ms = time_ms(torch, lambda: fa.flash_attention_bwd_plain(q, k, v, o, l2, g, scale),
+                           reps=2, warmup=1)
+    lib_bwd_ms = time_sdpa_bwd(torch, q, k, v, g, reps=2)
+    for name, need_kv, flop_k, nbytes in (
+            ("K3f", True, 5, in_bytes + 4.0 * n * d * (s + 2 * sk)),
+            ("K3q-f", False, 3, in_bytes + 4.0 * n * d * s)):
+        got = fa.flash_attention_bwd(q, k, v, o, l2, g, scale, need_kv=need_kv)
+        errs = {}
+        for out_name, t, w, r in zip(("dq", "dk", "dv"), got, want, ref[1:]):
+            if t is not None:
+                err, sc = max_err(torch, t[:, :, hs], w)
+                errs[out_name] = dict(max_abs_err=err,
+                                      tol=TOL_ATTN_F32 * sc + f64_plain[out_name][0],
+                                      max_rel_err=err / sc,
+                                      f64_log2=f64_report(f64_distance(t[:, :, hs], r),
+                                                          f64_plain[out_name]))
+        del got
+        worst = max(errs.values(), key=lambda e: e["max_abs_err"] / e["tol"])
+        launch = fa._BwdLaunch(q, k, v, o, l2, g, scale, need_kv=need_kv)
+        b_ms, b_by = f32_bound(flop_k * work, nbytes)
+        ms = time_ms(torch, launch.run, reps=5, warmup=0)  # warm: the same call ran above
+        del launch
+        rows.append(dict(
+            name=f"{name} flash_attention_bwd {'dq dk dv' if need_kv else 'dq only'} {label}",
+            kernel=name, route="cuda", source=F32_SRC,
+            replaces="video_styler_tpu/ops/flash_attention.py:582 and :624",
+            max_abs_err=worst["max_abs_err"], tol=worst["tol"], errors=errs,
+            f64_within_tol=all(e["f64_log2"]["kernel_within_tol"] for e in errs.values()),
+            checked_heads=check_heads or n, ms=ms,
+            # the plain version and SDPA's backward compute dq, dk and dv
+            # together: the same number in both rows
+            plain_ms=plain_bwd_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_bwd_ms,
+            ratio_to_library=ms / lib_bwd_ms, tflops=flop_k * work / ms / 1e9,
+            ptxas=kernel_usage("fa_bwd_dkv_f32" if need_kv else "fa_bwd_dq_f32"),
+            clocks=gpu_clocks()))
+    del want, ref
+    for r in rows:
+        emit({"phase": "kernel", **r, **CARD})
+    bad = [r["name"] for r in rows if not r["max_abs_err"] <= r["tol"]]
+    bad += [f"{r['name']} (float64)" for r in rows
+            if not r.get("f64_within_tol", r.get("f64_log2", {}).get("kernel_within_tol"))]
+    if not err_l2 <= tol_l2:
+        bad.append(f"L2 {err_l2} > {tol_l2}")
+    if bad:
+        raise AssertionError(f"fp32 kernels beyond tolerance: {bad}")
+    return rows
+
+
+def check_f32_norms(torch, grid, tag, heads: int = 40):
+    """K4f and K5f on float32 rows at `heads` heads of 128 over the grid's
+    tokens, with the bf16 weights the recipe keeps (the wrappers cast them
+    to float32, as the JAX norm does); K5f's library call is `F.rms_norm`
+    on fp32."""
+    import torch.nn.functional as F
+    from video_styler_tpu_torch.ops import fused_norm_rope as fnr
+    from video_styler_tpu_torch.ops.rope import assemble_freqs_grid
+
+    f, h, w = grid
+    s, dm = f * h * w, heads * 128
+    gen = torch.Generator("cuda").manual_seed(3)
+    xq = torch.randn((1, s, dm), generator=gen, device="cuda")
+    xk = torch.randn((1, s, dm), generator=gen, device="cuda") * 0.7
+    wq, wk = ((1.0 + 0.1 * torch.randn(dm, generator=gen, device="cuda")).to(torch.bfloat16)
+              for _ in range(2))
+    cos, sin = assemble_freqs_grid(128, f, h, w, device="cuda")
+    oq, ok = fnr.fused_rmsnorm_rope(xq, xk, wq, wk, cos, sin)
+    pq, pk = fnr.fused_rmsnorm_rope_plain(xq, xk, wq, wk, cos, sin)
+    (eq, sq_), (ek, sk_) = max_err(torch, oq, pq), max_err(torch, ok, pk)
+    del oq, ok, pq, pk
+    err, scale = max(eq, ek), max(sq_, sk_)
+    b_ms, b_by = f32_bound(0.0, 4.0 * 4 * s * dm + 4.0 * 2 * s * 64 + 2.0 * 2 * dm)
+    rows = [dict(
+        name=f"K4f fused_rmsnorm_rope S={s} Dm={dm} fp32 [{tag}]", kernel="K4f",
+        route="cuda", source="video_styler_tpu_torch/csrc/fused_norm_rope.cu",
+        replaces="video_styler_tpu/ops/fused_norm_rope.py:51",
+        max_abs_err=err, max_rel_err=err / scale, tol=TOL_NORM_F32 * scale,
+        ms=time_ms(torch, lambda: fnr.fused_rmsnorm_rope(xq, xk, wq, wk, cos, sin), 10),
+        plain_ms=time_ms(torch, lambda: fnr.fused_rmsnorm_rope_plain(
+            xq, xk, wq, wk, cos, sin), 5),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        ptxas=kernel_usage("rmsnorm_rope_f32_kernel"), clocks=gpu_clocks())]
+    err, scale = max_err(torch, fnr.fused_rmsnorm(xq, wq), fnr.fused_rmsnorm_plain(xq, wq))
+    wq32 = wq.float()
+    b_ms, b_by = f32_bound(0.0, 4.0 * 2 * s * dm + 2.0 * dm)
+    rows.append(dict(
+        name=f"K5f fused_rmsnorm S={s} Dm={dm} fp32 [{tag}]", kernel="K5f",
+        route="cuda", source="video_styler_tpu_torch/csrc/fused_norm_rope.cu",
+        replaces="video_styler_tpu/ops/fused_norm_rope.py:154",
+        max_abs_err=err, max_rel_err=err / scale, tol=TOL_NORM_F32 * scale,
+        ms=time_ms(torch, lambda: fnr.fused_rmsnorm(xq, wq), 10),
+        plain_ms=time_ms(torch, lambda: fnr.fused_rmsnorm_plain(xq, wq), 10),
+        bound_ms=b_ms, bound_by=b_by,
+        library_ms=time_ms(torch, lambda: F.rms_norm(xq, (dm,), wq32, 1e-6), 10),
+        ptxas=kernel_usage("rmsnorm_f32_kernel"), clocks=gpu_clocks()))
+    rows[-1]["ratio_to_library"] = rows[-1]["ms"] / rows[-1]["library_ms"]
+    return emit_rows(rows)
 
 
 def edge_rows(torch, s: int, count: int = 1024):
@@ -1590,7 +1846,8 @@ def check_int8_kernels(torch, s, tag, cross: bool, three_d: bool, mag: float = 1
 def check_train_reference(torch):
     """Two LoRA steps of the smoke-size model on the card (kernels) and on
     the CPU (plain versions), from the same weights, LoRA, inputs, tid and
-    noise (all made on the CPU)."""
+    noise (all made on the CPU); fp32 inputs on the bf16 weights, as the
+    train CLI hands its step (K1f, K3f, K3q-f, K4f, K5f on the card)."""
     from torch import nn
     from video_styler_tpu_torch.infer_ditto import build_smoke_pipeline, smoke_frames
     from video_styler_tpu_torch.trainers.lora_train import (
@@ -1604,8 +1861,8 @@ def check_train_reference(torch):
         context = cpu.encode_prompt("a watercolor city at dusk")
         vctx = cpu.build_vace_context(smoke_frames(f, h, w), None, None, h, w, f,
                                       tiled=False)
-    latents = torch.randn((1, 4, 3, 8, 8), generator=torch.Generator().manual_seed(1)
-                          ).to(torch.bfloat16)
+    latents = torch.randn((1, 4, 3, 8, 8), generator=torch.Generator().manual_seed(1))
+    context, vctx = context.float(), vctx.float()
     for m in (cpu.dit, cpu.vace):
         m.requires_grad_(False)
     dit_g, vace_g = copy.deepcopy(cpu.dit).to("cuda"), copy.deepcopy(cpu.vace).to("cuda")
@@ -1651,9 +1908,10 @@ def check_train_reference(torch):
         raise AssertionError(f"LoRA steps on the card and the CPU disagree: {res}")
 
 
-def expected_train_launches(dit_cfg, vace_cfg, targets, steps: int):
+def expected_train_launches(dit_cfg, vace_cfg, targets, steps: int, f32: bool = False):
     """Kernel launches of `steps` LoRA steps on the VACE branch, from the
-    configuration. Trunk blocks up to the first VACE layer see no input that
+    configuration (f32: the float32 instantiations, which the recipe's fp32
+    activations launch). Trunk blocks up to the first VACE layer see no input that
     needs a gradient: they run forward only, unrecorded. The others and
     every VACE block are rematerialised (one more forward each) and
     differentiated. Self-attention backward needs dq and dK/dV (K3); the
@@ -1669,7 +1927,12 @@ def expected_train_launches(dit_cfg, vace_cfg, targets, steps: int):
                 "K5": fwd + recompute,
                 "K3": trunk_bwd + n_vace + (n_vace if cross_kv else 0),
                 "K3q": trunk_bwd + (0 if cross_kv else n_vace)}
-    return {k: v * steps for k, v in per_step.items()}
+    names = F32_NAMES if f32 else {k: k for k in per_step}
+    return {names[k]: v * steps for k, v in per_step.items()}
+
+
+# a bf16 kernel's float32 instantiation, by the names of the kernels dict
+F32_NAMES = {"K1": "K1f", "K3": "K3f", "K3q": "K3q-f", "K4": "K4f", "K5": "K5f"}
 
 
 def run_train(torch, pipe, kernels, frames: int, steps: int = 2):
@@ -1679,7 +1942,10 @@ def run_train(torch, pipe, kernels, frames: int, steps: int = 2):
     encodes (`park_encoders`, as the CLI trains from a dataset), written by
     `launch_data_process_task` and read back by `CachedLatentDataset` and
     `cached_inputs`; then umT5 and the VAE parked as the CLI parks them
-    when it trains from a cache."""
+    when it trains from a cache. The inputs are fp32 on the bf16 weights,
+    as examples/train.py:281 casts them: the steps launch K1f, K3f, K3q-f,
+    K4f and K5f and no bf16 kernel. A step that runs out of the card's
+    memory is reported (`oom`) and ends the phase."""
     from video_styler_tpu_torch import train as cli
     from video_styler_tpu_torch.trainers.latent_cache import (
         CachedLatentDataset, launch_data_process_task)
@@ -1708,8 +1974,9 @@ def run_train(torch, pipe, kernels, frames: int, steps: int = 2):
     in_memory = {}
 
     def preprocess(row):
-        """train.py's preprocess, its result kept as the in-memory inputs."""
-        in_memory.update(cli.preprocess(pipe, row, args, text_encoder))
+        """train.py's preprocess, its result cast as the CLI's loop casts it
+        (`fp32_inputs`) kept as the in-memory inputs."""
+        in_memory.update(cli.fp32_inputs(cli.preprocess(pipe, row, args, text_encoder)))
         return dict(in_memory)
 
     cache = tempfile.mkdtemp(prefix="chip_smoke_cache_")
@@ -1722,11 +1989,12 @@ def run_train(torch, pipe, kernels, frames: int, steps: int = 2):
         data_process_s = (time.perf_counter() - t0) / len(written)
         data_process_peak = torch.cuda.max_memory_allocated()
         cache_mb = sum(os.path.getsize(p) for p in written) / 1e6
-        sample = cli.cached_inputs(pipe, CachedLatentDataset(cache)[0])
+        sample = cli.fp32_inputs(cli.cached_inputs(pipe, CachedLatentDataset(cache)[0]))
     finally:
         shutil.rmtree(cache, ignore_errors=True)
     latents, context, vace_context = (sample[k] for k in keys)
     cache_bit_equal = {k: bool(torch.equal(in_memory[k], sample[k])) for k in keys}
+    input_dtypes = {k: str(sample[k].dtype) for k in keys}
     cli.park_encoders(pipe, cache_fed=True)
     torch.cuda.synchronize()
 
@@ -1752,16 +2020,20 @@ def run_train(torch, pipe, kernels, frames: int, steps: int = 2):
     torch.cuda.reset_peak_memory_stats()
     for kern in kernels.values():
         kern.launches = 0
-    losses, step_s = [], []
+    losses, step_s, oom = [], [], None
     for _ in range(steps):
         t0 = time.perf_counter()
-        loss = step(latents, context, vace_context, generator=gen)
-        torch.cuda.synchronize()
+        try:
+            loss = step(latents, context, vace_context, generator=gen)
+            torch.cuda.synchronize()
+        except torch.cuda.OutOfMemoryError as e:
+            oom = str(e).split(". ")[0]
+            break
         step_s.append(time.perf_counter() - t0)
         losses.append(float(loss))
     launches = {name: kern.launches for name, kern in kernels.items()}
     expected = expected_train_launches(pipe.dit.cfg, pipe.vace.cfg, targets,
-                                       steps)
+                                       steps, f32=True)
     res = dict(phase="train", dit_layers=pipe.dit.cfg.num_layers,
                vace_layers=list(pipe.vace.cfg.vace_layers), frames=f,
                tokens=int(math.prod(token_grid(f))), latents=list(latents.shape),
@@ -1777,10 +2049,16 @@ def run_train(torch, pipe, kernels, frames: int, steps: int = 2):
                data_process_peak_gib=data_process_peak / 2**30,
                cache_mb_per_sample=cache_mb,
                cache_bit_equal_to_in_memory=cache_bit_equal,
-               loss_in_memory_vs_cached=same_loss, losses=losses, step_s=step_s,
+               loss_in_memory_vs_cached=same_loss, input_dtypes=input_dtypes,
+               activations="fp32 (examples/train.py:281) on bf16 weights, TF32 off",
+               losses=losses, step_s=step_s, oom=oom,
                max_memory_allocated_gib=torch.cuda.max_memory_allocated() / 2**30,
-               launches=launches, expected_launches=expected)
+               launches=launches, expected_launches=expected, **CARD)
     emit(res)
+    if oom is not None:
+        return launches, None
+    if set(input_dtypes.values()) != {"torch.float32"}:
+        raise AssertionError(f"the train CLI handed the step {input_dtypes}")
     if not all(map(math.isfinite, losses)):
         raise AssertionError(f"non-finite loss: {losses}")
     if not all(cache_bit_equal.values()) or same_loss[0] != same_loss[1]:
@@ -1812,11 +2090,17 @@ def plain_versions():
         attention.flash_attention, wan_dit.fused_rmsnorm_rope, wan_dit.fused_rmsnorm = saved
 
 
-def run_train_precision(torch, pipe, kernels, inputs, frames: int):
+def run_train_precision(torch, pipe, kernels, inputs, frames: int, plain_oom_ok: bool = False):
     """One LoRA loss and gradient at 14B width and full depth on the train
-    clip, twice from the same tid and noise: bf16 activations through the
-    kernels (what the port's trainer runs) and fp32 activations on the bf16
-    weights through the plain versions (the recipe, examples/train.py:281)."""
+    clip, twice from the same tid and noise, both at the recipe's fp32
+    activations on the bf16 weights (examples/train.py:281): through the
+    float32 kernels (what the port's trainer runs) and through the plain
+    versions. Targets: loss within 1e-5 relative, LoRA gradients within
+    1e-3 relative L2 (the kernels and the plain versions lie within 2^-17
+    of each other per call; 48 blocks of forward and backward compound
+    that). Either run running out of the card's memory fails the phase,
+    unless `plain_oom_ok`: then the plain run's OOM is reported (`--only
+    train` at a frame count where only the kernels fit)."""
     from video_styler_tpu_torch.trainers.training import (flow_match_loss,
                                                           training_scheduler)
     latents, context, vace_context, params = inputs
@@ -1825,39 +2109,55 @@ def run_train_precision(torch, pipe, kernels, inputs, frames: int):
     tid = 500
     noise = torch.randn(latents.shape, generator=torch.Generator().manual_seed(5))
 
-    def loss_and_grads(dtype):
+    def loss_and_grads(oom_ok=False):
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         for kern in kernels.values():
             kern.launches = 0
         t0 = time.perf_counter()
-        loss = flow_match_loss(pipe.dit, latents.to(dtype), context.to(dtype), *tables,
-                               tid=tid, noise=noise, vace=pipe.vace,
-                               vace_context=vace_context.to(dtype), remat=True)
-        grads = torch.autograd.grad(loss, params)
-        torch.cuda.synchronize()
+        try:
+            loss = flow_match_loss(pipe.dit, latents.float(), context.float(), *tables,
+                                   tid=tid, noise=noise, vace=pipe.vace,
+                                   vace_context=vace_context.float(), remat=True)
+            grads = torch.autograd.grad(loss, params)
+            torch.cuda.synchronize()
+        except torch.cuda.OutOfMemoryError as e:
+            if not oom_ok:
+                raise
+            loss = grads = None
+            gc.collect()
+            torch.cuda.empty_cache()
+            return dict(oom=str(e).split(". ")[0],
+                        max_memory_allocated_gib=torch.cuda.max_memory_allocated() / 2**30), None
         return dict(loss=float(loss), seconds=time.perf_counter() - t0,
                     max_memory_allocated_gib=torch.cuda.max_memory_allocated() / 2**30,
-                    kernel_launches=sum(k.launches for k in kernels.values())), \
+                    launches={n: k.launches for n, k in kernels.items() if k.launches}), \
             torch.cat([g.float().reshape(-1) for g in grads])
 
-    bf16, g16 = loss_and_grads(torch.bfloat16)
+    kern, gk = loss_and_grads()
     with plain_versions():
-        fp32, g32 = loss_and_grads(torch.float32)
+        plain, gp = loss_and_grads(oom_ok=plain_oom_ok)
     res = dict(phase="train_precision", frames=frames,
                tokens=int(math.prod(token_grid(frames))),
                dit_layers=pipe.dit.cfg.num_layers,
                vace_layers=list(pipe.vace.cfg.vace_layers), tid=tid,
-               lora_params=int(g32.numel()), bf16_activations=bf16,
-               fp32_activations=fp32,
-               loss_rel_err=abs(bf16["loss"] - fp32["loss"]) / abs(fp32["loss"]),
-               lora_grads_rel_l2=((g16 - g32).norm() / g32.norm()).item(),
-               lora_grads_cosine=(torch.dot(g16, g32) / (g16.norm() * g32.norm())).item())
+               activations="fp32 on bf16 weights, TF32 off", fp32_kernels=kern,
+               fp32_plain=plain, loss_rel_tol=1e-5, grads_rel_l2_tol=1e-3, **CARD)
+    if gp is not None:
+        res.update(lora_params=int(gp.numel()),
+                   loss_rel_err=abs(kern["loss"] - plain["loss"]) / abs(plain["loss"]),
+                   lora_grads_rel_l2=((gk - gp).norm() / gp.norm()).item(),
+                   lora_grads_cosine=(torch.dot(gk, gp) / (gk.norm() * gp.norm())).item())
     emit(res)
-    if not (math.isfinite(res["loss_rel_err"]) and math.isfinite(res["lora_grads_rel_l2"])
-            and bf16["kernel_launches"] > 0 and fp32["kernel_launches"] == 0):
-        raise AssertionError(f"train_precision: {res}")
+    expected = {F32_NAMES[k] for k in ("K1", "K3", "K4", "K5")}
+    if not expected <= set(kern["launches"]) or set(kern["launches"]) - set(F32_NAMES.values()):
+        raise AssertionError(f"train_precision: the kernel run launched {kern['launches']}")
+    if plain.get("launches"):
+        raise AssertionError(f"train_precision: the plain run launched {plain['launches']}")
+    if gp is not None and not (res["loss_rel_err"] <= 1e-5
+                               and res["lora_grads_rel_l2"] <= 1e-3):
+        raise AssertionError(f"train_precision: kernels and plain versions disagree: {res}")
 
 
 # ------------------------------------------------- editor and enhancer phases
@@ -3449,6 +3749,11 @@ KERNEL_CATEGORIES = (  # (category, substrings of the device kernel's name)
     ("K3 stats/convert", ("fa_bwd_stats_kernel", "fa_bwd_convert_kernel")),
     ("K4", ("rmsnorm_rope_kernel",)),
     ("K5", ("rmsnorm_kernel",)),
+    ("K1f", ("flash_fwd_f32_kernel",)),
+    ("K3f dK dV", ("fa_bwd_dkv_f32_kernel", "fa_delta_f32_kernel")),
+    ("K3f dQ", ("fa_bwd_dq_f32_kernel",)),
+    ("K4f", ("rmsnorm_rope_f32_kernel",)),
+    ("K5f", ("rmsnorm_f32_kernel",)),
     ("F3", ("pairwise_patch_error_kernel",)),
     ("F2", ("patch_error_kernel",)),
     ("F1", ("remap_kernel",)),
@@ -6735,9 +7040,10 @@ def check_image_lora_reference(torch, kernels):
     the card and on the CPU from the same weights, LoRA, inputs, tid and
     noise (`train_lora.smoke_pack`): FLUX and Qwen-Image at heads of 128
     (K1 forward, K3 backward; bf16, remat), SD3 (heads of 64: the exact
-    `sdpa`; bf16), and the real tiny SD UNet (fp32; the exact `sdpa`) with
-    the UNet LoRA's targets through `trainers.sd_training`. Loss and LoRA
-    gradients within 5% relative L2."""
+    `sdpa`; bf16), the real tiny SD UNet (fp32; the exact `sdpa`) with
+    the UNet LoRA's targets through `trainers.sd_training`, and FLUX,
+    Qwen-Image (K1f, K3f) and SD3 again in fp32, as `train_lora --smoke`
+    runs them on the card. Loss and LoRA gradients within 5% relative L2."""
     from video_styler_tpu_torch import train_lora
     from video_styler_tpu_torch.models import sd as SDM
     from video_styler_tpu_torch.trainers.lora_train import apply_lora, init_lora, lora_parameters
@@ -6745,8 +7051,12 @@ def check_image_lora_reference(torch, kernels):
                                                              make_sd_lora_train_step)
     res = dict(phase="image_lora_reference", loss_rel={}, grads_rel_l2={}, k1={}, k3={},
                tol=5e-2)
-    for family in ("flux", "qwen_image", "sd3", "sd_unet"):
+    cases = [(f, torch.bfloat16, f) for f in ("flux", "qwen_image", "sd3")]
+    cases += [("sd_unet", torch.float32, "sd_unet")]
+    cases += [(f, torch.float32, f"{f} fp32") for f in ("flux", "qwen_image", "sd3")]
+    for family, dtype, key in cases:
         out = []
+        k1, k3 = ("K1", "K3") if dtype == torch.bfloat16 else ("K1f", "K3f")
         for dev in ("cpu", "cuda"):
             if family == "sd_unet":
                 gen = torch.Generator().manual_seed(1)
@@ -6763,7 +7073,7 @@ def check_image_lora_reference(torch, kernels):
                     fwd, torch.optim.SGD(lora_parameters(lora), lr=0.0))
             else:
                 model, fwd, lat, ctx = train_lora.smoke_pack(
-                    family, dev, torch.bfloat16, card_widths=True, remat=dev == "cuda")
+                    family, dev, dtype, card_widths=True, remat=dev == "cuda")
                 lora = train_lora.lora_setup(family, model, rank=4)
                 step = train_lora.make_step(family, fwd,
                                             torch.optim.SGD(lora_parameters(lora), lr=0.0))
@@ -6772,17 +7082,19 @@ def check_image_lora_reference(torch, kernels):
             loss = step(lat, ctx, generator=torch.Generator().manual_seed(3))
             out.append((float(loss), _flat(torch, _grads_of(torch, lora))))
             if dev == "cuda":
-                res["k1"][family] = kernels["K1"].launches
-                res["k3"][family] = kernels["K3"].launches
+                res["k1"][key] = kernels[k1].launches
+                res["k3"][key] = kernels[k3].launches
         (lc, gc_), (lg, gg) = out
-        res["loss_rel"][family] = abs(lg - lc) / abs(lc)
-        res["grads_rel_l2"][family] = ((gg - gc_).norm() / gc_.norm()).item()
+        res["loss_rel"][key] = abs(lg - lc) / abs(lc)
+        res["grads_rel_l2"][key] = ((gg - gc_).norm() / gc_.norm()).item()
     emit(res)
     bad = [f for f in res["loss_rel"] if not (res["loss_rel"][f] <= 5e-2
                                               and res["grads_rel_l2"][f] <= 5e-2)]
-    # the tiny FLUX (2 + 2 blocks) and Qwen-Image (2 blocks): K1 in the
-    # forward and the remat recompute, K3 in the backward, a block each
-    want = {"flux": (8, 4), "qwen_image": (4, 2), "sd3": (0, 0), "sd_unet": (0, 0)}
+    # the tiny FLUX (2 + 2 blocks) and Qwen-Image (2 blocks): K1 (K1f) in
+    # the forward and the remat recompute, K3 (K3f) in the backward, a block
+    # each
+    want = {"flux": (8, 4), "qwen_image": (4, 2), "sd3": (0, 0), "sd_unet": (0, 0),
+            "flux fp32": (8, 4), "qwen_image fp32": (4, 2), "sd3 fp32": (0, 0)}
     bad += [f for f, (k1, k3) in want.items() if (res["k1"][f], res["k3"][f]) != (k1, k3)]
     if bad:
         raise AssertionError(f"image LoRA steps, card vs CPU: {bad}: {res}")
@@ -7081,7 +7393,7 @@ def main(argv=None):
                     help="frames (4k+1) of the 480x832 clip of the LoRA steps")
     ap.add_argument("--only", nargs="+",
                     choices=("qwen", "step1x", "hunyuan") + FAMILY_PHASES
-                    + ("usp", "flux_lora", "streaming_train", "transformers"),
+                    + ("usp", "flux_lora", "streaming_train", "transformers", "train"),
                     default=None,
                     help="build the kernels and run only these phases (qwen: "
                          "qwen_kernels to qwen_adapters; step1x: step1x_nexus_kernels "
@@ -7092,7 +7404,9 @@ def main(argv=None):
                          "flux_lora: flux_lora_kernels, image_lora_reference and "
                          "flux_lora on a FLUX.1-dev of its own; streaming_train: "
                          "streaming_train_reference, streaming and streaming_train; "
-                         "transformers: transformers_backends), "
+                         "transformers: transformers_backends; train: the fp32 kernel "
+                         "rows, then train and train_precision on a random 14B "
+                         "pipeline at --train-frames, reporting an OOM), "
                          "then the kernels line of their rows: for iterating on them "
                          "(with no arguments every phase runs)")
     ap.add_argument("--ckpt-dir", default=None,
@@ -7128,6 +7442,8 @@ def main(argv=None):
 
     kernels = {"K1": fa.KERNEL, "K4": fnr.ROPE_KERNEL, "K5": fnr.RMS_KERNEL,
                "K3": fa.BWD_KERNEL, "K3q": fa.BWD_DQ_KERNEL,
+               "K1f": fa.F32_KERNEL, "K3f": fa.BWD_F32_KERNEL, "K3q-f": fa.BWD_DQ_F32_KERNEL,
+               "K4f": fnr.ROPE_F32_KERNEL, "K5f": fnr.RMS_F32_KERNEL,
                "K2": fa.ONLINE_KERNEL, "K8": fa.DUAL_KERNEL,
                "K6": fa.INT8_CAPPED_KERNEL, "K6o": fa.INT8_ONLINE_KERNEL,
                "K7": fa.INT8_3D_KERNEL, "F1": fk.REMAP_KERNEL,
@@ -7155,7 +7471,7 @@ def main(argv=None):
             path_launches.update(family_paths)
         if "usp" in args.only:
             path_launches["usp"] = run_usp(torch, args.frames, args.steps, smi)
-        own_rows = []
+        own_rows, f32_rows = [], []
         if "transformers" in args.only:
             check_transformers_backends(torch)
         if "flux_lora" in args.only:
@@ -7166,9 +7482,12 @@ def main(argv=None):
             check_streaming_train_reference(torch, kernels)
             path_launches["streaming"], path_launches["streaming_train"] = run_streaming(
                 torch, kernels, args.frames, args.steps, smi)
+        if "train" in args.only:
+            f32_rows = run_train_alone(torch, kernels, args.train_frames, args.steps)
         launches = {"K1": sum(c.get("K1", 0) for c in path_launches.values())}
         return finish(torch, smi, rows, launches, path_launches, [], {},
-                      own_rows=flux_lora_rows(own_rows, path_launches.get("flux_lora")))
+                      own_rows=flux_lora_rows(own_rows, path_launches.get("flux_lora"))
+                      + f32_rows)
     ditto, run = token_grid(DITTO_FRAMES), token_grid(args.frames)
     rows = check_kernels(torch, ditto, f"ditto-{DITTO_FRAMES}f")
     if args.frames != DITTO_FRAMES:
@@ -7222,6 +7541,9 @@ def main(argv=None):
                                            f"train-{args.train_frames}f",
                                            "self q x8 (magnitude stress)", mag=8.0)
     torch.cuda.empty_cache()
+    # the float32 instantiations the Ditto recipe's fp32 activations run, at
+    # the full clip's 29,640 tokens and the train clip's, self and cross
+    f32_rows = f32_kernel_rows(torch, args.train_frames)
 
     # the online-softmax and int8 kernels, at the Ditto shapes and this run's
     new_rows = check_online_kernels(torch, s_ditto, f"ditto-{DITTO_FRAMES}f", cross=True)
@@ -7266,15 +7588,11 @@ def main(argv=None):
     del e2e_frames
     launches.update(run_e2e_online(torch, pipe, kernels, args.frames))
     train_launches, train_inputs = run_train(torch, pipe, kernels, args.train_frames)
-    if args.train_frames <= RUN_FRAMES:
-        run_train_precision(torch, pipe, kernels, train_inputs, args.train_frames)
-    else:
-        # the fp32 activations through the plain versions do not fit the
-        # card's 80 GB at this size (the logits of one chunk of query rows
-        # beside the rematerialised fp32 blocks)
-        emit(dict(phase="train_precision", frames=args.train_frames,
-                  skipped=f"the fp32 run needs more than one card's memory above "
-                          f"{RUN_FRAMES} frames"))
+    if train_inputs is None:
+        raise AssertionError(f"the fp32 LoRA steps at {args.train_frames} frames ran out of "
+                             f"the card's memory (`--only train --train-frames N` tries "
+                             f"another count)")
+    run_train_precision(torch, pipe, kernels, train_inputs, args.train_frames)
     del train_inputs
     # the editor and the enhancer on the loaded pipeline; umT5 and the VAE,
     # parked on the host for the cache-fed LoRA steps, come back
@@ -7367,9 +7685,45 @@ def main(argv=None):
     path_launches.update(family_paths)
     # the multi-GPU path: ranks sharing the free card
     path_launches["usp"] = run_usp(torch, args.frames, args.steps, smi)
+    # the bf16 training rows count the streamed 14B LoRA steps (bf16, as in
+    # JAX), the fp32 rows the Ditto recipe's `train` steps
     return finish(torch, smi, rows + new_rows, launches, path_launches, train_rows,
-                  train_launches, own_rows=flux_lora_rows(lora_rows,
-                                                          path_launches["flux_lora"]))
+                  path_launches["streaming_train"],
+                  own_rows=flux_lora_rows(lora_rows, path_launches["flux_lora"])
+                  + [dict(r, launches=train_launches[r["kernel"].replace("K1fs", "K1f")])
+                     for r in f32_rows])
+
+
+def f32_kernel_rows(torch, train_frames: int):
+    """K1f, K3f, K3q-f (self at 29,640 tokens on 2 heads' rows, at the
+    train clip's tokens on all, and the 512-key cross at both) and K4f,
+    K5f at both token counts."""
+    s_ditto = math.prod(token_grid(DITTO_FRAMES))
+    s_train = math.prod(token_grid(train_frames))
+    shapes = {s_train: (f"train-{train_frames}f", token_grid(train_frames)),
+              s_ditto: (f"ditto-{DITTO_FRAMES}f", token_grid(DITTO_FRAMES))}
+    rows = []
+    for s, (tag, grid) in shapes.items():
+        rows += check_f32_attention(torch, s, s, tag, "self",
+                                    check_heads=2 if s > 10_000 else None)
+        rows += check_f32_attention(torch, s, TEXT_LEN, tag, "cross")
+        rows += check_f32_norms(torch, grid, tag)
+        torch.cuda.empty_cache()
+    return rows
+
+
+def run_train_alone(torch, kernels, frames: int, steps: int):
+    """`--only train`: the fp32 kernel rows, then the `train` and
+    `train_precision` phases on a random 14B pipeline (no e2e edit, no
+    load) at `frames`. Running out of the card's memory is reported as the
+    finding: by `train` (the phase ends there) and by the plain run of
+    `train_precision`. Returns the kernel rows with `train`'s launches."""
+    rows = f32_kernel_rows(torch, frames)
+    pipe, _ = build_pipeline(torch)
+    launches, inputs = run_train(torch, pipe, kernels, frames, steps)
+    if inputs is not None:
+        run_train_precision(torch, pipe, kernels, inputs, frames, plain_oom_ok=True)
+    return [dict(r, launches=launches[r["kernel"].replace("K1fs", "K1f")]) for r in rows]
 
 
 def flux_lora_rows(rows, launches):

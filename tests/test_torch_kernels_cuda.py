@@ -1,5 +1,6 @@
 """The port's hand-written CUDA kernels (K1 with and without stats, K2, K3,
-K4, K5, K6, K7, K8, and FastBlend's F1-F3) against their plain versions,
+K4, K5, K6, K7, K8, their float32 instantiations K1f, K3f, K3q-f, K4f and
+K5f, and FastBlend's F1-F3) against their plain versions,
 at the widths and token counts of the paths that run them, and the
 quantized linears' library GEMMs against the CPU's exact products, on the
 card. They skip on a host without a GPU; on the card run them with
@@ -13,7 +14,17 @@ Tolerance: two bf16 ULPs at the output's largest magnitude. The kernel and
 the plain version round at the same points; exp2 and rsqrt differ in their
 last fp32 bits, which can move one bf16 rounding by one ULP. F1-F3 are
 fp32 and sum in their plain versions' order: 2^-20 of the largest
-magnitude.
+magnitude. K1f and K3f: 2^-17 of the largest magnitude, since their
+three-pass TF32 products (each ~2^-21 relative) and the plain version's
+fp32 GEMMs sum in other orders, and exp2 of a logit carries its absolute
+error; at any length, since the kernels' sums along the sequence are
+compensated; times the q magnitude factor of the stress cases, since a
+logit's
+fp32 rounding grows with |q||k| and the plain version itself then lies
+further from the exact function (against float64, on the card: 2^-16.7 to
+2^-15.8 at q x24 and 2^-17.9 to 2^-16.6 at q x8, against 2^-20.4 to
+2^-18.3 at x1). K4f and K5f: 2^-20, since the kernels' fp64 sum of
+squares and the plain fp32 sum put r a few fp32 ULPs apart at most.
 """
 import pytest
 import torch
@@ -67,7 +78,7 @@ def test_k1_reads_strided_views(gen):
 def test_k1_rejects_what_it_does_not_take(gen):
     q = _randn(gen, 1, 16, 2, 128)
     with pytest.raises(TypeError):
-        fa.flash_attention(q.float(), q.float(), q.float())
+        fa.flash_attention(q.half(), q.half(), q.half())
     with pytest.raises(ValueError):
         small = _randn(gen, 1, 16, 2, 64)
         fa.flash_attention(small, small, small)
@@ -472,7 +483,7 @@ def test_k3_rejects_what_it_does_not_take(gen):
     q = _randn(gen, 1, 16, 2, 128)
     o, l2 = fa._flash_cuda(q, q, q, 1 / 128 ** 0.5, with_stats=True)
     with pytest.raises(TypeError):
-        fa.flash_attention_bwd(q.float(), q.float(), q.float(), o, l2, q)
+        fa.flash_attention_bwd(q.half(), q.half(), q.half(), o, l2, q)
     with pytest.raises(ValueError):
         fa.flash_attention_bwd(q, q, q, o, l2[:, :, :8], q)
     with pytest.raises(ValueError):
@@ -480,6 +491,186 @@ def test_k3_rejects_what_it_does_not_take(gen):
     with pytest.raises(ValueError):
         small = _randn(gen, 1, 16, 2, 64)
         fa.flash_attention_bwd(small, small, small, small, l2, small)
+
+
+# --------------------------------------------------------------------------
+# K1f, K3f, K3q-f, K4f, K5f: the float32 instantiations
+# --------------------------------------------------------------------------
+
+TOL_ATTN_F32 = 2.0 ** -17
+TOL_NORM_F32 = 2.0 ** -20
+
+
+def _randn32(gen, *shape, scale=1.0):
+    return torch.randn(shape, generator=gen, device="cuda") * scale
+
+
+def _attn_tol(mag=1.0):
+    return TOL_ATTN_F32 * mag
+
+
+def _assert_close_f32(got, want, tol):
+    assert got.dtype == want.dtype == torch.float32
+    err = (got - want).abs().max().item()
+    bound = tol * want.abs().max().item()
+    assert err <= bound, (err, bound)
+
+
+@pytest.mark.parametrize("b,sq,sk,n,mag", [(1, 64, 64, 1, 1.0), (2, 200, 333, 3, 1.0),
+                                           (1, 1000, 512, 4, 1.0), (1, 300, 257, 2, 24.0),
+                                           (1, 4680, 4680, 2, 1.0), (1, 4680, 512, 2, 1.0),
+                                           (1, 29640, 29640, 1, 1.0)])
+@pytest.mark.parametrize("stats", [False, True])
+def test_k1f_matches_plain(gen, b, sq, sk, n, mag, stats):
+    q = _randn32(gen, b, sq, n, 128, scale=mag)
+    k, v = _randn32(gen, b, sk, n, 128), _randn32(gen, b, sk, n, 128)
+    before = (fa.F32_KERNEL.launches, fa.KERNEL.launches)
+    got = fa._flash_cuda(q, k, v, 1 / 128 ** 0.5, with_stats=stats)
+    torch.cuda.synchronize()
+    assert (fa.F32_KERNEL.launches, fa.KERNEL.launches) == (before[0] + 1, before[1])
+    want = fa.flash_attention_plain(q, k, v, return_stats=stats)
+    if stats:
+        _assert_close_f32(got[0], want[0], _attn_tol(mag))
+        assert (got[1] - want[1]).abs().max().item() <= 1e-5 * max(
+            1.0, want[1].abs().max().item())
+    else:
+        _assert_close_f32(got, want, _attn_tol(mag))
+
+
+def _k3f_check(q, k, v, g, need_kv=True, mag=1.0):
+    o, l2 = fa._flash_cuda(q, k, v, 1 / 128 ** 0.5, with_stats=True)
+    kern = fa.BWD_F32_KERNEL if need_kv else fa.BWD_DQ_F32_KERNEL
+    before = (kern.launches, fa.BWD_KERNEL.launches, fa.BWD_DQ_KERNEL.launches)
+    got = fa.flash_attention_bwd(q, k, v, o, l2, g, need_kv=need_kv)
+    torch.cuda.synchronize()
+    assert (kern.launches, fa.BWD_KERNEL.launches, fa.BWD_DQ_KERNEL.launches) == (
+        before[0] + 1, before[1], before[2])
+    want = fa.flash_attention_bwd_plain(q, k, v, o, l2, g)
+    for t, w in zip(got, want):
+        if t is not None:
+            assert t.shape == w.shape
+            _assert_close_f32(t, w, _attn_tol(mag))
+    return got
+
+
+@pytest.mark.parametrize("b,sq,sk,n,mag", [(1, 64, 64, 1, 1.0), (2, 200, 333, 3, 1.0),
+                                           (1, 300, 40, 2, 1.0), (1, 1000, 512, 4, 1.0),
+                                           (1, 4680, 4680, 2, 1.0), (1, 4680, 512, 2, 1.0),
+                                           (1, 4680, 4680, 2, 8.0), (1, 333, 200, 3, 8.0),
+                                           (1, 29640, 29640, 1, 1.0)])
+@pytest.mark.parametrize("need_kv", [True, False])
+def test_k3f_matches_plain(gen, b, sq, sk, n, mag, need_kv):
+    """K3f (dq, dk, dv) and K3q-f (dq alone) on K1f's o and L2: ragged last
+    tiles of 32 query rows and keys and of 128-row blocks, the run's 4,680
+    tokens, the 512 text tokens, the q x8 magnitude stress, and one head of
+    the 73-frame clip's 29,640 tokens (~3,700 compensated steps a sum)."""
+    q = _randn32(gen, b, sq, n, 128, scale=mag)
+    k, v = _randn32(gen, b, sk, n, 128), _randn32(gen, b, sk, n, 128)
+    got = _k3f_check(q, k, v, _randn32(gen, b, sq, n, 128), need_kv, mag)
+    assert (got[1] is None) == (not need_kv)
+
+
+def test_k1f_k3f_read_strided_views_and_repeat(gen):
+    """q/k/v as head slices of one (B, S, N*D) projection and the kv_valid
+    slice: no copy, the kernels read through the strides; a second run is
+    bit-equal (every sum in a fixed order, no atomics)."""
+    x = _randn32(gen, 1, 130, 3 * 2 * 128)
+    q, k, v = x.view(1, 130, 6, 128).split(2, dim=2)
+    out = attention(q, k, v, kv_valid=97)
+    _assert_close_f32(out, fa.flash_attention_plain(q, k[:, :97], v[:, :97]), TOL_ATTN_F32)
+    g = _randn32(gen, 1, 130, 256).view(1, 130, 2, 128)
+    first = _k3f_check(q, k, v, g)
+    second = fa.flash_attention_bwd(q, k, v, *fa._flash_cuda(q, k, v, 1 / 128 ** 0.5,
+                                                             with_stats=True), g)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+def test_autograd_through_f32_kernels_matches_plain(gen):
+    """`attention`, `fused_rmsnorm_rope` and `fused_rmsnorm` under autograd
+    on float32 (K1f with stats + K3f; K4f and K5f forwards) against the plain
+    versions' gradients."""
+    q, k, v = (_randn32(gen, 1, 200, 2, 128) for _ in range(3))
+    g = _randn32(gen, 1, 200, 2, 128)
+    ins = [t.clone().requires_grad_() for t in (q, k, v)]
+    before = (fa.F32_KERNEL.launches, fa.BWD_F32_KERNEL.launches)
+    got = torch.autograd.grad(attention(*ins), ins, g)
+    assert (fa.F32_KERNEL.launches, fa.BWD_F32_KERNEL.launches) == (before[0] + 1,
+                                                                    before[1] + 1)
+    o, l2 = fa.flash_attention_plain(q, k, v, return_stats=True)
+    for t, w in zip(got, fa.flash_attention_bwd_plain(q, k, v, o, l2, g)):
+        _assert_close_f32(t, w, TOL_ATTN_F32)
+    xq, xk = _randn32(gen, 1, 60, 256), _randn32(gen, 1, 60, 256)
+    wq = (1 + 0.1 * torch.randn(256, generator=gen, device="cuda")).to(torch.bfloat16)
+    wk = (1 + 0.1 * torch.randn(256, generator=gen, device="cuda")).to(torch.bfloat16)
+    cos, sin = assemble_freqs_grid(128, 1, 6, 10, device="cuda")
+    gq, gk = _randn32(gen, 1, 60, 2, 128), _randn32(gen, 1, 60, 2, 128)
+    a = [t.clone().requires_grad_() for t in (xq, xk)]
+    got = torch.autograd.grad(fnr.fused_rmsnorm_rope(*a, wq, wk, cos, sin), a, (gq, gk))
+    b = [t.clone().requires_grad_() for t in (xq, xk)]
+    want = torch.autograd.grad(fnr.fused_rmsnorm_rope_plain(*b, wq, wk, cos, sin), b,
+                               (gq, gk))
+    for t, w in zip(got, want):
+        _assert_close_f32(t, w, TOL_NORM_F32)
+
+
+@pytest.mark.parametrize("s,n", [(231, 2), (1560, 40), (4680, 40)])
+def test_k4f_k5f_match_plain(gen, s, n):
+    """K4f and K5f on float32 rows with the bf16 weights the recipe keeps
+    (cast to float32 by the wrapper, as the JAX linear and norm do)."""
+    f, h, w = {231: (3, 7, 11), 1560: (1, 30, 52), 4680: (3, 30, 52)}[s]
+    xq, xk = _randn32(gen, 2, s, n * 128), _randn32(gen, 2, s, n * 128, scale=0.7)
+    wq = (1 + 0.1 * torch.randn(n * 128, generator=gen, device="cuda")).to(torch.bfloat16)
+    wk = (1 + 0.1 * torch.randn(n * 128, generator=gen, device="cuda")).to(torch.bfloat16)
+    cos, sin = assemble_freqs_grid(128, f, h, w, device="cuda")
+    before = (fnr.ROPE_F32_KERNEL.launches, fnr.RMS_F32_KERNEL.launches,
+              fnr.ROPE_KERNEL.launches, fnr.RMS_KERNEL.launches)
+    oq, ok = fnr.fused_rmsnorm_rope(xq, xk, wq, wk, cos, sin)
+    o5 = fnr.fused_rmsnorm(xq, wq)
+    torch.cuda.synchronize()
+    assert (fnr.ROPE_F32_KERNEL.launches, fnr.RMS_F32_KERNEL.launches,
+            fnr.ROPE_KERNEL.launches, fnr.RMS_KERNEL.launches) == (
+        before[0] + 1, before[1] + 1, before[2], before[3])
+    pq, pk = fnr.fused_rmsnorm_rope_plain(xq, xk, wq, wk, cos, sin)
+    _assert_close_f32(oq, pq, TOL_NORM_F32)
+    _assert_close_f32(ok, pk, TOL_NORM_F32)
+    _assert_close_f32(o5, fnr.fused_rmsnorm_plain(xq, wq), TOL_NORM_F32)
+
+
+@pytest.mark.parametrize("rows", [29640, 4680, 4681])
+def test_k5f_ditto_rows(gen, rows):
+    """K5f at the Ditto width (Dm = 5120: 10 float4 chunks a thread of a
+    128-thread block) on the 29,640- and 4,680-token rows and a count that
+    is not a multiple of anything; a row wider than 8192 is refused."""
+    x = _randn32(gen, 1, rows, 5120)
+    w = (1 + 0.1 * torch.randn(5120, generator=gen, device="cuda")).to(torch.bfloat16)
+    before = fnr.RMS_F32_KERNEL.launches
+    out = fnr.fused_rmsnorm(x, w)
+    torch.cuda.synchronize()
+    assert fnr.RMS_F32_KERNEL.launches == before + 1
+    _assert_close_f32(out, fnr.fused_rmsnorm_plain(x, w), TOL_NORM_F32)
+    with pytest.raises(ValueError):
+        fnr.fused_rmsnorm(_randn32(gen, 1, 4, 8200), torch.ones(8200, device="cuda"))
+    with pytest.raises(TypeError):
+        fnr.fused_rmsnorm(x.half(), w)
+    assert fnr.RMS_F32_KERNEL.launches == before + 1
+
+
+def test_f32_dispatch_refuses_k2_k8_and_fp16(gen):
+    """K2 and K8 have no float32 instantiation yet, and nothing takes
+    float16: each raises TypeError before any launch."""
+    q = _randn32(gen, 1, 64, 2, 128)
+    before = (fa.F32_KERNEL.launches, fa.ONLINE_KERNEL.launches, fa.DUAL_KERNEL.launches)
+    for capped, dual in ((False, False), (False, True), (True, True)):
+        with pytest.raises(TypeError, match="Queue 2 item 9"):
+            fa.flash_attention(q, q, q, capped=capped, dual=dual)
+    with pytest.raises(TypeError):
+        fa.flash_attention(q.half(), q.half(), q.half())
+    with pytest.raises(TypeError):
+        fnr.fused_rmsnorm_rope(q.view(1, 64, 256).half(), q.view(1, 64, 256).half(),
+                               torch.ones(256, device="cuda"), torch.ones(256, device="cuda"),
+                               *assemble_freqs_grid(128, 1, 8, 8, device="cuda"))
+    assert before == (fa.F32_KERNEL.launches, fa.ONLINE_KERNEL.launches,
+                      fa.DUAL_KERNEL.launches)
 
 
 # --------------------------------------------------------------------------

@@ -341,9 +341,10 @@ def test_train_step_matches_jax_value_and_grad():
 def test_step_against_bf16_weight_recipe(act_dtype):
     """The recipe's precision: bf16 weights, and examples/train.py:281 casts
     latents, context and vace_context to fp32, so the JAX step runs fp32
-    activations (its linear casts each weight to x.dtype). The port's
-    kernels take bf16 only, so on the card it runs bf16 activations. Both
-    cases are held against the JAX recipe step: fp32 activations differ by
+    activations (its linear casts each weight to x.dtype). The port's train
+    CLI does the same, and on the card runs them through the float32
+    kernels (K1f, K3f, K3q-f, K4f, K5f). Both activation dtypes are held
+    against the JAX recipe step: fp32 activations differ by
     about one bf16 ULP of the output (rounding points of the bf16 weights);
     bf16 activations add a rounding per op. Measured here (printed with
     -s): loss 3.4e-4 rel for both, LoRA gradients 0.54% (fp32) and 0.83%
@@ -380,6 +381,103 @@ def test_step_against_bf16_weight_recipe(act_dtype):
     grads_rel = ((got - ref).norm() / ref.norm()).item()
     print(f"{act_dtype}: loss rel {loss_rel:.3g}, LoRA grads rel L2 {grads_rel:.3g}")
     assert loss_rel <= 1e-3 and grads_rel <= 2e-2, (loss_rel, grads_rel)
+
+
+def _recipe_step_against_jax(inputs):
+    """One step's loss and LoRA gradients of the port on `inputs` (the
+    train CLI's tensors) against the JAX recipe step on the same arrays
+    cast to fp32 as examples/train.py:281 casts them, bf16 weights on both
+    sides: (loss rel, LoRA grads rel L2)."""
+    (jcfg, jp, jvcfg, jvp), (dit, vace) = _models(jnp.bfloat16)
+    arrays = {k: inputs[k].numpy() for k in ("latents", "context", "vace_context")}
+    _, tables = _jax_tables()
+    jlora = _jax_lora(jvp)
+    rng = jax.random.PRNGKey(12)
+
+    def loss_fn(lora):
+        return j_flow_match_loss(jp, jcfg, jnp.asarray(arrays["latents"]).astype(jnp.float32),
+                                 jnp.asarray(arrays["context"]).astype(jnp.float32), rng,
+                                 *tables, min_tid=0, max_tid=1000,
+                                 vace_params=JL.apply_lora(jvp, lora), vace_cfg=jvcfg,
+                                 vace_context=jnp.asarray(arrays["vace_context"]).astype(
+                                     jnp.float32), remat=True)
+
+    jloss, jgrads = jax.value_and_grad(loss_fn)(jlora)
+    tlora = from_jax_lora(_np_tree(jlora))
+    TL.apply_lora(vace, tlora)
+    sched = training_scheduler()
+    tid, noise = _jax_draws(rng, arrays["latents"].shape)
+    loss = flow_match_loss(dit, inputs["latents"], inputs["context"], sched.sigmas,
+                           sched.timesteps, sched.linear_timesteps_weights, tid=tid,
+                           noise=torch.from_numpy(noise), vace=vace,
+                           vace_context=inputs["vace_context"])
+    loss.backward()
+    want = from_jax_lora(_np_tree(jgrads))
+    got = torch.cat([tlora[n][k].grad.reshape(-1) for n in tlora for k in ("A", "B")])
+    ref = torch.cat([want[n][k].reshape(-1) for n in tlora for k in ("A", "B")])
+    return (abs(loss.item() - float(jloss)) / float(jloss),
+            ((got - ref).norm() / ref.norm()).item())
+
+
+@pytest.mark.parametrize("source", ["preprocess noise", "preprocess video", "cached_inputs"])
+def test_train_cli_hands_the_step_fp32_as_the_recipe(source, tmp_path):
+    """The train CLI's inputs, from `preprocess` (a row without video: seeded
+    fp32 noise latents and a zero fp32 VACE context, made so as
+    examples/train.py makes them; a row with video: the bf16 pipeline's
+    encodes) and from a latent cache through `cached_inputs` (the cache's
+    fp32 arrays, examples/train.py:236-239), cast once by `fp32_inputs` as
+    the CLI's loop casts them (:281-282), are fp32 tensors; one step on
+    them lies within the fp32 bounds of `test_step_against_bf16_weight_recipe`
+    from the JAX recipe's step."""
+    from video_styler_tpu_torch import train as cli
+    from video_styler_tpu_torch.infer_ditto import build_smoke_pipeline, smoke_frames
+    from video_styler_tpu_torch.trainers.latent_cache import (CachedLatentDataset,
+                                                              launch_data_process_task)
+    pipe = build_smoke_pipeline(device="cpu")
+    args = cli.parse_args(["--height", "32", "--width", "32", "--num_frames", "9",
+                           "--lora_base_model", "vace"])[1]
+    video = None if source == "preprocess noise" else list(smoke_frames(9, 32, 32))
+    row = {"prompt": "a watercolor city", "video": video, "vace_video": video}
+    raw = cli.preprocess(pipe, row, args)
+    if source == "cached_inputs":
+        launch_data_process_task([row], lambda r: cli.preprocess(pipe, r, args),
+                                 str(tmp_path))
+        raw = cli.cached_inputs(pipe, CachedLatentDataset(str(tmp_path))[0])
+    made = {"preprocess noise": ("latents", "vace_context"), "preprocess video": (),
+            "cached_inputs": ("latents", "context", "vace_context")}[source]
+    assert all(raw[k].dtype == torch.float32 for k in made)  # made or stored fp32
+    inputs = cli.fp32_inputs(raw)
+    assert {k: v.dtype for k, v in inputs.items()} == dict.fromkeys(
+        ("latents", "context", "vace_context"), torch.float32)
+    assert inputs["latents"].shape == (1, 4, 3, 4, 4)
+    assert inputs["vace_context"].shape == (1, 72, 3, 4, 4)
+    loss_rel, grads_rel = _recipe_step_against_jax(inputs)
+    print(f"{source}: loss rel {loss_rel:.3g}, LoRA grads rel L2 {grads_rel:.3g}")
+    assert loss_rel <= 1e-3 and grads_rel <= 2e-2, (loss_rel, grads_rel)
+
+
+def test_train_cli_smoke_steps_take_fp32(tmp_path, monkeypatch):
+    """`train --smoke --device cpu` (and from its latent cache) hands
+    `flow_match_loss` fp32 latents, context and VACE context on the bf16
+    smoke pipeline's weights."""
+    from video_styler_tpu_torch import train as cli
+    from video_styler_tpu_torch.trainers import training
+    seen = []
+    real = training.flow_match_loss
+
+    def recording(dit, latents, context, *a, vace_context=None, **kw):
+        seen.append((dit.blocks[0].self_attn.q.weight.dtype, latents.dtype, context.dtype,
+                     vace_context.dtype))
+        return real(dit, latents, context, *a, vace_context=vace_context, **kw)
+
+    monkeypatch.setattr(training, "flow_match_loss", recording)
+    cli.main(["--smoke", "--device", "cpu", "--max_steps", "1",
+              "--output_path", str(tmp_path / "run")])
+    cache = str(tmp_path / "cache")
+    cli.main(["--smoke", "--task", "data_process", "--device", "cpu", "--output_path", cache])
+    cli.main(["--smoke", "--device", "cpu", "--max_steps", "1", "--cache_path", cache,
+              "--output_path", str(tmp_path / "run2")])
+    assert seen == [(torch.bfloat16,) + (torch.float32,) * 3] * 2
 
 
 def test_remat_changes_no_gradient():

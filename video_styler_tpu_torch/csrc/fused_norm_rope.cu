@@ -36,6 +36,19 @@
 // gates were VMEM and Mosaic limits and are gone. CUDA C++ rather than
 // Triton: it shares the build of the attention kernels and needs no
 // tensor-core tiling, so a plain warp-per-row kernel is short.
+//
+// K4f and K5f: the same two functions on float32 rows (the Ditto LoRA
+// recipe's fp32 activations, examples/train.py:281), where the Pallas
+// kernels' casts are no-ops: xn = (x * r) * w in fp32, then K4f's rotation.
+// Twice K4's and K5's bytes, still bytes-bound. The sum of squares is
+// accumulated in fp64 (free in a kernel bound by memory), so r is the
+// correctly rounded fp32 of the mean's rsqrt up to rsqrtf's last bit, and
+// the kernel stays within 2^-20 of the plain version's fp32 sum.
+// K4f: K4's warp per row, float4 loads, the row read twice (the second
+// read mostly from L1/L2). K5f: a 5,120-wide fp32 row is 160 floats a lane
+// of one warp, past the register file, so it takes a block of 128 threads
+// per row, each holding its float4 chunks (10 at Dm = 5120) in registers:
+// x is read once; the block's partial sums meet in shared memory.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -193,6 +206,104 @@ void launch_rms(const void* x, const void* w, void* o, int rows, int dm, float e
       static_cast<__nv_bfloat16*>(o), rows, dm, eps);
 }
 
+__device__ __forceinline__ double warp_sum_d(double v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// K4f: fp32 rows; cos/sin as K4's
+__global__ void __launch_bounds__(kThreads)
+rmsnorm_rope_f32_kernel(const float* xq, const float* xk, const float* wq, const float* wk,
+                        const float* cos, const float* sin, float* oq, float* ok,
+                        int rows, int seq, int dm, int head_dim, float eps) {
+  const int row = blockIdx.x * kRowsPerBlock + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (row >= rows) return;
+  const bool is_k = blockIdx.y == 1;
+  const float4* xr = reinterpret_cast<const float4*>((is_k ? xk : xq) + (long long)row * dm);
+  const float4* wr = reinterpret_cast<const float4*>(is_k ? wk : wq);
+  float4* orow = reinterpret_cast<float4*>((is_k ? ok : oq) + (long long)row * dm);
+  const int nchunks = dm / 4;
+  const int half = head_dim / 2;
+  const float* cs = cos + (long long)(row % seq) * half;
+  const float* sn = sin + (long long)(row % seq) * half;
+
+  double ss = 0.0;
+  for (int c = lane; c < nchunks; c += 32) {
+    const float4 v = xr[c];
+    ss += (double)v.x * v.x + (double)v.y * v.y + (double)v.z * v.z + (double)v.w * v.w;
+  }
+  const float r = rsqrtf(__fdiv_rn((float)warp_sum_d(ss), (float)dm) + eps);
+  for (int c = lane; c < nchunks; c += 32) {
+    const float4 v = xr[c];
+    const float4 w = __ldg(wr + c);
+    const int i0 = ((c * 4) % head_dim) / 2;  // first pair index, even
+    const float2 c2 = *reinterpret_cast<const float2*>(cs + i0);
+    const float2 s2 = *reinterpret_cast<const float2*>(sn + i0);
+    const float x0 = __fmul_rn(__fmul_rn(v.x, r), w.x);
+    const float x1 = __fmul_rn(__fmul_rn(v.y, r), w.y);
+    const float x2 = __fmul_rn(__fmul_rn(v.z, r), w.z);
+    const float x3 = __fmul_rn(__fmul_rn(v.w, r), w.w);
+    orow[c] = make_float4(__fsub_rn(__fmul_rn(x0, c2.x), __fmul_rn(x1, s2.x)),
+                          __fadd_rn(__fmul_rn(x0, s2.x), __fmul_rn(x1, c2.x)),
+                          __fsub_rn(__fmul_rn(x2, c2.y), __fmul_rn(x3, s2.y)),
+                          __fadd_rn(__fmul_rn(x2, s2.y), __fmul_rn(x3, c2.y)));
+  }
+}
+
+constexpr int kRmsF32Threads = 128;  // K5f: threads per row
+
+// K5f with kPer float4 chunks of the row per thread in registers (chunk
+// threadIdx.x + 128 i; those past the row are not read)
+template <int kPer>
+__global__ void __launch_bounds__(kRmsF32Threads)
+rmsnorm_f32_kernel(const float* x, const float* w, float* o, int dm, float eps) {
+  __shared__ double part[kRmsF32Threads / 32];
+  const int nchunks = dm / 4;
+  const float4* xr = reinterpret_cast<const float4*>(x + (long long)blockIdx.x * dm);
+  const float4* wr = reinterpret_cast<const float4*>(w);
+  float4* orow = reinterpret_cast<float4*>(o + (long long)blockIdx.x * dm);
+  float4 v[kPer];
+#pragma unroll
+  for (int i = 0; i < kPer; ++i) {
+    const int c = threadIdx.x + kRmsF32Threads * i;
+    if (c < nchunks) v[i] = xr[c];
+  }
+  double ss = 0.0;
+#pragma unroll
+  for (int i = 0; i < kPer; ++i) {
+    if (threadIdx.x + kRmsF32Threads * i < nchunks)
+      ss += (double)v[i].x * v[i].x + (double)v[i].y * v[i].y + (double)v[i].z * v[i].z +
+            (double)v[i].w * v[i].w;
+  }
+  ss = warp_sum_d(ss);
+  if ((threadIdx.x & 31) == 0) part[threadIdx.x >> 5] = ss;
+  __syncthreads();
+  double total = 0.0;
+#pragma unroll
+  for (int i = 0; i < kRmsF32Threads / 32; ++i) total += part[i];
+  const float r = rsqrtf(__fdiv_rn((float)total, (float)dm) + eps);
+#pragma unroll
+  for (int i = 0; i < kPer; ++i) {
+    const int c = threadIdx.x + kRmsF32Threads * i;
+    if (c >= nchunks) continue;
+    const float4 wv = __ldg(wr + c);
+    orow[c] = make_float4(__fmul_rn(__fmul_rn(v[i].x, r), wv.x),
+                          __fmul_rn(__fmul_rn(v[i].y, r), wv.y),
+                          __fmul_rn(__fmul_rn(v[i].z, r), wv.z),
+                          __fmul_rn(__fmul_rn(v[i].w, r), wv.w));
+  }
+}
+
+template <int kPer>
+void launch_rms_f32(const void* x, const void* w, void* o, int rows, int dm, float eps,
+                    cudaStream_t stream) {
+  rmsnorm_f32_kernel<kPer><<<rows, kRmsF32Threads, 0, stream>>>(
+      static_cast<const float*>(x), static_cast<const float*>(w), static_cast<float*>(o),
+      dm, eps);
+}
+
 }  // namespace
 
 extern "C" {
@@ -224,6 +335,35 @@ int fused_rmsnorm_fwd(const void* x, const void* w, void* o, int rows, int dm,
   else if (per <= 16) launch_rms<16>(x, w, o, rows, dm, eps, st);
   else if (per <= 20) launch_rms<20>(x, w, o, rows, dm, eps, st);
   else if (per <= 32) launch_rms<32>(x, w, o, rows, dm, eps, st);
+  else return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K4f: float32 q/k (rows, dm) and weights; otherwise as K4 (head_dim a
+// multiple of 8).
+int fused_rmsnorm_rope_f32_fwd(const void* xq, const void* xk, const void* wq,
+                               const void* wk, const void* cos, const void* sin,
+                               void* oq, void* ok, int rows, int seq, int dm,
+                               int head_dim, float eps, void* stream) {
+  dim3 grid((rows + kRowsPerBlock - 1) / kRowsPerBlock, 2);
+  rmsnorm_rope_f32_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(xq), static_cast<const float*>(xk),
+      static_cast<const float*>(wq), static_cast<const float*>(wk),
+      static_cast<const float*>(cos), static_cast<const float*>(sin),
+      static_cast<float*>(oq), static_cast<float*>(ok), rows, seq, dm, head_dim, eps);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K5f: float32 x (rows, dm) -> rms_norm(x) * w; dm a multiple of 8 and at
+// most 8192 (else cudaErrorInvalidValue, nothing launched).
+int fused_rmsnorm_f32_fwd(const void* x, const void* w, void* o, int rows, int dm,
+                          float eps, void* stream) {
+  const int per = (dm / 4 + kRmsF32Threads - 1) / kRmsF32Threads;  // float4 chunks a thread
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dm % 8 != 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (per <= 4) launch_rms_f32<4>(x, w, o, rows, dm, eps, st);
+  else if (per <= 10) launch_rms_f32<10>(x, w, o, rows, dm, eps, st);
+  else if (per <= 16) launch_rms_f32<16>(x, w, o, rows, dm, eps, st);
   else return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());
 }

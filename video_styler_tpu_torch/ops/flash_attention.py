@@ -41,6 +41,15 @@ K2 can write the same L2 = m + log2 l, so K3 serves that route unchanged.
 `flash_attention` reads `FLASH_CAPPED` / `FLASH_DUAL` at call time when its
 `capped` / `dual` arguments are None, as `_flash_fwd_4d` does (:372-379).
 
+K1f, K3f and K3q-f are K1, K3 and K3q on float32 operands, the Pallas
+kernels as the Ditto LoRA recipe runs them on its fp32 activations
+(examples/train.py:281-282): q scaled in fp32, P not rounded before P V,
+every sum in fp32, fp32 outputs (`csrc/flash_attention_f32.cu`: three TF32
+passes a product on `mma.sync`, bound by the tensor cores like K1). Every
+CUDA entry picks the instantiation by q's dtype (`forward_kernel`,
+`backward_kernel`); any other dtype, and K2 or K8 on float32 (still to
+port: ROADMAP Queue 2 item 9), raises TypeError.
+
 K6 replaces `_flash_kernel_int8_4d_capped` (:1025) and
 `_flash_kernel_int8_4d` (:980), K7 the 3-D `_flash_kernel_int8` (:862):
 SageAttention-style attention with Q K^T on the int8 tensor cores
@@ -96,6 +105,16 @@ INT8_CAPPED_KERNEL = Kernel("flash_attention_int8", "flash_attention_int8_capped
 INT8_ONLINE_KERNEL = Kernel("flash_attention_int8", "flash_attention_int8_online_fwd",
                             [P] * 8 + [I32] * 5 + [P],
                             "flash_attention_int8_error_string")
+# K1f, K3f, K3q-f: K1, K3 and K3q on float32 operands
+F32_KERNEL = Kernel("flash_attention_f32", "flash_attention_f32_fwd",
+                    [P] * 7 + [I32] * 4 + [F32, P], "flash_attention_f32_error_string")
+BWD_F32_KERNEL = Kernel("flash_attention_f32", "flash_attention_f32_bwd",
+                        [P] * 11 + [I32] * 4 + [F32, F32, P],
+                        "flash_attention_f32_error_string")
+BWD_DQ_F32_KERNEL = Kernel("flash_attention_f32", "flash_attention_f32_bwd_dq",
+                           [P] * 9 + [I32] * 4 + [F32, F32, P],
+                           "flash_attention_f32_error_string")
+KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 # K7: the online entry on (BH, S, 1, D) views, counted apart
 INT8_3D_KERNEL = Kernel("flash_attention_int8", "flash_attention_int8_online_fwd",
                         [P] * 8 + [I32] * 5 + [P],
@@ -307,23 +326,58 @@ def flash_attention_int8_plain(q, k, v, scale: Optional[float] = None,
     return out.to(q.dtype)
 
 
-def _check(name: str, t: torch.Tensor, device):
-    if t.dtype != torch.bfloat16:
-        raise TypeError(f"{name}: K1/K2/K3/K8 take bfloat16, got {t.dtype}")
+def _check_dtype(name: str, dtype):
+    if dtype not in KERNEL_DTYPES:
+        raise TypeError(f"{name}: the flash kernels take bfloat16 (K1, K2, K3, K8) or "
+                        f"float32 (K1f, K3f), got {dtype}")
+
+
+def forward_kernel(dtype, capped: bool = True, dual: bool = False) -> Kernel:
+    """The forward kernel that a CUDA call on `dtype` tensors launches: K1
+    (capped), K2 (online) or K8 (online, dual) on bfloat16, K1f on float32.
+    Raises TypeError for any other dtype, and for K2 or K8 on float32."""
+    _check_dtype("q", dtype)
+    if dtype == torch.float32:
+        if not capped or dual:
+            raise TypeError("K2 and K8 take bfloat16: their float32 instantiations are "
+                            "still to port (ROADMAP Queue 2 item 9)")
+        return F32_KERNEL
+    if not capped:
+        return DUAL_KERNEL if dual else ONLINE_KERNEL
+    return KERNEL
+
+
+def backward_kernel(dtype, need_kv: bool = True) -> Kernel:
+    """The backward kernel that a CUDA call on `dtype` tensors launches: K3
+    (dq, dk, dv) or K3q (dq alone) on bfloat16, K3f or K3q-f on float32;
+    TypeError for any other dtype."""
+    _check_dtype("q", dtype)
+    if dtype == torch.float32:
+        return BWD_F32_KERNEL if need_kv else BWD_DQ_F32_KERNEL
+    return BWD_KERNEL if need_kv else BWD_DQ_KERNEL
+
+
+def _check(name: str, t: torch.Tensor, device, dtype=torch.bfloat16):
+    if t.dtype != dtype:
+        _check_dtype(name, t.dtype)
+        raise TypeError(f"{name} is {t.dtype}, q is {dtype}: one call takes bfloat16 "
+                        f"or float32 throughout")
     if t.dim() != 4 or t.shape[-1] != HEAD_DIM:
-        raise ValueError(f"{name}: need (B, S, N, {HEAD_DIM}), got {tuple(t.shape)}")
+        raise ValueError(f"{name}: need a (B, S, N, {HEAD_DIM}) bfloat16 or float32 "
+                         f"tensor, got {tuple(t.shape)}")
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, q on {device}")
-    if t.stride(-1) != 1 or any(st % 8 for st in t.stride()[:3]) \
+    if t.stride(-1) != 1 or any(st * t.element_size() % 16 for st in t.stride()[:3]) \
             or t.data_ptr() % 16:
-        raise ValueError(f"{name}: rows must be contiguous and 16-byte aligned "
-                         f"(strides {t.stride()})")
+        raise ValueError(f"{name}: rows of bfloat16 or float32 must be contiguous and "
+                         f"16-byte aligned (strides {t.stride()})")
 
 
 def _check_qkv(q, k, v):
     b, sq, n, _ = q.shape
+    _check_dtype("q", q.dtype)
     for name, t in (("q", q), ("k", k), ("v", v)):
-        _check(name, t, q.device)
+        _check(name, t, q.device, q.dtype)
     if k.shape != v.shape or k.shape[0] != b or k.shape[2] != n or k.shape[1] == 0:
         raise ValueError(f"k {tuple(k.shape)} / v {tuple(v.shape)} do not fit "
                          f"q {tuple(q.shape)}")
@@ -362,13 +416,21 @@ def _layouts(*tensors):
 
 
 def _flash_cuda(q, k, v, scale: float, with_stats: bool = False):
+    """K1 on bfloat16, K1f on float32."""
     b, sq, n, d = q.shape
     sk = k.shape[1]
     _check_qkv(q, k, v)
+    kern = forward_kernel(q.dtype)
     kmax = key_norm_max(k).contiguous()
     out = torch.empty((b, sq, n, d), dtype=q.dtype, device=q.device)
     l2 = (torch.empty((b, n, sq), dtype=torch.float32, device=q.device)
           if with_stats else None)
+    if kern is F32_KERNEL:
+        strides = _strides(q, k, v, out)
+        kern(q.data_ptr(), k.data_ptr(), v.data_ptr(), kmax.data_ptr(), out.data_ptr(),
+             None if l2 is None else l2.data_ptr(), ctypes.addressof(strides),
+             b, n, sq, sk, scale * LOG2_E, torch.cuda.current_stream(q.device).cuda_stream)
+        return (out, l2) if with_stats else out
     layout = _layouts(q, k, v)
     o_strides = _strides(out)
     KERNEL(q.data_ptr(), k.data_ptr(), v.data_ptr(), kmax.data_ptr(),
@@ -384,39 +446,63 @@ class _BwdLaunch:
     launches it: the fused kernel when dK/dV are wanted, else its dq-only
     twin. Scratch: L2 and delta padded to whole query tiles, and the fp32
     dQ accumulator that the blocks add into, (B, N, Sq padded, D) elements
-    in the kernel's tile order."""
+    in the kernel's tile order. On float32 (K3f, K3q-f) the scratch is delta
+    alone, (B, N, Sq), and the outputs are float32."""
 
     def __init__(self, q, k, v, o, l2, g, scale: float, need_kv: bool):
         b, sq, n, d = q.shape
         _check_qkv(q, k, v)
+        self.kernel = backward_kernel(q.dtype, need_kv)
         g = g.contiguous()
         for name, t in (("o", o), ("dO", g)):
-            _check(name, t, q.device)
+            _check(name, t, q.device, q.dtype)
             if t.shape != q.shape:
                 raise ValueError(f"{name} {tuple(t.shape)} does not fit q {tuple(q.shape)}")
         if (l2.dtype != torch.float32 or l2.shape != (b, n, sq)
                 or not l2.is_contiguous() or l2.device != q.device):
             raise ValueError(f"L2: need contiguous float32 {(b, n, sq)} on {q.device}")
         dev = q.device
+        self.need_kv = need_kv
+        self.dk = self.dv = None
+        self.stream = torch.cuda.current_stream(dev).cuda_stream
+        if q.dtype == torch.float32:
+            self._init_f32(q, k, v, o, l2, g, scale)
+            return
         sq_pad = -(-sq // BWD_TILE_Q) * BWD_TILE_Q
         self.l2p = torch.empty((b, n, sq_pad), dtype=torch.float32, device=dev)
         self.deltap = torch.empty_like(self.l2p)
         self.dq_acc = torch.empty((b, n, sq_pad, d), dtype=torch.float32, device=dev)
         self.dq = torch.empty((b, sq, n, d), dtype=q.dtype, device=dev)
-        self.dk = self.dv = None
         if need_kv:
             self.dk = torch.empty(k.shape, dtype=k.dtype, device=dev)
             self.dv = torch.empty_like(self.dk)
-        self.need_kv = need_kv
         self.layout = _layouts(q, k, v, g)
         self.strides = _strides(o, g, self.dq, *((self.dk, self.dv) if need_kv else ()))
         self.ptrs = [t.data_ptr() for t in (q, k, v, o, g, l2, self.l2p, self.deltap,
                                             self.dq_acc, self.dq)]
         self.keep = (q, k, v, o, l2, g)
         self.dims = (b, n, sq, k.shape[1], scale, scale * LOG2_E)
-        self.stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def _init_f32(self, q, k, v, o, l2, g, scale: float):
+        b, sq, n, d = q.shape
+        dev = q.device
+        self.delta = torch.empty((b, n, sq), dtype=torch.float32, device=dev)
+        self.dq = torch.empty((b, sq, n, d), dtype=torch.float32, device=dev)
+        if self.need_kv:
+            self.dk = torch.empty(k.shape, dtype=torch.float32, device=dev)
+            self.dv = torch.empty_like(self.dk)
+        outs = (self.dq, self.dk, self.dv) if self.need_kv else (self.dq, self.dq, self.dq)
+        self.strides = _strides(q, k, v, o, g, *outs)
+        self.ptrs = [t.data_ptr() for t in (q, k, v, o, g, l2, self.delta, self.dq)]
+        if self.need_kv:
+            self.ptrs += [self.dk.data_ptr(), self.dv.data_ptr()]
+        self.keep = (q, k, v, o, l2, g)
+        self.dims = (b, n, sq, k.shape[1], scale, scale * LOG2_E)
 
     def run(self):
+        if self.kernel in (BWD_F32_KERNEL, BWD_DQ_F32_KERNEL):
+            self.kernel(*self.ptrs, ctypes.addressof(self.strides), *self.dims, self.stream)
+            return
         tail = (ctypes.addressof(self.layout), ctypes.addressof(self.strides),
                 *self.dims, self.stream)
         if self.need_kv:
@@ -436,9 +522,10 @@ def _flash_bwd_cuda(q, k, v, o, l2, g, scale: float, need_kv: bool = True):
 def flash_attention_bwd(q, k, v, o, l2, g, scale: Optional[float] = None,
                         need_kv: bool = True):
     """K3: (dq, dk, dv) of K1 at cotangent g. CUDA tensors launch the
-    kernel (dk, dv None unless need_kv); CPU tensors run the plain version.
-    On the card dq is summed by reduce-adds in an order that changes from run
-    to run: it agrees with itself within fp32 rounding, not bit for bit."""
+    kernel (dk, dv None unless need_kv): K3 on bfloat16, K3f on float32;
+    CPU tensors run the plain version. On the card K3's dq is summed by
+    reduce-adds in an order that changes from run to run: it agrees with
+    itself within fp32 rounding, not bit for bit (K3f repeats exactly)."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     if q.device.type == "cpu":
@@ -461,6 +548,7 @@ def _flash_online_cuda(q, k, v, q_scale: float, with_stats: bool = False,
     downcast); 1.0 takes q as it is (the 3-D entry scales it beforehand)."""
     b, sq, n, d = q.shape
     _check_qkv(q, k, v)
+    forward_kernel(q.dtype, capped=False, dual=dual)
     if dual and with_stats:
         raise ValueError("the dual kernel writes no stats")
     out = torch.empty((b, sq, n, d), dtype=q.dtype, device=q.device)

@@ -8,6 +8,11 @@ header note says what bounds them on the H100 (bytes: one read and one
 write of each row) and how the warp-per-row designs meet that (K5 holds
 its row in registers and reads it once).
 
+K4f and K5f are K4 and K5 on float32 rows, the Pallas kernels as the Ditto
+LoRA recipe runs them on its fp32 activations (examples/train.py:281), in
+the same file. Each wrapper picks the instantiation by the input's dtype
+(`rope_kernel`, `rms_kernel`) and raises TypeError on any other.
+
 On a CPU tensor each wrapper runs its plain version, the composition of
 `ops.basic.rms_norm` and `ops.rope.rope_apply`. On a CUDA tensor it launches
 its kernel or raises; nothing falls back.
@@ -35,7 +40,12 @@ ROPE_KERNEL = Kernel("fused_norm_rope", "fused_rmsnorm_rope_fwd",
 RMS_KERNEL = Kernel("fused_norm_rope", "fused_rmsnorm_fwd",
                     [P, P, P, I32, I32, F32, P],
                     "fused_norm_rope_error_string")
-RMS_MAX_WIDTH = 8192  # K5's widest row: 32 lanes x 32 chunks of 8
+ROPE_F32_KERNEL = Kernel("fused_norm_rope", "fused_rmsnorm_rope_f32_fwd",
+                         ROPE_KERNEL.argtypes, "fused_norm_rope_error_string")
+RMS_F32_KERNEL = Kernel("fused_norm_rope", "fused_rmsnorm_f32_fwd",
+                        RMS_KERNEL.argtypes, "fused_norm_rope_error_string")
+# K5's widest row: 32 lanes x 32 chunks of 8 (K5f: 128 threads x 16 of 4)
+RMS_MAX_WIDTH = 8192
 
 
 def fused_rmsnorm_rope_plain(q_proj, k_proj, wq, wk, cos, sin,
@@ -55,12 +65,33 @@ def fused_rmsnorm_plain(x, w, eps: float = 1e-6):
     return rms_norm(x, w, eps)
 
 
-def _check_rows(name: str, t: torch.Tensor, dm: int):
-    if t.dtype != torch.bfloat16:
-        raise TypeError(f"{name}: the kernel takes bfloat16, got {t.dtype}")
+def _pick(dtype, bf16: Kernel, f32: Kernel) -> Kernel:
+    if dtype == torch.bfloat16:
+        return bf16
+    if dtype == torch.float32:
+        return f32
+    raise TypeError(f"the kernels take bfloat16 (K4, K5) or float32 (K4f, K5f), got {dtype}")
+
+
+def rope_kernel(dtype) -> Kernel:
+    """The kernel a CUDA call of `fused_rmsnorm_rope` on `dtype` launches: K4
+    on bfloat16, K4f on float32; TypeError for any other dtype."""
+    return _pick(dtype, ROPE_KERNEL, ROPE_F32_KERNEL)
+
+
+def rms_kernel(dtype) -> Kernel:
+    """The kernel a CUDA call of `fused_rmsnorm` on `dtype` launches: K5 on
+    bfloat16, K5f on float32; TypeError for any other dtype."""
+    return _pick(dtype, RMS_KERNEL, RMS_F32_KERNEL)
+
+
+def _check_rows(name: str, t: torch.Tensor, dm: int, dtype):
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: the kernels take bfloat16 or float32 rows of one "
+                        f"dtype, got {t.dtype} beside {dtype}")
     if t.dim() != 3 or t.shape[-1] != dm or not t.is_contiguous():
-        raise ValueError(f"{name}: need a contiguous (B, S, {dm}) tensor, got "
-                         f"shape {tuple(t.shape)} strides {t.stride()}")
+        raise ValueError(f"{name}: need a contiguous (B, S, {dm}) bfloat16 or float32 "
+                         f"tensor, got shape {tuple(t.shape)} strides {t.stride()}")
     if t.data_ptr() % 16:
         raise ValueError(f"{name}: data must be 16-byte aligned")
 
@@ -83,8 +114,9 @@ def _rope_forward(q_proj, k_proj, wq, wk, cos, sin, eps: float):
     d = 2 * cos.shape[1]
     if d % 8 or dm % d:
         raise ValueError(f"head dim {d} must be a multiple of 8 dividing {dm}")
-    _check_rows("q_proj", q_proj, dm)
-    _check_rows("k_proj", k_proj, dm)
+    kernel = rope_kernel(q_proj.dtype)
+    _check_rows("q_proj", q_proj, dm, q_proj.dtype)
+    _check_rows("k_proj", k_proj, dm, q_proj.dtype)
     if k_proj.shape != q_proj.shape or k_proj.device != q_proj.device:
         raise ValueError("q_proj and k_proj differ in shape or device")
     for name, t in (("cos", cos), ("sin", sin)):
@@ -96,15 +128,15 @@ def _rope_forward(q_proj, k_proj, wq, wk, cos, sin, eps: float):
     wq, wk = _weight(wq, q_proj), _weight(wk, k_proj)
     oq = torch.empty((b, s, dm // d, d), dtype=q_proj.dtype, device=q_proj.device)
     ok = torch.empty_like(oq)
-    ROPE_KERNEL(q_proj.data_ptr(), k_proj.data_ptr(), wq.data_ptr(),
-                wk.data_ptr(), cos.data_ptr(), sin.data_ptr(), oq.data_ptr(),
-                ok.data_ptr(), b * s, s, dm, d, eps,
-                torch.cuda.current_stream(q_proj.device).cuda_stream)
+    kernel(q_proj.data_ptr(), k_proj.data_ptr(), wq.data_ptr(),
+           wk.data_ptr(), cos.data_ptr(), sin.data_ptr(), oq.data_ptr(),
+           ok.data_ptr(), b * s, s, dm, d, eps,
+           torch.cuda.current_stream(q_proj.device).cuda_stream)
     return oq, ok
 
 
 def _rms_forward(x, w, eps: float):
-    """K5's launch. Its kernel takes tens of microseconds at the 4,680-token
+    """K5's (K5f's) launch. Its kernel takes tens of microseconds at the 4,680-token
     request, about what this function costs the host, so the path stays
     short: the raw current stream, no copy of a weight that is already
     bf16 and contiguous."""
@@ -115,12 +147,14 @@ def _rms_forward(x, w, eps: float):
     b, s, dm = x.shape
     if dm % 8 or dm > RMS_MAX_WIDTH:
         raise ValueError(f"row width {dm} must be a multiple of 8, at most "
-                         f"{RMS_MAX_WIDTH} (K5 holds a row in one warp's registers)")
-    _check_rows("x", x, dm)
+                         f"{RMS_MAX_WIDTH} (K5 holds a row in one warp's registers, "
+                         f"K5f in one block's)")
+    kernel = rms_kernel(x.dtype)
+    _check_rows("x", x, dm, x.dtype)
     w = _weight(w, x)
     out = torch.empty_like(x)
-    RMS_KERNEL(x.data_ptr(), w.data_ptr(), out.data_ptr(), b * s, dm, eps,
-               torch._C._cuda_getCurrentRawStream(x.get_device()))
+    kernel(x.data_ptr(), w.data_ptr(), out.data_ptr(), b * s, dm, eps,
+           torch._C._cuda_getCurrentRawStream(x.get_device()))
     return out
 
 

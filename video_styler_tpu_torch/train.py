@@ -5,7 +5,7 @@
         --dit_path "diffusion_pytorch_model-00001-of-00007.safetensors|..." \\
         --vae_path Wan2.1_VAE.pth --t5_path models_t5_umt5-xxl-enc-bf16.pth \\
         --dataset_base_path data --dataset_metadata_path data/metadata_vace.csv \\
-        --extra_inputs vace_video --height 480 --width 832 --num_frames 73 \\
+        --extra_inputs vace_video --height 480 --width 832 --num_frames 41 \\
         --lora_base_model vace --lora_rank 128 --output_path out
     (the same) --task data_process --output_path cache   # encode once
     (the same) --cache_path cache --output_path out      # train from it
@@ -31,9 +31,15 @@ is `--lora_base_model vace --lora_rank 128 --lora_target_modules
 q,k,v,o,ffn.0,ffn.2`.
 
 --smoke trains on the tiny random pipeline of `infer_ditto --smoke` with
-synthetic samples. Runs on `cuda` unless --device cpu. The inputs keep the
-pipeline's dtype (bf16, what the kernels take), where examples/train.py
-casts them to fp32.
+synthetic samples. Runs on `cuda` unless --device cpu. As examples/train.py
+(:236-239, :281-282), the step's latents, context and VACE context are
+fp32 on the pipeline's (bf16) weights, each linear casting its weight to
+fp32: on the card attention, RMSNorm+RoPE and RMSNorm run their float32
+kernels (K1f, K3f/K3q-f, K4f, K5f), on the CPU their plain versions.
+At that precision one 80 GB card fits the step up to 41 frames of 480x832
+(73 and 57 run out of its memory, and the CLI says so); a longer clip
+trains on the streamed trunk (`trainers/streaming_train.py`,
+`StreamingTrainer`, bf16 activations).
 """
 from __future__ import annotations
 
@@ -43,6 +49,10 @@ import os
 
 import numpy as np
 
+# the most frames of 480x832 whose fp32 LoRA step fits one 80 GB card (73
+# and 57 run out of memory)
+ONE_CARD_FRAMES = 41
+
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description="LoRA training (PyTorch/CUDA)")
@@ -50,7 +60,12 @@ def parse_args(argv=None):
     p.add_argument("--dataset_metadata_path", type=str, default=None)
     p.add_argument("--height", type=int, default=480)
     p.add_argument("--width", type=int, default=832)
-    p.add_argument("--num_frames", type=int, default=81)
+    p.add_argument("--num_frames", type=int, default=81,
+                   help="frames (4k+1) of each clip. The step runs the recipe's fp32 "
+                        f"activations: one 80 GB card fits at most {ONE_CARD_FRAMES} "
+                        "frames of 480x832; longer clips train on the streamed trunk "
+                        "(trainers/streaming_train.py: StreamingTrainer, bf16 "
+                        "activations)")
     p.add_argument("--dataset_repeat", type=int, default=1)
     p.add_argument("--dit_path", type=str, default=None)
     p.add_argument("--model_id_with_origin_paths", type=str, default=None,
@@ -143,7 +158,8 @@ def preprocess(pipe, row, args, text_encoder=contextlib.nullcontext()):
     preprocess): the umT5 prompt encode (inside `text_encoder`, the context
     that puts umT5 on the device), the VAE encode of `video` and, for a VACE
     LoRA, the VACE context of `vace_video` (else `video`). A row without
-    video gets seeded noise latents and a zero VACE context.
+    video gets seeded fp32 noise latents and a zero fp32 VACE context, as
+    examples/train.py makes them.
 
     The VAE encodes stream (`tiled=True`: frame 0, then 4-frame chunks with
     the causal caches carried, exact against the whole-clip encode), where
@@ -161,7 +177,7 @@ def preprocess(pipe, row, args, text_encoder=contextlib.nullcontext()):
         if row.get("video") is None:
             rng = np.random.default_rng(0)
             latents = torch.from_numpy(rng.standard_normal(
-                (1, z) + shape).astype(np.float32)).to(pipe.device, pipe.dtype)
+                (1, z) + shape).astype(np.float32)).to(pipe.device)
         else:
             latents = pipe.encode_video(_preprocess_images(row["video"]), tiled=True)
         vace_context = None
@@ -173,15 +189,23 @@ def preprocess(pipe, row, args, text_encoder=contextlib.nullcontext()):
                     tiled=True)
             else:
                 vace_context = torch.zeros((1, 2 * z + 64) + shape,
-                                           device=pipe.device, dtype=pipe.dtype)
+                                           device=pipe.device, dtype=torch.float32)
     return {"latents": latents, "context": context, "vace_context": vace_context}
 
 
+def fp32_inputs(inputs):
+    """The step's inputs cast to fp32 (None stays None), as
+    examples/train.py:281-282 casts them: the one cast of the CLI's inputs
+    (a row's encodes come in the pipeline's dtype, a cache's arrays and the
+    seeded noise in fp32)."""
+    return {k: None if v is None else v.float() for k, v in inputs.items()}
+
+
 def cached_inputs(pipe, row):
-    """A latent cache sample's fp32 arrays as the pipeline's tensors."""
+    """A latent cache sample's fp32 arrays as tensors on the pipeline's
+    device."""
     import torch
-    return {k: None if row.get(k) is None else
-            torch.from_numpy(row[k]).to(pipe.device, pipe.dtype)
+    return {k: None if row.get(k) is None else torch.from_numpy(row[k]).to(pipe.device)
             for k in ("latents", "context", "vace_context")}
 
 
@@ -312,10 +336,19 @@ def main(argv=None):
             if args.max_steps and step_count >= args.max_steps:
                 break
             row = dataset[i]
-            inputs = (cached_inputs(pipe, row) if args.cache_path else
-                      preprocess(pipe, row, args, text_encoder))
-            loss = float(step_fn(inputs["latents"], inputs["context"],
-                                 inputs["vace_context"], generator=generator))
+            inputs = fp32_inputs(cached_inputs(pipe, row) if args.cache_path else
+                                 preprocess(pipe, row, args, text_encoder))
+            try:
+                loss = float(step_fn(inputs["latents"], inputs["context"],
+                                     inputs["vace_context"], generator=generator))
+            except torch.cuda.OutOfMemoryError as e:
+                raise torch.cuda.OutOfMemoryError(
+                    f"the fp32 LoRA step of {args.num_frames} frames of {args.height}x"
+                    f"{args.width} does not fit the card: one 80 GB card fits at most "
+                    f"{ONE_CARD_FRAMES} frames of 480x832 at the recipe's fp32 "
+                    "activations; give fewer --num_frames, or train the clip on the "
+                    "streamed trunk (trainers/streaming_train.py: StreamingTrainer, "
+                    "bf16 activations)") from e
             step_count += 1
             losses.append(loss)
             print(f"epoch {epoch} step {step_count} loss {loss:.4f}")

@@ -22,10 +22,11 @@ names (`blocks.{i}.attn.a_to_qkv.lora_A.weight`, ...):
     train through the same step.
 
 Without `--smoke` it prints how a real run goes and exits. Runs on `cuda`
-unless `--device cpu`. On the card the tiny DiTs run in bf16 with heads
-of 128 (FLUX and Qwen-Image: dim 256, 2 heads), since the attention kernel
-takes bf16 and a head dim of 128 only; on the CPU they keep the JAX
-recipe's fp32 widths.
+unless `--device cpu`. The models and inputs are fp32, as in the JAX
+recipes (on the card FLUX and Qwen-Image attend through K1f and K3f). On
+the card the tiny DiTs take heads of 128 (FLUX and Qwen-Image: dim 256, 2
+heads), since the attention kernels take a head dim of 128 only; on the
+CPU they keep the JAX recipe's widths.
 """
 from __future__ import annotations
 
@@ -176,9 +177,7 @@ def main(argv=None) -> Optional[list]:
     from .device import resolve_device
     from .trainers.lora_train import lora_parameters, save_lora_safetensors
     device = resolve_device(args.device)
-    on_card = device.type == "cuda"
-    model, fwd, latents, ctx = smoke_pack(
-        family, device, torch.bfloat16 if on_card else torch.float32, card_widths=on_card)
+    model, fwd, latents, ctx = smoke_pack(family, device, card_widths=device.type == "cuda")
     lora = lora_setup(family, model, args.rank)
     step = make_step(family, fwd, torch.optim.Adam(lora_parameters(lora), lr=args.lr))
     gen = torch.Generator().manual_seed(10)
